@@ -1,0 +1,117 @@
+"""VQ-code prediction: batch-1 serving -> .mfbsp dumps + prediction records.
+
+Counterpart of the JAX package's ``cli/predict.py`` ``main_code``: reads the
+selected source and code-target records one utterance at a time, restores
+the port's checkpoint, decodes each utterance and writes
+``<key>.<predicted_mel_extension>`` (the one-hot codes as float32) and
+``<key>.tfrecord`` (the prediction record).  It prints each utterance's
+decode steps and wall time.  Runs on ``cuda`` unless ``--device cpu``.
+The alignment PNG and its replay come with a later slice.
+
+    python -m self_attention_tacotron_torch.cli.predict \\
+        --source-data-root DIR --target-data-root DIR \\
+        --checkpoint-dir DIR --output-dir DIR \\
+        --hparam-json-file examples/codes/self-attention-tacotron.json
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser()
+    p.add_argument("--source-data-root", required=True)
+    p.add_argument("--target-data-root", required=True)
+    p.add_argument("--checkpoint-dir", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--selected-list-dir", default=None)
+    p.add_argument("--list-filename", default="test.csv")
+    p.add_argument("--hparams", default="")
+    p.add_argument("--hparam-json-file", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint step to restore (default: the newest)")
+    p.add_argument("--limit", type=int, default=10)
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def main_code(argv=None) -> int:
+    args = build_argparser().parse_args(argv)
+    from ..config import load_hparams
+    from ..data.dataset import find_dataset_files, iter_utterances, load_key_list
+    from ..data.records import PredictionRecord, write_prediction_record
+    from ..models import Batch, tacotron_model_factory
+    from ..utils.convert import load_checkpoint
+
+    hp = load_hparams(args)
+    logging.basicConfig(level=logging.INFO)
+    log = logging.getLogger("predict_codes")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    list_dir = args.selected_list_dir or args.source_data_root
+    keys = load_key_list(os.path.join(list_dir, args.list_filename))
+    src = find_dataset_files(args.source_data_root, keys,
+                             hp.source_file_extension)
+    tgt = find_dataset_files(args.target_data_root, keys,
+                             hp.target_file_extension)
+
+    model = tacotron_model_factory(hp).eval()
+    step = load_checkpoint(model, args.checkpoint_dir,
+                           int(args.checkpoint) if args.checkpoint else None)
+    if step is None:
+        log.error("no checkpoint found in %s", args.checkpoint_dir)
+        return 1
+    model.to(device)
+    log.info("restored checkpoint step %d", step)
+
+    count = 0
+    r = hp.outputs_per_step
+    for u in iter_utterances(src, tgt, hp):
+        if args.limit is not None and count >= args.limit:
+            break
+        batch = Batch(source=torch.from_numpy(u.source[None]).to(device),
+                      source_length=torch.tensor([u.source_length],
+                                                 device=device))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = model(batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        n_steps = int(out.lengths[0])
+        n_frames = n_steps * r
+        codes = out.code_output[0, :n_frames].cpu().numpy()
+        ground_truth = (u.target[:u.target_length] if u.target is not None
+                        else np.zeros((0, hp.num_mels), np.float32))
+
+        mfbsp = os.path.join(args.output_dir,
+                             f"{u.meta.key}.{hp.predicted_mel_extension}")
+        codes.astype("<f4").tofile(mfbsp, format="<f4")
+        write_prediction_record(
+            PredictionRecord(id=u.meta.id, key=u.meta.key, codes=codes,
+                             ground_truth_codes=ground_truth,
+                             text=u.meta.text,
+                             source=u.source[:u.source_length]),
+            os.path.join(args.output_dir, f"{u.meta.key}.tfrecord"))
+        print(f"predicted {u.meta.key}: {n_steps} decode steps, "
+              f"{wall * 1e3:.3f} ms wall on {device.type}", flush=True)
+        count += 1
+    log.info("wrote %d predictions to %s", count, args.output_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main_code())

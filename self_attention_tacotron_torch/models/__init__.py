@@ -1,0 +1,5 @@
+from .decoder import DecoderOutput, TacotronDecoder
+from .tacotron import Batch, TacotronModel, TacotronOutput, tacotron_model_factory
+
+__all__ = ["DecoderOutput", "TacotronDecoder", "Batch", "TacotronModel",
+           "TacotronOutput", "tacotron_model_factory"]

@@ -1,0 +1,182 @@
+"""Source-attention mechanisms as step functions (inference).
+
+Counterpart of the JAX package's ``models/attention.py``:
+* ``AdditiveAttention`` — Bahdanau: keys = memory_layer(memory),
+  energy = sum(v * tanh(keys + query_layer(query))), masked softmax.
+* ``LocationSensitiveAttention`` — Tacotron-2's: adds a SAME conv over the
+  previous (or, with ``cumulative_weights``, the accumulated) alignments,
+  a location dense and a shared bias inside the tanh.
+* ``ForwardAttention`` — the location-sensitive energy followed by the
+  forward recursion ``alpha = ((1 - u) alpha + u shift(alpha) + 1e-7) a``,
+  normalized; alpha starts at [1, 0, ...] and u stays 0.5 (no transition
+  agent); ``cumulative_weights`` selects whether the conv sees the running
+  sum of alignments.
+
+Each mechanism has ``precompute(memory, lengths)`` (keys + mask, once per
+utterance), ``initial_state`` and ``step(query, state, pack)`` ->
+(alignments (B, T_mem), new state).  Masking fills -1e9.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import nn
+
+from ..ops.conv import Conv1d
+
+NEG_INF = -1e9
+
+
+class MemoryPack(NamedTuple):
+    keys: torch.Tensor    # (B, T_mem, num_units)
+    values: torch.Tensor  # (B, T_mem, C_mem)
+    mask: torch.Tensor    # (B, T_mem) bool
+
+
+class AttentionOptions(NamedTuple):
+    attention: str
+    num_units: int
+    attention_kernel: int = 31
+    attention_filters: int = 32
+    cumulative_weights: bool = False
+    use_transition_agent: bool = False
+
+
+def compute_context(alignments: torch.Tensor,
+                    values: torch.Tensor) -> torch.Tensor:
+    """(B, T_mem) x (B, T_mem, C) -> (B, C)."""
+    return torch.einsum("bt,btc->bc", alignments, values)
+
+
+def _masked_softmax(energy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(
+        torch.where(mask, energy, torch.full_like(energy, NEG_INF)), dim=-1)
+
+
+def _sequence_mask(memory: torch.Tensor, lengths: torch.Tensor):
+    T = memory.shape[1]
+    return (torch.arange(T, device=memory.device)[None, :]
+            < lengths.to(memory.device)[:, None])
+
+
+class AdditiveAttention(nn.Module):
+    """State: the previous alignments (unused by the energy)."""
+
+    def __init__(self, memory_dim: int, query_dim: int, num_units: int):
+        super().__init__()
+        self.memory_layer = nn.Linear(memory_dim, num_units, bias=False)
+        self.query_layer = nn.Linear(query_dim, num_units, bias=False)
+        self.attention_v = nn.Parameter(torch.empty(1, num_units))
+
+    def precompute(self, memory, lengths) -> MemoryPack:
+        return MemoryPack(self.memory_layer(memory), memory,
+                          _sequence_mask(memory, lengths))
+
+    def initial_state(self, batch: int, max_time: int, device=None):
+        return torch.zeros(batch, max_time, device=device)
+
+    def step(self, query, state, pack: MemoryPack):
+        pq = self.query_layer(query)[:, None, :]
+        energy = (self.attention_v[0] * torch.tanh(pack.keys + pq)).sum(-1)
+        alignments = _masked_softmax(energy, pack.mask)
+        return alignments, alignments
+
+
+class _LocationEnergy(nn.Module):
+    """Layers of the location-sensitive energy, shared by the two
+    location-based mechanisms."""
+
+    def __init__(self, memory_dim: int, query_dim: int, num_units: int,
+                 attention_kernel: int, attention_filters: int,
+                 cumulative_weights: bool):
+        super().__init__()
+        self.attention_kernel = attention_kernel
+        self.cumulative_weights = cumulative_weights
+        self.memory_layer = nn.Linear(memory_dim, num_units, bias=False)
+        self.query_layer = nn.Linear(query_dim, num_units, bias=False)
+        self.location_convolution = Conv1d(1, attention_filters,
+                                           attention_kernel, use_bias=True)
+        self.location_layer = nn.Linear(attention_filters, num_units,
+                                        bias=False)
+        self.attention_variable = nn.Parameter(torch.empty(1, num_units))
+        self.attention_bias = nn.Parameter(torch.zeros(num_units))
+
+    def precompute(self, memory, lengths) -> MemoryPack:
+        return MemoryPack(self.memory_layer(memory), memory,
+                          _sequence_mask(memory, lengths))
+
+    def _energy(self, query, conv_input, pack: MemoryPack):
+        pq = self.query_layer(query)[:, None, :]
+        loc = self.location_layer(
+            self.location_convolution(conv_input[:, :, None]))
+        return (self.attention_variable[0]
+                * torch.tanh(pack.keys + pq + loc + self.attention_bias)
+                ).sum(-1)
+
+
+class LocationSensitiveAttention(_LocationEnergy):
+    """State: (alignments, accumulated alignments)."""
+
+    def initial_state(self, batch: int, max_time: int, device=None):
+        zeros = torch.zeros(batch, max_time, device=device)
+        return zeros, zeros
+
+    def step(self, query, state, pack: MemoryPack):
+        prev_alignments, accumulation = state
+        conv_input = accumulation if self.cumulative_weights \
+            else prev_alignments
+        alignments = _masked_softmax(self._energy(query, conv_input, pack),
+                                     pack.mask)
+        return alignments, (alignments, accumulation + alignments)
+
+
+class ForwardAttentionState(NamedTuple):
+    alignments: torch.Tensor  # (B, T_mem) conv input of the next step
+    alpha: torch.Tensor       # (B, T_mem)
+    u: torch.Tensor           # (B, 1) transition factor
+
+
+class ForwardAttention(_LocationEnergy):
+    def initial_state(self, batch: int, max_time: int, device=None
+                      ) -> ForwardAttentionState:
+        alpha = torch.zeros(batch, max_time, device=device)
+        alpha[:, 0] = 1.0
+        return ForwardAttentionState(
+            torch.zeros(batch, max_time, device=device), alpha,
+            torch.full((batch, 1), 0.5, device=device))
+
+    def step(self, query, state: ForwardAttentionState, pack: MemoryPack):
+        prev_alignments, prev_alpha, prev_u = state
+        alignments = _masked_softmax(
+            self._energy(query, prev_alignments, pack), pack.mask)
+        shifted = torch.nn.functional.pad(prev_alpha[:, :-1], (1, 0))
+        alpha = ((1.0 - prev_u) * prev_alpha + prev_u * shifted
+                 + 1e-7) * alignments
+        alpha = alpha / alpha.sum(dim=1, keepdim=True)
+        next_alignments = (alignments + prev_alignments
+                           if self.cumulative_weights else alignments)
+        return alpha, ForwardAttentionState(next_alignments, alpha, prev_u)
+
+
+def attention_mechanism_factory(options: AttentionOptions, memory_dim: int,
+                                query_dim: int) -> nn.Module:
+    if options.attention == "forward":
+        if options.use_transition_agent:
+            raise NotImplementedError(
+                "the forward-attention transition agent is not ported yet")
+        return ForwardAttention(memory_dim, query_dim, options.num_units,
+                                options.attention_kernel,
+                                options.attention_filters,
+                                options.cumulative_weights)
+    if options.attention == "location_sensitive":
+        return LocationSensitiveAttention(memory_dim, query_dim,
+                                          options.num_units,
+                                          options.attention_kernel,
+                                          options.attention_filters,
+                                          options.cumulative_weights)
+    if options.attention == "additive":
+        return AdditiveAttention(memory_dim, query_dim, options.num_units)
+    raise NotImplementedError(
+        f"attention mechanism {options.attention!r} is not ported yet")

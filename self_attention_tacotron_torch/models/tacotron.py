@@ -1,0 +1,130 @@
+"""Model assembly at inference: embedding -> encoder -> decoder -> codes.
+
+Counterpart of the JAX package's ``models/tacotron.py`` ``TacotronModel``
+for the VQ-code kind (``DualSourceSelfAttentionTacotronModel`` with
+``SelfAttentionCBHGEncoder``): the two encoder outputs (bi-LSTM and
+self-attention) are the decoder's two attention sources, and the code
+output is the one-hot argmax of the decoder logits.  The mel and MGC/LF0
+kinds, speaker routing, postnets and the loss come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import torch
+from torch import nn
+
+from ..config import HParams
+from .attention import AttentionOptions
+from .decoder import TacotronDecoder
+from .embedding import Embedding
+from .encoders import SelfAttentionCBHGEncoder
+
+
+class Batch(NamedTuple):
+    source: torch.Tensor         # (B, T_in) int
+    source_length: torch.Tensor  # (B,)
+
+
+class TacotronOutput(NamedTuple):
+    outputs: torch.Tensor                    # (B, T, C) logits
+    stop_token: torch.Tensor                 # (B, S, 1)
+    code_output: torch.Tensor                # (B, T, C) one-hot argmax
+    alignments: Tuple[torch.Tensor, ...]     # per source (B, T_mem, S)
+    encoder_self_attention_alignments: List[torch.Tensor]
+    decoder_self_attention_alignments: List[torch.Tensor]
+    lengths: torch.Tensor
+    predicted_samples: torch.Tensor
+
+
+_DECODERS = {"DualSourceTransformerDecoder": True,
+             "DualSourceDecoder": False}
+
+
+def attention_options_from_hparams(hp: HParams) -> Tuple[AttentionOptions, ...]:
+    def mk(attention: str, units: int) -> AttentionOptions:
+        return AttentionOptions(
+            attention=attention, num_units=units,
+            attention_kernel=hp.attention_kernel,
+            attention_filters=hp.attention_filters,
+            cumulative_weights=hp.cumulative_weights,
+            use_transition_agent=hp.use_forward_attention_transition_agent)
+    return (mk(hp.attention, hp.attention1_out_units),
+            mk(hp.attention2, hp.attention2_out_units))
+
+
+class TacotronModel(nn.Module):
+    def __init__(self, hp: HParams):
+        super().__init__()
+        if hp.tacotron_model != "DualSourceSelfAttentionTacotronModel":
+            raise NotImplementedError(
+                f"{hp.tacotron_model} is not ported yet")
+        if hp.encoder != "SelfAttentionCBHGEncoder":
+            raise NotImplementedError(f"encoder {hp.encoder} is not ported yet")
+        if hp.decoder not in _DECODERS:
+            raise NotImplementedError(f"decoder {hp.decoder} is not ported yet")
+        if (hp.use_speaker_embedding or hp.use_external_speaker_embedding
+                or hp.use_accent_type or hp.use_postnet_v2):
+            raise NotImplementedError("speaker, accent and postnet options "
+                                      "are not ported yet")
+        if hp.apply_dropout_on_inference or hp.compute_dtype != "float32":
+            raise NotImplementedError("inference dropout and bfloat16 "
+                                      "compute are not ported yet")
+        self.hp = hp
+        self.embedding = Embedding(hp.num_symbols, hp.embedding_dim)
+        self.encoder = SelfAttentionCBHGEncoder(
+            hp.embedding_dim, cbhg_out_units=hp.cbhg_out_units,
+            conv_channels=hp.conv_channels,
+            max_filter_width=hp.max_filter_width,
+            projection1_out_channels=hp.projection1_out_channels,
+            projection2_out_channels=hp.projection2_out_channels,
+            num_highway=hp.num_highway,
+            self_attention_out_units=hp.self_attention_out_units,
+            self_attention_num_heads=hp.self_attention_num_heads,
+            self_attention_num_hop=hp.self_attention_num_hop,
+            prenet_out_units=hp.encoder_prenet_out_units,
+            zoneout_factor_cell=hp.zoneout_factor_cell,
+            zoneout_factor_output=hp.zoneout_factor_output,
+            fused_inference=hp.encoder_fused_inference)
+        self.decoder = TacotronDecoder(
+            attention_options_from_hparams(hp),
+            source_dims=(hp.cbhg_out_units, hp.self_attention_out_units),
+            use_transformer=_DECODERS[hp.decoder],
+            prenet_out_units=hp.decoder_prenet_out_units,
+            attention_rnn_out_units=hp.attention_out_units,
+            decoder_version=hp.decoder_version,
+            decoder_out_units=hp.decoder_out_units, num_mels=hp.num_mels,
+            outputs_per_step=hp.outputs_per_step,
+            n_feed_frame=hp.n_feed_frame, max_iters=hp.max_iters,
+            min_iters=hp.decoder_min_iters,
+            zoneout_factor_cell=hp.zoneout_factor_cell,
+            zoneout_factor_output=hp.zoneout_factor_output,
+            self_attention_out_units=hp.decoder_self_attention_out_units,
+            self_attention_num_heads=hp.decoder_self_attention_num_heads,
+            self_attention_num_hop=hp.decoder_self_attention_num_hop,
+            early_stop=hp.decoder_early_stop,
+            fused_inference=hp.decoder_fused_inference,
+            fused_dtype=hp.decoder_fused_dtype)
+
+    @torch.no_grad()
+    def forward(self, batch: Batch) -> TacotronOutput:
+        device = self.embedding.weight.device
+        source = batch.source.to(device)
+        lengths = batch.source_length.to(device)
+        emb = self.embedding(source)
+        lstm_out, sa_out, enc_aligns = self.encoder(emb, lengths)
+        dec = self.decoder((lstm_out, sa_out), (lengths, lengths))
+        code_output = torch.nn.functional.one_hot(
+            dec.outputs.argmax(-1), self.hp.num_mels).to(dec.outputs.dtype)
+        return TacotronOutput(
+            outputs=dec.outputs, stop_token=dec.stop_token,
+            code_output=code_output, alignments=dec.alignments,
+            encoder_self_attention_alignments=[a.transpose(1, 2)
+                                               for a in enc_aligns],
+            decoder_self_attention_alignments=dec.self_attention_alignments,
+            lengths=dec.lengths, predicted_samples=dec.predicted_samples)
+
+
+def tacotron_model_factory(hp: HParams) -> TacotronModel:
+    return TacotronModel(hp)

@@ -1,0 +1,125 @@
+"""Scaled dot-product multi-head attention with an incremental KV-cache step.
+
+Counterpart of the JAX package's ``ops/attention_core.py``: four biased
+projections (key, value, query, output), scores Q K^T / sqrt(head_dim),
+softmax, then @ V.  The padding mask stays off, as in the reference (every
+call site builds ``SelfAttention`` without it); the causal mask is a -1e9
+fill.  ``MultiHeadAttention.step`` keeps (B, H, max_len, head_dim) caches
+and computes one query row per step: the same math as column t of the
+full causal attention.  Inference only (no dropout).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+NEG_INF = -1e9
+
+
+class AttentionCache(NamedTuple):
+    key: torch.Tensor    # (B, H, max_len, head_dim)
+    value: torch.Tensor  # (B, H, max_len, head_dim)
+
+
+def positional_encoding(length: int, dim: int, device=None) -> torch.Tensor:
+    """Sinusoidal positions (length, dim): [sin | cos] halves."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, 2.0 * i / dim)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def _masked_softmax(scores: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+    if mask is not None:
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    return torch.softmax(scores, dim=-1)
+
+
+class MultiHeadAttention(nn.Module):
+    def __init__(self, model_dim: int, num_heads: int,
+                 use_subsequent_mask: bool = False):
+        super().__init__()
+        assert model_dim % num_heads == 0
+        self.model_dim = model_dim
+        self.num_heads = num_heads
+        self.use_subsequent_mask = use_subsequent_mask
+        self.key_projection = nn.Linear(model_dim, model_dim)
+        self.value_projection = nn.Linear(model_dim, model_dim)
+        self.query_projection = nn.Linear(model_dim, model_dim)
+        self.output_projection = nn.Linear(model_dim, model_dim)
+
+    @property
+    def head_dim(self) -> int:
+        return self.model_dim // self.num_heads
+
+    def _split_heads(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        return x.reshape(B, T, self.num_heads, self.head_dim).transpose(1, 2)
+
+    def forward(self, key, value, query):
+        """Full-sequence attention -> (out (B, Tq, D), align (B, H, Tq, Tk))."""
+        k = self._split_heads(self.key_projection(key))
+        v = self._split_heads(self.value_projection(value))
+        q = self._split_heads(self.query_projection(query))
+        scores = q @ k.transpose(-1, -2) / math.sqrt(self.head_dim)
+        mask = None
+        if self.use_subsequent_mask:
+            Tq, Tk = q.shape[2], k.shape[2]
+            mask = torch.ones(Tq, Tk, dtype=torch.bool,
+                              device=q.device).tril()[None, None]
+        probs = _masked_softmax(scores, mask)
+        context = (probs @ v).transpose(1, 2).reshape(q.shape[0], -1,
+                                                      self.model_dim)
+        return self.output_projection(context), probs
+
+    def init_cache(self, batch: int, max_len: int, device=None
+                   ) -> AttentionCache:
+        shape = (batch, self.num_heads, max_len, self.head_dim)
+        return AttentionCache(torch.zeros(shape, device=device),
+                              torch.zeros(shape, device=device))
+
+    def step(self, x_t: torch.Tensor, t: int, cache: AttentionCache
+             ) -> Tuple[torch.Tensor, AttentionCache, torch.Tensor]:
+        """Causal attention for ``x_t`` (B, D) at position ``t`` ->
+        (out_t (B, D), new cache, align_row (B, H, max_len))."""
+        B = x_t.shape[0]
+        shape = (B, self.num_heads, self.head_dim)
+        k_t = self.key_projection(x_t).reshape(shape)
+        v_t = self.value_projection(x_t).reshape(shape)
+        q_t = self.query_projection(x_t).reshape(shape)
+        key_cache = cache.key.clone()
+        value_cache = cache.value.clone()
+        key_cache[:, :, t] = k_t
+        value_cache[:, :, t] = v_t
+        scores = torch.einsum("bhd,bhkd->bhk", q_t, key_cache) \
+            / math.sqrt(self.head_dim)
+        max_len = key_cache.shape[2]
+        valid = (torch.arange(max_len, device=x_t.device) <= t)[None, None]
+        probs = _masked_softmax(scores, valid)
+        context = torch.einsum("bhk,bhkd->bhd", probs, value_cache)
+        out = self.output_projection(context.reshape(B, self.model_dim))
+        return out, AttentionCache(key_cache, value_cache), probs
+
+
+class SelfAttention(nn.Module):
+    """K = V = Q = inputs."""
+
+    def __init__(self, model_dim: int, num_heads: int,
+                 use_subsequent_mask: bool = False):
+        super().__init__()
+        self.attention = MultiHeadAttention(model_dim, num_heads,
+                                            use_subsequent_mask)
+
+    def forward(self, inputs):
+        return self.attention(inputs, inputs, inputs)
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        return self.attention.init_cache(batch, max_len, device)
+
+    def step(self, x_t, t, cache):
+        return self.attention.step(x_t, t, cache)

@@ -1,0 +1,115 @@
+"""Conv1d + batch norm, highway layer and the CBHG conv bank (inference).
+
+Counterpart of the JAX package's ``ops/conv.py``.  Layout stays (B, T, C)
+at every public function.  flax's SAME padding of a width-K convolution
+pads (K - 1) // 2 on the left and K // 2 on the right, which is asymmetric
+for an even K (the conv bank has widths 1..16); ``conv1d_same`` keeps that.
+Batch norm is the inference form over running statistics, epsilon 1e-3.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPSILON = 1e-3
+
+
+def conv1d_same(xs: torch.Tensor, weight: torch.Tensor,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B, T, Cin) conv (Cout, Cin, K) with flax SAME padding -> (B, T, Cout)."""
+    K = weight.shape[-1]
+    x = F.pad(xs.transpose(1, 2), ((K - 1) // 2, K // 2))
+    return F.conv1d(x, weight, bias).transpose(1, 2)
+
+
+class Conv1d(nn.Module):
+    """SAME-padded convolution; ``weight`` (out, in, K) is the flax
+    kernel (K, in, out) permuted."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, use_bias: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               kernel_size))
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        return conv1d_same(xs, self.weight, self.bias)
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm over the last axis (running statistics)."""
+
+    def __init__(self, channels: int, epsilon: float = BN_EPSILON):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+class Conv1dBN(nn.Module):
+    """conv1d (SAME, bias-free) -> batch norm -> activation."""
+
+    def __init__(self, in_channels: int, kernel_size: int, out_channels: int,
+                 activation: Optional[Callable] = torch.relu):
+        super().__init__()
+        self.conv = Conv1d(in_channels, out_channels, kernel_size)
+        self.bn = BatchNorm(out_channels)
+        self.activation = activation
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        h = self.bn(self.conv(xs))
+        return self.activation(h) if self.activation is not None else h
+
+
+class HighwayNet(nn.Module):
+    """T * relu(H x) + (1 - T) * x with T = sigmoid(T x)."""
+
+    def __init__(self, in_units: int, out_units: int):
+        super().__init__()
+        self.H = nn.Linear(in_units, out_units)
+        self.T = nn.Linear(in_units, out_units)
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(self.H(xs))
+        t = torch.sigmoid(self.T(xs))
+        return h * t + xs * (1.0 - t)
+
+
+def max_pool_same(xs: torch.Tensor, pool_size: int = 2) -> torch.Tensor:
+    """Width-``pool_size`` stride-1 SAME max pool over axis 1 of (B, T, C)."""
+    lo = (pool_size - 1) // 2
+    hi = pool_size - 1 - lo
+    neg = torch.finfo(xs.dtype).min
+    padded = F.pad(xs.transpose(1, 2), (lo, hi), value=neg).transpose(1, 2)
+    T = xs.shape[1]
+    return torch.stack([padded[:, i:i + T] for i in range(pool_size)]).amax(0)
+
+
+class ConvBank(nn.Module):
+    """Conv1dBN of widths 1..max_filter_width, channel concat, then a
+    width-2 stride-1 max pool (the CBHG front end)."""
+
+    def __init__(self, in_channels: int, max_filter_width: int,
+                 conv_channels: int):
+        super().__init__()
+        self.max_filter_width = max_filter_width
+        for k in range(1, max_filter_width + 1):
+            self.add_module(f"conv1d_K{k}",
+                            Conv1dBN(in_channels, k, conv_channels))
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        outs = [getattr(self, f"conv1d_K{k}")(xs)
+                for k in range(1, self.max_filter_width + 1)]
+        return max_pool_same(torch.cat(outs, dim=-1), 2)

@@ -1,0 +1,293 @@
+"""The whole batch-1 inference encoder as one CUDA kernel.
+
+Replaces the JAX package's ``ops/fused_encoder.py`` ``_kernel`` (Pallas,
+reached through ``fused_encode``): prenet -> K=1..16 conv bank as one
+im2col product with batch norm folded in -> width-2 max pool -> two width-3
+projection convs -> residual -> highway layers -> bidirectional zoneout
+LSTM (both directions in one loop, the backward one walking the per-row
+length-reversed sequence) -> self-attention projection and hops.
+
+``FusedEncoderParams`` holds the merged weights in the layout the kernel
+reads (``(in, out)`` matrices, (1, N) bias rows, highway [H | T] columns
+interleaved, LSTM gates i, g, f, o with the +1 forget bias folded and the
+recurrent weight transposed); ``models/encoders.py`` builds it once.
+``fused_encode_reference`` is the plain PyTorch version of the kernel's
+math; ``fused_encode`` runs it for CPU tensors only and launches the kernel
+(``csrc/fused_encoder.cu``) for CUDA tensors, raising on anything the
+kernel does not take.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from . import cuda_build
+from .rnn import lstm_update
+
+NEG_INF = -1e9
+MAX_PRENET = 4
+MAX_HIGHWAY = 8
+MAX_HOPS = 4
+
+# the kernel's StageClock slots (csrc), in order: SM cycles of block 0
+# between consecutive grid barriers, summed over the call
+ENC_STAGES = ("prenet", "bank", "proj", "highway", "lstm_input", "lstm_steps",
+              "self_attention")
+
+Tensor = torch.Tensor
+
+
+class FusedEncoderParams(NamedTuple):
+    prenet: Tuple[Tuple[Tensor, Tensor], ...]   # (W (in, out), b (1, out))
+    w_bank: Tuple[Tensor, Tensor]               # (K*E, K*C), (1, K*C)
+    w_proj1: Tuple[Tensor, Tensor]              # (3*K*C, P1), (1, P1)
+    w_proj2: Tuple[Tensor, Tensor]              # (3*P1, P2), (1, P2)
+    w_adjust: Optional[Tuple[Tensor, Tensor]]   # (P2, half) or None
+    highway: Tuple[Tuple[Tensor, Tensor], ...]  # (W, 2W), (1, 2W) columns
+    #                                             H_0, T_0, H_1, T_1, ...
+    lstm: Tuple[Tensor, Tensor, Tensor]         # fw, bw: Wx (2, W, 4H),
+    #                                             Wh^T (2, 4H, H), b (2, 4H)
+    #                                             forget folded
+    sa_proj: Tuple[Tensor, Tensor]              # (2H, SA), (1, SA)
+    hops: Tuple[Tuple[Tensor, ...], ...]        # (W_kvq, b_kvq, W_ot, b_ot)
+
+
+def _windows(x: Tensor, K: int, pad_left: int) -> Tensor:
+    """(T, K*E) im2col rows: block k of row t is x[t + k - pad_left]
+    (zero outside [0, T))."""
+    T = x.shape[0]
+    padded = torch.nn.functional.pad(x, (0, 0, pad_left, K - 1 - pad_left))
+    return torch.cat([padded[k:k + T] for k in range(K)], dim=1)
+
+
+def fused_encode_reference(params: FusedEncoderParams, x: Tensor, length, *,
+                           max_filter_width: int, conv_channels: int,
+                           half: int, sa_units: int, num_heads: int,
+                           zoneout_cell: float = 0.0,
+                           zoneout_output: float = 0.0
+                           ) -> Tuple[Tensor, Tensor]:
+    """Plain PyTorch version of the kernel's math.  ``x`` is the (1, T, E)
+    embedded source; returns (lstm_out (1, T, 2*half), sa_out (1, T, SA))."""
+    assert x.shape[0] == 1, "the fused encoder is the batch-1 serving path"
+    T = x.shape[1]
+    L = int(length)
+    K = max_filter_width
+    h = x[0].float()
+    for w, b in params.prenet:
+        h = torch.relu(h @ w + b)
+    banked = torch.relu(_windows(h, K, (K - 1) // 2 if K > 1 else 0)
+                        @ params.w_bank[0] + params.w_bank[1])
+    nxt = torch.cat([banked[1:], torch.full_like(banked[:1], NEG_INF)])
+    pooled = torch.maximum(banked, nxt)
+    p1 = torch.relu(_windows(pooled, 3, 1) @ params.w_proj1[0]
+                    + params.w_proj1[1])
+    hw = _windows(p1, 3, 1) @ params.w_proj2[0] + params.w_proj2[1] + h
+    if params.w_adjust is not None:
+        hw = hw @ params.w_adjust[0] + params.w_adjust[1]
+    for w, b in params.highway:
+        ht = hw @ w + b
+        tt = torch.sigmoid(ht[:, 1::2])
+        hw = torch.relu(ht[:, 0::2]) * tt + hw * (1.0 - tt)
+
+    wx, whT, b_lstm = params.lstm
+    ys = [torch.zeros(T, half, device=x.device) for _ in range(2)]
+    carry = [[torch.zeros(1, half, device=x.device)] * 2 for _ in range(2)]
+    for t in range(L):  # carries freeze and outputs stay zero past L
+        for d, row in ((0, t), (1, L - 1 - t)):
+            c, hh = carry[d]
+            gates = hw[row:row + 1] @ wx[d] + hh @ whT[d].t() + b_lstm[d]
+            carry[d] = list(lstm_update(gates, c, hh, zoneout_cell,
+                                        zoneout_output))
+            ys[d][row] = carry[d][1][0]
+    lstm_out = torch.cat(ys, dim=1)
+
+    sa = lstm_out @ params.sa_proj[0] + params.sa_proj[1]
+    hd = sa_units // num_heads
+    for w_kvq, b_kvq, w_ot, b_ot in params.hops:
+        kvq = sa @ w_kvq + b_kvq
+        ctxs = []
+        for hh in range(num_heads):
+            k = kvq[:, hh * hd:(hh + 1) * hd]
+            v = kvq[:, sa_units + hh * hd:sa_units + (hh + 1) * hd]
+            q = kvq[:, 2 * sa_units + hh * hd:2 * sa_units + (hh + 1) * hd]
+            p = torch.softmax(q @ k.t() / math.sqrt(hd), dim=1)
+            ctxs.append(p @ v)
+        sa = sa + torch.tanh(torch.cat(ctxs, dim=1) @ w_ot + b_ot)
+    return lstm_out[None], sa[None]
+
+
+# --------------------------------------------------------------- the kernel
+
+_P = ctypes.c_void_p
+
+
+class _EncArgs(ctypes.Structure):
+    """Mirror of ``EncArgs`` in csrc/fused_encoder.cu."""
+
+    _fields_ = [
+        ("x", _P), ("T", ctypes.c_int), ("L", ctypes.c_int),
+        ("E_in", ctypes.c_int), ("n_prenet", ctypes.c_int),
+        ("pre_w", _P * MAX_PRENET), ("pre_b", _P * MAX_PRENET),
+        ("pre_out", ctypes.c_int * MAX_PRENET),
+        ("bank_w", _P), ("bank_b", _P), ("K", ctypes.c_int),
+        ("C", ctypes.c_int),
+        ("p1_w", _P), ("p1_b", _P), ("P1", ctypes.c_int),
+        ("p2_w", _P), ("p2_b", _P), ("P2", ctypes.c_int),
+        ("adj_w", _P), ("adj_b", _P),
+        ("n_highway", ctypes.c_int),
+        ("hw_w", _P * MAX_HIGHWAY), ("hw_b", _P * MAX_HIGHWAY),
+        ("W", ctypes.c_int), ("H", ctypes.c_int),
+        ("lstm_wx", _P * 2), ("lstm_whT", _P * 2), ("lstm_b", _P * 2),
+        ("zc", ctypes.c_float), ("zo", ctypes.c_float),
+        ("sa_w", _P), ("sa_b", _P), ("SA", ctypes.c_int),
+        ("n_hops", ctypes.c_int), ("n_heads", ctypes.c_int),
+        ("kvq_w", _P * MAX_HOPS), ("kvq_b", _P * MAX_HOPS),
+        ("ot_w", _P * MAX_HOPS), ("ot_b", _P * MAX_HOPS),
+        ("lstm_out", _P), ("sa_out", _P), ("scratch", _P),
+        ("stage_cycles", _P),
+    ]
+
+
+def _lib():
+    lib = cuda_build.load("fused_encoder")
+    if not getattr(lib, "_typed", False):
+        lib.fused_encoder_scratch_floats.argtypes = [ctypes.POINTER(_EncArgs)]
+        lib.fused_encoder_scratch_floats.restype = ctypes.c_longlong
+        lib.fused_encoder_launch.argtypes = [ctypes.POINTER(_EncArgs), _P]
+        lib.fused_encoder_launch.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _check(t: Tensor, shape, name: str) -> Tensor:
+    if not t.is_cuda or t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected a float32 CUDA tensor, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
+                   max_filter_width: int, conv_channels: int, half: int,
+                   sa_units: int, num_heads: int, zoneout_cell: float = 0.0,
+                   zoneout_output: float = 0.0,
+                   profile: bool = False) -> cuda_build.KernelLaunch:
+    """Check and lay out the operands once; the returned launch runs the
+    kernel and returns (lstm_out (T, 2H), sa_out (T, SA)).  With
+    ``profile`` the launch also accumulates per-stage SM cycles into
+    ``launch.stage_cycles`` (one slot per ``ENC_STAGES`` name)."""
+    L, K, C = int(length), max_filter_width, conv_channels
+    zc, zo = zoneout_cell, zoneout_output
+    T, E_in = int(x.shape[1]), int(x.shape[2])
+    if not 1 <= L <= T:
+        raise ValueError(f"length {L} outside [1, {T}]")
+    if len(params.prenet) > MAX_PRENET or len(params.highway) > MAX_HIGHWAY \
+            or len(params.hops) > MAX_HOPS:
+        raise ValueError("more prenet/highway/hop layers than the kernel "
+                         "takes")
+    if sa_units % num_heads:
+        raise ValueError("sa_units must divide over the heads")
+    keep = []  # every tensor whose pointer the kernel reads
+
+    def use(t, shape, name):
+        t = _check(t, shape, name)
+        keep.append(t)
+        return t.data_ptr()
+
+    a = _EncArgs()
+    a.x = use(x[0], (T, E_in), "x")
+    a.T, a.L, a.E_in = T, L, E_in
+    a.n_prenet = len(params.prenet)
+    width = E_in
+    for i, (w, b) in enumerate(params.prenet):
+        n = int(w.shape[1])
+        a.pre_w[i] = use(w, (width, n), f"prenet{i}.w")
+        a.pre_b[i] = use(b.reshape(-1), (n,), f"prenet{i}.b")
+        a.pre_out[i] = n
+        width = n
+    E = width
+    a.K, a.C = K, C
+    a.bank_w = use(params.w_bank[0], (K * E, K * C), "w_bank")
+    a.bank_b = use(params.w_bank[1].reshape(-1), (K * C,), "b_bank")
+    P1 = int(params.w_proj1[0].shape[1])
+    P2 = int(params.w_proj2[0].shape[1])
+    if P2 != E:
+        raise ValueError(f"residual needs proj2 width {P2} == prenet "
+                         f"width {E}")
+    a.P1, a.P2 = P1, P2
+    a.p1_w = use(params.w_proj1[0], (3 * K * C, P1), "w_proj1")
+    a.p1_b = use(params.w_proj1[1].reshape(-1), (P1,), "b_proj1")
+    a.p2_w = use(params.w_proj2[0], (3 * P1, P2), "w_proj2")
+    a.p2_b = use(params.w_proj2[1].reshape(-1), (P2,), "b_proj2")
+    W = P2
+    if params.w_adjust is not None:
+        W = int(params.w_adjust[0].shape[1])
+        a.adj_w = use(params.w_adjust[0], (P2, W), "w_adjust")
+        a.adj_b = use(params.w_adjust[1].reshape(-1), (W,), "b_adjust")
+    a.W, a.H = W, half
+    a.n_highway = len(params.highway)
+    for i, (w, b) in enumerate(params.highway):
+        a.hw_w[i] = use(w, (W, 2 * W), f"highway{i}.w")
+        a.hw_b[i] = use(b.reshape(-1), (2 * W,), f"highway{i}.b")
+    wx, whT, b_lstm = params.lstm
+    for d in range(2):
+        a.lstm_wx[d] = use(wx[d], (W, 4 * half), f"lstm{d}.wx")
+        a.lstm_whT[d] = use(whT[d], (4 * half, half), f"lstm{d}.whT")
+        a.lstm_b[d] = use(b_lstm[d], (4 * half,), f"lstm{d}.b")
+    a.zc, a.zo = float(zc), float(zo)
+    SA = sa_units
+    a.SA = SA
+    a.sa_w = use(params.sa_proj[0], (2 * half, SA), "sa_proj.w")
+    a.sa_b = use(params.sa_proj[1].reshape(-1), (SA,), "sa_proj.b")
+    a.n_hops, a.n_heads = len(params.hops), num_heads
+    for i, (w_kvq, b_kvq, w_ot, b_ot) in enumerate(params.hops):
+        a.kvq_w[i] = use(w_kvq, (SA, 3 * SA), f"hop{i}.w_kvq")
+        a.kvq_b[i] = use(b_kvq.reshape(-1), (3 * SA,), f"hop{i}.b_kvq")
+        a.ot_w[i] = use(w_ot, (SA, SA), f"hop{i}.w_ot")
+        a.ot_b[i] = use(b_ot.reshape(-1), (SA,), f"hop{i}.b_ot")
+
+    lib = _lib()
+    lstm_out = torch.empty(T, 2 * half, device=x.device)
+    sa_out = torch.empty(T, SA, device=x.device)
+    scratch = torch.empty(int(lib.fused_encoder_scratch_floats(
+        ctypes.byref(a))), device=x.device)
+    cycles = (torch.zeros(len(ENC_STAGES), dtype=torch.int64,
+                          device=x.device) if profile else None)
+    keep += [lstm_out, sa_out, scratch, cycles]
+    a.lstm_out, a.sa_out, a.scratch = (lstm_out.data_ptr(),
+                                       sa_out.data_ptr(), scratch.data_ptr())
+    a.stage_cycles = cycles.data_ptr() if profile else None
+    return cuda_build.KernelLaunch(lib.fused_encoder_launch, a, keep,
+                                   (lstm_out, sa_out), x.device, fused_encode,
+                                   stage_cycles=cycles)
+
+
+def fused_encode(params: FusedEncoderParams, x: Tensor, length, *,
+                 max_filter_width: int, conv_channels: int, half: int,
+                 sa_units: int, num_heads: int, zoneout_cell: float = 0.0,
+                 zoneout_output: float = 0.0) -> Tuple[Tensor, Tensor]:
+    """The whole inference encoder at batch 1.  CPU tensors take the plain
+    version; CUDA tensors launch the kernel (or raise)."""
+    if x.shape[0] != 1:
+        raise ValueError("the fused encoder is the batch-1 serving path")
+    if not x.is_cuda:
+        return fused_encode_reference(
+            params, x, length, max_filter_width=max_filter_width,
+            conv_channels=conv_channels, half=half, sa_units=sa_units,
+            num_heads=num_heads, zoneout_cell=zoneout_cell,
+            zoneout_output=zoneout_output)
+    lstm_out, sa_out = prepare_encode(
+        params, x, length, max_filter_width=max_filter_width,
+        conv_channels=conv_channels, half=half, sa_units=sa_units,
+        num_heads=num_heads, zoneout_cell=zoneout_cell,
+        zoneout_output=zoneout_output)()
+    return lstm_out[None], sa_out[None]
+
+
+fused_encode.launches = 0

@@ -1,0 +1,125 @@
+"""Zoneout LSTM cell and the bidirectional length-masked unroll (inference).
+
+Counterpart of the JAX package's ``ops/rnn.py``:
+* ``ZoneoutLSTMCell`` — gate order i, g, f, o; the +1.0 forget bias is
+  added at call time and not stored; zoneout is the deterministic
+  inference mix ``(1 - z) * new + z * prev``.
+* ``BiZoneoutLSTM`` — ``tf.nn.bidirectional_dynamic_rnn`` with
+  ``sequence_length``: carries freeze and outputs are zero past each row's
+  length; the backward cell runs over the per-row length-reversed sequence.
+
+Parameter layout: ``weight`` (4u, in + u) is the JAX kernel (in + u, 4u)
+transposed (``utils/convert.py``), ``bias`` (4u,).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+Carry = Tuple[torch.Tensor, torch.Tensor]
+
+
+def lstm_update(gates: torch.Tensor, c_prev: torch.Tensor,
+                h_prev: torch.Tensor, zoneout_cell: float,
+                zoneout_output: float, forget_bias: float = 0.0) -> Carry:
+    """Zoneout LSTM update from gate pre-activations (i, g, f, o) ->
+    (c, h); ``forget_bias`` is added to f (0 where it is already folded)."""
+    i, g, f, o = gates.chunk(4, dim=-1)
+    c = (c_prev * torch.sigmoid(f + forget_bias)
+         + torch.sigmoid(i) * torch.tanh(g))
+    h = torch.tanh(c) * torch.sigmoid(o)
+    if zoneout_cell:
+        c = (1.0 - zoneout_cell) * c + zoneout_cell * c_prev
+    if zoneout_output:
+        h = (1.0 - zoneout_output) * h + zoneout_output * h_prev
+    return c, h
+
+
+def fold_forget_bias(b: torch.Tensor) -> torch.Tensor:
+    """The (..., 4u) bias with the +1 forget bias added to its f block."""
+    q = b.shape[-1] // 4
+    out = b.clone()
+    out[..., 2 * q:3 * q] += 1.0
+    return out
+
+
+class ZoneoutLSTMCell(nn.Module):
+    def __init__(self, input_size: int, num_units: int,
+                 zoneout_factor_cell: float = 0.0,
+                 zoneout_factor_output: float = 0.0):
+        super().__init__()
+        self.num_units = num_units
+        self.zoneout_factor_cell = zoneout_factor_cell
+        self.zoneout_factor_output = zoneout_factor_output
+        self.weight = nn.Parameter(torch.empty(4 * num_units,
+                                               input_size + num_units))
+        self.bias = nn.Parameter(torch.zeros(4 * num_units))
+
+    def forward(self, carry: Carry, x: torch.Tensor):
+        c_prev, h_prev = carry
+        gates = torch.cat([x, h_prev], dim=-1) @ self.weight.t() + self.bias
+        new_c, new_h = lstm_update(gates, c_prev, h_prev,
+                                   self.zoneout_factor_cell,
+                                   self.zoneout_factor_output, forget_bias=1.0)
+        return (new_c, new_h), new_h
+
+    def initial_state(self, batch: int, device=None) -> Carry:
+        z = torch.zeros(batch, self.num_units, device=device)
+        return z, z
+
+
+def reverse_sequence(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """tf.reverse_sequence over axis 1: per-row reversal of the valid prefix."""
+    B, T = xs.shape[0], xs.shape[1]
+    idx = torch.arange(T, device=xs.device)[None, :]
+    L = lengths.to(xs.device)[:, None]
+    rev = torch.where(idx < L, L - 1 - idx, idx)
+    rev = rev.reshape(B, T, *([1] * (xs.dim() - 2))).expand_as(xs)
+    return torch.gather(xs, 1, rev)
+
+
+def unroll(cell: ZoneoutLSTMCell, xs: torch.Tensor,
+           lengths: Optional[torch.Tensor], reverse: bool = False
+           ) -> torch.Tensor:
+    """Run ``cell`` over axis 1 of ``xs`` (B, T, D) -> (B, T, units)."""
+    B, T = xs.shape[0], xs.shape[1]
+    if reverse:
+        xs = (reverse_sequence(xs, lengths) if lengths is not None
+              else xs.flip(1))
+    carry = cell.initial_state(B, xs.device)
+    ys = []
+    for t in range(T):
+        new_carry, y = cell(carry, xs[:, t])
+        if lengths is not None:
+            valid = (t < lengths.to(xs.device))[:, None]
+            new_carry = tuple(torch.where(valid, n, p)
+                              for n, p in zip(new_carry, carry))
+            y = torch.where(valid, y, torch.zeros_like(y))
+        carry = new_carry
+        ys.append(y)
+    ys = torch.stack(ys, dim=1)
+    if reverse:
+        ys = reverse_sequence(ys, lengths) if lengths is not None else ys.flip(1)
+    return ys
+
+
+class BiZoneoutLSTM(nn.Module):
+    """(B, T, D) -> (B, T, 2 * units): [forward | backward]."""
+
+    def __init__(self, input_size: int, num_units: int,
+                 zoneout_factor_cell: float = 0.0,
+                 zoneout_factor_output: float = 0.0):
+        super().__init__()
+        self.fw = ZoneoutLSTMCell(input_size, num_units, zoneout_factor_cell,
+                                  zoneout_factor_output)
+        self.bw = ZoneoutLSTMCell(input_size, num_units, zoneout_factor_cell,
+                                  zoneout_factor_output)
+
+    def forward(self, xs: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        ys_f = unroll(self.fw, xs, lengths, reverse=False)
+        ys_b = unroll(self.bw, xs, lengths, reverse=True)
+        return torch.cat([ys_f, ys_b], dim=-1)

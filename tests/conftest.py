@@ -33,6 +33,8 @@ jax.config.update("jax_platforms", "cpu")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: multi-process subprocess tests (minutes each)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without them)")
 
 
 import pytest  # noqa: E402

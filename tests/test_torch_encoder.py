@@ -1,0 +1,102 @@
+"""The port's SelfAttentionCBHGEncoder against the JAX package on CPU.
+
+The module path and the plain version of the fused-encoder kernel
+(``fused_encode_reference``, what ``fused_encode`` runs for CPU tensors)
+are held against the JAX XLA encoder (``fused_inference=False``) for
+L = T and L < T, with an even max filter width (asymmetric SAME padding)
+and non-trivial batch-norm statistics; one case goes against the JAX
+Pallas kernel in interpret mode.  Tolerance 2e-4, as
+tests/test_fused_encoder.py uses.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from self_attention_tacotron_tpu.models.encoders import \
+    SelfAttentionCBHGEncoder as JaxEncoder
+from self_attention_tacotron_torch.models.encoders import \
+    SelfAttentionCBHGEncoder
+from self_attention_tacotron_torch.ops import fused_encoder as fe
+
+from test_torch_ops import load, random_batch_stats, randn
+
+TOL = 2e-4
+CFG = dict(cbhg_out_units=16, conv_channels=8, max_filter_width=4,
+           projection1_out_channels=8, projection2_out_channels=8,
+           num_highway=2, self_attention_out_units=8,
+           self_attention_num_heads=2, self_attention_num_hop=1,
+           prenet_out_units=(16, 8), zoneout_factor_cell=0.1,
+           zoneout_factor_output=0.1)
+
+
+def _jax_encoder(T=13, E=12, seed=0, **kw):
+    cfg = dict(CFG, **kw)
+    enc = JaxEncoder(drop_rate=0.5, **cfg)
+    x = randn(seed, 1, T, E)
+    v = enc.init({"params": jax.random.PRNGKey(seed)}, x,
+                 np.full((1,), T, np.int32), is_training=True)
+    return cfg, random_batch_stats(v, seed + 1), x
+
+
+def _port(cfg, v, x, fused):
+    enc = SelfAttentionCBHGEncoder(x.shape[-1], fused_inference=fused, **cfg)
+    return load(enc, v)
+
+
+def _run_port(enc, x, L):
+    with torch.no_grad():
+        lstm_out, sa, _ = enc(torch.from_numpy(x), torch.tensor([L]))
+    return lstm_out.numpy(), sa.numpy()
+
+
+def _run_jax(cfg, v, x, L, fused=False):
+    enc = JaxEncoder(drop_rate=0.5, fused_inference=fused, **cfg)
+    lstm_out, sa, _ = enc.apply(v, x, np.array([L], np.int32),
+                                is_training=False)
+    return np.asarray(lstm_out), np.asarray(sa)
+
+
+def _close(got, ref, tol=TOL):
+    for g, r, name in zip(got, ref, ("lstm_out", "sa_out")):
+        np.testing.assert_allclose(g, r, rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["module", "fused_ref"])
+@pytest.mark.parametrize("L", [13, 9])
+def test_encoder_matches_jax_xla(fused, L):
+    cfg, v, x = _jax_encoder()
+    got = _run_port(_port(cfg, v, x, fused), x, L)
+    _close(got, _run_jax(cfg, v, x, L))
+    assert np.all(got[0][:, L:] == 0)
+
+
+def test_fused_reference_with_adjust_layer_and_two_hops():
+    """cbhg_out / 2 != proj2 width exercises the adjustment dense."""
+    cfg, v, x = _jax_encoder(T=15, seed=3, cbhg_out_units=24,
+                             self_attention_num_hop=2)
+    _close(_run_port(_port(cfg, v, x, True), x, 11),
+           _run_jax(cfg, v, x, 11))
+
+
+def test_fused_reference_matches_jax_pallas_kernel():
+    """Against the JAX fused encoder itself (Pallas, interpret mode)."""
+    cfg, v, x = _jax_encoder(seed=5)
+    _close(_run_port(_port(cfg, v, x, True), x, 10),
+           _run_jax(cfg, v, x, 10, fused=True))
+
+
+def test_fused_encode_takes_batch_one_only():
+    cfg, v, x = _jax_encoder()
+    enc = _port(cfg, v, x, True)
+    with torch.no_grad():
+        with pytest.raises(ValueError):
+            fe.fused_encode(enc.fused_params(),
+                            torch.from_numpy(np.concatenate([x, x])), 13,
+                            max_filter_width=4, conv_channels=8, half=8,
+                            sa_units=8, num_heads=2)
+        # batch 2 through the module takes the module path instead
+        lstm_out, _, _ = enc(torch.from_numpy(np.concatenate([x, x])),
+                             torch.tensor([13, 13]))
+    assert lstm_out.shape == (2, 13, 16)
