@@ -9,17 +9,31 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``) with
 weights drawn from a seed:
 
 1. prints the card (``nvidia-smi`` name and power limit) and CUDA version;
-2. builds both kernels, one nvcc each, in parallel;
+2. builds the four kernels, one nvcc each, in parallel;
 3. ``fused_encode``: kernel vs its plain PyTorch version, T = 64 phones,
    L = 64 and L = 50;
 4. ``fused_decode``: kernel vs its plain version, 450 steps, early stop
    off; the code-argmax agreement; early stop on (equal lengths); a
    large-|v| case that must stay finite;
-5. end to end: ``cli.predict.main_code`` serves a 3-utterance synthetic
-   corpus from a seeded checkpoint on ``cuda``; the launch counters are
-   zeroed just before and must both be > 0 just after;
-6. times each kernel and its plain version with CUDA events (median of 5
-   after a warm-up) and prints one JSON line of per-kernel numbers.
+5. serving end to end: ``cli.predict.main_code`` serves a 3-utterance
+   synthetic corpus from a seeded checkpoint on ``cuda``; the serving
+   kernels' launch counters are zeroed just before and must both be > 0
+   just after;
+6. the training kernels at B = 32, T_in = 64, S = 256, with dropout 0.5
+   and zoneout 0.1 on (the shared counter-based masks) and in the
+   deterministic mode: ``fused_train_fwd`` vs the plain forward (y, save
+   rows, alignments), ``fused_train_bwd`` vs the plain reverse-time VJP
+   and vs ``torch.autograd`` of the plain forward (each gradient's max
+   error over its largest magnitude);
+7. training end to end: ``cli.train.main`` takes 3 steps at B = 32 on
+   ``cuda`` over a synthetic 64-utterance corpus in one bucket (S = 250);
+   the training kernels' counters are zeroed just before and must read
+   exactly 3 launches each just after; the losses are finite and a
+   checkpoint is written; ``cli.predict.main_code`` then serves one
+   utterance from that checkpoint;
+8. times each kernel and its plain version with CUDA events (median of 5
+   after a warm-up), one training step on the fused and on the plain path,
+   and prints one JSON line of per-kernel numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -49,6 +63,13 @@ T_IN = 64
 # and still fails a kernel whose products drop to TF32 or bf16.
 TOL_ENCODE = 1e-5
 TOL_DECODE = 1e-5
+# Training kernels: y, save rows and alignments within 1e-4 absolute after
+# 256 recurrent steps; each gradient within 1e-3 of its largest magnitude
+# (its sums over S * B = 8192 rows run in another order than the plain
+# version's).
+TOL_TRAIN = 1e-4
+TOL_TRAIN_GRAD = 1e-3
+TRAIN_B, TRAIN_S = 32, 256
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, FP32 non-tensor
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
@@ -263,7 +284,7 @@ def phase_end_to_end(model, device_name: str):
                     or not np.array_equal(rec.codes.sum(1),
                                           np.ones(rec.codes.shape[0]))):
                 raise AssertionError(f"bad prediction files for {key}")
-    log(f"phase 5 end to end: main_code served {len(keys)} utterances on "
+    log(f"phase 5 serving end to end: main_code served {len(keys)} utterances on "
         f"{device_name}; launch counts {counts}")
     if device_name == "cuda" and min(counts.values()) < 1:
         raise AssertionError("a kernel of the main path never launched")
@@ -369,8 +390,21 @@ def _stage_shares(name, launch, stages, ms: float, per: int, unit: str):
     parts = ", ".join(
         f"{stage} {100.0 * c / total:.1f}% ({ms * 1e3 * c / total / per:.3f}"
         f" us/{unit})" for stage, c in zip(stages, cycles) if c)
-    log(f"phase 6 {name} stages (block 0 cycles between grid barriers, as a"
+    log(f"phase 8 {name} stages (block 0 cycles between grid barriers, as a"
         f" share of {ms:.4f} ms): {parts}")
+
+
+def _kernel_row(name, src, line, launches, err, ms, plain, bound):
+    nbytes, flops = bound
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return {"name": name, "route": "cuda",
+            "source": f"self_attention_tacotron_torch/ops/csrc/{src}.cu",
+            "replaces": f"self_attention_tacotron_tpu/ops/{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None}
 
 
 def phase_timing(model, device, steps: int, launches, errs):
@@ -389,7 +423,7 @@ def phase_timing(model, device, steps: int, launches, errs):
     dec_plain = _time_ms(lambda: fd.fused_decode_reference(
         weights, memory, num_steps=steps, **options), reps=3)
     frames = steps * model.hp.outputs_per_step
-    log(f"phase 6 timing: fused_encode {enc_ms:.4f} ms (plain "
+    log(f"phase 8 timing: fused_encode {enc_ms:.4f} ms (plain "
         f"{enc_plain:.4f} ms); fused_decode {steps} steps {dec_ms:.4f} ms "
         f"(plain {dec_plain:.4f} ms); {frames / ((enc_ms + dec_ms) / 1e3):.1f}"
         f" frames/s kernel, {frames / ((enc_plain + dec_plain) / 1e3):.1f} "
@@ -400,30 +434,374 @@ def phase_timing(model, device, steps: int, launches, errs):
     _stage_shares("fused_decode", fd.prepare_decode(
         weights, memory, num_steps=steps, **options, profile=True),
         fd.DEC_STAGES, dec_ms, steps, "step")
-    log(f"launch counts of the main path: fused_encode="
-        f"{launches['fused_encode']} fused_decode={launches['fused_decode']}")
-    rows = []
     bounds = {"fused_encode": encode_bound(params, x, kw),
               "fused_decode": decode_bound(model.decoder.fused_params(),
                                            weights, memory, steps)}
-    log("phase 6 bound inputs: " + "; ".join(
+    log("phase 8 bound inputs: " + "; ".join(
         f"{k} {b[0]} bytes, {b[1]} FLOPs" for k, b in bounds.items()))
-    for name, src, line, ms, plain, (nbytes, flops) in (
-            ("fused_encode", "fused_encoder", 94, enc_ms, enc_plain,
-             bounds["fused_encode"]),
-            ("fused_decode", "fused_decode", 250, dec_ms, dec_plain,
-             bounds["fused_decode"])):
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"self_attention_tacotron_torch/ops/csrc/{src}.cu",
-            "replaces": f"self_attention_tacotron_tpu/ops/{src}.py:{line}",
-            "launches": launches[name], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-    print(json.dumps({"kernels": rows}), flush=True)
+    return [_kernel_row("fused_encode", "fused_encoder",
+                        "fused_encoder.py:94", launches["fused_encode"],
+                        errs["fused_encode"], enc_ms, enc_plain,
+                        bounds["fused_encode"]),
+            _kernel_row("fused_decode", "fused_decode", "fused_decode.py:250",
+                        launches["fused_decode"], errs["fused_decode"],
+                        dec_ms, dec_plain, bounds["fused_decode"])]
+
+
+# ------------------------------------------------------------- training
+
+def _tmap(fn, tree):
+    """``fn`` over the tensors of nested tuples and NamedTuples, in order
+    (None stays None)."""
+    if isinstance(tree, tuple):
+        out = [_tmap(fn, t) for t in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    return None if tree is None else fn(tree)
+
+
+def _detach(tree):
+    return _tmap(lambda t: t.detach().contiguous(), tree)
+
+
+def _leaves(tree):
+    out = []
+    _tmap(out.append, tree)
+    return out
+
+
+def train_case(model, device, deterministic: bool, seed: int):
+    """The training trunk's inputs at the recipe widths: B = 32 random
+    sources (lengths 40..64) through the encoder, their attention keys
+    (with the folded biases) and values, S = 256 one-hot teacher rows."""
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    hp, dec = model.hp, model.decoder
+    rng = np.random.default_rng(SEED + seed)
+    lengths = rng.integers(40, T_IN + 1, TRAIN_B)
+    lengths[0] = T_IN
+    src = np.zeros((TRAIN_B, T_IN), np.int64)
+    for b, L in enumerate(lengths):
+        src[b, :L] = rng.integers(1, hp.num_symbols, L)
+    src_t = torch.from_numpy(src).to(device)
+    len_t = torch.from_numpy(lengths).to(device)
+    lstm_out, sa, _ = model.encoder(model.embedding(src_t), len_t)
+    packs = tuple(m.precompute(s, len_t) for m, s in
+                  zip(dec.attention_mechanisms, (lstm_out, sa)))
+    codes = torch.from_numpy(rng.integers(0, hp.num_mels, (TRAIN_B,
+                                                           TRAIN_S)))
+    target = torch.nn.functional.one_hot(codes, hp.num_mels).float()
+    teacher = dec._teacher_inputs(target.to(device), TRAIN_S)
+    kinds, cum, loc_ws, folds = dec._fused_attention_params()
+    params = _detach(dec.fused_train_params())
+    keys = _detach(tuple(p.keys if f is None else p.keys + f
+                         for p, f in zip(packs, folds)))
+    values = _detach(tuple(p.values for p in packs))
+    masks = tuple(p.mask.float() for p in packs)
+    loc_ws = _detach(tuple(loc_ws))
+    zc, zo = dec._dec_zoneout()
+    spec = ft.make_spec(params, keys, values, teacher,
+                        drop_rate=dec.prenets.drop_rate,
+                        zc_att=dec.zoneout_factor_cell,
+                        zo_att=dec.zoneout_factor_output, zc_dec=zc,
+                        zo_dec=zo, deterministic=deterministic,
+                        src_kinds=kinds, cumulative=cum,
+                        loc_kernel=dec._loc_kernel())
+    tf = teacher.transpose(0, 1).reshape(TRAIN_S * TRAIN_B,
+                                         spec.cf).contiguous()
+    ops = ft.train_operands(spec, params, keys, values, masks, tf, None,
+                            loc_ws)
+    return spec, params, keys, values, masks, tf, loc_ws, ops
+
+
+def _grad_leaves(spec, d_params, d_keys, d_values, d_loc):
+    """Gradients in the plain VJP's layout -> named flat tensors in the
+    kernel's layout (``ops/fused_train.py`` ``split_grads``)."""
+    import torch
+    out = {}
+    for i, (w, b) in enumerate(d_params.prenet):
+        out[f"prenet{i}.w"], out[f"prenet{i}.b"] = w, b.reshape(-1)
+    for name in ("att_lstm", "outproj", "lstm1", "lstm2"):
+        w, b = getattr(d_params, name)
+        out[f"{name}.w"], out[f"{name}.b"] = w, b.reshape(-1)
+    out["query.w"] = torch.cat([q for q, _ in d_params.query], 1)
+    out["query.v"] = torch.cat([v.reshape(-1) for _, v in d_params.query])
+    for i, (k, v) in enumerate(zip(d_keys, d_values)):
+        out[f"keys{i}"] = k.reshape(-1, k.shape[-1])
+        out[f"values{i}"] = v.reshape(-1, v.shape[-1])
+    out["loc"] = torch.cat([
+        torch.zeros(spec.loc_kernel, u, device=out["query.v"].device)
+        if lw is None else lw for lw, u in zip(d_loc, spec.u_sizes)], 1)
+    return out
+
+
+def _kernel_grads(spec, raw):
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    (d_pre, d_att, d_q, d_op, d_l1, d_l2, d_keys, d_values, d_v, d_loc,
+     _) = ft.split_grads(spec, raw)
+    out = {}
+    for i, (w, b) in enumerate(d_pre):
+        out[f"prenet{i}.w"], out[f"prenet{i}.b"] = w, b
+    for name, (w, b) in (("att_lstm", d_att), ("outproj", d_op),
+                         ("lstm1", d_l1), ("lstm2", d_l2)):
+        out[f"{name}.w"], out[f"{name}.b"] = w, b
+    out["query.w"], out["query.v"], out["loc"] = d_q, d_v, d_loc
+    for i, (k, v) in enumerate(zip(d_keys, d_values)):
+        out[f"keys{i}"], out[f"values{i}"] = k, v
+    return out
+
+
+def phase_train_kernels(model, device):
+    """Both training kernels vs their plain versions, masks on and off;
+    returns the worst max abs errors {"fused_train_fwd": ...,
+    "fused_train_bwd": ...}.  The backward's tolerance is relative to each
+    gradient's largest magnitude."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    worst = {"fused_train_fwd": 0.0, "fused_train_bwd": 0.0}
+    for deterministic in (False, True):
+        spec, params, keys, values, masks, tf, loc_ws, ops = train_case(
+            model, device, deterministic, 1)
+        seed = 1234
+        y, save, aux = ft.fused_train_fwd(spec, ops, seed)
+        y_r, save_r, aux_r = ft.fused_train_fwd_reference(
+            spec, params, keys, values, masks, tf, seed, None, loc_ws)
+        torch.cuda.synchronize()
+        errs = {"y": _max_err(y, y_r), "save": _max_err(save, save_r),
+                "aligns": _max_err(aux[:, :, 1], aux_r[:, :, 1]),
+                "aux": _max_err(aux, aux_r)}
+        mode = "deterministic" if deterministic else "masks on"
+        log(f"phase 6 fused_train_fwd B={spec.batch} S={spec.num_steps} "
+            f"T={spec.t_mem} ({mode}): max abs err " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items()))
+        if max(errs.values()) > TOL_TRAIN:
+            raise AssertionError(f"fused_train_fwd disagrees (tol "
+                                 f"{TOL_TRAIN})")
+        worst["fused_train_fwd"] = max(worst["fused_train_fwd"],
+                                       *errs.values())
+
+        g = torch.randn(y.shape, generator=torch.Generator(device)
+                        .manual_seed(7), device=device)
+        kern = _kernel_grads(spec, ft.fused_train_bwd(spec, ops, seed, g,
+                                                      save, aux))
+        d_params, d_keys, d_values, _, d_loc = ft.fused_train_bwd_reference(
+            spec, params, keys, values, masks, tf, seed, None, loc_ws, g,
+            save_r, aux_r)
+        plain = _grad_leaves(spec, d_params, d_keys, d_values, d_loc)
+        tree = (params, keys, values, loc_ws)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in _leaves(tree)]
+            it = iter(leaves)
+            p2, k2, v2, l2 = _tmap(lambda _: next(it), tree)
+            y_a, _, _ = ft.fused_train_fwd_reference(
+                spec, p2, k2, v2, masks, tf, seed, None, l2)
+            grads = torch.autograd.grad((y_a * g).sum(), leaves)
+        it = iter(grads)
+        auto = _grad_leaves(spec, *_tmap(lambda _: next(it), tree))
+        torch.cuda.synchronize()
+        for ref_name, ref in (("plain VJP", plain), ("autograd", auto)):
+            rel = {k: _rel_err(kern[k], ref[k].reshape(kern[k].shape))
+                   for k in ref}
+            absolute = max(_max_err(kern[k], ref[k].reshape(kern[k].shape))
+                           for k in ref)
+            name, err = max(rel.items(), key=lambda kv: kv[1])
+            log(f"phase 6 fused_train_bwd ({mode}) vs {ref_name}: worst "
+                f"gradient {name} {err:.3e} of its max magnitude, max abs "
+                f"err {absolute:.3e}; " +
+                ", ".join(f"{k} {v:.1e}" for k, v in sorted(rel.items())))
+            if err > TOL_TRAIN_GRAD:
+                raise AssertionError(f"fused_train_bwd disagrees with the "
+                                     f"{ref_name} (tol {TOL_TRAIN_GRAD})")
+            worst["fused_train_bwd"] = max(worst["fused_train_bwd"],
+                                           absolute)
+    return worst
+
+
+def write_train_corpus(hp, root: str, n: int = 64):
+    """A synthetic codes corpus whose targets (200..249 codes) all fall in
+    one bucket (pad 250 at the recipe's bucketing), sources 40..64."""
+    import numpy as np
+    from self_attention_tacotron_torch.data.records import (
+        CodeTargetRecord, SourceRecord, write_code_target_record,
+        write_source_record)
+    rng = np.random.default_rng(SEED + 1)
+    keys = []
+    for i in range(n):
+        key = f"train{i:03d}"
+        L = int(rng.integers(40, T_IN + 1))
+        phone = rng.integers(1, hp.num_symbols, L).astype(np.int64)
+        write_source_record(SourceRecord(
+            id=i, key=key, source=phone, source_length=L, text=f"train {i}",
+            phone=phone, phone_length=L, phone_txt=" ".join(map(str, phone))),
+            os.path.join(root, f"{key}.{hp.source_file_extension}"),
+            with_phone=True)
+        n_codes = int(rng.integers(200, 250))
+        codes = np.eye(hp.num_mels, dtype=np.float32)[
+            rng.integers(0, hp.num_mels, n_codes)]
+        write_code_target_record(CodeTargetRecord(
+            id=i, key=key, lang="", codes=codes, codes_length=n_codes,
+            codes_width=hp.num_mels),
+            os.path.join(root, f"{key}.{hp.target_file_extension}"))
+        keys.append(key)
+    for name in ("train.csv", "test.csv"):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(keys) + "\n")
+    return keys
+
+
+def phase_train_end_to_end(hp, data: str, tmp: str, device_name: str):
+    """cli.train.main for 3 steps, then cli.predict from its checkpoint;
+    returns the training kernels' launch counts."""
+    import math
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.predict import main_code
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    ckpt, out = os.path.join(tmp, "train_ckpt"), os.path.join(tmp, "pred")
+    ft.fused_train_fwd.launches = 0
+    ft.fused_train_bwd.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt,
+                         "--hparam-json-file", RECIPE, "--max-steps", "3",
+                         "--device", device_name])
+    wall = time.perf_counter() - t0
+    counts = {"fused_train_fwd": ft.fused_train_fwd.launches,
+              "fused_train_bwd": ft.fused_train_bwd.launches}
+    if rc != 0:
+        raise AssertionError(f"cli.train returned {rc}")
+    with open(os.path.join(ckpt, os.path.basename(hp.logfile))) as f:
+        losses = [float(m.group(2)) for m in re.finditer(
+            r"step (\d+) loss ([-+0-9.eEinfa]+)", f.read())]
+    files = sorted(os.listdir(ckpt))
+    log(f"phase 7 training end to end: cli.train took 3 steps at B="
+        f"{hp.batch_size} on {device_name} in {wall:.1f} s (build and start "
+        f"included); losses {losses}; launch counts {counts}; files {files}")
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError("training losses are missing or not finite")
+    if device_name == "cuda" and counts != {"fused_train_fwd": 3,
+                                            "fused_train_bwd": 3}:
+        raise AssertionError("a training step did not make exactly one "
+                             "forward and one backward launch")
+    if "model-3.pt" not in files or "train-3.pt" not in files:
+        raise AssertionError("no checkpoint of step 3 was written")
+    rc = main_code(["--source-data-root", data, "--target-data-root", data,
+                    "--checkpoint-dir", ckpt, "--output-dir", out,
+                    "--hparam-json-file", RECIPE, "--device", device_name,
+                    "--limit", "1"])
+    served = [f for f in os.listdir(out) if f.endswith(".tfrecord")]
+    log(f"phase 7 cli.predict served {len(served)} utterance from the "
+        "step-3 checkpoint")
+    if rc != 0 or len(served) != 1:
+        raise AssertionError("serving from the training checkpoint failed")
+    return counts
+
+
+def train_bound(spec, tensors_in, tensors_out, backward: bool):
+    """(bytes, FLOPs) of the trunk function: each input read once and each
+    output written once; one multiply-add per weight and row for every
+    product, the attention's energies (the location taps, the v dot) and
+    contexts per memory step.  The backward's function is the reverse
+    chain (every trunk product but the prenet rows of W_att), the
+    attention VJP (twice the energies' and contexts' work), the weight
+    gradients (one multiply-add per weight and row) and the prenet
+    backward (its weights, and the input cotangent of W_att's prenet rows
+    and of layers > 0)."""
+    B, S, T, K = spec.batch, spec.num_steps, spec.t_mem, spec.loc_kernel
+    A, D, P = spec.a_units, spec.d_units, spec.p_sizes
+    sumU, sumC = sum(spec.u_sizes), sum(spec.c_sizes)
+    M = S * B
+    p_in = [spec.cf, *P[:-1]]
+    w_pre = sum(i * o for i, o in zip(p_in, P))
+    w_att_pre = P[-1] * 4 * A
+    w_trunk = ((P[-1] + sumC + A) * 4 * A + A * sumU + (A + sumC) * D
+               + 2 * (2 * D * 4 * D))
+    attn = S * B * T * (sum(u * (1 + (K if kind else 0)) for u, kind in
+                            zip(spec.u_sizes, spec.src_kinds)) + sumC)
+    if not backward:
+        fma = M * (w_pre + w_trunk) + attn
+    else:
+        fma = (M * (w_trunk - w_att_pre) + 2 * attn + M * (w_trunk + w_pre)
+               + M * (w_att_pre + sum(i * o for i, o in zip(p_in[1:],
+                                                             P[1:]))))
+    return _nbytes(tensors_in) + _nbytes(tensors_out), 2 * fma
+
+
+def phase_train_timing(model, device, data: str, launches, errs):
+    """Kernel and plain-version times of both training kernels (masks on),
+    and one make_train_step at B = 32 on the fused and the plain path."""
+    import torch
+    from self_attention_tacotron_torch.data.dataset import (
+        dataset_factory, find_dataset_files, load_key_list, to_model_batch)
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    from self_attention_tacotron_torch.parallel import (create_train_state,
+                                                        make_train_step)
+    from self_attention_tacotron_torch.utils.convert import init_parameters
+    spec, params, keys, values, masks, tf, loc_ws, ops = train_case(
+        model, device, False, 1)
+    seed = 1234
+    fwd = ft.prepare_train_fwd(spec, ops, seed)
+    fwd_ms = _time_ms(fwd)
+    y, save, aux = fwd()
+    g = torch.randn(y.shape, generator=torch.Generator(device).manual_seed(7),
+                    device=device)
+    bwd = ft.prepare_train_bwd(spec, ops, seed, g, save, aux)
+    bwd_ms = _time_ms(bwd)
+    fwd_plain = _time_ms(lambda: ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws))
+    bwd_plain = _time_ms(lambda: ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws, g, save,
+        aux))
+    log(f"phase 8 timing: fused_train_fwd B={spec.batch} S={spec.num_steps}"
+        f" {fwd_ms:.4f} ms (plain {fwd_plain:.4f} ms); fused_train_bwd "
+        f"{bwd_ms:.4f} ms (plain {bwd_plain:.4f} ms)")
+    _stage_shares("fused_train_fwd", ft.prepare_train_fwd(
+        spec, ops, seed, profile=True), ft.FWD_STAGES, fwd_ms,
+        spec.num_steps, "step")
+    _stage_shares("fused_train_bwd", ft.prepare_train_bwd(
+        spec, ops, seed, g, save, aux, profile=True), ft.BWD_STAGES, bwd_ms,
+        spec.num_steps, "step")
+    flat_in = ft._flat(ops)
+    bounds = {
+        "fused_train_fwd": train_bound(spec, flat_in, [y, save, aux], False),
+        "fused_train_bwd": train_bound(spec, flat_in + [g, save, aux],
+                                       _leaves(bwd.outputs), True)}
+    log("phase 8 bound inputs: " + "; ".join(
+        f"{k} {b[0]} bytes, {b[1]} FLOPs" for k, b in bounds.items()))
+
+    # one training step at B = 32 on the corpus' first batch
+    hp = model.hp
+    keys_list = load_key_list(os.path.join(data, "train.csv"))
+    nb = next(iter(dataset_factory(
+        find_dataset_files(data, keys_list, hp.source_file_extension),
+        find_dataset_files(data, keys_list, hp.target_file_extension), hp,
+        shuffle=False, drop_remainder=True)))
+    batch = to_model_batch(nb).to(device)
+    frames = int(nb.target.shape[0] * nb.target.shape[1])
+    step_ms = {}
+    for fused in (True, False):
+        hp_s = recipe_hparams()
+        hp_s.set_hparam("decoder_fused_train", fused)
+        m = init_parameters(tacotron_model_factory(hp_s), SEED).to(device)
+        state = create_train_state(m, hp_s)
+        step = make_train_step(hp_s)
+        with torch.enable_grad():
+            step_ms[fused] = _time_ms(lambda: step(state, batch),
+                                      reps=5 if fused else 1)
+        del m, state
+    log(f"phase 8 train step B={nb.target.shape[0]} S={nb.target.shape[1]}"
+        f": fused path {step_ms[True]:.3f} ms "
+        f"({frames / step_ms[True] * 1e3:.1f} frames/s), plain path "
+        f"{step_ms[False]:.3f} ms ({frames / step_ms[False] * 1e3:.1f} "
+        "frames/s)")
+    return [_kernel_row(name, name, f"fused_train.py:{line}",
+                        launches[name], errs[name], ms, plain, bounds[name])
+            for name, line, ms, plain in (
+                ("fused_train_fwd", 375, fwd_ms, fwd_plain),
+                ("fused_train_bwd", 667, bwd_ms, bwd_plain))]
 
 
 def main() -> int:
@@ -456,12 +834,14 @@ def main() -> int:
         log(smi[0] if smi else torch.cuda.get_device_name(0))
 
         t0 = time.perf_counter()
-        logs = cuda_build.build_all(["fused_encoder", "fused_decode"])
-        log(f"phase 2 built fused_encoder, fused_decode in "
+        kernels = ["fused_encoder", "fused_decode", "fused_train_fwd",
+                   "fused_train_bwd"]
+        logs = cuda_build.build_all(kernels)
+        log(f"phase 2 built {', '.join(kernels)} in "
             f"{time.perf_counter() - t0:.1f} s")
         for name, text in logs.items():
             for line in text.splitlines():
-                if "registers" in line or "smem" in line:
+                if "registers" in line or "smem" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
 
         hp = recipe_hparams()
@@ -470,7 +850,17 @@ def main() -> int:
         errs = {"fused_encode": phase_encode(model, device),
                 "fused_decode": phase_decode(model, device, steps)}
         launches = phase_end_to_end(model, "cuda")
-        phase_timing(model, device, steps, launches, errs)
+        errs.update(phase_train_kernels(model, device))
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "train_data")
+            os.makedirs(data)
+            write_train_corpus(hp, data)
+            launches.update(phase_train_end_to_end(hp, data, tmp, "cuda"))
+            rows = phase_timing(model, device, steps, launches, errs)
+            rows += phase_train_timing(model, device, data, launches, errs)
+        log("launch counts of the main paths: " + ", ".join(
+            f"{k}={v}" for k, v in launches.items()))
+        print(json.dumps({"kernels": rows}), flush=True)
     except Exception as e:  # noqa: BLE001 - every phase failure ends here
         import traceback
         traceback.print_exc()

@@ -4,12 +4,17 @@
 The port mirrors the JAX package's layout and names:
   config    — hparams tree and its JSON / comma-string layering (a copy)
   data      — TFRecord codec, record schemas, the batch-1 serving reader
+              and the bucketed training pipeline (codes targets)
   utils     — the weight bridge from the JAX parameter tree, checkpoints
-  ops       — zoneout LSTM, CBHG convs, multi-head attention, and the two
-              serving kernels (CUDA C++ for sm_90a under ``ops/csrc``)
+              (retention, resume, warm start)
+  ops       — zoneout LSTM, CBHG convs, multi-head attention, losses, the
+              counter-based training masks, and four kernels (CUDA C++ for
+              sm_90a under ``ops/csrc``): the serving encoder and decode,
+              the training trunk's forward and backward
   models    — embedding, prenet, attention mechanisms, encoder, decoder,
-              model assembly (inference)
-  cli       — ``predict`` (VQ-code serving)
+              model assembly (training and inference), the loss
+  parallel  — the training step on one device (clip, Adam, noam)
+  cli       — ``train`` and ``predict`` (VQ codes)
 
 It imports ``torch`` and numpy only; nothing of JAX or of the JAX package.
 """

@@ -1,16 +1,23 @@
-"""Batch-1 serving reader for the VQ-code corpus.
+"""Readers of the VQ-code corpus: batch-1 serving and single-host training.
 
-The subset of the JAX package's ``data/dataset.py`` that prediction runs:
-one utterance at a time, the source padded to the bucketing's 32-step
-source width (``Bucketing.source_pad_length``), the code target kept as the
-ground truth of the prediction record.  Training-time bucketing, shuffling
-and multi-host scheduling come with the training slice.
+The subset of the JAX package's ``data/dataset.py`` that the port runs:
+
+* serving — one utterance at a time, the source padded to the bucketing's
+  32-step source width (``Bucketing.source_pad_length``), the code target
+  kept as the ground truth of the prediction record;
+* training — ``Bucketing`` (each bucket pads its targets to its upper
+  edge), ``pad_batch`` (sources 0, codes 0, done 1, masks 0 past each
+  length), ``Dataset`` (shuffle, repeat, drop_remainder, batches of one
+  bucket), ``to_model_batch``, ``pad_model_batch_rows`` and
+  ``dataset_factory`` (codes targets only).  The multi-host bucket
+  schedule and the mel / MGC-LF0 targets come with later slices.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterator, List, NamedTuple, Optional, Sequence
+import random
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -85,3 +92,164 @@ def find_dataset_files(data_root: str, key_list: Sequence[str],
 def load_key_list(path: str) -> List[str]:
     with open(path) as f:
         return [line.rstrip("\n") for line in f if line.strip()]
+
+
+# ------------------------------------------------------------------ training
+
+class NumpyBatch(NamedTuple):
+    meta: List[UtteranceMeta]
+    source: np.ndarray            # (B, T_in) int64
+    source_length: np.ndarray     # (B,) int32
+    target: np.ndarray            # (B, T, num_codes) float32
+    target_length: np.ndarray     # (B,) int32
+    done: np.ndarray              # (B, T // r) float32
+    spec_loss_mask: np.ndarray    # (B, T)
+    binary_loss_mask: np.ndarray  # (B, T // r)
+
+
+class Bucketing:
+    """Static-shape bucket table: bucket i pads targets to its upper edge."""
+
+    def __init__(self, hp: HParams, source_width: int = SOURCE_PAD_WIDTH):
+        self.min_len = hp.approx_min_target_length
+        self.width = hp.batch_bucket_width
+        self.num_buckets = hp.batch_num_buckets
+        self.r = hp.outputs_per_step
+        self.source_width = source_width
+
+    def bucket_id(self, target_length: int) -> int:
+        over = max(target_length - self.min_len, 0)
+        return min(self.num_buckets, over // self.width)
+
+    def target_pad_length(self, bucket_id: int) -> int:
+        edge = self.min_len + (bucket_id + 1) * self.width
+        return _round_up(edge, self.r)
+
+    def source_pad_length(self, max_source: int) -> int:
+        return _round_up(max_source, self.source_width)
+
+
+def pad_batch(utts: Sequence[Utterance], hp: HParams,
+              target_pad: Optional[int] = None,
+              source_pad: Optional[int] = None) -> NumpyBatch:
+    """Pad code-target utterances to common shapes: sources 0, codes 0.0,
+    done 1 and loss masks 0 past each length; done is [0, ..., 0, 1] and
+    the masks are 1 within it."""
+    B, r = len(utts), hp.outputs_per_step
+    src_len = max(u.source_length for u in utts)
+    source = np.zeros((B, max(source_pad or src_len, src_len)), np.int64)
+    tgt_len = max(u.target_length for u in utts)
+    tgt_pad = _round_up(max(target_pad or tgt_len, tgt_len), r)
+    target = np.zeros((B, tgt_pad, utts[0].target.shape[1]), np.float32)
+    done = np.ones((B, tgt_pad // r), np.float32)
+    spec_mask = np.zeros((B, tgt_pad), np.float32)
+    binary_mask = np.zeros((B, tgt_pad // r), np.float32)
+    for i, u in enumerate(utts):
+        source[i, :u.source_length] = u.source[:u.source_length]
+        L = u.target_length
+        s = L // r
+        target[i, :L] = u.target[:L]
+        done[i, :s] = 0.0
+        done[i, s - 1] = 1.0
+        spec_mask[i, :L] = 1.0
+        binary_mask[i, :s] = 1.0
+    return NumpyBatch(
+        meta=[u.meta for u in utts], source=source,
+        source_length=np.asarray([u.source_length for u in utts], np.int32),
+        target=target,
+        target_length=np.asarray([u.target_length for u in utts], np.int32),
+        done=done, spec_loss_mask=spec_mask, binary_loss_mask=binary_mask)
+
+
+class Dataset:
+    """Code-target utterances -> padded batches of one bucket each:
+    shuffled (``seed``) per epoch, repeated, targets longer than
+    ``max_iters * r`` skipped; a batch leaves its bucket when it holds
+    ``batch_size`` utterances, the remainders at the end of a finite pass
+    unless ``drop_remainder``."""
+
+    def __init__(self, source_files: Sequence[str],
+                 target_files: Sequence[str], hp: HParams,
+                 batch_size: Optional[int] = None, shuffle: bool = True,
+                 repeat: bool = False, seed: int = 0,
+                 drop_remainder: bool = False):
+        assert len(source_files) == len(target_files)
+        self.pairs = list(zip(source_files, target_files))
+        self.hp = hp
+        self.batch_size = batch_size or hp.batch_size
+        self.shuffle, self.repeat = shuffle, repeat
+        self.seed, self.drop_remainder = seed, drop_remainder
+        self.bucketing = Bucketing(hp)
+
+    def _utterances(self) -> Iterator[Utterance]:
+        rng = random.Random(self.seed)
+        while True:
+            pairs = list(self.pairs)
+            if self.shuffle:
+                rng.shuffle(pairs)
+            yield from iter_utterances([s for s, _ in pairs],
+                                       [t for _, t in pairs], self.hp)
+            if not self.repeat:
+                return
+
+    def _pads_for(self, bid: int, batch: Sequence[Utterance]
+                  ) -> Tuple[int, int]:
+        return (self.bucketing.target_pad_length(bid),
+                self.bucketing.source_pad_length(
+                    max(u.source_length for u in batch)))
+
+    def __iter__(self) -> Iterator[NumpyBatch]:
+        buckets: dict = {}
+        for u in self._utterances():
+            bid = self.bucketing.bucket_id(u.target_length)
+            buckets.setdefault(bid, []).append(u)
+            if len(buckets[bid]) == self.batch_size:
+                batch = buckets.pop(bid)
+                yield pad_batch(batch, self.hp, *self._pads_for(bid, batch))
+        if not self.drop_remainder:
+            for bid, batch in sorted(buckets.items()):
+                yield pad_batch(batch, self.hp, *self._pads_for(bid, batch))
+
+
+def to_model_batch(nb: NumpyBatch):
+    """NumpyBatch -> models.Batch of CPU tensors."""
+    import torch
+    from ..models.tacotron import Batch
+    t = torch.from_numpy
+    return Batch(source=t(nb.source), source_length=t(nb.source_length),
+                 target=t(nb.target), target_length=t(nb.target_length),
+                 done=t(nb.done), spec_loss_mask=t(nb.spec_loss_mask),
+                 binary_loss_mask=t(nb.binary_loss_mask))
+
+
+def pad_model_batch_rows(mb, multiple: int):
+    """Pad a model Batch's rows up to a multiple of ``multiple`` with copies
+    of its last row whose loss masks are zero, so they add nothing to any
+    loss (every loss normalises by its mask sum) and stay out of the
+    batch-norm statistics.  Returns ``(padded batch, rows added)``."""
+    import torch
+    B = mb.source.shape[0]
+    pad = (-B) % multiple
+    if pad == 0:
+        return mb, 0
+    rows = [None if x is None else torch.cat(
+        [x, x[-1:].expand(pad, *x.shape[1:])]) for x in mb]
+    padded = type(mb)(*rows)
+    masks = {}
+    for name in ("spec_loss_mask", "binary_loss_mask"):
+        m = getattr(padded, name)
+        if m is not None:
+            m = m.clone()
+            m[B:] = 0.0
+        masks[name] = m
+    return padded._replace(**masks), pad
+
+
+def dataset_factory(source_files, target_files, hp: HParams,
+                    **kwargs) -> Dataset:
+    """The JAX package's name-keyed dispatch; the port reads codes targets
+    only (``hp.dataset`` naming a codes dataset)."""
+    if "codes" not in hp.dataset.lower():
+        raise NotImplementedError(
+            f"dataset {hp.dataset!r}: only codes targets are ported")
+    return Dataset(source_files, target_files, hp, **kwargs)

@@ -1,7 +1,7 @@
-"""The autoregressive decoder at inference.
+"""The decoder: teacher-forced training and autoregressive inference.
 
-Counterpart of the JAX package's ``models/decoder.py`` ``TacotronDecoder`` in
-INFERENCE mode (``output_kind="single"``).  Per step:
+Counterpart of the JAX package's ``models/decoder.py`` ``TacotronDecoder``
+in TRAIN and INFERENCE modes (``output_kind="single"``).  Per step:
 
     x        = prenet(next_input)                # raw logits fed back
     h        = attention_LSTM([x, prev_context])
@@ -13,7 +13,16 @@ INFERENCE mode (``output_kind="single"``).  Per step:
     y        = hops(o2)                          # causal KV-cache attention
     out, stop = heads(y)
 
-Three paths, as in the JAX package:
+TRAIN (``train_forward``, transformer decoders): the teacher inputs
+[GO, target_0, ...] run through the recurrent trunk, then the causal hops
+over the whole sequence (dropout ``self_attention_drop_rate``) and the
+heads.  The trunk is a plain loop over ``_rnn_step`` (prenet dropout and
+zoneout from the caller's ``torch.Generator``), or, with ``fused_train``
+where ``_fused_train_unsupported_reason`` finds nothing,
+``ops/fused_train.fused_teacher_scan`` (its own counter-based masks,
+seeded from the generator).
+
+Three inference paths, as in the JAX package:
 * ``_decode_path`` — every one of ``max_iters`` steps (the scan path);
 * ``_decode_path_while`` — stops once every row's stop token fired past
   ``min_iters`` (``early_stop``);
@@ -35,6 +44,7 @@ import torch
 from torch import nn
 
 from ..ops import fused_decode as fd
+from ..ops import fused_train as ft
 from ..ops.rnn import ZoneoutLSTMCell
 from .attention import (AdditiveAttention, AttentionOptions, ForwardAttention,
                         attention_mechanism_factory, compute_context)
@@ -45,12 +55,13 @@ _logger = logging.getLogger(__name__)
 _warned_fused_fallback: set = set()
 
 
-def _warn_fused_fallback(reason: str) -> None:
-    if reason not in _warned_fused_fallback:
-        _warned_fused_fallback.add(reason)
+def _warn_fused_fallback(reason: str,
+                         flag: str = "decoder_fused_inference") -> None:
+    if (flag, reason) not in _warned_fused_fallback:
+        _warned_fused_fallback.add((flag, reason))
         _logger.warning(
-            "decoder_fused_inference=True but the fused kernel does not "
-            "cover this configuration — using the plain path: %s", reason)
+            "%s=True but the fused kernel does not cover this "
+            "configuration — using the plain path: %s", flag, reason)
 
 
 def stop_lengths(row_finished: torch.Tensor) -> torch.Tensor:
@@ -90,7 +101,10 @@ class TacotronDecoder(nn.Module):
                  self_attention_num_heads: int = 2,
                  self_attention_num_hop: int = 1,
                  early_stop: bool = False, fused_inference: bool = False,
-                 fused_dtype: str = "float32"):
+                 fused_dtype: str = "float32", drop_rate: float = 0.5,
+                 self_attention_drop_rate: float = 0.0,
+                 fused_train: bool = False,
+                 fused_train_dtype: str = "float32"):
         super().__init__()
         assert len(attention_options) == len(source_dims)
         self.num_sources = len(source_dims)
@@ -108,8 +122,11 @@ class TacotronDecoder(nn.Module):
         self.early_stop = early_stop
         self.fused_inference = fused_inference
         self.fused_dtype = fused_dtype
+        self.fused_train = fused_train
+        self.fused_train_dtype = fused_train_dtype
 
-        self.prenets = PreNetStack(num_mels * n_feed_frame, prenet_out_units)
+        self.prenets = PreNetStack(num_mels * n_feed_frame, prenet_out_units,
+                                   drop_rate)
         A, D = attention_rnn_out_units, decoder_out_units
         for i, (opt, dim) in enumerate(zip(attention_options, source_dims)):
             self.add_module(f"attention_mechanism_{i}",
@@ -125,7 +142,8 @@ class TacotronDecoder(nn.Module):
         for i in range(self.self_attention_num_hop):
             self.add_module(f"transformer_{i}", SelfAttentionTransformer(
                 self_attention_out_units, self_attention_out_units,
-                self_attention_num_heads, use_subsequent_mask=True))
+                self_attention_num_heads, use_subsequent_mask=True,
+                drop_rate=self_attention_drop_rate))
         head_in = self_attention_out_units if use_transformer else D
         self.out_projection = nn.Linear(head_in, num_mels * outputs_per_step)
         self.stop_token_projection = nn.Linear(head_in, 1)
@@ -177,11 +195,13 @@ class TacotronDecoder(nn.Module):
             caches=tuple(hop.init_cache(B, self.max_iters, device)
                          for hop in self.transformers))
 
-    def _step(self, carry, t, packs):
-        """One decode step -> (carry, (out_t, stop_t, aligns, sa_rows))."""
-        x = self.prenets(carry["next_input"])
+    def _rnn_step(self, carry, x, packs, training: bool = False,
+                  generator=None):
+        """The recurrent trunk of one step -> (carry, (o2, aligns))."""
+        x = self.prenets(x, training, generator)
         att_state, h = self.attention_lstm(
-            carry["att_lstm"], torch.cat([x, carry["prev_context"]], -1))
+            carry["att_lstm"], torch.cat([x, carry["prev_context"]], -1),
+            training, generator)
         aligns, contexts, new_states = [], [], []
         for mech, state, pack in zip(self.attention_mechanisms,
                                      carry["att_states"], packs):
@@ -191,10 +211,19 @@ class TacotronDecoder(nn.Module):
             new_states.append(new_state)
         context = torch.cat(contexts, -1)
         proj = self.output_projection_wrapper(torch.cat([h, context], -1))
-        lstm1_state, l1 = self.decoder_lstm1(carry["lstm1"], proj)
+        lstm1_state, l1 = self.decoder_lstm1(carry["lstm1"], proj, training,
+                                             generator)
         o1 = proj + l1
-        lstm2_state, l2 = self.decoder_lstm2(carry["lstm2"], o1)
-        y = o1 + l2
+        lstm2_state, l2 = self.decoder_lstm2(carry["lstm2"], o1, training,
+                                             generator)
+        new_carry = dict(carry, att_lstm=att_state, lstm1=lstm1_state,
+                         lstm2=lstm2_state, att_states=tuple(new_states),
+                         prev_context=context)
+        return new_carry, (o1 + l2, aligns)
+
+    def _step(self, carry, t, packs):
+        """One decode step -> (carry, (out_t, stop_t, aligns, sa_rows))."""
+        carry, (y, aligns) = self._rnn_step(carry, carry["next_input"], packs)
         caches, sa_rows = [], []
         for hop, cache in zip(self.transformers, carry["caches"]):
             y, cache, row = hop.step(y, t, cache)
@@ -204,8 +233,7 @@ class TacotronDecoder(nn.Module):
         stop_t = self.stop_token_projection(y)
         C = self.num_mels
         new_carry = dict(
-            att_lstm=att_state, lstm1=lstm1_state, lstm2=lstm2_state,
-            att_states=tuple(new_states), prev_context=context,
+            carry,
             # INFERENCE feeds the raw logits of the last frame(s) back
             next_input=out_t[:, -C * self.n_feed_frame:],
             caches=tuple(caches))
@@ -277,6 +305,157 @@ class TacotronDecoder(nn.Module):
             out.extend(rows[:, :, h] for h in range(rows.shape[2]))
         return out
 
+    # ---------------------------------------------------------- TRAIN mode
+    def train_forward(self, sources: Sequence[torch.Tensor],
+                      memory_lengths: Sequence[torch.Tensor],
+                      target: torch.Tensor,
+                      generator: Optional[torch.Generator] = None
+                      ) -> DecoderOutput:
+        """Teacher-forced training over the target's T // r steps: the
+        trunk, then the causal hops over the whole sequence and the heads
+        (the JAX package's ``_train_transformer_path``)."""
+        if not self.transformers:
+            raise NotImplementedError(
+                "TRAIN mode of decoders without self-attention hops is not "
+                "ported yet")
+        B = sources[0].shape[0]
+        num_steps = target.shape[1] // self.outputs_per_step
+        packs = tuple(mech.precompute(src, ln) for mech, src, ln in
+                      zip(self.attention_mechanisms, sources, memory_lengths))
+        teacher = self._teacher_inputs(target, num_steps)
+        reason = None
+        if self.fused_train:
+            reason = self._fused_train_unsupported_reason(B, packs, teacher)
+            if reason is not None:
+                _warn_fused_fallback(reason, "decoder_fused_train")
+        if self.fused_train and reason is None:
+            y, aligns = self._train_trunk_fused(packs, teacher, generator)
+        else:
+            y, aligns = self._train_trunk_plain(packs, teacher, generator)
+        sa_aligns: List[torch.Tensor] = []
+        for hop in self.transformers:
+            y, heads = hop(y, True, generator)
+            sa_aligns.extend(heads)
+        outs = self.out_projection(y)
+        stop = self.stop_token_projection(y)
+        lengths = torch.full((B,), num_steps, dtype=torch.long,
+                             device=y.device)
+        return self._package(outs, stop, aligns, sa_aligns, lengths,
+                             num_steps)
+
+    def _teacher_inputs(self, target, num_steps):
+        """[GO, tgt_0, ..., tgt_{S-2}] per reduced step, keeping the last
+        n_feed_frame frames of each step."""
+        B, C = target.shape[0], self.num_mels
+        reduced = target.reshape(B, num_steps, C * self.outputs_per_step)
+        feed = reduced[:, :-1, -C * self.n_feed_frame:]
+        go = torch.zeros(B, 1, C * self.n_feed_frame, dtype=target.dtype,
+                         device=target.device)
+        return torch.cat([go, feed], 1)
+
+    def _train_trunk_plain(self, packs, teacher, generator):
+        B = teacher.shape[0]
+        carry = self._initial_carry(B, packs, teacher.device)
+        ys, aligns = [], []
+        for t in range(teacher.shape[1]):
+            carry, (y, al) = self._rnn_step(carry, teacher[:, t], packs,
+                                            True, generator)
+            ys.append(y)
+            aligns.append(al)
+        return torch.stack(ys, 1), tuple(
+            torch.stack([a[i] for a in aligns], 1)
+            for i in range(self.num_sources))
+
+    def _fused_train_unsupported_reason(self, B, packs, teacher
+                                        ) -> Optional[str]:
+        """Configuration gate of the training kernels (the JAX package's
+        ``_fused_train_supported`` without its TPU reasons)."""
+        if self.fused_train_dtype != "float32":
+            return (f"fused_train_dtype={self.fused_train_dtype!r} is not "
+                    "ported yet")
+        if len({int(p.values.shape[1]) for p in packs}) != 1:
+            return "sources with different memory lengths"
+        reason = self._fused_attention_unsupported_reason()
+        if reason is not None:
+            return reason
+        kinds, cum, _, _ = self._fused_attention_params()
+        spec = ft.make_spec(
+            self.fused_train_params(), [p.keys for p in packs],
+            [p.values for p in packs], teacher, drop_rate=0.0, zc_att=0.0,
+            zo_att=0.0, zc_dec=0.0, zo_dec=0.0, deterministic=False,
+            src_kinds=kinds, cumulative=cum, loc_kernel=self._loc_kernel())
+        return ft.unsupported_reason(spec)
+
+    def _fused_attention_unsupported_reason(self) -> Optional[str]:
+        loc_kernels = {m.attention_kernel for m in self.attention_mechanisms
+                       if not isinstance(m, AdditiveAttention)}
+        if len(loc_kernels) > 1:
+            return "mixed location-conv kernel sizes are not fused"
+        return None
+
+    def _loc_kernel(self) -> int:
+        return max(getattr(m, "attention_kernel", 1)
+                   for m in self.attention_mechanisms)
+
+    def _fused_attention_params(self):
+        """Per source: the kind, the cumulative flag, the (K, U) product
+        conv @ location dense (None for additive) and the (U,) fold
+        attention bias + conv bias @ location dense that joins the keys.
+        Plain torch ops: autograd carries the kernels' gradients back to
+        the modules' weights."""
+        kinds, cum, loc_ws, folds = [], [], [], []
+        for m in self.attention_mechanisms:
+            if isinstance(m, AdditiveAttention):
+                kinds.append("additive")
+                cum.append(False)
+                loc_ws.append(None)
+                folds.append(None)
+                continue
+            kinds.append("forward" if isinstance(m, ForwardAttention)
+                         else "location_sensitive")
+            cum.append(bool(m.cumulative_weights))
+            conv = m.location_convolution                 # weight (F, 1, K)
+            w_loc = m.location_layer.weight.t()           # (F, U)
+            loc_ws.append(conv.weight[:, 0, :].t() @ w_loc)
+            folds.append(m.attention_bias + conv.bias @ w_loc)
+        return tuple(kinds), tuple(cum), tuple(loc_ws), tuple(folds)
+
+    def fused_train_params(self) -> ft.FusedTrainParams:
+        """The trunk's weights in the JAX layout ((in, out) matrices, (1,
+        out) bias rows), the query projection and energy vector per
+        source; the fused decode's weights start from the same."""
+        def dense(mod):
+            return mod.weight.t(), mod.bias[None]
+
+        query = tuple(
+            (m.query_layer.weight.t(),
+             (m.attention_v if isinstance(m, AdditiveAttention)
+              else m.attention_variable).t())
+            for m in self.attention_mechanisms)
+        return ft.FusedTrainParams(
+            prenet=tuple(dense(p.dense) for p in self.prenets.layers()),
+            att_lstm=dense(self.attention_lstm), query=query,
+            outproj=dense(self.output_projection_wrapper),
+            lstm1=dense(self.decoder_lstm1), lstm2=dense(self.decoder_lstm2))
+
+    def _train_trunk_fused(self, packs, teacher, generator):
+        kinds, cum, loc_ws, folds = self._fused_attention_params()
+        seed = int(torch.randint(0, 1 << 31, (1,), generator=generator,
+                                 device=(generator.device if generator
+                                         is not None else "cpu")))
+        zc_dec, zo_dec = self._dec_zoneout()
+        return ft.fused_teacher_scan(
+            self.fused_train_params(),
+            tuple(p.keys if f is None else p.keys + f
+                  for p, f in zip(packs, folds)),
+            tuple(p.values for p in packs),
+            tuple(p.mask.float() for p in packs), teacher, seed,
+            drop_rate=self.prenets.drop_rate,
+            zc_att=self.zoneout_factor_cell,
+            zo_att=self.zoneout_factor_output, zc_dec=zc_dec, zo_dec=zo_dec,
+            deterministic=False, src_kinds=kinds, cumulative=cum,
+            loc_kernel=self._loc_kernel(), loc_ws=loc_ws)
+
     # ------------------------------------------------- the fused kernel
     def _fused_unsupported_reason(self, B, packs) -> Optional[str]:
         """Configuration gate of the fused decode: the batch-1 row mode
@@ -293,11 +472,7 @@ class TacotronDecoder(nn.Module):
             if not isinstance(m, (AdditiveAttention, ForwardAttention)):
                 return (f"{type(m).__name__} is not ported to the fused "
                         "decode yet")
-        loc_kernels = {m.attention_kernel for m in self.attention_mechanisms
-                       if isinstance(m, ForwardAttention)}
-        if len(loc_kernels) > 1:
-            return "mixed location-conv kernel sizes are not fused"
-        return None
+        return self._fused_attention_unsupported_reason()
 
     def fused_params(self) -> fd.FusedDecodeParams:
         """This module's weights in the JAX layout the merges start from."""
@@ -307,14 +482,11 @@ class TacotronDecoder(nn.Module):
         def dense(m):
             return m.weight.t(), row(m.bias)
 
-        query, loc = [], []
+        loc = []
         for m in self.attention_mechanisms:
             if isinstance(m, AdditiveAttention):
-                query.append((m.query_layer.weight.t(), m.attention_v.t()))
                 loc.append(None)
                 continue
-            query.append((m.query_layer.weight.t(),
-                          m.attention_variable.t()))
             conv = m.location_convolution           # weight (F, 1, K)
             loc.append((conv.weight[:, 0, :].t(), conv.bias,
                         m.location_layer.weight.t(), m.attention_bias))
@@ -329,16 +501,7 @@ class TacotronDecoder(nn.Module):
             hops.append(tuple(flat))
         out_p, stop_p = self.out_projection, self.stop_token_projection
         return fd.FusedDecodeParams(
-            prenet=tuple(dense(p.dense) for p in self.prenets.layers()),
-            att_lstm=(self.attention_lstm.weight.t(),
-                      row(self.attention_lstm.bias)),
-            query=tuple(query),
-            outproj=dense(self.output_projection_wrapper),
-            lstm1=(self.decoder_lstm1.weight.t(),
-                   row(self.decoder_lstm1.bias)),
-            lstm2=(self.decoder_lstm2.weight.t(),
-                   row(self.decoder_lstm2.bias)),
-            hops=tuple(hops),
+            *self.fused_train_params(), hops=tuple(hops),
             head=(torch.cat([out_p.weight.t(), stop_p.weight.t()], 1),
                   row(torch.cat([out_p.bias, stop_p.bias]))),
             loc=tuple(loc))

@@ -1,4 +1,4 @@
-"""The self-attention CBHG encoder (inference).
+"""The self-attention CBHG encoder.
 
 Counterpart of the JAX package's ``models/encoders.py``:
 * ``_CBHGTrunk`` — conv bank K=1..16 -> max pool -> two projection convs ->
@@ -7,7 +7,10 @@ Counterpart of the JAX package's ``models/encoders.py``:
 * ``SelfAttentionTransformer`` — one hop: x + tanh(Dense(MHA(x)));
 * ``SelfAttentionCBHGEncoder`` — prenet -> ZoneoutCBHG -> projection ->
   self-attention hops.  With ``fused_inference`` at batch 1 it merges its
-  weights (``_fused_call``) and runs ``ops/fused_encoder.fused_encode``.
+  weights (``_fused_call``) and runs ``ops/fused_encoder.fused_encode``;
+  in training (``is_training``: prenet dropout, batch statistics, zoneout
+  and attention dropout drawn from the caller's ``torch.Generator``) it
+  always takes the module path.
 
 Submodule names follow the flax tree so ``utils/convert.py`` maps
 parameters one to one.
@@ -53,8 +56,9 @@ class _CBHGTrunk(nn.Module):
         for i in range(num_highway):
             self.add_module(f"highway_{i}", HighwayNet(half, half))
 
-    def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        h = self.proj2(self.proj1(self.conv_bank(xs))) + xs
+    def forward(self, xs: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.proj2(self.proj1(self.conv_bank(xs, train), train),
+                       train) + xs
         if self.adjustment_layer is not None:
             h = self.adjustment_layer(h)
         for i in range(self.num_highway):
@@ -76,8 +80,10 @@ class ZoneoutCBHG(nn.Module):
                                     zoneout_factor_cell,
                                     zoneout_factor_output)
 
-    def forward(self, xs, input_lengths=None):
-        return self.bilstm(self.trunk(xs), input_lengths)
+    def forward(self, xs, input_lengths=None, is_training: bool = False,
+                generator=None):
+        return self.bilstm(self.trunk(xs, is_training), input_lengths,
+                           is_training, generator)
 
 
 class SelfAttentionTransformer(nn.Module):
@@ -85,15 +91,15 @@ class SelfAttentionTransformer(nn.Module):
 
     def __init__(self, out_units: int, self_attention_out_units: int,
                  self_attention_num_heads: int,
-                 use_subsequent_mask: bool = False):
+                 use_subsequent_mask: bool = False, drop_rate: float = 0.0):
         super().__init__()
         self.self_attention = SelfAttention(self_attention_out_units,
                                             self_attention_num_heads,
-                                            use_subsequent_mask)
+                                            use_subsequent_mask, drop_rate)
         self.transform = nn.Linear(self_attention_out_units, out_units)
 
-    def forward(self, inputs):
-        attn_out, alignment = self.self_attention(inputs)
+    def forward(self, inputs, training: bool = False, generator=None):
+        attn_out, alignment = self.self_attention(inputs, training, generator)
         residual = inputs + torch.tanh(self.transform(attn_out))
         return residual, [alignment[:, i] for i in range(alignment.shape[1])]
 
@@ -118,7 +124,8 @@ class SelfAttentionCBHGEncoder(nn.Module):
                  prenet_out_units: Sequence[int] = (256, 128),
                  zoneout_factor_cell: float = 0.0,
                  zoneout_factor_output: float = 0.0,
-                 fused_inference: bool = False):
+                 fused_inference: bool = False, drop_rate: float = 0.5,
+                 self_attention_drop_rate: float = 0.0):
         super().__init__()
         self.cbhg_out_units = cbhg_out_units
         self.conv_channels = conv_channels
@@ -130,7 +137,7 @@ class SelfAttentionCBHGEncoder(nn.Module):
         self.zoneout_factor_cell = zoneout_factor_cell
         self.zoneout_factor_output = zoneout_factor_output
         self.fused_inference = fused_inference
-        self.prenets = PreNetStack(in_channels, prenet_out_units)
+        self.prenets = PreNetStack(in_channels, prenet_out_units, drop_rate)
         self.cbhg = ZoneoutCBHG(prenet_out_units[-1], cbhg_out_units,
                                 conv_channels, max_filter_width,
                                 projection1_out_channels,
@@ -141,16 +148,22 @@ class SelfAttentionCBHGEncoder(nn.Module):
         for i in range(self_attention_num_hop):
             self.add_module(f"self_attention_{i}", SelfAttentionTransformer(
                 self_attention_out_units, self_attention_out_units,
-                self_attention_num_heads))
+                self_attention_num_heads,
+                drop_rate=self_attention_drop_rate))
 
-    def forward(self, inputs, input_lengths=None):
-        if self.fused_inference and inputs.shape[0] == 1:
+    def forward(self, inputs, input_lengths=None, is_training: bool = False,
+                generator=None):
+        if (self.fused_inference and not is_training
+                and inputs.shape[0] == 1):
             return self._fused_call(inputs, input_lengths)
-        lstm_output = self.cbhg(self.prenets(inputs), input_lengths)
+        lstm_output = self.cbhg(
+            self.prenets(inputs, is_training, generator), input_lengths,
+            is_training, generator)
         sa = self.self_attention_projection_layer(lstm_output)
         alignments: List[torch.Tensor] = []
         for i in range(self.self_attention_num_hop):
-            sa, heads = getattr(self, f"self_attention_{i}")(sa)
+            sa, heads = getattr(self, f"self_attention_{i}")(
+                sa, is_training, generator)
             alignments.extend(heads)
         return lstm_output, sa, alignments
 

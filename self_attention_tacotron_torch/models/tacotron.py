@@ -1,21 +1,29 @@
-"""Model assembly at inference: embedding -> encoder -> decoder -> codes.
+"""Model assembly: embedding -> encoder -> decoder -> codes, and the loss.
 
 Counterpart of the JAX package's ``models/tacotron.py`` ``TacotronModel``
 for the VQ-code kind (``DualSourceSelfAttentionTacotronModel`` with
 ``SelfAttentionCBHGEncoder``): the two encoder outputs (bi-LSTM and
 self-attention) are the decoder's two attention sources, and the code
-output is the one-hot argmax of the decoder logits.  The mel and MGC/LF0
-kinds, speaker routing, postnets and the loss come with later slices.
+output is the one-hot argmax of the decoder logits.  ``forward`` is
+inference (no autograd); ``train_forward`` is the TRAIN mode with autograd,
+its batch-norm statistics scoped to the rows whose loss mask is not empty
+(``bn_valid_rows``), its dropout and zoneout drawn from the caller's
+``torch.Generator``.  ``compute_loss`` is ``0.1 * codes_loss + done_loss``
+(+ L2).  The mel and MGC/LF0 kinds, speaker routing and postnets come with
+later slices.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import HParams
+from ..ops import losses as L
+from ..ops.conv import bn_valid_rows
+from ..utils.convert import flax_param_paths
 from .attention import AttentionOptions
 from .decoder import TacotronDecoder
 from .embedding import Embedding
@@ -25,6 +33,15 @@ from .encoders import SelfAttentionCBHGEncoder
 class Batch(NamedTuple):
     source: torch.Tensor         # (B, T_in) int
     source_length: torch.Tensor  # (B,)
+    target: Optional[torch.Tensor] = None            # (B, T, C)
+    target_length: Optional[torch.Tensor] = None
+    done: Optional[torch.Tensor] = None              # (B, T // r)
+    spec_loss_mask: Optional[torch.Tensor] = None    # (B, T)
+    binary_loss_mask: Optional[torch.Tensor] = None  # (B, T // r)
+
+    def to(self, device) -> "Batch":
+        return Batch(*(None if x is None else torch.as_tensor(x).to(device)
+                       for x in self))
 
 
 class TacotronOutput(NamedTuple):
@@ -86,7 +103,9 @@ class TacotronModel(nn.Module):
             prenet_out_units=hp.encoder_prenet_out_units,
             zoneout_factor_cell=hp.zoneout_factor_cell,
             zoneout_factor_output=hp.zoneout_factor_output,
-            fused_inference=hp.encoder_fused_inference)
+            fused_inference=hp.encoder_fused_inference,
+            drop_rate=hp.encoder_prenet_drop_rate,
+            self_attention_drop_rate=hp.self_attention_drop_rate)
         self.decoder = TacotronDecoder(
             attention_options_from_hparams(hp),
             source_dims=(hp.cbhg_out_units, hp.self_attention_out_units),
@@ -105,7 +124,11 @@ class TacotronModel(nn.Module):
             self_attention_num_hop=hp.decoder_self_attention_num_hop,
             early_stop=hp.decoder_early_stop,
             fused_inference=hp.decoder_fused_inference,
-            fused_dtype=hp.decoder_fused_dtype)
+            fused_dtype=hp.decoder_fused_dtype,
+            drop_rate=hp.decoder_prenet_drop_rate,
+            self_attention_drop_rate=hp.decoder_self_attention_drop_rate,
+            fused_train=hp.decoder_fused_train,
+            fused_train_dtype=hp.decoder_fused_train_dtype)
 
     @torch.no_grad()
     def forward(self, batch: Batch) -> TacotronOutput:
@@ -124,6 +147,59 @@ class TacotronModel(nn.Module):
                                                for a in enc_aligns],
             decoder_self_attention_alignments=dec.self_attention_alignments,
             lengths=dec.lengths, predicted_samples=dec.predicted_samples)
+
+    def train_forward(self, batch: Batch,
+                      generator: Optional[torch.Generator] = None
+                      ) -> TacotronOutput:
+        """TRAIN mode: teacher forcing, dropout, zoneout and batch
+        statistics, with autograd.  Rows whose spectrogram loss mask is all
+        zero (duplicates padding a batch) stay out of the batch-norm
+        statistics."""
+        device = self.embedding.weight.device
+        batch = batch.to(device)
+        valid = None
+        if batch.spec_loss_mask is not None:
+            valid = batch.spec_loss_mask.reshape(
+                batch.spec_loss_mask.shape[0], -1).amax(1) > 0
+        with bn_valid_rows(valid):
+            emb = self.embedding(batch.source)
+            lstm_out, sa_out, enc_aligns = self.encoder(
+                emb, batch.source_length, True, generator)
+            dec = self.decoder.train_forward(
+                (lstm_out, sa_out), (batch.source_length,) * 2,
+                batch.target.float(), generator)
+        code_output = torch.nn.functional.one_hot(
+            dec.outputs.detach().argmax(-1), self.hp.num_mels).to(
+                dec.outputs.dtype)
+        return TacotronOutput(
+            outputs=dec.outputs, stop_token=dec.stop_token,
+            code_output=code_output, alignments=dec.alignments,
+            encoder_self_attention_alignments=[a.transpose(1, 2)
+                                               for a in enc_aligns],
+            decoder_self_attention_alignments=dec.self_attention_alignments,
+            lengths=dec.lengths, predicted_samples=dec.predicted_samples)
+
+
+def compute_loss(hp: HParams, out: TacotronOutput, batch: Batch,
+                 model: Optional[nn.Module] = None) -> dict:
+    """The codes model's losses: code_loss = 0.1 * codes_loss, done_loss,
+    l2_regularization_loss (with ``use_l2_regularization`` and a model, over
+    the flax paths outside ``DEFAULT_L2_BLACKLIST``), and their sum loss."""
+    device = out.outputs.device
+    batch = batch.to(device)
+    losses = {"code_loss": 0.1 * L.codes_loss(
+        out.outputs, batch.target.float(), batch.spec_loss_mask.float(),
+        hp.code_loss_type)}
+    losses["done_loss"] = L.binary_loss(out.stop_token, batch.done.float(),
+                                        batch.binary_loss_mask.float())
+    reg = torch.zeros((), device=device)
+    if hp.use_l2_regularization and model is not None:
+        reg = L.l2_regularization_loss(flax_param_paths(model),
+                                       hp.l2_regularization_weight,
+                                       L.DEFAULT_L2_BLACKLIST)
+    losses["l2_regularization_loss"] = reg
+    losses["loss"] = losses["code_loss"] + losses["done_loss"] + reg
+    return losses
 
 
 def tacotron_model_factory(hp: HParams) -> TacotronModel:

@@ -6,7 +6,11 @@ softmax, then @ V.  The padding mask stays off, as in the reference (every
 call site builds ``SelfAttention`` without it); the causal mask is a -1e9
 fill.  ``MultiHeadAttention.step`` keeps (B, H, max_len, head_dim) caches
 and computes one query row per step: the same math as column t of the
-full causal attention.  Inference only (no dropout).
+full causal attention.  In training (the full-sequence call only) the
+probabilities pass through dropout at ``drop_rate`` (keep 1 - rate, kept
+units scaled by 1 / (1 - rate), as flax's ``Dropout``), drawn from an
+explicit ``torch.Generator``; the returned alignments are the probabilities
+before dropout.
 """
 
 from __future__ import annotations
@@ -33,6 +37,16 @@ def positional_encoding(length: int, dim: int, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep with probability 1 - rate and
+    scale the kept units by 1 / (1 - rate)."""
+    if rate <= 0.0:
+        return x
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u >= rate, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def _masked_softmax(scores: torch.Tensor,
                     mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is not None:
@@ -42,9 +56,10 @@ def _masked_softmax(scores: torch.Tensor,
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, model_dim: int, num_heads: int,
-                 use_subsequent_mask: bool = False):
+                 use_subsequent_mask: bool = False, drop_rate: float = 0.0):
         super().__init__()
         assert model_dim % num_heads == 0
+        self.drop_rate = drop_rate
         self.model_dim = model_dim
         self.num_heads = num_heads
         self.use_subsequent_mask = use_subsequent_mask
@@ -61,7 +76,8 @@ class MultiHeadAttention(nn.Module):
         B, T, _ = x.shape
         return x.reshape(B, T, self.num_heads, self.head_dim).transpose(1, 2)
 
-    def forward(self, key, value, query):
+    def forward(self, key, value, query, training: bool = False,
+                generator: Optional[torch.Generator] = None):
         """Full-sequence attention -> (out (B, Tq, D), align (B, H, Tq, Tk))."""
         k = self._split_heads(self.key_projection(key))
         v = self._split_heads(self.value_projection(value))
@@ -73,8 +89,10 @@ class MultiHeadAttention(nn.Module):
             mask = torch.ones(Tq, Tk, dtype=torch.bool,
                               device=q.device).tril()[None, None]
         probs = _masked_softmax(scores, mask)
-        context = (probs @ v).transpose(1, 2).reshape(q.shape[0], -1,
-                                                      self.model_dim)
+        dropped = (dropout(probs, self.drop_rate, generator) if training
+                   else probs)
+        context = (dropped @ v).transpose(1, 2).reshape(q.shape[0], -1,
+                                                        self.model_dim)
         return self.output_projection(context), probs
 
     def init_cache(self, batch: int, max_len: int, device=None
@@ -110,13 +128,13 @@ class SelfAttention(nn.Module):
     """K = V = Q = inputs."""
 
     def __init__(self, model_dim: int, num_heads: int,
-                 use_subsequent_mask: bool = False):
+                 use_subsequent_mask: bool = False, drop_rate: float = 0.0):
         super().__init__()
         self.attention = MultiHeadAttention(model_dim, num_heads,
-                                            use_subsequent_mask)
+                                            use_subsequent_mask, drop_rate)
 
-    def forward(self, inputs):
-        return self.attention(inputs, inputs, inputs)
+    def forward(self, inputs, training: bool = False, generator=None):
+        return self.attention(inputs, inputs, inputs, training, generator)
 
     def init_cache(self, batch: int, max_len: int, device=None):
         return self.attention.init_cache(batch, max_len, device)

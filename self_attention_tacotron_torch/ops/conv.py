@@ -1,14 +1,21 @@
-"""Conv1d + batch norm, highway layer and the CBHG conv bank (inference).
+"""Conv1d + batch norm, highway layer and the CBHG conv bank.
 
 Counterpart of the JAX package's ``ops/conv.py``.  Layout stays (B, T, C)
 at every public function.  flax's SAME padding of a width-K convolution
 pads (K - 1) // 2 on the left and K // 2 on the right, which is asymmetric
 for an even K (the conv bank has widths 1..16); ``conv1d_same`` keeps that.
-Batch norm is the inference form over running statistics, epsilon 1e-3.
+Batch norm follows flax's ``BatchNorm`` (not ``torch.nn.BatchNorm1d``):
+epsilon 1e-3; in training it normalises by the batch statistics with the
+biased variance and moves the running statistics at momentum 0.99
+(``running = 0.99 * running + 0.01 * batch``).  ``bn_valid_rows`` scopes a
+(B,) row-validity mask over the training statistics, so that rows padded
+with duplicates (``data/dataset.py`` ``pad_model_batch_rows``) stay out.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Callable, Optional
 
 import torch
@@ -16,6 +23,21 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPSILON = 1e-3
+BN_MOMENTUM = 0.99
+
+_BN_VALID_ROWS: contextvars.ContextVar = contextvars.ContextVar(
+    "bn_valid_rows", default=None)
+
+
+@contextlib.contextmanager
+def bn_valid_rows(mask: Optional[torch.Tensor]):
+    """Scope a (B,) bool row-validity mask over every training batch-norm
+    statistic computed inside the context (None: all rows)."""
+    token = _BN_VALID_ROWS.set(mask)
+    try:
+        yield
+    finally:
+        _BN_VALID_ROWS.reset(token)
 
 
 def conv1d_same(xs: torch.Tensor, weight: torch.Tensor,
@@ -43,7 +65,8 @@ class Conv1d(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the last axis (running statistics)."""
+    """Batch norm over the last axis: running statistics at inference,
+    batch statistics (and a running update) in training."""
 
     def __init__(self, channels: int, epsilon: float = BN_EPSILON):
         super().__init__()
@@ -53,9 +76,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
+            return (x - self.running_mean) * mul + self.bias
+        rows = x.reshape(-1, x.shape[-1])
+        valid = _BN_VALID_ROWS.get()
+        if valid is None:
+            w = torch.ones(rows.shape[0], 1, dtype=x.dtype, device=x.device)
+        else:   # (B,) -> one weight per (B, T) row
+            w = valid.to(x.dtype).reshape(-1, *([1] * (x.dim() - 2)))
+            w = w.expand(*x.shape[:-1]).reshape(-1, 1)
+        count = w.sum()
+        mean = (rows * w).sum(0) / count
+        # flax's fast variance: E[x^2] - E[x]^2, clipped at 0 (biased)
+        var = torch.clamp((rows.square() * w).sum(0) / count - mean.square(),
+                          min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(
+                (1.0 - BN_MOMENTUM) * mean.detach())
+            self.running_var.mul_(BN_MOMENTUM).add_(
+                (1.0 - BN_MOMENTUM) * var.detach())
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class Conv1dBN(nn.Module):
@@ -68,8 +111,8 @@ class Conv1dBN(nn.Module):
         self.bn = BatchNorm(out_channels)
         self.activation = activation
 
-    def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        h = self.bn(self.conv(xs))
+    def forward(self, xs: torch.Tensor, train: bool = False) -> torch.Tensor:
+        h = self.bn(self.conv(xs), train)
         return self.activation(h) if self.activation is not None else h
 
 
@@ -109,7 +152,7 @@ class ConvBank(nn.Module):
             self.add_module(f"conv1d_K{k}",
                             Conv1dBN(in_channels, k, conv_channels))
 
-    def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        outs = [getattr(self, f"conv1d_K{k}")(xs)
+    def forward(self, xs: torch.Tensor, train: bool = False) -> torch.Tensor:
+        outs = [getattr(self, f"conv1d_K{k}")(xs, train)
                 for k in range(1, self.max_filter_width + 1)]
         return max_pool_same(torch.cat(outs, dim=-1), 2)

@@ -1,9 +1,11 @@
-"""Zoneout LSTM cell and the bidirectional length-masked unroll (inference).
+"""Zoneout LSTM cell and the bidirectional length-masked unroll.
 
 Counterpart of the JAX package's ``ops/rnn.py``:
 * ``ZoneoutLSTMCell`` — gate order i, g, f, o; the +1.0 forget bias is
   added at call time and not stored; zoneout is the deterministic
-  inference mix ``(1 - z) * new + z * prev``.
+  inference mix ``(1 - z) * new + z * prev``, and in training each unit
+  keeps its new value with probability 1 - z (``_zoneout``, drawn from an
+  explicit ``torch.Generator``).
 * ``BiZoneoutLSTM`` — ``tf.nn.bidirectional_dynamic_rnn`` with
   ``sequence_length``: carries freeze and outputs are zero past each row's
   length; the backward cell runs over the per-row length-reversed sequence.
@@ -38,6 +40,15 @@ def lstm_update(gates: torch.Tensor, c_prev: torch.Tensor,
     return c, h
 
 
+def _zoneout(prev: torch.Tensor, new: torch.Tensor, factor: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Training zoneout: keep the new value with probability 1 - factor."""
+    if factor == 0.0:
+        return new
+    u = torch.rand(new.shape, generator=generator, device=new.device)
+    return torch.where(u >= factor, new, prev)
+
+
 def fold_forget_bias(b: torch.Tensor) -> torch.Tensor:
     """The (..., 4u) bias with the +1 forget bias added to its f block."""
     q = b.shape[-1] // 4
@@ -58,12 +69,20 @@ class ZoneoutLSTMCell(nn.Module):
                                                input_size + num_units))
         self.bias = nn.Parameter(torch.zeros(4 * num_units))
 
-    def forward(self, carry: Carry, x: torch.Tensor):
+    def forward(self, carry: Carry, x: torch.Tensor, training: bool = False,
+                generator: Optional[torch.Generator] = None):
         c_prev, h_prev = carry
         gates = torch.cat([x, h_prev], dim=-1) @ self.weight.t() + self.bias
-        new_c, new_h = lstm_update(gates, c_prev, h_prev,
-                                   self.zoneout_factor_cell,
-                                   self.zoneout_factor_output, forget_bias=1.0)
+        if not training:
+            new_c, new_h = lstm_update(gates, c_prev, h_prev,
+                                       self.zoneout_factor_cell,
+                                       self.zoneout_factor_output,
+                                       forget_bias=1.0)
+            return (new_c, new_h), new_h
+        new_c, new_h = lstm_update(gates, c_prev, h_prev, 0.0, 0.0,
+                                   forget_bias=1.0)
+        new_c = _zoneout(c_prev, new_c, self.zoneout_factor_cell, generator)
+        new_h = _zoneout(h_prev, new_h, self.zoneout_factor_output, generator)
         return (new_c, new_h), new_h
 
     def initial_state(self, batch: int, device=None) -> Carry:
@@ -82,8 +101,9 @@ def reverse_sequence(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
 
 
 def unroll(cell: ZoneoutLSTMCell, xs: torch.Tensor,
-           lengths: Optional[torch.Tensor], reverse: bool = False
-           ) -> torch.Tensor:
+           lengths: Optional[torch.Tensor], reverse: bool = False,
+           training: bool = False,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Run ``cell`` over axis 1 of ``xs`` (B, T, D) -> (B, T, units)."""
     B, T = xs.shape[0], xs.shape[1]
     if reverse:
@@ -92,7 +112,7 @@ def unroll(cell: ZoneoutLSTMCell, xs: torch.Tensor,
     carry = cell.initial_state(B, xs.device)
     ys = []
     for t in range(T):
-        new_carry, y = cell(carry, xs[:, t])
+        new_carry, y = cell(carry, xs[:, t], training, generator)
         if lengths is not None:
             valid = (t < lengths.to(xs.device))[:, None]
             new_carry = tuple(torch.where(valid, n, p)
@@ -119,7 +139,9 @@ class BiZoneoutLSTM(nn.Module):
                                   zoneout_factor_output)
 
     def forward(self, xs: torch.Tensor,
-                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ys_f = unroll(self.fw, xs, lengths, reverse=False)
-        ys_b = unroll(self.bw, xs, lengths, reverse=True)
+                lengths: Optional[torch.Tensor] = None,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        ys_f = unroll(self.fw, xs, lengths, False, training, generator)
+        ys_b = unroll(self.bw, xs, lengths, True, training, generator)
         return torch.cat([ys_f, ys_b], dim=-1)

@@ -1,0 +1,91 @@
+"""The training step on one device.
+
+Counterpart of the JAX package's ``parallel/train_step.py``
+``make_optimizer``, ``create_train_state`` and ``make_train_step``:
+global-norm clipping at 1.0, then Adam (``adam_beta1``, ``adam_beta2``,
+``adam_eps``) whose update n (counted from 0, as optax counts) runs at
+``noam_learning_rate(initial_learning_rate, n)`` when
+``decay_learning_rate``.  Dropout and zoneout of step n draw from a
+``torch.Generator`` seeded with (``hp.seed``, n), so a resumed run draws
+what an unbroken one would have.  The metrics are ``loss``, ``code_loss``,
+``done_loss``, ``l2_regularization_loss``, ``learning_rate`` and
+``grad_norm`` (the norm before clipping), as tensors on the model's device.
+The two-pass evaluation step and data parallelism come with later slices.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+from torch import nn
+
+from ..config import HParams
+from ..models.tacotron import Batch, compute_loss
+from ..ops.losses import global_norm_clip, noam_learning_rate
+
+
+class TrainState:
+    """The model (parameters and batch statistics), its optimizer and the
+    number of updates taken."""
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer,
+                 step: int = 0):
+        self.model, self.optimizer, self.step = model, optimizer, step
+
+
+def make_optimizer(hp: HParams, params) -> torch.optim.Adam:
+    """Adam over ``params``; the train step sets each update's rate."""
+    return torch.optim.Adam(params, lr=hp.initial_learning_rate,
+                            betas=(hp.adam_beta1, hp.adam_beta2),
+                            eps=hp.adam_eps)
+
+
+def create_train_state(model: nn.Module, hp: HParams) -> TrainState:
+    return TrainState(model, make_optimizer(hp, list(model.parameters())))
+
+
+def learning_rate(hp: HParams, step: int) -> float:
+    if hp.decay_learning_rate:
+        return noam_learning_rate(hp.initial_learning_rate, step,
+                                  hp.learning_rate_step_factor)
+    return hp.initial_learning_rate
+
+
+def step_generator(hp: HParams, step: int, device) -> torch.Generator:
+    """The dropout and zoneout generator of update ``step``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(hp.seed) & 0xFFFFFFFF) << 32 | int(step))
+    return gen
+
+
+def make_train_step(hp: HParams) -> Callable[[TrainState, Batch],
+                                             Dict[str, torch.Tensor]]:
+    """``train_step(state, batch) -> metrics``; updates ``state`` in place."""
+
+    def train_step(state: TrainState, batch: Batch):
+        model = state.model
+        device = next(model.parameters()).device
+        model.train()
+        out = model.train_forward(batch, step_generator(hp, state.step,
+                                                        device))
+        losses = compute_loss(hp, out, batch, model)
+        state.optimizer.zero_grad(set_to_none=False)
+        losses["loss"].backward()
+        grads = []
+        for p in model.parameters():
+            if p.grad is None:      # no path to the loss: a zero gradient
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        grad_norm = global_norm_clip(grads, 1.0)
+        lr = learning_rate(hp, state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["learning_rate"] = torch.tensor(lr, device=device)
+        metrics["grad_norm"] = grad_norm.detach()
+        return metrics
+
+    return train_step

@@ -65,26 +65,48 @@ def from_flax(variables) -> Dict[str, torch.Tensor]:
     return out
 
 
-def to_flax(state: Dict[str, torch.Tensor], model: nn.Module) -> dict:
-    """The port's state dict -> {"params", "batch_stats"} numpy tree."""
+def _flax_namer(model: nn.Module):
+    """key -> (collection, module path, flax leaf name, is a kernel)."""
     embeddings = {n for n, m in model.named_modules()
                   if type(m).__name__ == "Embedding"}
     norms = {n for n, m in model.named_modules()
              if type(m).__name__ == "BatchNorm"}
-    tree = {"params": {}, "batch_stats": {}}
-    for key, value in state.items():
+
+    def name_of(key: str):
         *mods, name = key.split(".")
         owner = ".".join(mods)
-        arr = value.detach().cpu().numpy()
-        collection = "params"
         if name in _LEAF_TO_FLAX:
-            name, collection = _LEAF_TO_FLAX[name], "batch_stats"
-        elif name == "weight" and owner in embeddings:
-            name = "embedding"
-        elif name == "weight" and owner in norms:
-            name = "scale"
-        elif name == "weight":
-            name = "kernel"
+            return "batch_stats", mods, _LEAF_TO_FLAX[name], False
+        if name == "weight" and owner in embeddings:
+            return "params", mods, "embedding", False
+        if name == "weight" and owner in norms:
+            return "params", mods, "scale", False
+        if name == "weight":
+            return "params", mods, "kernel", True
+        return "params", mods, name, False
+    return name_of
+
+
+def flax_param_paths(model: nn.Module):
+    """(path, parameter) pairs, the path '/'-joined as in the JAX params
+    tree ("decoder/attention_lstm/kernel").  The tensors are the model's
+    own, in the port's layout."""
+    name_of = _flax_namer(model)
+    out = []
+    for key, p in model.named_parameters():
+        _, mods, name, _ = name_of(key)
+        out.append(("/".join(mods + [name]), p))
+    return out
+
+
+def to_flax(state: Dict[str, torch.Tensor], model: nn.Module) -> dict:
+    """The port's state dict -> {"params", "batch_stats"} numpy tree."""
+    name_of = _flax_namer(model)
+    tree = {"params": {}, "batch_stats": {}}
+    for key, value in state.items():
+        collection, mods, name, is_kernel = name_of(key)
+        arr = value.detach().cpu().numpy()
+        if is_kernel:
             arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
         node = tree[collection]
         for m in mods:

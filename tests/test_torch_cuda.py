@@ -75,8 +75,8 @@ def _enc_case(model, T, L, device):
 
 
 def _close(a, b, tol=TOL):
-    np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=tol,
-                               atol=tol)
+    np.testing.assert_allclose(a.detach().cpu().numpy(),
+                               b.detach().cpu().numpy(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("kw,T,L", [
@@ -192,3 +192,157 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         fe.fused_encode(params, x.double(), 16, **kw)
     with pytest.raises(ValueError):
         fe.fused_encode(params, x, 17, **kw)      # length past T
+
+
+# ------------------------------------------------------- training kernels
+
+from self_attention_tacotron_torch.ops import fused_train as ft  # noqa: E402
+
+TRAIN_CASES = {
+    # (source kinds, cumulative, K, deterministic, speaker row)
+    "fwd_add_k10_masks": (("forward", "additive"), (False, False), 10,
+                          False, False),
+    "loc_fwd_k5_cum_det": (("location_sensitive", "forward"), (True, True),
+                           5, True, False),
+    "fwd_fwd_k4_masks_spk": (("forward", "forward"), (False, True), 4, False,
+                             True),
+    "add_add_k4_masks": (("additive", "additive"), (False, False), 4, False,
+                         False),
+}
+
+
+def train_case(device, kinds, cum, K, det, spk, B=3, S=6, T=9, seed=0):
+    """Random trunk weights and inputs (numpy seed) for the training
+    kernels, at small widths."""
+    rng = np.random.default_rng(seed)
+    CF, U, C, P, A, D = 11, (6, 4), (5, 3), (8, 6), 7, 5
+
+    def r(*s):
+        return torch.from_numpy(
+            (rng.standard_normal(s) * 0.3).astype(np.float32)).to(device)
+    params = ft.FusedTrainParams(
+        prenet=((r(CF, P[0]), r(1, P[0])), (r(P[0], P[1]), r(1, P[1]))),
+        att_lstm=(r(P[1] + sum(C) + A, 4 * A), r(1, 4 * A)),
+        query=tuple((r(A, u), r(u, 1)) for u in U),
+        outproj=(r(A + sum(C), D), r(1, D)),
+        lstm1=(r(2 * D, 4 * D), r(1, 4 * D)),
+        lstm2=(r(2 * D, 4 * D), r(1, 4 * D)))
+    keys = tuple(r(B, T, u) for u in U)
+    values = tuple(r(B, T, c) for c in C)
+    lens = torch.tensor([T, T - 3, T - 1][:B] + [T] * max(0, B - 3),
+                        device=device)
+    masks = tuple((torch.arange(T, device=device)[None] < lens[:, None])
+                  .float() for _ in U)
+    teacher = r(B, S, CF)
+    loc_ws = tuple(r(K, u) if k != "additive" else None
+                   for k, u in zip(kinds, U))
+    kw = dict(drop_rate=0.5, zc_att=0.1, zo_att=0.1, zc_dec=0.1, zo_dec=0.1,
+              deterministic=det, src_kinds=kinds, cumulative=cum,
+              loc_kernel=K)
+    return params, keys, values, masks, teacher, (r(B, P[0]) if spk
+                                                  else None), loc_ws, kw
+
+
+@pytest.mark.parametrize("case", list(TRAIN_CASES))
+@torch.no_grad()
+def test_fused_train_kernels_match_plain(device, case):
+    params, keys, values, masks, teacher, spk, loc_ws, kw = train_case(
+        device, *TRAIN_CASES[case])
+    spec = ft.make_spec(params, keys, values, teacher, use_spk=spk is not None,
+                        **kw)
+    S, B = spec.num_steps, spec.batch
+    tf = teacher.transpose(0, 1).reshape(S * B, spec.cf).contiguous()
+    ops = ft.train_operands(spec, params, keys, values, masks, tf, spk,
+                            loc_ws)
+    before = (ft.fused_train_fwd.launches, ft.fused_train_bwd.launches)
+    y, save, aux = ft.fused_train_fwd(spec, ops, 11)
+    y_r, save_r, aux_r = ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, 11, spk, loc_ws)
+    torch.cuda.synchronize()
+    _close(y, y_r)
+    _close(save, save_r)
+    _close(aux, aux_r)
+    g = torch.randn(y.shape, generator=torch.Generator(device).manual_seed(1),
+                    device=device)
+    raw = ft.fused_train_bwd(spec, ops, 11, g, save_r, aux_r)
+    torch.cuda.synchronize()
+    assert (ft.fused_train_fwd.launches, ft.fused_train_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    (d_pre, d_att, d_q, d_op, d_l1, d_l2, d_keys, d_values, d_v, d_loc,
+     d_spk) = ft.split_grads(spec, raw)
+    dp, dk, dv, dspk, dloc = ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, 11, spk, loc_ws, g, save_r,
+        aux_r)
+    pairs = [(a, b) for (wa, ba), (wb, bb) in zip(d_pre, dp.prenet)
+             for a, b in ((wa, wb), (ba, bb))]
+    pairs += [(d_att[0], dp.att_lstm[0]), (d_att[1], dp.att_lstm[1]),
+              (d_op[0], dp.outproj[0]), (d_op[1], dp.outproj[1]),
+              (d_l1[0], dp.lstm1[0]), (d_l1[1], dp.lstm1[1]),
+              (d_l2[0], dp.lstm2[0]), (d_l2[1], dp.lstm2[1]),
+              (d_q, torch.cat([q for q, _ in dp.query], 1)),
+              (d_v, torch.cat([v[:, 0] for _, v in dp.query]))]
+    pairs += [(a, b.reshape(a.shape)) for a, b in zip(d_keys, dk)]
+    pairs += [(a, b.reshape(a.shape)) for a, b in zip(d_values, dv)]
+    u_off = np.cumsum([0, *spec.u_sizes])
+    for i, lw in enumerate(dloc):
+        if lw is not None:
+            pairs.append((d_loc[:, u_off[i]:u_off[i + 1]], lw))
+    if dspk is not None:
+        pairs.append((d_spk, dspk))
+    for a, b in pairs:
+        _close(a, b.reshape(a.shape))
+
+
+def test_fused_train_autograd_launches_both_kernels(device):
+    """fused_teacher_scan on CUDA: one forward and one backward launch, and
+    the gradients of autograd over the plain version on the CPU."""
+    outs = []
+    for dev in (torch.device("cpu"), device):
+        params, keys, values, masks, teacher, spk, loc_ws, kw = train_case(
+            dev, *TRAIN_CASES["fwd_add_k10_masks"])
+        leaves = [t.requires_grad_() for t in
+                  (*[x for p in params.prenet for x in p], *params.att_lstm,
+                   *keys, *values, *[lw for lw in loc_ws if lw is not None])]
+        before = (ft.fused_train_fwd.launches, ft.fused_train_bwd.launches)
+        y, aligns = ft.fused_teacher_scan(params, keys, values, masks,
+                                          teacher, 5, loc_ws=loc_ws, **kw)
+        grads = torch.autograd.grad(y.square().sum(), leaves)
+        after = (ft.fused_train_fwd.launches, ft.fused_train_bwd.launches)
+        outs.append((y, aligns, grads, after[0] - before[0],
+                     after[1] - before[1]))
+    (y_c, al_c, g_c, *n_c), (y_g, al_g, g_g, *n_g) = outs
+    assert n_c == [0, 0] and n_g == [1, 1]
+    _close(y_g, y_c)
+    for a, b in zip(al_g, al_c):
+        _close(a, b)
+    for a, b in zip(g_g, g_c):
+        _close(a, b, tol=1e-3 * max(float(b.abs().max()), 1.0))
+
+
+def test_train_smem_plan_matches_the_kernels(device):
+    params, keys, values, masks, teacher, spk, loc_ws, kw = train_case(
+        device, *TRAIN_CASES["fwd_add_k10_masks"])
+    spec = ft.make_spec(params, keys, values, teacher, **kw)
+    tf = teacher.transpose(0, 1).reshape(-1, spec.cf).contiguous()
+    a = ft._args(spec, ft.train_operands(spec, params, keys, values, masks,
+                                         tf, None, loc_ws), 0, [])
+    import ctypes
+    got = tuple(int(getattr(ft._lib(n), f"{n}_smem_bytes")(
+        ctypes.byref(a), 132)) for n in ("fused_train_fwd",
+                                         "fused_train_bwd"))
+    assert got == ft.smem_bytes(spec, 132)
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(device):
+    params, keys, values, masks, teacher, spk, loc_ws, kw = train_case(
+        device, *TRAIN_CASES["fwd_add_k10_masks"])
+    with pytest.raises(ValueError):
+        ft.fused_teacher_scan(params, keys, values, masks, teacher.double(),
+                              0, loc_ws=loc_ws, **kw)
+    with pytest.raises(ValueError):   # 65 rows a step
+        big = train_case(device, *TRAIN_CASES["fwd_add_k10_masks"], B=65)
+        ft.fused_teacher_scan(*big[:5], 0, loc_ws=big[6], **big[7])
+    with pytest.raises(ValueError):   # a location conv wider than 32 taps
+        wide = train_case(device, ("forward", "additive"), (False, False),
+                          33, False, False)
+        ft.fused_teacher_scan(*wide[:5], 0, loc_ws=wide[6], **wide[7])

@@ -216,19 +216,28 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """The package and chip_smoke.py import with jax, flax, orbax and the
-    JAX package blocked."""
+    """Every module of the package, the training ones included, and
+    chip_smoke.py import with jax, flax, optax, orbax and the JAX package
+    blocked."""
     code = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "orbax", "self_attention_tacotron_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "orbax",
+             "self_attention_tacotron_tpu"):
     sys.modules[name] = None
 import self_attention_tacotron_torch as pkg
 for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(info.name)
+    print(info.name)
 import chip_smoke
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    lines = res.stdout.split()
+    assert res.returncode == 0 and lines[-1:] == ["ok"], res.stderr
+    for mod in ("cli.train", "cli.predict", "parallel.train_step",
+                "utils.checkpoint", "data.dataset", "ops.fused_train",
+                "ops.losses", "ops.masks", "ops.fused_decode",
+                "ops.fused_encoder"):
+        assert f"self_attention_tacotron_torch.{mod}" in lines, mod
