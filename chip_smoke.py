@@ -33,7 +33,30 @@ weights drawn from a seed:
    utterance from that checkpoint;
 8. times each kernel and its plain version with CUDA events (median of 5
    after a warm-up), one training step on the fused and on the plain path,
-   and prints one JSON line of per-kernel numbers.
+   and prints one JSON line of per-kernel numbers: a row for each kernel
+   and each main path that launched it (``path``: serving, training,
+   evaluation, pallas_serving), with that path's own launch count;
+9. the Pallas-mode attention kernels against their plain versions:
+   ``fused_self_attention`` at B = 1, H = 2, T = 64, D = 16 (the encoder
+   hop) and, causal and not, at B = 32, T = 250, D = 128;
+   ``incremental_attention_step`` at B = 1 and 32, S = 250, D = 128,
+   t in {0, 100, 249};
+10. training with evaluation: ``cli.train`` takes 2 steps on the same corpus
+   with a 5-utterance ``validation.csv``, ``use_pallas_attention`` on and a
+   checkpoint at step 2, so that one evaluation (two VALIDATION decodes an
+   utterance at batch 1) runs; the ``eval @2`` line and ``metrics.jsonl``
+   must hold the seven finite metrics, and the counters (zeroed just before)
+   must read 2 x (the utterances' decode steps) ``incremental_attention_step``
+   launches and 10 ``fused_encode`` launches;
+11. Pallas-mode serving: ``cli.predict.main_code`` serves 3 utterances from
+   that checkpoint with the fused paths off; the counters must read one
+   ``fused_self_attention`` launch an utterance and one
+   ``incremental_attention_step`` launch a decode step, and the logits must
+   be within 1e-4 of the einsum path's over the steps both ran;
+12. times rows 5 and 6 (kernel, plain version, and one
+   ``scaled_dot_product_attention`` call of the same function, which the
+   port never calls) beside their bounds, and one evaluation round with
+   and without ``use_pallas_attention``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -70,6 +93,16 @@ TOL_DECODE = 1e-5
 TOL_TRAIN = 1e-4
 TOL_TRAIN_GRAD = 1e-3
 TRAIN_B, TRAIN_S = 32, 256
+# Pallas-mode attention kernels vs their plain versions: float32 both sides,
+# one softmax between two products of depth <= 250; 1e-5 still fails a
+# product that drops to TF32.
+TOL_ATTENTION = 1e-5
+# Pallas-mode serving vs the einsum path, logits over up to 450 fed-back
+# steps.
+TOL_PALLAS_SERVING = 1e-4
+ATTN_HEADS, ATTN_T, ATTN_D = 2, 250, 128
+PALLAS_SERVING = ("use_pallas_attention=true,decoder_fused_inference=false,"
+                  "encoder_fused_inference=false")
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, FP32 non-tensor
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
@@ -394,17 +427,22 @@ def _stage_shares(name, launch, stages, ms: float, per: int, unit: str):
         f" share of {ms:.4f} ms): {parts}")
 
 
-def _kernel_row(name, src, line, launches, err, ms, plain, bound):
+def _kernel_rows(name, src, line, launches, err, ms, plain, bound,
+                 library_ms=None):
+    """One row of the kernels line for each main path that launched the
+    kernel: ``launches`` maps a path to the counts of its own run (zeroed
+    just before it); the counts of two paths are never added."""
     nbytes, flops = bound
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    return {"name": name, "route": "cuda",
-            "source": f"self_attention_tacotron_torch/ops/csrc/{src}.cu",
-            "replaces": f"self_attention_tacotron_tpu/ops/{line}",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+    return [{"name": name, "path": path, "route": "cuda",
+             "source": f"self_attention_tacotron_torch/ops/csrc/{src}.cu",
+             "replaces": f"self_attention_tacotron_tpu/ops/{line}",
+             "launches": counts[name], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "library_ms": library_ms}
+            for path, counts in launches.items() if counts.get(name, 0) > 0]
 
 
 def phase_timing(model, device, steps: int, launches, errs):
@@ -439,13 +477,14 @@ def phase_timing(model, device, steps: int, launches, errs):
                                            weights, memory, steps)}
     log("phase 8 bound inputs: " + "; ".join(
         f"{k} {b[0]} bytes, {b[1]} FLOPs" for k, b in bounds.items()))
-    return [_kernel_row("fused_encode", "fused_encoder",
-                        "fused_encoder.py:94", launches["fused_encode"],
-                        errs["fused_encode"], enc_ms, enc_plain,
-                        bounds["fused_encode"]),
-            _kernel_row("fused_decode", "fused_decode", "fused_decode.py:250",
-                        launches["fused_decode"], errs["fused_decode"],
-                        dec_ms, dec_plain, bounds["fused_decode"])]
+    return [*_kernel_rows("fused_encode", "fused_encoder",
+                          "fused_encoder.py:94", launches,
+                          errs["fused_encode"], enc_ms, enc_plain,
+                          bounds["fused_encode"]),
+            *_kernel_rows("fused_decode", "fused_decode",
+                          "fused_decode.py:250", launches,
+                          errs["fused_decode"], dec_ms, dec_plain,
+                          bounds["fused_decode"])]
 
 
 # ------------------------------------------------------------- training
@@ -797,11 +836,343 @@ def phase_train_timing(model, device, data: str, launches, errs):
         f"({frames / step_ms[True] * 1e3:.1f} frames/s), plain path "
         f"{step_ms[False]:.3f} ms ({frames / step_ms[False] * 1e3:.1f} "
         "frames/s)")
-    return [_kernel_row(name, name, f"fused_train.py:{line}",
-                        launches[name], errs[name], ms, plain, bounds[name])
-            for name, line, ms, plain in (
+    return [row for name, line, ms, plain in (
                 ("fused_train_fwd", 375, fwd_ms, fwd_plain),
-                ("fused_train_bwd", 667, bwd_ms, bwd_plain))]
+                ("fused_train_bwd", 667, bwd_ms, bwd_plain))
+            for row in _kernel_rows(name, name, f"fused_train.py:{line}",
+                                    launches, errs[name], ms, plain,
+                                    bounds[name])]
+
+
+# ------------------------------------------------- Pallas attention mode
+
+EVAL_HPARAMS = ("use_pallas_attention=true,eval_start_delay_secs=0,"
+                "eval_throttle_secs=0,save_checkpoints_steps=2")
+EVAL_METRICS = {"code_loss", "done_loss", "loss", "loss_with_teacher",
+                "code_loss_with_teacher", "done_loss_with_teacher",
+                "l2_regularization_loss"}
+
+
+def _normal(device, *shape, seed: int):
+    import numpy as np
+    import torch
+    return torch.from_numpy(np.random.default_rng(SEED + seed).standard_normal(
+        shape).astype(np.float32)).to(device)
+
+
+def _attention_inputs(device, B, T, D):
+    return tuple(_normal(device, B, ATTN_HEADS, T, D, seed=s)
+                 for s in range(3))
+
+
+def _step_inputs(device, B, t):
+    kc, vc = (_normal(device, B, ATTN_HEADS, ATTN_T, ATTN_D, seed=s)
+              for s in (1, 2))
+    return _normal(device, B, ATTN_HEADS, ATTN_D, seed=3 + t), kc, vc
+
+
+def phase_attention_kernels(device):
+    """Rows 5 and 6 vs their plain versions; returns the worst max abs
+    errors."""
+    import torch
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    worst = {"fused_self_attention": 0.0, "incremental_attention_step": 0.0}
+    for B, T, D, causal in ((1, T_IN, 16, False),
+                            (TRAIN_B, ATTN_T, ATTN_D, False),
+                            (TRAIN_B, ATTN_T, ATTN_D, True)):
+        q, k, v = _attention_inputs(device, B, T, D)
+        got = pa.fused_self_attention(q, k, v, causal)
+        ref = pa.fused_self_attention_reference(q, k, v, causal)
+        torch.cuda.synchronize()
+        err = _max_err(got, ref)
+        log(f"phase 9 fused_self_attention B={B} H={ATTN_HEADS} T={T} D={D}"
+            f" causal={causal}: max abs err {err:.3e}")
+        if err > TOL_ATTENTION:
+            raise AssertionError(f"fused_self_attention disagrees (tol "
+                                 f"{TOL_ATTENTION})")
+        worst["fused_self_attention"] = max(worst["fused_self_attention"],
+                                            err)
+    for B in (1, TRAIN_B):
+        for t in (0, 100, ATTN_T - 1):
+            q, kc, vc = _step_inputs(device, B, t)
+            got = pa.incremental_attention_step(q, kc, vc, t)
+            ref = pa.incremental_attention_step_reference(q, kc, vc, t)
+            torch.cuda.synchronize()
+            err = _max_err(got, ref)
+            log(f"phase 9 incremental_attention_step B={B} H={ATTN_HEADS} "
+                f"S={ATTN_T} D={ATTN_D} t={t}: max abs err {err:.3e}")
+            if err > TOL_ATTENTION:
+                raise AssertionError(f"incremental_attention_step disagrees"
+                                     f" (tol {TOL_ATTENTION})")
+            worst["incremental_attention_step"] = max(
+                worst["incremental_attention_step"], err)
+    return worst
+
+
+def _val_files(hp, data, keys):
+    from self_attention_tacotron_torch.data.dataset import find_dataset_files
+    return (find_dataset_files(data, keys, hp.source_file_extension),
+            find_dataset_files(data, keys, hp.target_file_extension))
+
+
+def validation_batches(hp, data, keys):
+    """The evaluation's batches: the first ``num_evaluation_steps``
+    validation utterances at batch 1, as cli.train reads them."""
+    from self_attention_tacotron_torch.data.dataset import (dataset_factory,
+                                                            to_model_batch)
+    batches = []
+    for nb in dataset_factory(*_val_files(hp, data, keys), hp, batch_size=1,
+                              shuffle=False):
+        if len(batches) == hp.num_evaluation_steps:
+            break
+        batches.append(to_model_batch(nb))
+    return batches
+
+
+def phase_train_with_eval(data: str, tmp: str, device_name: str):
+    """cli.train, 2 steps in the Pallas mode with a checkpoint at step 2 and
+    a 5-utterance validation.csv, so that one evaluation runs; returns the
+    checkpoint directory, the validation keys and the launch counts."""
+    import ast
+    import math
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    from self_attention_tacotron_torch.data.dataset import load_key_list
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    hp = recipe_hparams()
+    hp.parse(EVAL_HPARAMS)
+    keys = load_key_list(os.path.join(data, "train.csv"))[:5]
+    with open(os.path.join(data, "validation.csv"), "w") as f:
+        f.write("\n".join(keys) + "\n")
+    steps = [int(b.target.shape[1]) // hp.outputs_per_step
+             for b in validation_batches(hp, data, keys)]
+    ckpt = os.path.join(tmp, "eval_ckpt")
+    fe.fused_encode.launches = 0
+    pa.fused_self_attention.launches = 0
+    pa.incremental_attention_step.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt,
+                         "--hparam-json-file", RECIPE, "--max-steps", "2",
+                         "--hparams", EVAL_HPARAMS, "--device", device_name])
+    wall = time.perf_counter() - t0
+    counts = {"fused_encode": fe.fused_encode.launches,
+              "fused_self_attention": pa.fused_self_attention.launches,
+              "incremental_attention_step":
+                  pa.incremental_attention_step.launches}
+    if rc != 0:
+        raise AssertionError(f"cli.train returned {rc}")
+    with open(os.path.join(ckpt, os.path.basename(hp.logfile))) as f:
+        found = re.findall(r"eval @2: (\{.*\}) \(", f.read())
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        evals = [e for e in map(json.loads, f)
+                 if any(k.startswith("eval/") for k in e)]
+    log(f"phase 10 training with evaluation: cli.train took 2 steps and one "
+        f"evaluation of {len(steps)} utterances ({sum(steps)} decode steps a"
+        f" pass) on {device_name} in {wall:.1f} s; eval @2 {found}; launch "
+        f"counts {counts}")
+    metrics = ast.literal_eval(found[0]) if len(found) == 1 else {}
+    if (set(metrics) != EVAL_METRICS
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError("the eval line lacks the seven finite metrics")
+    if (len(evals) != 1 or {k for k in evals[0] if k.startswith("eval/")}
+            != {"eval/" + k for k in EVAL_METRICS}):
+        raise AssertionError("metrics.jsonl lacks the eval/ metrics")
+    hops = hp.decoder_self_attention_num_hop
+    want = {"fused_encode": 2 * len(steps), "fused_self_attention": 0,
+            "incremental_attention_step": 2 * hops * sum(steps)}
+    if device_name == "cuda" and counts != want:
+        raise AssertionError(f"evaluation launches {counts}, expected {want}")
+    return ckpt, keys, counts
+
+
+def _pallas_models(ckpt, device):
+    """The checkpoint in the Pallas serving mode and with the einsum
+    attention (fused paths off in both)."""
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.utils.convert import load_checkpoint
+    models = {}
+    for pallas in (True, False):
+        hp = recipe_hparams()
+        hp.parse(PALLAS_SERVING)
+        hp.set_hparam("use_pallas_attention", pallas)
+        models[pallas] = tacotron_model_factory(hp).eval()
+        load_checkpoint(models[pallas], ckpt)
+        models[pallas].to(device)
+    return models
+
+
+def phase_pallas_serving(ckpt, data, tmp, device, n: int = 3):
+    """main_code serves ``n`` utterances in the Pallas mode; the launch
+    counts, then the logits against the einsum path's."""
+    import contextlib
+    import io
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.predict import main_code
+    from self_attention_tacotron_torch.data.dataset import (iter_utterances,
+                                                            load_key_list)
+    from self_attention_tacotron_torch.models import Batch
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    keys = load_key_list(os.path.join(data, "train.csv"))[-n:]
+    with open(os.path.join(data, "pallas.csv"), "w") as f:
+        f.write("\n".join(keys) + "\n")
+    buf = io.StringIO()
+    pa.fused_self_attention.launches = 0
+    pa.incremental_attention_step.launches = 0
+    with contextlib.redirect_stdout(buf):
+        rc = main_code(["--source-data-root", data, "--target-data-root",
+                        data, "--checkpoint-dir", ckpt, "--output-dir",
+                        os.path.join(tmp, "pallas_pred"), "--list-filename",
+                        "pallas.csv", "--hparam-json-file", RECIPE,
+                        "--hparams", PALLAS_SERVING, "--device", device.type])
+    counts = {"fused_self_attention": pa.fused_self_attention.launches,
+              "incremental_attention_step":
+                  pa.incremental_attention_step.launches}
+    sys.stdout.write(buf.getvalue())
+    steps = [int(m) for m in re.findall(r"predicted \S+: (\d+) decode steps",
+                                        buf.getvalue())]
+    models = _pallas_models(ckpt, device)
+    hp = models[True].hp
+    worst = 0.0
+    for u in iter_utterances(*_val_files(hp, data, keys), hp):
+        batch = Batch(source=torch.from_numpy(u.source[None]).to(device),
+                      source_length=torch.tensor([u.source_length],
+                                                 device=device))
+        got, ref = models[True](batch), models[False](batch)
+        ran = min(int(got.lengths[0]), int(ref.lengths[0]))
+        worst = max(worst, _max_err(got.outputs[:, :ran],
+                                    ref.outputs[:, :ran]))
+    log(f"phase 11 Pallas-mode serving: main_code served {len(steps)} "
+        f"utterances ({steps} decode steps); launch counts {counts}; logits "
+        f"vs the einsum path max abs err {worst:.3e}")
+    want = {"fused_self_attention": n * hp.self_attention_num_hop,
+            "incremental_attention_step":
+                sum(steps) * hp.decoder_self_attention_num_hop}
+    if rc != 0 or len(steps) != n or (device.type == "cuda"
+                                      and counts != want):
+        raise AssertionError(f"Pallas-mode serving launched {counts}, "
+                             f"expected {want}")
+    if worst > TOL_PALLAS_SERVING:
+        raise AssertionError(f"Pallas-mode logits disagree (tol "
+                             f"{TOL_PALLAS_SERVING})")
+    return counts
+
+
+def _device_ms(fn, reps: int = 50) -> float:
+    """Device time of one call of a small kernel: ``reps`` calls queued
+    behind a sleep kernel, so that the host's enqueue never leaves the
+    device idle, with CUDA events around them; the median of 5 runs after a
+    warm-up, divided by ``reps``."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def attention_bound(B, T, D, causal):
+    """(bytes, FLOPs) of softmax(QK^T/sqrt(D))V: q, k, v read and the
+    output written once; the two products over the (causal) key pairs."""
+    pairs = T * (T + 1) // 2 if causal else T * T
+    return 4 * 4 * B * ATTN_HEADS * T * D, 4 * B * ATTN_HEADS * pairs * D
+
+
+def step_bound(B, t):
+    """(bytes, FLOPs) of one cache step: q, the t + 1 K and V rows it needs
+    and the output; the two products over those rows."""
+    rows = B * ATTN_HEADS * (t + 1) * ATTN_D
+    return 4 * (2 * rows + 2 * B * ATTN_HEADS * ATTN_D), 4 * rows
+
+
+def _bound_ms(bound):
+    return max(bound[0] / PEAK_BYTES_PER_S, bound[1] / PEAK_FP32_FLOP_PER_S) \
+        * 1e3
+
+
+def phase_attention_timing(device, launches, errs, ckpt, data, val_keys):
+    """Rows 5 and 6: kernel, plain version and one scaled_dot_product_
+    attention call of the same function, at the main paths' shapes and at
+    B = 32; then one evaluation round with and without the Pallas mode."""
+    import torch
+    import torch.nn.functional as F
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    from self_attention_tacotron_torch.parallel import (create_train_state,
+                                                        make_eval_step)
+    rows, times = [], {}
+    for B, T, D in ((1, T_IN, 16), (TRAIN_B, 256, ATTN_D)):
+        q, k, v = _attention_inputs(device, B, T, D)
+        sdpa = F.scaled_dot_product_attention(q, k, v)
+        times[B] = [_device_ms(fn) for fn in (
+            lambda: pa.fused_self_attention(q, k, v),
+            lambda: pa.fused_self_attention_reference(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v))]
+        bound = attention_bound(B, T, D, False)
+        log(f"phase 12 fused_self_attention B={B} H={ATTN_HEADS} T={T} D={D}"
+            f": kernel {times[B][0]:.5f} ms, plain {times[B][1]:.5f} ms, "
+            f"SDPA {times[B][2]:.5f} ms (vs plain max abs "
+            f"{_max_err(sdpa, pa.fused_self_attention_reference(q, k, v)):.1e})"
+            f"; bound {_bound_ms(bound):.5f} ms ({bound[0]} bytes, "
+            f"{bound[1]} FLOPs)")
+        if B == 1:
+            rows += _kernel_rows(
+                "fused_self_attention", "self_attention",
+                "pallas_attention.py:39", launches,
+                errs["fused_self_attention"], *times[B][:2], bound,
+                times[B][2])
+    for B in (1, TRAIN_B):
+        t = ATTN_T - 1
+        q, kc, vc = _step_inputs(device, B, t)
+        mask = torch.ones(1, 1, 1, ATTN_T, dtype=torch.bool, device=device)
+        step_times = [_device_ms(fn) for fn in (
+            lambda: pa.incremental_attention_step(q, kc, vc, t),
+            lambda: pa.incremental_attention_step_reference(q, kc, vc, t),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                   attn_mask=mask))]
+        bound = step_bound(B, t)
+        log(f"phase 12 incremental_attention_step B={B} H={ATTN_HEADS} "
+            f"S={ATTN_T} D={ATTN_D} t={t}: kernel {step_times[0]:.5f} ms, "
+            f"plain {step_times[1]:.5f} ms, SDPA {step_times[2]:.5f} ms; "
+            f"bound {_bound_ms(bound):.6f} ms ({bound[0]} bytes, {bound[1]} "
+            "FLOPs)")
+        if B == 1:
+            rows += _kernel_rows(
+                "incremental_attention_step", "incremental_attention",
+                "pallas_attention.py:109", launches,
+                errs["incremental_attention_step"], *step_times[:2], bound,
+                step_times[2])
+
+    models = _pallas_models(ckpt, device)
+    batches = [b.to(device) for b in validation_batches(
+        models[True].hp, data, val_keys)]
+    seconds = {}
+    for pallas in (True, False, False, True):
+        state = create_train_state(models[pallas], models[pallas].hp)
+        eval_step = make_eval_step(models[pallas].hp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            metrics, _, _ = eval_step(state, b)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        seconds.setdefault(pallas, []).append(time.perf_counter() - t0)
+    log(f"phase 12 one evaluation round ({len(batches)} utterances, two "
+        f"passes, host clock, in turns): use_pallas_attention=true "
+        f"{seconds[True]} s, false {seconds[False]} s")
+    return rows
 
 
 def main() -> int:
@@ -835,7 +1206,8 @@ def main() -> int:
 
         t0 = time.perf_counter()
         kernels = ["fused_encoder", "fused_decode", "fused_train_fwd",
-                   "fused_train_bwd"]
+                   "fused_train_bwd", "self_attention",
+                   "incremental_attention"]
         logs = cuda_build.build_all(kernels)
         log(f"phase 2 built {', '.join(kernels)} in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -849,17 +1221,26 @@ def main() -> int:
         steps = hp.max_iters
         errs = {"fused_encode": phase_encode(model, device),
                 "fused_decode": phase_decode(model, device, steps)}
-        launches = phase_end_to_end(model, "cuda")
+        # launch counts per main path, each from its own zeroed run
+        launches = {"serving": phase_end_to_end(model, "cuda")}
         errs.update(phase_train_kernels(model, device))
+        errs.update(phase_attention_kernels(device))
         with tempfile.TemporaryDirectory() as tmp:
             data = os.path.join(tmp, "train_data")
             os.makedirs(data)
             write_train_corpus(hp, data)
-            launches.update(phase_train_end_to_end(hp, data, tmp, "cuda"))
+            launches["training"] = phase_train_end_to_end(hp, data, tmp,
+                                                          "cuda")
+            ckpt, val_keys, launches["evaluation"] = phase_train_with_eval(
+                data, tmp, "cuda")
+            launches["pallas_serving"] = phase_pallas_serving(ckpt, data,
+                                                              tmp, device)
             rows = phase_timing(model, device, steps, launches, errs)
             rows += phase_train_timing(model, device, data, launches, errs)
-        log("launch counts of the main paths: " + ", ".join(
-            f"{k}={v}" for k, v in launches.items()))
+            rows += phase_attention_timing(device, launches, errs, ckpt, data,
+                                           val_keys)
+        log("launch counts of each main path: " + "; ".join(
+            f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)
     except Exception as e:  # noqa: BLE001 - every phase failure ends here
         import traceback

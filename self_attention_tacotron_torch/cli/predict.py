@@ -6,7 +6,13 @@ the port's checkpoint, decodes each utterance and writes
 ``<key>.<predicted_mel_extension>`` (the one-hot codes as float32) and
 ``<key>.tfrecord`` (the prediction record).  It prints each utterance's
 decode steps and wall time.  Runs on ``cuda`` unless ``--device cpu``.
-The alignment PNG and its replay come with a later slice.
+The model logs which path serves the encoder's and the decoder's
+self-attention, as its gates chose it: the fused kernels
+(``encoder_fused_inference``, ``decoder_fused_inference``), the Pallas
+attention mode (``use_pallas_attention`` with the fused paths off:
+``--hparams use_pallas_attention=true,decoder_fused_inference=false,
+encoder_fused_inference=false``) or the einsum module path.  The alignment
+PNG and its replay come with a later slice.
 
     python -m self_attention_tacotron_torch.cli.predict \\
         --source-data-root DIR --target-data-root DIR \\

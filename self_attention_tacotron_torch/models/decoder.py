@@ -1,9 +1,10 @@
-"""The decoder: teacher-forced training and autoregressive inference.
+"""The decoder: teacher-forced training, validation and inference.
 
 Counterpart of the JAX package's ``models/decoder.py`` ``TacotronDecoder``
-in TRAIN and INFERENCE modes (``output_kind="single"``).  Per step:
+in its TRAIN, VALIDATION and INFERENCE modes (``output_kind="single"``).
+Per step:
 
-    x        = prenet(next_input)                # raw logits fed back
+    x        = prenet(next_input)                # see below
     h        = attention_LSTM([x, prev_context])
     align_i  = mechanism_i(h, state_i)           # 1 or 2 sources
     ctx      = concat(align_i @ values_i)
@@ -22,6 +23,13 @@ where ``_fused_train_unsupported_reason`` finds nothing,
 ``ops/fused_train.fused_teacher_scan`` (its own counter-based masks,
 seeded from the generator).
 
+VALIDATION (``validation_forward``, the trainer's evaluation) runs
+``_decode_path`` over the target's T // r steps: teacher-forced, step t is
+fed target step t (``feed[t] = shifted[t + 1]`` of the GO-shifted teacher
+inputs); free-running, it is fed its own outputs as softmax probabilities
+(the code models).  INFERENCE feeds back the raw logits.  VALIDATION never
+fuses; its lengths are the step count and nothing is masked.
+
 Three inference paths, as in the JAX package:
 * ``_decode_path`` — every one of ``max_iters`` steps (the scan path);
 * ``_decode_path_while`` — stops once every row's stop token fired past
@@ -29,7 +37,13 @@ Three inference paths, as in the JAX package:
 * ``_decode_path_fused`` — ``ops/fused_decode.fused_decode`` on merged
   weights, taken with ``fused_inference`` where ``_fused_unsupported_reason``
   finds nothing; otherwise one of the two above runs and the reason is
-  logged once.  The gate looks at the configuration only.
+  logged once.  The gate looks at the configuration only.  Each inference
+  call logs once which path serves the hops (``log_path_once``).
+
+With ``use_pallas`` the hops' attention runs the kernels of
+``ops/pallas_attention`` (``ops/attention_core.py`` has the gates): the
+KV-cache step in every decode loop, the full-sequence call in training
+where no attention dropout is active.
 
 Submodule names follow the flax tree so ``utils/convert.py`` maps
 parameters one to one.
@@ -37,6 +51,7 @@ parameters one to one.
 
 from __future__ import annotations
 
+import enum
 import logging
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
@@ -48,7 +63,8 @@ from ..ops import fused_train as ft
 from ..ops.rnn import ZoneoutLSTMCell
 from .attention import (AdditiveAttention, AttentionOptions, ForwardAttention,
                         attention_mechanism_factory, compute_context)
-from .encoders import SelfAttentionTransformer, weights_key
+from .encoders import (SelfAttentionTransformer, hop_path, log_path_once,
+                       weights_key)
 from .prenet import PreNetStack
 
 _logger = logging.getLogger(__name__)
@@ -78,6 +94,12 @@ def stop_lengths(row_finished: torch.Tensor) -> torch.Tensor:
                        torch.full_like(first, steps_taken))
 
 
+class DecoderMode(enum.Enum):
+    """The decode loop's modes (TRAIN runs ``train_forward``, no loop)."""
+    VALIDATION = "validation"
+    INFERENCE = "inference"
+
+
 class DecoderOutput(NamedTuple):
     outputs: torch.Tensor              # (B, S * r, C)
     stop_token: torch.Tensor           # (B, S, 1) logits
@@ -104,7 +126,8 @@ class TacotronDecoder(nn.Module):
                  fused_dtype: str = "float32", drop_rate: float = 0.5,
                  self_attention_drop_rate: float = 0.0,
                  fused_train: bool = False,
-                 fused_train_dtype: str = "float32"):
+                 fused_train_dtype: str = "float32",
+                 use_pallas: bool = False):
         super().__init__()
         assert len(attention_options) == len(source_dims)
         self.num_sources = len(source_dims)
@@ -124,6 +147,7 @@ class TacotronDecoder(nn.Module):
         self.fused_dtype = fused_dtype
         self.fused_train = fused_train
         self.fused_train_dtype = fused_train_dtype
+        self.use_pallas = use_pallas
 
         self.prenets = PreNetStack(num_mels * n_feed_frame, prenet_out_units,
                                    drop_rate)
@@ -143,7 +167,7 @@ class TacotronDecoder(nn.Module):
             self.add_module(f"transformer_{i}", SelfAttentionTransformer(
                 self_attention_out_units, self_attention_out_units,
                 self_attention_num_heads, use_subsequent_mask=True,
-                drop_rate=self_attention_drop_rate))
+                drop_rate=self_attention_drop_rate, use_pallas=use_pallas))
         head_in = self_attention_out_units if use_transformer else D
         self.out_projection = nn.Linear(head_in, num_mels * outputs_per_step)
         self.stop_token_projection = nn.Linear(head_in, 1)
@@ -173,14 +197,32 @@ class TacotronDecoder(nn.Module):
         if self.fused_inference:
             reason = self._fused_unsupported_reason(B, packs)
             if reason is None:
+                log_path_once("decoder", "fused_decode kernel")
                 return self._decode_path_fused(packs, self.max_iters)
             _warn_fused_fallback(reason)
+        log_path_once("decoder", hop_path(self.use_pallas,
+                                          "incremental_attention_step"))
         if self.early_stop:
             return self._decode_path_while(packs, B, self.max_iters)
         return self._decode_path(packs, B, self.max_iters)
 
+    def validation_forward(self, sources: Sequence[torch.Tensor],
+                           memory_lengths: Sequence[torch.Tensor],
+                           target: torch.Tensor,
+                           teacher_forcing: bool) -> DecoderOutput:
+        """VALIDATION: the decode loop over the target's T // r steps,
+        teacher-forced or free-running."""
+        B = sources[0].shape[0]
+        num_steps = target.shape[1] // self.outputs_per_step
+        packs = tuple(mech.precompute(src, ln) for mech, src, ln in
+                      zip(self.attention_mechanisms, sources, memory_lengths))
+        teacher = (self._teacher_inputs(target, num_steps) if teacher_forcing
+                   else None)
+        return self._decode_path(packs, B, num_steps, DecoderMode.VALIDATION,
+                                 teacher)
+
     # ----------------------------------------------------------- step pieces
-    def _initial_carry(self, B, packs, device):
+    def _initial_carry(self, B, packs, device, num_steps):
         ctx_dim = sum(int(p.values.shape[-1]) for p in packs)
         return dict(
             att_lstm=self.attention_lstm.initial_state(B, device),
@@ -192,7 +234,7 @@ class TacotronDecoder(nn.Module):
             prev_context=torch.zeros(B, ctx_dim, device=device),
             next_input=torch.zeros(B, self.num_mels * self.n_feed_frame,
                                    device=device),
-            caches=tuple(hop.init_cache(B, self.max_iters, device)
+            caches=tuple(hop.init_cache(B, num_steps, device)
                          for hop in self.transformers))
 
     def _rnn_step(self, carry, x, packs, training: bool = False,
@@ -221,7 +263,8 @@ class TacotronDecoder(nn.Module):
                          prev_context=context)
         return new_carry, (o1 + l2, aligns)
 
-    def _step(self, carry, t, packs):
+    def _step(self, carry, t, packs, mode=DecoderMode.INFERENCE,
+              teacher_x_t=None):
         """One decode step -> (carry, (out_t, stop_t, aligns, sa_rows))."""
         carry, (y, aligns) = self._rnn_step(carry, carry["next_input"], packs)
         caches, sa_rows = [], []
@@ -231,24 +274,44 @@ class TacotronDecoder(nn.Module):
             sa_rows.append(row)
         out_t = self.out_projection(y)
         stop_t = self.stop_token_projection(y)
-        C = self.num_mels
-        new_carry = dict(
-            carry,
-            # INFERENCE feeds the raw logits of the last frame(s) back
-            next_input=out_t[:, -C * self.n_feed_frame:],
-            caches=tuple(caches))
+        new_carry = dict(carry, next_input=self._next_input_from_output(
+            out_t, mode, teacher_x_t), caches=tuple(caches))
         return new_carry, (out_t, stop_t, aligns, sa_rows)
 
+    def _next_input_from_output(self, out_t, mode, teacher_x_t):
+        """What the next step is fed: the teacher frame(s) when
+        teacher-forced (``teacher_x_t`` given), else the last n_feed_frame
+        frames of this step's output — softmax probabilities in VALIDATION,
+        raw logits in INFERENCE."""
+        if teacher_x_t is not None:
+            return teacher_x_t
+        C, n = self.num_mels, self.n_feed_frame
+        if mode == DecoderMode.VALIDATION:
+            probs = torch.softmax(out_t.reshape(out_t.shape[0], -1, C), -1)
+            return probs[:, -n:].reshape(out_t.shape[0], C * n)
+        return out_t[:, -C * n:]
+
     # -------------------------------------------------------- decode paths
-    def _decode_path(self, packs, B, num_steps):
-        """All ``num_steps`` steps; lengths from the first step at which
-        every row's stop token has fired (dynamic_decode semantics)."""
+    def _decode_path(self, packs, B, num_steps, mode=DecoderMode.INFERENCE,
+                     teacher=None):
+        """All ``num_steps`` steps.  INFERENCE: lengths from the first step
+        at which every row's stop token has fired (dynamic_decode
+        semantics), outputs masked past them.  VALIDATION: lengths are
+        ``num_steps``; ``teacher`` holds the GO-shifted teacher inputs when
+        teacher-forced, None when free-running."""
         device = packs[0].keys.device
-        carry = self._initial_carry(B, packs, device)
+        carry = self._initial_carry(B, packs, device, num_steps)
+        if teacher is not None:
+            # next_inputs(time=t) feeds target step t itself: the shifted
+            # teacher sequence advanced by one, feed[t] = shifted[t + 1]
+            teacher = torch.cat([teacher[:, 1:],
+                                 torch.zeros_like(teacher[:, :1])], 1)
         finished = torch.zeros(B, dtype=torch.bool, device=device)
         outs, stops, aligns, sa_rows, row_fin = [], [], [], [], []
         for t in range(num_steps):
-            carry, (out_t, stop_t, al, sa) = self._step(carry, t, packs)
+            carry, (out_t, stop_t, al, sa) = self._step(
+                carry, t, packs, mode,
+                None if teacher is None else teacher[:, t])
             finished = finished | ((torch.sigmoid(stop_t[:, 0]) > 0.5)
                                    & (t > self.min_iters))
             outs.append(out_t)
@@ -256,19 +319,22 @@ class TacotronDecoder(nn.Module):
             aligns.append(al)
             sa_rows.append(sa)
             row_fin.append(finished)
-        lengths = stop_lengths(torch.stack(row_fin, 1))
+        inference = mode == DecoderMode.INFERENCE
+        lengths = (stop_lengths(torch.stack(row_fin, 1)) if inference else
+                   torch.full((B,), num_steps, dtype=torch.long,
+                              device=device))
         return self._package(
             torch.stack(outs, 1), torch.stack(stops, 1),
             tuple(torch.stack([a[i] for a in aligns], 1)
                   for i in range(self.num_sources)),
             self._sa_aligns(sa_rows, B, num_steps, device), lengths,
-            num_steps, mask_by_lengths=True)
+            num_steps, mask_by_lengths=inference)
 
     def _decode_path_while(self, packs, B, num_steps):
         """Early exit once every row's stop token fired past min_iters;
         entries past the exit stay zero."""
         device = packs[0].keys.device
-        carry = self._initial_carry(B, packs, device)
+        carry = self._initial_carry(B, packs, device, num_steps)
         C, r = self.num_mels, self.outputs_per_step
         finished = torch.zeros(B, dtype=torch.bool, device=device)
         lengths = torch.zeros(B, dtype=torch.int64, device=device)
@@ -355,7 +421,8 @@ class TacotronDecoder(nn.Module):
 
     def _train_trunk_plain(self, packs, teacher, generator):
         B = teacher.shape[0]
-        carry = self._initial_carry(B, packs, teacher.device)
+        carry = self._initial_carry(B, packs, teacher.device,
+                                    teacher.shape[1])
         ys, aligns = [], []
         for t in range(teacher.shape[1]):
             carry, (y, al) = self._rnn_step(carry, teacher[:, t], packs,

@@ -10,7 +10,10 @@ Counterpart of the JAX package's ``models/encoders.py``:
   weights (``_fused_call``) and runs ``ops/fused_encoder.fused_encode``;
   in training (``is_training``: prenet dropout, batch statistics, zoneout
   and attention dropout drawn from the caller's ``torch.Generator``) it
-  always takes the module path.
+  always takes the module path.  ``use_pallas`` (the Pallas attention mode)
+  reaches each hop's ``MultiHeadAttention``; the batch-1 fused encoder keeps
+  its precedence over it.  An inference call logs once which path serves
+  its self-attention (``log_path_once``; the decoder does the same).
 
 Submodule names follow the flax tree so ``utils/convert.py`` maps
 parameters one to one.
@@ -18,6 +21,7 @@ parameters one to one.
 
 from __future__ import annotations
 
+import logging
 from typing import List, Sequence
 
 import torch
@@ -28,6 +32,23 @@ from ..ops.attention_core import SelfAttention
 from ..ops.conv import BN_EPSILON, Conv1dBN, ConvBank, HighwayNet
 from ..ops.rnn import BiZoneoutLSTM, fold_forget_bias
 from .prenet import PreNetStack
+
+_logger = logging.getLogger(__name__)
+_logged_paths: set = set()
+
+
+def log_path_once(module: str, path: str) -> None:
+    """Logs once per (module, path) which path serves ``module``'s
+    self-attention in inference."""
+    if (module, path) not in _logged_paths:
+        _logged_paths.add((module, path))
+        _logger.info("%s self-attention: %s", module, path)
+
+
+def hop_path(use_pallas: bool, kernel: str) -> str:
+    """The unfused path of a self-attention hop, for ``log_path_once``."""
+    return (f"{kernel} kernel (Pallas attention mode)" if use_pallas
+            else "einsum module path")
 
 
 def weights_key(module: nn.Module) -> tuple:
@@ -91,11 +112,13 @@ class SelfAttentionTransformer(nn.Module):
 
     def __init__(self, out_units: int, self_attention_out_units: int,
                  self_attention_num_heads: int,
-                 use_subsequent_mask: bool = False, drop_rate: float = 0.0):
+                 use_subsequent_mask: bool = False, drop_rate: float = 0.0,
+                 use_pallas: bool = False):
         super().__init__()
         self.self_attention = SelfAttention(self_attention_out_units,
                                             self_attention_num_heads,
-                                            use_subsequent_mask, drop_rate)
+                                            use_subsequent_mask, drop_rate,
+                                            use_pallas)
         self.transform = nn.Linear(self_attention_out_units, out_units)
 
     def forward(self, inputs, training: bool = False, generator=None):
@@ -125,7 +148,8 @@ class SelfAttentionCBHGEncoder(nn.Module):
                  zoneout_factor_cell: float = 0.0,
                  zoneout_factor_output: float = 0.0,
                  fused_inference: bool = False, drop_rate: float = 0.5,
-                 self_attention_drop_rate: float = 0.0):
+                 self_attention_drop_rate: float = 0.0,
+                 use_pallas: bool = False):
         super().__init__()
         self.cbhg_out_units = cbhg_out_units
         self.conv_channels = conv_channels
@@ -137,6 +161,7 @@ class SelfAttentionCBHGEncoder(nn.Module):
         self.zoneout_factor_cell = zoneout_factor_cell
         self.zoneout_factor_output = zoneout_factor_output
         self.fused_inference = fused_inference
+        self.use_pallas = use_pallas
         self.prenets = PreNetStack(in_channels, prenet_out_units, drop_rate)
         self.cbhg = ZoneoutCBHG(prenet_out_units[-1], cbhg_out_units,
                                 conv_channels, max_filter_width,
@@ -149,12 +174,16 @@ class SelfAttentionCBHGEncoder(nn.Module):
             self.add_module(f"self_attention_{i}", SelfAttentionTransformer(
                 self_attention_out_units, self_attention_out_units,
                 self_attention_num_heads,
-                drop_rate=self_attention_drop_rate))
+                drop_rate=self_attention_drop_rate, use_pallas=use_pallas))
 
     def forward(self, inputs, input_lengths=None, is_training: bool = False,
                 generator=None):
-        if (self.fused_inference and not is_training
-                and inputs.shape[0] == 1):
+        fused = (self.fused_inference and not is_training
+                 and inputs.shape[0] == 1)
+        if not is_training:
+            log_path_once("encoder", "fused_encode kernel" if fused else
+                          hop_path(self.use_pallas, "fused_self_attention"))
+        if fused:
             return self._fused_call(inputs, input_lengths)
         lstm_output = self.cbhg(
             self.prenets(inputs, is_training, generator), input_lengths,

@@ -5,12 +5,15 @@ for the VQ-code kind (``DualSourceSelfAttentionTacotronModel`` with
 ``SelfAttentionCBHGEncoder``): the two encoder outputs (bi-LSTM and
 self-attention) are the decoder's two attention sources, and the code
 output is the one-hot argmax of the decoder logits.  ``forward`` is
-inference (no autograd); ``train_forward`` is the TRAIN mode with autograd,
+inference (no autograd); ``validation_forward`` the VALIDATION decode of the
+trainer's evaluation (no autograd, teacher-forced or free-running with
+softmax feedback); ``train_forward`` is the TRAIN mode with autograd,
 its batch-norm statistics scoped to the rows whose loss mask is not empty
 (``bn_valid_rows``), its dropout and zoneout drawn from the caller's
 ``torch.Generator``.  ``compute_loss`` is ``0.1 * codes_loss + done_loss``
-(+ L2).  The mel and MGC/LF0 kinds, speaker routing and postnets come with
-later slices.
+(+ L2).  ``hp.use_pallas_attention`` reaches the encoder's and the
+decoder's self-attention hops.  The mel and MGC/LF0 kinds, speaker routing
+and postnets come with later slices.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from ..ops import losses as L
 from ..ops.conv import bn_valid_rows
 from ..utils.convert import flax_param_paths
 from .attention import AttentionOptions
-from .decoder import TacotronDecoder
+from .decoder import DecoderOutput, TacotronDecoder
 from .embedding import Embedding
 from .encoders import SelfAttentionCBHGEncoder
 
@@ -105,7 +108,8 @@ class TacotronModel(nn.Module):
             zoneout_factor_output=hp.zoneout_factor_output,
             fused_inference=hp.encoder_fused_inference,
             drop_rate=hp.encoder_prenet_drop_rate,
-            self_attention_drop_rate=hp.self_attention_drop_rate)
+            self_attention_drop_rate=hp.self_attention_drop_rate,
+            use_pallas=hp.use_pallas_attention)
         self.decoder = TacotronDecoder(
             attention_options_from_hparams(hp),
             source_dims=(hp.cbhg_out_units, hp.self_attention_out_units),
@@ -128,7 +132,20 @@ class TacotronModel(nn.Module):
             drop_rate=hp.decoder_prenet_drop_rate,
             self_attention_drop_rate=hp.decoder_self_attention_drop_rate,
             fused_train=hp.decoder_fused_train,
-            fused_train_dtype=hp.decoder_fused_train_dtype)
+            fused_train_dtype=hp.decoder_fused_train_dtype,
+            use_pallas=hp.use_pallas_attention)
+
+    def _output(self, dec: DecoderOutput, enc_aligns) -> TacotronOutput:
+        code_output = torch.nn.functional.one_hot(
+            dec.outputs.detach().argmax(-1), self.hp.num_mels).to(
+                dec.outputs.dtype)
+        return TacotronOutput(
+            outputs=dec.outputs, stop_token=dec.stop_token,
+            code_output=code_output, alignments=dec.alignments,
+            encoder_self_attention_alignments=[a.transpose(1, 2)
+                                               for a in enc_aligns],
+            decoder_self_attention_alignments=dec.self_attention_alignments,
+            lengths=dec.lengths, predicted_samples=dec.predicted_samples)
 
     @torch.no_grad()
     def forward(self, batch: Batch) -> TacotronOutput:
@@ -137,16 +154,23 @@ class TacotronModel(nn.Module):
         lengths = batch.source_length.to(device)
         emb = self.embedding(source)
         lstm_out, sa_out, enc_aligns = self.encoder(emb, lengths)
-        dec = self.decoder((lstm_out, sa_out), (lengths, lengths))
-        code_output = torch.nn.functional.one_hot(
-            dec.outputs.argmax(-1), self.hp.num_mels).to(dec.outputs.dtype)
-        return TacotronOutput(
-            outputs=dec.outputs, stop_token=dec.stop_token,
-            code_output=code_output, alignments=dec.alignments,
-            encoder_self_attention_alignments=[a.transpose(1, 2)
-                                               for a in enc_aligns],
-            decoder_self_attention_alignments=dec.self_attention_alignments,
-            lengths=dec.lengths, predicted_samples=dec.predicted_samples)
+        return self._output(self.decoder((lstm_out, sa_out),
+                                         (lengths, lengths)), enc_aligns)
+
+    @torch.no_grad()
+    def validation_forward(self, batch: Batch,
+                           teacher_forcing: bool) -> TacotronOutput:
+        """VALIDATION mode: the deterministic encoder (batch norm on its
+        running statistics), then the decode loop over the target's
+        T // r steps, fed the targets (``teacher_forcing``) or its own
+        softmax outputs (the JAX package's ``_forward`` in
+        ``DecoderMode.VALIDATION``)."""
+        batch = batch.to(self.embedding.weight.device)
+        emb = self.embedding(batch.source)
+        lstm_out, sa_out, enc_aligns = self.encoder(emb, batch.source_length)
+        return self._output(self.decoder.validation_forward(
+            (lstm_out, sa_out), (batch.source_length,) * 2,
+            batch.target.float(), teacher_forcing), enc_aligns)
 
     def train_forward(self, batch: Batch,
                       generator: Optional[torch.Generator] = None
@@ -168,16 +192,7 @@ class TacotronModel(nn.Module):
             dec = self.decoder.train_forward(
                 (lstm_out, sa_out), (batch.source_length,) * 2,
                 batch.target.float(), generator)
-        code_output = torch.nn.functional.one_hot(
-            dec.outputs.detach().argmax(-1), self.hp.num_mels).to(
-                dec.outputs.dtype)
-        return TacotronOutput(
-            outputs=dec.outputs, stop_token=dec.stop_token,
-            code_output=code_output, alignments=dec.alignments,
-            encoder_self_attention_alignments=[a.transpose(1, 2)
-                                               for a in enc_aligns],
-            decoder_self_attention_alignments=dec.self_attention_alignments,
-            lengths=dec.lengths, predicted_samples=dec.predicted_samples)
+        return self._output(dec, enc_aligns)
 
 
 def compute_loss(hp: HParams, out: TacotronOutput, batch: Batch,

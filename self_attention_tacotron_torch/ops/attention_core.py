@@ -4,13 +4,21 @@ Counterpart of the JAX package's ``ops/attention_core.py``: four biased
 projections (key, value, query, output), scores Q K^T / sqrt(head_dim),
 softmax, then @ V.  The padding mask stays off, as in the reference (every
 call site builds ``SelfAttention`` without it); the causal mask is a -1e9
-fill.  ``MultiHeadAttention.step`` keeps (B, H, max_len, head_dim) caches
-and computes one query row per step: the same math as column t of the
-full causal attention.  In training (the full-sequence call only) the
-probabilities pass through dropout at ``drop_rate`` (keep 1 - rate, kept
-units scaled by 1 / (1 - rate), as flax's ``Dropout``), drawn from an
-explicit ``torch.Generator``; the returned alignments are the probabilities
-before dropout.
+fill.  ``MultiHeadAttention.step`` keeps (B, H, max_len, head_dim) caches,
+writes each step's key and value into them in place (the decode loops never
+go back to an earlier cache), and computes one query row per step: the same
+math as column t of the full causal attention.  In training (the
+full-sequence call only) the probabilities pass through dropout at
+``drop_rate`` (keep 1 - rate, kept units scaled by 1 / (1 - rate), as flax's
+``Dropout``), drawn from an explicit ``torch.Generator``; the returned
+alignments are the probabilities before dropout.
+
+With ``use_pallas`` (``hp.use_pallas_attention``), where no dropout is
+active, the full-sequence call runs ``ops/pallas_attention``
+``fused_self_attention`` and the step ``incremental_attention_step`` (CUDA
+kernels; their plain versions on the CPU), and the alignments come back as
+zeros, as the JAX package's gates do: the kernels never materialise the
+probabilities.
 """
 
 from __future__ import annotations
@@ -20,6 +28,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+
+from .pallas_attention import fused_self_attention, incremental_attention_step
 
 NEG_INF = -1e9
 
@@ -56,13 +66,15 @@ def _masked_softmax(scores: torch.Tensor,
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, model_dim: int, num_heads: int,
-                 use_subsequent_mask: bool = False, drop_rate: float = 0.0):
+                 use_subsequent_mask: bool = False, drop_rate: float = 0.0,
+                 use_pallas: bool = False):
         super().__init__()
         assert model_dim % num_heads == 0
         self.drop_rate = drop_rate
         self.model_dim = model_dim
         self.num_heads = num_heads
         self.use_subsequent_mask = use_subsequent_mask
+        self.use_pallas = use_pallas
         self.key_projection = nn.Linear(model_dim, model_dim)
         self.value_projection = nn.Linear(model_dim, model_dim)
         self.query_projection = nn.Linear(model_dim, model_dim)
@@ -82,16 +94,23 @@ class MultiHeadAttention(nn.Module):
         k = self._split_heads(self.key_projection(key))
         v = self._split_heads(self.value_projection(value))
         q = self._split_heads(self.query_projection(query))
+        B, Tq, Tk = q.shape[0], q.shape[2], k.shape[2]
+        if self.use_pallas and not (training and self.drop_rate > 0.0):
+            context = fused_self_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=self.use_subsequent_mask)
+            return (self.output_projection(context.transpose(1, 2).reshape(
+                        B, Tq, self.model_dim)),
+                    torch.zeros(B, self.num_heads, Tq, Tk, device=q.device))
         scores = q @ k.transpose(-1, -2) / math.sqrt(self.head_dim)
         mask = None
         if self.use_subsequent_mask:
-            Tq, Tk = q.shape[2], k.shape[2]
             mask = torch.ones(Tq, Tk, dtype=torch.bool,
                               device=q.device).tril()[None, None]
         probs = _masked_softmax(scores, mask)
         dropped = (dropout(probs, self.drop_rate, generator) if training
                    else probs)
-        context = (dropped @ v).transpose(1, 2).reshape(q.shape[0], -1,
+        context = (dropped @ v).transpose(1, 2).reshape(B, Tq,
                                                         self.model_dim)
         return self.output_projection(context), probs
 
@@ -104,34 +123,42 @@ class MultiHeadAttention(nn.Module):
     def step(self, x_t: torch.Tensor, t: int, cache: AttentionCache
              ) -> Tuple[torch.Tensor, AttentionCache, torch.Tensor]:
         """Causal attention for ``x_t`` (B, D) at position ``t`` ->
-        (out_t (B, D), new cache, align_row (B, H, max_len))."""
+        (out_t (B, D), the cache with row t written in place,
+        align_row (B, H, max_len))."""
         B = x_t.shape[0]
         shape = (B, self.num_heads, self.head_dim)
         k_t = self.key_projection(x_t).reshape(shape)
         v_t = self.value_projection(x_t).reshape(shape)
         q_t = self.query_projection(x_t).reshape(shape)
-        key_cache = cache.key.clone()
-        value_cache = cache.value.clone()
+        key_cache, value_cache = cache
         key_cache[:, :, t] = k_t
         value_cache[:, :, t] = v_t
+        max_len = key_cache.shape[2]
+        if self.use_pallas:
+            context = incremental_attention_step(q_t, key_cache, value_cache,
+                                                 t)
+            out = self.output_projection(context.reshape(B, self.model_dim))
+            return out, cache, torch.zeros(B, self.num_heads, max_len,
+                                           device=x_t.device)
         scores = torch.einsum("bhd,bhkd->bhk", q_t, key_cache) \
             / math.sqrt(self.head_dim)
-        max_len = key_cache.shape[2]
         valid = (torch.arange(max_len, device=x_t.device) <= t)[None, None]
         probs = _masked_softmax(scores, valid)
         context = torch.einsum("bhk,bhkd->bhd", probs, value_cache)
         out = self.output_projection(context.reshape(B, self.model_dim))
-        return out, AttentionCache(key_cache, value_cache), probs
+        return out, cache, probs
 
 
 class SelfAttention(nn.Module):
     """K = V = Q = inputs."""
 
     def __init__(self, model_dim: int, num_heads: int,
-                 use_subsequent_mask: bool = False, drop_rate: float = 0.0):
+                 use_subsequent_mask: bool = False, drop_rate: float = 0.0,
+                 use_pallas: bool = False):
         super().__init__()
         self.attention = MultiHeadAttention(model_dim, num_heads,
-                                            use_subsequent_mask, drop_rate)
+                                            use_subsequent_mask, drop_rate,
+                                            use_pallas)
 
     def forward(self, inputs, training: bool = False, generator=None):
         return self.attention(inputs, inputs, inputs, training, generator)

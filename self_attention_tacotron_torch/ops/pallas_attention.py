@@ -1,0 +1,167 @@
+"""The two attention kernels of the Pallas attention mode, in CUDA.
+
+Counterpart of the JAX package's ``ops/pallas_attention.py`` (same module
+and function names), whose Pallas TPU kernels become hand-written CUDA C++
+kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
+``ctypes``:
+
+* ``fused_self_attention`` — softmax(Q K^T / sqrt(D)) V over (B, H, T, D),
+  optionally causal; replaces ``_attention_kernel``
+  (``csrc/self_attention.cu``: 64-row query tiles, 64-key tiles streamed
+  with an online softmax, D up to 128);
+* ``incremental_attention_step`` — one (B, H, D) query against (B, H, S, D)
+  key and value caches masked to positions <= t; replaces
+  ``_incremental_kernel`` (``csrc/incremental_attention.cu``: one block per
+  head, positions > t never read, t a kernel argument).
+
+``ops/attention_core.py`` selects them under ``use_pallas`` where no dropout
+is active, as the JAX package does.  Each has a plain PyTorch version
+(``*_reference``: the einsum math of ``ops/attention_core.py`` with its -1e9
+fill).  The wrappers run it for CPU tensors only; a CUDA tensor launches the
+kernel or raises, on a type, shape, layout or width the kernel does not take
+and on an input that needs a gradient (neither kernel has a backward; with
+the recipe's attention dropout neither runs in training).  Each wrapper's
+``launches`` counts its kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import cuda_build
+
+NEG_INF = -1e9
+MAX_HEAD_DIM = 128          # fused_self_attention's widest template width
+MAX_STEP_HEAD_DIM = 256     # incremental_attention_step: one thread a column
+
+Tensor = torch.Tensor
+_P = ctypes.c_void_p
+
+
+def fused_self_attention_reference(q: Tensor, k: Tensor, v: Tensor,
+                                   causal: bool = False) -> Tensor:
+    """Plain PyTorch version: (B, H, T, D) -> (B, H, T, D)."""
+    scores = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
+    if causal:
+        Tq, Tk = q.shape[2], k.shape[2]
+        mask = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    return torch.softmax(scores, dim=-1) @ v
+
+
+def incremental_attention_step_reference(q_t: Tensor, key_cache: Tensor,
+                                         value_cache: Tensor, t: int
+                                         ) -> Tensor:
+    """Plain PyTorch version: (B, H, D) against (B, H, S, D) caches, the
+    positions past ``t`` filled with -1e9 -> (B, H, D)."""
+    D, S = q_t.shape[-1], key_cache.shape[2]
+    scores = torch.einsum("bhd,bhkd->bhk", q_t, key_cache) / math.sqrt(D)
+    valid = (torch.arange(S, device=q_t.device) <= t)[None, None]
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    return torch.einsum("bhk,bhkd->bhd", torch.softmax(scores, dim=-1),
+                        value_cache)
+
+
+# ---------------------------------------------------------------- kernels
+
+class _AttnArgs(ctypes.Structure):
+    """Mirror of ``AttnArgs`` in csrc/self_attention.cu."""
+
+    _fields_ = [("q", _P), ("k", _P), ("v", _P), ("o", _P),
+                ("bh", ctypes.c_int), ("T", ctypes.c_int),
+                ("D", ctypes.c_int), ("causal", ctypes.c_int),
+                ("scale", ctypes.c_float)]
+
+
+class _StepArgs(ctypes.Structure):
+    """Mirror of ``StepArgs`` in csrc/incremental_attention.cu."""
+
+    _fields_ = [("q", _P), ("k", _P), ("v", _P), ("o", _P),
+                ("bh", ctypes.c_int), ("S", ctypes.c_int),
+                ("D", ctypes.c_int), ("t", ctypes.c_int),
+                ("scale", ctypes.c_float)]
+
+
+def _fn(name: str, struct):
+    lib = cuda_build.load(name)
+    fn = getattr(lib, f"{name}_launch")
+    if not getattr(lib, "_typed", False):
+        fn.argtypes = [ctypes.POINTER(struct), _P]
+        fn.restype = ctypes.c_int
+        lib._typed = True
+    return fn
+
+
+def _check(t: Tensor, shape, name: str, device) -> Tensor:
+    if t.dtype != torch.float32 or t.device != device:
+        raise ValueError(f"{name}: expected a float32 tensor on {device}, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel reads contiguous tensors")
+    if t.requires_grad and torch.is_grad_enabled():
+        raise ValueError(f"{name}: the kernel has no backward")
+    return t
+
+
+def fused_self_attention(q: Tensor, k: Tensor, v: Tensor,
+                         causal: bool = False) -> Tensor:
+    """softmax(q k^T / sqrt(D)) v over (B, H, T, D).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel (or raise)."""
+    if not q.is_cuda:
+        return fused_self_attention_reference(q, k, v, causal)
+    if q.dim() != 4:
+        raise ValueError(f"q: expected (B, H, T, D), got {tuple(q.shape)}")
+    B, H, T, D = q.shape
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check(t, (B, H, T, D), name, q.device)
+    if not (1 <= D <= MAX_HEAD_DIM) or T < 1 or not 1 <= B * H <= 65535:
+        raise ValueError(f"fused_self_attention takes 1 <= D <= "
+                         f"{MAX_HEAD_DIM}, T >= 1 and B * H <= 65535; got "
+                         f"{tuple(q.shape)}")
+    out = torch.empty_like(q)
+    args = _AttnArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), B * H, T, D, int(causal),
+                     1.0 / math.sqrt(D))
+    return cuda_build.KernelLaunch(
+        _fn("self_attention", _AttnArgs), args, (q, k, v, out), out,
+        q.device, fused_self_attention)()
+
+
+def incremental_attention_step(q_t: Tensor, key_cache: Tensor,
+                               value_cache: Tensor, t: int) -> Tensor:
+    """(B, H, D) query against (B, H, S, D) caches at positions <= ``t`` (a
+    Python int) -> (B, H, D).  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (or raise)."""
+    if not q_t.is_cuda:
+        return incremental_attention_step_reference(q_t, key_cache,
+                                                    value_cache, t)
+    if key_cache.dim() != 4:
+        raise ValueError(f"key_cache: expected (B, H, S, D), got "
+                         f"{tuple(key_cache.shape)}")
+    B, H, S, D = key_cache.shape
+    _check(q_t, (B, H, D), "q_t", q_t.device)
+    _check(key_cache, (B, H, S, D), "key_cache", q_t.device)
+    _check(value_cache, (B, H, S, D), "value_cache", q_t.device)
+    t = int(t)
+    if not (1 <= D <= MAX_STEP_HEAD_DIM) or not 0 <= t < S:
+        raise ValueError(f"incremental_attention_step takes 1 <= D <= "
+                         f"{MAX_STEP_HEAD_DIM} and 0 <= t < S; got D={D}, "
+                         f"t={t}, S={S}")
+    out = torch.empty_like(q_t)
+    args = _StepArgs(q_t.data_ptr(), key_cache.data_ptr(),
+                     value_cache.data_ptr(), out.data_ptr(), B * H, S, D, t,
+                     1.0 / math.sqrt(D))
+    return cuda_build.KernelLaunch(
+        _fn("incremental_attention", _StepArgs), args,
+        (q_t, key_cache, value_cache, out), out, q_t.device,
+        incremental_attention_step)()
+
+
+fused_self_attention.launches = 0
+incremental_attention_step.launches = 0

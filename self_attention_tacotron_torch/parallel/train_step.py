@@ -10,18 +10,20 @@ global-norm clipping at 1.0, then Adam (``adam_beta1``, ``adam_beta2``,
 what an unbroken one would have.  The metrics are ``loss``, ``code_loss``,
 ``done_loss``, ``l2_regularization_loss``, ``learning_rate`` and
 ``grad_norm`` (the norm before clipping), as tensors on the model's device.
-The two-pass evaluation step and data parallelism come with later slices.
+``make_eval_step`` is the two-pass evaluation (a free-running and a
+teacher-forced VALIDATION decode).  Data parallelism comes with a later
+slice.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
 
 from ..config import HParams
-from ..models.tacotron import Batch, compute_loss
+from ..models.tacotron import Batch, TacotronOutput, compute_loss
 from ..ops.losses import global_norm_clip, noam_learning_rate
 
 
@@ -89,3 +91,32 @@ def make_train_step(hp: HParams) -> Callable[[TrainState, Batch],
         return metrics
 
     return train_step
+
+
+def make_eval_step(hp: HParams) -> Callable[
+        [TrainState, Batch],
+        Tuple[Dict[str, torch.Tensor], TacotronOutput, TacotronOutput]]:
+    """``eval_step(state, batch) -> (metrics, out_free, out_teacher)``: the
+    reference's two-pass evaluation.  The free-running decode gives the
+    main losses; the teacher-forced one, the reliable ``*_with_teacher``
+    metrics."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Batch):
+        model = state.model
+        out_free = model.validation_forward(batch, False)
+        losses_free = compute_loss(hp, out_free, batch, model)
+        out_teacher = model.validation_forward(batch, True)
+        losses_teacher = compute_loss(hp, out_teacher, batch, model)
+        metrics = {
+            "code_loss": losses_free["code_loss"],
+            "done_loss": losses_free["done_loss"],
+            "loss": losses_free["loss"],
+            "loss_with_teacher": losses_teacher["loss"],
+            "code_loss_with_teacher": losses_teacher["code_loss"],
+            "done_loss_with_teacher": losses_teacher["done_loss"],
+            "l2_regularization_loss": losses_free["l2_regularization_loss"],
+        }
+        return metrics, out_free, out_teacher
+
+    return eval_step

@@ -4,7 +4,10 @@ Marked ``cuda``; each test skips when there is no CUDA device.  Small
 configurations that the recipe run in chip_smoke.py does not cover: odd
 and even bank widths, the adjustment dense, two hops, three prenet
 layers, r = 2, additive-only sources, cumulative location weights, early
-stop.  This file imports no JAX, so on a machine without it run
+stop; the Pallas-mode attention kernels at small and recipe shapes (head
+widths 4 to 128, T not a multiple of 64, t at both ends of the cache) and
+the model's serving and VALIDATION decodes in that mode.  This file imports
+no JAX, so on a machine without it run
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -346,3 +349,101 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(device):
         wide = train_case(device, ("forward", "additive"), (False, False),
                           33, False, False)
         ft.fused_teacher_scan(*wide[:5], 0, loc_ws=wide[6], **wide[7])
+
+
+# ------------------------------------------- Pallas-mode attention kernels
+
+from self_attention_tacotron_torch.ops import pallas_attention as pa  # noqa: E402
+
+
+def _normal(device, *shape, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("B,H,T,D,causal", [
+    (2, 2, 37, 16, False), (2, 2, 37, 16, True), (1, 2, 64, 16, False),
+    (3, 2, 130, 64, True), (1, 1, 5, 4, True), (2, 2, 70, 24, False),
+    (32, 2, 250, 128, False), (32, 2, 250, 128, True)])
+@torch.no_grad()
+def test_fused_self_attention_kernel_matches_plain(device, B, H, T, D,
+                                                   causal):
+    q, k, v = (_normal(device, B, H, T, D, seed=s) for s in range(3))
+    before = pa.fused_self_attention.launches
+    got = pa.fused_self_attention(q, k, v, causal)
+    ref = pa.fused_self_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert pa.fused_self_attention.launches == before + 1
+    _close(got, ref, tol=1e-5)
+
+
+@pytest.mark.parametrize("B,H,S,D", [(1, 2, 250, 128), (32, 2, 250, 128),
+                                     (2, 2, 24, 8), (1, 2, 3000, 16)])
+@torch.no_grad()
+def test_incremental_step_kernel_matches_plain(device, B, H, S, D):
+    kc, vc = _normal(device, B, H, S, D, seed=1), _normal(device, B, H, S, D,
+                                                          seed=2)
+    for t in (0, S // 2, S - 1):
+        q = _normal(device, B, H, D, seed=3 + t)
+        before = pa.incremental_attention_step.launches
+        got = pa.incremental_attention_step(q, kc, vc, t)
+        ref = pa.incremental_attention_step_reference(q, kc, vc, t)
+        torch.cuda.synchronize()
+        assert pa.incremental_attention_step.launches == before + 1
+        _close(got, ref, tol=1e-5)
+
+
+def test_pallas_wrappers_reject_what_the_kernels_do_not_take(device):
+    q = _normal(device, 1, 2, 8, 16)
+    with pytest.raises(ValueError):
+        pa.fused_self_attention(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError):   # non-contiguous
+        t = q.transpose(2, 3)
+        pa.fused_self_attention(t, t, t)
+    with pytest.raises(ValueError):   # head width past the widest template
+        w = _normal(device, 1, 2, 8, 136)
+        pa.fused_self_attention(w, w, w)
+    with pytest.raises(ValueError):   # no backward
+        g = q.clone().requires_grad_()
+        with torch.enable_grad():
+            pa.fused_self_attention(g, g, g)
+    cache = _normal(device, 1, 2, 8, 16)
+    with pytest.raises(ValueError):
+        pa.incremental_attention_step(q[:, :, 0], cache, cache, 8)   # t = S
+    with pytest.raises(ValueError):
+        pa.incremental_attention_step(q[:, :, 0].double(), cache, cache, 0)
+    with pytest.raises(ValueError):   # non-contiguous cache
+        pa.incremental_attention_step(q[:, :, 0], cache.transpose(0, 1),
+                                      cache, 0)
+    with pytest.raises(ValueError):   # one thread a column: D <= 256
+        wide = _normal(device, 1, 1, 4, 300)
+        pa.incremental_attention_step(wide[:, :, 0], wide, wide, 1)
+
+
+@torch.no_grad()
+def test_model_serves_and_validates_in_pallas_mode(device):
+    """The Pallas mode launches fused_self_attention once a serving call
+    (the encoder's hop) and incremental_attention_step once a decode step
+    (one decoder hop); its outputs agree with the einsum path, in serving
+    and in both VALIDATION passes."""
+    models = [_model(device, seed=3, use_pallas_attention=p)
+              for p in (False, True)]
+    batch = Batch(_source(32, 21, device), torch.tensor([21], device=device))
+    pa.fused_self_attention.launches = 0
+    pa.incremental_attention_step.launches = 0
+    outs = [m(batch) for m in models]
+    assert (pa.fused_self_attention.launches,
+            pa.incremental_attention_step.launches) == (1, 30)
+    _close(outs[1].outputs, outs[0].outputs)
+    assert not outs[1].decoder_self_attention_alignments[0].any()
+    src = torch.cat([_source(32, 21, device), _source(32, 21, device, 1)])
+    target = torch.nn.functional.one_hot(torch.from_numpy(
+        np.random.default_rng(4).integers(0, 10, (2, 12))), 10).float()
+    vbatch = Batch(src, torch.tensor([21, 17], device=device),
+                   target=target.to(device))
+    for tf in (False, True):
+        pa.incremental_attention_step.launches = 0
+        got, ref = (m.validation_forward(vbatch, tf) for m in models[::-1])
+        assert pa.incremental_attention_step.launches == 12
+        _close(got.outputs, ref.outputs)
+        _close(got.stop_token, ref.stop_token)

@@ -239,5 +239,6 @@ print("ok")
     for mod in ("cli.train", "cli.predict", "parallel.train_step",
                 "utils.checkpoint", "data.dataset", "ops.fused_train",
                 "ops.losses", "ops.masks", "ops.fused_decode",
-                "ops.fused_encoder"):
+                "ops.fused_encoder", "ops.pallas_attention", "utils.metrics",
+                "utils.tb_events"):
         assert f"self_attention_tacotron_torch.{mod}" in lines, mod

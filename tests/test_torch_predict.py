@@ -7,9 +7,11 @@ plain versions for CPU tensors).  The copied config, TFRecord codec and
 record schemas agree with the JAX package's.
 """
 
+import logging
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from self_attention_tacotron_tpu import config as jax_config
@@ -18,7 +20,8 @@ from self_attention_tacotron_torch import config
 from self_attention_tacotron_torch.cli.predict import main_code
 from self_attention_tacotron_torch.data import records
 from self_attention_tacotron_torch.data.dataset import load_utterance
-from self_attention_tacotron_torch.models import tacotron_model_factory
+from self_attention_tacotron_torch.models import (Batch, encoders,
+                                                  tacotron_model_factory)
 from self_attention_tacotron_torch.utils import convert
 
 from test_torch_ops import ROOT, tiny_codes_hp
@@ -82,6 +85,36 @@ def test_main_code_serves_a_corpus_on_cpu(tmp_path, capsys):
             out, f"{key}.{hp.predicted_mel_extension}"), "<f4")
         np.testing.assert_array_equal(dump, rec.codes.reshape(-1))
         assert rec.ground_truth_codes.shape[1] == hp.num_mels
+
+
+PALLAS = " (Pallas attention mode)"
+
+
+@pytest.mark.parametrize("hparams,enc,dec", [
+    ("", "fused_encode kernel", "fused_decode kernel"),
+    ("use_pallas_attention=true,decoder_fused_inference=false,"
+     "encoder_fused_inference=false",
+     "fused_self_attention kernel" + PALLAS,
+     "incremental_attention_step kernel" + PALLAS),
+    # the fused decode's gate refuses location-sensitive sources
+    ("attention=location_sensitive,use_pallas_attention=true",
+     "fused_encode kernel", "incremental_attention_step kernel" + PALLAS),
+    ("attention=location_sensitive", "fused_encode kernel",
+     "einsum module path"),
+], ids=["fused", "pallas", "location-pallas", "location"])
+def test_model_logs_the_path_its_gates_chose(monkeypatch, caplog, hparams,
+                                             enc, dec):
+    hp = config.default_hparams().parse_json_file(RECIPE).parse(TINY)
+    hp.parse(hparams)
+    model = convert.init_parameters(tacotron_model_factory(hp), 1).eval()
+    monkeypatch.setattr(encoders, "_logged_paths", set())
+    with caplog.at_level(logging.INFO, logger=encoders.__name__):
+        model(Batch(source=torch.tensor([[3, 5, 7, 2, 9]]),
+                    source_length=torch.tensor([5])))
+    logged = [r.getMessage() for r in caplog.records
+              if r.name == encoders.__name__]
+    assert logged == [f"encoder self-attention: {enc}",
+                      f"decoder self-attention: {dec}"]
 
 
 def test_main_code_without_checkpoint_fails(tmp_path):

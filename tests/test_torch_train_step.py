@@ -313,8 +313,11 @@ def test_cli_train_on_cpu_then_predict_from_its_checkpoint(tmp_path, capsys):
     assert [line.split("step ")[1].split()[0] for line in logged] == [
         "1", "2", "3"]
     assert "not ported yet" in text
-    assert sorted(os.listdir(ckpt)) == ["log.txt", "model-2.pt", "model-3.pt",
-                                        "train-2.pt", "train-3.pt"]
+    assert "evaluation is off" in text        # no validation.csv
+    files = sorted(os.listdir(ckpt))
+    assert [f for f in files if not f.startswith("events.out")] == [
+        "log.txt", "metrics.jsonl", "model-2.pt", "model-3.pt", "train-2.pt",
+        "train-3.pt"]
     # resume and take one more step
     assert main(common + ["--max-steps", "4"]) == 0
     text = capsys.readouterr().out
