@@ -5,11 +5,12 @@
 
 Builds the port's CUDA kernels from ``self_attention_tacotron_torch/ops/csrc``
 (into ``build/torch_kernels/``), then, at the full widths of the shipped
-VQ-code recipe (``examples/codes/self-attention-tacotron.json``) with
+VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
+13-15: the LJSpeech mel recipe ``examples/ljspeech/tacotron.json``) with
 weights drawn from a seed:
 
 1. prints the card (``nvidia-smi`` name and power limit) and CUDA version;
-2. builds the four kernels, one nvcc each, in parallel;
+2. builds the seven kernels, one nvcc each, in parallel;
 3. ``fused_encode``: kernel vs its plain PyTorch version, T = 64 phones,
    L = 64 and L = 50;
 4. ``fused_decode``: kernel vs its plain version, 450 steps, early stop
@@ -35,7 +36,8 @@ weights drawn from a seed:
    after a warm-up), one training step on the fused and on the plain path,
    and prints one JSON line of per-kernel numbers: a row for each kernel
    and each main path that launched it (``path``: serving, training,
-   evaluation, pallas_serving), with that path's own launch count;
+   evaluation, pallas_serving, preprocessing, mel_serving), with that
+   path's own launch count;
 9. the Pallas-mode attention kernels against their plain versions:
    ``fused_self_attention`` at B = 1, H = 2, T = 64, D = 16 (the encoder
    hop) and, causal and not, at B = 32, T = 250, D = 128;
@@ -56,7 +58,30 @@ weights drawn from a seed:
 12. times rows 5 and 6 (kernel, plain version, and one
    ``scaled_dot_product_attention`` call of the same function, which the
    port never calls) beside their bounds, and one evaluation round with
-   and without ``use_pallas_attention``.
+   and without ``use_pallas_attention``;
+13. the ``spectrogram`` kernel (the STFT of ``preprocess --on-device``)
+   against its plain version at LJSpeech widths (10 s, 1.3 s and one
+   frame) and VCTK widths (10 s): magnitudes relative to each frame's peak,
+   dB within 60 dB of each frame's peak (the row's ``max_abs_err`` is that
+   dB error); at 10 s its time beside the plain
+   version's, ``torch.stft`` -> abs -> mel -> dB (the yardstick, never
+   called by the port) and the bound;
+14. ``cli.preprocess.main_ljspeech --on-device`` over a synthetic 64-
+   utterance LJSpeech-layout corpus (1.5-6 s at 22.05 kHz, texts with
+   numbers and abbreviations): one ``spectrogram`` launch an utterance
+   (counter zeroed just before), four targets against the numpy path, and
+   seconds per hour of audio for ``--on-device``, the numpy path with one
+   worker and with the default pool;
+15. the LJSpeech mel recipe (``examples/ljspeech/tacotron.json`` with the
+   corpus statistics merged in): ``cli.train`` takes 3 steps at B = 32 on
+   phase 14's records with one evaluation of 2 utterances;
+   ``cli.predict.main_mel`` serves the 3 test utterances on ``cuda`` on
+   the plain path (no ``fused_decode`` launch) and with
+   ``decoder_fused_inference=true`` (one launch an utterance, the same
+   frames); ``fused_decode`` at that shape (one forward source, no hops,
+   r = 2, C = 80, 500 steps) against its plain version, timed.  The
+   kernels line gains a ``spectrogram`` row (path ``preprocessing``) and a
+   ``fused_decode`` row (path ``mel_serving``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -1175,6 +1200,407 @@ def phase_attention_timing(device, launches, errs, ckpt, data, val_keys):
     return rows
 
 
+# --------------------------------------------- the mel-spectrogram path
+
+MEL_RECIPE = os.path.join(ROOT, "examples", "ljspeech", "tacotron.json")
+VCTK_RECIPE = os.path.join(ROOT, "examples", "vctk", "tacotron.json")
+# Spectrogram kernel vs plain version (float32 both, TF32 off).  A 2048-
+# or 4096-term float32 DFT sum carries an absolute error of ~1e-6 of the
+# frame's peak, so a bin 60 dB under its frame's peak is good to ~0.01 dB
+# and one near the -100 dB floor can differ by dBs between two right
+# float32 implementations: magnitudes are compared relative to each
+# frame's peak, dB only where the plain version is within 60 dB of its
+# frame's peak and clears the floor by 20 dB.  Against the float64 numpy
+# path of preprocessing the JAX package's own check is 0.15 dB.
+TOL_SPEC_MAG = 2e-5
+TOL_SPEC_DB = 1e-2
+TOL_SPEC_NUMPY_DB = 0.15
+# The mel recipe's fused decode vs its plain version: raw 80-wide frames
+# fed back for 500 steps.
+TOL_MEL_DECODE = 1e-4
+MEL_UTTERANCES = 64
+MEL_TEXTS = ("Dr. Smith paid $12.50 on May 3, 1999, at 10 a.m.",
+             "Mr. and Mrs. Jones read 42 books in 2 weeks.",
+             "The 3rd St. bus left at 7:45 with 18 riders.",
+             "St. Mary's Hospital has 1,024 beds, not 512.")
+MEL_SERVE_FUSED = "decoder_fused_inference=true"
+
+
+def _audio_hparams(recipe):
+    from self_attention_tacotron_torch.config import default_hparams
+    return default_hparams().parse_json_file(recipe)
+
+
+def _extractor(recipe, device):
+    from self_attention_tacotron_torch.ops.stft import MelExtractor
+    hp = _audio_hparams(recipe)
+    return hp, MelExtractor(hp.sample_rate, hp.num_freq, hp.num_mels,
+                            hp.frame_length_ms, hp.frame_shift_ms,
+                            hp.ref_level_db, device=device)
+
+
+def _wave(n: int, sr: int, seed: int):
+    """A voiced-like test signal: two tones with vibrato under noise."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + seed)
+    t = np.arange(n) / sr
+    f0 = rng.uniform(100.0, 250.0)
+    phase = 2 * np.pi * f0 * (t + 0.002 * np.sin(2 * np.pi * 5 * t))
+    y = 0.3 * np.sin(phase) + 0.15 * np.sin(3 * phase)
+    return (y + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+
+def spec_errors(got_db, ref_db):
+    """(max |magnitude - plain| over the frame's peak, max dB error where
+    the plain version is within 60 dB of its frame's peak and clears the
+    floor by 20 dB) of (F, bins) dB tensors without the ref_level_db
+    shift."""
+    got, ref = got_db.double(), ref_db.double()
+    mg, mr = 10.0 ** (got / 20.0), 10.0 ** (ref / 20.0)
+    peak = mr.amax(1, keepdim=True).clamp(min=1e-5)
+    loud = (ref > -80.0) & (ref > ref.amax(1, keepdim=True) - 60.0)
+    db = float((got - ref).abs()[loud].max()) if bool(loud.any()) else 0.0
+    return float(((mg - mr).abs() / peak).max()), db
+
+
+def spectrogram_bound(F, N, K, M):
+    """(bytes, FLOPs) of spectrograms: frames, both DFT matrices and the
+    filterbank read once, both outputs written once; the two DFT products
+    and the mel product (one multiply-add each)."""
+    return (4 * (F * N + 2 * N * K + K * M + F * K + F * M),
+            4 * F * N * K + 2 * F * K * M)
+
+
+def library_spectrograms(ex, y):
+    """torch.stft (cuFFT) -> abs -> mel product -> dB: the same function
+    from library calls (a yardstick; the port never calls it)."""
+    import torch
+    from self_attention_tacotron_torch.ops.stft import amp_to_db
+    mag = torch.stft(y, ex.n_fft, ex.hop_length, win_length=ex.n_fft,
+                     window=ex.window, center=True, pad_mode="reflect",
+                     return_complex=True).abs()
+    return amp_to_db(mag).T, amp_to_db(ex._mel_t.T @ mag).T
+
+
+def phase_spectrogram(device):
+    """Phase 13: the spectrogram kernel vs its plain version at LJSpeech
+    widths (10 s, 1.3 s, one frame) and VCTK widths (10 s), and at 10 s its
+    time beside the plain version's, the library's and its bound.  Returns
+    (worst dB error, the LJSpeech 10 s timings and bound)."""
+    import torch
+    from self_attention_tacotron_torch.ops import stft as S
+    worst, timing = 0.0, None
+    for recipe, name, seconds in ((MEL_RECIPE, "LJSpeech", 10.0),
+                                  (MEL_RECIPE, "LJSpeech", 1.3),
+                                  (MEL_RECIPE, "LJSpeech", None),
+                                  (VCTK_RECIPE, "VCTK", 10.0)):
+        hp, ex = _extractor(recipe, device)
+        n = int(seconds * hp.sample_rate) if seconds else ex.hop_length // 2
+        y = _wave(n, hp.sample_rate, n)
+        frames = ex.frames(y)
+        args = (frames, ex._wr, ex._wi, ex._mel_t)
+        got = S.spectrograms(*args)
+        ref = S.spectrograms_reference(*args)
+        torch.cuda.synchronize()
+        F, N = frames.shape
+        K, M = ex._wr.shape[1], ex._mel_t.shape[1]
+        errs = [spec_errors(g, r) for g, r in zip(got, ref)]
+        mag_err = max(e[0] for e in errs)
+        db_err = max(e[1] for e in errs)
+        log(f"phase 13 spectrogram {name} {n} samples (F={F}, n_fft={N}, "
+            f"bins={K}, mels={M}): magnitude max err {mag_err:.2e} of the "
+            f"frame's peak, dB max err {db_err:.2e} where within 60 dB of "
+            "the peak "
+            "(linear, mel: " + ", ".join(f"{e[0]:.1e}/{e[1]:.1e}"
+                                         for e in errs) + ")")
+        if got[0].shape != (F, K) or got[1].shape != (F, M):
+            raise AssertionError("spectrogram output shapes are wrong")
+        if mag_err > TOL_SPEC_MAG or db_err > TOL_SPEC_DB:
+            raise AssertionError(f"spectrogram disagrees (tol {TOL_SPEC_MAG}"
+                                 f" of the peak, {TOL_SPEC_DB} dB)")
+        worst = max(worst, db_err)
+        if seconds != 10.0:
+            continue
+        y_dev = torch.from_numpy(y).to(device)
+        lib = library_spectrograms(ex, y_dev)
+        lib_err = max(spec_errors(g, r)[1] for g, r in zip(lib, ref))
+        times = [_device_ms(fn, reps=20) for fn in (
+            lambda: S.spectrograms(*args),
+            lambda: S.spectrograms_reference(*args),
+            lambda: library_spectrograms(ex, y_dev))]
+        bound = spectrogram_bound(F, N, K, M)
+        log(f"phase 13 timing {name} 10 s: kernel {times[0]:.4f} ms, plain "
+            f"{times[1]:.4f} ms, torch.stft+abs+mel+dB {times[2]:.4f} ms "
+            f"(vs plain {lib_err:.1e} dB near the peaks); bound "
+            f"{_bound_ms(bound):.4f} ms ({bound[0]} bytes, {bound[1]} FLOPs)"
+            f"; {bound[1] / times[0] / 1e9:.2f} TFLOP/s")
+        if name == "LJSpeech":
+            timing = (times, bound)
+    return worst, timing
+
+
+def write_ljspeech_corpus(root: str, n: int = MEL_UTTERANCES):
+    """An LJSpeech-layout corpus (wavs/*.wav, metadata.csv) of ``n``
+    utterances of 1.5-6 s at 22.05 kHz whose texts need the cleaners
+    (numbers, money, abbreviations); returns (keys, seconds of audio)."""
+    import numpy as np
+    import scipy.io.wavfile
+    sr = _audio_hparams(MEL_RECIPE).sample_rate
+    rng = np.random.default_rng(SEED + 2)
+    os.makedirs(os.path.join(root, "wavs"))
+    keys, lines, total = [], [], 0.0
+    for i in range(n):
+        key = f"LJ900-{i:04d}"
+        seconds = float(rng.uniform(1.5, 6.0))
+        y = _wave(int(seconds * sr), sr, 100 + i)
+        scipy.io.wavfile.write(os.path.join(root, "wavs", f"{key}.wav"), sr,
+                               (np.clip(y, -1, 1) * 32767).astype(np.int16))
+        text = f"{MEL_TEXTS[i % len(MEL_TEXTS)]} Take {i + 1}."
+        lines.append(f"{key}|{text}|{text}")
+        keys.append(key)
+        total += seconds
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return keys, total
+
+
+def _preprocess_in_subprocess(corpus, out, extra):
+    """``main_ljspeech`` in a fresh process (its default pool forks no
+    CUDA context); returns the wall seconds after the imports."""
+    code = ("import sys, time\n"
+            "from self_attention_tacotron_torch.cli.preprocess import "
+            "main_ljspeech\n"
+            "t = time.perf_counter()\n"
+            "rc = main_ljspeech(sys.argv[1:])\n"
+            "print('WALL', time.perf_counter() - t)\n"
+            "sys.exit(rc)\n")
+    res = subprocess.run([sys.executable, "-c", code, corpus, out,
+                          "--hparam-json-file", MEL_RECIPE, *extra],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600, env=dict(os.environ, PYTHONPATH=ROOT))
+    if res.returncode != 0:
+        raise AssertionError(f"preprocess subprocess failed: {res.stderr}")
+    return float(res.stdout.split("WALL")[-1])
+
+
+def phase_preprocess(tmp: str, device):
+    """Phase 14: cli.preprocess.main_ljspeech over a synthetic corpus with
+    --on-device (cuda), then the numpy path with one worker and with the
+    default pool; a few targets against the numpy path.  Returns the
+    records' directory, the merged mel recipe file and the launch counts."""
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.cli.preprocess import main_ljspeech
+    from self_attention_tacotron_torch.data import records as R
+    from self_attention_tacotron_torch.ops import stft as S
+    corpus = os.path.join(tmp, "ljspeech")
+    keys, seconds = write_ljspeech_corpus(corpus)
+    hours = seconds / 3600.0
+    outs = {m: os.path.join(tmp, f"lj_{m}") for m in ("device", "numpy1",
+                                                      "pool")}
+    S.spectrograms.launches = 0
+    t0 = time.perf_counter()
+    rc = main_ljspeech([corpus, outs["device"], "--hparam-json-file",
+                        MEL_RECIPE, "--on-device", "--device", device.type])
+    walls = {"device": time.perf_counter() - t0}
+    counts = {"spectrogram": S.spectrograms.launches}
+    if rc != 0:
+        raise AssertionError(f"main_ljspeech --on-device returned {rc}")
+    t0 = time.perf_counter()
+    if main_ljspeech([corpus, outs["numpy1"], "--hparam-json-file",
+                      MEL_RECIPE, "--num-workers", "1"]) != 0:
+        raise AssertionError("main_ljspeech (numpy) failed")
+    walls["numpy1"] = time.perf_counter() - t0
+    walls["pool"] = _preprocess_in_subprocess(corpus, outs["pool"], [])
+    mag_err = db_err = 0.0
+    for key in keys[:4]:
+        got, ref = (torch.from_numpy(np.array(R.parse_mel_target_record(
+            R.read_first_example(os.path.join(
+                outs[m], f"{key}.target.tfrecord"))).mel)) + 20.0
+                    for m in ("device", "numpy1"))
+        e = spec_errors(got, ref)
+        mag_err, db_err = max(mag_err, e[0]), max(db_err, e[1])
+    log(f"phase 14 preprocess: {len(keys)} utterances, {seconds:.1f} s of "
+        f"audio; --on-device {walls['device']:.2f} s "
+        f"({walls['device'] / hours:.1f} s per hour of audio), numpy one "
+        f"worker {walls['numpy1']:.2f} s ({walls['numpy1'] / hours:.1f} s/h)"
+        f", numpy default pool ({os.cpu_count()} workers, a fresh process) "
+        f"{walls['pool']:.2f} s ({walls['pool'] / hours:.1f} s/h); launch "
+        f"counts {counts}; 4 targets vs the numpy path: magnitude "
+        f"{mag_err:.1e} of the frame's peak, {db_err:.3f} dB within 60 dB of "
+        "the peaks")
+    if device.type == "cuda" and counts["spectrogram"] != len(keys):
+        raise AssertionError("--on-device did not launch the spectrogram "
+                             "kernel once an utterance")
+    if mag_err > TOL_SPEC_MAG or db_err > TOL_SPEC_NUMPY_DB:
+        raise AssertionError("on-device targets disagree with the numpy path")
+    data = outs["device"]
+    with open(os.path.join(data, "list.csv")) as f:
+        listed = f.read().split()
+    if listed != keys:
+        raise AssertionError("list.csv does not list the corpus")
+    for name, part in (("train", keys), ("validation", keys[:2]),
+                       ("test", keys[-3:])):
+        with open(os.path.join(data, f"{name}.csv"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    with open(MEL_RECIPE) as f:
+        merged = json.load(f)
+    with open(os.path.join(data, "hparams.json")) as f:
+        merged.update(json.load(f))
+    hp_json = os.path.join(tmp, "ljspeech_tacotron.json")
+    with open(hp_json, "w") as f:
+        json.dump(merged, f)
+    return data, hp_json, counts
+
+
+MEL_TRAIN_HPARAMS = ("save_checkpoints_steps=3,eval_start_delay_secs=0,"
+                     "eval_throttle_secs=0,num_evaluation_steps=2")
+
+
+def phase_mel_training(data: str, hp_json: str, tmp: str, device):
+    """Phase 15a: cli.train takes 3 steps of the LJSpeech recipe at B = 32
+    on phase 14's records, with one evaluation of 2 utterances."""
+    import ast
+    import math
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    ckpt = os.path.join(tmp, "mel_ckpt")
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt, "--hparam-json-file",
+                         hp_json, "--hparams", MEL_TRAIN_HPARAMS,
+                         "--max-steps", "3", "--device", device.type])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.train returned {rc}")
+    with open(os.path.join(ckpt, "log.txt")) as f:
+        text = f.read()
+    losses = [float(x) for x in re.findall(r"step \d+ loss ([-+0-9.eEinfa]+)",
+                                           text)]
+    evals = re.findall(r"eval @3: (\{.*\}) \(", text)
+    metrics = ast.literal_eval(evals[0]) if len(evals) == 1 else {}
+    with open(os.path.join(ckpt, "metrics.jsonl")) as f:
+        train_rows = [r for r in map(json.loads, f) if "mel_loss" in r]
+    batch = _audio_hparams(hp_json).batch_size
+    log(f"phase 15 mel training: cli.train took 3 steps of "
+        f"{os.path.basename(MEL_RECIPE)} at B={batch} on {device.type} in "
+        f"{wall:.1f} s; "
+        f"losses {losses}; mel_loss {[r['mel_loss'] for r in train_rows]}; "
+        f"eval @3 {metrics}")
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError("mel training losses are missing or not finite")
+    if ("mel_loss_with_teacher" not in metrics
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError("the mel evaluation lacks finite metrics")
+    if "model-3.pt" not in os.listdir(ckpt):
+        raise AssertionError("no checkpoint of step 3 was written")
+    return ckpt
+
+
+def _serve_mel(data, ckpt, hp_json, out, device, hparams=""):
+    import contextlib
+    import io
+    import re
+    from self_attention_tacotron_torch.cli.predict import main_mel
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_mel(["--source-data-root", data, "--target-data-root", data,
+                       "--checkpoint-dir", ckpt, "--output-dir", out,
+                       "--hparam-json-file", hp_json, "--hparams", hparams,
+                       "--device", device.type])
+    sys.stdout.write(buf.getvalue())
+    if rc != 0:
+        raise AssertionError(f"main_mel returned {rc}")
+    return [(k, int(n), float(ms)) for k, n, ms in re.findall(
+        r"predicted (\S+): (\d+) decode steps, ([0-9.]+) ms", buf.getvalue())]
+
+
+def phase_mel_serving(data, ckpt, hp_json, tmp, device):
+    """Phase 15b: main_mel serves the 3 test utterances on cuda, on the
+    plain path and with decoder_fused_inference; the fused decode at the
+    mel recipe's shape (one forward source, no hops, r = 2, C = 80) held
+    against its plain version and timed.  Returns (launch counts, rows)."""
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.config import load_hparams
+    from self_attention_tacotron_torch.data.dataset import (iter_utterances,
+                                                            load_key_list)
+    from self_attention_tacotron_torch.data.records import (
+        parse_mel_prediction_record, read_first_example)
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.utils.convert import load_checkpoint
+    keys = load_key_list(os.path.join(data, "test.csv"))
+    C = _audio_hparams(hp_json).num_mels
+    outs = {m: os.path.join(tmp, f"mel_pred_{m}") for m in ("plain", "fused")}
+    fd.fused_decode.launches = 0
+    plain = _serve_mel(data, ckpt, hp_json, outs["plain"], device)
+    plain_launches = fd.fused_decode.launches
+    fd.fused_decode.launches = 0
+    fused = _serve_mel(data, ckpt, hp_json, outs["fused"], device,
+                       MEL_SERVE_FUSED)
+    counts = {"fused_decode": fd.fused_decode.launches}
+    worst = 0.0
+    for key in keys:
+        dumps = [np.fromfile(os.path.join(o, f"{key}.mfbsp"), "<f4").reshape(
+            -1, C) for o in outs.values()]
+        rec = parse_mel_prediction_record(read_first_example(
+            os.path.join(outs["fused"], f"{key}.tfrecord")))
+        if not (np.array_equal(rec.mel, dumps[1])
+                and all(np.isfinite(d).all() and len(d) for d in dumps)):
+            raise AssertionError(f"bad mel prediction files for {key}")
+        n = min(len(d) for d in dumps)
+        worst = max(worst, float(np.abs(dumps[0][:n] - dumps[1][:n]).max()))
+    log(f"phase 15 mel serving: main_mel served {len(plain)} utterances on "
+        f"the plain path {[(n, ms) for _, n, ms in plain]} (steps, ms) and "
+        f"{len(fused)} with {MEL_SERVE_FUSED} {[(n, ms) for _, n, ms in fused]}"
+        f"; fused_decode launches {plain_launches} then {counts}; .mfbsp "
+        f"fused vs plain max abs err {worst:.2e}")
+    if plain_launches != 0 or (device.type == "cuda"
+                               and counts["fused_decode"] != len(keys)):
+        raise AssertionError("the mel serving paths launched the wrong "
+                             "kernels")
+    if [n for _, n, _ in plain] != [n for _, n, _ in fused] \
+            or worst > TOL_MEL_DECODE:
+        raise AssertionError("fused mel serving disagrees with the plain path")
+
+    class Args:
+        hparam_json_file, hparams = hp_json, MEL_SERVE_FUSED
+    hp = load_hparams(Args())
+    model = tacotron_model_factory(hp).eval()
+    load_checkpoint(model, ckpt)
+    model.to(device)
+    u = next(iter_utterances(*_val_files(hp, data, keys[:1]), hp, "mel"))
+    src = torch.from_numpy(u.source[None]).to(device)
+    lengths = torch.tensor([u.source_length], device=device)
+    memory = model.encoder(model.embedding(src), lengths)
+    dec = model.decoder
+    packs = (dec.attention_mechanisms[0].precompute(memory, lengths),)
+    weights, mem, options = dec.fused_inputs(packs)
+    options = dict(options, early_stop=False)
+    steps = hp.max_iters
+    got, ref = _decode_pair(weights, mem, options, steps)
+    err = max(_max_err(got[0], ref[0]), _max_err(got[1], ref[1]),
+              _max_err(got[2][0], ref[2][0]))
+    ms = _time_ms(fd.prepare_decode(weights, mem, num_steps=steps, **options))
+    plain_ms = _time_ms(lambda: fd.fused_decode_reference(
+        weights, mem, num_steps=steps, **options), reps=1)
+    bound = decode_bound(dec.fused_params(), weights, mem, steps)
+    log(f"phase 15 fused_decode at the mel recipe (T={u.source_length}, "
+        f"{steps} steps, r={hp.outputs_per_step}, C={hp.num_mels}, one "
+        f"source, no hops): max abs err {err:.2e}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms; bound {_bound_ms(bound):.4f} ms ({bound[0]} "
+        f"bytes, {bound[1]} FLOPs)")
+    if err > TOL_MEL_DECODE:
+        raise AssertionError(f"fused_decode disagrees at the mel recipe (tol "
+                             f"{TOL_MEL_DECODE})")
+    return counts, _kernel_rows("fused_decode", "fused_decode",
+                                "fused_decode.py:250", {"mel_serving": counts},
+                                err, ms, plain_ms, bound)
+
+
 def main() -> int:
     try:
         import torch
@@ -1207,7 +1633,7 @@ def main() -> int:
         t0 = time.perf_counter()
         kernels = ["fused_encoder", "fused_decode", "fused_train_fwd",
                    "fused_train_bwd", "self_attention",
-                   "incremental_attention"]
+                   "incremental_attention", "spectrogram"]
         logs = cuda_build.build_all(kernels)
         log(f"phase 2 built {', '.join(kernels)} in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -1239,6 +1665,17 @@ def main() -> int:
             rows += phase_train_timing(model, device, data, launches, errs)
             rows += phase_attention_timing(device, launches, errs, ckpt, data,
                                            val_keys)
+            spec_err, (spec_times, spec_bound) = phase_spectrogram(device)
+            mel_data, mel_hp, launches["preprocessing"] = phase_preprocess(
+                tmp, device)
+            rows += _kernel_rows(
+                "spectrogram", "spectrogram", "stft.py:65",
+                {"preprocessing": launches["preprocessing"]}, spec_err,
+                *spec_times[:2], spec_bound, spec_times[2])
+            mel_ckpt = phase_mel_training(mel_data, mel_hp, tmp, device)
+            launches["mel_serving"], mel_rows = phase_mel_serving(
+                mel_data, mel_ckpt, mel_hp, tmp, device)
+            rows += mel_rows
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

@@ -1,23 +1,36 @@
-"""VQ-code prediction: batch-1 serving -> .mfbsp dumps + prediction records.
+"""Prediction: batch-1 serving -> .mfbsp dumps + prediction records.
 
-Counterpart of the JAX package's ``cli/predict.py`` ``main_code``: reads the
-selected source and code-target records one utterance at a time, restores
-the port's checkpoint, decodes each utterance and writes
-``<key>.<predicted_mel_extension>`` (the one-hot codes as float32) and
-``<key>.tfrecord`` (the prediction record).  It prints each utterance's
-decode steps and wall time.  Runs on ``cuda`` unless ``--device cpu``.
-The model logs which path serves the encoder's and the decoder's
-self-attention, as its gates chose it: the fused kernels
+Counterpart of the JAX package's ``cli/predict.py`` ``main_code`` and
+``main_mel``: reads the selected source and target records one utterance
+at a time, restores the port's checkpoint, decodes each utterance
+(free-running, up to ``max_iters`` steps) and writes
+``<key>.<predicted_mel_extension>`` and ``<key>.tfrecord``:
+
+* ``main_code`` — the one-hot codes as float32 and a prediction record
+  (at most ``--limit`` utterances, 10 by default, as in the reference);
+* ``main_mel`` — the predicted mel frames (the postnet's when
+  ``use_postnet_v2``, the decoder's otherwise) and a mel prediction record
+  with the normalised ground truth and the first source's alignment.
+
+It prints each utterance's decode steps and wall time.  Runs on ``cuda``
+unless ``--device cpu``.  The model logs which path serves the encoder's
+and the decoder's self-attention, as its gates chose it: the fused kernels
 (``encoder_fused_inference``, ``decoder_fused_inference``), the Pallas
 attention mode (``use_pallas_attention`` with the fused paths off:
 ``--hparams use_pallas_attention=true,decoder_fused_inference=false,
 encoder_fused_inference=false``) or the einsum module path.  The alignment
-PNG and its replay come with a later slice.
+PNG (it needs matplotlib; the run says so once) and its replay come with a
+later slice.
 
     python -m self_attention_tacotron_torch.cli.predict \\
         --source-data-root DIR --target-data-root DIR \\
         --checkpoint-dir DIR --output-dir DIR \\
         --hparam-json-file examples/codes/self-attention-tacotron.json
+
+serves the codes recipe (``main_code``); a first argument ``mel`` runs
+``main_mel`` instead, with ``--hparam-json-file`` naming the mel recipe
+and its corpus statistics (``python -m
+self_attention_tacotron_torch.cli.predict mel --source-data-root ...``).
 """
 
 from __future__ import annotations
@@ -32,7 +45,7 @@ import numpy as np
 import torch
 
 
-def build_argparser() -> argparse.ArgumentParser:
+def build_argparser(kind: str = "codes") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--source-data-root", required=True)
     p.add_argument("--target-data-root", required=True)
@@ -44,22 +57,26 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--hparam-json-file", default=None)
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint step to restore (default: the newest)")
-    p.add_argument("--limit", type=int, default=10)
+    p.add_argument("--limit", type=int,
+                   default=10 if kind == "codes" else None)
     p.add_argument("--device", default="cuda")
     return p
 
 
-def main_code(argv=None) -> int:
-    args = build_argparser().parse_args(argv)
+def predict(kind: str, argv=None) -> int:
+    args = build_argparser(kind).parse_args(argv)
     from ..config import load_hparams
     from ..data.dataset import find_dataset_files, iter_utterances, load_key_list
-    from ..data.records import PredictionRecord, write_prediction_record
+    from ..data.records import (MelPredictionRecord, PredictionRecord,
+                                write_mel_prediction_record,
+                                write_prediction_record)
     from ..models import Batch, tacotron_model_factory
     from ..utils.convert import load_checkpoint
 
     hp = load_hparams(args)
     logging.basicConfig(level=logging.INFO)
-    log = logging.getLogger("predict_codes")
+    log = logging.getLogger(f"predict_{kind}")
+    log.warning("alignment plots are not ported yet: no PNG is written")
     device = torch.device(args.device)
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -84,7 +101,7 @@ def main_code(argv=None) -> int:
 
     count = 0
     r = hp.outputs_per_step
-    for u in iter_utterances(src, tgt, hp):
+    for u in iter_utterances(src, tgt, hp, kind):
         if args.limit is not None and count >= args.limit:
             break
         batch = Batch(source=torch.from_numpy(u.source[None]).to(device),
@@ -99,19 +116,32 @@ def main_code(argv=None) -> int:
         wall = time.perf_counter() - t0
         n_steps = int(out.lengths[0])
         n_frames = n_steps * r
-        codes = out.code_output[0, :n_frames].cpu().numpy()
         ground_truth = (u.target[:u.target_length] if u.target is not None
                         else np.zeros((0, hp.num_mels), np.float32))
+        if kind == "codes":
+            payload = out.code_output[0, :n_frames].cpu().numpy()
+        else:   # the vocoder's input: the postnet's refinement when enabled
+            frames = (out.postnet_outputs if hp.use_postnet_v2
+                      else out.outputs)
+            payload = frames[0, :n_frames].cpu().numpy()
 
         mfbsp = os.path.join(args.output_dir,
                              f"{u.meta.key}.{hp.predicted_mel_extension}")
-        codes.astype("<f4").tofile(mfbsp, format="<f4")
-        write_prediction_record(
-            PredictionRecord(id=u.meta.id, key=u.meta.key, codes=codes,
-                             ground_truth_codes=ground_truth,
-                             text=u.meta.text,
-                             source=u.source[:u.source_length]),
-            os.path.join(args.output_dir, f"{u.meta.key}.tfrecord"))
+        payload.astype("<f4").tofile(mfbsp, format="<f4")
+        record = os.path.join(args.output_dir, f"{u.meta.key}.tfrecord")
+        source = u.source[:u.source_length]
+        if kind == "codes":
+            write_prediction_record(
+                PredictionRecord(id=u.meta.id, key=u.meta.key, codes=payload,
+                                 ground_truth_codes=ground_truth,
+                                 text=u.meta.text, source=source), record)
+        else:
+            write_mel_prediction_record(
+                MelPredictionRecord(
+                    id=u.meta.id, key=u.meta.key, mel=payload,
+                    ground_truth_mel=ground_truth,
+                    alignment=out.alignments[0][0].cpu().numpy(),
+                    text=u.meta.text, source=source), record)
         print(f"predicted {u.meta.key}: {n_steps} decode steps, "
               f"{wall * 1e3:.3f} ms wall on {device.type}", flush=True)
         count += 1
@@ -119,5 +149,15 @@ def main_code(argv=None) -> int:
     return 0
 
 
+def main_code(argv=None) -> int:
+    return predict("codes", argv)
+
+
+def main_mel(argv=None) -> int:
+    return predict("mel", argv)
+
+
 if __name__ == "__main__":
-    sys.exit(main_code())
+    argv = sys.argv[1:]
+    kind = argv.pop(0) if argv[:1] in (["codes"], ["mel"]) else "codes"
+    sys.exit(predict(kind, argv))

@@ -13,14 +13,19 @@ the first ``num_evaluation_steps`` validation utterances run through
 logged as ``eval @N`` (without a ``validation.csv`` there is no
 evaluation).  Scalars go to ``<checkpoint-dir>/metrics.jsonl`` and a
 TensorBoard event file (the eval ones under ``eval/``), the log also to
-``<checkpoint-dir>/<hp.logfile>``.  Alignment plots, profiling and
-multi-device training are not ported yet; the run says so once.
+``<checkpoint-dir>/<hp.logfile>``.  The targets are codes or mel
+spectrograms, by ``--dataset-kind`` or else by ``hp.dataset`` (the JAX
+package's rule): the VQ-code recipe and the LJSpeech mel recipe
+(``examples/ljspeech/tacotron.json``, with the corpus statistics that
+``cli.preprocess`` writes to ``hparams.json`` merged in) train through the
+same CLI.  Alignment plots, profiling and multi-device training are not
+ported yet; the run says so once.
 
     python -m self_attention_tacotron_torch.cli.train \\
         --source-data-root DIR --target-data-root DIR --checkpoint-dir DIR \\
         --hparam-json-file examples/codes/self-attention-tacotron.json \\
         [--selected-list-dir DIR] [--hparams k=v,...] [--max-steps N] \\
-        [--device cpu]
+        [--dataset-kind codes|mel] [--device cpu]
 """
 
 from __future__ import annotations
@@ -44,6 +49,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--hparams", default="")
     p.add_argument("--hparam-json-file", default=None)
     p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--dataset-kind", default=None, choices=["codes", "mel"],
+                   help="the targets' kind (default: derived from "
+                        "hp.dataset)")
     p.add_argument("--device", default="cuda")
     return p
 
@@ -123,9 +131,10 @@ def main(argv=None) -> int:
     log.info("train %d validation %d", len(keys), len(val_keys))
     if not val_keys:
         log.warning("no utterances in %s: evaluation is off", val_list)
+    kind_kw = {"target_kind": args.dataset_kind} if args.dataset_kind else {}
     train_ds = dataset_factory(*files(keys), hp, shuffle=True, repeat=True,
                                drop_remainder=True, batch_size=hp.batch_size,
-                               seed=hp.seed)
+                               seed=hp.seed, **kind_kw)
     val_files = files(val_keys)
 
     model = init_parameters(tacotron_model_factory(hp), hp.seed).to(device)
@@ -150,7 +159,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         n, acc = 0, {}
         for nb in dataset_factory(*val_files, hp, batch_size=1,
-                                  shuffle=False):
+                                  shuffle=False, **kind_kw):
             if n >= hp.num_evaluation_steps:
                 break
             metrics, _, _ = eval_step(state, to_model_batch(nb))

@@ -1,16 +1,26 @@
-"""Readers of the VQ-code corpus: batch-1 serving and single-host training.
+"""Readers of the VQ-code and mel corpora: batch-1 serving and single-host
+training.
 
-The subset of the JAX package's ``data/dataset.py`` that the port runs:
+The subset of the JAX package's ``data/dataset.py`` that the port runs,
+for two target kinds:
+
+* ``codes`` — one-hot (T, num_codes) targets, target length codes * r;
+* ``mel`` — (T, num_mels) dB targets normalised by
+  ``average_mel_level_db`` and ``stddev_mel_level_db``, r frames of
+  ``silence_mel_level_db`` added at head and tail and the length padded to
+  a multiple of r with it.
 
 * serving — one utterance at a time, the source padded to the bucketing's
-  32-step source width (``Bucketing.source_pad_length``), the code target
-  kept as the ground truth of the prediction record;
+  32-step source width (``Bucketing.source_pad_length``), the target kept
+  as the ground truth of the prediction record;
 * training — ``Bucketing`` (each bucket pads its targets to its upper
-  edge), ``pad_batch`` (sources 0, codes 0, done 1, masks 0 past each
-  length), ``Dataset`` (shuffle, repeat, drop_remainder, batches of one
-  bucket), ``to_model_batch``, ``pad_model_batch_rows`` and
-  ``dataset_factory`` (codes targets only).  The multi-host bucket
-  schedule and the mel / MGC-LF0 targets come with later slices.
+  edge), ``pad_batch`` (sources 0, codes 0 or mel frames
+  ``silence_mel_level_db``, done 1, masks 0 past each length), ``Dataset``
+  (shuffle, repeat, drop_remainder, batches of one bucket),
+  ``to_model_batch``, ``pad_model_batch_rows`` and ``dataset_factory``
+  (the target kind from ``hp.dataset``, as in the JAX package).  The
+  multi-host bucket schedule and the MGC-LF0 targets come with later
+  slices.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ class Utterance(NamedTuple):
     meta: UtteranceMeta
     source: np.ndarray            # (T_pad,) int64, zero past source_length
     source_length: int
-    target: Optional[np.ndarray]  # (T, num_codes) one-hot float32
+    target: Optional[np.ndarray]  # (T, C) one-hot codes or mel frames
     target_length: int
 
 
@@ -52,8 +62,9 @@ def _round_up(x: int, m: int) -> int:
 
 
 def load_utterance(source_file: str, target_file: Optional[str],
-                   hp: HParams) -> Utterance:
-    """One source record (+ its code target) padded for the model."""
+                   hp: HParams, target_kind: str = "codes") -> Utterance:
+    """One source record (+ its ``codes`` or ``mel`` target) padded for the
+    model."""
     src = R.parse_source_record(_read_example(source_file))
     use_phone = hp.source == "phone" and src.phone is not None
     source = src.phone if use_phone else src.source
@@ -62,22 +73,45 @@ def load_utterance(source_file: str, target_file: Optional[str],
     padded = np.zeros(_round_up(max(length, 1), SOURCE_PAD_WIDTH), np.int64)
     padded[:length] = np.asarray(source, np.int64)[:length]
     target, target_length = None, 0
-    if target_file is not None:
+    if target_file is not None and target_kind == "codes":
         tgt = R.parse_code_target_record(_read_example(target_file))
         target = tgt.codes.astype(np.float32)
         target_length = tgt.codes_length * hp.outputs_per_step
+    elif target_file is not None and target_kind == "mel":
+        target, target_length = _mel_target(
+            R.parse_mel_target_record(_read_example(target_file)), hp)
+    elif target_file is not None:
+        raise NotImplementedError(f"{target_kind!r} targets are not ported "
+                                  "yet")
     return Utterance(UtteranceMeta(src.id, src.key, text, src.lang), padded,
                      length, target, int(target_length))
 
 
+def _mel_target(tgt: R.MelTargetRecord, hp: HParams):
+    """Normalised mel frames with r silence frames at head and tail, the
+    length padded to a multiple of r (reference:
+    datasets/vctk/dataset.py:152-193)."""
+    r = hp.outputs_per_step
+    avg = np.asarray(hp.average_mel_level_db, np.float32)
+    std = np.asarray(hp.stddev_mel_level_db, np.float32)
+    sil = np.float32(hp.silence_mel_level_db)
+    length = tgt.target_length + 2 * r
+    padded = _round_up(length, r)
+    mel = np.pad((tgt.mel - avg) / std, ((r, r + padded - length), (0, 0)),
+                 constant_values=sil)
+    return mel.astype(np.float32), padded
+
+
 def iter_utterances(source_files: Sequence[str],
                     target_files: Optional[Sequence[str]],
-                    hp: HParams) -> Iterator[Utterance]:
+                    hp: HParams, target_kind: str = "codes"
+                    ) -> Iterator[Utterance]:
     """In list order; targets longer than ``max_iters * r`` are skipped
     (the reference's filter_by_max_output_length)."""
     max_out = hp.max_iters * hp.outputs_per_step
     for i, s in enumerate(source_files):
-        u = load_utterance(s, target_files[i] if target_files else None, hp)
+        u = load_utterance(s, target_files[i] if target_files else None, hp,
+                           target_kind)
         if u.target is not None and u.target_length > max_out:
             continue
         yield u
@@ -100,7 +134,7 @@ class NumpyBatch(NamedTuple):
     meta: List[UtteranceMeta]
     source: np.ndarray            # (B, T_in) int64
     source_length: np.ndarray     # (B,) int32
-    target: np.ndarray            # (B, T, num_codes) float32
+    target: np.ndarray            # (B, T, C) float32
     target_length: np.ndarray     # (B,) int32
     done: np.ndarray              # (B, T // r) float32
     spec_loss_mask: np.ndarray    # (B, T)
@@ -131,16 +165,19 @@ class Bucketing:
 
 def pad_batch(utts: Sequence[Utterance], hp: HParams,
               target_pad: Optional[int] = None,
-              source_pad: Optional[int] = None) -> NumpyBatch:
-    """Pad code-target utterances to common shapes: sources 0, codes 0.0,
-    done 1 and loss masks 0 past each length; done is [0, ..., 0, 1] and
-    the masks are 1 within it."""
+              source_pad: Optional[int] = None,
+              target_kind: str = "codes") -> NumpyBatch:
+    """Pad utterances to common shapes: sources 0, codes 0.0 or mel frames
+    ``silence_mel_level_db``, done 1 and loss masks 0 past each length;
+    done is [0, ..., 0, 1] and the masks are 1 within it."""
     B, r = len(utts), hp.outputs_per_step
     src_len = max(u.source_length for u in utts)
     source = np.zeros((B, max(source_pad or src_len, src_len)), np.int64)
     tgt_len = max(u.target_length for u in utts)
     tgt_pad = _round_up(max(target_pad or tgt_len, tgt_len), r)
-    target = np.zeros((B, tgt_pad, utts[0].target.shape[1]), np.float32)
+    fill = hp.silence_mel_level_db if target_kind == "mel" else 0.0
+    target = np.full((B, tgt_pad, utts[0].target.shape[1]), fill,
+                     np.float32)
     done = np.ones((B, tgt_pad // r), np.float32)
     spec_mask = np.zeros((B, tgt_pad), np.float32)
     binary_mask = np.zeros((B, tgt_pad // r), np.float32)
@@ -162,7 +199,8 @@ def pad_batch(utts: Sequence[Utterance], hp: HParams,
 
 
 class Dataset:
-    """Code-target utterances -> padded batches of one bucket each:
+    """Utterances with ``target_kind`` targets -> padded batches of one
+    bucket each:
     shuffled (``seed``) per epoch, repeated, targets longer than
     ``max_iters * r`` skipped; a batch leaves its bucket when it holds
     ``batch_size`` utterances, the remainders at the end of a finite pass
@@ -172,13 +210,14 @@ class Dataset:
                  target_files: Sequence[str], hp: HParams,
                  batch_size: Optional[int] = None, shuffle: bool = True,
                  repeat: bool = False, seed: int = 0,
-                 drop_remainder: bool = False):
+                 drop_remainder: bool = False, target_kind: str = "codes"):
         assert len(source_files) == len(target_files)
         self.pairs = list(zip(source_files, target_files))
         self.hp = hp
         self.batch_size = batch_size or hp.batch_size
         self.shuffle, self.repeat = shuffle, repeat
         self.seed, self.drop_remainder = seed, drop_remainder
+        self.target_kind = target_kind
         self.bucketing = Bucketing(hp)
 
     def _utterances(self) -> Iterator[Utterance]:
@@ -188,7 +227,8 @@ class Dataset:
             if self.shuffle:
                 rng.shuffle(pairs)
             yield from iter_utterances([s for s, _ in pairs],
-                                       [t for _, t in pairs], self.hp)
+                                       [t for _, t in pairs], self.hp,
+                                       self.target_kind)
             if not self.repeat:
                 return
 
@@ -205,10 +245,12 @@ class Dataset:
             buckets.setdefault(bid, []).append(u)
             if len(buckets[bid]) == self.batch_size:
                 batch = buckets.pop(bid)
-                yield pad_batch(batch, self.hp, *self._pads_for(bid, batch))
+                yield pad_batch(batch, self.hp, *self._pads_for(bid, batch),
+                                self.target_kind)
         if not self.drop_remainder:
             for bid, batch in sorted(buckets.items()):
-                yield pad_batch(batch, self.hp, *self._pads_for(bid, batch))
+                yield pad_batch(batch, self.hp, *self._pads_for(bid, batch),
+                                self.target_kind)
 
 
 def to_model_batch(nb: NumpyBatch):
@@ -245,11 +287,24 @@ def pad_model_batch_rows(mb, multiple: int):
     return padded._replace(**masks), pad
 
 
+def target_kind_of(hp: HParams) -> str:
+    """The target kind ``hp.dataset`` names (the JAX package's
+    ``dataset_factory``): codes, mgclf0, else mel (vctk, ljspeech)."""
+    name = hp.dataset.lower()
+    if "codes" in name:
+        return "codes"
+    if "mgc" in name or "lf0" in name:
+        return "mgclf0"
+    return "mel"
+
+
 def dataset_factory(source_files, target_files, hp: HParams,
                     **kwargs) -> Dataset:
-    """The JAX package's name-keyed dispatch; the port reads codes targets
-    only (``hp.dataset`` naming a codes dataset)."""
-    if "codes" not in hp.dataset.lower():
-        raise NotImplementedError(
-            f"dataset {hp.dataset!r}: only codes targets are ported")
-    return Dataset(source_files, target_files, hp, **kwargs)
+    """The JAX package's name-keyed dispatch: ``target_kind`` (a keyword,
+    or derived from ``hp.dataset``) selects codes or mel targets; MGC-LF0
+    targets are not ported yet."""
+    kind = kwargs.pop("target_kind", None) or target_kind_of(hp)
+    if kind not in ("codes", "mel"):
+        raise NotImplementedError(f"{kind!r} targets are not ported yet")
+    return Dataset(source_files, target_files, hp, target_kind=kind,
+                   **kwargs)

@@ -14,21 +14,28 @@ Per step:
     y        = hops(o2)                          # causal KV-cache attention
     out, stop = heads(y)
 
-TRAIN (``train_forward``, transformer decoders): the teacher inputs
-[GO, target_0, ...] run through the recurrent trunk, then the causal hops
-over the whole sequence (dropout ``self_attention_drop_rate``) and the
-heads.  The trunk is a plain loop over ``_rnn_step`` (prenet dropout and
-zoneout from the caller's ``torch.Generator``), or, with ``fused_train``
-where ``_fused_train_unsupported_reason`` finds nothing,
+TRAIN (``train_forward``): the teacher inputs [GO, target_0, ...] run
+through the recurrent trunk, then the causal hops over the whole sequence
+(dropout ``self_attention_drop_rate``) and the heads.  The trunk is a
+plain loop over ``_rnn_step`` (prenet dropout and zoneout from the
+caller's ``torch.Generator``), or, for decoders with hops and
+``fused_train`` where ``_fused_train_unsupported_reason`` finds nothing,
 ``ops/fused_train.fused_teacher_scan`` (its own counter-based masks,
-seeded from the generator).
+seeded from the generator).  Decoders without hops (``ExtendedDecoder``)
+always take the step loop, as the JAX package does.  The loop is
+teacher-forced for them too: the JAX package's ``make_train_step`` calls
+its TRAIN mode without ``teacher_forcing``, so its hop-less decoders train
+on their own raw outputs, a fault of the reference that is not copied
+(``teacher_forcing=True`` there is what this path matches).
 
 VALIDATION (``validation_forward``, the trainer's evaluation) runs
 ``_decode_path`` over the target's T // r steps: teacher-forced, step t is
 fed target step t (``feed[t] = shifted[t + 1]`` of the GO-shifted teacher
-inputs); free-running, it is fed its own outputs as softmax probabilities
-(the code models).  INFERENCE feeds back the raw logits.  VALIDATION never
-fuses; its lengths are the step count and nothing is masked.
+inputs); free-running, it is fed its own outputs: as softmax probabilities
+with ``feedback_softmax`` (the code model), raw otherwise (the mel model).
+INFERENCE always feeds back the raw last ``n_feed_frame`` frames.
+VALIDATION never fuses; its lengths are the step count and nothing is
+masked.
 
 Three inference paths, as in the JAX package:
 * ``_decode_path`` — every one of ``max_iters`` steps (the scan path);
@@ -127,7 +134,7 @@ class TacotronDecoder(nn.Module):
                  self_attention_drop_rate: float = 0.0,
                  fused_train: bool = False,
                  fused_train_dtype: str = "float32",
-                 use_pallas: bool = False):
+                 use_pallas: bool = False, feedback_softmax: bool = False):
         super().__init__()
         assert len(attention_options) == len(source_dims)
         self.num_sources = len(source_dims)
@@ -148,6 +155,7 @@ class TacotronDecoder(nn.Module):
         self.fused_train = fused_train
         self.fused_train_dtype = fused_train_dtype
         self.use_pallas = use_pallas
+        self.feedback_softmax = feedback_softmax
 
         self.prenets = PreNetStack(num_mels * n_feed_frame, prenet_out_units,
                                    drop_rate)
@@ -200,8 +208,9 @@ class TacotronDecoder(nn.Module):
                 log_path_once("decoder", "fused_decode kernel")
                 return self._decode_path_fused(packs, self.max_iters)
             _warn_fused_fallback(reason)
-        log_path_once("decoder", hop_path(self.use_pallas,
-                                          "incremental_attention_step"))
+        log_path_once("decoder", hop_path(
+            self.use_pallas, "incremental_attention_step")
+            if self.transformers else "none (no hops)")
         if self.early_stop:
             return self._decode_path_while(packs, B, self.max_iters)
         return self._decode_path(packs, B, self.max_iters)
@@ -281,12 +290,12 @@ class TacotronDecoder(nn.Module):
     def _next_input_from_output(self, out_t, mode, teacher_x_t):
         """What the next step is fed: the teacher frame(s) when
         teacher-forced (``teacher_x_t`` given), else the last n_feed_frame
-        frames of this step's output — softmax probabilities in VALIDATION,
-        raw logits in INFERENCE."""
+        frames of this step's output — softmax probabilities in VALIDATION
+        with ``feedback_softmax``, the raw frames otherwise."""
         if teacher_x_t is not None:
             return teacher_x_t
         C, n = self.num_mels, self.n_feed_frame
-        if mode == DecoderMode.VALIDATION:
+        if mode == DecoderMode.VALIDATION and self.feedback_softmax:
             probs = torch.softmax(out_t.reshape(out_t.shape[0], -1, C), -1)
             return probs[:, -n:].reshape(out_t.shape[0], C * n)
         return out_t[:, -C * n:]
@@ -379,11 +388,8 @@ class TacotronDecoder(nn.Module):
                       ) -> DecoderOutput:
         """Teacher-forced training over the target's T // r steps: the
         trunk, then the causal hops over the whole sequence and the heads
-        (the JAX package's ``_train_transformer_path``)."""
-        if not self.transformers:
-            raise NotImplementedError(
-                "TRAIN mode of decoders without self-attention hops is not "
-                "ported yet")
+        (the JAX package's ``_train_transformer_path``; without hops, its
+        step loop with ``teacher_forcing``)."""
         B = sources[0].shape[0]
         num_steps = target.shape[1] // self.outputs_per_step
         packs = tuple(mech.precompute(src, ln) for mech, src, ln in
@@ -391,7 +397,10 @@ class TacotronDecoder(nn.Module):
         teacher = self._teacher_inputs(target, num_steps)
         reason = None
         if self.fused_train:
-            reason = self._fused_train_unsupported_reason(B, packs, teacher)
+            reason = ("decoders without self-attention hops train through "
+                      "the step loop, as in the JAX package"
+                      if not self.transformers else
+                      self._fused_train_unsupported_reason(B, packs, teacher))
             if reason is not None:
                 _warn_fused_fallback(reason, "decoder_fused_train")
         if self.fused_train and reason is None:

@@ -5,6 +5,9 @@ Counterpart of the JAX package's ``models/encoders.py``:
   residual -> (dim-adjust dense) -> highway stack;
 * ``ZoneoutCBHG`` — the trunk followed by a bidirectional zoneout LSTM;
 * ``SelfAttentionTransformer`` — one hop: x + tanh(Dense(MHA(x)));
+* ``ZoneoutEncoderV1`` — prenet -> ZoneoutCBHG (the mel recipe's encoder,
+  ``use_zoneout_at_encoder``; the bi-GRU ``CBHG`` of ``use_zoneout=False``
+  is not ported yet and raises);
 * ``SelfAttentionCBHGEncoder`` — prenet -> ZoneoutCBHG -> projection ->
   self-attention hops.  With ``fused_inference`` at batch 1 it merges its
   weights (``_fused_call``) and runs ``ops/fused_encoder.fused_encode``;
@@ -105,6 +108,38 @@ class ZoneoutCBHG(nn.Module):
                 generator=None):
         return self.bilstm(self.trunk(xs, is_training), input_lengths,
                            is_training, generator)
+
+
+class ZoneoutEncoderV1(nn.Module):
+    """PreNet stack -> ZoneoutCBHG; returns the bi-LSTM output (B, T,
+    cbhg_out_units).  Training (``is_training``: prenet dropout, batch
+    statistics and zoneout from the caller's ``torch.Generator``) and
+    inference take the same module path."""
+
+    def __init__(self, in_channels: int, cbhg_out_units: int = 256,
+                 conv_channels: int = 128, max_filter_width: int = 16,
+                 projection1_out_channels: int = 128,
+                 projection2_out_channels: int = 128, num_highway: int = 4,
+                 prenet_out_units: Sequence[int] = (256, 128),
+                 drop_rate: float = 0.5, use_zoneout: bool = False,
+                 zoneout_factor_cell: float = 0.0,
+                 zoneout_factor_output: float = 0.0):
+        super().__init__()
+        if not use_zoneout:
+            raise NotImplementedError(
+                "ZoneoutEncoderV1 with use_zoneout_at_encoder=False needs the "
+                "bi-GRU CBHG, which is not ported yet")
+        self.prenets = PreNetStack(in_channels, prenet_out_units, drop_rate)
+        self.cbhg = ZoneoutCBHG(prenet_out_units[-1], cbhg_out_units,
+                                conv_channels, max_filter_width,
+                                projection1_out_channels,
+                                projection2_out_channels, num_highway,
+                                zoneout_factor_cell, zoneout_factor_output)
+
+    def forward(self, inputs, input_lengths=None, is_training: bool = False,
+                generator=None):
+        return self.cbhg(self.prenets(inputs, is_training, generator),
+                         input_lengths, is_training, generator)
 
 
 class SelfAttentionTransformer(nn.Module):

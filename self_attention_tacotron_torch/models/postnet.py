@@ -1,0 +1,47 @@
+"""The Tacotron-2 conv-stack postnet.
+
+Counterpart of the JAX package's ``models/postnet.py`` ``PostNetV2``
+(selected by ``use_postnet_v2``): N - 1 x (conv -> batch norm -> tanh ->
+dropout), then conv -> batch norm -> dropout and a projection back to the
+mel width; the model adds the residual to the decoder's frames.  Dropout
+is flax's, drawn from the caller's ``torch.Generator`` in training.  The
+speaker-conditioned ``MultiSpeakerPostNet`` and ``PostNetCBHG`` come with a
+later slice.  Submodule names follow the flax tree (``conv_<i>``,
+``projection``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..ops.attention_core import dropout
+from ..ops.conv import Conv1dBN
+
+
+class PostNetV2(nn.Module):
+    def __init__(self, out_units: int, num_layers: int = 5,
+                 kernel_size: int = 5, out_channels: int = 512,
+                 drop_rate: float = 0.5):
+        super().__init__()
+        self.num_layers = num_layers
+        self.drop_rate = drop_rate
+        in_channels = out_units
+        for i in range(num_layers):
+            act = torch.tanh if i < num_layers - 1 else None
+            self.add_module(f"conv_{i}", Conv1dBN(in_channels, kernel_size,
+                                                  out_channels, act))
+            in_channels = out_channels
+        self.projection = nn.Linear(out_channels, out_units)
+
+    def forward(self, xs: torch.Tensor, is_training: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B, T, out_units) frames -> the (B, T, out_units) residual."""
+        h = xs
+        for i in range(self.num_layers):
+            h = getattr(self, f"conv_{i}")(h, is_training)
+            if is_training:
+                h = dropout(h, self.drop_rate, generator)
+        return self.projection(h)

@@ -1,19 +1,28 @@
-"""Model assembly: embedding -> encoder -> decoder -> codes, and the loss.
+"""Model assembly: embedding -> encoder -> decoder (+ postnet), and the loss.
 
 Counterpart of the JAX package's ``models/tacotron.py`` ``TacotronModel``
-for the VQ-code kind (``DualSourceSelfAttentionTacotronModel`` with
-``SelfAttentionCBHGEncoder``): the two encoder outputs (bi-LSTM and
-self-attention) are the decoder's two attention sources, and the code
-output is the one-hot argmax of the decoder logits.  ``forward`` is
-inference (no autograd); ``validation_forward`` the VALIDATION decode of the
-trainer's evaluation (no autograd, teacher-forced or free-running with
-softmax feedback); ``train_forward`` is the TRAIN mode with autograd,
-its batch-norm statistics scoped to the rows whose loss mask is not empty
+for two of its kinds:
+
+* the VQ-code kind (``DualSourceSelfAttentionTacotronModel``): with
+  ``SelfAttentionCBHGEncoder`` the two encoder outputs (bi-LSTM and
+  self-attention) are the decoder's two attention sources; the code output
+  is the one-hot argmax of the decoder logits, and a free-running
+  VALIDATION decode feeds back softmax probabilities;
+* the mel kind (``ExtendedTacotronV1Model``, the LJSpeech recipe): with
+  ``ZoneoutEncoderV1`` and ``ExtendedDecoder`` the bi-LSTM output is the
+  one source; the decoder emits mel frames, fed back raw, and
+  ``use_postnet_v2`` adds ``PostNetV2``'s residual (``postnet_outputs``).
+
+``forward`` is inference (no autograd); ``validation_forward`` the
+VALIDATION decode of the trainer's evaluation (no autograd, teacher-forced
+or free-running); ``train_forward`` is the TRAIN mode with autograd, its
+batch-norm statistics scoped to the rows whose loss mask is not empty
 (``bn_valid_rows``), its dropout and zoneout drawn from the caller's
 ``torch.Generator``.  ``compute_loss`` is ``0.1 * codes_loss + done_loss``
-(+ L2).  ``hp.use_pallas_attention`` reaches the encoder's and the
-decoder's self-attention hops.  The mel and MGC/LF0 kinds, speaker routing
-and postnets come with later slices.
+for codes and ``mel_loss (+ postnet_loss) + done_loss`` for mels (+ L2).
+``hp.use_pallas_attention`` reaches the encoder's and the decoder's
+self-attention hops.  The MGC/LF0 kind, speaker and accent routing come
+with later slices.
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ from ..utils.convert import flax_param_paths
 from .attention import AttentionOptions
 from .decoder import DecoderOutput, TacotronDecoder
 from .embedding import Embedding
-from .encoders import SelfAttentionCBHGEncoder
+from .encoders import SelfAttentionCBHGEncoder, ZoneoutEncoderV1
+from .postnet import PostNetV2
 
 
 class Batch(NamedTuple):
@@ -48,9 +58,10 @@ class Batch(NamedTuple):
 
 
 class TacotronOutput(NamedTuple):
-    outputs: torch.Tensor                    # (B, T, C) logits
+    outputs: torch.Tensor                    # (B, T, C) logits or mel frames
     stop_token: torch.Tensor                 # (B, S, 1)
-    code_output: torch.Tensor                # (B, T, C) one-hot argmax
+    code_output: Optional[torch.Tensor]      # (B, T, C) one-hot argmax (codes)
+    postnet_outputs: Optional[torch.Tensor]  # (B, T, C) (use_postnet_v2)
     alignments: Tuple[torch.Tensor, ...]     # per source (B, T_mem, S)
     encoder_self_attention_alignments: List[torch.Tensor]
     decoder_self_attention_alignments: List[torch.Tensor]
@@ -58,11 +69,19 @@ class TacotronOutput(NamedTuple):
     predicted_samples: torch.Tensor
 
 
-_DECODERS = {"DualSourceTransformerDecoder": True,
-             "DualSourceDecoder": False}
+MODEL_KINDS = ("DualSourceSelfAttentionTacotronModel",
+               "ExtendedTacotronV1Model")
+# decoder name -> (number of sources, self-attention hops)
+_DECODERS = {"DualSourceTransformerDecoder": (2, True),
+             "DualSourceDecoder": (2, False),
+             "ExtendedDecoder": (1, False)}
 
 
-def attention_options_from_hparams(hp: HParams) -> Tuple[AttentionOptions, ...]:
+def attention_options_from_hparams(hp: HParams, dual: bool
+                                   ) -> Tuple[AttentionOptions, ...]:
+    """One mechanism per source: ``attention`` / ``attention2`` at
+    ``attention1_out_units`` / ``attention2_out_units`` for the dual-source
+    decoders, ``attention`` at ``attention_out_units`` for one source."""
     def mk(attention: str, units: int) -> AttentionOptions:
         return AttentionOptions(
             attention=attention, num_units=units,
@@ -70,50 +89,65 @@ def attention_options_from_hparams(hp: HParams) -> Tuple[AttentionOptions, ...]:
             attention_filters=hp.attention_filters,
             cumulative_weights=hp.cumulative_weights,
             use_transition_agent=hp.use_forward_attention_transition_agent)
-    return (mk(hp.attention, hp.attention1_out_units),
-            mk(hp.attention2, hp.attention2_out_units))
+    if dual:
+        return (mk(hp.attention, hp.attention1_out_units),
+                mk(hp.attention2, hp.attention2_out_units))
+    return (mk(hp.attention, hp.attention_out_units),)
 
 
 class TacotronModel(nn.Module):
     def __init__(self, hp: HParams):
         super().__init__()
-        if hp.tacotron_model != "DualSourceSelfAttentionTacotronModel":
+        if hp.tacotron_model not in MODEL_KINDS:
             raise NotImplementedError(
                 f"{hp.tacotron_model} is not ported yet")
-        if hp.encoder != "SelfAttentionCBHGEncoder":
+        if hp.encoder not in ("SelfAttentionCBHGEncoder", "ZoneoutEncoderV1"):
             raise NotImplementedError(f"encoder {hp.encoder} is not ported yet")
         if hp.decoder not in _DECODERS:
             raise NotImplementedError(f"decoder {hp.decoder} is not ported yet")
+        num_sources, use_transformer = _DECODERS[hp.decoder]
+        if num_sources == 2 and hp.encoder != "SelfAttentionCBHGEncoder":
+            raise ValueError(f"{hp.decoder} attends to the self-attention "
+                             f"output, which {hp.encoder} does not have")
         if (hp.use_speaker_embedding or hp.use_external_speaker_embedding
-                or hp.use_accent_type or hp.use_postnet_v2):
-            raise NotImplementedError("speaker, accent and postnet options "
-                                      "are not ported yet")
+                or hp.use_accent_type):
+            raise NotImplementedError("speaker and accent options are not "
+                                      "ported yet")
         if hp.apply_dropout_on_inference or hp.compute_dtype != "float32":
             raise NotImplementedError("inference dropout and bfloat16 "
                                       "compute are not ported yet")
         self.hp = hp
+        self.is_code_model = (
+            hp.tacotron_model == "DualSourceSelfAttentionTacotronModel")
         self.embedding = Embedding(hp.num_symbols, hp.embedding_dim)
-        self.encoder = SelfAttentionCBHGEncoder(
-            hp.embedding_dim, cbhg_out_units=hp.cbhg_out_units,
-            conv_channels=hp.conv_channels,
-            max_filter_width=hp.max_filter_width,
-            projection1_out_channels=hp.projection1_out_channels,
-            projection2_out_channels=hp.projection2_out_channels,
-            num_highway=hp.num_highway,
-            self_attention_out_units=hp.self_attention_out_units,
-            self_attention_num_heads=hp.self_attention_num_heads,
-            self_attention_num_hop=hp.self_attention_num_hop,
-            prenet_out_units=hp.encoder_prenet_out_units,
-            zoneout_factor_cell=hp.zoneout_factor_cell,
-            zoneout_factor_output=hp.zoneout_factor_output,
-            fused_inference=hp.encoder_fused_inference,
-            drop_rate=hp.encoder_prenet_drop_rate,
-            self_attention_drop_rate=hp.self_attention_drop_rate,
-            use_pallas=hp.use_pallas_attention)
+        common = dict(cbhg_out_units=hp.cbhg_out_units,
+                      conv_channels=hp.conv_channels,
+                      max_filter_width=hp.max_filter_width,
+                      projection1_out_channels=hp.projection1_out_channels,
+                      projection2_out_channels=hp.projection2_out_channels,
+                      num_highway=hp.num_highway,
+                      prenet_out_units=hp.encoder_prenet_out_units,
+                      drop_rate=hp.encoder_prenet_drop_rate,
+                      zoneout_factor_cell=hp.zoneout_factor_cell,
+                      zoneout_factor_output=hp.zoneout_factor_output)
+        if hp.encoder == "ZoneoutEncoderV1":
+            self.encoder = ZoneoutEncoderV1(
+                hp.embedding_dim, use_zoneout=hp.use_zoneout_at_encoder,
+                **common)
+        else:
+            self.encoder = SelfAttentionCBHGEncoder(
+                hp.embedding_dim,
+                self_attention_out_units=hp.self_attention_out_units,
+                self_attention_num_heads=hp.self_attention_num_heads,
+                self_attention_num_hop=hp.self_attention_num_hop,
+                fused_inference=hp.encoder_fused_inference,
+                self_attention_drop_rate=hp.self_attention_drop_rate,
+                use_pallas=hp.use_pallas_attention, **common)
         self.decoder = TacotronDecoder(
-            attention_options_from_hparams(hp),
-            source_dims=(hp.cbhg_out_units, hp.self_attention_out_units),
-            use_transformer=_DECODERS[hp.decoder],
+            attention_options_from_hparams(hp, dual=num_sources == 2),
+            source_dims=(hp.cbhg_out_units, hp.self_attention_out_units
+                         )[:num_sources],
+            use_transformer=use_transformer,
             prenet_out_units=hp.decoder_prenet_out_units,
             attention_rnn_out_units=hp.attention_out_units,
             decoder_version=hp.decoder_version,
@@ -133,15 +167,43 @@ class TacotronModel(nn.Module):
             self_attention_drop_rate=hp.decoder_self_attention_drop_rate,
             fused_train=hp.decoder_fused_train,
             fused_train_dtype=hp.decoder_fused_train_dtype,
-            use_pallas=hp.use_pallas_attention)
+            use_pallas=hp.use_pallas_attention,
+            feedback_softmax=self.is_code_model)
+        if hp.use_postnet_v2:
+            self.postnet = PostNetV2(hp.num_mels, hp.num_postnet_v2_layers,
+                                     hp.postnet_v2_kernel_size,
+                                     hp.postnet_v2_out_channels,
+                                     hp.postnet_v2_drop_rate)
 
-    def _output(self, dec: DecoderOutput, enc_aligns) -> TacotronOutput:
-        code_output = torch.nn.functional.one_hot(
-            dec.outputs.detach().argmax(-1), self.hp.num_mels).to(
-                dec.outputs.dtype)
+    def _encode(self, batch: Batch, is_training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """-> (decoder sources, their lengths, encoder self-attention
+        alignments)."""
+        emb = self.embedding(batch.source)
+        lengths = batch.source_length
+        if isinstance(self.encoder, ZoneoutEncoderV1):
+            lstm_out = self.encoder(emb, lengths, is_training, generator)
+            sa_out, enc_aligns = None, []
+        else:
+            lstm_out, sa_out, enc_aligns = self.encoder(
+                emb, lengths, is_training, generator)
+        n = self.decoder.num_sources
+        return (lstm_out, sa_out)[:n], (lengths,) * n, enc_aligns
+
+    def _output(self, dec: DecoderOutput, enc_aligns, is_training=False,
+                generator=None) -> TacotronOutput:
+        code_output = postnet_outputs = None
+        if self.is_code_model:
+            code_output = torch.nn.functional.one_hot(
+                dec.outputs.detach().argmax(-1), self.hp.num_mels).to(
+                    dec.outputs.dtype)
+        if self.hp.use_postnet_v2:
+            postnet_outputs = dec.outputs + self.postnet(
+                dec.outputs, is_training, generator)
         return TacotronOutput(
             outputs=dec.outputs, stop_token=dec.stop_token,
-            code_output=code_output, alignments=dec.alignments,
+            code_output=code_output, postnet_outputs=postnet_outputs,
+            alignments=dec.alignments,
             encoder_self_attention_alignments=[a.transpose(1, 2)
                                                for a in enc_aligns],
             decoder_self_attention_alignments=dec.self_attention_alignments,
@@ -150,12 +212,9 @@ class TacotronModel(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Batch) -> TacotronOutput:
         device = self.embedding.weight.device
-        source = batch.source.to(device)
-        lengths = batch.source_length.to(device)
-        emb = self.embedding(source)
-        lstm_out, sa_out, enc_aligns = self.encoder(emb, lengths)
-        return self._output(self.decoder((lstm_out, sa_out),
-                                         (lengths, lengths)), enc_aligns)
+        batch = Batch(batch.source.to(device), batch.source_length.to(device))
+        sources, lengths, enc_aligns = self._encode(batch)
+        return self._output(self.decoder(sources, lengths), enc_aligns)
 
     @torch.no_grad()
     def validation_forward(self, batch: Batch,
@@ -163,14 +222,13 @@ class TacotronModel(nn.Module):
         """VALIDATION mode: the deterministic encoder (batch norm on its
         running statistics), then the decode loop over the target's
         T // r steps, fed the targets (``teacher_forcing``) or its own
-        softmax outputs (the JAX package's ``_forward`` in
+        outputs (the JAX package's ``_forward`` in
         ``DecoderMode.VALIDATION``)."""
         batch = batch.to(self.embedding.weight.device)
-        emb = self.embedding(batch.source)
-        lstm_out, sa_out, enc_aligns = self.encoder(emb, batch.source_length)
+        sources, lengths, enc_aligns = self._encode(batch)
         return self._output(self.decoder.validation_forward(
-            (lstm_out, sa_out), (batch.source_length,) * 2,
-            batch.target.float(), teacher_forcing), enc_aligns)
+            sources, lengths, batch.target.float(), teacher_forcing),
+            enc_aligns)
 
     def train_forward(self, batch: Batch,
                       generator: Optional[torch.Generator] = None
@@ -186,25 +244,35 @@ class TacotronModel(nn.Module):
             valid = batch.spec_loss_mask.reshape(
                 batch.spec_loss_mask.shape[0], -1).amax(1) > 0
         with bn_valid_rows(valid):
-            emb = self.embedding(batch.source)
-            lstm_out, sa_out, enc_aligns = self.encoder(
-                emb, batch.source_length, True, generator)
-            dec = self.decoder.train_forward(
-                (lstm_out, sa_out), (batch.source_length,) * 2,
-                batch.target.float(), generator)
-        return self._output(dec, enc_aligns)
+            sources, lengths, enc_aligns = self._encode(batch, True,
+                                                        generator)
+            dec = self.decoder.train_forward(sources, lengths,
+                                             batch.target.float(), generator)
+            return self._output(dec, enc_aligns, True, generator)
 
 
 def compute_loss(hp: HParams, out: TacotronOutput, batch: Batch,
                  model: Optional[nn.Module] = None) -> dict:
-    """The codes model's losses: code_loss = 0.1 * codes_loss, done_loss,
-    l2_regularization_loss (with ``use_l2_regularization`` and a model, over
-    the flax paths outside ``DEFAULT_L2_BLACKLIST``), and their sum loss."""
+    """The losses: code_loss = 0.1 * codes_loss (the codes model) or
+    mel_loss = spec_loss and, with ``use_postnet_v2``, postnet_loss (the
+    mel model); done_loss; l2_regularization_loss (with
+    ``use_l2_regularization`` and a model, over the flax paths outside
+    ``DEFAULT_L2_BLACKLIST``); and their sum loss."""
     device = out.outputs.device
     batch = batch.to(device)
-    losses = {"code_loss": 0.1 * L.codes_loss(
-        out.outputs, batch.target.float(), batch.spec_loss_mask.float(),
-        hp.code_loss_type)}
+    target, mask = batch.target.float(), batch.spec_loss_mask.float()
+    if hp.tacotron_model == "DualSourceSelfAttentionTacotronModel":
+        losses = {"code_loss": 0.1 * L.codes_loss(
+            out.outputs, target, mask, hp.code_loss_type)}
+        main = losses["code_loss"]
+    else:
+        losses = {"mel_loss": L.spec_loss(out.outputs, target, mask,
+                                          hp.spec_loss_type)}
+        main = losses["mel_loss"]
+        if out.postnet_outputs is not None:
+            losses["postnet_loss"] = L.spec_loss(
+                out.postnet_outputs, target, mask, hp.spec_loss_type)
+            main = main + losses["postnet_loss"]
     losses["done_loss"] = L.binary_loss(out.stop_token, batch.done.float(),
                                         batch.binary_loss_mask.float())
     reg = torch.zeros((), device=device)
@@ -213,7 +281,7 @@ def compute_loss(hp: HParams, out: TacotronOutput, batch: Batch,
                                        hp.l2_regularization_weight,
                                        L.DEFAULT_L2_BLACKLIST)
     losses["l2_regularization_loss"] = reg
-    losses["loss"] = losses["code_loss"] + losses["done_loss"] + reg
+    losses["loss"] = main + losses["done_loss"] + reg
     return losses
 
 

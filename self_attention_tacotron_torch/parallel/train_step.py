@@ -7,7 +7,8 @@ global-norm clipping at 1.0, then Adam (``adam_beta1``, ``adam_beta2``,
 ``noam_learning_rate(initial_learning_rate, n)`` when
 ``decay_learning_rate``.  Dropout and zoneout of step n draw from a
 ``torch.Generator`` seeded with (``hp.seed``, n), so a resumed run draws
-what an unbroken one would have.  The metrics are ``loss``, ``code_loss``,
+what an unbroken one would have.  The metrics are ``loss``, the main loss
+(``code_loss``, or ``mel_loss`` and with a postnet ``postnet_loss``),
 ``done_loss``, ``l2_regularization_loss``, ``learning_rate`` and
 ``grad_norm`` (the norm before clipping), as tensors on the model's device.
 ``make_eval_step`` is the two-pass evaluation (a free-running and a
@@ -99,7 +100,8 @@ def make_eval_step(hp: HParams) -> Callable[
     """``eval_step(state, batch) -> (metrics, out_free, out_teacher)``: the
     reference's two-pass evaluation.  The free-running decode gives the
     main losses; the teacher-forced one, the reliable ``*_with_teacher``
-    metrics."""
+    metrics.  The main key is ``code_loss`` or ``mel_loss``, by the model's
+    kind (the JAX package's ``make_eval_step``)."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
@@ -108,12 +110,13 @@ def make_eval_step(hp: HParams) -> Callable[
         losses_free = compute_loss(hp, out_free, batch, model)
         out_teacher = model.validation_forward(batch, True)
         losses_teacher = compute_loss(hp, out_teacher, batch, model)
+        main_key = "code_loss" if "code_loss" in losses_free else "mel_loss"
         metrics = {
-            "code_loss": losses_free["code_loss"],
+            main_key: losses_free[main_key],
             "done_loss": losses_free["done_loss"],
             "loss": losses_free["loss"],
             "loss_with_teacher": losses_teacher["loss"],
-            "code_loss_with_teacher": losses_teacher["code_loss"],
+            f"{main_key}_with_teacher": losses_teacher[main_key],
             "done_loss_with_teacher": losses_teacher["done_loss"],
             "l2_regularization_loss": losses_free["l2_regularization_loss"],
         }

@@ -6,7 +6,10 @@ and even bank widths, the adjustment dense, two hops, three prenet
 layers, r = 2, additive-only sources, cumulative location weights, early
 stop; the Pallas-mode attention kernels at small and recipe shapes (head
 widths 4 to 128, T not a multiple of 64, t at both ends of the cache) and
-the model's serving and VALIDATION decodes in that mode.  This file imports
+the model's serving and VALIDATION decodes in that mode; the spectrogram
+kernel at F = 1, a prime F, F one above each tile, LJSpeech and VCTK
+widths, and the mel model's decode (one source, no hops, r = 2) through the
+fused decode.  This file imports
 no JAX, so on a machine without it run
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -447,3 +450,105 @@ def test_model_serves_and_validates_in_pallas_mode(device):
         assert pa.incremental_attention_step.launches == 12
         _close(got.outputs, ref.outputs)
         _close(got.stop_token, ref.stop_token)
+
+
+# ------------------------------------------------------- spectrogram kernel
+TOL_MAG = 2e-5   # |mag - plain| over the frame's peak (tests/test_torch_stft.py)
+TOL_DB = 1e-2    # dB within 60 dB of the frame's peak, above -80 dB
+
+
+def _db_errors(got_db, ref_db):
+    """(max magnitude error over the frame's peak, max dB error where the
+    plain version is within 60 dB of its frame's peak and above -80 dB) of
+    (F, bins) dB tensors."""
+    got = got_db.double().cpu()
+    ref = ref_db.double().cpu()
+    mg, mr = 10.0 ** (got / 20.0), 10.0 ** (ref / 20.0)
+    peak = mr.amax(1, keepdim=True).clamp(min=1e-5)
+    loud = (ref > -80.0) & (ref > ref.amax(1, keepdim=True) - 60.0)
+    db_err = float((got - ref).abs()[loud].max()) if bool(loud.any()) else 0.0
+    return float(((mg - mr).abs() / peak).max()), db_err
+
+
+@pytest.mark.parametrize("F,n_fft,mels", [
+    (1, 2048, 80), (37, 2048, 80), (65, 128, 8), (33, 256, 8),
+    (802, 2048, 80), (97, 4096, 80)])
+@torch.no_grad()
+def test_spectrogram_kernel_matches_plain(device, F, n_fft, mels):
+    """F = 1, a prime, one above the DFT tile (64) and the mel tile (32),
+    10 s at LJSpeech widths, VCTK's n_fft; windowed noise frames with one
+    quiet frame near the floor."""
+    from self_attention_tacotron_torch.ops import stft as S
+    from self_attention_tacotron_torch.utils.audio import (hann_window,
+                                                           mel_filterbank)
+    rng = np.random.default_rng(F)
+    win = hann_window(n_fft // 2, n_fft)
+    frames = (0.1 * rng.standard_normal((F, n_fft)) * win).astype(np.float32)
+    frames[F // 2] *= 1e-4
+    wr, wi = (torch.from_numpy(a).to(device) for a in S.dft_matrices(n_fft))
+    mel_t = torch.from_numpy(np.ascontiguousarray(
+        mel_filterbank(22050, n_fft, mels).T)).to(device)
+    x = torch.from_numpy(frames).to(device)
+    before = S.spectrograms.launches
+    got = S.spectrograms(x, wr, wi, mel_t)
+    ref = S.spectrograms_reference(x, wr, wi, mel_t)
+    torch.cuda.synchronize()
+    assert S.spectrograms.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        mag_err, db_err = _db_errors(g, r)
+        assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+@torch.no_grad()
+def test_mel_extractor_on_the_card_matches_the_cpu(device):
+    from self_attention_tacotron_torch.ops import stft as S
+    args = (22050, 1025, 80, 50.0, 12.5, 20.0)
+    y = (0.1 * np.random.default_rng(0).standard_normal(30000)).astype(
+        np.float32)
+    got = S.MelExtractor(*args, device=device).spectrograms(y)
+    ref = S.MelExtractor(*args, device="cpu").spectrograms(y)
+    for g, r in zip(got, ref):
+        mag_err, db_err = _db_errors(g.T + 20.0, r.T + 20.0)
+        assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+def test_spectrogram_wrapper_rejects_what_the_kernel_does_not_take(device):
+    from self_attention_tacotron_torch.ops import stft as S
+    wr, wi = (torch.from_numpy(a).to(device) for a in S.dft_matrices(128))
+    mel_t = torch.ones(65, 8, device=device)
+    frames = torch.ones(5, 128, device=device)
+    with pytest.raises(ValueError):
+        S.spectrograms(frames.double(), wr, wi, mel_t)
+    with pytest.raises(ValueError):
+        S.spectrograms(frames[:, :64], wr, wi, mel_t)
+    with pytest.raises(ValueError):
+        S.spectrograms(frames.t().contiguous().t(), wr, wi, mel_t)
+    with pytest.raises(ValueError):
+        S.spectrograms(frames, wr, wi, mel_t[:64])
+
+
+MEL = dict(tacotron_model="ExtendedTacotronV1Model",
+           encoder="ZoneoutEncoderV1", decoder="ExtendedDecoder",
+           use_zoneout_at_encoder=True, outputs_per_step=2, num_mels=8,
+           attention_kernel=10, attention_filters=5)
+
+
+@torch.no_grad()
+def test_mel_model_serves_through_fused_decode(device):
+    """The mel recipe's decode (one forward source, no hops, r = 2) through
+    the fused decode kernel agrees with its plain module path."""
+    outs, counts = [], []
+    for fused in (False, True):
+        model = _model(device, seed=6, decoder_fused_inference=fused,
+                       use_postnet_v2=True, num_postnet_v2_layers=2,
+                       postnet_v2_out_channels=8, **MEL)
+        fd.fused_decode.launches = 0
+        outs.append(model(Batch(_source(32, 21, device),
+                                torch.tensor([21], device=device))))
+        counts.append(fd.fused_decode.launches)
+    assert counts == [0, 1]
+    for name in ("outputs", "stop_token", "postnet_outputs"):
+        _close(getattr(outs[1], name), getattr(outs[0], name))
+    _close(outs[1].alignments[0], outs[0].alignments[0])
+    assert torch.equal(outs[1].lengths, outs[0].lengths)

@@ -240,5 +240,9 @@ print("ok")
                 "utils.checkpoint", "data.dataset", "ops.fused_train",
                 "ops.losses", "ops.masks", "ops.fused_decode",
                 "ops.fused_encoder", "ops.pallas_attention", "utils.metrics",
-                "utils.tb_events"):
+                "utils.tb_events", "ops.stft", "utils.audio", "models.postnet",
+                "cli.preprocess", "data.preprocess.common",
+                "data.preprocess.ljspeech", "data.preprocess.vctk",
+                "data.preprocess.codes", "text.cleaners", "text.symbols",
+                "text.numbers_norm", "text.phoneset", "text.flite"):
         assert f"self_attention_tacotron_torch.{mod}" in lines, mod

@@ -156,9 +156,11 @@ def test_records_read_back_by_the_jax_reader(tmp_path):
 
 def test_model_rejects_kinds_not_ported():
     import pytest
-    with pytest.raises(NotImplementedError):
-        tacotron_model_factory(tiny_codes_hp(
-            tacotron_model="ExtendedTacotronV1Model"))
+    for kw in (dict(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel"),
+               dict(use_speaker_embedding=True),
+               dict(use_accent_type=True)):
+        with pytest.raises(NotImplementedError):
+            tacotron_model_factory(tiny_codes_hp(**kw))
     with pytest.raises(NotImplementedError):
         tacotron_model_factory(tiny_codes_hp(
             use_forward_attention_transition_agent=True))
