@@ -6,8 +6,8 @@
 Builds the port's CUDA kernels from ``self_attention_tacotron_torch/ops/csrc``
 (into ``build/torch_kernels/``), then, at the full widths of the shipped
 VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
-13-15: the LJSpeech mel recipe ``examples/ljspeech/tacotron.json``) with
-weights drawn from a seed:
+13-15: the LJSpeech mel recipe ``examples/ljspeech/tacotron.json``; phases
+16-19: the VCTK multi-speaker recipe) with weights drawn from a seed:
 
 1. prints the card (``nvidia-smi`` name and power limit) and CUDA version;
 2. builds the seven kernels, one nvcc each, in parallel;
@@ -81,7 +81,32 @@ weights drawn from a seed:
    frames); ``fused_decode`` at that shape (one forward source, no hops,
    r = 2, C = 80, 500 steps) against its plain version, timed.  The
    kernels line gains a ``spectrogram`` row (path ``preprocessing``) and a
-   ``fused_decode`` row (path ``mel_serving``).
+   ``fused_decode`` row (path ``mel_serving``);
+16. the fused decode's row modes against its plain version: the codes
+   recipe at B = 8 (sources of 40-64 phones, 450 steps), early stop off
+   and on (a stop head drawn so that the rows fire at different steps);
+   location-sensitive sources, cumulative and not, at B = 1 and B = 4;
+   at the VCTK recipe's widths (``examples/vctk/self-attention-tacotron
+   .json``: 80 mels, r = 2, 500 steps) the encoder and the decode with the
+   speaker row at B = 1, and the training kernels at B = 32, T_in = 64
+   characters, S = 160 with the speaker rows and masks on;
+17. the VCTK recipe end to end on the card: a synthetic 48 kHz corpus in
+   VCTK 0.8 layout (4 speakers, 16 utterances of 1.5-4 s each) through
+   ``cli.preprocess.main_vctk --on-device`` (one ``spectrogram`` launch an
+   utterance), ``cli.speaker_selection crosscheck`` of the split lists,
+   ``cli.train`` for 3 steps at B = 32 with one evaluation (3 launches of
+   each training kernel, 4 encoder launches), ``cli.predict.main_mel`` on
+   the 3 test utterances with the fused paths (one encoder and one decode
+   launch an utterance) and on the plain path (the same frames), and one
+   text under two speakers (different frames);
+18. batched INFERENCE of the codes recipe through the model at B = 1, 4
+   and 8 (450 steps, early stop off), fused and plain: ms an utterance and
+   frames/s on the host clock, one fused decode launch a call;
+19. times of the fused decode in each mode and of the training kernels at
+   the VCTK shape, beside their plain versions and bounds.  The kernels
+   line gains the paths ``vctk_preprocessing``, ``vctk_training``,
+   ``vctk_serving`` and ``batched_inference``, each row with its own
+   shapes' times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -398,16 +423,19 @@ def encode_bound(params, x, kw):
     return _nbytes(tensors) + 4 * bank_taps + out_bytes, flops
 
 
-def decode_bound(params, w, memory, steps: int):
-    """(bytes, FLOPs) of ``steps`` decode steps: each product counted in
-    the cheaper of its two exact forms, the decoder's own (``params``) or
-    the kernel's merged one (``w``), with every weight of that form read
-    once and used once a step, the memory read once and the outputs
-    written.  The merges win for the next prenet input (y @ (W_fb @ W0)
+def decode_bound(params, w, memory, steps: int, speaker_row=None):
+    """(bytes, FLOPs) of ``steps`` decode steps of B rows: each product
+    counted in the cheaper of its two exact forms, the decoder's own
+    (``params``) or the kernel's merged one (``w``), with every weight of
+    that form read once and used once a step and row, the memory and the
+    speaker row read once and the outputs written (source alignments at
+    B = 1 only).  The merges win for the next prenet input (y @ (W_fb @ W0)
     rather than frame @ W0) and Wo @ Wt; the module's form wins for
     outproj + lstm1 (the merged one carries Wop @ W1x and a zero block)
-    and for the location conv and dense."""
-    T = memory.keys[0].shape[1]
+    and for the location conv and dense.  The speaker row adds one add a
+    step and element."""
+    B = memory.keys[0].shape[0]
+    t_sizes = [k.shape[1] for k in memory.keys]
     D = w.l2_b.shape[0] // 4
     P0 = w.p0_init.shape[0]
     c_total = sum(v.shape[2] for v in memory.values)
@@ -423,21 +451,28 @@ def decode_bound(params, w, memory, steps: int):
     for wk, _, wv, _, wq, _, wo, _, wt, _ in params.hops:
         dense += wk.numel() + wv.numel() + wq.numel()
         dense += min(wo.numel() + wt.numel(), D * D)
-    # location weights, applied at each of the T memory steps
-    loc = sum(min(l[0].numel() + l[2].numel(), w.loc_kernel * u)
-              for l, u in zip(params.loc, w.u_sizes) if l is not None)
-    per_step = dense + T * (loc + sum(w.u_sizes) + c_total)
-    flops = 2 * steps * per_step \
-        + len(w.hops) * 4 * D * steps * (steps + 1) // 2
+    # location weights, applied at each of a source's T_i memory steps
+    locs = [min(l[0].numel() + l[2].numel(), w.loc_kernel * u)
+            if l is not None else 0 for l, u in zip(params.loc, w.u_sizes)]
+    per_step = dense + sum(
+        T * (lw + u + v.shape[2]) for T, lw, u, v in
+        zip(t_sizes, locs, w.u_sizes, memory.values))
+    flops = B * (2 * steps * per_step
+                 + len(w.hops) * 4 * D * steps * (steps + 1) // 2)
     vecs = [w.p0_init, w.att_b, w.v, w.key_fold, w.big_b, w.l2_b, w.head_b,
             *(b for _, b in w.prenet),
             *(t for hop in w.hops for t in (hop[1], hop[3]))]
     mem = [*memory.keys, *memory.values, *memory.masks]
-    out_bytes = 4 * steps * (w.cr + 1 + len(w.kinds) * T)
-    return 4 * (dense + loc) + _nbytes(vecs + mem) + out_bytes, flops
+    if speaker_row is not None:
+        mem.append(speaker_row)
+        flops += steps * speaker_row.numel()
+    out_bytes = 4 * steps * (B * (w.cr + 1) + (sum(t_sizes) if B == 1
+                                               else 0))
+    return 4 * (dense + sum(locs)) + _nbytes(vecs + mem) + out_bytes, flops
 
 
-def _stage_shares(name, launch, stages, ms: float, per: int, unit: str):
+def _stage_shares(name, launch, stages, ms: float, per: int, unit: str,
+                  phase: int = 8):
     """One profiled launch: each stage's share of block 0's SM cycles, and
     that share of the kernel's measured time ``ms`` per ``unit``."""
     import torch
@@ -448,7 +483,8 @@ def _stage_shares(name, launch, stages, ms: float, per: int, unit: str):
     parts = ", ".join(
         f"{stage} {100.0 * c / total:.1f}% ({ms * 1e3 * c / total / per:.3f}"
         f" us/{unit})" for stage, c in zip(stages, cycles) if c)
-    log(f"phase 8 {name} stages (block 0 cycles between grid barriers, as a"
+    log(f"phase {phase} {name} stages (block 0 cycles between grid "
+        "barriers, as a"
         f" share of {ms:.4f} ms): {parts}")
 
 
@@ -500,6 +536,8 @@ def phase_timing(model, device, steps: int, launches, errs):
     bounds = {"fused_encode": encode_bound(params, x, kw),
               "fused_decode": decode_bound(model.decoder.fused_params(),
                                            weights, memory, steps)}
+    timing = {"fused_encode": (enc_ms, enc_plain, bounds["fused_encode"]),
+              "fused_decode": (dec_ms, dec_plain, bounds["fused_decode"])}
     log("phase 8 bound inputs: " + "; ".join(
         f"{k} {b[0]} bytes, {b[1]} FLOPs" for k, b in bounds.items()))
     return [*_kernel_rows("fused_encode", "fused_encoder",
@@ -509,7 +547,7 @@ def phase_timing(model, device, steps: int, launches, errs):
             *_kernel_rows("fused_decode", "fused_decode",
                           "fused_decode.py:250", launches,
                           errs["fused_decode"], dec_ms, dec_plain,
-                          bounds["fused_decode"])]
+                          bounds["fused_decode"])], timing
 
 
 # ------------------------------------------------------------- training
@@ -533,12 +571,17 @@ def _leaves(tree):
     return out
 
 
-def train_case(model, device, deterministic: bool, seed: int):
+def train_case(model, device, deterministic: bool, seed: int,
+               steps: int = TRAIN_S):
     """The training trunk's inputs at the recipe widths: B = 32 random
     sources (lengths 40..64) through the encoder, their attention keys
-    (with the folded biases) and values, S = 256 one-hot teacher rows."""
+    (with the folded biases) and values, ``steps`` teacher rows (one-hot
+    codes, or mel frames for a mel-target recipe), and with speakers the
+    speaker rows of ids cycling over ``VCTK_SPEAKERS``."""
     import numpy as np
     import torch
+    from self_attention_tacotron_torch.data.dataset import target_kind_of
+    from self_attention_tacotron_torch.models import Batch
     from self_attention_tacotron_torch.ops import fused_train as ft
     hp, dec = model.hp, model.decoder
     rng = np.random.default_rng(SEED + seed)
@@ -549,13 +592,23 @@ def train_case(model, device, deterministic: bool, seed: int):
         src[b, :L] = rng.integers(1, hp.num_symbols, L)
     src_t = torch.from_numpy(src).to(device)
     len_t = torch.from_numpy(lengths).to(device)
-    lstm_out, sa, _ = model.encoder(model.embedding(src_t), len_t)
-    packs = tuple(m.precompute(s, len_t) for m, s in
-                  zip(dec.attention_mechanisms, (lstm_out, sa)))
-    codes = torch.from_numpy(rng.integers(0, hp.num_mels, (TRAIN_B,
-                                                           TRAIN_S)))
-    target = torch.nn.functional.one_hot(codes, hp.num_mels).float()
-    teacher = dec._teacher_inputs(target.to(device), TRAIN_S)
+    sid = torch.tensor([VCTK_SPEAKERS[b % len(VCTK_SPEAKERS)]
+                        for b in range(TRAIN_B)], device=device)
+    sources, lens, _, speaker = model._encode(Batch(src_t, len_t,
+                                                    speaker_id=sid))
+    packs = tuple(m.precompute(s, ln) for m, s, ln in
+                  zip(dec.attention_mechanisms, sources, lens))
+    spk = dec.speaker_row(model._prenet_speaker(speaker))
+    spk = None if spk is None else spk.detach().contiguous()
+    frames = steps * hp.outputs_per_step
+    if target_kind_of(hp) == "codes":
+        codes = torch.from_numpy(rng.integers(0, hp.num_mels,
+                                               (TRAIN_B, frames)))
+        target = torch.nn.functional.one_hot(codes, hp.num_mels).float()
+    else:
+        target = torch.from_numpy(rng.standard_normal(
+            (TRAIN_B, frames, hp.num_mels)).astype(np.float32))
+    teacher = dec._teacher_inputs(target.to(device), steps)
     kinds, cum, loc_ws, folds = dec._fused_attention_params()
     params = _detach(dec.fused_train_params())
     keys = _detach(tuple(p.keys if f is None else p.keys + f
@@ -569,16 +622,17 @@ def train_case(model, device, deterministic: bool, seed: int):
                         zc_att=dec.zoneout_factor_cell,
                         zo_att=dec.zoneout_factor_output, zc_dec=zc,
                         zo_dec=zo, deterministic=deterministic,
-                        src_kinds=kinds, cumulative=cum,
-                        loc_kernel=dec._loc_kernel())
-    tf = teacher.transpose(0, 1).reshape(TRAIN_S * TRAIN_B,
+                        p_dropout=dec.prenets.dense_layers()[1],
+                        use_spk=spk is not None, src_kinds=kinds,
+                        cumulative=cum, loc_kernel=dec._loc_kernel())
+    tf = teacher.transpose(0, 1).reshape(steps * TRAIN_B,
                                          spec.cf).contiguous()
-    ops = ft.train_operands(spec, params, keys, values, masks, tf, None,
+    ops = ft.train_operands(spec, params, keys, values, masks, tf, spk,
                             loc_ws)
-    return spec, params, keys, values, masks, tf, loc_ws, ops
+    return spec, params, keys, values, masks, tf, loc_ws, ops, spk
 
 
-def _grad_leaves(spec, d_params, d_keys, d_values, d_loc):
+def _grad_leaves(spec, d_params, d_keys, d_values, d_loc, d_spk=None):
     """Gradients in the plain VJP's layout -> named flat tensors in the
     kernel's layout (``ops/fused_train.py`` ``split_grads``)."""
     import torch
@@ -596,13 +650,15 @@ def _grad_leaves(spec, d_params, d_keys, d_values, d_loc):
     out["loc"] = torch.cat([
         torch.zeros(spec.loc_kernel, u, device=out["query.v"].device)
         if lw is None else lw for lw, u in zip(d_loc, spec.u_sizes)], 1)
+    if d_spk is not None:
+        out["spk"] = d_spk
     return out
 
 
 def _kernel_grads(spec, raw):
     from self_attention_tacotron_torch.ops import fused_train as ft
     (d_pre, d_att, d_q, d_op, d_l1, d_l2, d_keys, d_values, d_v, d_loc,
-     _) = ft.split_grads(spec, raw)
+     d_spk) = ft.split_grads(spec, raw)
     out = {}
     for i, (w, b) in enumerate(d_pre):
         out[f"prenet{i}.w"], out[f"prenet{i}.b"] = w, b
@@ -612,6 +668,8 @@ def _kernel_grads(spec, raw):
     out["query.w"], out["query.v"], out["loc"] = d_q, d_v, d_loc
     for i, (k, v) in enumerate(zip(d_keys, d_values)):
         out[f"keys{i}"], out[f"values{i}"] = k, v
+    if spec.use_spk:
+        out["spk"] = d_spk
     return out
 
 
@@ -624,7 +682,7 @@ def phase_train_kernels(model, device):
     from self_attention_tacotron_torch.ops import fused_train as ft
     worst = {"fused_train_fwd": 0.0, "fused_train_bwd": 0.0}
     for deterministic in (False, True):
-        spec, params, keys, values, masks, tf, loc_ws, ops = train_case(
+        spec, params, keys, values, masks, tf, loc_ws, ops, _ = train_case(
             model, device, deterministic, 1)
         seed = 1234
         y, save, aux = ft.fused_train_fwd(spec, ops, seed)
@@ -804,7 +862,7 @@ def phase_train_timing(model, device, data: str, launches, errs):
     from self_attention_tacotron_torch.parallel import (create_train_state,
                                                         make_train_step)
     from self_attention_tacotron_torch.utils.convert import init_parameters
-    spec, params, keys, values, masks, tf, loc_ws, ops = train_case(
+    spec, params, keys, values, masks, tf, loc_ws, ops, _ = train_case(
         model, device, False, 1)
     seed = 1234
     fwd = ft.prepare_train_fwd(spec, ops, seed)
@@ -1286,10 +1344,11 @@ def phase_spectrogram(device):
     """Phase 13: the spectrogram kernel vs its plain version at LJSpeech
     widths (10 s, 1.3 s, one frame) and VCTK widths (10 s), and at 10 s its
     time beside the plain version's, the library's and its bound.  Returns
-    (worst dB error, the LJSpeech 10 s timings and bound)."""
+    (worst dB error, {"LJSpeech": ..., "VCTK": ...} of the 10 s timings and
+    bounds)."""
     import torch
     from self_attention_tacotron_torch.ops import stft as S
-    worst, timing = 0.0, None
+    worst, timing = 0.0, {}
     for recipe, name, seconds in ((MEL_RECIPE, "LJSpeech", 10.0),
                                   (MEL_RECIPE, "LJSpeech", 1.3),
                                   (MEL_RECIPE, "LJSpeech", None),
@@ -1334,8 +1393,7 @@ def phase_spectrogram(device):
             f"(vs plain {lib_err:.1e} dB near the peaks); bound "
             f"{_bound_ms(bound):.4f} ms ({bound[0]} bytes, {bound[1]} FLOPs)"
             f"; {bound[1] / times[0] / 1e9:.2f} TFLOP/s")
-        if name == "LJSpeech":
-            timing = (times, bound)
+        timing[name] = (times, bound)
     return worst, timing
 
 
@@ -1499,7 +1557,7 @@ def phase_mel_training(data: str, hp_json: str, tmp: str, device):
     return ckpt
 
 
-def _serve_mel(data, ckpt, hp_json, out, device, hparams=""):
+def _serve_mel(data, ckpt, hp_json, out, device, hparams="", list_dir=None):
     import contextlib
     import io
     import re
@@ -1509,7 +1567,9 @@ def _serve_mel(data, ckpt, hp_json, out, device, hparams=""):
         rc = main_mel(["--source-data-root", data, "--target-data-root", data,
                        "--checkpoint-dir", ckpt, "--output-dir", out,
                        "--hparam-json-file", hp_json, "--hparams", hparams,
-                       "--device", device.type])
+                       "--device", device.type,
+                       *(["--selected-list-dir", list_dir] if list_dir
+                         else [])])
     sys.stdout.write(buf.getvalue())
     if rc != 0:
         raise AssertionError(f"main_mel returned {rc}")
@@ -1601,6 +1661,655 @@ def phase_mel_serving(data, ckpt, hp_json, tmp, device):
                                 err, ms, plain_ms, bound)
 
 
+# ------------------- the VCTK recipe and the fused decode's row modes
+
+# the paper's multi-speaker recipe: forward attention, decoder v2, r = 2,
+# 80 mels at 48 kHz, 500 steps, 152 speakers at offset 225, every kernel on
+VCTK_SA_RECIPE = os.path.join(ROOT, "examples", "vctk",
+                              "self-attention-tacotron.json")
+VCTK_SPEAKERS = (225, 226, 227, 228)
+VCTK_PER_SPEAKER = 16
+VCTK_TEXTS = ("Please call Stella.",
+              "Ask her to bring these things with her from the store.",
+              "Six spoons of fresh snow peas, five thick slabs of blue "
+              "cheese, and maybe a snack for her brother Bob.",
+              "We also need a small plastic snake and a big toy frog.",
+              "She can scoop these things into three red bags.",
+              "When the sunlight strikes raindrops in the air, they act as "
+              "a prism and form a rainbow.")
+VCTK_TRAIN_HPARAMS = ("save_checkpoints_steps=3,eval_start_delay_secs=0,"
+                      "eval_throttle_secs=0,num_evaluation_steps=2")
+VCTK_PLAIN = "decoder_fused_inference=false,encoder_fused_inference=false"
+VCTK_TRAIN_S = 160      # 320 frames: 4 s at the recipe's 12.5 ms shift
+VCTK_T_IN = 64          # characters
+BATCH_SIZES = (1, 4, 8)
+# The VCTK decode feeds back raw 160-wide mel rows (r = 2) for 500 steps;
+# the codes recipe at B = 8 and the location-sensitive kind feed back 1025
+# logits for 450 steps, as phase 4 does.
+TOL_VCTK_DECODE = 1e-4
+TOL_ROW_DECODE = TOL_DECODE
+# Batched serving: the kernel against the module path's logits, 450 steps.
+TOL_BATCHED_SERVING = 1e-4
+
+
+def _hp_with(recipe, extra=""):
+    from self_attention_tacotron_torch.config import default_hparams
+    hp = default_hparams().parse_json_file(recipe)
+    hp.parse(extra)
+    return hp
+
+
+def _join(*parts):
+    return ",".join(p for p in parts if p)
+
+
+def write_vctk_corpus(root: str, per_speaker: int = VCTK_PER_SPEAKER):
+    """A VCTK 0.8 layout corpus (wav48/pNNN/*.wav, txt/pNNN/*.txt,
+    speaker-info.txt) of ``len(VCTK_SPEAKERS)`` speakers with
+    ``per_speaker`` utterances of 1.5-4 s at 48 kHz each; returns (keys,
+    seconds of audio)."""
+    import numpy as np
+    import scipy.io.wavfile
+    sr = _audio_hparams(VCTK_SA_RECIPE).sample_rate
+    rng = np.random.default_rng(SEED + 5)
+    keys, total = [], 0.0
+    info = ["ID  AGE  GENDER  ACCENTS  REGION"]
+    for si, spk in enumerate(VCTK_SPEAKERS):
+        for sub in ("wav48", "txt"):
+            os.makedirs(os.path.join(root, sub, f"p{spk}"))
+        info.append(f"{spk}  {21 + si}  {'FM'[si % 2]}    English    "
+                    "Southern  England")
+        for i in range(1, per_speaker + 1):
+            key = f"p{spk}_{i:03d}"
+            seconds = float(rng.uniform(1.5, 4.0))
+            y = _wave(int(seconds * sr), sr, 1000 * spk + i)
+            scipy.io.wavfile.write(
+                os.path.join(root, "wav48", f"p{spk}", f"{key}.wav"), sr,
+                (np.clip(y, -1, 1) * 32767).astype(np.int16))
+            with open(os.path.join(root, "txt", f"p{spk}", f"{key}.txt"),
+                      "w") as f:
+                f.write(VCTK_TEXTS[(i + si) % len(VCTK_TEXTS)] + "\n")
+            keys.append(key)
+            total += seconds
+    with open(os.path.join(root, "speaker-info.txt"), "w") as f:
+        f.write("\n".join(info) + "\n")
+    return keys, total
+
+
+def phase_vctk_preprocess(tmp: str, device, extra: str = ""):
+    """Phase 17a: cli.preprocess.main_vctk --on-device over the synthetic
+    corpus (one spectrogram launch an utterance), then cli.speaker_selection
+    crosscheck of the train/validation/test lists against the records, as
+    scripts/run_vctk.sh runs them.  Returns (records, lists, merged recipe
+    file, launch counts)."""
+    from self_attention_tacotron_torch.cli import speaker_selection
+    from self_attention_tacotron_torch.cli.preprocess import main_vctk
+    from self_attention_tacotron_torch.data.dataset import load_key_list
+    from self_attention_tacotron_torch.ops import stft as S
+    corpus, data = os.path.join(tmp, "vctk"), os.path.join(tmp, "vctk_data")
+    keys, seconds = write_vctk_corpus(corpus)
+    S.spectrograms.launches = 0
+    t0 = time.perf_counter()
+    rc = main_vctk([corpus, data, "--hparam-json-file", VCTK_SA_RECIPE,
+                    "--hparams", extra, "--on-device", "--device",
+                    device.type])
+    wall = time.perf_counter() - t0
+    counts = {"spectrogram": S.spectrograms.launches}
+    if rc != 0:
+        raise AssertionError(f"main_vctk --on-device returned {rc}")
+    if device.type == "cuda" and counts["spectrogram"] != len(keys):
+        raise AssertionError("main_vctk --on-device did not launch the "
+                             "spectrogram kernel once an utterance")
+    per = VCTK_PER_SPEAKER
+    test = [keys[si * per] for si in range(3)]
+    validation = [keys[si * per + 1] for si in (0, 3)]
+    parts = {"train": [k for k in keys if k not in test + validation],
+             "validation": validation, "test": test}
+    raw, lists = os.path.join(tmp, "vctk_lists_raw"), os.path.join(
+        tmp, "vctk_lists")
+    os.makedirs(raw)
+    os.makedirs(lists)
+    for name, part in parts.items():
+        with open(os.path.join(raw, f"{name}.csv"), "w") as f:
+            f.write("\n".join(part) + "\n")
+        if speaker_selection.main(
+                ["crosscheck", os.path.join(raw, f"{name}.csv"), data,
+                 "--out", os.path.join(lists, f"{name}.csv")]) != 0:
+            raise AssertionError("speaker_selection crosscheck failed")
+        if load_key_list(os.path.join(lists, f"{name}.csv")) != part:
+            raise AssertionError(f"crosscheck dropped keys of {name}.csv")
+    with open(VCTK_SA_RECIPE) as f:
+        merged = json.load(f)
+    with open(os.path.join(data, "hparams.json")) as f:
+        merged.update(json.load(f))
+    hp_json = os.path.join(tmp, "vctk_self_attention_tacotron.json")
+    with open(hp_json, "w") as f:
+        json.dump(merged, f)
+    log(f"phase 17 VCTK preprocess: main_vctk --on-device over "
+        f"{len(keys)} utterances of {len(VCTK_SPEAKERS)} speakers "
+        f"({seconds:.1f} s of audio at 48 kHz) in {wall:.2f} s "
+        f"({wall / (seconds / 3600.0):.1f} s per hour of audio); launch "
+        f"counts {counts}; speaker_selection crosscheck kept "
+        + ", ".join(f"{n} {len(p)}" for n, p in parts.items()))
+    return data, lists, hp_json, counts
+
+
+def phase_vctk_training(data, lists, hp_json, tmp, device, extra=""):
+    """Phase 17b: cli.train takes 3 steps of the VCTK recipe at B = 32 with
+    one evaluation of 2 validation utterances (two VALIDATION decodes
+    each).  Counters zeroed just before: 3 launches of each training
+    kernel, 4 of the encoder (the evaluation's batch-1 encodes), none of
+    the decode (VALIDATION runs the step loop, as in the JAX package).
+    Returns (checkpoint, launch counts)."""
+    import ast
+    import math
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    ckpt = os.path.join(tmp, "vctk_ckpt")
+    for fn in (ft.fused_train_fwd, ft.fused_train_bwd, fe.fused_encode,
+               fd.fused_decode):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt,
+                         "--selected-list-dir", lists, "--hparam-json-file",
+                         hp_json, "--hparams",
+                         _join(VCTK_TRAIN_HPARAMS, extra), "--max-steps",
+                         "3", "--device", device.type])
+    wall = time.perf_counter() - t0
+    counts = {"fused_train_fwd": ft.fused_train_fwd.launches,
+              "fused_train_bwd": ft.fused_train_bwd.launches,
+              "fused_encode": fe.fused_encode.launches,
+              "fused_decode": fd.fused_decode.launches}
+    if rc != 0:
+        raise AssertionError(f"cli.train returned {rc}")
+    with open(os.path.join(ckpt, "log.txt")) as f:
+        text = f.read()
+    losses = [float(x) for x in re.findall(r"step \d+ loss ([-+0-9.eEinfa]+)",
+                                           text)]
+    times = [float(x) for x in re.findall(r"step \d+ loss \S+ \(([0-9.]+)s",
+                                          text)]
+    evals = re.findall(r"eval @3: (\{.*\}) \((\d+) utterances, ([0-9.]+)s",
+                       text)
+    metrics = ast.literal_eval(evals[0][0]) if len(evals) == 1 else {}
+    hp = _hp_with(hp_json, _join(VCTK_TRAIN_HPARAMS, extra))
+    log(f"phase 17 VCTK training: cli.train took 3 steps of "
+        f"{os.path.basename(VCTK_SA_RECIPE)} at B={hp.batch_size} on "
+        f"{device.type} in {wall:.1f} s (start included); losses {losses}; "
+        f"seconds a step {times}; eval @3 {metrics} "
+        f"({evals[0][1] if evals else 0} utterances, "
+        f"{evals[0][2] if evals else '-'} s); launch counts {counts}")
+    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError("VCTK training losses are missing or not "
+                             "finite")
+    # the recipe's model is a code model by name: its main loss is code_loss
+    if ("code_loss_with_teacher" not in metrics
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError("the VCTK evaluation lacks finite metrics")
+    want = {"fused_train_fwd": 3, "fused_train_bwd": 3,
+            "fused_encode": 2 * hp.num_evaluation_steps, "fused_decode": 0}
+    if device.type == "cuda" and counts != want:
+        raise AssertionError(f"VCTK training launches {counts}, expected "
+                             f"{want}")
+    if "model-3.pt" not in os.listdir(ckpt):
+        raise AssertionError("no checkpoint of step 3 was written")
+    return ckpt, counts
+
+
+def phase_vctk_serving(data, lists, ckpt, hp_json, tmp, device, extra=""):
+    """Phase 17c: cli.predict.main_mel serves the 3 test utterances (three
+    speakers) with the recipe's fused paths (one encoder and one decode
+    launch an utterance, the speaker row in the decode) and on the plain
+    module path (no launch); the frames agree.  Then one text, two
+    speakers: different frames.  Returns (launch counts, ms an utterance)."""
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.data.dataset import (iter_utterances,
+                                                            load_key_list)
+    from self_attention_tacotron_torch.models import (Batch,
+                                                      tacotron_model_factory)
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.utils.convert import load_checkpoint
+    keys = load_key_list(os.path.join(lists, "test.csv"))
+    hp = _hp_with(hp_json, extra)
+    C = hp.num_mels
+    outs = {m: os.path.join(tmp, f"vctk_pred_{m}") for m in ("fused",
+                                                           "plain")}
+    fe.fused_encode.launches = fd.fused_decode.launches = 0
+    fused = _serve_mel(data, ckpt, hp_json, outs["fused"], device, extra,
+                       lists)
+    counts = {"fused_encode": fe.fused_encode.launches,
+              "fused_decode": fd.fused_decode.launches}
+    fe.fused_encode.launches = fd.fused_decode.launches = 0
+    plain = _serve_mel(data, ckpt, hp_json, outs["plain"], device,
+                       _join(extra, VCTK_PLAIN), lists)
+    plain_counts = (fe.fused_encode.launches, fd.fused_decode.launches)
+    worst = 0.0
+    for key in keys:
+        dumps = [np.fromfile(os.path.join(o, f"{key}.mfbsp"), "<f4").reshape(
+            -1, C) for o in outs.values()]
+        if not all(np.isfinite(d).all() and len(d) for d in dumps):
+            raise AssertionError(f"bad VCTK prediction files for {key}")
+        n = min(len(d) for d in dumps)
+        worst = max(worst, float(np.abs(dumps[0][:n] - dumps[1][:n]).max()))
+    log(f"phase 17 VCTK serving: main_mel served {len(fused)} utterances "
+        f"with the fused paths {[(n, ms) for _, n, ms in fused]} (steps, ms)"
+        f" and on the plain path {[(n, ms) for _, n, ms in plain]}; launch "
+        f"counts fused {counts}, plain {plain_counts}; .mfbsp fused vs "
+        f"plain max abs err {worst:.2e}")
+    if device.type == "cuda" and counts != {"fused_encode": len(keys),
+                                            "fused_decode": len(keys)}:
+        raise AssertionError("VCTK serving did not launch both serving "
+                             "kernels once an utterance")
+    if plain_counts != (0, 0):
+        raise AssertionError("the plain VCTK serving path launched a kernel")
+    if [n for _, n, _ in plain] != [n for _, n, _ in fused] \
+            or worst > TOL_VCTK_DECODE:
+        raise AssertionError("fused VCTK serving disagrees with the plain "
+                             "path")
+
+    model = tacotron_model_factory(hp).eval()
+    load_checkpoint(model, ckpt)
+    model.to(device)
+    src_files, tgt_files = _val_files(hp, data, keys[:1])
+    u = next(iter_utterances(src_files, tgt_files, hp, "mel"))
+    src = torch.from_numpy(u.source[None]).to(device)
+    lengths = torch.tensor([u.source_length], device=device)
+    frames = [model(Batch(src, lengths, speaker_id=torch.tensor(
+        [spk], device=device))).outputs for spk in VCTK_SPEAKERS[:2]]
+    moved = _max_err(frames[0], frames[1])
+    log(f"phase 17 one text, speakers {VCTK_SPEAKERS[:2]}: max abs "
+        f"difference of the frames {moved:.3e} (utterance {u.meta.key}, "
+        f"speaker {u.speaker_id})")
+    if not moved > 1e-3:
+        raise AssertionError("two speakers gave the same frames")
+    return counts, [ms for _, _, ms in fused]
+
+
+def rows_case(model, lengths, T: int, device, seed: int = 0):
+    """(weights, memory, options) of the fused decode for rows of random
+    sources of ``lengths`` (padded to T) through the model's encoder, with
+    the speaker rows of speakers cycling over ``VCTK_SPEAKERS`` when the
+    model has speakers."""
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.models import Batch
+    B = len(lengths)
+    rng = np.random.default_rng(SEED + seed)
+    src = np.zeros((B, T), np.int64)
+    for b, L in enumerate(lengths):
+        src[b, :L] = rng.integers(1, model.hp.num_symbols, L)
+    sid = torch.tensor([VCTK_SPEAKERS[b % len(VCTK_SPEAKERS)]
+                        for b in range(B)], device=device)
+    batch = Batch(torch.from_numpy(src).to(device),
+                  torch.tensor(list(lengths), device=device), speaker_id=sid)
+    sources, lens, _, speaker = model._encode(batch)
+    dec = model.decoder
+    packs = tuple(m.precompute(s, ln) for m, s, ln in
+                  zip(dec.attention_mechanisms, sources, lens))
+    return dec.fused_inputs(packs, model._prenet_speaker(speaker))
+
+
+def stagger_stop(weights, memory, options, steps: int, seed: int = 0):
+    """``weights`` with the stop head's row drawn from ``seed`` and a bias
+    at which every row fires past min_iters and before the last two steps,
+    at as many different steps as can be (random weights give near-flat
+    stop logits that would cross any threshold together; the stop logit
+    feeds nothing back, so the bias shifts it exactly).  The threshold sits
+    midway between two neighbouring logits.  Returns (weights, each row's
+    firing step)."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    head_w, head_b = weights.head_w.clone(), weights.head_b.clone()
+    g = torch.Generator().manual_seed(seed)
+    head_w[weights.cr] = torch.randn(head_w.shape[1], generator=g).to(
+        head_w.device)
+    head_b[weights.cr] = 0.0
+    weights = weights._replace(head_w=head_w, head_b=head_b)
+    free = fd.fused_decode_reference(weights, memory, num_steps=steps,
+                                     **dict(options, early_stop=False))[1]
+    m = options["min_iters"]
+    late = free[:, m + 1:].double().cpu()
+    run = late.cummax(1).values
+    vals = torch.unique(late.flatten()).tolist()
+    best = ((0, 0), None, None)
+    for lo, hi in zip(vals[:-1], vals[1:]):
+        if hi - lo < 1e-5:
+            continue
+        theta = 0.5 * (lo + hi)
+        fired = run > theta
+        if not bool(fired.any(1).all()):
+            continue
+        fire = [m + 1 + s for s in fired.int().argmax(1).tolist()]
+        if max(fire) >= steps - 2:
+            continue
+        key = (len(set(fire)), max(fire))
+        if key > best[0]:
+            best = (key, theta, fire)
+    if best[1] is None:
+        raise AssertionError("no stop bias makes the rows fire apart")
+    head_b[weights.cr] = -best[1]
+    return weights, best[2]
+
+
+def phase_row_kernels(device, codes_hp):
+    """Phase 16: the fused decode in its new modes against its plain
+    version at the recipes' widths: the codes recipe at B = 8 (sources of
+    40-64 phones, 450 steps), early stop off and on (rows that fire at
+    different steps); location-sensitive sources, cumulative and not, at
+    B = 1 and B = 4.  Returns (worst error, cases for the timing)."""
+    import numpy as np
+    import torch
+    cases = {}
+    rng = np.random.default_rng(SEED + 16)
+    b8 = [T_IN] + rng.integers(40, T_IN + 1, 7).tolist()
+    model = make_model(codes_hp, device)
+    cases["codes_b8"] = (model, rows_case(model, b8, T_IN, device, 8))
+    for cum in (False, True):
+        loc = make_model(codes_hp.replace(attention="location_sensitive",
+                                          cumulative_weights=cum), device)
+        for B in (1, 4):
+            cases[f"location{'_cumulative' if cum else ''}_b{B}"] = (
+                loc, rows_case(loc, b8[:B], T_IN, device, B))
+    worst = 0.0
+    steps = codes_hp.max_iters
+    for name, (_, (weights, memory, options)) in cases.items():
+        options = dict(options, early_stop=False)
+        got, ref = _decode_pair(weights, memory, options, steps)
+        err = max(_max_err(got[0], ref[0]), _max_err(got[1], ref[1]),
+                  *(_max_err(g, r) for g, r in zip(got[2], ref[2])))
+        agree = float((got[0].argmax(-1) == ref[0].argmax(-1)).float()
+                      .mean())
+        log(f"phase 16 fused_decode {name} (B={memory.keys[0].shape[0]}, "
+            f"T={memory.keys[0].shape[1]}, {steps} steps): max abs err "
+            f"{err:.3e}; code argmax agreement {agree:.4f}")
+        if err > TOL_ROW_DECODE or agree < 1.0:
+            raise AssertionError(f"fused_decode {name} disagrees (tol "
+                                 f"{TOL_ROW_DECODE})")
+        worst = max(worst, err)
+    weights, memory, options = cases["codes_b8"][1]
+    w_stop, fire = stagger_stop(weights, memory, options, steps)
+    options = dict(options, early_stop=True)
+    got, ref = _decode_pair(w_stop, memory, options, steps)
+    err = max(_max_err(got[0], ref[0]), _max_err(got[1], ref[1]))
+    tail_zero = bool((got[0][:, max(fire) + 1:] == 0).all())
+    live = bool((got[0][:, :max(fire) + 1].abs().sum(-1) > 0).all())
+    log(f"phase 16 fused_decode codes_b8 early stop on: rows fire at steps "
+        f"{fire}; out max abs err {err:.3e}; every row emits up to the last "
+        f"firing {live}; zero after it {tail_zero}")
+    if err > TOL_ROW_DECODE or not tail_zero or not live:
+        raise AssertionError("batched early-stop decode disagrees")
+    return max(worst, err), cases
+
+
+def phase_vctk_kernels(device, extra=""):
+    """Phase 16 (VCTK widths): the encoder and the decode (B = 1, the
+    speaker row, 500 steps) against their plain versions, and the training
+    kernels at the VCTK training shape (B = 32, T_in = 64 characters,
+    S = 160 steps of r = 2 mel frames, the speaker rows, masks on) against
+    the plain forward and the plain reverse-time VJP.  Returns (errors,
+    timings {name: (ms, plain ms, bound)})."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    hp = _hp_with(VCTK_SA_RECIPE, extra)
+    model = make_model(hp, device)
+    errs, timing = {}, {}
+    params, x, kw = encoder_case(model, VCTK_T_IN, VCTK_T_IN, device)
+    got = fe.fused_encode(params, x, VCTK_T_IN, **kw)
+    ref = fe.fused_encode_reference(params, x, VCTK_T_IN, **kw)
+    errs["fused_encode"] = max(_max_err(g, r) for g, r in zip(got, ref))
+    timing["fused_encode"] = (
+        _time_ms(fe.prepare_encode(params, x, VCTK_T_IN, **kw)),
+        _time_ms(lambda: fe.fused_encode_reference(params, x, VCTK_T_IN,
+                                                   **kw), reps=3),
+        encode_bound(params, x, kw))
+
+    weights, memory, options = rows_case(model, [VCTK_T_IN], VCTK_T_IN,
+                                         device, 17)
+    options = dict(options, early_stop=False)
+    steps = hp.max_iters
+    got, ref = _decode_pair(weights, memory, options, steps)
+    errs["fused_decode"] = max(_max_err(got[0], ref[0]),
+                               _max_err(got[1], ref[1]),
+                               *(_max_err(g, r) for g, r in zip(got[2],
+                                                                ref[2])))
+    no_spk = fd.fused_decode_reference(
+        weights, memory, num_steps=steps, **dict(options, speaker_row=None))
+    spk_effect = _max_err(no_spk[0], ref[0])
+    timing["fused_decode"] = (
+        _time_ms(fd.prepare_decode(weights, memory, num_steps=steps,
+                                   **options)),
+        _time_ms(lambda: fd.fused_decode_reference(
+            weights, memory, num_steps=steps, **options), reps=1),
+        decode_bound(model.decoder.fused_params(), weights, memory, steps,
+                     options["speaker_row"]))
+    log(f"phase 16 VCTK widths (T={VCTK_T_IN} characters, {steps} steps, "
+        f"r={hp.outputs_per_step}, C={hp.num_mels}, speaker row of "
+        f"{options['speaker_row'].shape[1]}): fused_encode max abs err "
+        f"{errs['fused_encode']:.3e}; fused_decode max abs err "
+        f"{errs['fused_decode']:.3e} (the speaker row moves the plain "
+        f"version's frames by {spk_effect:.3e})")
+    if errs["fused_encode"] > TOL_ENCODE or \
+            errs["fused_decode"] > TOL_VCTK_DECODE:
+        raise AssertionError("a serving kernel disagrees at the VCTK widths")
+
+    spec, params, keys, values, masks, tf, loc_ws, ops, spk = train_case(
+        model, device, False, 2, steps=VCTK_TRAIN_S)
+    seed = 4321
+    y, save, aux = ft.fused_train_fwd(spec, ops, seed)
+    y_r, save_r, aux_r = ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, seed, spk, loc_ws)
+    errs["fused_train_fwd"] = max(_max_err(y, y_r), _max_err(save, save_r),
+                                  _max_err(aux, aux_r))
+    g = torch.randn(y.shape, generator=torch.Generator(device)
+                    .manual_seed(8), device=device)
+    kern = _kernel_grads(spec, ft.fused_train_bwd(spec, ops, seed, g, save,
+                                                  aux))
+    d_params, d_keys, d_values, d_spk, d_loc = ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, seed, spk, loc_ws, g, save_r,
+        aux_r)
+    plain = _grad_leaves(spec, d_params, d_keys, d_values, d_loc, d_spk)
+    rel = {k: _rel_err(kern[k], plain[k].reshape(kern[k].shape))
+           for k in plain}
+    errs["fused_train_bwd"] = max(
+        _max_err(kern[k], plain[k].reshape(kern[k].shape)) for k in plain)
+    name, worst_rel = max(rel.items(), key=lambda kv: kv[1])
+    log(f"phase 16 training kernels at the VCTK shape (B={spec.batch}, "
+        f"S={spec.num_steps}, T={spec.t_mem}, p_sizes {spec.p_sizes}, "
+        f"speaker rows, masks on): fused_train_fwd max abs err "
+        f"{errs['fused_train_fwd']:.3e}; fused_train_bwd worst gradient "
+        f"{name} {worst_rel:.3e} of its max magnitude (spk "
+        f"{rel['spk']:.1e}), max abs err {errs['fused_train_bwd']:.3e}")
+    if errs["fused_train_fwd"] > TOL_TRAIN or worst_rel > TOL_TRAIN_GRAD:
+        raise AssertionError("a training kernel disagrees at the VCTK shape")
+    fwd_ms = _time_ms(ft.prepare_train_fwd(spec, ops, seed))
+    bwd = ft.prepare_train_bwd(spec, ops, seed, g, save, aux)
+    bwd_ms = _time_ms(bwd)
+    fwd_plain = _time_ms(lambda: ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, seed, spk, loc_ws), reps=1)
+    bwd_plain = _time_ms(lambda: ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, seed, spk, loc_ws, g, save,
+        aux), reps=1)
+    flat_in = ft._flat(ops)
+    timing["fused_train_fwd"] = (fwd_ms, fwd_plain, train_bound(
+        spec, flat_in, [y, save, aux], False))
+    timing["fused_train_bwd"] = (bwd_ms, bwd_plain, train_bound(
+        spec, flat_in + [g, save, aux], _leaves(bwd.outputs), True))
+    del model
+    return errs, timing
+
+
+def vctk_and_row_modes(tmp, device, codes_hp, codes_timing, errs,
+                       spec_err, vctk_spec, launches):
+    """Phases 16-19; adds the paths vctk_preprocessing, vctk_training,
+    vctk_serving and batched_inference to ``launches`` and returns their
+    rows of the kernels line, each with the times of its own shapes."""
+    row_err, cases = phase_row_kernels(device, codes_hp)
+    vctk_errs, vctk_timing = phase_vctk_kernels(device)
+    data, lists, hp_json, launches["vctk_preprocessing"] = \
+        phase_vctk_preprocess(tmp, device)
+    ckpt, launches["vctk_training"] = phase_vctk_training(
+        data, lists, hp_json, tmp, device)
+    launches["vctk_serving"], _ = phase_vctk_serving(data, lists, ckpt,
+                                                     hp_json, tmp, device)
+    launches["batched_inference"], batched = phase_batched_inference(
+        device, codes_hp)
+    modes = phase_row_timing(cases, vctk_timing, codes_timing, batched,
+                             device)
+    lines = {"fused_encode": ("fused_encoder", "fused_encoder.py:94"),
+             "fused_decode": ("fused_decode", "fused_decode.py:250"),
+             "fused_train_fwd": ("fused_train_fwd", "fused_train.py:375"),
+             "fused_train_bwd": ("fused_train_bwd", "fused_train.py:667")}
+
+    def rows(name, path, err, timing):
+        ms, plain, bound = timing
+        return _kernel_rows(name, *lines[name], {path: launches[path]}, err,
+                            ms, plain, bound)
+
+    (spec_ms, spec_plain, spec_lib), spec_bound = vctk_spec
+    out = _kernel_rows("spectrogram", "spectrogram", "stft.py:65",
+                       {"vctk_preprocessing": launches["vctk_preprocessing"]},
+                       spec_err, spec_ms, spec_plain, spec_bound, spec_lib)
+    for name in ("fused_train_fwd", "fused_train_bwd", "fused_encode"):
+        out += rows(name, "vctk_training", vctk_errs[name],
+                    vctk_timing[name])
+    out += rows("fused_encode", "vctk_serving", vctk_errs["fused_encode"],
+                vctk_timing["fused_encode"])
+    out += rows("fused_decode", "vctk_serving", vctk_errs["fused_decode"],
+                modes["vctk_speaker_b1"])
+    out += rows("fused_encode", "batched_inference", errs["fused_encode"],
+                codes_timing["fused_encode"])
+    out += rows("fused_decode", "batched_inference", row_err,
+                modes["codes_b8"])
+    return out
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def phase_batched_inference(device, codes_hp):
+    """Phase 18: INFERENCE of the codes recipe through the model at B = 1,
+    4 and 8 (sources of 40-64 phones), with the recipe's fused paths and on
+    the plain module path (the same weights), timed on the host clock
+    around a device sync (median of 3 after a warm-up); the logits agree.
+    Early stop is off: every row decodes all 450 steps (random weights
+    fire the stop token after a dozen steps, which would time the
+    encoder).  Returns (launch counts of the fused runs, {B: (fused ms,
+    plain ms)})."""
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.models import Batch
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    rng = np.random.default_rng(SEED + 18)
+    lengths = [T_IN] + rng.integers(40, T_IN + 1, max(BATCH_SIZES) - 1) \
+        .tolist()
+    src = np.zeros((len(lengths), T_IN), np.int64)
+    for b, L in enumerate(lengths):
+        src[b, :L] = rng.integers(1, codes_hp.num_symbols, L)
+    src = torch.from_numpy(src).to(device)
+    lens = torch.tensor(lengths, device=device)
+    hp = codes_hp.replace(decoder_early_stop=False)
+    models = {"fused": make_model(hp, device),
+              "plain": make_model(hp.replace(decoder_fused_inference=False,
+                                             encoder_fused_inference=False),
+                                  device)}
+
+    def wall(model, B):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = model(Batch(src[:B], lens[:B]))
+        _sync(device)
+        return (time.perf_counter() - t0) * 1e3, out
+
+    times, worst = {}, 0.0
+    counts = {"fused_encode": 0, "fused_decode": 0}
+    for B in BATCH_SIZES:
+        outs, ms = {}, {}
+        for name, model in models.items():
+            wall(model, B)
+            fe.fused_encode.launches = fd.fused_decode.launches = 0
+            runs = [wall(model, B) for _ in range(3)]
+            if name == "fused":
+                counts["fused_encode"] += fe.fused_encode.launches // 3
+                counts["fused_decode"] += fd.fused_decode.launches // 3
+            ms[name] = statistics.median(r[0] for r in runs)
+            outs[name] = runs[0][1]
+        err = _max_err(outs["fused"].outputs, outs["plain"].outputs)
+        same = torch.equal(outs["fused"].lengths, outs["plain"].lengths)
+        worst = max(worst, err)
+        # every row decodes every step; lengths only mask past the stop
+        frames = B * hp.max_iters * hp.outputs_per_step
+        times[B] = (ms["fused"], ms["plain"])
+        log(f"phase 18 batched inference B={B}: fused {ms['fused']:.2f} ms "
+            f"({ms['fused'] / B:.2f} ms an utterance, "
+            f"{frames / ms['fused'] * 1e3:.1f} frames/s), plain "
+            f"{ms['plain']:.2f} ms ({ms['plain'] / B:.2f} ms an utterance, "
+            f"{frames / ms['plain'] * 1e3:.1f} frames/s); {frames} decoded "
+            "frames; "
+            f"logits max abs err {err:.2e}; equal lengths {same}")
+        if err > TOL_BATCHED_SERVING or not same:
+            raise AssertionError(f"batched fused serving disagrees at B={B}")
+    log(f"phase 18 launch counts of one fused call at each batch, summed: "
+        f"{counts}")
+    if counts != {"fused_encode": 1, "fused_decode": len(BATCH_SIZES)}:
+        raise AssertionError("batched inference did not launch the fused "
+                             "decode once a call (and the encoder at B = 1)")
+    return counts, times
+
+
+def phase_row_timing(cases, vctk_timing, codes_timing, batched_times,
+                     device):
+    """Phase 19: the fused decode's time in each mode (median of 5 after a
+    warm-up) beside its plain version's and its bound: B = 1 codes (phase
+    8), the VCTK speaker row (phase 16), B = 8 codes, location-sensitive
+    at B = 1 and 4, with B = 8's per-stage shares; and the training
+    kernels at the VCTK shape.  Returns {mode: (ms, plain ms, bound)}."""
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    out = {"codes_b1": codes_timing["fused_decode"],
+           "vctk_speaker_b1": vctk_timing["fused_decode"]}
+    for name in ("codes_b8", "location_b1", "location_cumulative_b4"):
+        model, (weights, memory, options) = cases[name]
+        options = dict(options, early_stop=False)
+        steps = model.hp.max_iters
+        out[name] = (
+            _time_ms(fd.prepare_decode(weights, memory, num_steps=steps,
+                                       **options)),
+            _time_ms(lambda: fd.fused_decode_reference(
+                weights, memory, num_steps=steps, **options), reps=1),
+            decode_bound(model.decoder.fused_params(), weights, memory,
+                         steps))
+    model, (weights, memory, options) = cases["codes_b8"]
+    _stage_shares("fused_decode B=8", fd.prepare_decode(
+        weights, memory, num_steps=model.hp.max_iters, profile=True,
+        **dict(options, early_stop=False)), fd.DEC_STAGES,
+        out["codes_b8"][0], model.hp.max_iters, "step", 19)
+    b1 = out["codes_b1"][0]
+    for name, (ms, plain, bound) in out.items():
+        log(f"phase 19 fused_decode {name}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {_bound_ms(bound):.4f} ms ({bound[0]} "
+            f"bytes, {bound[1]} FLOPs); {ms / b1:.2f}x the B = 1 codes call")
+    for name in ("fused_train_fwd", "fused_train_bwd"):
+        ms, plain, bound = vctk_timing[name]
+        log(f"phase 19 {name} at the VCTK shape: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms, bound {_bound_ms(bound):.4f} ms")
+    for B, (f_ms, p_ms) in batched_times.items():
+        log(f"phase 19 batched serving B={B}: {f_ms / B:.3f} ms an "
+            f"utterance fused, {p_ms / B:.3f} plain")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1661,11 +2370,13 @@ def main() -> int:
                 data, tmp, "cuda")
             launches["pallas_serving"] = phase_pallas_serving(ckpt, data,
                                                               tmp, device)
-            rows = phase_timing(model, device, steps, launches, errs)
+            rows, codes_timing = phase_timing(model, device, steps, launches,
+                                              errs)
             rows += phase_train_timing(model, device, data, launches, errs)
             rows += phase_attention_timing(device, launches, errs, ckpt, data,
                                            val_keys)
-            spec_err, (spec_times, spec_bound) = phase_spectrogram(device)
+            spec_err, spec_timing = phase_spectrogram(device)
+            spec_times, spec_bound = spec_timing["LJSpeech"]
             mel_data, mel_hp, launches["preprocessing"] = phase_preprocess(
                 tmp, device)
             rows += _kernel_rows(
@@ -1676,6 +2387,9 @@ def main() -> int:
             launches["mel_serving"], mel_rows = phase_mel_serving(
                 mel_data, mel_ckpt, mel_hp, tmp, device)
             rows += mel_rows
+            rows += vctk_and_row_modes(tmp, device, hp, codes_timing, errs,
+                                       spec_err, spec_timing["VCTK"],
+                                       launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

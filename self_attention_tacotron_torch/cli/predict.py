@@ -106,7 +106,8 @@ def predict(kind: str, argv=None) -> int:
             break
         batch = Batch(source=torch.from_numpy(u.source[None]).to(device),
                       source_length=torch.tensor([u.source_length],
-                                                 device=device))
+                                                 device=device),
+                      speaker_id=torch.tensor([u.speaker_id], device=device))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()

@@ -18,9 +18,10 @@ for two target kinds:
   ``silence_mel_level_db``, done 1, masks 0 past each length), ``Dataset``
   (shuffle, repeat, drop_remainder, batches of one bucket),
   ``to_model_batch``, ``pad_model_batch_rows`` and ``dataset_factory``
-  (the target kind from ``hp.dataset``, as in the JAX package).  The
-  multi-host bucket schedule and the MGC-LF0 targets come with later
-  slices.
+  (the target kind from ``hp.dataset``, as in the JAX package).  Each
+  utterance's ``speaker_id`` goes from its source record to the model's
+  batch.  The multi-host bucket schedule and the MGC-LF0 targets come with
+  later slices.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ class Utterance(NamedTuple):
     source_length: int
     target: Optional[np.ndarray]  # (T, C) one-hot codes or mel frames
     target_length: int
+    speaker_id: int = 0           # the source record's (VCTK: 225-376)
 
 
 def _read_example(path: str) -> dict:
@@ -84,7 +86,8 @@ def load_utterance(source_file: str, target_file: Optional[str],
         raise NotImplementedError(f"{target_kind!r} targets are not ported "
                                   "yet")
     return Utterance(UtteranceMeta(src.id, src.key, text, src.lang), padded,
-                     length, target, int(target_length))
+                     length, target, int(target_length),
+                     int(src.speaker_id))
 
 
 def _mel_target(tgt: R.MelTargetRecord, hp: HParams):
@@ -139,6 +142,7 @@ class NumpyBatch(NamedTuple):
     done: np.ndarray              # (B, T // r) float32
     spec_loss_mask: np.ndarray    # (B, T)
     binary_loss_mask: np.ndarray  # (B, T // r)
+    speaker_id: np.ndarray        # (B,) int32
 
 
 class Bucketing:
@@ -195,7 +199,8 @@ def pad_batch(utts: Sequence[Utterance], hp: HParams,
         source_length=np.asarray([u.source_length for u in utts], np.int32),
         target=target,
         target_length=np.asarray([u.target_length for u in utts], np.int32),
-        done=done, spec_loss_mask=spec_mask, binary_loss_mask=binary_mask)
+        done=done, spec_loss_mask=spec_mask, binary_loss_mask=binary_mask,
+        speaker_id=np.asarray([u.speaker_id for u in utts], np.int32))
 
 
 class Dataset:
@@ -261,7 +266,8 @@ def to_model_batch(nb: NumpyBatch):
     return Batch(source=t(nb.source), source_length=t(nb.source_length),
                  target=t(nb.target), target_length=t(nb.target_length),
                  done=t(nb.done), spec_loss_mask=t(nb.spec_loss_mask),
-                 binary_loss_mask=t(nb.binary_loss_mask))
+                 binary_loss_mask=t(nb.binary_loss_mask),
+                 speaker_id=t(nb.speaker_id))
 
 
 def pad_model_batch_rows(mb, multiple: int):

@@ -42,10 +42,17 @@ Three inference paths, as in the JAX package:
 * ``_decode_path_while`` — stops once every row's stop token fired past
   ``min_iters`` (``early_stop``);
 * ``_decode_path_fused`` — ``ops/fused_decode.fused_decode`` on merged
-  weights, taken with ``fused_inference`` where ``_fused_unsupported_reason``
-  finds nothing; otherwise one of the two above runs and the reason is
-  logged once.  The gate looks at the configuration only.  Each inference
-  call logs once which path serves the hops (``log_path_once``).
+  weights, at any batch, source kind and memory length, taken with
+  ``fused_inference`` where ``_fused_unsupported_reason`` and the kernel's
+  shared-memory plan (which bounds the batch) find nothing; otherwise one
+  of the two above runs and the reason is logged once.  The gate looks at
+  the configuration only.  Each inference call logs once which path serves
+  the hops (``log_path_once``).
+
+With a speaker prenet (``speaker_dim``) every mode takes the caller's
+(B, E) ``speaker_embed``: the plain loops through ``PreNetStack``, the
+fused kernels as the (B, P0) ``speaker_row`` that ``MultiSpeakerPreNet``
+adds after dense0's ReLU.
 
 With ``use_pallas`` the hops' attention runs the kernels of
 ``ops/pallas_attention`` (``ops/attention_core.py`` has the gates): the
@@ -134,7 +141,8 @@ class TacotronDecoder(nn.Module):
                  self_attention_drop_rate: float = 0.0,
                  fused_train: bool = False,
                  fused_train_dtype: str = "float32",
-                 use_pallas: bool = False, feedback_softmax: bool = False):
+                 use_pallas: bool = False, feedback_softmax: bool = False,
+                 speaker_dim: Optional[int] = None):
         super().__init__()
         assert len(attention_options) == len(source_dims)
         self.num_sources = len(source_dims)
@@ -156,9 +164,10 @@ class TacotronDecoder(nn.Module):
         self.fused_train_dtype = fused_train_dtype
         self.use_pallas = use_pallas
         self.feedback_softmax = feedback_softmax
+        self.self_attention_out_units = self_attention_out_units
 
         self.prenets = PreNetStack(num_mels * n_feed_frame, prenet_out_units,
-                                   drop_rate)
+                                   drop_rate, speaker_dim)
         A, D = attention_rnn_out_units, decoder_out_units
         for i, (opt, dim) in enumerate(zip(attention_options, source_dims)):
             self.add_module(f"attention_mechanism_{i}",
@@ -197,28 +206,39 @@ class TacotronDecoder(nn.Module):
 
     # ------------------------------------------------------------ public API
     def forward(self, sources: Sequence[torch.Tensor],
-                memory_lengths: Sequence[torch.Tensor]) -> DecoderOutput:
+                memory_lengths: Sequence[torch.Tensor],
+                speaker_embed: Optional[torch.Tensor] = None
+                ) -> DecoderOutput:
+        """INFERENCE; ``speaker_embed`` (B, E) conditions the speaker
+        prenet (``speaker_dim``)."""
         assert len(sources) == self.num_sources
         B = sources[0].shape[0]
         packs = tuple(mech.precompute(src, ln) for mech, src, ln in
                       zip(self.attention_mechanisms, sources, memory_lengths))
         if self.fused_inference:
-            reason = self._fused_unsupported_reason(B, packs)
+            reason = self._fused_unsupported_reason(B)
+            inputs = None
+            if reason is None:
+                inputs = self.fused_inputs(packs, speaker_embed)
+                reason = self._fused_kernel_unsupported_reason(inputs)
             if reason is None:
                 log_path_once("decoder", "fused_decode kernel")
-                return self._decode_path_fused(packs, self.max_iters)
+                return self._decode_path_fused(inputs, self.max_iters)
             _warn_fused_fallback(reason)
         log_path_once("decoder", hop_path(
             self.use_pallas, "incremental_attention_step")
             if self.transformers else "none (no hops)")
         if self.early_stop:
-            return self._decode_path_while(packs, B, self.max_iters)
-        return self._decode_path(packs, B, self.max_iters)
+            return self._decode_path_while(packs, B, self.max_iters,
+                                           speaker_embed)
+        return self._decode_path(packs, B, self.max_iters,
+                                 speaker_embed=speaker_embed)
 
     def validation_forward(self, sources: Sequence[torch.Tensor],
                            memory_lengths: Sequence[torch.Tensor],
-                           target: torch.Tensor,
-                           teacher_forcing: bool) -> DecoderOutput:
+                           target: torch.Tensor, teacher_forcing: bool,
+                           speaker_embed: Optional[torch.Tensor] = None
+                           ) -> DecoderOutput:
         """VALIDATION: the decode loop over the target's T // r steps,
         teacher-forced or free-running."""
         B = sources[0].shape[0]
@@ -228,12 +248,13 @@ class TacotronDecoder(nn.Module):
         teacher = (self._teacher_inputs(target, num_steps) if teacher_forcing
                    else None)
         return self._decode_path(packs, B, num_steps, DecoderMode.VALIDATION,
-                                 teacher)
+                                 teacher, speaker_embed)
 
     # ----------------------------------------------------------- step pieces
-    def _initial_carry(self, B, packs, device, num_steps):
+    def _initial_carry(self, B, packs, device, num_steps,
+                       speaker_embed=None):
         ctx_dim = sum(int(p.values.shape[-1]) for p in packs)
-        return dict(
+        return dict(speaker_embed=speaker_embed,
             att_lstm=self.attention_lstm.initial_state(B, device),
             lstm1=self.decoder_lstm1.initial_state(B, device),
             lstm2=self.decoder_lstm2.initial_state(B, device),
@@ -249,7 +270,7 @@ class TacotronDecoder(nn.Module):
     def _rnn_step(self, carry, x, packs, training: bool = False,
                   generator=None):
         """The recurrent trunk of one step -> (carry, (o2, aligns))."""
-        x = self.prenets(x, training, generator)
+        x = self.prenets(x, training, generator, carry["speaker_embed"])
         att_state, h = self.attention_lstm(
             carry["att_lstm"], torch.cat([x, carry["prev_context"]], -1),
             training, generator)
@@ -302,14 +323,15 @@ class TacotronDecoder(nn.Module):
 
     # -------------------------------------------------------- decode paths
     def _decode_path(self, packs, B, num_steps, mode=DecoderMode.INFERENCE,
-                     teacher=None):
+                     teacher=None, speaker_embed=None):
         """All ``num_steps`` steps.  INFERENCE: lengths from the first step
         at which every row's stop token has fired (dynamic_decode
         semantics), outputs masked past them.  VALIDATION: lengths are
         ``num_steps``; ``teacher`` holds the GO-shifted teacher inputs when
         teacher-forced, None when free-running."""
         device = packs[0].keys.device
-        carry = self._initial_carry(B, packs, device, num_steps)
+        carry = self._initial_carry(B, packs, device, num_steps,
+                                    speaker_embed)
         if teacher is not None:
             # next_inputs(time=t) feeds target step t itself: the shifted
             # teacher sequence advanced by one, feed[t] = shifted[t + 1]
@@ -339,11 +361,12 @@ class TacotronDecoder(nn.Module):
             self._sa_aligns(sa_rows, B, num_steps, device), lengths,
             num_steps, mask_by_lengths=inference)
 
-    def _decode_path_while(self, packs, B, num_steps):
+    def _decode_path_while(self, packs, B, num_steps, speaker_embed=None):
         """Early exit once every row's stop token fired past min_iters;
         entries past the exit stay zero."""
         device = packs[0].keys.device
-        carry = self._initial_carry(B, packs, device, num_steps)
+        carry = self._initial_carry(B, packs, device, num_steps,
+                                    speaker_embed)
         C, r = self.num_mels, self.outputs_per_step
         finished = torch.zeros(B, dtype=torch.bool, device=device)
         lengths = torch.zeros(B, dtype=torch.int64, device=device)
@@ -384,7 +407,8 @@ class TacotronDecoder(nn.Module):
     def train_forward(self, sources: Sequence[torch.Tensor],
                       memory_lengths: Sequence[torch.Tensor],
                       target: torch.Tensor,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None,
+                      speaker_embed: Optional[torch.Tensor] = None
                       ) -> DecoderOutput:
         """Teacher-forced training over the target's T // r steps: the
         trunk, then the causal hops over the whole sequence and the heads
@@ -404,9 +428,11 @@ class TacotronDecoder(nn.Module):
             if reason is not None:
                 _warn_fused_fallback(reason, "decoder_fused_train")
         if self.fused_train and reason is None:
-            y, aligns = self._train_trunk_fused(packs, teacher, generator)
+            y, aligns = self._train_trunk_fused(packs, teacher, generator,
+                                                speaker_embed)
         else:
-            y, aligns = self._train_trunk_plain(packs, teacher, generator)
+            y, aligns = self._train_trunk_plain(packs, teacher, generator,
+                                                speaker_embed)
         sa_aligns: List[torch.Tensor] = []
         for hop in self.transformers:
             y, heads = hop(y, True, generator)
@@ -428,10 +454,11 @@ class TacotronDecoder(nn.Module):
                          device=target.device)
         return torch.cat([go, feed], 1)
 
-    def _train_trunk_plain(self, packs, teacher, generator):
+    def _train_trunk_plain(self, packs, teacher, generator,
+                           speaker_embed=None):
         B = teacher.shape[0]
         carry = self._initial_carry(B, packs, teacher.device,
-                                    teacher.shape[1])
+                                    teacher.shape[1], speaker_embed)
         ys, aligns = [], []
         for t in range(teacher.shape[1]):
             carry, (y, al) = self._rnn_step(carry, teacher[:, t], packs,
@@ -459,7 +486,9 @@ class TacotronDecoder(nn.Module):
             self.fused_train_params(), [p.keys for p in packs],
             [p.values for p in packs], teacher, drop_rate=0.0, zc_att=0.0,
             zo_att=0.0, zc_dec=0.0, zo_dec=0.0, deterministic=False,
-            src_kinds=kinds, cumulative=cum, loc_kernel=self._loc_kernel())
+            p_dropout=self.prenets.dense_layers()[1],
+            use_spk=self.prenets.use_speaker_embed, src_kinds=kinds,
+            cumulative=cum, loc_kernel=self._loc_kernel())
         return ft.unsupported_reason(spec)
 
     def _fused_attention_unsupported_reason(self) -> Optional[str]:
@@ -509,12 +538,20 @@ class TacotronDecoder(nn.Module):
               else m.attention_variable).t())
             for m in self.attention_mechanisms)
         return ft.FusedTrainParams(
-            prenet=tuple(dense(p.dense) for p in self.prenets.layers()),
+            prenet=tuple(dense(d) for d in self.prenets.dense_layers()[0]),
             att_lstm=dense(self.attention_lstm), query=query,
             outproj=dense(self.output_projection_wrapper),
             lstm1=dense(self.decoder_lstm1), lstm2=dense(self.decoder_lstm2))
 
-    def _train_trunk_fused(self, packs, teacher, generator):
+    def speaker_row(self, speaker_embed) -> Optional[torch.Tensor]:
+        """The (B, P0) row the speaker prenet adds after dense0's ReLU (the
+        JAX package's ``_fused_prenet_params``), or None."""
+        if not self.prenets.use_speaker_embed:
+            return None
+        return self.prenets.prenet_0.speaker_row(speaker_embed)
+
+    def _train_trunk_fused(self, packs, teacher, generator,
+                           speaker_embed=None):
         kinds, cum, loc_ws, folds = self._fused_attention_params()
         seed = int(torch.randint(0, 1 << 31, (1,), generator=generator,
                                  device=(generator.device if generator
@@ -529,26 +566,38 @@ class TacotronDecoder(nn.Module):
             drop_rate=self.prenets.drop_rate,
             zc_att=self.zoneout_factor_cell,
             zo_att=self.zoneout_factor_output, zc_dec=zc_dec, zo_dec=zo_dec,
-            deterministic=False, src_kinds=kinds, cumulative=cum,
-            loc_kernel=self._loc_kernel(), loc_ws=loc_ws)
+            deterministic=False, p_dropout=self.prenets.dense_layers()[1],
+            speaker_row=self.speaker_row(speaker_embed), src_kinds=kinds,
+            cumulative=cum, loc_kernel=self._loc_kernel(), loc_ws=loc_ws)
 
     # ------------------------------------------------- the fused kernel
-    def _fused_unsupported_reason(self, B, packs) -> Optional[str]:
-        """Configuration gate of the fused decode: the batch-1 row mode
-        with additive and forward sources over one memory length.  Batched
-        decodes and location-sensitive sources take the plain path."""
-        if B != 1:
-            return (f"batch {B}: the batched row mode of the fused decode "
-                    "is not ported yet")
+    def _fused_unsupported_reason(self, B) -> Optional[str]:
+        """Configuration gate of the fused decode (the JAX package's
+        ``_fused_unsupported_reason`` and ``_fused_attention_unsupported_
+        reason``): the output and KV-cache buffer limit and the mechanism
+        checks; then ``_fused_kernel_unsupported_reason`` (the kernel's
+        shared-memory plan, which bounds the batch).  Every batch, source
+        kind and memory length is fused otherwise.  The JAX gate's other
+        reasons (MGC/LF0 outputs, inference dropout, forced alignments,
+        smoothing, the transition agent) are configurations the port's
+        model refuses before it gets here; bf16 weights are not ported."""
+        buf_bytes = B * self.max_iters * 4 * (
+            self.num_mels * self.outputs_per_step + 1
+            + 2 * len(self.transformers) * self.self_attention_out_units)
+        if buf_bytes > (64 << 20):
+            return (f"output/KV buffers need {buf_bytes >> 20} MiB "
+                    "(> 64 MiB gate)")
         if self.fused_dtype != "float32":
             return f"fused_dtype={self.fused_dtype!r} is not ported yet"
-        if len({int(p.keys.shape[1]) for p in packs}) != 1:
-            return "sources with different memory lengths"
-        for m in self.attention_mechanisms:
-            if not isinstance(m, (AdditiveAttention, ForwardAttention)):
-                return (f"{type(m).__name__} is not ported to the fused "
-                        "decode yet")
         return self._fused_attention_unsupported_reason()
+
+    def _fused_kernel_unsupported_reason(self, inputs) -> Optional[str]:
+        weights, memory, options = inputs
+        return fd.unsupported_reason(
+            weights, batch=int(memory.keys[0].shape[0]),
+            t_sizes=[int(k.shape[1]) for k in memory.keys],
+            c_sizes=[int(v.shape[2]) for v in memory.values],
+            num_steps=self.max_iters, num_heads=options["num_heads"])
 
     def fused_params(self) -> fd.FusedDecodeParams:
         """This module's weights in the JAX layout the merges start from."""
@@ -582,10 +631,10 @@ class TacotronDecoder(nn.Module):
                   row(torch.cat([out_p.bias, stop_p.bias]))),
             loc=tuple(loc))
 
-    def fused_inputs(self, packs):
+    def fused_inputs(self, packs, speaker_embed=None):
         """(weights, memory, run options) of ops/fused_decode.  The merged
         weights are made once and reused until a parameter changes
-        (``weights_key``)."""
+        (``weights_key``); the speaker row is made per call."""
         key = weights_key(self)
         if getattr(self, "_merged", (None,))[0] != key:
             mechs = self.attention_mechanisms
@@ -593,8 +642,7 @@ class TacotronDecoder(nn.Module):
                 self.fused_params(), num_mels=self.num_mels,
                 outputs_per_step=self.outputs_per_step,
                 n_feed_frame=self.n_feed_frame,
-                src_kinds=tuple("additive" if isinstance(m, AdditiveAttention)
-                                else "forward" for m in mechs),
+                src_kinds=self._fused_attention_params()[0],
                 cumulative=tuple(getattr(m, "cumulative_weights", False)
                                  for m in mechs),
                 loc_kernel=max(getattr(m, "attention_kernel", 1)
@@ -609,20 +657,23 @@ class TacotronDecoder(nn.Module):
             zoneout_cell=self.zoneout_factor_cell,
             zoneout_output=self.zoneout_factor_output,
             dec_zoneout_cell=zc_dec, dec_zoneout_output=zo_dec,
-            early_stop=self.early_stop, min_iters=self.min_iters)
+            early_stop=self.early_stop, min_iters=self.min_iters,
+            speaker_row=self.speaker_row(speaker_embed))
         return self._merged[1], memory, options
 
-    def _decode_path_fused(self, packs, num_steps):
-        weights, memory, options = self.fused_inputs(packs)
+    def _decode_path_fused(self, inputs, num_steps):
+        """``fused_decode`` on ``fused_inputs``; source alignments are
+        zeros for B > 1, as in the JAX package."""
+        weights, memory, options = inputs
         out, stop, aligns = fd.fused_decode(weights, memory,
                                             num_steps=num_steps, **options)
         # lengths recovered post hoc from the stop logits
-        S = num_steps
+        S, B = num_steps, out.shape[0]
         device = out.device
         fired = (stop > 0) & (torch.arange(S, device=device)[None, :]
                               > self.min_iters)
         lengths = stop_lengths(torch.cumsum(fired.int(), 1) > 0)
-        sa_aligns = [torch.zeros(1, S, S, device=device)
+        sa_aligns = [torch.zeros(B, S, S, device=device)
                      for _ in range(self.self_attention_num_hop
                                     * self.self_attention_num_heads)]
         return self._package(out, stop[..., None], aligns, sa_aligns,

@@ -3,11 +3,15 @@
 Counterpart of the JAX package's ``models/postnet.py`` ``PostNetV2``
 (selected by ``use_postnet_v2``): N - 1 x (conv -> batch norm -> tanh ->
 dropout), then conv -> batch norm -> dropout and a projection back to the
-mel width; the model adds the residual to the decoder's frames.  Dropout
-is flax's, drawn from the caller's ``torch.Generator`` in training.  The
-speaker-conditioned ``MultiSpeakerPostNet`` and ``PostNetCBHG`` come with a
-later slice.  Submodule names follow the flax tree (``conv_<i>``,
-``projection``).
+mel width; the model adds the residual to the decoder's frames.  With a
+speaker embedding (``speaker_embedd_to_postnet``) its projection to
+``out_channels`` is tiled over time and concatenated to the first conv's
+input, as the JAX package's ``PostNetV2`` does (its
+``MultiSpeakerPostNet`` is the same class).
+Dropout is flax's, drawn from the caller's ``torch.Generator`` in
+training.  ``PostNetCBHG`` comes with a later slice.  Submodule names
+follow the flax tree (``conv_<i>``, ``projection``,
+``speaker_projection``).
 """
 
 from __future__ import annotations
@@ -24,11 +28,14 @@ from ..ops.conv import Conv1dBN
 class PostNetV2(nn.Module):
     def __init__(self, out_units: int, num_layers: int = 5,
                  kernel_size: int = 5, out_channels: int = 512,
-                 drop_rate: float = 0.5):
+                 drop_rate: float = 0.5, speaker_dim: Optional[int] = None):
         super().__init__()
         self.num_layers = num_layers
         self.drop_rate = drop_rate
         in_channels = out_units
+        if speaker_dim is not None:
+            self.speaker_projection = nn.Linear(speaker_dim, out_channels)
+            in_channels += out_channels
         for i in range(num_layers):
             act = torch.tanh if i < num_layers - 1 else None
             self.add_module(f"conv_{i}", Conv1dBN(in_channels, kernel_size,
@@ -37,9 +44,13 @@ class PostNetV2(nn.Module):
         self.projection = nn.Linear(out_channels, out_units)
 
     def forward(self, xs: torch.Tensor, is_training: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                speaker_embed: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, T, out_units) frames -> the (B, T, out_units) residual."""
         h = xs
+        if speaker_embed is not None:
+            s = self.speaker_projection(speaker_embed)
+            h = torch.cat([h, s[:, None, :].expand(-1, h.shape[1], -1)], -1)
         for i in range(self.num_layers):
             h = getattr(self, f"conv_{i}")(h, is_training)
             if is_training:

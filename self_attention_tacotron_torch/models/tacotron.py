@@ -21,8 +21,19 @@ batch-norm statistics scoped to the rows whose loss mask is not empty
 ``torch.Generator``.  ``compute_loss`` is ``0.1 * codes_loss + done_loss``
 for codes and ``mel_loss (+ postnet_loss) + done_loss`` for mels (+ L2).
 ``hp.use_pallas_attention`` reaches the encoder's and the decoder's
-self-attention hops.  The MGC/LF0 kind, speaker and accent routing come
-with later slices.
+self-attention hops.
+
+Speakers (the VCTK recipe): ``use_speaker_embedding`` (a trained
+``Embedding`` shifted by ``speaker_embedding_offset``) or
+``use_external_speaker_embedding`` (``ExternalEmbedding``, frozen, read
+from ``embedding_file``) looks up each row's ``speaker_id``, or
+``speaker_for_synthesis`` for every row when it is > -1; with
+``speaker_embedding_projection_out_dim`` > -1 a ReLU dense projects it.  It
+then goes to the decoder's speaker prenet (``speaker_embedd_to_prenet``),
+is tiled over time onto both attention sources
+(``speaker_embedd_to_decoder``) and to the postnet
+(``speaker_embedd_to_postnet``), as in the JAX package.  The MGC/LF0 kind
+and accent types come with later slices.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from ..ops.conv import bn_valid_rows
 from ..utils.convert import flax_param_paths
 from .attention import AttentionOptions
 from .decoder import DecoderOutput, TacotronDecoder
-from .embedding import Embedding
+from .embedding import Embedding, ExternalEmbedding
 from .encoders import SelfAttentionCBHGEncoder, ZoneoutEncoderV1
 from .postnet import PostNetV2
 
@@ -51,6 +62,7 @@ class Batch(NamedTuple):
     done: Optional[torch.Tensor] = None              # (B, T // r)
     spec_loss_mask: Optional[torch.Tensor] = None    # (B, T)
     binary_loss_mask: Optional[torch.Tensor] = None  # (B, T // r)
+    speaker_id: Optional[torch.Tensor] = None        # (B,)
 
     def to(self, device) -> "Batch":
         return Batch(*(None if x is None else torch.as_tensor(x).to(device)
@@ -109,10 +121,12 @@ class TacotronModel(nn.Module):
         if num_sources == 2 and hp.encoder != "SelfAttentionCBHGEncoder":
             raise ValueError(f"{hp.decoder} attends to the self-attention "
                              f"output, which {hp.encoder} does not have")
-        if (hp.use_speaker_embedding or hp.use_external_speaker_embedding
-                or hp.use_accent_type):
-            raise NotImplementedError("speaker and accent options are not "
-                                      "ported yet")
+        if hp.use_accent_type:
+            raise NotImplementedError("accent types are not ported yet")
+        if hp.use_speaker_embedding and hp.use_external_speaker_embedding:
+            raise ValueError("use_speaker_embedding and "
+                             "use_external_speaker_embedding exclude each "
+                             "other")
         if hp.apply_dropout_on_inference or hp.compute_dtype != "float32":
             raise NotImplementedError("inference dropout and bfloat16 "
                                       "compute are not ported yet")
@@ -120,6 +134,25 @@ class TacotronModel(nn.Module):
         self.is_code_model = (
             hp.tacotron_model == "DualSourceSelfAttentionTacotronModel")
         self.embedding = Embedding(hp.num_symbols, hp.embedding_dim)
+        speaker_dim = None
+        if hp.use_speaker_embedding:
+            self.speaker_embedding = Embedding(
+                hp.num_speakers, hp.speaker_embedding_dim,
+                index_offset=hp.speaker_embedding_offset)
+        elif hp.use_external_speaker_embedding:
+            self.speaker_embedding = ExternalEmbedding(
+                hp.embedding_file, hp.num_speakers,
+                hp.speaker_embedding_dim,
+                index_offset=hp.speaker_embedding_offset)
+        if self.has_speaker:
+            speaker_dim = hp.speaker_embedding_dim
+            if hp.speaker_embedding_projection_out_dim > -1:
+                self.speaker_projection = nn.Linear(
+                    speaker_dim, hp.speaker_embedding_projection_out_dim)
+                speaker_dim = hp.speaker_embedding_projection_out_dim
+        to_decoder = (speaker_dim
+                      if self.has_speaker and hp.speaker_embedd_to_decoder
+                      else 0)
         common = dict(cbhg_out_units=hp.cbhg_out_units,
                       conv_channels=hp.conv_channels,
                       max_filter_width=hp.max_filter_width,
@@ -145,8 +178,9 @@ class TacotronModel(nn.Module):
                 use_pallas=hp.use_pallas_attention, **common)
         self.decoder = TacotronDecoder(
             attention_options_from_hparams(hp, dual=num_sources == 2),
-            source_dims=(hp.cbhg_out_units, hp.self_attention_out_units
-                         )[:num_sources],
+            source_dims=tuple(d + to_decoder for d in (
+                hp.cbhg_out_units, hp.self_attention_out_units
+            )[:num_sources]),
             use_transformer=use_transformer,
             prenet_out_units=hp.decoder_prenet_out_units,
             attention_rnn_out_units=hp.attention_out_units,
@@ -168,17 +202,44 @@ class TacotronModel(nn.Module):
             fused_train=hp.decoder_fused_train,
             fused_train_dtype=hp.decoder_fused_train_dtype,
             use_pallas=hp.use_pallas_attention,
-            feedback_softmax=self.is_code_model)
+            feedback_softmax=self.is_code_model,
+            speaker_dim=(speaker_dim if self.has_speaker
+                         and hp.speaker_embedd_to_prenet else None))
         if hp.use_postnet_v2:
-            self.postnet = PostNetV2(hp.num_mels, hp.num_postnet_v2_layers,
-                                     hp.postnet_v2_kernel_size,
-                                     hp.postnet_v2_out_channels,
-                                     hp.postnet_v2_drop_rate)
+            self.postnet = PostNetV2(
+                hp.num_mels, hp.num_postnet_v2_layers,
+                hp.postnet_v2_kernel_size, hp.postnet_v2_out_channels,
+                hp.postnet_v2_drop_rate,
+                speaker_dim=(speaker_dim if self.has_speaker
+                             and hp.speaker_embedd_to_postnet else None))
+
+    @property
+    def has_speaker(self) -> bool:
+        return bool(self.hp.use_speaker_embedding
+                    or self.hp.use_external_speaker_embedding)
+
+    def _speaker(self, batch: Batch) -> Optional[torch.Tensor]:
+        """The (B, E) speaker embedding of each row (``speaker_for_
+        synthesis`` for all rows when > -1), projected when configured;
+        None without speakers."""
+        if not self.has_speaker:
+            return None
+        sid = batch.speaker_id
+        if self.hp.speaker_for_synthesis > -1:
+            sid = torch.full_like(batch.source_length,
+                                  self.hp.speaker_for_synthesis)
+        elif sid is None:
+            raise ValueError("this model conditions on speakers: the batch "
+                             "needs speaker_id")
+        emb = self.speaker_embedding(sid.to(batch.source.device))
+        if self.hp.speaker_embedding_projection_out_dim > -1:
+            emb = torch.relu(self.speaker_projection(emb))
+        return emb
 
     def _encode(self, batch: Batch, is_training: bool = False,
                 generator: Optional[torch.Generator] = None):
         """-> (decoder sources, their lengths, encoder self-attention
-        alignments)."""
+        alignments, the speaker embedding or None)."""
         emb = self.embedding(batch.source)
         lengths = batch.source_length
         if isinstance(self.encoder, ZoneoutEncoderV1):
@@ -187,11 +248,19 @@ class TacotronModel(nn.Module):
         else:
             lstm_out, sa_out, enc_aligns = self.encoder(
                 emb, lengths, is_training, generator)
+        speaker = self._speaker(batch)
         n = self.decoder.num_sources
-        return (lstm_out, sa_out)[:n], (lengths,) * n, enc_aligns
+        sources = (lstm_out, sa_out)[:n]
+        if speaker is not None and self.hp.speaker_embedd_to_decoder:
+            sources = tuple(torch.cat([s, speaker[:, None, :].expand(
+                -1, s.shape[1], -1)], -1) for s in sources)
+        return sources, (lengths,) * n, enc_aligns, speaker
+
+    def _prenet_speaker(self, speaker):
+        return speaker if self.hp.speaker_embedd_to_prenet else None
 
     def _output(self, dec: DecoderOutput, enc_aligns, is_training=False,
-                generator=None) -> TacotronOutput:
+                generator=None, speaker=None) -> TacotronOutput:
         code_output = postnet_outputs = None
         if self.is_code_model:
             code_output = torch.nn.functional.one_hot(
@@ -199,7 +268,8 @@ class TacotronModel(nn.Module):
                     dec.outputs.dtype)
         if self.hp.use_postnet_v2:
             postnet_outputs = dec.outputs + self.postnet(
-                dec.outputs, is_training, generator)
+                dec.outputs, is_training, generator,
+                speaker if self.hp.speaker_embedd_to_postnet else None)
         return TacotronOutput(
             outputs=dec.outputs, stop_token=dec.stop_token,
             code_output=code_output, postnet_outputs=postnet_outputs,
@@ -212,9 +282,14 @@ class TacotronModel(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Batch) -> TacotronOutput:
         device = self.embedding.weight.device
-        batch = Batch(batch.source.to(device), batch.source_length.to(device))
-        sources, lengths, enc_aligns = self._encode(batch)
-        return self._output(self.decoder(sources, lengths), enc_aligns)
+        batch = Batch(batch.source.to(device), batch.source_length.to(device),
+                      speaker_id=(None if batch.speaker_id is None
+                                  else torch.as_tensor(batch.speaker_id)
+                                  .to(device)))
+        sources, lengths, enc_aligns, speaker = self._encode(batch)
+        return self._output(
+            self.decoder(sources, lengths, self._prenet_speaker(speaker)),
+            enc_aligns, speaker=speaker)
 
     @torch.no_grad()
     def validation_forward(self, batch: Batch,
@@ -225,10 +300,10 @@ class TacotronModel(nn.Module):
         outputs (the JAX package's ``_forward`` in
         ``DecoderMode.VALIDATION``)."""
         batch = batch.to(self.embedding.weight.device)
-        sources, lengths, enc_aligns = self._encode(batch)
+        sources, lengths, enc_aligns, speaker = self._encode(batch)
         return self._output(self.decoder.validation_forward(
-            sources, lengths, batch.target.float(), teacher_forcing),
-            enc_aligns)
+            sources, lengths, batch.target.float(), teacher_forcing,
+            self._prenet_speaker(speaker)), enc_aligns, speaker=speaker)
 
     def train_forward(self, batch: Batch,
                       generator: Optional[torch.Generator] = None
@@ -244,11 +319,12 @@ class TacotronModel(nn.Module):
             valid = batch.spec_loss_mask.reshape(
                 batch.spec_loss_mask.shape[0], -1).amax(1) > 0
         with bn_valid_rows(valid):
-            sources, lengths, enc_aligns = self._encode(batch, True,
-                                                        generator)
-            dec = self.decoder.train_forward(sources, lengths,
-                                             batch.target.float(), generator)
-            return self._output(dec, enc_aligns, True, generator)
+            sources, lengths, enc_aligns, speaker = self._encode(
+                batch, True, generator)
+            dec = self.decoder.train_forward(
+                sources, lengths, batch.target.float(), generator,
+                self._prenet_speaker(speaker))
+            return self._output(dec, enc_aligns, True, generator, speaker)
 
 
 def compute_loss(hp: HParams, out: TacotronOutput, batch: Batch,

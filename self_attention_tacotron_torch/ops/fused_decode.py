@@ -1,14 +1,21 @@
-"""The whole batch-1 autoregressive decode loop as one CUDA kernel.
+"""The whole autoregressive decode loop as one CUDA kernel.
 
 Replaces the JAX package's ``ops/fused_decode.py`` ``_kernel`` (Pallas,
-reached through ``fused_decode``) in its batch-1 row mode, for source
-attention kinds additive and forward.  Per step: prenet (its first product
-rides the previous step's head) -> attention zoneout LSTM -> per-source
-energies (with the location conv for forward sources) -> masked softmax
-shifted by the row max -> forward recursion -> context -> merged output
-projection + lstm1 -> lstm2 -> causal self-attention hops over KV caches ->
-one output + stop + next-prenet head.  With ``early_stop`` the loop ends
-once the stop logit is > 0 past ``min_iters``; rows after the exit read 0.
+reached through ``fused_decode``) in all its modes: B = 1 and batched
+rows (B >= 1, each source with its own memory length), source attention
+kinds additive, location-sensitive and forward, and the per-utterance
+speaker row of ``MultiSpeakerPreNet``.  Per step and row: prenet (its
+first product rides the previous step's head; the speaker row is added
+after that layer's ReLU) -> attention zoneout LSTM -> per-source energies
+(with the location conv for location-sensitive and forward sources) ->
+masked softmax shifted by the row max -> forward recursion (forward
+sources) -> context -> merged output projection + lstm1 -> lstm2 ->
+causal self-attention hops over per-row KV caches -> one output + stop +
+next-prenet head.  With ``early_stop`` the loop ends once every row's stop
+logit has been > 0 past ``min_iters``; a row that fired goes on decoding on
+its own feedback until then, and steps after the exit read 0.  Source
+alignments are returned for B = 1 only (zeros for B > 1, as in the JAX
+package).
 
 The softmax shift is the per-step row max, not the JAX kernel's static
 bound ``sum |v|`` (with trained ``|v|`` every exp can flush to zero there).
@@ -19,18 +26,20 @@ bound ``sum |v|`` (with trained ``|v|`` every exp can flush to zero there).
 premultiplied into lstm1, hop K|V|Q fused and Wo @ Wt, the head extended by
 the feedback slice times the first prenet weight, the location conv times
 the location dense) in the layout the kernel reads.  ``FusedDecodeMemory``
-is the utterance: the attention keys, values and masks.
-``fused_decode_reference`` is the plain PyTorch version of the kernel's
-math; ``fused_decode`` runs it for CPU tensors only and launches the kernel
-(``csrc/fused_decode.cu``) for CUDA tensors, raising on anything the kernel
-does not take.
+is the batch: per source the attention keys (B, T_i, U_i), values
+(B, T_i, C_i) and masks (B, T_i).  ``fused_decode_reference`` is the plain
+PyTorch version of the kernel's math; ``fused_decode`` runs it for CPU
+tensors only and launches the kernel (``csrc/fused_decode.cu``) for CUDA
+tensors, raising on anything the kernel does not take.
+``unsupported_reason`` is the kernel's shared-memory plan as a
+configuration gate (``smem_floats`` mirrors ``dec_smem`` in the source).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,10 +47,15 @@ from . import cuda_build
 from .rnn import fold_forget_bias, lstm_update
 
 NEG_INF = -1e9
-KIND_IDS = {"additive": 0, "forward": 2}
+KIND_IDS = {"additive": 0, "location_sensitive": 1, "forward": 2}
 MAX_SOURCES = 4
 MAX_PRENET = 4
 MAX_HOPS = 4
+H100_SMS = 132
+SMEM_LIMIT = 232448   # bytes a block may opt in to on the H100
+NT = 256              # threads a block (csrc/common.cuh)
+CHUNK = 32            # cached steps a hop-attention item
+GEMV_PART = (NT // 32) * 5 * 8   # the split products' scratch (csrc)
 
 # the kernel's StageClock slots (csrc), in order: SM cycles of block 0
 # between consecutive grid barriers, summed over the call
@@ -50,10 +64,11 @@ DEC_STAGES = ("prenet", "att_lstm", "query", "energy", "softmax_ctx",
               "setup")
 
 # the run options of fused_decode / fused_decode_reference / prepare_decode:
-# attention-LSTM and decoder-LSTM zoneout (inference mix), early exit
+# attention-LSTM and decoder-LSTM zoneout (inference mix), early exit, the
+# (B, P0) speaker row added after the first prenet layer's ReLU
 _RUN_DEFAULTS = dict(num_heads=2, zoneout_cell=0.0, zoneout_output=0.0,
                      dec_zoneout_cell=0.0, dec_zoneout_output=0.0,
-                     early_stop=False, min_iters=10)
+                     early_stop=False, min_iters=10, speaker_row=None)
 
 Tensor = torch.Tensor
 
@@ -67,15 +82,16 @@ class FusedDecodeParams(NamedTuple):
     lstm2: Tuple[Tensor, Tensor]
     hops: Tuple[Tuple[Tensor, ...], ...]       # (Wk,bk,Wv,bv,Wq,bq,Wo,bo,Wt,bt)
     head: Tuple[Tensor, Tensor]                # (D, Cr + 1), (1, Cr + 1)
-    # per forward source: the location conv kernel (K, F) and bias (F,),
-    # the location dense (F, U) and the attention bias (U,); else None
+    # per location-sensitive or forward source: the location conv kernel
+    # (K, F) and bias (F,), the location dense (F, U) and the attention
+    # bias (U,); None for additive sources
     loc: Tuple[Optional[Tuple[Tensor, ...]], ...] = ()
 
 
 class FusedDecodeMemory(NamedTuple):
-    keys: Tuple[Tensor, ...]    # per source (1, T, U_i)
-    values: Tuple[Tensor, ...]  # per source (1, T, C_i)
-    masks: Tuple[Tensor, ...]   # per source (1, T) bool or {1, 0}
+    keys: Tuple[Tensor, ...]    # per source (B, T_i, U_i)
+    values: Tuple[Tensor, ...]  # per source (B, T_i, C_i)
+    masks: Tuple[Tensor, ...]   # per source (B, T_i) bool or {1, 0}
 
 
 class FusedDecodeWeights(NamedTuple):
@@ -113,8 +129,8 @@ def merge_weights(params: FusedDecodeParams, *, num_mels: int,
     ns = len(params.query)
     src_kinds = tuple(src_kinds or ("additive",) * ns)
     if any(k not in KIND_IDS for k in src_kinds):
-        raise ValueError(f"source kinds {src_kinds}: only additive and "
-                         "forward are ported")
+        raise ValueError(f"source kinds {src_kinds}: expected one of "
+                         f"{sorted(KIND_IDS)}")
     cumulative = tuple(bool(c) for c in (cumulative or (False,) * ns))
     cr = num_mels * outputs_per_step
     cf = num_mels * n_feed_frame
@@ -135,7 +151,7 @@ def merge_weights(params: FusedDecodeParams, *, num_mels: int,
     K = int(loc_kernel)
     loc_w, fold = [], []
     for i, k in enumerate(kinds):
-        if k == 2:
+        if k != 0:
             conv_k, conv_b, w_loc, att_bias = params.loc[i]
             loc_w.append(conv_k @ w_loc)                    # (K, U)
             fold.append(att_bias + conv_b @ w_loc)          # (U,)
@@ -165,18 +181,26 @@ def merge_weights(params: FusedDecodeParams, *, num_mels: int,
         loc_kernel=K)
 
 
-def _memory_rows(w: FusedDecodeWeights, memory: FusedDecodeMemory):
-    """Batch-1 memory as the kernel reads it: keys (T, sumU) with the
-    constant fold added, values (T, Cctx), masks (ns, T), value widths."""
-    if int(memory.keys[0].shape[0]) != 1:
-        raise ValueError("the fused decode kernel serves batch 1 (the "
-                         "batched row mode is not ported yet)")
-    if len({int(k.shape[1]) for k in memory.keys}) != 1:
-        raise ValueError("sources must share one memory length")
-    keys = torch.cat([k[0] for k in memory.keys], 1) + w.key_fold
-    values = torch.cat([v[0] for v in memory.values], 1).contiguous()
-    mask = torch.cat([m.reshape(1, -1) for m in memory.masks], 0).float()
-    return keys, values, mask, tuple(int(v.shape[2]) for v in memory.values)
+def _offsets(sizes: Sequence[int]) -> Tuple[int, ...]:
+    out = [0]
+    for s in sizes:
+        out.append(out[-1] + int(s))
+    return tuple(out)
+
+
+def _memory(w: FusedDecodeWeights, memory: FusedDecodeMemory):
+    """Per source: keys (B, T_i, U_i) with the constant fold added, values
+    (B, T_i, C_i) and boolean masks (B, T_i)."""
+    B = int(memory.keys[0].shape[0])
+    if any(int(t.shape[0]) != B for t in (*memory.keys, *memory.values,
+                                          *memory.masks)):
+        raise ValueError("every memory tensor must have the same batch")
+    u_off = _offsets(w.u_sizes)
+    keys = tuple(k + w.key_fold[u_off[i]:u_off[i + 1]]
+                 for i, k in enumerate(memory.keys))
+    masks = tuple(m.reshape(B, -1) > 0.5 if m.dtype != torch.bool
+                  else m.reshape(B, -1) for m in memory.masks)
+    return keys, memory.values, masks
 
 
 def _options(options) -> dict:
@@ -186,123 +210,213 @@ def _options(options) -> dict:
     return dict(_RUN_DEFAULTS, **options)
 
 
+def _windows(cv: Tensor, K: int) -> Tensor:
+    """(B, T) conv input -> (B, T, K) windows: column k holds position
+    t + k - pad, zero outside [0, T) (flax Conv SAME, cross-correlation)."""
+    T = cv.shape[1]
+    pad = (K - 1) // 2
+    win = torch.nn.functional.pad(cv, (pad, K - 1 - pad))
+    return torch.stack([win[:, k:k + T] for k in range(K)], 2)
+
+
 def fused_decode_reference(weights: FusedDecodeWeights,
                            memory: FusedDecodeMemory, *, num_steps: int,
                            **options):
     """Plain PyTorch version of the kernel (the options of
-    ``fused_decode``).  Returns (out (1, S, Cr), stop (1, S), aligns tuple
-    of (1, S, T)) in float32."""
+    ``fused_decode``).  Returns (out (B, S, Cr), stop (B, S), aligns tuple
+    of (B, S, T_i), zeros unless B == 1) in float32."""
     o = _options(options)
     w = weights
-    keys, values, mask, c_sizes = _memory_rows(w, memory)
-    dev = keys.device
-    S, T, cr = num_steps, keys.shape[0], w.cr
-    ns = len(w.kinds)
+    keys, values, masks = _memory(w, memory)
+    dev = keys[0].device
+    B, S, cr = int(keys[0].shape[0]), num_steps, w.cr
     A = w.att_b.shape[0] // 4
     D = w.l2_b.shape[0] // 4
-    u_off, c_off = [0], [0]
-    for u in w.u_sizes:
-        u_off.append(u_off[-1] + u)
-    for c in c_sizes:
-        c_off.append(c_off[-1] + c)
+    u_off = _offsets(w.u_sizes)
     K = w.loc_kernel
-    pad = (K - 1) // 2
     zc_att, zo_att = o["zoneout_cell"], o["zoneout_output"]
     zc_dec, zo_dec = o["dec_zoneout_cell"], o["dec_zoneout_output"]
     num_heads = o["num_heads"]
-    out = torch.zeros(S, cr + 1, device=dev)
-    aligns = torch.zeros(S, ns, T, device=dev)
-    caches = [(torch.zeros(S, D, device=dev), torch.zeros(S, D, device=dev))
-              for _ in w.hops]
+    spk = o["speaker_row"]
     hd = D // num_heads
-    z = lambda n: torch.zeros(n, device=dev)  # noqa: E731
-    p0, ctx = w.p0_init, z(c_off[-1])
+    out = torch.zeros(B, S, cr + 1, device=dev)
+    aligns = [torch.zeros(B, S, k.shape[1], device=dev) for k in keys]
+    caches = [(torch.zeros(B, S, D, device=dev),
+               torch.zeros(B, S, D, device=dev)) for _ in w.hops]
+    z = lambda n: torch.zeros(B, n, device=dev)  # noqa: E731
+    p0 = w.p0_init.expand(B, -1)
+    ctx = z(sum(int(v.shape[2]) for v in values))
     h_att, c_att, h1, c1, h2, c2 = z(A), z(A), z(D), z(D), z(D), z(D)
-    conv = torch.zeros(ns, T, device=dev)
-    alpha = torch.zeros(ns, T, device=dev)
-    alpha[:, 0] = 1.0
-    valid = mask > 0.5
+    conv = [z(k.shape[1]) for k in keys]
+    alpha = [torch.nn.functional.one_hot(
+        torch.zeros(B, dtype=torch.long, device=dev), k.shape[1]).float()
+        for k in keys]
+    fired = torch.zeros(B, dtype=torch.bool, device=dev)
     for t in range(S):
         p = torch.relu(p0)
+        if spk is not None:
+            p = p + spk
         for pw, pb in w.prenet:
-            p = torch.relu(pw @ p + pb)
+            p = torch.relu(p @ pw.t() + pb)
         c_att, h_att = lstm_update(
-            w.att_w @ torch.cat([p, ctx, h_att]) + w.att_b, c_att, h_att,
-            zc_att, zo_att)
-        pq = w.q_w @ h_att
-        rows, ctxs = [], []
+            torch.cat([p, ctx, h_att], 1) @ w.att_w.t() + w.att_b, c_att,
+            h_att, zc_att, zo_att)
+        pq = h_att @ w.q_w.t()
+        ctxs = []
         for i, kind in enumerate(w.kinds):
             us = slice(u_off[i], u_off[i + 1])
-            pre = keys[:, us] + pq[us]
+            pre = keys[i] + pq[:, None, us]
+            if kind != 0:
+                pre = pre + _windows(conv[i], K) @ w.loc_w[:, us]
+            e = torch.tanh(pre) @ w.v[us]                    # (B, T_i)
+            e = torch.where(masks[i], e, torch.full_like(e, NEG_INF))
+            ex = torch.exp(e - e.amax(1, keepdim=True))
+            a = ex / ex.sum(1, keepdim=True)
             if kind == 2:
-                win = torch.nn.functional.pad(conv[i], (pad, K - 1 - pad))
-                win = torch.stack([win[k:k + T] for k in range(K)], 1)
-                pre = pre + win @ w.loc_w[:, us]
-            e = torch.tanh(pre) @ w.v[us]
-            e = torch.where(valid[i], e, torch.full_like(e, NEG_INF))
-            ex = torch.exp(e - e.max())
-            a = ex / ex.sum()
-            if kind == 2:
-                shifted = torch.nn.functional.pad(alpha[i, :-1], (1, 0))
+                shifted = torch.nn.functional.pad(alpha[i][:, :-1], (1, 0))
                 al = (0.5 * alpha[i] + 0.5 * shifted + 1e-7) * a
-                al = al / al.sum()
+                al = al / al.sum(1, keepdim=True)
                 alpha[i] = al
-                conv[i] = conv[i] + a if w.cumulative[i] else a
                 a_out = al
             else:
                 a_out = a
-            rows.append(a_out)
-            ctxs.append(a_out @ values[:, c_off[i]:c_off[i + 1]])
-        aligns[t] = torch.stack(rows)
-        ctx = torch.cat(ctxs)
-        big = w.big_w @ torch.cat([h_att, ctx, h1]) + w.big_b
-        c1, h1 = lstm_update(big[:4 * D], c1, h1, zc_dec, zo_dec)
-        o1 = big[4 * D:] + h1
-        c2, h2 = lstm_update(w.l2_w @ torch.cat([o1, h2]) + w.l2_b, c2, h2,
-                             zc_dec, zo_dec)
+            if kind != 0:
+                conv[i] = conv[i] + a if w.cumulative[i] else a
+            aligns[i][:, t] = a_out
+            ctxs.append(torch.einsum("bt,btc->bc", a_out, values[i]))
+        ctx = torch.cat(ctxs, 1)
+        big = torch.cat([h_att, ctx, h1], 1) @ w.big_w.t() + w.big_b
+        c1, h1 = lstm_update(big[:, :4 * D], c1, h1, zc_dec, zo_dec)
+        o1 = big[:, 4 * D:] + h1
+        c2, h2 = lstm_update(torch.cat([o1, h2], 1) @ w.l2_w.t() + w.l2_b,
+                             c2, h2, zc_dec, zo_dec)
         y = o1 + h2
         for (w_kvq, b_kvq, w_ot, b_ot), (kc, vc) in zip(w.hops, caches):
-            kvq = w_kvq @ y + b_kvq
-            kc[t], vc[t] = kvq[:D], kvq[D:2 * D]
-            q = kvq[2 * D:]
+            kvq = y @ w_kvq.t() + b_kvq
+            kc[:, t], vc[:, t] = kvq[:, :D], kvq[:, D:2 * D]
+            q = kvq[:, 2 * D:]
             hctx = []
             for h in range(num_heads):
                 sl = slice(h * hd, (h + 1) * hd)
-                sc = kc[:t + 1, sl] @ q[sl] / math.sqrt(hd)
-                hctx.append(torch.softmax(sc, dim=0) @ vc[:t + 1, sl])
-            y = y + torch.tanh(w_ot @ torch.cat(hctx) + b_ot)
-        row = w.head_w @ y + w.head_b
-        out[t] = row[:cr + 1]
-        p0 = row[cr + 1:]
-        if o["early_stop"] and row[cr] > 0 and t > o["min_iters"]:
-            break
-    return _unpack(out, aligns, cr, ns)
+                sc = torch.einsum("bsd,bd->bs", kc[:, :t + 1, sl],
+                                  q[:, sl]) / math.sqrt(hd)
+                hctx.append(torch.einsum("bs,bsd->bd",
+                                         torch.softmax(sc, dim=1),
+                                         vc[:, :t + 1, sl]))
+            y = y + torch.tanh(torch.cat(hctx, 1) @ w_ot.t() + b_ot)
+        row = y @ w.head_w.t() + w.head_b
+        out[:, t] = row[:, :cr + 1]
+        p0 = row[:, cr + 1:]
+        if o["early_stop"] and t > o["min_iters"]:
+            fired = fired | (row[:, cr] > 0)
+            if bool(fired.all()):
+                break
+    return _unpack(out, aligns if B == 1 else [torch.zeros_like(a)
+                                               for a in aligns], cr)
 
 
-def _unpack(out: Tensor, aligns: Tensor, cr: int, ns: int):
-    return (out[None, :, :cr], out[None, :, cr],
-            tuple(aligns[None, :, i] for i in range(ns)))
+def _unpack(out: Tensor, aligns, cr: int):
+    return out[..., :cr], out[..., cr], tuple(aligns)
+
+
+# ------------------------------------------------- the shared-memory plan
+
+def _items(n: int, nb: int) -> int:
+    return (n + nb - 1) // nb
+
+
+def smem_floats(w: FusedDecodeWeights, *, batch: int,
+                t_sizes: Sequence[int], c_sizes: Sequence[int],
+                num_steps: int, num_heads: int,
+                blocks: int = H100_SMS) -> int:
+    """Shared memory (floats) a block of the kernel needs with ``blocks``
+    blocks: ``dec_smem`` in csrc/fused_decode.cu, which the CUDA tests hold
+    this against.  It grows with the batch by the per-row state: the
+    product inputs (B rows of the widest stage input), the query
+    projections, four (B, sum T_i) attention rows and the LSTM cells."""
+    nb, B = blocks, int(batch)
+    sumU, Cctx, sumT = sum(w.u_sizes), sum(c_sizes), sum(t_sizes)
+    A = int(w.att_b.shape[0]) // 4
+    D = int(w.l2_b.shape[0]) // 4
+    P0 = int(w.p0_init.shape[0])
+    pre = [(int(pw.shape[0]), int(pw.shape[1])) for pw, _ in w.prenet]
+    P = pre[-1][0] if pre else P0
+    z_att, z_big = P + Cctx + A, A + Cctx + D
+    nhead = w.cr + 1 + P0
+    maxch = _items(num_steps, CHUNK)
+    f = sum(_items(n, nb) * k for n, k in pre)
+    f += _items(A, nb) * 4 * z_att + _items(sumU, nb) * A
+    f += _items(D, nb) * 5 * z_big + _items(D, nb) * 8 * D
+    f += len(w.hops) * (_items(3 * D, nb) * D + _items(D, nb) * D)
+    f += _items(nhead, nb) * D
+    f += sum(_items(n, nb) for n, _ in pre) + _items(A, nb) * 4
+    f += _items(D, nb) * 9 + len(w.hops) * (_items(3 * D, nb)
+                                            + _items(D, nb))
+    f += _items(nhead, nb)
+    f += B * (_items(A, nb) + 3 * _items(D, nb))       # c_att, c1, c2, y
+    f += sumU + w.loc_kernel * sumU                      # v, loc
+    f += 4 * B * sumT                             # mask, conv, alpha, erow
+    xw = max(z_att, z_big, 2 * D, *(k for _, k in pre))
+    f += B * xw + B * sumU                               # xin, pq
+    f += CHUNK + 2 * B * num_heads * maxch + max(NT, D) + GEMV_PART + 32 + B
+    return f
+
+
+def unsupported_reason(w: FusedDecodeWeights, *, batch: int,
+                       t_sizes: Sequence[int], c_sizes: Sequence[int],
+                       num_steps: int, num_heads: int,
+                       blocks: int = H100_SMS) -> Optional[str]:
+    """Why the kernel cannot take this configuration, or None."""
+    if len(w.kinds) > MAX_SOURCES:
+        return f"more than {MAX_SOURCES} sources"
+    if len(w.prenet) + 1 > MAX_PRENET:
+        return f"more than {MAX_PRENET} prenet layers"
+    if len(w.hops) > MAX_HOPS:
+        return f"more than {MAX_HOPS} self-attention hops"
+    need = 4 * smem_floats(w, batch=batch, t_sizes=t_sizes,
+                           c_sizes=c_sizes, num_steps=num_steps,
+                           num_heads=num_heads, blocks=blocks)
+    if need > SMEM_LIMIT:
+        return (f"batch {batch}: the kernel's shared-memory plan needs "
+                f"{need} bytes a block (> {SMEM_LIMIT}; the per-row state "
+                "grows with the batch)")
+    return None
+
+
+def max_batch(w: FusedDecodeWeights, *, t_sizes, c_sizes, num_steps: int,
+              num_heads: int, blocks: int = H100_SMS) -> int:
+    """The largest batch whose shared-memory plan fits a block."""
+    B = 0
+    while unsupported_reason(w, batch=B + 1, t_sizes=t_sizes,
+                             c_sizes=c_sizes, num_steps=num_steps,
+                             num_heads=num_heads, blocks=blocks) is None:
+        B += 1
+    return B
 
 
 # --------------------------------------------------------------- the kernel
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 class _DecArgs(ctypes.Structure):
     """Mirror of ``DecArgs`` in csrc/fused_decode.cu."""
 
     _fields_ = [
-        ("S", _I), ("T", _I), ("ns", _I), ("cr", _I), ("P0", _I), ("A", _I),
+        ("B", _I), ("S", _I), ("ns", _I), ("cr", _I), ("P0", _I), ("A", _I),
         ("D", _I), ("n_pre", _I), ("n_hops", _I), ("n_heads", _I),
         ("K_loc", _I), ("early_stop", _I), ("min_iters", _I),
+        ("use_spk", _I),
         ("kinds", _I * MAX_SOURCES), ("cumulative", _I * MAX_SOURCES),
         ("u_off", _I * (MAX_SOURCES + 1)), ("c_off", _I * (MAX_SOURCES + 1)),
+        ("t_off", _I * (MAX_SOURCES + 1)),
+        ("k_off", _L * (MAX_SOURCES + 1)), ("v_off", _L * (MAX_SOURCES + 1)),
         ("zc_att", ctypes.c_float), ("zo_att", ctypes.c_float),
         ("zc_dec", ctypes.c_float), ("zo_dec", ctypes.c_float),
         ("keys", _P), ("values", _P), ("mask", _P), ("loc_w", _P), ("v", _P),
-        ("p0_init", _P),
+        ("p0_init", _P), ("spk", _P),
         ("pre_w", _P * MAX_PRENET), ("pre_b", _P * MAX_PRENET),
         ("pre_in", _I * MAX_PRENET), ("pre_out", _I * MAX_PRENET),
         ("att_w", _P), ("att_b", _P), ("q_w", _P),
@@ -320,6 +434,9 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.fused_decode_scratch_floats.argtypes = [ctypes.POINTER(_DecArgs)]
         lib.fused_decode_scratch_floats.restype = ctypes.c_longlong
+        lib.fused_decode_smem_floats.argtypes = [ctypes.POINTER(_DecArgs),
+                                                 _I]
+        lib.fused_decode_smem_floats.restype = ctypes.c_longlong
         lib.fused_decode_launch.argtypes = [ctypes.POINTER(_DecArgs), _P]
         lib.fused_decode_launch.restype = ctypes.c_int
         lib._typed = True
@@ -330,24 +447,30 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
                    *, num_steps: int, profile: bool = False,
                    **options) -> cuda_build.KernelLaunch:
     """Lay out the operands once (the options of ``fused_decode``); the
-    returned launch runs the kernel and returns (out (S, Cr + 1), aligns
-    (S, ns, T)).  With ``profile`` it also adds per-stage SM cycles to
-    ``launch.stage_cycles`` (``DEC_STAGES``)."""
+    returned launch runs the kernel and returns (out (B, S, Cr + 1),
+    aligns (S, sum T_i) or None for B > 1).  With ``profile`` it also adds
+    per-stage SM cycles to ``launch.stage_cycles`` (``DEC_STAGES``)."""
     o = _options(options)
     w = weights
-    keys, values, mask, c_sizes = _memory_rows(w, memory)
-    dev = keys.device
+    keys, values, masks = _memory(w, memory)
+    dev = keys[0].device
     ns = len(w.kinds)
-    if ns > MAX_SOURCES or len(w.prenet) + 1 > MAX_PRENET \
-            or len(w.hops) > MAX_HOPS:
-        raise ValueError("more sources/prenet layers/hops than the kernel "
-                         "takes")
+    B = int(keys[0].shape[0])
+    t_sizes = tuple(int(k.shape[1]) for k in keys)
+    c_sizes = tuple(int(v.shape[2]) for v in values)
+    reason = unsupported_reason(w, batch=B, t_sizes=t_sizes,
+                                c_sizes=c_sizes, num_steps=num_steps,
+                                num_heads=o["num_heads"])
+    if reason is not None:
+        raise ValueError(f"the fused decode kernel does not take this: "
+                         f"{reason}")
+    if len(keys) != ns or len(values) != ns:
+        raise ValueError(f"expected {ns} sources")
     cr = w.cr
-    T = int(keys.shape[0])
     A = int(w.att_b.shape[0]) // 4
     D = int(w.l2_b.shape[0]) // 4
     P0 = int(w.p0_init.shape[0])
-    sumU, Cctx = sum(w.u_sizes), sum(c_sizes)
+    sumU, Cctx, sumT = sum(w.u_sizes), sum(c_sizes), sum(t_sizes)
     if D % o["num_heads"]:
         raise ValueError("decoder units must divide over the heads")
     keep = []
@@ -363,24 +486,36 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
         keep.append(t)
         return t.data_ptr()
 
+    for i in range(ns):
+        use(keys[i], (B, t_sizes[i], w.u_sizes[i]), f"keys[{i}]")
+        use(values[i], (B, t_sizes[i], c_sizes[i]), f"values[{i}]")
     a = _DecArgs()
-    a.S, a.T, a.ns, a.cr, a.P0, a.A, a.D = num_steps, T, ns, cr, P0, A, D
+    a.B, a.S, a.ns, a.cr, a.P0, a.A, a.D = B, num_steps, ns, cr, P0, A, D
     a.n_pre, a.n_hops = len(w.prenet) + 1, len(w.hops)
     a.n_heads, a.K_loc = o["num_heads"], w.loc_kernel
     a.early_stop, a.min_iters = int(o["early_stop"]), int(o["min_iters"])
+    u_off, c_off, t_off = (_offsets(w.u_sizes), _offsets(c_sizes),
+                           _offsets(t_sizes))
+    k_off = _offsets([B * t * u for t, u in zip(t_sizes, w.u_sizes)])
+    v_off = _offsets([B * t * c for t, c in zip(t_sizes, c_sizes)])
     for i in range(ns):
         a.kinds[i], a.cumulative[i] = w.kinds[i], int(w.cumulative[i])
     for i in range(ns + 1):
-        a.u_off[i] = sum(w.u_sizes[:i])
-        a.c_off[i] = sum(c_sizes[:i])
+        a.u_off[i], a.c_off[i], a.t_off[i] = u_off[i], c_off[i], t_off[i]
+        a.k_off[i], a.v_off[i] = k_off[i], v_off[i]
     a.zc_att, a.zo_att = o["zoneout_cell"], o["zoneout_output"]
     a.zc_dec, a.zo_dec = o["dec_zoneout_cell"], o["dec_zoneout_output"]
-    a.keys = use(keys, (T, sumU), "keys")
-    a.values = use(values, (T, Cctx), "values")
-    a.mask = use(mask, (ns, T), "mask")
+    a.keys = use(torch.cat([k.reshape(-1) for k in keys]), (k_off[-1],),
+                 "keys")
+    a.values = use(torch.cat([v.reshape(-1) for v in values]), (v_off[-1],),
+                   "values")
+    a.mask = use(torch.cat(masks, 1).float(), (B, sumT), "mask")
     a.loc_w = use(w.loc_w, (w.loc_kernel, sumU), "loc_w")
     a.v = use(w.v, (sumU,), "v")
     a.p0_init = use(w.p0_init, (P0,), "p0_init")
+    a.use_spk = int(o["speaker_row"] is not None)
+    a.spk = (use(o["speaker_row"], (B, P0), "speaker_row") if a.use_spk
+             else None)
     width = P0
     for i, (pw, pb) in enumerate(w.prenet):
         n = int(pw.shape[0])
@@ -404,36 +539,55 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
     a.head_b = use(w.head_b, (cr + 1 + P0,), "head_b")
 
     lib = _lib()
-    out = torch.empty(num_steps, cr + 1, device=dev)
-    aligns = torch.empty(num_steps, ns, T, device=dev)
+    out = torch.empty(B, num_steps, cr + 1, device=dev)
+    aligns = (torch.empty(num_steps, sumT, device=dev) if B == 1 else None)
     scratch = torch.empty(int(lib.fused_decode_scratch_floats(
         ctypes.byref(a))), device=dev)
     cycles = (torch.zeros(len(DEC_STAGES), dtype=torch.int64, device=dev)
               if profile else None)
     keep += [out, aligns, scratch, cycles]
-    a.out, a.aligns, a.scratch = (out.data_ptr(), aligns.data_ptr(),
-                                  scratch.data_ptr())
+    a.out, a.scratch = out.data_ptr(), scratch.data_ptr()
+    a.aligns = aligns.data_ptr() if aligns is not None else None
     a.stage_cycles = cycles.data_ptr() if profile else None
     return cuda_build.KernelLaunch(lib.fused_decode_launch, a, keep,
                                    (out, aligns), dev, fused_decode,
                                    stage_cycles=cycles)
 
 
+def kernel_smem_floats(weights: FusedDecodeWeights,
+                       memory: FusedDecodeMemory, *, num_steps: int,
+                       blocks: int = H100_SMS, **options) -> int:
+    """The kernel's own shared-memory plan (``dec_smem``) for these
+    operands, as the CUDA tests compare it with ``smem_floats``."""
+    launch = prepare_decode(weights, memory, num_steps=num_steps, **options)
+    return int(_lib().fused_decode_smem_floats(ctypes.byref(launch.args),
+                                               blocks))
+
+
 def fused_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory, *,
                  num_steps: int, **options):
-    """Run the whole inference loop at batch 1.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel (or raise).
+    """Run the whole inference loop.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel (or raise).
 
     Options (defaults in ``_RUN_DEFAULTS``): num_heads, zoneout_cell and
     zoneout_output (attention LSTM), dec_zoneout_cell and
-    dec_zoneout_output (decoder LSTMs), early_stop, min_iters.  Returns
-    (out (1, S, Cr), stop (1, S), aligns tuple of (1, S, T)) in float32."""
+    dec_zoneout_output (decoder LSTMs), early_stop, min_iters, speaker_row
+    ((B, P0) or None).  Returns (out (B, S, Cr), stop (B, S), aligns tuple
+    of (B, S, T_i), zeros unless B == 1) in float32."""
     if not memory.keys[0].is_cuda:
         return fused_decode_reference(weights, memory, num_steps=num_steps,
                                       **options)
     out, aligns = prepare_decode(weights, memory, num_steps=num_steps,
                                  **options)()
-    return _unpack(out, aligns, weights.cr, len(weights.kinds))
+    B = out.shape[0]
+    t_off = _offsets([k.shape[1] for k in memory.keys])
+    if aligns is not None:
+        per_source = [aligns[None, :, t_off[i]:t_off[i + 1]]
+                      for i in range(len(memory.keys))]
+    else:
+        per_source = [torch.zeros(B, num_steps, k.shape[1],
+                                  device=out.device) for k in memory.keys]
+    return _unpack(out, per_source, weights.cr)
 
 
 fused_decode.launches = 0

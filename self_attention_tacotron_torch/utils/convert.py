@@ -14,13 +14,20 @@ flax names (``encoder.cbhg.trunk.conv_bank.conv1d_K3.conv.weight``):
   in the module);
 * ``embedding`` -> ``weight``; every other leaf keeps its name
   (ForwardAttention's ``attention_variable`` (1, U) and ``attention_bias``,
-  AdditiveAttention's ``attention_v``).
+  AdditiveAttention's ``attention_v``);
+* the speaker parameters map like any other: ``speaker_embedding/
+  embedding``, ``speaker_projection``, the decoder's speaker prenet
+  ``decoder/prenets/prenet_0/{dense0,speaker_projection,dense}`` and the
+  postnet's ``speaker_projection``.  An ``ExternalEmbedding``'s table lives
+  in the JAX package's ``constants`` collection and in no state dict: both
+  read it from its file.
 
 ``to_flax`` is the inverse.  Loading orbax checkpoints would need JAX and
 is not part of the port; ``save_checkpoint``/``load_checkpoint`` write and
 read ``torch.save`` files of the state dict.  ``init_parameters`` draws the
 weights of a model from a seed (glorot-uniform matrices, the highway
-transform gate's -1 bias, identity batch norm), independent of the device.
+transform gate's -1 bias, identity batch norm), independent of the device;
+an ``ExternalEmbedding``'s table comes from its file and is left alone.
 """
 
 from __future__ import annotations
@@ -141,9 +148,10 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
         else:
             vals = np.zeros(tuple(p.shape))
         p.copy_(torch.from_numpy(vals.astype(np.float32)))
+    stored = set(model.state_dict())   # not the frozen external tables
     for name, b in model.named_buffers():
-        fill = 1.0 if name.endswith("running_var") else 0.0
-        b.fill_(fill)
+        if name in stored:
+            b.fill_(1.0 if name.endswith("running_var") else 0.0)
     return model
 
 

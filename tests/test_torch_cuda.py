@@ -9,7 +9,9 @@ widths 4 to 128, T not a multiple of 64, t at both ends of the cache) and
 the model's serving and VALIDATION decodes in that mode; the spectrogram
 kernel at F = 1, a prime F, F one above each tile, LJSpeech and VCTK
 widths, and the mel model's decode (one source, no hops, r = 2) through the
-fused decode.  This file imports
+fused decode; the fused decode's speaker row, batched rows (per-row memory
+lengths, sources of different lengths, early stop with rows that fire
+apart) and location-sensitive sources, and its shared-memory plan.  This file imports
 no JAX, so on a machine without it run
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -191,6 +193,193 @@ def test_model_serves_through_both_kernels(device):
     assert torch.equal(outs[1].lengths, outs[0].lengths)
 
 
+# ---------------- the fused decode's speaker, batched and kind-1 modes
+
+def _rows_case(model, lengths, device, T=24, seed=0):
+    """(weights, memory, options) of a batch of sources with per-row
+    lengths through the model's module encoder, with the speaker row when
+    the model has speakers (speaker ids 0, 1, 2, ...)."""
+    B = len(lengths)
+    src = np.zeros((B, T), np.int64)
+    rng = np.random.default_rng(seed)
+    for b, L in enumerate(lengths):
+        src[b, :L] = rng.integers(1, 30, L)
+    batch = Batch(torch.from_numpy(src).to(device),
+                  torch.tensor(lengths, device=device),
+                  speaker_id=torch.arange(B, device=device))
+    sources, lens, _, speaker = model._encode(batch)
+    dec = model.decoder
+    packs = tuple(m.precompute(s, ln) for m, s, ln in
+                  zip(dec.attention_mechanisms, sources, lens))
+    return dec.fused_inputs(packs, model._prenet_speaker(speaker))
+
+
+def stagger_stop_bias(stop, min_iters):
+    """A stop-logit bias at which every row fires past ``min_iters``, the
+    rows at as many different steps as can be and the last as late as can
+    be before the last two steps (the stop logit feeds nothing back, so a
+    bias shifts it exactly).  The threshold sits midway between two
+    neighbouring logits, away from both."""
+    late = stop[:, min_iters + 1:].detach().cpu().double()
+    run = late.cummax(1).values
+    vals = torch.unique(late.flatten())
+    best = ((0, 0), None)
+    for lo, hi in zip(vals[:-1].tolist(), vals[1:].tolist()):
+        if hi - lo < 1e-5:
+            continue
+        theta = 0.5 * (lo + hi)
+        fired = run > theta
+        if not bool(fired.any(1).all()):
+            continue
+        steps = fired.int().argmax(1).tolist()
+        if max(steps) >= late.shape[1] - 2:   # the loop must exit early
+            continue
+        key = (len(set(steps)), max(steps))   # spread, then a late exit
+        if key > best[0]:
+            best = (key, theta)
+    return -best[1]
+
+
+def staggered_stop(weights, memory, options, num_steps, seed=0):
+    """``weights`` with the stop head's row drawn from ``seed`` and the bias
+    of ``stagger_stop_bias`` (random weights give near-flat stop logits
+    that cross any threshold together)."""
+    head_w, head_b = weights.head_w.clone(), weights.head_b.clone()
+    g = torch.Generator().manual_seed(seed)
+    head_w[weights.cr] = torch.randn(head_w.shape[1], generator=g).to(
+        head_w.device)
+    head_b[weights.cr] = 0.0
+    weights = weights._replace(head_w=head_w, head_b=head_b)
+    free = fd.fused_decode_reference(weights, memory, num_steps=num_steps,
+                                     **dict(options, early_stop=False))
+    head_b[weights.cr] = stagger_stop_bias(free[1], options["min_iters"])
+    return weights
+
+
+def _first_fire(stop, min_iters):
+    fired = stop > 0
+    fired[:, :min_iters + 1] = False
+    return [int(f.nonzero()[0]) if f.any() else -1 for f in fired]
+
+
+ROW_CASES = {
+    # (model options, row lengths)
+    "speaker_b1": ({"use_speaker_embedding": True, "num_speakers": 3}, [17]),
+    "speaker_b3": ({"use_speaker_embedding": True, "num_speakers": 3},
+                   [24, 13, 19]),
+    "batched_b8_recipe": ({}, [24, 20, 17, 9, 24, 11, 15, 22]),
+    "location_b1": ({"attention": "location_sensitive"}, [21]),
+    "location_cum_b4": ({"attention": "location_sensitive",
+                         "cumulative_weights": True}, [24, 18, 7, 12]),
+    "hops2_prenet3_b5": ({"decoder_self_attention_num_hop": 2,
+                          "decoder_prenet_out_units": (8, 6, 4),
+                          "outputs_per_step": 2}, [24, 3, 16, 10, 20]),
+}
+
+
+@pytest.mark.parametrize("case", list(ROW_CASES))
+@torch.no_grad()
+def test_fused_decode_row_modes_match_plain(device, case):
+    kw, lengths = ROW_CASES[case]
+    model = _model(device, seed=7, **kw)
+    weights, memory, options = _rows_case(model, lengths, device)
+    S = model.hp.max_iters
+    before = fd.fused_decode.launches
+    got = fd.fused_decode(weights, memory, num_steps=S, **options)
+    ref = fd.fused_decode_reference(weights, memory, num_steps=S, **options)
+    torch.cuda.synchronize()
+    assert fd.fused_decode.launches == before + 1
+    for g, r in zip((*got[:2], *got[2]), (*ref[:2], *ref[2])):
+        _close(g, r)
+    if len(lengths) > 1:
+        assert all(bool((a == 0).all()) for a in got[2])
+
+
+@torch.no_grad()
+def test_fused_decode_sources_of_two_memory_lengths(device):
+    """B = 1 and B = 2 with the sources' memories of different lengths
+    (40 and 64 steps); padded steps of the shorter rows stay out of the
+    softmax."""
+    model = _model(device, seed=8)
+    weights, memory, options = _rows_case(model, [24, 17], device)
+    rng = np.random.default_rng(1)
+    lens = ((40, 29), (64, 51))
+    keys, values, masks = [], [], []
+    for (k, v), (T, L) in zip(zip(memory.keys, memory.values), lens):
+        keys.append(torch.from_numpy(rng.standard_normal(
+            (2, T, k.shape[2]), np.float32)).to(device))
+        values.append(torch.from_numpy(rng.standard_normal(
+            (2, T, v.shape[2]), np.float32)).to(device))
+        m = torch.zeros(2, T, device=device)
+        m[0, :L], m[1, :T - 3] = 1.0, 1.0
+        masks.append(m)
+    for B in (1, 2):
+        mem = fd.FusedDecodeMemory(tuple(k[:B] for k in keys),
+                                   tuple(v[:B] for v in values),
+                                   tuple(m[:B] for m in masks))
+        got = fd.fused_decode(weights, mem, num_steps=30, **options)
+        ref = fd.fused_decode_reference(weights, mem, num_steps=30,
+                                        **options)
+        for g, r in zip((*got[:2], *got[2]), (*ref[:2], *ref[2])):
+            _close(g, r)
+
+
+@torch.no_grad()
+def test_fused_decode_batched_early_stop_rows_fire_apart(device):
+    """B = 6, early stop: rows fire at different steps, every row decodes
+    on its own feedback until all have fired, the steps after read 0."""
+    model = _model(device, seed=9)
+    weights, memory, options = _rows_case(model, [24, 5, 18, 11, 20, 9],
+                                          device)
+    S = model.hp.max_iters
+    weights = staggered_stop(weights, memory, options, S)
+    options = dict(options, early_stop=True)
+    got = fd.fused_decode(weights, memory, num_steps=S, **options)
+    ref = fd.fused_decode_reference(weights, memory, num_steps=S, **options)
+    fire = _first_fire(ref[1].cpu(), options["min_iters"])
+    assert min(fire) >= 0 and len(set(fire)) > 1 and max(fire) < S - 1
+    _close(got[0], ref[0])
+    _close(got[1], ref[1])
+    assert bool((got[0][:, max(fire) + 1:] == 0).all())
+
+
+@pytest.mark.parametrize("case", ["speaker_b3", "batched_b8_recipe"])
+def test_decode_smem_plan_matches_the_kernel(device, case):
+    kw, lengths = ROW_CASES[case]
+    model = _model(device, **kw)
+    weights, memory, options = _rows_case(model, lengths, device)
+    S = model.hp.max_iters
+    plan = fd.smem_floats(
+        weights, batch=len(lengths),
+        t_sizes=[k.shape[1] for k in memory.keys],
+        c_sizes=[v.shape[2] for v in memory.values], num_steps=S,
+        num_heads=options["num_heads"])
+    assert plan == fd.kernel_smem_floats(weights, memory, num_steps=S,
+                                         **options)
+
+
+@torch.no_grad()
+def test_model_serves_a_batch_through_the_kernel(device):
+    """The speaker codes model at B = 4 on cuda: one fused decode launch,
+    the same outputs as the plain module path."""
+    outs, counts = [], []
+    src = torch.from_numpy(np.random.default_rng(4).integers(
+        1, 30, (4, 24))).to(device)
+    for fused in (False, True):
+        model = _model(device, seed=10, decoder_fused_inference=fused,
+                       use_speaker_embedding=True, num_speakers=4)
+        fd.fused_decode.launches = 0
+        outs.append(model(Batch(src, torch.tensor([24, 9, 17, 21],
+                                                  device=device),
+                                speaker_id=torch.tensor([3, 0, 1, 2],
+                                                        device=device))))
+        counts.append(fd.fused_decode.launches)
+    assert counts == [0, 1]
+    _close(outs[1].outputs, outs[0].outputs)
+    _close(outs[1].stop_token, outs[0].stop_token)
+    assert torch.equal(outs[1].lengths, outs[0].lengths)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
     model = _model(device)
     params, x, kw = _enc_case(model, 16, 16, device)
@@ -198,6 +387,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         fe.fused_encode(params, x.double(), 16, **kw)
     with pytest.raises(ValueError):
         fe.fused_encode(params, x, 17, **kw)      # length past T
+    weights, memory, options = _rows_case(model, [16], device)
+    big = fd.FusedDecodeMemory(*(tuple(t.expand(300, *t.shape[1:])
+                                       for t in part) for part in memory))
+    with pytest.raises(ValueError, match="shared-memory plan"):
+        fd.fused_decode(weights, big, num_steps=30, **options)
 
 
 # ------------------------------------------------------- training kernels

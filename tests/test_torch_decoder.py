@@ -10,7 +10,9 @@ and carried over whole with the weight bridge.  At batch 1 in INFERENCE:
   what ``fused_decode`` runs for CPU tensors) vs both;
 * energy vectors scaled so that sum|v| is far above the energies' row max
   (where the JAX kernel's static softmax shift underflows): the port stays
-  finite and matches its plain loop and the JAX scan path.
+  finite and matches its plain loop and the JAX scan path;
+* batch 2 and location-sensitive sources, which the fused decode's gate
+  used to send to the plain path, run fused and match it.
 
 Outputs, stop logits, alignments, predicted samples and lengths are
 compared with tolerance 2e-4, as tests/test_fused_decode.py does.
@@ -142,14 +144,26 @@ def test_large_energy_vectors_stay_finite():
 
 
 def test_fused_gate_falls_back_for_batch_two(caplog):
-    """B > 1 is outside the ported kernel: the configuration gate logs the
-    reason and the plain path runs."""
-    with caplog.at_level("WARNING"):
+    """B = 2 used to be outside the ported kernel; since the batched row
+    mode is ported, the gate lets it in (nothing logged) and the fused
+    decode's plain version matches the plain path and, row by row, the
+    JAX scan path."""
+    from self_attention_tacotron_torch.models import decoder
+    decoder._warned_fused_fallback.clear()
+    with caplog.at_level("WARNING", logger=decoder.__name__):
         fused = _port_out(False, True, B=2)
+    assert "using the plain path" not in caplog.text
     plain = _port_out(False, False, B=2)
-    np.testing.assert_array_equal(fused.outputs.numpy(),
-                                  plain.outputs.numpy())
     assert fused.outputs.shape[0] == 2
+    for name in ("outputs", "stop_token"):
+        np.testing.assert_allclose(getattr(fused, name).numpy(),
+                                   getattr(plain, name).numpy(), rtol=TOL,
+                                   atol=TOL)
+    ref = _jax_out(False)
+    for b in range(2):
+        np.testing.assert_allclose(fused.outputs[b:b + 1].numpy(),
+                                   ref.outputs, rtol=TOL, atol=TOL)
+    assert all(bool((a == 0).all()) for a in fused.alignments)   # B > 1
 
 
 def test_merged_weights_follow_parameter_updates():
@@ -174,20 +188,29 @@ def test_merged_weights_follow_parameter_updates():
 
 
 def test_location_sensitive_takes_the_plain_path(caplog):
-    """location_sensitive sources are outside the ported kernel: the
-    configuration gate logs why and the plain path runs."""
+    """location_sensitive sources used to take the plain path; since the
+    kernel's kind 1 is ported, the gate lets them in (nothing logged) and
+    the fused decode's plain version matches the plain loop, with and
+    without cumulative weights."""
     from self_attention_tacotron_torch.models import decoder
     decoder._warned_fused_fallback.clear()   # the reason is logged once
-    outs = []
-    for fused in (False, True):
-        hp = tiny_codes_hp(attention="location_sensitive",
-                           decoder_fused_inference=fused)
-        model = convert.init_parameters(tacotron_model_factory(hp), seed=4)
-        with caplog.at_level("WARNING"):
-            outs.append(model.eval()(Batch(torch.arange(1, 8)[None],
-                                           torch.tensor([7]))))
-    assert "LocationSensitiveAttention is not ported" in caplog.text
-    assert torch.equal(outs[0].outputs, outs[1].outputs)
+    for cumulative in (False, True):
+        outs = []
+        for fused in (False, True):
+            hp = tiny_codes_hp(attention="location_sensitive",
+                               cumulative_weights=cumulative,
+                               decoder_fused_inference=fused)
+            model = convert.init_parameters(tacotron_model_factory(hp),
+                                            seed=4)
+            with caplog.at_level("WARNING", logger=decoder.__name__):
+                outs.append(model.eval()(Batch(torch.arange(1, 8)[None],
+                                               torch.tensor([7]))))
+        assert "using the plain path" not in caplog.text
+        for a, b in ((outs[1].outputs, outs[0].outputs),
+                     (outs[1].stop_token, outs[0].stop_token),
+                     *zip(outs[1].alignments, outs[0].alignments)):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=TOL,
+                                       atol=TOL)
 
 
 def test_additive_only_fused_reference_matches_plain_loop():

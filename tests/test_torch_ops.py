@@ -244,5 +244,7 @@ print("ok")
                 "cli.preprocess", "data.preprocess.common",
                 "data.preprocess.ljspeech", "data.preprocess.vctk",
                 "data.preprocess.codes", "text.cleaners", "text.symbols",
-                "text.numbers_norm", "text.phoneset", "text.flite"):
+                "text.numbers_norm", "text.phoneset", "text.flite",
+                "cli.speaker_selection", "models.embedding",
+                "models.prenet", "models.tacotron", "models.decoder"):
         assert f"self_attention_tacotron_torch.{mod}" in lines, mod

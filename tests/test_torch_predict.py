@@ -96,11 +96,11 @@ PALLAS = " (Pallas attention mode)"
      "encoder_fused_inference=false",
      "fused_self_attention kernel" + PALLAS,
      "incremental_attention_step kernel" + PALLAS),
-    # the fused decode's gate refuses location-sensitive sources
+    # location-sensitive sources run through the fused decode kernel too
     ("attention=location_sensitive,use_pallas_attention=true",
-     "fused_encode kernel", "incremental_attention_step kernel" + PALLAS),
+     "fused_encode kernel", "fused_decode kernel"),
     ("attention=location_sensitive", "fused_encode kernel",
-     "einsum module path"),
+     "fused_decode kernel"),
 ], ids=["fused", "pallas", "location-pallas", "location"])
 def test_model_logs_the_path_its_gates_chose(monkeypatch, caplog, hparams,
                                              enc, dec):
@@ -157,10 +157,17 @@ def test_records_read_back_by_the_jax_reader(tmp_path):
 def test_model_rejects_kinds_not_ported():
     import pytest
     for kw in (dict(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel"),
-               dict(use_speaker_embedding=True),
+               dict(apply_dropout_on_inference=True),
                dict(use_accent_type=True)):
         with pytest.raises(NotImplementedError):
             tacotron_model_factory(tiny_codes_hp(**kw))
+    # speakers are ported (the VCTK recipe); the two tables exclude each
+    # other, as in the JAX package
+    assert tacotron_model_factory(tiny_codes_hp(
+        use_speaker_embedding=True)).has_speaker
+    with pytest.raises(ValueError):
+        tacotron_model_factory(tiny_codes_hp(
+            use_speaker_embedding=True, use_external_speaker_embedding=True))
     with pytest.raises(NotImplementedError):
         tacotron_model_factory(tiny_codes_hp(
             use_forward_attention_transition_agent=True))
