@@ -10,7 +10,10 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
 16-19: the VCTK multi-speaker recipe) with weights drawn from a seed:
 
 1. prints the card (``nvidia-smi`` name and power limit) and CUDA version;
-2. builds the seven kernels, one nvcc each, in parallel;
+2. builds the seven kernels and the grid-barrier probe, one nvcc each, in
+   parallel, and prints the cost of one grid barrier at one block per SM:
+   cooperative groups' (the encoder's) beside the hand-written
+   ``GridBarrier`` (the decode's) and the designs it was chosen over;
 3. ``fused_encode``: kernel vs its plain PyTorch version, T = 64 phones,
    L = 64 and L = 50;
 4. ``fused_decode``: kernel vs its plain version, 450 steps, early stop
@@ -59,13 +62,14 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    ``scaled_dot_product_attention`` call of the same function, which the
    port never calls) beside their bounds, and one evaluation round with
    and without ``use_pallas_attention``;
-13. the ``spectrogram`` kernel (the STFT of ``preprocess --on-device``)
-   against its plain version at LJSpeech widths (10 s, 1.3 s and one
-   frame) and VCTK widths (10 s): magnitudes relative to each frame's peak,
-   dB within 60 dB of each frame's peak (the row's ``max_abs_err`` is that
-   dB error); at 10 s its time beside the plain
-   version's, ``torch.stft`` -> abs -> mel -> dB (the yardstick, never
-   called by the port) and the bound;
+13. the ``spectrogram`` kernel (the STFT of ``preprocess --on-device``,
+   one launch from the signal) against its plain version at LJSpeech and
+   VCTK widths (10 s, 1.3 s, and one frame from a signal shorter than the
+   reflect pad): magnitudes relative to each frame's peak, dB within 60 dB
+   of each frame's peak (the row's ``max_abs_err`` is that dB error); at
+   10 s its time from the signal beside the plain version's, ``torch.stft``
+   -> abs -> mel -> dB from the signal (the yardstick, never called by the
+   port) and the bound;
 14. ``cli.preprocess.main_ljspeech --on-device`` over a synthetic 64-
    utterance LJSpeech-layout corpus (1.5-6 s at 22.05 kHz, texts with
    numbers and abbreviations): one ``spectrogram`` launch an utterance
@@ -1321,10 +1325,27 @@ def spec_errors(got_db, ref_db):
     return float(((mg - mr).abs() / peak).max()), db
 
 
-def spectrogram_bound(F, N, K, M):
-    """(bytes, FLOPs) of spectrograms: frames, both DFT matrices and the
-    filterbank read once, both outputs written once; the two DFT products
-    and the mel product (one multiply-add each)."""
+def spectrogram_bound(T, plan, F):
+    """(bytes, FLOPs) of spectrograms from a T-sample signal: the signal,
+    window, twiddle table and band weights read once, both outputs written
+    once; a real FFT a frame (5 (N/2) log2(N/2) for the complex half-size
+    transform, 10 (N/2) for the split pass), the window, the magnitudes
+    and the banded mel sums."""
+    import math
+    N = plan.n_fft
+    n, K, M = N // 2, N // 2 + 1, plan.band.shape[0]
+    nnz = plan.band_w.numel()
+    nbytes = 4 * (T + N + 2 * N + nnz + 3 * M + F * K + F * M)
+    flops = F * (5 * n * int(math.log2(n)) + 10 * n + N + 4 * K + 2 * nnz)
+    return nbytes, flops
+
+
+def dft_bound(plan, F):
+    """The count of the earlier DFT-as-product design for the same
+    outputs, for history: frames and both (N, K) DFT matrices read,
+    4 F N K + 2 F K M FLOPs."""
+    N, M = plan.n_fft, plan.band.shape[0]
+    K = N // 2 + 1
     return (4 * (F * N + 2 * N * K + K * M + F * K + F * M),
             4 * F * N * K + 2 * F * K * M)
 
@@ -1335,65 +1356,64 @@ def library_spectrograms(ex, y):
     import torch
     from self_attention_tacotron_torch.ops.stft import amp_to_db
     mag = torch.stft(y, ex.n_fft, ex.hop_length, win_length=ex.n_fft,
-                     window=ex.window, center=True, pad_mode="reflect",
+                     window=ex.plan.window, center=True, pad_mode="reflect",
                      return_complex=True).abs()
-    return amp_to_db(mag).T, amp_to_db(ex._mel_t.T @ mag).T
+    return amp_to_db(mag).T, amp_to_db(ex.plan.mel_t.T @ mag).T
 
 
 def phase_spectrogram(device):
-    """Phase 13: the spectrogram kernel vs its plain version at LJSpeech
-    widths (10 s, 1.3 s, one frame) and VCTK widths (10 s), and at 10 s its
-    time beside the plain version's, the library's and its bound.  Returns
-    (worst dB error, {"LJSpeech": ..., "VCTK": ...} of the 10 s timings and
-    bounds)."""
+    """Phase 13: the spectrogram kernel from the signal vs its plain
+    version at LJSpeech and VCTK widths (10 s, 1.3 s, and one frame from a
+    signal shorter than the reflect pad), and at 10 s its time from the
+    signal beside the plain version's, the library chain's (also from the
+    signal) and its bound.  Returns (worst dB error, {"LJSpeech": ...,
+    "VCTK": ...} of the 10 s timings and bounds)."""
     import torch
     from self_attention_tacotron_torch.ops import stft as S
     worst, timing = 0.0, {}
-    for recipe, name, seconds in ((MEL_RECIPE, "LJSpeech", 10.0),
-                                  (MEL_RECIPE, "LJSpeech", 1.3),
-                                  (MEL_RECIPE, "LJSpeech", None),
-                                  (VCTK_RECIPE, "VCTK", 10.0)):
+    for recipe, name in ((MEL_RECIPE, "LJSpeech"), (VCTK_RECIPE, "VCTK")):
         hp, ex = _extractor(recipe, device)
-        n = int(seconds * hp.sample_rate) if seconds else ex.hop_length // 2
-        y = _wave(n, hp.sample_rate, n)
-        frames = ex.frames(y)
-        args = (frames, ex._wr, ex._wi, ex._mel_t)
-        got = S.spectrograms(*args)
-        ref = S.spectrograms_reference(*args)
-        torch.cuda.synchronize()
-        F, N = frames.shape
-        K, M = ex._wr.shape[1], ex._mel_t.shape[1]
-        errs = [spec_errors(g, r) for g, r in zip(got, ref)]
-        mag_err = max(e[0] for e in errs)
-        db_err = max(e[1] for e in errs)
-        log(f"phase 13 spectrogram {name} {n} samples (F={F}, n_fft={N}, "
-            f"bins={K}, mels={M}): magnitude max err {mag_err:.2e} of the "
-            f"frame's peak, dB max err {db_err:.2e} where within 60 dB of "
-            "the peak "
-            "(linear, mel: " + ", ".join(f"{e[0]:.1e}/{e[1]:.1e}"
-                                         for e in errs) + ")")
-        if got[0].shape != (F, K) or got[1].shape != (F, M):
-            raise AssertionError("spectrogram output shapes are wrong")
-        if mag_err > TOL_SPEC_MAG or db_err > TOL_SPEC_DB:
-            raise AssertionError(f"spectrogram disagrees (tol {TOL_SPEC_MAG}"
-                                 f" of the peak, {TOL_SPEC_DB} dB)")
-        worst = max(worst, db_err)
-        if seconds != 10.0:
-            continue
-        y_dev = torch.from_numpy(y).to(device)
-        lib = library_spectrograms(ex, y_dev)
-        lib_err = max(spec_errors(g, r)[1] for g, r in zip(lib, ref))
-        times = [_device_ms(fn, reps=20) for fn in (
-            lambda: S.spectrograms(*args),
-            lambda: S.spectrograms_reference(*args),
-            lambda: library_spectrograms(ex, y_dev))]
-        bound = spectrogram_bound(F, N, K, M)
-        log(f"phase 13 timing {name} 10 s: kernel {times[0]:.4f} ms, plain "
-            f"{times[1]:.4f} ms, torch.stft+abs+mel+dB {times[2]:.4f} ms "
-            f"(vs plain {lib_err:.1e} dB near the peaks); bound "
-            f"{_bound_ms(bound):.4f} ms ({bound[0]} bytes, {bound[1]} FLOPs)"
-            f"; {bound[1] / times[0] / 1e9:.2f} TFLOP/s")
-        timing[name] = (times, bound)
+        for seconds in (10.0, 1.3, None):
+            n = int(seconds * hp.sample_rate) if seconds else \
+                ex.hop_length // 2
+            y = ex.signal(_wave(n, hp.sample_rate, n))
+            got = S.spectrograms(y, ex.plan)
+            ref = S.spectrograms_plain(y, ex.plan)
+            torch.cuda.synchronize()
+            F, N = 1 + n // ex.hop_length, ex.n_fft
+            K, M = N // 2 + 1, ex.num_mels
+            errs = [spec_errors(g, r) for g, r in zip(got, ref)]
+            mag_err = max(e[0] for e in errs)
+            db_err = max(e[1] for e in errs)
+            log(f"phase 13 spectrogram {name} {n} samples (F={F}, n_fft={N}"
+                f", bins={K}, mels={M}): magnitude max err {mag_err:.2e} of "
+                f"the frame's peak, dB max err {db_err:.2e} where within 60 "
+                "dB of the peak (linear, mel: " + ", ".join(
+                    f"{e[0]:.1e}/{e[1]:.1e}" for e in errs) + ")")
+            if got[0].shape != (F, K) or got[1].shape != (F, M):
+                raise AssertionError("spectrogram output shapes are wrong")
+            if mag_err > TOL_SPEC_MAG or db_err > TOL_SPEC_DB:
+                raise AssertionError(f"spectrogram disagrees (tol "
+                                     f"{TOL_SPEC_MAG} of the peak, "
+                                     f"{TOL_SPEC_DB} dB)")
+            worst = max(worst, db_err)
+            if seconds != 10.0:
+                continue
+            lib = library_spectrograms(ex, y)
+            lib_err = max(spec_errors(g, r)[1] for g, r in zip(lib, ref))
+            times = [_device_ms(fn, reps=20) for fn in (
+                lambda: S.spectrograms(y, ex.plan),
+                lambda: S.spectrograms_plain(y, ex.plan),
+                lambda: library_spectrograms(ex, y))]
+            bound = spectrogram_bound(n, ex.plan, F)
+            old = dft_bound(ex.plan, F)
+            log(f"phase 13 timing {name} 10 s from the signal: kernel "
+                f"{times[0]:.4f} ms, plain {times[1]:.4f} ms, "
+                f"torch.stft+abs+mel+dB {times[2]:.4f} ms (vs plain "
+                f"{lib_err:.1e} dB near the peaks); bound "
+                f"{_bound_ms(bound):.4f} ms ({bound[0]} bytes, {bound[1]} "
+                f"FLOPs; the DFT-as-product count {_bound_ms(old):.4f} ms)")
+            timing[name] = (times, bound)
     return worst, timing
 
 
@@ -2310,6 +2330,24 @@ def phase_row_timing(cases, vctk_timing, codes_timing, batched_times,
     return out
 
 
+def phase_barriers(card: str):
+    """Phase 2: the cost of one grid-wide barrier at one block per SM,
+    cooperative groups' (the fused encoder's) beside the hand-written ones
+    (``scripts/torch_grid_barrier_probe.py``; GridBarrier is the fused
+    decode's)."""
+    import importlib.util
+    import torch
+    spec = importlib.util.spec_from_file_location(
+        "torch_grid_barrier_probe",
+        os.path.join(ROOT, "scripts", "torch_grid_barrier_probe.py"))
+    probe = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(probe)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    costs = probe.barrier_costs(sms)
+    log(f"phase 2 grid barrier ({sms} blocks, 20000 in a launch): " + ", ".join(
+        f"{k} {v:.3f} us" for k, v in costs.items()) + f"; card {card}")
+
+
 def main() -> int:
     try:
         import torch
@@ -2342,7 +2380,8 @@ def main() -> int:
         t0 = time.perf_counter()
         kernels = ["fused_encoder", "fused_decode", "fused_train_fwd",
                    "fused_train_bwd", "self_attention",
-                   "incremental_attention", "spectrogram"]
+                   "incremental_attention", "spectrogram",
+                   "grid_barrier_probe"]
         logs = cuda_build.build_all(kernels)
         log(f"phase 2 built {', '.join(kernels)} in "
             f"{time.perf_counter() - t0:.1f} s")
@@ -2350,6 +2389,7 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
+        phase_barriers(smi[0] if smi else torch.cuda.get_device_name(0))
 
         hp = recipe_hparams()
         model = make_model(hp, device)

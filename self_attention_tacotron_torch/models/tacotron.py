@@ -130,6 +130,10 @@ class TacotronModel(nn.Module):
         if hp.apply_dropout_on_inference or hp.compute_dtype != "float32":
             raise NotImplementedError("inference dropout and bfloat16 "
                                       "compute are not ported yet")
+        if hp.use_forced_alignment_mode:
+            raise NotImplementedError(
+                "use_forced_alignment_mode (a second VALIDATION decode that "
+                "replays the first pass's alignments) is not ported yet")
         self.hp = hp
         self.is_code_model = (
             hp.tacotron_model == "DualSourceSelfAttentionTacotronModel")

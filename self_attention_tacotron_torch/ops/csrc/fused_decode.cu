@@ -27,7 +27,9 @@
 // stage (up to 8 at a time, each lane ending with one row's sums), which
 // is why a batch costs little more than one row.  The per-step state
 // vectors (a few K floats a row) go through global memory, which stays in
-// L2; a grid barrier separates the dependent stages.  The TPU kernel's
+// L2; a grid barrier separates the dependent stages: the hand-written
+// GridBarrier of common.cuh (one arrival counter, 1.11 us against
+// cooperative groups' 1.28 us on an H100).  The TPU kernel's
 // flattened (B*T) rows, block-indicator matmuls and (S, B*D) concatenated
 // caches are a layout for its lanes and are not carried over: rows are
 // indexed directly here.  Source attention: energies one block per (row,
@@ -45,8 +47,13 @@
 // sum of exps and unnormalized context, and the next stage combines the
 // chunks while staging its input (split-K attention), so no block walks a
 // whole cache.  The loop exits once every row's stop logit has been > 0
-// past min_iters; steps after the exit read 0.  Plain FP32 FMA
-// throughout; later work: fewer barriers (fused stages), bf16 weights.
+// past min_iters; steps after the exit read 0.  At B = 1, when the
+// alignment row is no wider than the context (alpha_ctx), the wrapper
+// folds the values into the weights of the two products that read the
+// context (ctx @ W = alpha @ (V @ W)), so they read the alignment row that
+// every block already holds and the context stage and its barrier go:
+// 10 barriers a step at the codes recipe instead of 11.  Plain FP32 FMA
+// throughout; later work: bf16 weights.
 #include <cstddef>
 
 #include "common.cuh"
@@ -60,6 +67,9 @@ constexpr int GEMV_PART = NWARPS * GEMV_R * GEMV_BB;
 struct DecArgs {  // mirrored by _DecArgs in ops/fused_decode.py
   int B, S, ns, cr, P0, A, D, n_pre, n_hops, n_heads, K_loc, early_stop,
       min_iters, use_spk;
+  // B = 1 only: the products read the alignment row (sumT) in place of the
+  // context (c_off == t_off), the values folded into att_w and big_w
+  int alpha_ctx;
   int kinds[MAX_SOURCES];
   int cumulative[MAX_SOURCES];
   int u_off[MAX_SOURCES + 1];
@@ -147,7 +157,7 @@ __host__ __device__ inline DecLayout dec_layout(const DecArgs& a) {
   l.pc = o; o += B * dec_max_chunks(a) * a.D;
   l.kc = o; o += (size_t)a.n_hops * B * a.S * a.D;  // [hop][row][step][D]
   l.vc = o; o += (size_t)a.n_hops * B * a.S * a.D;
-  l.total = o;
+  l.total = o;  // the grid barrier's words follow (GRID_BAR_WORDS)
   return l;
 }
 
@@ -366,11 +376,16 @@ __device__ __forceinline__ int source_of(const int* off, int ns, int x) {
 
 // kOneRow: the B = 1 instance, where the row loops, the row predicates
 // and the batched paths fold away at compile time.
+// The arguments are __grid_constant__, so the per-source arrays that the
+// kernel indexes at run time are read in place from the parameter space
+// (2 % faster at B = 1 on an H100, scripts/torch_decode_ab.py; ptxas
+// reports the same ~0.8 KB stack frame either way).
 template <bool kOneRow>
-__global__ void __launch_bounds__(NT, 1) fused_decode_kernel(DecArgs a) {
-  cg::grid_group grid = cg::this_grid();
+__global__ void __launch_bounds__(NT, 1)
+    fused_decode_kernel(const __grid_constant__ DecArgs a) {
   extern __shared__ float sm[];
   const DecLayout l = dec_layout(a);
+  GridBarrier grid(a.scratch + l.total);
   const DecSmem m = dec_smem(a, gridDim.x);
   float* g = a.scratch;
   const int B = kOneRow ? 1 : a.B;
@@ -379,6 +394,7 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(DecArgs a) {
   const int P = dec_plast(a);
   const int Zatt = P + Cctx + A, Zbig = A + Cctx + D;
   const int xw = dec_xw(a);
+  const bool alpha_ctx = kOneRow && a.alpha_ctx;
   const int nhead = cr + 1 + a.P0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gtid = blockIdx.x * NT + tid, gstride = gridDim.x * NT;
@@ -427,6 +443,7 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(DecArgs a) {
     sm[m.mask + i] = __ldg(a.mask + i);
     sm[m.conv + i] = 0.f;
     sm[m.alpha + i] = (a.kinds[src] == 2 && x == a.t_off[src]) ? 1.f : 0.f;
+    sm[m.erow + i] = 0.f;
   }
   for (int i = tid; i < B; i += NT) sm[m.fired + i] = 0.f;
   grid.sync();
@@ -487,7 +504,10 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(DecArgs a) {
       }
       xin[b * xw + k] = v;
     }
-    stage_rows(xin, xw, P, g + l.ctx, Cctx, B);
+    if (alpha_ctx)  // the previous step's alignments (zeros at t = 0)
+      for (int i = tid; i < sumT; i += NT) xin[P + i] = sm[m.erow + i];
+    else
+      stage_rows(xin, xw, P, g + l.ctx, Cctx, B);
     stage_rows(xin, xw, P + Cctx, h_att_in, A, B);
     __syncthreads();
     {
@@ -653,7 +673,7 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(DecArgs a) {
     if (a.aligns != nullptr && blockIdx.x == 0)
       for (int i = tid; i < sumT; i += NT)
         a.aligns[(size_t)t * sumT + i] = erow[i];
-    {
+    if (!alpha_ctx) {
       // one warp per (row, context column), lanes over the memory steps
       float* ctx = g + l.ctx;
       for (int s8 = warp;; s8 += NWARPS) {
@@ -672,13 +692,16 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(DecArgs a) {
         acc = warp_sum(acc);
         if (lane == 0) ctx[item] = acc;
       }
+      grid.sync();
+      clk.mark(ST_SOFTMAX_CTX);
     }
-    grid.sync();
-    clk.mark(ST_SOFTMAX_CTX);
 
     // ---- merged projection + lstm1 over [h_att, ctx, h1]
     stage_rows(xin, xw, 0, h_att_out, A, B);
-    stage_rows(xin, xw, A, g + l.ctx, Cctx, B);
+    if (alpha_ctx)  // this step's alignments, from the softmax above
+      for (int i = tid; i < sumT; i += NT) xin[A + i] = erow[i];
+    else
+      stage_rows(xin, xw, A, g + l.ctx, Cctx, B);
     stage_rows(xin, xw, A + Cctx, h1_in, D, B);
     __syncthreads();
     {
@@ -955,7 +978,7 @@ __global__ void __launch_bounds__(NT, 1) fused_decode_kernel(DecArgs a) {
 
 // ------------------------------------------------------------------- host
 extern "C" long long fused_decode_scratch_floats(const DecArgs* a) {
-  return (long long)dec_layout(*a).total;
+  return (long long)dec_layout(*a).total + GRID_BAR_WORDS;
 }
 
 extern "C" long long fused_decode_smem_floats(const DecArgs* a, int nb) {
@@ -964,8 +987,8 @@ extern "C" long long fused_decode_smem_floats(const DecArgs* a, int nb) {
 
 extern "C" int fused_decode_launch(const DecArgs* args, void* stream) {
   DecArgs a = *args;
-  void (*kernel)(DecArgs) = a.B == 1 ? fused_decode_kernel<true>
-                                     : fused_decode_kernel<false>;
+  void (*kernel)(const DecArgs) = a.B == 1 ? fused_decode_kernel<true>
+                                           : fused_decode_kernel<false>;
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -986,6 +1009,10 @@ extern "C" int fused_decode_launch(const DecArgs* args, void* stream) {
            &per_sm, kernel, NT, smem)) != cudaSuccess)
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if ((e = cudaMemsetAsync(a.scratch + dec_layout(a).total, 0,
+                           GRID_BAR_WORDS * sizeof(unsigned),
+                           (cudaStream_t)stream)) != cudaSuccess)
+    return (int)e;
   void* params[] = {&a};
   e = cudaLaunchCooperativeKernel((void*)kernel, dim3(sms),
                                   dim3(NT), params, smem,

@@ -1,167 +1,178 @@
-// Linear and mel spectrograms in dB from windowed frames.  Replaces the JAX
-// package's ops/stft.py ``_spectrogram_kernel`` (Pallas, reached through
-// ``pallas_spectrograms`` and ``MelExtractor``): the STFT of
-// ``preprocess --on-device``.
+// Linear and mel spectrograms in dB from the signal, in one launch.
+// Replaces the JAX package's ops/stft.py ``_spectrogram_kernel`` (Pallas,
+// reached through ``pallas_spectrograms`` and ``MelExtractor``): the STFT of
+// ``preprocess --on-device``.  For frame f of the (T,) signal y (N = n_fft,
+// hop h, K = N / 2 + 1 bins, M mels):
 //
-//   re  = frames @ wr,  im = frames @ wi          (F, N) x (N, K)
-//   mag = sqrt(re^2 + im^2)
-//   lin = 20 / ln 10 * ln(max(1e-5, mag))         (F, K)
-//   mel = 20 / ln 10 * ln(max(1e-5, mag @ mel_t)) (F, K) x (K, M)
+//   x[t]   = window[t] * y[reflect(f h + t - N / 2)]          t < N
+//   X[k]   = sum_t x[t] exp(-2 pi i k t / N)                  k < K
+//   lin[f] = 20 / ln 10 * ln(max(1e-5, |X|))                  (F, K)
+//   mel[f] = 20 / ln 10 * ln(max(1e-5, |X| @ mel_t))          (F, M)
 //
-// Two launches on the caller's stream.  The first is a tile product: one
-// 256-thread block per 64 frames x 64 bins, the frame tile and the cos and
-// sin tiles staged through shared memory 16 taps at a time, each thread
-// holding 4 x 4 real and 4 x 4 imaginary FP32 sums; its epilogue writes the
-// magnitude (a scratch the mel product reads) and the linear dB.  The mel
-// product needs a frame's whole magnitude row, which spans every bin tile,
-// so it is the second launch: one block per 32 frames x 32 mels, 2 x 2 sums
-// a thread, then the dB.
+// reflect() is numpy's "reflect" padding, folded again for a signal shorter
+// than the pad (the index arithmetic of ops/stft.py ``reflect_indices``).
 //
-// Bound on an H100: operations.  4 F N K FLOPs for the two DFT products
-// (plus 2 F K M for the mel one) against ~2 F (N + K) floats moved: at
-// LJSpeech widths (N = 2048, K = 1025, M = 80) and F = 802 frames (10 s)
-// that is 6.87 GFLOP, 0.10 ms at 67 TFLOP/s of FP32 FMAs.  This first
-// version is simple and right, not fast: no tensor cores, no FFT, and it
-// multiplies the window's zero taps too.
+// Design: one 256-thread block a frame.  The TPU kernel multiplies
+// materialised frames with two dense (N, K) cos and sin matrices on the
+// MXU; on the card that is 4 F N K FLOPs of FP32 FMAs over ~2 F (N + K)
+// floats of frames read from device memory, the window's zero taps
+// included.  Here a block reads its frame's samples straight from the
+// signal (the frames overlap, so most reads hit L2), with the window
+// applied as it loads, and computes a real-input FFT in shared memory: the
+// N real samples as an (N / 2)-point complex FFT (even samples real, odd
+// imaginary), radix-4 Stockham stages between two (N / 2)-point buffers
+// (the first stage reads the signal itself; a last radix-2 stage when
+// log2(N / 2) is odd), then the split pass X[k] = E[k] + W_N^k O[k].  Twiddles
+// come from a table computed on the host in float64 and rounded to float32
+// (``twiddles``; __sinf / __cosf would cost the 2e-5-of-the-peak
+// tolerance).  The epilogue stays in the block: magnitude, linear dB
+// written once (logf, not __logf), the magnitudes kept in the free buffer,
+// then one warp a mel row sums the row's band of bins only (the triangular
+// filters touch each bin at most twice; ``mel_bands``) and writes its dB.
+// No frames, no magnitude scratch and no second launch.
+//
+// Bound on an H100: bytes.  The signal in, lin and mel out, the band
+// weights, window and twiddles (4.46 MB at LJSpeech widths, 10 s: F = 802,
+// N = 2048, K = 1025, M = 80; 1.3 us at 3.35 TB/s) against ~5 (N / 2)
+// log2(N / 2) + 10 N / 2 FLOPs a frame plus the epilogue (57 MFLOP, 0.9 us
+// at 67 TFLOP/s).  Its time sits above the bound because a block's FFT
+// stages are a chain of shared-memory passes and __syncthreads.
 #include <cuda_runtime.h>
 #include <math.h>
 
-struct SpecArgs {
-  const float* frames;  // (F, N)
-  const float* wr;      // (N, K)
-  const float* wi;      // (N, K)
-  const float* mel_t;   // (K, M)
-  float* mag;           // (F, K) scratch
+struct SpecArgs {      // mirrored by _SpecArgs in ops/stft.py
+  const float* y;       // (T,)
+  const float* window;  // (N,)
+  const float2* tw;     // (N,) exp(-2 pi i k / N)
+  const int* band;      // (M, 3): first bin, bins, offset into band_w
+  const float* band_w;  // the bands' weights
   float* lin;           // (F, K)
   float* mel;           // (F, M)
-  int F, N, K, M;
+  int T, F, N, hop, M;
 };
 
 namespace {
 
 constexpr int NT = 256;
+constexpr int NWARPS = NT / 32;
 constexpr float kDb = 8.685889638065036f;   // 20 / ln 10
 constexpr float kFloor = 1e-5f;
 
-// ------------------------------------------------------ DFT tile product
-constexpr int BM = 64, BN = 64, BK = 16;
-
-__global__ void __launch_bounds__(NT) dft_kernel(SpecArgs a) {
-  __shared__ float sa[BK][BM + 1];   // frame tile, transposed
-  __shared__ float sr[BK][BN];       // cos tile
-  __shared__ float si[BK][BN];       // sin tile
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int f0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float re[4][4], im[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < a.N; k0 += BK) {
-#pragma unroll
-    for (int e = 0; e < BM * BK / NT; ++e) {   // 16 taps of a frame row
-      const int idx = threadIdx.x + e * NT;
-      const int r = idx / BK, k = idx % BK;
-      const int f = f0 + r, n = k0 + k;
-      sa[k][r] = (f < a.F && n < a.N) ? __ldg(a.frames + (size_t)f * a.N + n)
-                                      : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < BK * BN / NT; ++e) {   // 64 bins of a tap row
-      const int idx = threadIdx.x + e * NT;
-      const int k = idx / BN, c = idx % BN;
-      const int n = k0 + k, col = n0 + c;
-      const bool in = n < a.N && col < a.K;
-      const size_t off = (size_t)n * a.K + col;
-      sr[k][c] = in ? __ldg(a.wr + off) : 0.f;
-      si[k][c] = in ? __ldg(a.wi + off) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float x[4], cr[4], ci[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] = sa[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        cr[j] = sr[k][tx + 16 * j];
-        ci[j] = si[k][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          re[i][j] = fmaf(x[i], cr[j], re[i][j]);
-          im[i][j] = fmaf(x[i], ci[j], im[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int f = f0 + ty + 16 * i;
-    if (f >= a.F) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col >= a.K) continue;
-      const float m = sqrtf(re[i][j] * re[i][j] + im[i][j] * im[i][j]);
-      const size_t off = (size_t)f * a.K + col;
-      a.mag[off] = m;
-      a.lin[off] = kDb * logf(fmaxf(kFloor, m));
-    }
-  }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
 }
 
-// ----------------------------------------------------- mel tile product
-constexpr int MM = 32, MN = 32, MK = 32;
+// numpy's mode="reflect" index of i (which may lie outside [0, T))
+__device__ __forceinline__ int reflect(int i, int T) {
+  if (T == 1) return 0;
+  const int period = 2 * (T - 1);
+  int m = i % period;
+  if (m < 0) m += period;
+  return m < T ? m : period - m;
+}
 
-__global__ void __launch_bounds__(NT) mel_kernel(SpecArgs a) {
-  __shared__ float sm[MK][MM + 1];   // magnitude tile, transposed
-  __shared__ float sb[MK][MN];       // filterbank tile
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int f0 = blockIdx.x * MM, m0 = blockIdx.y * MN;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-  for (int k0 = 0; k0 < a.K; k0 += MK) {
-#pragma unroll
-    for (int e = 0; e < MM * MK / NT; ++e) {
-      const int idx = threadIdx.x + e * NT;
-      const int r = idx / MK, k = idx % MK;
-      const int f = f0 + r, n = k0 + k;
-      sm[k][r] = (f < a.F && n < a.K) ? a.mag[(size_t)f * a.K + n] : 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < MK * MN / NT; ++e) {
-      const int idx = threadIdx.x + e * NT;
-      const int k = idx / MN, c = idx % MN;
-      const int n = k0 + k, col = m0 + c;
-      sb[k][c] = (n < a.K && col < a.M)
-                     ? __ldg(a.mel_t + (size_t)n * a.M + col) : 0.f;
+__global__ void __launch_bounds__(NT) spectrogram_kernel(SpecArgs a) {
+  extern __shared__ float2 buf[];   // two buffers of n complex values
+  const int n = a.N >> 1, f = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int start = f * a.hop - n;  // the frame's first sample, unpadded
+  // z[j] = x[2j] + i x[2j + 1]: the windowed frame, straight from y
+  auto load = [&](int j) {
+    const float w0 = __ldg(a.window + 2 * j);
+    const float w1 = __ldg(a.window + 2 * j + 1);
+    const int s = start + 2 * j;
+    return make_float2(w0 != 0.f ? w0 * __ldg(a.y + reflect(s, a.T)) : 0.f,
+                       w1 != 0.f ? w1 * __ldg(a.y + reflect(s + 1, a.T))
+                                 : 0.f);
+  };
+
+  // Stockham stages: with p the product of the radices so far, input i of
+  // a radix-R butterfly reads element i + r n / R, twiddles it by
+  // exp(-2 pi i r k / (R p)) (k = i mod p; table entry r k N / (R p)) and
+  // writes element ((i - k) R + k) + r p; the result is in natural order.
+  float2* src = buf;
+  float2* dst = buf + n;
+  int p = 1;
+  for (; 4 * p <= n; p *= 4) {
+    const int q = n >> 2, step = (n >> 1) / p;  // r k N / (4 p) = r k step
+    for (int i = tid; i < q; i += NT) {
+      const int k = i & (p - 1);
+      float2 u0, u1, u2, u3;
+      if (p == 1) {
+        u0 = load(i);
+        u1 = load(i + q);
+        u2 = load(i + 2 * q);
+        u3 = load(i + 3 * q);
+      } else {
+        u0 = src[i];
+        u1 = cmul(src[i + q], __ldg(a.tw + k * step));
+        u2 = cmul(src[i + 2 * q], __ldg(a.tw + 2 * k * step));
+        u3 = cmul(src[i + 3 * q], __ldg(a.tw + 3 * k * step));
+      }
+      const float2 a0 = cadd(u0, u2), a1 = csub(u0, u2);
+      const float2 a2 = cadd(u1, u3), d = csub(u1, u3);
+      const float2 a3 = make_float2(d.y, -d.x);   // -i (u1 - u3)
+      const int j = ((i - k) << 2) + k;
+      dst[j] = cadd(a0, a2);
+      dst[j + p] = cadd(a1, a3);
+      dst[j + 2 * p] = csub(a0, a2);
+      dst[j + 3 * p] = csub(a1, a3);
     }
     __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < MK; ++k) {
-      const float x0 = sm[k][ty], x1 = sm[k][ty + 16];
-      const float b0 = sb[k][tx], b1 = sb[k][tx + 16];
-      acc[0][0] = fmaf(x0, b0, acc[0][0]);
-      acc[0][1] = fmaf(x0, b1, acc[0][1]);
-      acc[1][0] = fmaf(x1, b0, acc[1][0]);
-      acc[1][1] = fmaf(x1, b1, acc[1][1]);
-    }
-    __syncthreads();
+    float2* t = src;
+    src = dst;
+    dst = t;
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int f = f0 + ty + 16 * i;
-    if (f >= a.F) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = m0 + tx + 16 * j;
-      if (col < a.M)
-        a.mel[(size_t)f * a.M + col] = kDb * logf(fmaxf(kFloor, acc[i][j]));
+  if (p < n) {  // n = 2 p: one radix-2 stage
+    const int q = n >> 1, step = n / p;       // k N / (2 p) = k step
+    for (int i = tid; i < q; i += NT) {
+      const int k = i & (p - 1);
+      const float2 u0 = p == 1 ? load(i) : src[i];
+      const float2 u1 = p == 1 ? load(i + q)
+                               : cmul(src[i + q], __ldg(a.tw + k * step));
+      const int j = ((i - k) << 1) + k;
+      dst[j] = cadd(u0, u1);
+      dst[j + p] = csub(u0, u1);
     }
+    __syncthreads();
+    float2* t = src;
+    src = dst;
+    dst = t;
+  }
+
+  // split pass: E = (Z[k] + conj Z[n - k]) / 2 is the even samples' DFT,
+  // O = -i (Z[k] - conj Z[n - k]) / 2 the odd ones', X[k] = E + W_N^k O;
+  // the magnitudes go to the free buffer for the mel sums
+  const int K = n + 1;
+  float* mag = reinterpret_cast<float*>(dst);
+  float* lin = a.lin + (size_t)f * K;
+  for (int k = tid; k < K; k += NT) {
+    const float2 zk = src[k & (n - 1)], zc = src[(n - k) & (n - 1)];
+    const float er = 0.5f * (zk.x + zc.x), ei = 0.5f * (zk.y - zc.y);
+    const float orr = 0.5f * (zk.y + zc.y), oi = -0.5f * (zk.x - zc.x);
+    const float2 w = __ldg(a.tw + k);
+    const float xr = er + w.x * orr - w.y * oi;
+    const float xi = ei + w.x * oi + w.y * orr;
+    const float m = sqrtf(xr * xr + xi * xi);
+    mag[k] = m;
+    lin[k] = kDb * logf(fmaxf(kFloor, m));
+  }
+  __syncthreads();
+  for (int r = warp; r < a.M; r += NWARPS) {
+    const int first = __ldg(a.band + 3 * r), cnt = __ldg(a.band + 3 * r + 1);
+    const float* w = a.band_w + __ldg(a.band + 3 * r + 2);
+    float acc = 0.f;
+    for (int j = lane; j < cnt; j += 32)
+      acc = fmaf(__ldg(w + j), mag[first + j], acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) a.mel[(size_t)f * a.M + r] = kDb * logf(fmaxf(kFloor, acc));
   }
 }
 
@@ -169,14 +180,16 @@ __global__ void __launch_bounds__(NT) mel_kernel(SpecArgs a) {
 
 extern "C" int spectrogram_launch(const SpecArgs* args, void* stream) {
   const SpecArgs a = *args;
-  if (a.F < 1 || a.N < 1 || a.K < 1 || a.M < 1)
+  if (a.T < 1 || a.F < 1 || a.hop < 1 || a.M < 0 || a.N < 8 ||
+      (a.N & (a.N - 1)))
     return (int)cudaErrorInvalidValue;
-  const int bin_tiles = (a.K + BN - 1) / BN, mel_tiles = (a.M + MN - 1) / MN;
-  if (bin_tiles > 65535 || mel_tiles > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  dft_kernel<<<dim3((a.F + BM - 1) / BM, bin_tiles), NT, 0, s>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  mel_kernel<<<dim3((a.F + MM - 1) / MM, mel_tiles), NT, 0, s>>>(a);
+  const size_t smem = (size_t)a.N * sizeof(float2);   // 2 x N / 2 complex
+  cudaError_t e;
+  if (smem > 48 * 1024 &&
+      (e = cudaFuncSetAttribute(spectrogram_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)smem)) != cudaSuccess)
+    return (int)e;
+  spectrogram_kernel<<<a.F, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

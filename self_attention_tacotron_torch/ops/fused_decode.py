@@ -19,6 +19,13 @@ package).
 
 The softmax shift is the per-step row max, not the JAX kernel's static
 bound ``sum |v|`` (with trained ``|v|`` every exp can flush to zero there).
+At B = 1, when the alignment row is no wider than the context
+(``context_from_alignments``), both the kernel and its plain version feed
+the attention LSTM and the merged projection + lstm1 the alignment row in
+place of the context, with the values folded into those products' weights
+(``context_weights``): the kernel then has no context stage, and the
+stage clock's ``softmax_ctx`` slot stays empty (the softmax is counted in
+``proj_lstm1``).
 
 ``FusedDecodeParams`` carries the decoder's weights in the JAX layout
 (``(in, out)`` matrices, (1, N) bias rows, gates i, g, f, o);
@@ -219,6 +226,37 @@ def _windows(cv: Tensor, K: int) -> Tensor:
     return torch.stack([win[:, k:k + T] for k in range(K)], 2)
 
 
+def context_from_alignments(batch: int, t_sizes: Sequence[int],
+                            c_sizes: Sequence[int]) -> bool:
+    """Whether the decode feeds the products the alignment row in place of
+    the context: at B = 1, when the row (sum T_i) is no wider than the
+    context (sum C_i).  The context enters only the products of the
+    attention LSTM and of the merged projection + lstm1, linearly, so
+    ``ctx @ W_ctx = alpha @ (V @ W_ctx)`` with V @ W_ctx folded into their
+    weights once a call (``context_weights``); the kernel then skips the
+    context stage and its grid barrier.  A batch would need a folded copy
+    a row."""
+    return batch == 1 and sum(t_sizes) <= sum(c_sizes)
+
+
+def context_weights(w: FusedDecodeWeights, values: Sequence[Tensor],
+                    c_sizes: Sequence[int]) -> Tuple[Tensor, Tensor]:
+    """att_w (4A, P + sum T_i + A) and big_w (5D, A + sum T_i + D) with
+    each source's context columns replaced by their product with that
+    source's values (B = 1): W[:, ctx_i] @ V_i^T, (rows, T_i)."""
+    A = int(w.att_b.shape[0]) // 4
+    c_off = _offsets(c_sizes)
+
+    def fold(W, lead):
+        parts = [W[:, :lead]]
+        parts += [W[:, lead + c_off[i]:lead + c_off[i + 1]] @ v[0].t()
+                  for i, v in enumerate(values)]
+        parts.append(W[:, lead + c_off[-1]:])
+        return torch.cat(parts, 1).contiguous()
+
+    return fold(w.att_w, w.att_w.shape[1] - c_off[-1] - A), fold(w.big_w, A)
+
+
 def fused_decode_reference(weights: FusedDecodeWeights,
                            memory: FusedDecodeMemory, *, num_steps: int,
                            **options):
@@ -239,13 +277,18 @@ def fused_decode_reference(weights: FusedDecodeWeights,
     num_heads = o["num_heads"]
     spk = o["speaker_row"]
     hd = D // num_heads
+    t_sizes = [int(k.shape[1]) for k in keys]
+    c_sizes = [int(v.shape[2]) for v in values]
+    by_alpha = context_from_alignments(B, t_sizes, c_sizes)
+    att_w, big_w = (context_weights(w, values, c_sizes) if by_alpha
+                    else (w.att_w, w.big_w))
     out = torch.zeros(B, S, cr + 1, device=dev)
     aligns = [torch.zeros(B, S, k.shape[1], device=dev) for k in keys]
     caches = [(torch.zeros(B, S, D, device=dev),
                torch.zeros(B, S, D, device=dev)) for _ in w.hops]
     z = lambda n: torch.zeros(B, n, device=dev)  # noqa: E731
     p0 = w.p0_init.expand(B, -1)
-    ctx = z(sum(int(v.shape[2]) for v in values))
+    ctx = z(sum(t_sizes) if by_alpha else sum(c_sizes))
     h_att, c_att, h1, c1, h2, c2 = z(A), z(A), z(D), z(D), z(D), z(D)
     conv = [z(k.shape[1]) for k in keys]
     alpha = [torch.nn.functional.one_hot(
@@ -259,7 +302,7 @@ def fused_decode_reference(weights: FusedDecodeWeights,
         for pw, pb in w.prenet:
             p = torch.relu(p @ pw.t() + pb)
         c_att, h_att = lstm_update(
-            torch.cat([p, ctx, h_att], 1) @ w.att_w.t() + w.att_b, c_att,
+            torch.cat([p, ctx, h_att], 1) @ att_w.t() + w.att_b, c_att,
             h_att, zc_att, zo_att)
         pq = h_att @ w.q_w.t()
         ctxs = []
@@ -283,9 +326,10 @@ def fused_decode_reference(weights: FusedDecodeWeights,
             if kind != 0:
                 conv[i] = conv[i] + a if w.cumulative[i] else a
             aligns[i][:, t] = a_out
-            ctxs.append(torch.einsum("bt,btc->bc", a_out, values[i]))
+            ctxs.append(a_out if by_alpha else
+                        torch.einsum("bt,btc->bc", a_out, values[i]))
         ctx = torch.cat(ctxs, 1)
-        big = torch.cat([h_att, ctx, h1], 1) @ w.big_w.t() + w.big_b
+        big = torch.cat([h_att, ctx, h1], 1) @ big_w.t() + w.big_b
         c1, h1 = lstm_update(big[:, :4 * D], c1, h1, zc_dec, zo_dec)
         o1 = big[:, 4 * D:] + h1
         c2, h2 = lstm_update(torch.cat([o1, h2], 1) @ w.l2_w.t() + w.l2_b,
@@ -336,6 +380,8 @@ def smem_floats(w: FusedDecodeWeights, *, batch: int,
     projections, four (B, sum T_i) attention rows and the LSTM cells."""
     nb, B = blocks, int(batch)
     sumU, Cctx, sumT = sum(w.u_sizes), sum(c_sizes), sum(t_sizes)
+    if context_from_alignments(B, t_sizes, c_sizes):
+        Cctx = sumT
     A = int(w.att_b.shape[0]) // 4
     D = int(w.l2_b.shape[0]) // 4
     P0 = int(w.p0_init.shape[0])
@@ -408,7 +454,7 @@ class _DecArgs(ctypes.Structure):
         ("B", _I), ("S", _I), ("ns", _I), ("cr", _I), ("P0", _I), ("A", _I),
         ("D", _I), ("n_pre", _I), ("n_hops", _I), ("n_heads", _I),
         ("K_loc", _I), ("early_stop", _I), ("min_iters", _I),
-        ("use_spk", _I),
+        ("use_spk", _I), ("alpha_ctx", _I),
         ("kinds", _I * MAX_SOURCES), ("cumulative", _I * MAX_SOURCES),
         ("u_off", _I * (MAX_SOURCES + 1)), ("c_off", _I * (MAX_SOURCES + 1)),
         ("t_off", _I * (MAX_SOURCES + 1)),
@@ -489,12 +535,19 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
     for i in range(ns):
         use(keys[i], (B, t_sizes[i], w.u_sizes[i]), f"keys[{i}]")
         use(values[i], (B, t_sizes[i], c_sizes[i]), f"values[{i}]")
+    folded = context_from_alignments(B, t_sizes, c_sizes)
+    att_w, big_w = (context_weights(w, values, c_sizes) if folded
+                    else (w.att_w, w.big_w))
+    if folded:   # the products read the alignment row as their "context"
+        Cctx = sumT
     a = _DecArgs()
     a.B, a.S, a.ns, a.cr, a.P0, a.A, a.D = B, num_steps, ns, cr, P0, A, D
     a.n_pre, a.n_hops = len(w.prenet) + 1, len(w.hops)
     a.n_heads, a.K_loc = o["num_heads"], w.loc_kernel
     a.early_stop, a.min_iters = int(o["early_stop"]), int(o["min_iters"])
-    u_off, c_off, t_off = (_offsets(w.u_sizes), _offsets(c_sizes),
+    a.alpha_ctx = int(folded)
+    u_off, c_off, t_off = (_offsets(w.u_sizes),
+                           _offsets(t_sizes if folded else c_sizes),
                            _offsets(t_sizes))
     k_off = _offsets([B * t * u for t, u in zip(t_sizes, w.u_sizes)])
     v_off = _offsets([B * t * c for t, c in zip(t_sizes, c_sizes)])
@@ -523,10 +576,10 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
         a.pre_b[i] = use(pb, (n,), f"prenet{i + 1}.b")
         a.pre_in[i], a.pre_out[i] = width, n
         width = n
-    a.att_w = use(w.att_w, (4 * A, width + Cctx + A), "att_w")
+    a.att_w = use(att_w, (4 * A, width + Cctx + A), "att_w")
     a.att_b = use(w.att_b, (4 * A,), "att_b")
     a.q_w = use(w.q_w, (sumU, A), "q_w")
-    a.big_w = use(w.big_w, (5 * D, A + Cctx + D), "big_w")
+    a.big_w = use(big_w, (5 * D, A + Cctx + D), "big_w")
     a.big_b = use(w.big_b, (5 * D,), "big_b")
     a.l2_w = use(w.l2_w, (4 * D, 2 * D), "l2_w")
     a.l2_b = use(w.l2_b, (4 * D,), "l2_b")

@@ -1,15 +1,19 @@
 """STFT and mel-spectrogram extraction on the card.
 
-Counterpart of the JAX package's ``ops/stft.py``.  The STFT is a
-matmul-form DFT: windowed frames against (n_fft, 1 + n_fft // 2) cos and
-sin matrices give the real and imaginary parts, whose magnitude gives the
-linear spectrogram in dB and, through the (bins, mels) filterbank, the mel
-spectrogram in dB.  ``spectrograms`` is that chain; it replaces the
-Pallas kernel ``_spectrogram_kernel`` (reached through
-``pallas_spectrograms``) with a hand-written CUDA kernel for sm_90a
-(``csrc/spectrogram.cu``), built by ``ops/cuda_build.py`` and called
-through ``ctypes``.  Its plain PyTorch version (``spectrograms_reference``)
-runs for CPU tensors only; a CUDA tensor launches the kernel or raises.
+Counterpart of the JAX package's ``ops/stft.py``: from a (T,) signal, the
+linear spectrogram in dB (the magnitude of the centred, reflect-padded,
+windowed STFT) and, through the (bins, mels) filterbank, the mel
+spectrogram in dB.  ``spectrograms`` replaces the Pallas kernel
+``_spectrogram_kernel`` (reached through ``pallas_spectrograms``) with a
+hand-written CUDA kernel for sm_90a (``csrc/spectrogram.cu``), built by
+``ops/cuda_build.py`` and called through ``ctypes``: one launch from the
+signal to both outputs, a real FFT in shared memory for each frame (the
+twiddles from ``twiddles``, a float64 table rounded to float32) and the
+mel sums over each filter's band of bins only (``mel_bands``).  Its plain
+PyTorch version is the JAX kernel's arithmetic: ``frames_of`` gathers the
+frames and ``spectrograms_reference`` multiplies them with the
+(n_fft, 1 + n_fft // 2) cos and sin matrices (``dft_matrices``); it runs
+for CPU tensors only, and a CUDA tensor launches the kernel or raises.
 The outputs are those of the JAX package after its slicing: the TPU
 kernel pads bins and mels to 128 lanes, a layout matter of the TPU that
 is not copied here.
@@ -17,16 +21,19 @@ is not copied here.
 ``MelExtractor`` has the JAX class's contract and orientation: (num_freq,
 F) and (num_mels, F) in dB re ``ref_level_db``, on an explicit device.
 Both centre-pad the signal by n_fft // 2 in reflect mode with numpy's
-semantics (``reflect_indices``): a signal shorter than the pad is folded
-again, an empty one raises ``ValueError``.  ``stft`` is the complex STFT
-through ``torch.fft.rfft`` (the JAX package's jnp fallback), and
+semantics (``reflect_indices``; the kernel does the same index arithmetic
+itself): a signal shorter than the pad is folded again, an empty one
+raises ``ValueError``.  ``stft`` is the complex STFT through
+``torch.fft.rfft`` (the JAX package's jnp fallback), and
 ``mel_statistics_*`` the streaming corpus statistics.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -96,13 +103,83 @@ def spectrograms_reference(frames: Tensor, wr: Tensor, wi: Tensor,
     return amp_to_db(mag), amp_to_db(mag @ mel_t)
 
 
+@functools.lru_cache(maxsize=4)
+def _dense_dft(n_fft: int, device: torch.device) -> tuple:
+    return tuple(torch.from_numpy(a).to(device) for a in dft_matrices(n_fft))
+
+
+def spectrograms_plain(y: Tensor, plan: "SpecPlan") -> tuple:
+    """The plain version of ``spectrograms``: frames gathered from the
+    signal, then ``spectrograms_reference``."""
+    wr, wi = _dense_dft(plan.n_fft, y.device)
+    return spectrograms_reference(
+        frames_of(y, plan.n_fft, plan.hop_length, plan.window), wr, wi,
+        plan.mel_t)
+
+
+def twiddles(n_fft: int) -> np.ndarray:
+    """(n_fft, 2) float32: exp(-2 pi i k / n_fft), k < n_fft, computed in
+    float64 and rounded once (the kernel's FFT stages read entry 2j for
+    the (n_fft / 2)-point transform's W^j, and its real-input split
+    pass entry k)."""
+    ang = -2.0 * np.pi * np.arange(n_fft) / n_fft
+    return np.stack([np.cos(ang), np.sin(ang)], 1).astype(np.float32)
+
+
+def mel_bands(mel_basis: np.ndarray) -> tuple:
+    """The (mels, bins) filterbank in banded form: (band (mels, 3) int32 of
+    each row's first non-zero bin, number of bins up to its last non-zero
+    one and offset into the weights; the weights of those spans, flat).
+    A row without non-zero bins has an empty band."""
+    band = np.zeros((mel_basis.shape[0], 3), np.int32)
+    weights = []
+    off = 0
+    for m, row in enumerate(mel_basis):
+        nz = np.flatnonzero(row)
+        if len(nz):
+            lo, hi = int(nz[0]), int(nz[-1]) + 1
+            band[m] = (lo, hi - lo, off)
+            weights.append(row[lo:hi])
+            off += hi - lo
+        else:
+            band[m] = (0, 0, off)
+    w = (np.concatenate(weights) if weights else np.zeros(0)).astype(
+        np.float32)
+    return band, w
+
+
+class SpecPlan(NamedTuple):
+    """The operands of ``spectrograms`` for one (sample rate, n_fft, hop,
+    window, filterbank), on one device."""
+
+    n_fft: int
+    hop_length: int
+    window: Tensor      # (n_fft,)
+    twiddles: Tensor    # (n_fft, 2), see ``twiddles``
+    mel_t: Tensor       # (bins, mels) the dense filterbank (plain version)
+    band: Tensor        # (mels, 3) int32, see ``mel_bands``
+    band_w: Tensor      # (band weights,)
+
+
+def spectrogram_plan(mel_basis: np.ndarray, window: np.ndarray,
+                     hop_length: int, device) -> SpecPlan:
+    band, band_w = mel_bands(mel_basis)
+    dev = torch.device(device)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return SpecPlan(int(window.shape[0]), int(hop_length),
+                    t(window.astype(np.float32)),
+                    t(twiddles(int(window.shape[0]))), t(mel_basis.T),
+                    t(band), t(band_w))
+
+
 class _SpecArgs(ctypes.Structure):
     """Mirror of ``SpecArgs`` in csrc/spectrogram.cu."""
 
-    _fields_ = [("frames", _P), ("wr", _P), ("wi", _P), ("mel_t", _P),
-                ("mag", _P), ("lin", _P), ("mel", _P),
-                ("F", ctypes.c_int), ("N", ctypes.c_int),
-                ("K", ctypes.c_int), ("M", ctypes.c_int)]
+    _fields_ = [("y", _P), ("window", _P), ("tw", _P), ("band", _P),
+                ("band_w", _P), ("lin", _P), ("mel", _P),
+                ("T", ctypes.c_int), ("F", ctypes.c_int),
+                ("N", ctypes.c_int), ("hop", ctypes.c_int),
+                ("M", ctypes.c_int)]
 
 
 def _launcher():
@@ -115,10 +192,10 @@ def _launcher():
     return fn
 
 
-def _check(t: Tensor, shape, name: str, device) -> None:
-    if t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"{name}: expected a float32 tensor on {device}, got "
-                         f"{t.dtype} on {t.device}")
+def _check(t: Tensor, shape, name: str, device, dtype=torch.float32) -> None:
+    if t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name}: expected a {dtype} tensor on {device}, "
+                         f"got {t.dtype} on {t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
@@ -128,36 +205,40 @@ def _check(t: Tensor, shape, name: str, device) -> None:
         raise ValueError(f"{name}: the kernel has no backward")
 
 
-def spectrograms(frames: Tensor, wr: Tensor, wi: Tensor,
-                 mel_t: Tensor) -> tuple:
-    """(F, n_fft) windowed frames -> (linear dB (F, bins), mel dB (F,
-    mels)), ``20 log10(max(1e-5, .))`` of the DFT magnitude and of its mel
-    projection.  CPU tensors take the plain version; CUDA tensors launch
-    the kernel (or raise)."""
-    if not frames.is_cuda:
-        return spectrograms_reference(frames, wr, wi, mel_t)
-    if frames.dim() != 2 or wr.dim() != 2 or mel_t.dim() != 2:
-        raise ValueError("spectrograms: frames (F, n_fft), wr and wi (n_fft, "
-                         "bins), mel_t (bins, mels)")
-    F, N = frames.shape
-    K, M = wr.shape[1], mel_t.shape[1]
-    dev = frames.device
-    _check(frames, (F, N), "frames", dev)
-    _check(wr, (N, K), "wr", dev)
-    _check(wi, (N, K), "wi", dev)
-    _check(mel_t, (K, M), "mel_t", dev)
-    if min(F, N, K, M) < 1:
-        raise ValueError(f"spectrograms: an empty dimension: F={F}, "
-                         f"n_fft={N}, bins={K}, mels={M}")
-    mag = torch.empty(F, K, device=dev)
+MAX_FFT = 16384   # 8 n_fft bytes of shared memory a block
+
+
+def spectrograms(y: Tensor, plan: SpecPlan) -> tuple:
+    """(T,) signal -> (linear dB (F, bins), mel dB (F, mels)), F = 1 +
+    T // hop: ``20 log10(max(1e-5, .))`` of the STFT magnitude and of its
+    mel projection.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel (or raise), which takes a power-of-two n_fft from 8
+    to ``MAX_FFT``."""
+    if not y.is_cuda:
+        return spectrograms_plain(y, plan)
+    N, M = plan.n_fft, plan.band.shape[0]
+    dev = y.device
+    if y.dim() != 1 or y.shape[0] < 1:
+        raise ValueError(f"spectrograms: expected a non-empty (T,) signal, "
+                         f"got shape {tuple(y.shape)}")
+    if N < 8 or N > MAX_FFT or N & (N - 1):
+        raise ValueError(f"spectrograms: the kernel takes a power-of-two "
+                         f"n_fft from 8 to {MAX_FFT}, got {N}")
+    T, K = int(y.shape[0]), N // 2 + 1
+    _check(y, (T,), "y", dev)
+    _check(plan.window, (N,), "window", dev)
+    _check(plan.twiddles, (N, 2), "twiddles", dev)
+    _check(plan.band, (M, 3), "band", dev, torch.int32)
+    _check(plan.band_w, (plan.band_w.shape[0],), "band_w", dev)
+    F = 1 + T // plan.hop_length
     lin = torch.empty(F, K, device=dev)
     mel = torch.empty(F, M, device=dev)
-    args = _SpecArgs(frames.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-                     mel_t.data_ptr(), mag.data_ptr(), lin.data_ptr(),
-                     mel.data_ptr(), F, N, K, M)
+    args = _SpecArgs(y.data_ptr(), plan.window.data_ptr(),
+                     plan.twiddles.data_ptr(), plan.band.data_ptr(),
+                     plan.band_w.data_ptr(), lin.data_ptr(), mel.data_ptr(),
+                     T, F, N, plan.hop_length, M)
     return cuda_build.KernelLaunch(
-        _launcher(), args, (frames, wr, wi, mel_t, mag, lin, mel),
-        (lin, mel), dev, spectrograms)()
+        _launcher(), args, (y, *plan), (lin, mel), dev, spectrograms)()
 
 
 spectrograms.launches = 0
@@ -179,24 +260,16 @@ class MelExtractor:
         self.win_length = int(frame_length_ms / 1000 * sample_rate)
         self.ref_level_db = ref_level_db
         self.mel_basis = mel_filterbank(sample_rate, self.n_fft, num_mels)
-        self.window = torch.as_tensor(
-            hann_window(self.win_length, self.n_fft), dtype=torch.float32,
-            device=self.device)
-        wr, wi = dft_matrices(self.n_fft)
-        self._wr = torch.from_numpy(wr).to(self.device)
-        self._wi = torch.from_numpy(wi).to(self.device)
-        self._mel_t = torch.from_numpy(
-            np.ascontiguousarray(self.mel_basis.T)).to(self.device)
+        self.plan = spectrogram_plan(
+            self.mel_basis, hann_window(self.win_length, self.n_fft),
+            self.hop_length, self.device)
 
-    def frames(self, y) -> Tensor:
-        y = torch.as_tensor(np.asarray(y, np.float32)).to(self.device)
-        return frames_of(y, self.n_fft, self.hop_length,
-                         self.window).contiguous()
+    def signal(self, y) -> Tensor:
+        return torch.as_tensor(np.asarray(y, np.float32)).to(self.device)
 
     def spectrograms(self, y) -> tuple:
         """(T_samples,) -> (linear (num_freq, F), mel (num_mels, F)) dB."""
-        lin, mel = spectrograms(self.frames(y), self._wr, self._wi,
-                                self._mel_t)
+        lin, mel = spectrograms(self.signal(y), self.plan)
         return lin.T - self.ref_level_db, mel.T - self.ref_level_db
 
     def __call__(self, y) -> Tensor:

@@ -141,6 +141,44 @@ def test_fused_reference_matches_jax_inference(name, B, caplog):
     _assert_close(got, ref, B)
 
 
+@pytest.mark.parametrize("T_in", [7, 13])
+def test_context_fold_at_batch_1_matches_jax_inference(T_in):
+    """At B = 1 the fused decode feeds its products the alignment row in
+    place of the context, with the values folded into the weights
+    (``context_weights``), when the row is no wider than the context: two
+    sources of T_in = 7 steps (14 <= 16 + 8 context columns) take the fold,
+    T_in = 13 (26 > 24) the context.  Both against the JAX package's
+    INFERENCE decode, through the plain version (TOL)."""
+    name = "flagship_speaker"
+    hp, v = _hp(CASES[name]), jax_variables(name)
+    jb = jax_batch(1, T_in=T_in)
+    assert fd.context_from_alignments(1, [T_in] * 2, [16, 8]) == (T_in == 7)
+    ref = jax_inference(hp, v, jb)
+    got = port_model(hp, v)(port_batch(jb))
+    _assert_close(got, ref, 1)
+    # the fold is exact: the same decode with the context products
+    w, memory, opts = _fused_inputs(port_model(hp, v), port_batch(jb))
+    vw = fd.context_weights(w, memory.values, [16, 8])
+    alpha = torch.rand(1, 2 * T_in)
+    ctx = torch.cat([a @ m[0] for a, m in zip(alpha.split(T_in, 1),
+                                              memory.values)], 1)
+    A = w.att_b.shape[0] // 4
+    P = w.att_w.shape[1] - 24 - A
+    for full, folded, lead in ((w.att_w, vw[0], P), (w.big_w, vw[1], A)):
+        torch.testing.assert_close(folded[:, lead:lead + 2 * T_in] @ alpha[0],
+                                   full[:, lead:lead + 24] @ ctx[0],
+                                   rtol=1e-5, atol=1e-6)
+
+
+def _fused_inputs(model, batch):
+    """(weights, memory, options) the model hands the fused decode."""
+    sources, lens, _, speaker = model._encode(batch)
+    dec = model.decoder
+    packs = tuple(m.precompute(s, ln) for m, s, ln in
+                  zip(dec.attention_mechanisms, sources, lens))
+    return dec.fused_inputs(packs, model._prenet_speaker(speaker))
+
+
 def _stop_weights(variables, direction, bias):
     v = jax.tree_util.tree_map(np.copy, variables)
     stop = v["params"]["decoder"]["stop_token_projection"]
@@ -235,8 +273,15 @@ def test_largest_batch_at_the_recipe_widths(recipe, T, limit):
         outputs_per_step=hp.outputs_per_step, n_feed_frame=hp.n_feed_frame,
         src_kinds=dec._fused_attention_params()[0],
         loc_kernel=dec._loc_kernel())
-    assert fd.max_batch(
-        w, t_sizes=[T, T], c_sizes=[hp.cbhg_out_units,
-                                    hp.self_attention_out_units],
-        num_steps=hp.max_iters,
-        num_heads=hp.decoder_self_attention_num_heads) == limit
+    c_sizes = [hp.cbhg_out_units, hp.self_attention_out_units]
+    plan = dict(num_steps=hp.max_iters,
+                num_heads=hp.decoder_self_attention_num_heads)
+    assert fd.max_batch(w, t_sizes=[T, T], c_sizes=c_sizes, **plan) == limit
+    # at B = 1 the plan counts the folded products' sum T_i columns in
+    # place of the context's sum C_i (288) where T_i are short enough
+    folded = fd.context_from_alignments(1, [T, T], c_sizes)
+    assert folded == (2 * T <= sum(c_sizes))
+    one = fd.smem_floats(w, batch=1, t_sizes=[T, T], c_sizes=c_sizes, **plan)
+    assert one == fd.smem_floats(w, batch=1, t_sizes=[T, T],
+                                 c_sizes=[T, T] if folded else c_sizes,
+                                 **plan)

@@ -7,8 +7,8 @@ layers, r = 2, additive-only sources, cumulative location weights, early
 stop; the Pallas-mode attention kernels at small and recipe shapes (head
 widths 4 to 128, T not a multiple of 64, t at both ends of the cache) and
 the model's serving and VALIDATION decodes in that mode; the spectrogram
-kernel at F = 1, a prime F, F one above each tile, LJSpeech and VCTK
-widths, and the mel model's decode (one source, no hops, r = 2) through the
+kernel from the signal at F = 1, a prime F, LJSpeech and VCTK widths and
+signals shorter than the reflect pad, and the mel model's decode (one source, no hops, r = 2) through the
 fused decode; the fused decode's speaker row, batched rows (per-row memory
 lengths, sources of different lengths, early stop with rows that fire
 apart) and location-sensitive sources, and its shared-memory plan.  This file imports
@@ -139,6 +139,29 @@ def test_fused_decode_kernel_matches_plain(device, kw):
         _close(g, r)
     for g, r in zip(got[2], ref[2]):
         _close(g, r)
+
+
+@pytest.mark.parametrize("T,L", [(8, 8), (12, 9), (24, 17)])
+@torch.no_grad()
+def test_fused_decode_context_fold_matches_plain(device, T, L):
+    """B = 1 with the values folded into the products' weights (two
+    sources of T = 8 or 12 steps against 16 + 8 context columns: no
+    context stage) and without (T = 24); the kernel's shared-memory plan
+    against ``smem_floats`` either way."""
+    model = _model(device, seed=3)
+    weights, memory, options = _dec_case(model, T, L, device)
+    t_sizes = [k.shape[1] for k in memory.keys]
+    c_sizes = [v.shape[2] for v in memory.values]
+    assert fd.context_from_alignments(1, t_sizes, c_sizes) == (T < 24)
+    S = model.hp.max_iters
+    got = fd.fused_decode(weights, memory, num_steps=S, **options)
+    ref = fd.fused_decode_reference(weights, memory, num_steps=S, **options)
+    for g, r in zip((*got[:2], *got[2]), (*ref[:2], *ref[2])):
+        _close(g, r)
+    assert fd.smem_floats(weights, batch=1, t_sizes=t_sizes,
+                          c_sizes=c_sizes, num_steps=S,
+                          num_heads=options["num_heads"]) == \
+        fd.kernel_smem_floats(weights, memory, num_steps=S, **options)
 
 
 @torch.no_grad()
@@ -664,32 +687,53 @@ def _db_errors(got_db, ref_db):
     return float(((mg - mr).abs() / peak).max()), db_err
 
 
+def _plan(n_fft, mels, device, sr=22050):
+    from self_attention_tacotron_torch.ops import stft as S
+    from self_attention_tacotron_torch.utils.audio import (hann_window,
+                                                           mel_filterbank)
+    return S.spectrogram_plan(mel_filterbank(sr, n_fft, mels),
+                              hann_window(n_fft // 2, n_fft), n_fft // 4,
+                              device)
+
+
 @pytest.mark.parametrize("F,n_fft,mels", [
     (1, 2048, 80), (37, 2048, 80), (65, 128, 8), (33, 256, 8),
     (802, 2048, 80), (97, 4096, 80)])
 @torch.no_grad()
 def test_spectrogram_kernel_matches_plain(device, F, n_fft, mels):
-    """F = 1, a prime, one above the DFT tile (64) and the mel tile (32),
-    10 s at LJSpeech widths, VCTK's n_fft; windowed noise frames with one
-    quiet frame near the floor."""
+    """From the signal: F = 1 (a signal shorter than the reflect pad), a
+    prime, 65 and 33 frames, 10 s at LJSpeech widths, VCTK's n_fft (log2
+    of n_fft / 2 even and odd); noise with a quiet stretch near the
+    floor."""
     from self_attention_tacotron_torch.ops import stft as S
-    from self_attention_tacotron_torch.utils.audio import (hann_window,
-                                                           mel_filterbank)
+    plan = _plan(n_fft, mels, device)
+    T = (F - 1) * plan.hop_length + plan.hop_length // 2
     rng = np.random.default_rng(F)
-    win = hann_window(n_fft // 2, n_fft)
-    frames = (0.1 * rng.standard_normal((F, n_fft)) * win).astype(np.float32)
-    frames[F // 2] *= 1e-4
-    wr, wi = (torch.from_numpy(a).to(device) for a in S.dft_matrices(n_fft))
-    mel_t = torch.from_numpy(np.ascontiguousarray(
-        mel_filterbank(22050, n_fft, mels).T)).to(device)
-    x = torch.from_numpy(frames).to(device)
+    y = (0.1 * rng.standard_normal(T)).astype(np.float32)
+    y[T // 3:T // 3 + n_fft] *= 1e-4
+    y = torch.from_numpy(y).to(device)
     before = S.spectrograms.launches
-    got = S.spectrograms(x, wr, wi, mel_t)
-    ref = S.spectrograms_reference(x, wr, wi, mel_t)
+    got = S.spectrograms(y, plan)
+    ref = S.spectrograms_plain(y, plan)
     torch.cuda.synchronize()
     assert S.spectrograms.launches == before + 1
     for g, r in zip(got, ref):
-        assert g.shape == r.shape
+        assert g.shape == r.shape and g.shape[0] == F
+        mag_err, db_err = _db_errors(g, r)
+        assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+@pytest.mark.parametrize("T", [1, 2, 300, 1023])
+@torch.no_grad()
+def test_spectrogram_kernel_folds_short_signals(device, T):
+    """Signals shorter than the pad (n_fft / 2 = 1024) are reflected again
+    by the kernel's own index arithmetic, as numpy does."""
+    from self_attention_tacotron_torch.ops import stft as S
+    plan = _plan(2048, 80, device)
+    y = torch.from_numpy((0.3 + 0.1 * np.random.default_rng(T)
+                          .standard_normal(T)).astype(np.float32)).to(device)
+    got, ref = S.spectrograms(y, plan), S.spectrograms_plain(y, plan)
+    for g, r in zip(got, ref):
         mag_err, db_err = _db_errors(g, r)
         assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
 
@@ -709,17 +753,20 @@ def test_mel_extractor_on_the_card_matches_the_cpu(device):
 
 def test_spectrogram_wrapper_rejects_what_the_kernel_does_not_take(device):
     from self_attention_tacotron_torch.ops import stft as S
-    wr, wi = (torch.from_numpy(a).to(device) for a in S.dft_matrices(128))
-    mel_t = torch.ones(65, 8, device=device)
-    frames = torch.ones(5, 128, device=device)
+    plan = _plan(128, 8, device)
+    y = torch.ones(500, device=device)
     with pytest.raises(ValueError):
-        S.spectrograms(frames.double(), wr, wi, mel_t)
+        S.spectrograms(y.double(), plan)
     with pytest.raises(ValueError):
-        S.spectrograms(frames[:, :64], wr, wi, mel_t)
+        S.spectrograms(y[None], plan)
     with pytest.raises(ValueError):
-        S.spectrograms(frames.t().contiguous().t(), wr, wi, mel_t)
+        S.spectrograms(y[::2], plan)
     with pytest.raises(ValueError):
-        S.spectrograms(frames, wr, wi, mel_t[:64])
+        S.spectrograms(y[:0], plan)
+    with pytest.raises(ValueError):
+        S.spectrograms(y, plan._replace(window=plan.window[:64]))
+    with pytest.raises(ValueError):
+        S.spectrograms(y, _plan(96, 8, device))     # not a power of two
 
 
 MEL = dict(tacotron_model="ExtendedTacotronV1Model",

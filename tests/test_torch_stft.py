@@ -1,8 +1,16 @@
 """The port's STFT / mel path against the JAX package and numpy, on CPU.
 
-* ``spectrograms`` (the plain version of the spectrogram kernel) against
+* ``spectrograms_reference`` (the arithmetic of the JAX kernel) against
   JAX ``pallas_spectrograms`` in interpret mode, with the JAX package's
-  128-lane padding sliced off;
+  128-lane padding sliced off, and ``spectrograms`` from the signal (its
+  plain version on the CPU) against JAX ``MelExtractor`` at LJSpeech and
+  VCTK widths, a signal shorter than the pad included;
+* the host side of the spectrogram kernel: the banded filterbank
+  (``mel_bands``) against the dense product, and the float64 twiddle table
+  (``twiddles``) through a Python mirror of the kernel's FFT plan (radix-4
+  Stockham stages, a last radix-2 stage, the real-input split pass)
+  against ``torch.fft.rfft`` at n_fft 128 to 4096, in float64 and in the
+  kernel's float32;
 * the port's ``MelExtractor`` against JAX ``MelExtractor`` and against the
   port's numpy ``Audio`` path, at num_freq 65, 129 and 513 on a tone and on
   noise;
@@ -57,11 +65,11 @@ def db_errors(got_db, ref_db, offset=0.0):
 
 
 def _hp(num_freq, num_mels=8, sr=8000, **kw):
-    return default_hparams().replace(
-        num_mels=num_mels, num_freq=num_freq, sample_rate=sr,
-        frame_length_ms=16.0, frame_shift_ms=8.0,
-        average_mel_level_db=[0.0] * num_mels,
-        stddev_mel_level_db=[1.0] * num_mels, **kw)
+    return default_hparams().replace(**dict(
+        dict(num_mels=num_mels, num_freq=num_freq, sample_rate=sr,
+             frame_length_ms=16.0, frame_shift_ms=8.0,
+             average_mel_level_db=[0.0] * num_mels,
+             stddev_mel_level_db=[1.0] * num_mels), **kw))
 
 
 def _extractors(hp):
@@ -95,12 +103,116 @@ def test_plain_spectrograms_match_jax_pallas_kernel():
         jnp.asarray(pad(wi, n_fft, pb)), jnp.asarray(pad(mel_t, pb, pm)),
         interpret=True)
     lin_j, mel_j = np.asarray(lin_j)[:, :bins], np.asarray(mel_j)[:, :mels]
-    lin, mel = S.spectrograms(*(torch.from_numpy(a) for a in
-                                (frames, wr, wi, mel_t)))
+    lin, mel = S.spectrograms_reference(*(torch.from_numpy(a) for a in
+                                          (frames, wr, wi, mel_t)))
     assert lin.shape == (F, bins) and mel.shape == (F, mels)
     for got, ref in ((lin, lin_j), (mel, mel_j)):
         mag_err, db_err = db_errors(got.numpy().T, ref.T)
         assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+@pytest.mark.parametrize("sr,num_freq,mels,T", [
+    (22050, 1025, 80, 5000), (22050, 1025, 80, 500), (48000, 2049, 80, 6000),
+    (48000, 2049, 80, 1000)])
+def test_signal_plain_version_matches_jax_pallas(sr, num_freq, mels, T):
+    """``spectrograms`` from the signal (frames_of -> the plain version on
+    the CPU) against the JAX package's MelExtractor (pallas_spectrograms
+    in interpret mode) at the recipes' widths; T = 500 and 1000 are
+    shorter than the reflect pad (n_fft / 2 = 1024 and 2048)."""
+    hp = _hp(num_freq, num_mels=mels, sr=sr, frame_length_ms=50.0,
+             frame_shift_ms=12.5)
+    port, jax_ex = _extractors(hp)
+    y = _signal("tone", T, sr) + 0.01 * _signal("noise", T, sr)
+    lin, mel = S.spectrograms(torch.from_numpy(y), port.plan)
+    lin_j, mel_j = (np.asarray(a) for a in jax_ex.spectrograms(
+        jnp.asarray(y)))
+    assert lin.shape == (1 + T // port.hop_length, num_freq)
+    off = hp.ref_level_db
+    for got, ref in ((lin, lin_j), (mel, mel_j)):
+        mag_err, db_err = db_errors(got.numpy().T - off, ref, off)
+        assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+@pytest.mark.parametrize("sr,num_freq,mels", [
+    (8000, 65, 8), (8000, 65, 40), (22050, 1025, 80), (48000, 2049, 80)])
+def test_banded_filterbank_matches_dense(sr, num_freq, mels):
+    """Each mel row's band (first and last non-zero bin, the weights in
+    between) gives the dense ``mel_t`` product within 1e-6 on random
+    magnitudes; every non-zero weight lies in its row's band.  (8000, 65,
+    40) has rows without any bin."""
+    basis = A.mel_filterbank(sr, (num_freq - 1) * 2, mels)
+    band, w = S.mel_bands(basis)
+    assert band.shape == (mels, 3) and band.dtype == np.int32
+    mag = np.random.default_rng(0).uniform(0, 1, (50, num_freq)).astype(
+        np.float32)
+    banded = np.stack([mag[:, lo:lo + n] @ w[off:off + n]
+                       for lo, n, off in band], 1)
+    np.testing.assert_allclose(banded, mag @ basis.T, rtol=0, atol=1e-6)
+    covered = np.zeros_like(basis, bool)
+    for m, (lo, n, _) in enumerate(band):
+        covered[m, lo:lo + n] = True
+    assert not (basis != 0)[~covered].any()
+    assert band[:, 1].sum() == len(w) <= 2 * num_freq
+
+
+def fft_plan_mirror(x, tw):
+    """The kernel's FFT plan in torch: (F, N) real frames and the (N, 2)
+    twiddle table -> (F, N / 2 + 1) complex spectra, in the precision of
+    ``x`` (complex128 for float64, complex64 for float32)."""
+    N = x.shape[1]
+    n = N // 2
+    cdt = torch.complex128 if x.dtype == torch.float64 else torch.complex64
+    w = torch.complex(tw[:, 0].to(x.dtype), tw[:, 1].to(x.dtype)).to(cdt)
+    src = torch.complex(x[:, 0::2], x[:, 1::2]).to(cdt)
+    p = 1
+    while 4 * p <= n:
+        q, step = n // 4, n // (2 * p)
+        i = torch.arange(q)
+        k = i & (p - 1)
+        u = [src[:, i + r * q] * (w[r * k * step] if p > 1 else 1)
+             for r in range(4)]
+        a0, a1, a2 = u[0] + u[2], u[0] - u[2], u[1] + u[3]
+        a3 = -1j * (u[1] - u[3])
+        j = ((i - k) << 2) + k
+        dst = torch.empty_like(src)
+        dst[:, j], dst[:, j + p] = a0 + a2, a1 + a3
+        dst[:, j + 2 * p], dst[:, j + 3 * p] = a0 - a2, a1 - a3
+        src, p = dst, 4 * p
+    if p < n:
+        q, step = n // 2, n // p
+        i = torch.arange(q)
+        k = i & (p - 1)
+        u0, u1 = src[:, i], src[:, i + q] * (w[k * step] if p > 1 else 1)
+        j = ((i - k) << 1) + k
+        dst = torch.empty_like(src)
+        dst[:, j], dst[:, j + p] = u0 + u1, u0 - u1
+        src = dst
+    k = torch.arange(n + 1)
+    zk, zc = src[:, k & (n - 1)], src[:, (n - k) & (n - 1)].conj()
+    return (zk + zc) / 2 + w[k] * (-1j * (zk - zc) / 2)
+
+
+@pytest.mark.parametrize("n_fft", [128, 256, 2048, 4096])
+def test_fft_plan_with_the_twiddle_table_matches_rfft(n_fft):
+    """log2(n_fft / 2) even (radix-4 stages only) and odd (a last radix-2
+    stage).  In float64 the mirror with the float32-rounded table is
+    within 1e-6 of each frame's peak of ``torch.fft.rfft``; in float32,
+    as the kernel computes it, the magnitudes are within 2e-6 of each
+    frame's peak of the float64 DFT, ten times inside the kernel's
+    tolerance against its plain version (``TOL_MAG``)."""
+    rng = np.random.default_rng(n_fft)
+    win = A.hann_window(n_fft // 2, n_fft)
+    x = torch.from_numpy(0.1 * rng.standard_normal((6, n_fft)) * win)
+    x[2] += torch.from_numpy(np.sin(0.3 * np.arange(n_fft)) * win)
+    tw = torch.from_numpy(S.twiddles(n_fft))
+    assert tw.dtype == torch.float32 and tw.shape == (n_fft, 2)
+    ref = torch.fft.rfft(x, dim=1)
+    peak = ref.abs().amax(1, keepdim=True)
+    got = fft_plan_mirror(x, tw)
+    assert float(((got - ref).abs() / peak).max()) < 1e-6
+    got32 = fft_plan_mirror(x.float(), tw)
+    err = (got32.abs().double() - ref.abs()).abs() / peak
+    assert float(err.max()) < 2e-6
 
 
 @pytest.mark.parametrize("kind", ["tone", "noise"])

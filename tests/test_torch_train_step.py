@@ -118,10 +118,34 @@ def test_train_loss_outputs_and_gradients_match_jax(fused):
                                    err_msg=name)
 
 
+def _adam_step_bound(beta1: float, beta2: float, t: int) -> float:
+    """The most one Adam update (t counted from 1) moves a parameter, over
+    the learning rate: |m_hat| / sqrt(v_hat) <= sqrt(sum_i w_i^2 / u_i) by
+    Cauchy-Schwarz, where w_i and u_i are the bias-corrected moments'
+    weights of the gradients g_1..g_t (each set sums to 1); eps only
+    lowers it.  1 at t = 1, 1.0014 at t = 2 for (0.9, 0.999)."""
+    w = [(1 - beta1) * beta1 ** (t - i) / (1 - beta1 ** t)
+         for i in range(1, t + 1)]
+    u = [(1 - beta2) * beta2 ** (t - i) / (1 - beta2 ** t)
+         for i in range(1, t + 1)]
+    return float(np.sqrt(sum(a * a / b for a, b in zip(w, u))))
+
+
 def test_three_step_trajectory_matches_jax_make_train_step():
     """Losses, metrics and parameters after each of 3 updates.  The
     initial rate 8.0 makes noam(0..2) = 0.002, 0.004, 0.006, so that the
-    updates move the parameters visibly."""
+    updates move the parameters visibly.
+
+    The key projections' biases of the two self-attention layers are held
+    differently.  A softmax attention's key bias adds the same q . b to
+    every score of a query, which the softmax removes, so their exact
+    gradient is zero: both packages move them by rounding noise only,
+    which Adam normalises to steps of up to the learning rate, in an order
+    that depends on the machine.  For them the test asserts the property
+    itself (the port's first-batch gradient is <= 1e-6 of the largest
+    gradient) and that both packages leave them within the most 3 Adam
+    steps can move a parameter (sum of lr_t times ``_adam_step_bound``) of
+    their initial values; every other leaf is compared elementwise."""
     from self_attention_tacotron_tpu.parallel.train_step import \
         create_train_state as jax_create
     from self_attention_tacotron_tpu.parallel.train_step import \
@@ -132,18 +156,39 @@ def test_three_step_trajectory_matches_jax_make_train_step():
     batches = [make_batch(hp, B=2, T_in=7, T_out=6, seed=s) for s in range(3)]
     model = jax_factory(hp)
     jstate = jax_create(model, hp, batches[0], jax.random.PRNGKey(0))
+    init = np_tree({"params": jstate.params,
+                    "batch_stats": jstate.batch_stats})
     port = tacotron_model_factory(hp)
-    port.load_state_dict(convert.from_flax(np_tree(
-        {"params": jstate.params, "batch_stats": jstate.batch_stats})))
+    port.load_state_dict(convert.from_flax(init))
+    key_bias = [n for n in _flat(init["params"])
+                if "key_projection" in n and "bias" in n]
+    assert len(key_bias) == 2, key_bias
+
+    probe = tacotron_model_factory(hp)
+    probe.load_state_dict(port.state_dict())
+    probe.train()
+    first = port_batch(batches[0])
+    compute_loss(hp, probe.train_forward(first), first,
+                 probe)["loss"].backward()
+    grads = _flat(convert.to_flax({k: p.grad for k, p in
+                                   probe.named_parameters()},
+                                  probe)["params"])
+    largest = max(float(np.abs(g).max()) for g in grads.values())
+    for name in key_bias:
+        assert np.abs(grads[name]).max() <= 1e-6 * largest, name
+
     state = create_train_state(port, hp)
     jstep, step = jax_make(model, hp, donate=False), make_train_step(hp)
-    for jb in batches:
+    moved = 0.0
+    for t, jb in enumerate(batches, 1):
         jstate, jm = jstep(jstate, jb, jax.random.PRNGKey(5))
         m = step(state, port_batch(jb))
         for k in ("loss", "code_loss", "done_loss", "learning_rate",
                   "grad_norm"):
             np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4,
                                        err_msg=k)
+        moved += float(m["learning_rate"]) * _adam_step_bound(
+            hp.adam_beta1, hp.adam_beta2, t)
     assert state.step == int(jstate.step) == 3
     got = convert.to_flax(port.state_dict(), port)
     ref = np_tree({"params": jstate.params,
@@ -152,6 +197,11 @@ def test_three_step_trajectory_matches_jax_make_train_step():
         g, r = _flat(got[coll]), _flat(ref[coll])
         assert g.keys() == r.keys()
         for name in r:
+            if name in key_bias and coll == "params":
+                start = _flat(init["params"])[name]
+                for side in (g, r):
+                    assert np.abs(side[name] - start).max() <= moved, name
+                continue
             np.testing.assert_allclose(g[name], r[name], rtol=1e-4,
                                        atol=2e-5, err_msg=name)
 
