@@ -36,7 +36,10 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    checkpoint is written; ``cli.predict.main_code`` then serves one
    utterance from that checkpoint;
 8. times each kernel and its plain version with CUDA events (median of 5
-   after a warm-up), one training step on the fused and on the plain path,
+   after a warm-up), prints each stage's share of a profiled launch (for
+   the training kernels split into copy, product, epilogue and barrier
+   wait, with the attention items' time per block and source), times one
+   training step on the fused and on the plain path,
    and prints one JSON line of per-kernel numbers: a row for each kernel
    and each main path that launched it (``path``: serving, training,
    evaluation, pallas_serving, preprocessing, mel_serving), with that
@@ -884,12 +887,19 @@ def phase_train_timing(model, device, data: str, launches, errs):
     log(f"phase 8 timing: fused_train_fwd B={spec.batch} S={spec.num_steps}"
         f" {fwd_ms:.4f} ms (plain {fwd_plain:.4f} ms); fused_train_bwd "
         f"{bwd_ms:.4f} ms (plain {bwd_plain:.4f} ms)")
-    _stage_shares("fused_train_fwd", ft.prepare_train_fwd(
-        spec, ops, seed, profile=True), ft.FWD_STAGES, fwd_ms,
-        spec.num_steps, "step")
-    _stage_shares("fused_train_bwd", ft.prepare_train_bwd(
-        spec, ops, seed, g, save, aux, profile=True), ft.BWD_STAGES, bwd_ms,
-        spec.num_steps, "step")
+    for name, launch, stages, ms in (
+            ("fused_train_fwd", ft.prepare_train_fwd(spec, ops, seed,
+                                                     profile=True),
+             ft.FWD_STAGES, fwd_ms),
+            ("fused_train_bwd", ft.prepare_train_bwd(spec, ops, seed, g, save,
+                                                     aux, profile=True),
+             ft.BWD_STAGES, bwd_ms)):
+        launch()
+        torch.cuda.synchronize()
+        log(f"phase 8 {name} stages (us a step, block 0's clock split into "
+            "copy, product, epilogue and barrier wait): " + ft.format_split(
+                *ft.profile_split(launch.stage_cycles.cpu().tolist(), stages,
+                                  len(spec.src_kinds), ms, spec.num_steps)))
     flat_in = ft._flat(ops)
     bounds = {
         "fused_train_fwd": train_bound(spec, flat_in, [y, save, aux], False),

@@ -5,39 +5,53 @@
 //
 // What bounds it on the H100: two parts.  The reverse-time chain is serial:
 // per step the three LSTM VJPs, the projection and the attention VJP, each
-// product a multiply by W^T over 32 rows, separated by 7 grid barriers
-// (~2.2 ms of barriers for 256 steps).  The weight gradients are parallel:
+// product a multiply by W^T over 32 rows, separated by 8 grid barriers
+// (~2.3 ms of barriers for 256 steps, and as much again of L2 round trips
+// for the stages' inputs).  The weight gradients are parallel:
 // contractions of depth S*B = 8192 over every trunk and prenet matrix.
-// In all ~75 GFLOP at the recipe, ~1.1 ms of FP32 peak.
+// In all ~75 GFLOP at the recipe, ~1.1 ms of FP32 peak (~0.45 ms of the
+// tensor cores' TF32 peak in the 3xTF32 split this kernel uses).
 //
-// Design: one 256-thread block per SM, launched cooperatively.  The serial
-// products multiply by W^T, so this kernel keeps ROWS of each (in, out)
-// matrix resident (block n % 132 owns input row n: the row-partitioned
-// copy, ~55 KB a block), the forward kernel keeps columns.  Per step:
-// lstm2 VJP (elementwise) | d z2 = d_gates2 W2^T, whose epilogue runs the
-// lstm1 VJP of the same unit | d z1 | d zop | attention VJP, one block per
-// (source, row): the context and recursion VJPs on one warp, then a thread
-// per unit recomputes the energies from the saved query and conv input
-// and writes d_pre (T x U) to shared memory with d_keys / d_pq / d_v;
-// d_loc (a thread per unit) and d_win (a warp per memory step) read that
-// tile; the conv adjoint is a gather | d h_att via Wq^T, whose epilogue
-// runs the attention-LSTM VJP | d z_att over the [ctx | h_att] rows of
-// W_att (the prenet rows are deferred).  Each step's cotangents go to a
-// stash; after the loop 64 x 64 tile products contract stash and save rows
-// into the weight gradients (biases as a column of ones), then the
+// Design: one 256-thread block per SM, launched cooperatively, the
+// hand-written GridBarrier (common.cuh) between dependent stages.  The
+// serial products multiply by W^T, so this kernel keeps ROWS of each
+// (in, out) matrix resident (the row-partitioned copy; the forward keeps
+// columns); as there, a block serves one of two 16-row groups and owns the
+// matrix rows n with n % 66 == its index (~116 KB a block at the recipe),
+// and a stage has the TMA copy its rows in and multiplies them on the
+// tensor cores (rows_mma, 3xTF32).  Per step: lstm2 VJP (elementwise) |
+// d z2 = d_gates2 W2^T, whose epilogue runs the lstm1 VJP of the same unit
+// | d z1 | d zop (d ctx goes to the stash) | d_w = values . d_ctx, a warp
+// per (source, row, memory step) | the attention VJP in (source, row, 32
+// units) items of about equal cost, two at a time on the two half blocks:
+// each recomputes its pair's recursion and softmax VJP (T floats), then on
+// 16-step tiles the energies' location term as a small product on the
+// tensor cores, tanh, d_pre, d_keys (read-modify-write of the item's own
+// units), the d_pq and d_v sums over steps; d_loc and the window adjoint
+// as two more small products; its share of the conv adjoint is added with
+// atomics into the buffer that step t - 1 reads (two buffers by step
+// parity, each zeroed after its last read); d_v and d_loc stay in the
+// block's shared memory until the loop ends | d h_att via Wq^T, whose
+// epilogue runs the attention-LSTM VJP | d z_att over the [ctx | h_att]
+// rows of W_att (the prenet rows are deferred).  The save rows, alignment
+// columns and output cotangents a step reads are asked into L2 a step or
+// two ahead.  After the loop, 128 x 64 tile products on the tensor cores
+// contract stash and save rows into the weight gradients (biases as a
+// column of ones; split in two along the 8192 rows, summed with atomics
+// onto zero, so the sum is the same in any order) and the alignments with
+// the stashed d ctx into d_values (no per-step read-modify-write of the
+// values' gradient), handed out to the blocks by a counter; then the
 // deferred prenet backward runs layer by layer over all S*B rows.  Masks
-// are regenerated from masks.cuh.  Plain FP32 FMA; later work: tensor
-// cores, fewer barriers, split-K for the weight gradients.
+// are regenerated from masks.cuh.
 #include "fused_train.cuh"
 
-struct BwdScratch {
-  size_t dc_att, dh_att, dc1, dh1, dc2, dh2, dctx, dA, dCV, dh2_zo, d_o1,
-      dh1_zo, dhatt_part, dctx_tot, dhatt_zo, dv_part, dloc_part, state_end,
-      bufA, bufB, total;
+struct BwdScratch {  // offsets in floats (32 bits, as BwdSmem's)
+  unsigned dc_att, dh_att, dc1, dh1, dc2, dh2, dctx, dh2_zo, d_o1, dh1_zo,
+      dhatt_part, dhatt_zo, dA, dCV, dw, state_end, bufA, bufB, total;
 };
 
 __host__ __device__ inline BwdScratch bwd_scratch(const TrainArgs& a) {
-  const size_t B = a.B, A = a.A, D = a.D, C = tr_sumC(a), U = tr_sumU(a);
+  const size_t B = a.B, A = a.A, D = a.D, C = tr_sumC(a);
   const size_t nbt = (size_t)a.ns * a.B * a.T;
   int pmax = 0;
   for (int i = 0; i < a.n_pre; ++i) pmax = tr_max(pmax, a.p_sizes[i]);
@@ -50,16 +64,14 @@ __host__ __device__ inline BwdScratch bwd_scratch(const TrainArgs& a) {
   s.dc2 = o; o += B * D;
   s.dh2 = o; o += B * D;
   s.dctx = o; o += B * C;
-  s.dA = o; o += nbt;
-  s.dCV = o; o += nbt;
   s.dh2_zo = o; o += B * D;
   s.d_o1 = o; o += B * D;
   s.dh1_zo = o; o += B * D;
   s.dhatt_part = o; o += B * A;
-  s.dctx_tot = o; o += B * C;
   s.dhatt_zo = o; o += B * A;
-  s.dv_part = o; o += B * U;
-  s.dloc_part = o; o += B * a.K * U;
+  s.dA = o; o += 2 * nbt;    // step t reads buffer t % 2
+  s.dCV = o; o += 2 * nbt;
+  s.dw = o; o += nbt;
   s.state_end = o;
   s.bufA = o; o += (size_t)a.S * B * pmax;
   s.bufB = o; o += (size_t)a.S * B * pmax;
@@ -67,90 +79,159 @@ __host__ __device__ inline BwdScratch bwd_scratch(const TrainArgs& a) {
   return s;
 }
 
-// The attention VJP of one (source, row) at step t; see
-// fused_train_bwd_reference in ops/fused_train.py for the same math.
-// Global read-modify-writes (d_values, d_keys) go in chunks of RB memory
-// steps, their loads issued together.
-constexpr int RB = 8;
+// The attention VJP of one (source, row, 32 units) item at step t on half
+// a block; see fused_train_bwd_reference in ops/fused_train.py for the
+// same math.  Warp w takes the 16-step tiles w, w + HWARPS, ...: the
+// energies' location term is a small product on the tensor cores
+// (loc_term), and each (step, unit) pair of its C fragments recomputes
+// tanh and gives d_pre, d_keys, and the d_pq and d_v sums over steps; the
+// keys and d_keys of the warp's first tile are loaded before anything
+// else, so their latencies overlap with the recursion's.
 
-__device__ void attention_vjp(const TrainArgs& a, const BwdSmem& m,
-                              const BwdScratch& sc, float* sm, int t,
-                              int src, int b) {
+// d_pre's row stride in shared memory (4 mod 32: the adjoints' fragment
+// reads below hit different banks)
+constexpr int DS = US + 4;
+
+// d_loc of an item: ia[US + k US + u] += sum_tau cvw[tau + k] d_pre[tau][u]
+// (cvw[i] = cv[i - pad]), a (K x T) by (T x 32) product on the tensor
+// cores; warp w of the half block takes the 8-unit tile w.  Taps k >= K,
+// steps tau >= T and units u >= nu read as 0.
+__device__ __forceinline__ void dloc_mma(const float* cvw, const float* dpre,
+                                         float* ia, int K, int T, int nu,
+                                         int warp) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int u = 8 * warp + g;
+  for (int m0 = 0; m0 < K; m0 += 16) {
+    const int k0 = m0 + g, k1 = k0 + 8;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kk = 0; kk < T; kk += 8) {
+      const int ta = kk + t, tc = ta + 4;
+      uint32_t ah[4], al[4], bh[2], bl[2];
+      tf32_split(k0 < K && ta < T ? cvw[ta + k0] : 0.f, ah[0], al[0]);
+      tf32_split(k1 < K && ta < T ? cvw[ta + k1] : 0.f, ah[1], al[1]);
+      tf32_split(k0 < K && tc < T ? cvw[tc + k0] : 0.f, ah[2], al[2]);
+      tf32_split(k1 < K && tc < T ? cvw[tc + k1] : 0.f, ah[3], al[3]);
+      tf32_split(ta < T && u < nu ? dpre[ta * DS + u] : 0.f, bh[0], bl[0]);
+      tf32_split(tc < T && u < nu ? dpre[tc * DS + u] : 0.f, bh[1], bl[1]);
+      mma3(acc, ah, al, bh, bl);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + 8 * (c >> 1), uc = 8 * warp + 2 * t + (c & 1);
+      if (k < K && uc < nu) ia[US + k * US + uc] += acc[c];
+    }
+  }
+}
+
+// The window adjoint of an item: gw[tau][k] = sum_u d_pre[tau][u]
+// loc_w[k][u0 + u] (lw = loc_w's columns of the item, row stride sumU), a
+// (T x 32) by (32 x K) product on the tensor cores; warp w of the half
+// block takes the 16-step tiles w, w + HWARPS, ...
+__device__ __forceinline__ void gw_mma(const float* dpre, const float* lw,
+                                       int sumU, float* gw, int K, int T,
+                                       int nu, int warp) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int m0 = 16 * warp; m0 < T; m0 += 16 * HWARPS) {
+    const int r0 = m0 + g, r1 = r0 + 8;
+    for (int n0 = 0; n0 < K; n0 += 8) {
+      const int kb = n0 + g;
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < US; kk += 8) {
+        const int ua = kk + t, uc = ua + 4;
+        uint32_t ah[4], al[4], bh[2], bl[2];
+        tf32_split(r0 < T && ua < nu ? dpre[r0 * DS + ua] : 0.f, ah[0], al[0]);
+        tf32_split(r1 < T && ua < nu ? dpre[r1 * DS + ua] : 0.f, ah[1], al[1]);
+        tf32_split(r0 < T && uc < nu ? dpre[r0 * DS + uc] : 0.f, ah[2], al[2]);
+        tf32_split(r1 < T && uc < nu ? dpre[r1 * DS + uc] : 0.f, ah[3], al[3]);
+        tf32_split(kb < K && ua < nu ? lw[kb * sumU + ua] : 0.f, bh[0], bl[0]);
+        tf32_split(kb < K && uc < nu ? lw[kb * sumU + uc] : 0.f, bh[1], bl[1]);
+        mma3(acc, ah, al, bh, bl);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int tau = r0 + 8 * (c >> 1), k = n0 + 2 * t + (c & 1);
+        if (tau < T && k < K) gw[tau * K + k] = acc[c];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void vjp_item(const TrainArgs& a,
+                                         const BwdSmem& m,
+                                         const BwdScratch& sc, float* sm,
+                                         int t, AttItem it, float* ia,
+                                         const Half& hf, TrainClock& clk) {
   const int B = a.B, T = a.T, K = a.K, W = a.save_w, sumU = tr_sumU(a);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int u0 = a.u_off[src], U = a.u_off[src + 1] - u0;
-  const int c0 = a.c_off[src], C = a.c_off[src + 1] - c0;
-  const int kind = a.kinds[src], pad = (K - 1) / 2;
+  const int tid = hf.tid, warp = hf.warp, lane = hf.lane;
+  const int lg = lane >> 2, tq = lane & 3;  // mma fragment row, column
+  const int src = it.src, b = it.b, kind = a.kinds[src], pad = (K - 1) / 2;
+  const int U = a.u_off[src + 1] - a.u_off[src], ul = it.slice * US;
+  const int u0 = a.u_off[src] + ul, nu = min(US, U - ul);
+  const bool first = it.slice == 0;
+  const size_t nbt = (size_t)a.ns * B * T, plane = (size_t)B * T;
+  const size_t col = (size_t)(src * B + b) * T;
   float* g = a.scratch;
-  float* dctx = sm + m.zs;
-  float* ar = dctx + C;      // softmax
+  float* ar = sm + m.zs + hf.h * tr_al4(bwd_att_floats(a));  // softmax
   float* wr = ar + T;        // alignment
-  float* cvr = wr + T;       // conv input of the step
-  float* apr = cvr + T;      // previous alpha
+  float* apr = wr + T;       // previous alpha
   float* da = apr + T;       // d_w, then d_a
   float* de = da + T;        // d_e
   float* ds = de + T;        // d_s
-  float* dwin = ds + T;      // (T, K)
-  float* dpre = dwin + T * K;  // (T, U) d of the energies' tanh inputs
-  const size_t plane = (size_t)B * T;
+  float* dAs = ds + T;       // the recursion's carry from step t + 1
+  float* dCVs = dAs + T;     // the conv adjoint's carry from step t + 1
+  float* cvw = dCVs + T;     // cvw[i] = cv[i - pad], zero outside (T + K)
+  float* pqs = cvw + T + K;  // query projection of the units (US)
+  float* dpre = pqs + US;    // (T, DS) d of the energies' tanh inputs
+  float* gw = dpre + T * DS;  // (T, K) window adjoint
+  float* pdq = gw + T * K;          // (HWARPS, US) partial d_pq, then d_v
+  float* pdv = pdq + HWARPS * US;
   const float* aux = a.aux + ((size_t)(t * a.ns + src) * 3) * plane +
                      (size_t)b * T;
   const float* auxp = t > 0 ? a.aux + ((size_t)((t - 1) * a.ns + src) * 3 + 1)
                                       * plane + (size_t)b * T
                             : nullptr;
-  const size_t col = (size_t)(src * B + b) * T;
-  for (int c = tid; c < C; c += NT)
-    dctx[c] = __ldcg(g + sc.dctx_tot + (size_t)b * tr_sumC(a) + c0 + c);
-  for (int tau = tid; tau < T; tau += NT) {
+  const float* dA_t = g + sc.dA + (size_t)(t & 1) * nbt + col;
+  float* dA_n = g + sc.dA + (size_t)((t + 1) & 1) * nbt + col;
+  const float* dCV_t = g + sc.dCV + (size_t)(t & 1) * nbt + col;
+  float* dCV_n = g + sc.dCV + (size_t)((t + 1) & 1) * nbt + col;
+  const float* keys = a.keys[src] + (size_t)b * T * U + ul;
+  float* dkeys = a.d_keys[src] + (size_t)b * T * U + ul;
+  float key[4][4], old[4][4];
+  auto load_tile = [&](int m0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int tau = m0 + lg + 8 * (c >> 1), u = 8 * j + 2 * tq + (c & 1);
+        const bool ok = tau < T && u < nu;
+        key[j][c] = ok ? __ldg(keys + (size_t)tau * U + u) : 0.f;
+        old[j][c] = ok ? __ldcg(dkeys + (size_t)tau * U + u) : 0.f;
+      }
+  };
+  load_tile(16 * warp);
+  for (int tau = tid; tau < T; tau += HT) {
     ar[tau] = __ldg(aux + tau);
     wr[tau] = __ldg(aux + plane + tau);
-    cvr[tau] = __ldg(aux + 2 * plane + tau);
     apr[tau] = auxp ? __ldg(auxp + tau) : (tau == 0 ? 1.f : 0.f);
+    da[tau] = __ldcg(g + sc.dw + col + tau);
+    if (kind == 2) dAs[tau] = __ldcg(dA_t + tau);
+    if (kind != 0) dCVs[tau] = __ldcg(dCV_t + tau);
   }
-  __syncthreads();
-  // d_values += w d_ctx; d_w = values . d_ctx (a warp per memory step)
-  const float* vals = a.values[src] + (size_t)b * T * C;
-  float* dvals = a.d_values[src] + (size_t)b * T * C;
-  for (int c = tid; c < C; c += NT) {
-    const float dc = dctx[c];
-    for (int t0 = 0; t0 < T; t0 += RB) {
-      float old[RB];
-#pragma unroll
-      for (int i = 0; i < RB; ++i)
-        if (t0 + i < T) old[i] = dvals[(size_t)(t0 + i) * C + c];
-#pragma unroll
-      for (int i = 0; i < RB; ++i)
-        if (t0 + i < T)
-          dvals[(size_t)(t0 + i) * C + c] = fmaf(wr[t0 + i], dc, old[i]);
-    }
+  for (int i = tid; i < T + K - 1; i += HT) {
+    const int j = i - pad;
+    cvw[i] = kind != 0 && j >= 0 && j < T ? __ldg(aux + 2 * plane + j) : 0.f;
   }
-  for (int tau = warp; tau < T; tau += NWARPS) {
-    float acc = 0.f;
-    for (int cb = 0; cb < C; cb += 32 * RB) {   // RB loads in flight
-      float x[RB];
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int c = cb + lane + 32 * i;
-        x[i] = c < C ? __ldg(vals + (size_t)tau * C + c) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int c = cb + lane + 32 * i;
-        if (c < C) acc = fmaf(dctx[c], x[i], acc);
-      }
-    }
-    acc = warp_sum(acc);
-    if (lane == 0) da[tau] = acc;
-  }
-  __syncthreads();
+  for (int i = tid; i < nu; i += HT)
+    pqs[i] = __ldg(a.save + ((size_t)t * B + b) * W + a.off_pq + u0 + i);
+  hf.sync();
+  clk.part(B_ATTENTION, P_COPY);
   // recursion and softmax VJPs (one warp)
   if (warp == 0) {
-    float* dA = g + sc.dA + col;
-    float* dCV = g + sc.dCV + col;
     if (kind == 2) {
       float sa = 0.f, zs = 0.f;
       for (int tau = lane; tau < T; tau += 32) {
-        const float dal = da[tau] + __ldcg(dA + tau);
+        const float dal = da[tau] + dAs[tau];
         da[tau] = dal;
         sa += dal * wr[tau];
         const float s = 0.5f * apr[tau] + 0.5f * (tau > 0 ? apr[tau - 1] : 0.f)
@@ -164,15 +245,19 @@ __device__ void attention_vjp(const TrainArgs& a, const BwdSmem& m,
       for (int tau = lane; tau < T; tau += 32) {
         const float dz = (da[tau] - sa) * zinv;
         const float s = ds[tau];
-        da[tau] = dz * s + __ldcg(dCV + tau);
+        da[tau] = dz * s + dCVs[tau];
         ds[tau] = dz * ar[tau];
       }
       __syncwarp();
-      for (int tau = lane; tau < T; tau += 32)
-        dA[tau] = 0.5f * ds[tau] + 0.5f * (tau + 1 < T ? ds[tau + 1] : 0.f);
+      if (first)
+        for (int tau = lane; tau < T; tau += 32)
+          dA_n[tau] = 0.5f * ds[tau] + 0.5f * (tau + 1 < T ? ds[tau + 1] : 0.f);
     } else if (kind == 1) {
-      for (int tau = lane; tau < T; tau += 32) da[tau] += __ldcg(dCV + tau);
+      for (int tau = lane; tau < T; tau += 32) da[tau] += dCVs[tau];
     }
+    if (first && kind != 0 && a.cumulative[src])
+      for (int tau = lane; tau < T; tau += 32)
+        atomicAdd(dCV_n + tau, dCVs[tau]);
     __syncwarp();
     float sab = 0.f;
     for (int tau = lane; tau < T; tau += 32) sab += ar[tau] * da[tau];
@@ -180,356 +265,241 @@ __device__ void attention_vjp(const TrainArgs& a, const BwdSmem& m,
     for (int tau = lane; tau < T; tau += 32)
       de[tau] = ar[tau] * (da[tau] - sab);
   }
-  __syncthreads();
+  hf.sync();
   // d_pre = d_e v (1 - e^2) with the energies recomputed from the saved
-  // query projection and conv input; d_keys, d_pq, d_v: a thread per unit
-  const float* keys = a.keys[src] + (size_t)b * T * U;
-  const float* pq = a.save + ((size_t)t * B + b) * W + a.off_pq + u0;
-  const float* v = sm + m.v + u0;
-  const float* locw = sm + m.loc + u0;
-  float* dkeys = a.d_keys[src] + (size_t)b * T * U;
-  float* dvp = g + sc.dv_part + (size_t)b * sumU + u0;
-  float* dlp = g + sc.dloc_part + (size_t)b * K * sumU + u0;
-  float* stash_pq = a.stash + ((size_t)t * B + b) * a.stash_w + a.off_dpq + u0;
-  for (int u = tid; u < U; u += NT) {
-    float dpq = 0.f, dv = 0.f;
-    const float vu = v[u], pqu = __ldg(pq + u);
-    for (int t0 = 0; t0 < T; t0 += RB) {   // RB memory steps side by side
-      float pre[RB], old[RB];
+  // query projection and conv input; d_keys, d_pq, d_v
+  float vv[4][2], pq[4][2], dq[4][2], dvs[4][2];  // units 8 j + 2 tq + c
 #pragma unroll
-      for (int i = 0; i < RB; ++i)
-        if (t0 + i < T) {
-          pre[i] = __ldg(keys + (size_t)(t0 + i) * U + u) + pqu;
-          old[i] = dkeys[(size_t)(t0 + i) * U + u];
-        }
-      if (kind != 0)
-        for (int k = 0; k < K; ++k) {
-          const float lwk = locw[k * sumU + u];
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int i = 0; i < RB; ++i) {
-            const int j = t0 + i + k - pad;
-            if (t0 + i < T && j >= 0 && j < T)
-              pre[i] = fmaf(cvr[j], lwk, pre[i]);
-          }
-        }
-#pragma unroll
-      for (int i = 0; i < RB; ++i) {
-        const int tau = t0 + i;
-        if (tau >= T) break;
-        const float e = tanhf(pre[i]);
-        const float dp = de[tau] * vu * (1.f - e * e);
-        dkeys[(size_t)tau * U + u] = old[i] + dp;
-        dpre[tau * U + u] = dp;
-        dpq += dp;
-        dv = fmaf(e, de[tau], dv);
-      }
+    for (int c = 0; c < 2; ++c) {
+      const int u = 8 * j + 2 * tq + c;
+      vv[j][c] = u < nu ? sm[m.v + u0 + u] : 0.f;
+      pq[j][c] = u < nu ? pqs[u] : 0.f;
+      dq[j][c] = dvs[j][c] = 0.f;
     }
-    stash_pq[u] = dpq;
-    dvp[u] += dv;
-  }
-  __syncthreads();
-  if (kind != 0) {
-    // d_loc[k][u] += sum_tau cv[tau + k - pad] d_pre[tau][u]: a thread per
-    // unit, RB taps side by side
-    for (int u = tid; u < U; u += NT)
-      for (int k0 = 0; k0 < K; k0 += RB) {
-        float acc[RB];
+  for (int m0 = 16 * warp; m0 < T; m0 += 16 * HWARPS) {
+    if (m0 != 16 * warp) load_tile(m0);
+    float loc[4][4];
+    if (kind != 0) {
+      loc_term(cvw, sm + m.loc + u0, sumU, K, T, nu, m0, loc);
+    } else {
 #pragma unroll
-        for (int i = 0; i < RB; ++i) acc[i] = 0.f;
-        for (int tau = 0; tau < T; ++tau) {
-          const float dp = dpre[tau * U + u];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int i = 0; i < RB; ++i) {
-            const int j = tau + k0 + i - pad;
-            if (k0 + i < K && j >= 0 && j < T) acc[i] = fmaf(cvr[j], dp, acc[i]);
-          }
-        }
+        for (int c = 0; c < 4; ++c) loc[j][c] = 0.f;
+    }
 #pragma unroll
-        for (int i = 0; i < RB; ++i)
-          if (k0 + i < K) dlp[(size_t)(k0 + i) * sumU + u] += acc[i];
-      }
-    // d_win[tau][k] = sum_u d_pre[tau][u] loc_w[k][u]: a warp per memory
-    // step, RB taps side by side
-    for (int tau = warp; tau < T; tau += NWARPS)
-      for (int k0 = 0; k0 < K; k0 += RB) {
-        float acc[RB];
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int i = 0; i < RB; ++i) acc[i] = 0.f;
-        for (int u = lane; u < U; u += 32) {
-          const float d = dpre[tau * U + u];
-#pragma unroll
-          for (int i = 0; i < RB; ++i)
-            if (k0 + i < K) acc[i] = fmaf(d, locw[(k0 + i) * sumU + u], acc[i]);
-        }
-#pragma unroll
-        for (int i = 0; i < RB; ++i)
-          if (k0 + i < K) {
-            const float sum = warp_sum(acc[i]);
-            if (lane == 0) dwin[tau * K + k0 + i] = sum;
-          }
+      for (int c = 0; c < 4; ++c) {
+        const int tau = m0 + lg + 8 * (c >> 1), u = 8 * j + 2 * tq + (c & 1);
+        if (tau >= T || u >= nu) continue;
+        const float e = tanhf(loc[j][c] + key[j][c] + pq[j][c & 1]);
+        const float dp = de[tau] * vv[j][c & 1] * (1.f - e * e);
+        dkeys[(size_t)tau * U + u] = old[j][c] + dp;
+        dpre[tau * DS + u] = dp;
+        dq[j][c & 1] += dp;
+        dvs[j][c & 1] = fmaf(e, de[tau], dvs[j][c & 1]);
       }
   }
-  __syncthreads();
-  // conv adjoint: d_cv[j] = sum_k d_win[j - k + pad][k]
+  // the sums over the warp's steps: over the 8 lanes of a unit column
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        dq[j][c] += __shfl_xor_sync(FULL, dq[j][c], o);
+        dvs[j][c] += __shfl_xor_sync(FULL, dvs[j][c], o);
+      }
+  if (lg == 0)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        pdq[warp * US + 8 * j + 2 * tq + c] = dq[j][c];
+        pdv[warp * US + 8 * j + 2 * tq + c] = dvs[j][c];
+      }
+  hf.sync();
+  clk.part(B_ATTENTION, P_PRODUCT);
+  if (tid < nu) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int w = 0; w < HWARPS; ++w) {
+      s1 += pdq[w * US + tid];
+      s2 += pdv[w * US + tid];
+    }
+    a.stash[((size_t)t * B + b) * a.stash_w + a.off_dpq + u0 + tid] = s1;
+    ia[tid] += s2;
+  }
   if (kind != 0) {
-    float* dCV = g + sc.dCV + col;
-    for (int j = tid; j < T; j += NT) {
+    // d_loc and the window adjoint, small products on the tensor cores
+    dloc_mma(cvw, dpre, ia, K, T, nu, warp);
+    gw_mma(dpre, sm + m.loc + u0, sumU, gw, K, T, nu, warp);
+    hf.sync();
+    // this item's share of the conv adjoint, into step t - 1's buffer
+    for (int j = tid; j < T; j += HT) {
       float acc = 0.f;
       for (int k = 0; k < K; ++k) {
         const int tau = j - k + pad;
-        if (tau >= 0 && tau < T) acc += dwin[tau * K + k];
+        if (tau >= 0 && tau < T) acc += gw[tau * K + k];
       }
-      dCV[j] = a.cumulative[src] ? acc + __ldcg(dCV + j) : acc;
+      atomicAdd(dCV_n + j, acc);
     }
   }
-  __syncthreads();
+  hf.sync();
 }
 
-__global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(TrainArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  StageClock clk(a.stage_cycles);
-  extern __shared__ float sm[];
-  const BwdSmem m = bwd_smem(a, gridDim.x);
-  const BwdScratch sc = bwd_scratch(a);
+// After the step loop: the weight gradients, d_values, d_v and d_loc, then
+// the deferred prenet backward layer by layer.  A function of its own, so
+// that the tile product's registers are allocated apart from the loop's.
+__device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
+                                      const BwdScratch& sc, float* sm,
+                                      TrainClock& clk, GridBarrier& grid) {
   const int B = a.B, S = a.S, T = a.T, A = a.A, D = a.D, K = a.K;
   const int sumU = tr_sumU(a), sumC = tr_sumC(a), P = tr_plast(a);
-  const int Zatt = tr_zatt(a), ldz = m.ldz, W = a.save_w, WS = a.stash_w;
+  const int Zatt = tr_zatt(a), W = a.save_w, WS = a.stash_w;
   const bool det = a.deterministic != 0;
   const int tid = threadIdx.x;
   const int gtid = blockIdx.x * NT + tid, gstride = gridDim.x * NT;
   float* zs = sm + m.zs;
-  float* part = sm + m.part;
   float* g = a.scratch;
   const float* save = a.save;
-
-  // ---- resident rows of the (in, out) matrices
-  load_rows(sm + m.w2, a.l2_w, 2 * D, 4 * D);
-  load_rows(sm + m.w1, a.l1_w, 2 * D, 4 * D);
-  load_rows(sm + m.wop, a.op_w, A + sumC, D);
-  load_rows(sm + m.wq, a.q_w, A, sumU);
-  load_rows(sm + m.watt, a.att_w + (size_t)P * 4 * A, sumC + A, 4 * A);
-  for (int i = tid; i < sumU; i += NT) sm[m.v + i] = __ldg(a.v + i);
-  for (int i = tid; i < K * sumU; i += NT) sm[m.loc + i] = __ldg(a.loc_w + i);
-  for (size_t i = gtid; i < sc.state_end; i += gstride) g[i] = 0.f;
-  for (int s = 0; s < a.ns; ++s) {
-    const size_t nk = (size_t)B * T * (a.u_off[s + 1] - a.u_off[s]);
-    const size_t nv = (size_t)B * T * (a.c_off[s + 1] - a.c_off[s]);
-    for (size_t i = gtid; i < nk; i += gstride) a.d_keys[s][i] = 0.f;
-    for (size_t i = gtid; i < nv; i += gstride) a.d_values[s][i] = 0.f;
-  }
-  grid.sync();
-  clk.mark(B_SETUP);
-
-  for (int t = S - 1; t >= 0; --t) {
-    const float* cur = save + (size_t)t * B * W;
-    const float* prev = t > 0 ? save + (size_t)(t - 1) * B * W : nullptr;
-    float* st = a.stash + (size_t)t * B * WS;
-    const float* gy = a.g_y + (size_t)t * B * D;
-
-    // ---- lstm2 VJP, elementwise over (row, unit)
-    for (int e = gtid; e < B * D; e += gstride) {
-      const int r = e / D, j = e % D;
-      float gt[4], dg[4], dcp, dhp;
-      for (int q = 0; q < 4; ++q)
-        gt[q] = __ldg(cur + (size_t)r * W + a.off_g2 + q * D + j);
-      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_c2 + j)
-                                : 0.f;
-      lstm_train_bwd(gt, c_prev, __ldg(gy + e) + __ldcg(g + sc.dh2 + e),
-                     __ldcg(g + sc.dc2 + e), a.zc_dec, a.zo_dec,
-                     zkeep(a, t, MASK_ZC2, r, j, a.zc_dec),
-                     zkeep(a, t, MASK_ZO2, r, j, a.zo_dec), det, dg, dcp,
-                     dhp);
-      for (int q = 0; q < 4; ++q)
-        st[(size_t)r * WS + a.off_dg2 + q * D + j] = dg[q];
-      g[sc.dc2 + e] = dcp;
-      g[sc.dh2_zo + e] = dhp;
-    }
-    grid.sync();
-    clk.mark(B_LSTM2);
-
-    // ---- d z2 = d_gates2 W2^T; its epilogue runs the lstm1 VJP
-    stage_rows(zs, ldz, 0, B, st + a.off_dg2, WS, 4 * D);
-    __syncthreads();
-    rows_stage<1>(2 * D, 4 * D, B, sm + m.w2, zs, ldz, part,
-                  [&](int n, int, int r, const float* acc) {
-      if (n >= D) {
-        const size_t e = (size_t)r * D + n - D;
-        g[sc.dh2 + e] = __ldcg(g + sc.dh2_zo + e) + acc[0];
-        return;
-      }
-      const size_t e = (size_t)r * D + n;
-      const float d_o1 = __ldg(gy + e) + acc[0];
-      g[sc.d_o1 + e] = d_o1;
-      float gt[4], dg[4], dcp, dhp;
-      for (int q = 0; q < 4; ++q)
-        gt[q] = __ldg(cur + (size_t)r * W + a.off_g1 + q * D + n);
-      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_c1 + n)
-                                : 0.f;
-      lstm_train_bwd(gt, c_prev, d_o1 + __ldcg(g + sc.dh1 + e),
-                     __ldcg(g + sc.dc1 + e), a.zc_dec, a.zo_dec,
-                     zkeep(a, t, MASK_ZC1, r, n, a.zc_dec),
-                     zkeep(a, t, MASK_ZO1, r, n, a.zo_dec), det, dg, dcp,
-                     dhp);
-      for (int q = 0; q < 4; ++q)
-        st[(size_t)r * WS + a.off_dg1 + q * D + n] = dg[q];
-      g[sc.dc1 + e] = dcp;
-      g[sc.dh1_zo + e] = dhp;
-    });
-    grid.sync();
-    clk.mark(B_DZ2_LSTM1);
-
-    // ---- d z1 = d_gates1 W1^T -> d_proj, d h1
-    stage_rows(zs, ldz, 0, B, st + a.off_dg1, WS, 4 * D);
-    __syncthreads();
-    rows_stage<1>(2 * D, 4 * D, B, sm + m.w1, zs, ldz, part,
-                  [&](int n, int, int r, const float* acc) {
-      if (n < D) {
-        st[(size_t)r * WS + a.off_dproj + n] =
-            __ldcg(g + sc.d_o1 + (size_t)r * D + n) + acc[0];
-      } else {
-        const size_t e = (size_t)r * D + n - D;
-        g[sc.dh1 + e] = __ldcg(g + sc.dh1_zo + e) + acc[0];
-      }
-    });
-    grid.sync();
-    clk.mark(B_DZ1);
-
-    // ---- d zop = d_proj Wop^T -> d h_att (part), d ctx
-    stage_rows(zs, ldz, 0, B, st + a.off_dproj, WS, D);
-    __syncthreads();
-    rows_stage<1>(A + sumC, D, B, sm + m.wop, zs, ldz, part,
-                  [&](int n, int, int r, const float* acc) {
-      if (n < A) {
-        g[sc.dhatt_part + (size_t)r * A + n] = acc[0];
-      } else {
-        const size_t e = (size_t)r * sumC + n - A;
-        g[sc.dctx_tot + e] = acc[0] + __ldcg(g + sc.dctx + e);
-      }
-    });
-    grid.sync();
-    clk.mark(B_DZOP);
-
-    // ---- attention VJP, one block per (source, row)
-    for (int item = blockIdx.x; item < a.ns * B; item += gridDim.x)
-      attention_vjp(a, m, sc, sm, t, item / B, item % B);
-    grid.sync();
-    clk.mark(B_ATTENTION);
-
-    // ---- d h_att += d_pq Wq^T; its epilogue runs the attention-LSTM VJP
-    stage_rows(zs, ldz, 0, B, st + a.off_dpq, WS, sumU);
-    __syncthreads();
-    rows_stage<1>(A, sumU, B, sm + m.wq, zs, ldz, part,
-                  [&](int n, int, int r, const float* acc) {
-      const size_t e = (size_t)r * A + n;
-      float gt[4], dg[4], dcp, dhp;
-      for (int q = 0; q < 4; ++q)
-        gt[q] = __ldg(cur + (size_t)r * W + a.off_gatt + q * A + n);
-      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_catt + n)
-                                : 0.f;
-      const float dh = __ldcg(g + sc.dhatt_part + e) + acc[0] +
-                       __ldcg(g + sc.dh_att + e);
-      lstm_train_bwd(gt, c_prev, dh, __ldcg(g + sc.dc_att + e), a.zc_att,
-                     a.zo_att, zkeep(a, t, MASK_ZC_ATT, r, n, a.zc_att),
-                     zkeep(a, t, MASK_ZO_ATT, r, n, a.zo_att), det, dg, dcp,
-                     dhp);
-      for (int q = 0; q < 4; ++q)
-        st[(size_t)r * WS + a.off_dgatt + q * A + n] = dg[q];
-      g[sc.dc_att + e] = dcp;
-      g[sc.dhatt_zo + e] = dhp;
-    });
-    grid.sync();
-    clk.mark(B_DQ_ATT_LSTM);
-
-    // ---- d z_att over the [ctx | h_att] rows of W_att
-    stage_rows(zs, ldz, 0, B, st + a.off_dgatt, WS, 4 * A);
-    __syncthreads();
-    rows_stage<1>(sumC + A, 4 * A, B, sm + m.watt, zs, ldz, part,
-                  [&](int n, int, int r, const float* acc) {
-      if (n < sumC) {
-        g[sc.dctx + (size_t)r * sumC + n] = acc[0];
-      } else {
-        const size_t e = (size_t)r * A + n - sumC;
-        g[sc.dh_att + e] = __ldcg(g + sc.dhatt_zo + e) + acc[0];
-      }
-    });
-    grid.sync();
-    clk.mark(B_DZATT);
-  }
-
-  // ---- weight gradients over all S*B rows, and d_v, d_loc
+  int* slot = reinterpret_cast<int*>(sm + m.red);  // next_item's broadcast
+  unsigned* counters =
+      reinterpret_cast<unsigned*>(a.scratch + sc.total) + GRID_BAR_WORDS;
+  const int n_items = tr_att_items<true>(a);
+  const size_t ia_floats = US + (size_t)K * US;
+  // ---- weight gradients over all S*B rows, d_values over the steps, and
+  // d_v, d_loc
   const int M = S * B;
   const float* st = a.stash;
-  SegLoad l_att{3, Zatt, {0, P, P + sumC, Zatt},
-                {save + a.off_pd[a.n_pre - 1], save + a.off_ctx,
-                 save + a.off_hatt},
-                {(size_t)W, (size_t)W, (size_t)W}, {0, -B, -B}};
-  SegLoad l_1{2, 2 * D, {0, D, 2 * D, 0}, {save + a.off_proj, save + a.off_h1,
-                                           nullptr},
-              {(size_t)W, (size_t)W, 0}, {0, -B, 0}};
-  SegLoad l_2{2, 2 * D, {0, D, 2 * D, 0}, {save + a.off_o1, save + a.off_h2,
-                                           nullptr},
-              {(size_t)W, (size_t)W, 0}, {0, -B, 0}};
-  SegLoad l_op{2, A + sumC, {0, A, A + sumC, 0},
-               {save + a.off_hatt, save + a.off_ctx, nullptr},
-               {(size_t)W, (size_t)W, 0}, {0, 0, 0}};
-  SegLoad l_q{1, A, {0, A, 0, 0}, {save + a.off_hatt, nullptr, nullptr},
-              {(size_t)W, 0, 0}, {0, 0, 0}};
   float* bufA = g + sc.bufA;
   float* bufB = g + sc.bufB;
   {
-    // jobs: dW_att, dW_l1, dW_l2, dW_op, dW_q, d_out = d_gatt W_att[:P]^T
-    const int cnt[6] = {tr_tiles(Zatt + 1, 4 * A), tr_tiles(2 * D + 1, 4 * D),
-                        tr_tiles(2 * D + 1, 4 * D), tr_tiles(A + sumC + 1, D),
-                        tr_tiles(A, sumU), tr_tiles(M, P)};
+    // the attention items' d_v and d_loc, summed over the steps
+    for (int i = blockIdx.x, j = 0; i < n_items; i += gridDim.x, ++j) {
+      const AttItem it = tr_att_item<true>(a, i);
+      const int U = a.u_off[it.src + 1] - a.u_off[it.src];
+      const int u0 = a.u_off[it.src] + it.slice * US;
+      const int nu = min(US, U - it.slice * US);
+      const float* ia = sm + m.iacc + j * ia_floats;
+      for (int e = tid; e < (K + 1) * US; e += NT) {
+        const int k = e / US - 1, u = e % US;
+        if (u >= nu) continue;
+        if (k < 0) atomicAdd(a.d_v + u0 + u, ia[u]);
+        else if (a.kinds[it.src] != 0)
+          atomicAdd(a.d_loc + (size_t)k * sumU + u0 + u, ia[US + k * US + u]);
+      }
+    }
+    // jobs, largest first: dW_att, dW_l1, dW_l2, dW_op, dW_q (each tile
+    // split in two halves of the rows), d_out = d_gatt W_att[:P]^T, then
+    // d_values per (source, row)
+    int cnt[7] = {2 * tr_tiles(Zatt + 1, 4 * A), 2 * tr_tiles(2 * D + 1, 4 * D),
+                  2 * tr_tiles(2 * D + 1, 4 * D),
+                  2 * tr_tiles(A + sumC + 1, D), 2 * tr_tiles(A, sumU),
+                  tr_tiles(M, P), 0};
+    for (int s = 0; s < a.ns; ++s)
+      cnt[6] += B * tr_tiles(T, a.c_off[s + 1] - a.c_off[s]);
     int total = 0;
-    for (int j = 0; j < 6; ++j) total += cnt[j];
-    for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    for (int j = 0; j < 7; ++j) total += cnt[j];
+    const int kper = tr_cdiv(tr_cdiv(M, 2), TBK) * TBK;
+    for (int item = next_item(counters, slot); item < total;
+         item = next_item(counters, slot)) {
       int job = 0, loc = item;
       while (loc >= cnt[job]) loc -= cnt[job++];
       auto dw = [&](const SegLoad& L, int Mo, int N, int off_r, float* out) {
-        const int tn = (N + GT - 1) / GT;
-        gemm_tile<false, false>(
-            Mo, N, M, (loc / tn) * GT, (loc % tn) * GT,
+        const int tn = tr_cdiv(N, TBN), tile = loc >> 1;
+        const int kb = (loc & 1) * kper, ke = min(M, kb + kper);
+        mma_tile<false, false>(
+            Mo, N, kb, ke, (tile / tn) * TBM, (tile % tn) * TBN,
             [&](int mm, int k) { return L(k, mm); },
             [&](int k, int n) {
               return __ldcg(st + (size_t)k * WS + off_r + n);
             },
-            [&](int mm, int n, float v) { out[(size_t)mm * N + n] = v; }, zs);
+            [&](int mm, int n, float v) {
+              atomicAdd(out + (size_t)mm * N + n, v);
+            },
+            zs);
       };
       switch (job) {
-        case 0: dw(l_att, Zatt + 1, 4 * A, a.off_dgatt, a.d_att); break;
-        case 1: dw(l_1, 2 * D + 1, 4 * D, a.off_dg1, a.d_l1); break;
-        case 2: dw(l_2, 2 * D + 1, 4 * D, a.off_dg2, a.d_l2); break;
-        case 3: dw(l_op, A + sumC + 1, D, a.off_dproj, a.d_op); break;
-        case 4: dw(l_q, A, sumU, a.off_dpq, a.d_q); break;
-        default: {
-          const int tn = (P + GT - 1) / GT;
+        // the left operands, made where used (one lives at a time)
+        case 0:
+          dw(SegLoad{3, Zatt, {0, P, P + sumC, Zatt},
+                     {save + a.off_pd[a.n_pre - 1], save + a.off_ctx,
+                      save + a.off_hatt},
+                     {(size_t)W, (size_t)W, (size_t)W}, {0, -B, -B}},
+             Zatt + 1, 4 * A, a.off_dgatt, a.d_att);
+          break;
+        case 1:
+          dw(SegLoad{2, 2 * D, {0, D, 2 * D, 0},
+                     {save + a.off_proj, save + a.off_h1, nullptr},
+                     {(size_t)W, (size_t)W, 0}, {0, -B, 0}},
+             2 * D + 1, 4 * D, a.off_dg1, a.d_l1);
+          break;
+        case 2:
+          dw(SegLoad{2, 2 * D, {0, D, 2 * D, 0},
+                     {save + a.off_o1, save + a.off_h2, nullptr},
+                     {(size_t)W, (size_t)W, 0}, {0, -B, 0}},
+             2 * D + 1, 4 * D, a.off_dg2, a.d_l2);
+          break;
+        case 3:
+          dw(SegLoad{2, A + sumC, {0, A, A + sumC, 0},
+                     {save + a.off_hatt, save + a.off_ctx, nullptr},
+                     {(size_t)W, (size_t)W, 0}, {0, 0, 0}},
+             A + sumC + 1, D, a.off_dproj, a.d_op);
+          break;
+        case 4:
+          dw(SegLoad{1, A, {0, A, 0, 0}, {save + a.off_hatt, nullptr, nullptr},
+                     {(size_t)W, 0, 0}, {0, 0, 0}},
+             A, sumU, a.off_dpq, a.d_q);
+          break;
+        case 5: {
+          const int tn = tr_cdiv(P, TBN);
           const float* watt = a.att_w;
-          gemm_tile<true, true>(
-              M, P, 4 * A, (loc / tn) * GT, (loc % tn) * GT,
+          mma_tile<true, true>(
+              M, P, 0, 4 * A, (loc / tn) * TBM, (loc % tn) * TBN,
               [&](int r, int k) {
                 return __ldcg(st + (size_t)r * WS + a.off_dgatt + k);
               },
               [&](int k, int n) { return __ldg(watt + (size_t)n * 4 * A + k); },
               [&](int r, int n, float v) { bufA[(size_t)r * P + n] = v; },
               zs);
+          break;
+        }
+        default: {
+          // d_values[src][b] (T, C) = sum_t w_t[b]^T d_ctx_t[b]
+          int src = 0, per = B * tr_tiles(T, a.c_off[1] - a.c_off[0]);
+          while (loc >= per) {
+            loc -= per;
+            ++src;
+            per = B * tr_tiles(T, a.c_off[src + 1] - a.c_off[src]);
+          }
+          const int C = a.c_off[src + 1] - a.c_off[src];
+          const int tiles = tr_tiles(T, C), b = loc / tiles, tl = loc % tiles;
+          const int tn = tr_cdiv(C, TBN);
+          const size_t plane = (size_t)B * T;
+          const float* wcol = a.aux + ((size_t)src * 3 + 1) * plane +
+                              (size_t)b * T;
+          const float* dc = st + (size_t)b * WS + a.off_dctxs + a.c_off[src];
+          float* out = a.d_values[src] + (size_t)b * T * C;
+          mma_tile<false, false>(
+              T, C, 0, S, (tl / tn) * TBM, (tl % tn) * TBN,
+              [&](int tau, int s) {
+                return __ldg(wcol + (size_t)s * a.ns * 3 * plane + tau);
+              },
+              [&](int s, int c) {
+                return __ldcg(dc + (size_t)s * B * WS + c);
+              },
+              [&](int tau, int c, float v) { out[(size_t)tau * C + c] = v; },
+              zs);
         }
       }
     }
-    for (int e = gtid; e < sumU; e += gstride) {
-      float acc = 0.f;
-      for (int b = 0; b < B; ++b) acc += __ldcg(g + sc.dv_part + b * sumU + e);
-      a.d_v[e] = acc;
-    }
-    for (int e = gtid; e < K * sumU; e += gstride) {
-      float acc = 0.f;
-      for (int b = 0; b < B; ++b)
-        acc += __ldcg(g + sc.dloc_part + (size_t)b * K * sumU + e);
-      a.d_loc[e] = acc;
-    }
   }
+  clk.part(B_DW, P_EPI);
   grid.sync();
-  clk.mark(B_DW);
+  clk.part(B_DW, P_WAIT);
 
   // ---- the deferred prenet backward, last layer first; bufA holds the
   // cotangent of layer li's output
@@ -557,35 +527,325 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(TrainArgs a) {
                {li == 0 ? a.teacher : save + a.off_pd[li - 1], nullptr,
                 nullptr},
                {li == 0 ? (size_t)a.cf : (size_t)W, 0, 0}, {0, 0, 0}};
-    const int cw = tr_tiles(Kin + 1, N);
+    // the weight gradient's few tiles are split along the rows until the
+    // blocks have work (partials summed with atomics)
+    const int cw_tiles = tr_tiles(Kin + 1, N);
+    int split = (int)gridDim.x / cw_tiles;
+    split = split < 1 ? 1 : (split > tr_cdiv(M, 1024) ? tr_cdiv(M, 1024)
+                                                      : split);
+    const int kper = tr_cdiv(tr_cdiv(M, split), TBK) * TBK;
+    const int cw = cw_tiles * split;
     const int cx = li > 0 ? tr_tiles(M, Kin) : 0;
     float* dwo = a.d_pre_w[li];
     const float* wl = a.pre_w[li];
-    for (int item = blockIdx.x; item < cw + cx; item += gridDim.x) {
+    for (int item = next_item(counters + 1 + li, slot); item < cw + cx;
+         item = next_item(counters + 1 + li, slot)) {
       if (item < cw) {
-        const int tn = (N + GT - 1) / GT;
-        gemm_tile<false, false>(
-            Kin + 1, N, M, (item / tn) * GT, (item % tn) * GT,
+        const int tn = tr_cdiv(N, TBN), tile = item / split;
+        const int kb = (item % split) * kper, ke = min(M, kb + kper);
+        mma_tile<false, false>(
+            Kin + 1, N, kb, ke, (tile / tn) * TBM, (tile % tn) * TBN,
             [&](int mm, int k) { return lp(k, mm); },
             [&](int k, int n) { return __ldcg(bufB + (size_t)k * N + n); },
-            [&](int mm, int n, float v) { dwo[(size_t)mm * N + n] = v; }, zs);
+            [&](int mm, int n, float v) {
+              atomicAdd(dwo + (size_t)mm * N + n, v);
+            },
+            zs);
       } else {
-        const int loc = item - cw, tn = (Kin + GT - 1) / GT;
-        gemm_tile<true, true>(
-            M, Kin, N, (loc / tn) * GT, (loc % tn) * GT,
+        const int loc = item - cw, tn = tr_cdiv(Kin, TBN);
+        mma_tile<true, true>(
+            M, Kin, 0, N, (loc / tn) * TBM, (loc % tn) * TBN,
             [&](int r, int k) { return __ldcg(bufB + (size_t)r * N + k); },
             [&](int k, int n) { return __ldg(wl + (size_t)n * N + k); },
             [&](int r, int n, float v) { bufA[(size_t)r * Kin + n] = v; }, zs);
       }
     }
+    clk.part(B_PRENET, P_EPI);
     grid.sync();
-    clk.mark(B_PRENET);
+    clk.part(B_PRENET, P_WAIT);
   }
+}
+
+__global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
+    const __grid_constant__ TrainArgs a) {
+  TrainClock clk(a.stage_cycles, B_N);
+  extern __shared__ __align__(16) float sm[];
+  const BwdSmem m = bwd_smem(a, gridDim.x);
+  const BwdScratch sc = bwd_scratch(a);
+  GridBarrier grid(a.scratch + sc.total);
+  const int B = a.B, S = a.S, T = a.T, A = a.A, D = a.D, K = a.K;
+  const int sumU = tr_sumU(a), sumC = tr_sumC(a), P = tr_plast(a);
+  const int Zatt = tr_zatt(a), ldz = m.ldz, W = a.save_w, WS = a.stash_w;
+  const bool det = a.deterministic != 0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gtid = blockIdx.x * NT + tid, gstride = gridDim.x * NT;
+  const size_t nbt = (size_t)a.ns * B * T;
+  float* zs = sm + m.zs;
+  float* part = sm + m.part;
+  float* g = a.scratch;
+  const float* save = a.save;
+  const RowGroup rg = row_group(B);
+  Stager stg(reinterpret_cast<uint64_t*>(sm + m.red + 2));
+  const Half hf;
+
+  // ---- resident rows of the (in, out) matrices; zeroed state and the
+  // outputs that are summed into
+  load_rows(sm + m.w2, a.l2_w, 2 * D, 4 * D, rg);
+  load_rows(sm + m.w1, a.l1_w, 2 * D, 4 * D, rg);
+  load_rows(sm + m.wop, a.op_w, A + sumC, D, rg);
+  load_rows(sm + m.wq, a.q_w, A, sumU, rg);
+  load_rows(sm + m.watt, a.att_w + (size_t)P * 4 * A, sumC + A, 4 * A, rg);
+  for (int i = tid; i < sumU; i += NT) sm[m.v + i] = __ldg(a.v + i);
+  for (int i = tid; i < K * sumU; i += NT) sm[m.loc + i] = __ldg(a.loc_w + i);
+  for (size_t i = gtid; i < sc.state_end; i += gstride) g[i] = 0.f;
+  for (int s = 0; s < a.ns; ++s) {
+    const size_t nk = (size_t)B * T * (a.u_off[s + 1] - a.u_off[s]);
+    for (size_t i = gtid; i < nk; i += gstride) a.d_keys[s][i] = 0.f;
+  }
+  const size_t n_iacc = bwd_iacc_floats(a, gridDim.x);
+  for (size_t i = tid; i < n_iacc; i += NT) sm[m.iacc + i] = 0.f;
+  {
+    float* outs[7] = {a.d_att, a.d_l1, a.d_l2, a.d_op, a.d_q, a.d_v, a.d_loc};
+    const size_t n[7] = {(size_t)(Zatt + 1) * 4 * A, (size_t)(2 * D + 1) * 4 * D,
+                         (size_t)(2 * D + 1) * 4 * D,
+                         (size_t)(A + sumC + 1) * D, (size_t)A * sumU,
+                         (size_t)sumU, (size_t)K * sumU};
+    for (int j = 0; j < 7; ++j)
+      for (size_t i = gtid; i < n[j]; i += gstride) outs[j][i] = 0.f;
+    int width = a.cf;
+    for (int li = 0; li < a.n_pre; ++li) {
+      const size_t np = (size_t)(width + 1) * a.p_sizes[li];
+      for (size_t i = gtid; i < np; i += gstride) a.d_pre_w[li][i] = 0.f;
+      width = a.p_sizes[li];
+    }
+  }
+  // the last two steps' save rows, and the last step's alignment columns
+  // and output cotangents, into L2 (the forward wrote them long ago)
+  l2_prefetch(save + (size_t)(S > 1 ? S - 2 : 0) * B * W, W, (S > 1 ? 2 : 1) * B,
+              W);
+  l2_prefetch(a.aux + (size_t)(S - 1) * a.ns * 3 * B * T, 0, 1,
+              a.ns * 3 * B * T);
+  l2_prefetch(a.g_y + (size_t)(S - 1) * B * D, 0, 1, B * D);
+  clk.part(B_SETUP, P_EPI);
+  grid.sync();
+  clk.part(B_SETUP, P_WAIT);
+
+  const int n_items = tr_att_items<true>(a);
+  const size_t ia_floats = US + (size_t)K * US;
+  for (int t = S - 1; t >= 0; --t) {
+    const float* cur = save + (size_t)t * B * W;
+    const float* prev = t > 0 ? save + (size_t)(t - 1) * B * W : nullptr;
+    float* st = a.stash + (size_t)t * B * WS;
+    const float* gy = a.g_y + (size_t)t * B * D;
+    // ahead of their reads: the save rows of step t - 2, the alignment
+    // columns and output cotangents of step t - 1
+    if (t >= 2) l2_prefetch(save + (size_t)(t - 2) * B * W, 0, 1, B * W);
+    if (t >= 1) {
+      l2_prefetch(a.aux + (size_t)(t - 1) * a.ns * 3 * B * T, 0, 1,
+                  a.ns * 3 * B * T);
+      l2_prefetch(a.g_y + (size_t)(t - 1) * B * D, 0, 1, B * D);
+    }
+
+    // ---- lstm2 VJP, elementwise over (row, unit); the conv-adjoint
+    // buffer that step t - 1 reads starts at 0 (last read at step t + 1)
+    for (size_t i = gtid; i < nbt; i += gstride)
+      g[sc.dCV + (size_t)((t + 1) & 1) * nbt + i] = 0.f;
+    for (int e = gtid; e < B * D; e += gstride) {
+      const int r = e / D, j = e % D;
+      float gt[4], dg[4], dcp, dhp;
+      for (int q = 0; q < 4; ++q)
+        gt[q] = __ldg(cur + (size_t)r * W + a.off_g2 + q * D + j);
+      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_c2 + j)
+                                : 0.f;
+      lstm_train_bwd(gt, c_prev, __ldg(gy + e) + __ldcg(g + sc.dh2 + e),
+                     __ldcg(g + sc.dc2 + e), a.zc_dec, a.zo_dec,
+                     zkeep(a, t, MASK_ZC2, r, j, a.zc_dec),
+                     zkeep(a, t, MASK_ZO2, r, j, a.zo_dec), det, dg, dcp,
+                     dhp);
+      for (int q = 0; q < 4; ++q)
+        st[(size_t)r * WS + a.off_dg2 + q * D + j] = dg[q];
+      g[sc.dc2 + e] = dcp;
+      g[sc.dh2_zo + e] = dhp;
+    }
+    clk.part(B_LSTM2, P_EPI);
+    grid.sync();
+    clk.part(B_LSTM2, P_WAIT);
+
+    // ---- d z2 = d_gates2 W2^T; its epilogue runs the lstm1 VJP
+    stg.group(zs, ldz, 0, rg, st + a.off_dg2, WS, 4 * D);
+    stg.wait();
+    clk.part(B_DZ2_LSTM1, P_COPY);
+    rows_mma<1>(2 * D, 4 * D, rg, sm + m.w2, zs, ldz, part,
+                [&](int n, int, int r, int, int, float acc) {
+      if (n >= D) {
+        const size_t e = (size_t)r * D + n - D;
+        g[sc.dh2 + e] = __ldcg(g + sc.dh2_zo + e) + acc;
+        return;
+      }
+      const size_t e = (size_t)r * D + n;
+      const float d_o1 = __ldg(gy + e) + acc;
+      g[sc.d_o1 + e] = d_o1;
+      float gt[4], dg[4], dcp, dhp;
+      for (int q = 0; q < 4; ++q)
+        gt[q] = __ldg(cur + (size_t)r * W + a.off_g1 + q * D + n);
+      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_c1 + n)
+                                : 0.f;
+      lstm_train_bwd(gt, c_prev, d_o1 + __ldcg(g + sc.dh1 + e),
+                     __ldcg(g + sc.dc1 + e), a.zc_dec, a.zo_dec,
+                     zkeep(a, t, MASK_ZC1, r, n, a.zc_dec),
+                     zkeep(a, t, MASK_ZO1, r, n, a.zo_dec), det, dg, dcp,
+                     dhp);
+      for (int q = 0; q < 4; ++q)
+        st[(size_t)r * WS + a.off_dg1 + q * D + n] = dg[q];
+      g[sc.dc1 + e] = dcp;
+      g[sc.dh1_zo + e] = dhp;
+    }, clk, B_DZ2_LSTM1);
+    grid.sync();
+    clk.part(B_DZ2_LSTM1, P_WAIT);
+
+    // ---- d z1 = d_gates1 W1^T -> d_proj, d h1
+    stg.group(zs, ldz, 0, rg, st + a.off_dg1, WS, 4 * D);
+    stg.wait();
+    clk.part(B_DZ1, P_COPY);
+    rows_mma<1>(2 * D, 4 * D, rg, sm + m.w1, zs, ldz, part,
+                [&](int n, int, int r, int, int, float acc) {
+      if (n < D) {
+        st[(size_t)r * WS + a.off_dproj + n] =
+            __ldcg(g + sc.d_o1 + (size_t)r * D + n) + acc;
+      } else {
+        const size_t e = (size_t)r * D + n - D;
+        g[sc.dh1 + e] = __ldcg(g + sc.dh1_zo + e) + acc;
+      }
+    }, clk, B_DZ1);
+    grid.sync();
+    clk.part(B_DZ1, P_WAIT);
+
+    // ---- d zop = d_proj Wop^T -> d h_att (part), d ctx (to the stash)
+    stg.group(zs, ldz, 0, rg, st + a.off_dproj, WS, D);
+    stg.wait();
+    clk.part(B_DZOP, P_COPY);
+    rows_mma<1>(A + sumC, D, rg, sm + m.wop, zs, ldz, part,
+                [&](int n, int, int r, int, int, float acc) {
+      if (n < A) {
+        g[sc.dhatt_part + (size_t)r * A + n] = acc;
+      } else {
+        st[(size_t)r * WS + a.off_dctxs + n - A] =
+            acc + __ldcg(g + sc.dctx + (size_t)r * sumC + n - A);
+      }
+    }, clk, B_DZOP);
+    grid.sync();
+    clk.part(B_DZOP, P_WAIT);
+
+    // ---- d_w[src][b][tau] = values[tau] . d_ctx, a warp per memory row
+    // (rows of both sources, source-major, spread over all warps), DR rows
+    // of a warp at once with all their loads issued first
+    {
+      constexpr int DR = 4, DL = 8;
+      const int nw = gridDim.x * NWARPS;
+      for (int j0 = blockIdx.x * NWARPS + warp; j0 < (int)nbt; j0 += DR * nw) {
+        float x[DR][DL], y[DR][DL], acc[DR];
+        int C[DR], cmax = 0;
+        const float* vals[DR];
+        const float* dc[DR];
+#pragma unroll
+        for (int r = 0; r < DR; ++r) {
+          const int j = j0 + r * nw;
+          const int src = j < (int)nbt ? j / (B * T) : 0;
+          const int b = (j / T) % B, tau = j % T;
+          C[r] = j < (int)nbt ? a.c_off[src + 1] - a.c_off[src] : 0;
+          vals[r] = a.values[src] + ((size_t)b * T + tau) * C[r];
+          dc[r] = st + (size_t)b * WS + a.off_dctxs + a.c_off[src];
+          acc[r] = 0.f;
+          cmax = max(cmax, C[r]);
+        }
+        for (int c0 = 0; c0 < cmax; c0 += 32 * DL) {
+#pragma unroll
+          for (int r = 0; r < DR; ++r)
+#pragma unroll
+            for (int i = 0; i < DL; ++i) {
+              const int c = c0 + lane + 32 * i;
+              x[r][i] = c < C[r] ? __ldg(vals[r] + c) : 0.f;
+              y[r][i] = c < C[r] ? __ldcg(dc[r] + c) : 0.f;
+            }
+#pragma unroll
+          for (int r = 0; r < DR; ++r)
+#pragma unroll
+            for (int i = 0; i < DL; ++i) acc[r] = fmaf(x[r][i], y[r][i], acc[r]);
+        }
+#pragma unroll
+        for (int r = 0; r < DR; ++r) {
+          const float sum = warp_sum(acc[r]);
+          if (lane == 0 && j0 + r * nw < (int)nbt) g[sc.dw + j0 + r * nw] = sum;
+        }
+      }
+    }
+    clk.part(B_DW_ATT, P_EPI);
+    grid.sync();
+    clk.part(B_DW_ATT, P_WAIT);
+
+    // ---- attention VJP, (source, row, 32 units) items
+    for (int i = blockIdx.x + hf.h * gridDim.x, j = hf.h; i < n_items;
+         i += 2 * gridDim.x, j += 2) {   // two at once, a half block each
+      const AttItem it = tr_att_item<true>(a, i);
+      clk.item_begin();
+      vjp_item(a, m, sc, sm, t, it, sm + m.iacc + j * ia_floats, hf, clk);
+      clk.item_end(it.src);
+    }
+    __syncthreads();
+    clk.part(B_ATTENTION, P_EPI);
+    grid.sync();
+    clk.part(B_ATTENTION, P_WAIT);
+
+    // ---- d h_att += d_pq Wq^T; its epilogue runs the attention-LSTM VJP
+    stg.group(zs, ldz, 0, rg, st + a.off_dpq, WS, sumU);
+    stg.wait();
+    clk.part(B_DQ_ATT_LSTM, P_COPY);
+    rows_mma<1>(A, sumU, rg, sm + m.wq, zs, ldz, part,
+                [&](int n, int, int r, int, int, float acc) {
+      const size_t e = (size_t)r * A + n;
+      float gt[4], dg[4], dcp, dhp;
+      for (int q = 0; q < 4; ++q)
+        gt[q] = __ldg(cur + (size_t)r * W + a.off_gatt + q * A + n);
+      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_catt + n)
+                                : 0.f;
+      const float dh = __ldcg(g + sc.dhatt_part + e) + acc +
+                       __ldcg(g + sc.dh_att + e);
+      lstm_train_bwd(gt, c_prev, dh, __ldcg(g + sc.dc_att + e), a.zc_att,
+                     a.zo_att, zkeep(a, t, MASK_ZC_ATT, r, n, a.zc_att),
+                     zkeep(a, t, MASK_ZO_ATT, r, n, a.zo_att), det, dg, dcp,
+                     dhp);
+      for (int q = 0; q < 4; ++q)
+        st[(size_t)r * WS + a.off_dgatt + q * A + n] = dg[q];
+      g[sc.dc_att + e] = dcp;
+      g[sc.dhatt_zo + e] = dhp;
+    }, clk, B_DQ_ATT_LSTM);
+    grid.sync();
+    clk.part(B_DQ_ATT_LSTM, P_WAIT);
+
+    // ---- d z_att over the [ctx | h_att] rows of W_att
+    stg.group(zs, ldz, 0, rg, st + a.off_dgatt, WS, 4 * A);
+    stg.wait();
+    clk.part(B_DZATT, P_COPY);
+    rows_mma<1>(sumC + A, 4 * A, rg, sm + m.watt, zs, ldz, part,
+                [&](int n, int, int r, int, int, float acc) {
+      if (n < sumC) {
+        g[sc.dctx + (size_t)r * sumC + n] = acc;
+      } else {
+        const size_t e = (size_t)r * A + n - sumC;
+        g[sc.dh_att + e] = __ldcg(g + sc.dhatt_zo + e) + acc;
+      }
+    }, clk, B_DZATT);
+    grid.sync();
+    clk.part(B_DZATT, P_WAIT);
+  }
+
+  bwd_tail(a, m, sc, sm, clk, grid);
+  clk.flush();
 }
 
 // ------------------------------------------------------------------- host
 extern "C" long long fused_train_bwd_scratch_floats(const TrainArgs* a) {
-  return (long long)bwd_scratch(*a).total;
+  return (long long)bwd_scratch(*a).total + TR_SYNC_WORDS;
 }
 
 extern "C" long long fused_train_bwd_smem_bytes(const TrainArgs* a, int nb) {
@@ -596,5 +856,5 @@ extern "C" int fused_train_bwd_launch(const TrainArgs* args, void* stream) {
   int sms = 0, e = tr_sms(&sms);
   if (e) return e;
   return tr_launch(fused_train_bwd_kernel, *args, bwd_smem(*args, sms).total,
-                   sms, stream);
+                   bwd_scratch(*args).total, sms, stream);
 }

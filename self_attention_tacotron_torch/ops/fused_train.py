@@ -65,13 +65,19 @@ H100_SMS = 132
 SMEM_LIMIT = 232448
 NT = 256
 NWARPS = 8
-GT, GK = 64, 32
+# csrc/fused_train.cuh: attention items of US units / CS value columns,
+# rows_mma's partial tiles, the 128 x 64 (x 32 deep) tile product
+US, CS = 32, 64
+ROW_PART = NWARPS * 128
+TBM, TBN, TBK = 128, 64, 32
+TILE_SMEM = TBM * (TBK + 4) + TBN * (TBK + 4)
 # stages of the kernels' optional profile (block 0's SM cycles between
-# grid barriers; the enums of csrc/fused_train.cuh)
-FWD_STAGES = ("prenet", "att_lstm", "query", "attention", "proj", "lstm1",
-              "lstm2")
-BWD_STAGES = ("setup", "lstm2", "dz2_lstm1", "dz1", "dzop", "attention",
-              "dq_att_lstm", "dzatt", "dW", "prenet")
+# grid barriers, each split into PARTS; the enums of csrc/fused_train.cuh)
+FWD_STAGES = ("prenet", "att_lstm", "query", "energy", "context", "proj",
+              "lstm1", "lstm2")
+BWD_STAGES = ("setup", "lstm2", "dz2_lstm1", "dz1", "dzop", "d_w",
+              "attention", "dq_att_lstm", "dzatt", "dW", "prenet")
+PARTS = ("copy", "product", "epilogue", "wait")
 
 
 class FusedTrainParams(NamedTuple):
@@ -131,10 +137,12 @@ def save_layout(spec: TrainSpec):
 
 def stash_layout(spec: TrainSpec):
     """The backward's per-step cotangent rows, the right operands of the
-    weight gradients."""
+    weight gradients and (``d_ctx``, the context's cotangent) of the
+    values' gradient, contracted with the alignments after the loop."""
     A, D = spec.a_units, spec.d_units
     return _fields([("d_gatt", 4 * A), ("d_g1", 4 * D), ("d_g2", 4 * D),
-                    ("d_proj", D), ("d_pq", sum(spec.u_sizes))])
+                    ("d_proj", D), ("d_pq", sum(spec.u_sizes)),
+                    ("d_ctx", sum(spec.c_sizes))])
 
 
 def _step_masks(spec: TrainSpec, seed: int, t: int, device):
@@ -472,29 +480,54 @@ def _items(n: int, nb: int) -> int:
     return (n + nb - 1) // nb
 
 
+def _pad(n: int) -> int:
+    """``tr_pad``: the least stride >= n that is 4 mod 32."""
+    return ((n + 27) // 32) * 32 + 4
+
+
+def _plan(sizes) -> int:
+    """Floats of consecutive regions, each starting 16-byte aligned."""
+    o = 0
+    for n in sizes:
+        o = (o + n + 3) & ~3
+    return o
+
+
 def smem_bytes(spec: TrainSpec, blocks: int = H100_SMS) -> Tuple[int, int]:
     """Shared memory a block of the forward and of the backward kernel
     needs with ``blocks`` blocks (``fwd_smem`` / ``bwd_smem`` in
-    csrc/fused_train.cuh, which the CUDA tests hold this against)."""
+    csrc/fused_train.cuh, which the CUDA tests hold this against): the
+    resident weight slices (rows of stride ``_pad``; above 16 rows a block
+    serves one of two row groups and holds twice the columns), biases,
+    energy and location vectors, the product's partial tiles, and one
+    region that the staged rows, the tile product and the attention items
+    share."""
     B, T, K = spec.batch, spec.t_mem, spec.loc_kernel
     A, D = spec.a_units, spec.d_units
     sumU, sumC = sum(spec.u_sizes), sum(spec.c_sizes)
     zatt = spec.p_sizes[-1] + sumC + A
-    nb = blocks
-    part, red, gemm = NWARPS * 4 * MAX_BATCH, 32, 2 * GK * (GT + 4)
-    odd = lambda n: n | 1  # noqa: E731
-    fwd = (_items(A, nb) * 4 * zatt + _items(sumU, nb) * A
-           + _items(D, nb) * (A + sumC) + 2 * _items(D, nb) * 8 * D
-           + _items(A, nb) * 4 + _items(D, nb) + 2 * _items(D, nb) * 4
-           + sumU + K * sumU + part + red
-           + max(B * odd(max(zatt, A + sumC, 2 * D)), gemm,
-                 3 * T + max(spec.u_sizes)))
-    bwd = (2 * _items(2 * D, nb) * 4 * D + _items(A + sumC, nb) * D
-           + _items(A, nb) * sumU + _items(sumC + A, nb) * 4 * A
-           + sumU + K * sumU + part + red
-           + max(B * odd(max(4 * D, 4 * A, D, sumU)),
-                 max(spec.c_sizes) + 7 * T + T * K + T * max(spec.u_sizes),
-                 gemm))
+    groups = 2 if B > 16 else 1   # tr_groups: the product stages' row groups
+    it = lambda n: _items(n, blocks // groups)  # noqa: E731
+    B = -(-B // groups)           # staged rows a block
+    fwd_att = 2 * (-(-max(T + K + US, 4 * T + 2 * CS) // 4) * 4)  # 2 halves
+    rows_f = B * _pad(max(zatt, A + sumC, 2 * D))
+    fwd = _plan([it(A) * 4 * _pad(zatt), it(sumU) * _pad(A),
+                 it(D) * _pad(A + sumC), it(D) * 4 * _pad(2 * D),
+                 it(D) * 4 * _pad(2 * D), it(A) * 4, it(D), it(D) * 4,
+                 it(D) * 4, sumU, K * sumU, 3 * it(max(A, D)) * B, ROW_PART,
+                 32, max(rows_f, TILE_SMEM), fwd_att])
+    if 4 * _plan([fwd, rows_f]) <= SMEM_LIMIT:   # the second buffer, zp
+        fwd = _plan([fwd, rows_f])
+    bwd_att = 2 * (-(-(9 * T + K + US + T * (US + 4) + T * K
+                       + 2 * (NWARPS // 2) * US) // 4) * 4)   # 2 halves
+    items = spec.batch * sum(-(-u // US) for u in spec.u_sizes)
+    iacc = -(-items // blocks) * (US + K * US)   # bwd_iacc_floats
+    bwd = _plan([it(2 * D) * _pad(4 * D), it(2 * D) * _pad(4 * D),
+                 it(A + sumC) * _pad(D), it(A) * _pad(sumU),
+                 it(sumC + A) * _pad(4 * A), sumU, K * sumU, ROW_PART, 32,
+                 iacc,
+                 max(B * _pad(max(4 * D, 4 * A, D, sumU)), bwd_att,
+                     TILE_SMEM)])
     return 4 * fwd, 4 * bwd
 
 
@@ -538,7 +571,7 @@ class _TrainArgs(ctypes.Structure):
         *[(f"off_{n}", _I) for n in ("gatt", "catt", "hatt", "pq", "ctx",
                                      "proj", "g1", "c1", "h1", "o1", "g2",
                                      "c2", "h2", "dgatt", "dg1", "dg2",
-                                     "dproj", "dpq")],
+                                     "dproj", "dpq", "dctxs")],
         *[(n, _F) for n in ("drop_rate", "drop_scale", "zc_att", "zo_att",
                             "zc_dec", "zo_dec")],
         ("keys", _P * MAX_SOURCES), ("values", _P * MAX_SOURCES),
@@ -560,7 +593,7 @@ _SAVE_ARG = {"gates_att": "gatt", "c_att": "catt", "h_att": "hatt",
              "c1": "c1", "h1": "h1", "o1": "o1", "gates2": "g2", "c2": "c2",
              "h2": "h2"}
 _STASH_ARG = {"d_gatt": "dgatt", "d_g1": "dg1", "d_g2": "dg2",
-              "d_proj": "dproj", "d_pq": "dpq"}
+              "d_proj": "dproj", "d_pq": "dpq", "d_ctx": "dctxs"}
 
 
 def _lib(name: str):
@@ -690,13 +723,52 @@ def _args(spec: TrainSpec, ops: TrainOperands, seed: int, keep: list):
 
 
 def _profile(a, keep, stages, profile: bool, dev):
-    """Per-stage cycle counts (``stages``) when ``profile``, else None."""
+    """The profile's counts (``TrainClock`` in csrc/fused_train.cuh) when
+    ``profile``, else None: block 0's cycles per (stage, part), then each
+    block's attention-item cycles per source."""
     if not profile:
         return None
-    cycles = torch.zeros(len(stages), dtype=torch.int64, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cycles = torch.zeros(len(stages) * len(PARTS) + sms * MAX_SOURCES,
+                         dtype=torch.int64, device=dev)
     keep.append(cycles)
     a.stage_cycles = cycles.data_ptr()
     return cycles
+
+
+def profile_split(cycles: Sequence[int], stages: Sequence[str], ns: int,
+                  ms: float, steps: int):
+    """A profiled launch's counts -> (``{stage: {part: us a step}}``,
+    ``{source: (mean, max, blocks)}``), block 0's cycles scaled to the
+    kernel's measured ``ms``: each part's and each block's attention items'
+    microseconds a step; the per-source figures over the blocks that ran
+    items of that source."""
+    c = [int(x) for x in cycles]
+    n = len(stages) * len(PARTS)
+    us = ms * 1e3 / max(sum(c[:n]), 1) / steps
+    split = {st: {p: c[i * len(PARTS) + j] * us
+                  for j, p in enumerate(PARTS)}
+             for i, st in enumerate(stages)}
+    per = c[n:]
+    att = {}
+    for src in range(ns):
+        vals = [per[b * MAX_SOURCES + src] * us
+                for b in range(len(per) // MAX_SOURCES)
+                if per[b * MAX_SOURCES + src]]
+        if vals:
+            att[src] = (sum(vals) / len(vals), max(vals), len(vals))
+    return split, att
+
+
+def format_split(split, att) -> str:
+    """``profile_split``'s result as one line of text."""
+    stages = "; ".join(
+        f"{st} {sum(parts.values()):.2f} (" + ", ".join(
+            f"{p} {v:.2f}" for p, v in parts.items() if v) + ")"
+        for st, parts in split.items() if sum(parts.values()))
+    items = "; ".join(f"source {s} mean {m:.2f} max {x:.2f} over {n} blocks"
+                      for s, (m, x, n) in att.items())
+    return f"{stages}; attention items (us a step): {items}"
 
 
 def prepare_train_fwd(spec: TrainSpec, ops: TrainOperands, seed: int,

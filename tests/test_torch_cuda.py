@@ -434,11 +434,26 @@ TRAIN_CASES = {
 }
 
 
-def train_case(device, kinds, cum, K, det, spk, B=3, S=6, T=9, seed=0):
+# Shapes at the edges of the kernels' tensor-core tiles (16-row and 8-column
+# mma tiles, 128 x 64 weight-gradient tiles, 32-unit attention items):
+# B = 20 is no multiple of 16, the widths no multiple of 8, U = 36 leaves a
+# 4-unit item; and the recipe's B = 32 with T = 64 memory steps.
+EDGE_CASES = {
+    "edge_b20_masks": dict(B=20, S=5, T=33, U=(36, 12), C=(40, 8), A=40,
+                           D=24, det=False),
+    "edge_b20_det": dict(B=20, S=5, T=33, U=(36, 12), C=(40, 8), A=40, D=24,
+                         det=True),
+    "b32_t64_masks": dict(B=32, S=4, T=64, det=False),
+    "b32_t64_det": dict(B=32, S=4, T=64, det=True),
+}
+
+
+def train_case(device, kinds, cum, K, det, spk, B=3, S=6, T=9, seed=0,
+               U=(6, 4), C=(5, 3), A=7, D=5):
     """Random trunk weights and inputs (numpy seed) for the training
     kernels, at small widths."""
     rng = np.random.default_rng(seed)
-    CF, U, C, P, A, D = 11, (6, 4), (5, 3), (8, 6), 7, 5
+    CF, P = 11, (8, 6)
 
     def r(*s):
         return torch.from_numpy(
@@ -469,8 +484,26 @@ def train_case(device, kinds, cum, K, det, spk, B=3, S=6, T=9, seed=0):
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 @torch.no_grad()
 def test_fused_train_kernels_match_plain(device, case):
-    params, keys, values, masks, teacher, spk, loc_ws, kw = train_case(
-        device, *TRAIN_CASES[case])
+    _check_train_kernels(device, *train_case(device, *TRAIN_CASES[case]))
+
+
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+@torch.no_grad()
+def test_fused_train_kernels_at_tile_edges(device, case):
+    """Forward within 1e-4, each gradient within 1e-3 of its largest
+    magnitude (the tolerances of chip_smoke.py at the recipe shape)."""
+    kw = dict(EDGE_CASES[case])
+    det = kw.pop("det")
+    _check_train_kernels(device, *train_case(
+        device, ("forward", "location_sensitive"), (False, True), 10, det,
+        True, seed=3, **kw), grad_tol=1e-3)
+
+
+def _check_train_kernels(device, params, keys, values, masks, teacher, spk,
+                         loc_ws, kw, grad_tol=None):
+    """Both training kernels against their plain versions; gradients at
+    TOL, or with ``grad_tol`` within grad_tol of each one's largest
+    magnitude."""
     spec = ft.make_spec(params, keys, values, teacher, use_spk=spk is not None,
                         **kw)
     S, B = spec.num_steps, spec.batch
@@ -513,7 +546,8 @@ def test_fused_train_kernels_match_plain(device, case):
     if dspk is not None:
         pairs.append((d_spk, dspk))
     for a, b in pairs:
-        _close(a, b.reshape(a.shape))
+        _close(a, b.reshape(a.shape), tol=TOL if grad_tol is None else
+               grad_tol * max(float(b.abs().max()), 1e-30))
 
 
 def test_fused_train_autograd_launches_both_kernels(device):

@@ -282,3 +282,58 @@ def test_fused_train_gate_reasons_are_logged_once(caplog):
     logged = [r for r in caplog.records if "decoder_fused_train" in
               r.getMessage()]
     assert len(logged) == 1 and "bfloat16" in logged[0].getMessage()
+
+
+def _spec(batch, steps, cf, t_mem, u, c, p, a, d, k=10, spk=False):
+    return ft.TrainSpec(
+        batch=batch, num_steps=steps, cf=cf, t_mem=t_mem, u_sizes=u,
+        c_sizes=c, p_sizes=p, p_dropout=(True,) * len(p), use_spk=spk,
+        src_kinds=(2, 0), cumulative=(False, False), loc_kernel=k,
+        a_units=a, d_units=d, drop_rate=0.5, zc_att=0.1, zo_att=0.1,
+        zc_dec=0.1, zo_dec=0.1, deterministic=False)
+
+
+# the codes recipe's trunk (examples/codes/self-attention-tacotron.json) at
+# B = 32, S = 256; the VCTK recipe's (three prenet layers, mel frames, the
+# speaker row) at S = 160; this file's tiny widths
+PLAN_SPECS = {
+    "codes": (_spec(32, 256, 1025, 64, (224, 32), (256, 32), (256, 128),
+                    256, 256), (228304, 200416)),
+    "vctk": (_spec(32, 160, 80, 64, (224, 32), (256, 32), (256, 256, 128),
+                   256, 256, spk=True), (228304, 200416)),
+    "tiny": (_spec(B, S, CF, T, U, C, P, A, D, k=4), None),
+}
+
+
+@pytest.mark.parametrize("name", list(PLAN_SPECS))
+def test_stash_and_smem_plans_hold_what_the_kernels_need(name):
+    """The backward's stash rows carry d_ctx (the values' gradient is
+    contracted from it after the loop); the shared-memory plan holds the
+    resident slices at the mma-friendly padded strides and the staged rows,
+    at the figures the CUDA test reads from the kernels themselves."""
+    spec, want = PLAN_SPECS[name]
+    Au, Du = spec.a_units, spec.d_units
+    sumU, sumC = sum(spec.u_sizes), sum(spec.c_sizes)
+    off, width = ft.stash_layout(spec)
+    assert list(off) == ["d_gatt", "d_g1", "d_g2", "d_proj", "d_pq", "d_ctx"]
+    assert [w for _, w in off.values()] == [4 * Au, 4 * Du, 4 * Du, Du, sumU,
+                                           sumC]
+    ends = [o + w for o, w in off.values()]
+    assert [o for o, _ in off.values()] == [0] + ends[:-1]
+    assert width == ends[-1]
+    for n in (1, 4, 5, 32, 36, 37, 672, 1024):
+        assert ft._pad(n) >= n and ft._pad(n) % 32 == 4 and ft._pad(n) - n < 32
+    fwd, bwd = ft.smem_bytes(spec)
+    zatt = spec.p_sizes[-1] + sumC + Au
+    # at least the staged rows of the widest product (a block stages one
+    # of two row groups above 16 rows)
+    rows = -(-spec.batch // (2 if spec.batch > 16 else 1))
+    assert fwd >= 4 * rows * ft._pad(zatt)
+    assert bwd >= 4 * rows * ft._pad(4 * max(Au, Du))
+    if want is not None:
+        assert (fwd, bwd) == want
+        assert all(o % 4 == 0 for o, _ in off.values())  # cp.async rows
+        assert max(fwd, bwd) <= ft.SMEM_LIMIT
+        assert ft.unsupported_reason(spec) is None
+        big = spec._replace(batch=ft.MAX_BATCH)
+        assert "shared-memory plan" in ft.unsupported_reason(big)
