@@ -12,8 +12,8 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
 1. prints the card (``nvidia-smi`` name and power limit) and CUDA version;
 2. builds the seven kernels and the grid-barrier probe, one nvcc each, in
    parallel, and prints the cost of one grid barrier at one block per SM:
-   cooperative groups' (the encoder's) beside the hand-written
-   ``GridBarrier`` (the decode's) and the designs it was chosen over;
+   cooperative groups' beside the hand-written ``GridBarrier`` (the
+   cooperative kernels') and the designs it was chosen over;
 3. ``fused_encode``: kernel vs its plain PyTorch version, T = 64 phones,
    L = 64 and L = 50;
 4. ``fused_decode``: kernel vs its plain version, 450 steps, early stop
@@ -38,7 +38,8 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
 8. times each kernel and its plain version with CUDA events (median of 5
    after a warm-up), prints each stage's share of a profiled launch (for
    the training kernels split into copy, product, epilogue and barrier
-   wait, with the attention items' time per block and source), times one
+   wait, with the attention items' time per block and source; for the
+   encoder into load, product and barrier wait), times one
    training step on the fused and on the plain path,
    and prints one JSON line of per-kernel numbers: a row for each kernel
    and each main path that launched it (``path``: serving, training,
@@ -48,7 +49,8 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    ``fused_self_attention`` at B = 1, H = 2, T = 64, D = 16 (the encoder
    hop) and, causal and not, at B = 32, T = 250, D = 128;
    ``incremental_attention_step`` at B = 1 and 32, S = 250, D = 128,
-   t in {0, 100, 249};
+   t in {0, 100, 249} and at the edges of its 32-position chunks (t = 31,
+   32, 33), and at the serving cache (S = 450, t = 449);
 10. training with evaluation: ``cli.train`` takes 2 steps on the same corpus
    with a 5-utterance ``validation.csv``, ``use_pallas_attention`` on and a
    checkpoint at step 2, so that one evaluation (two VALIDATION decodes an
@@ -63,8 +65,10 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    be within 1e-4 of the einsum path's over the steps both ran;
 12. times rows 5 and 6 (kernel, plain version, and one
    ``scaled_dot_product_attention`` call of the same function, which the
-   port never calls) beside their bounds, and one evaluation round with
-   and without ``use_pallas_attention``;
+   port never calls) beside their bounds, row 6 also at the serving cache
+   (B = 1, S = 450, t = 449) and beside an empty kernel in the same queued
+   loop (the launch floor), and one evaluation round with and without
+   ``use_pallas_attention``;
 13. the ``spectrogram`` kernel (the STFT of ``preprocess --on-device``,
    one launch from the signal) against its plain version at LJSpeech and
    VCTK widths (10 s, 1.3 s, and one frame from a signal shorter than the
@@ -158,6 +162,7 @@ TOL_ATTENTION = 1e-5
 # steps.
 TOL_PALLAS_SERVING = 1e-4
 ATTN_HEADS, ATTN_T, ATTN_D = 2, 250, 128
+SERVE_S = 450       # the serving decode's cache (the codes recipe's cap)
 PALLAS_SERVING = ("use_pallas_attention=true,decoder_fused_inference=false,"
                   "encoder_fused_inference=false")
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, FP32 non-tensor
@@ -514,6 +519,7 @@ def _kernel_rows(name, src, line, launches, err, ms, plain, bound,
 
 
 def phase_timing(model, device, steps: int, launches, errs):
+    import torch
     from self_attention_tacotron_torch.ops import fused_decode as fd
     from self_attention_tacotron_torch.ops import fused_encoder as fe
     params, x, kw = encoder_case(model, T_IN, T_IN, device)
@@ -534,9 +540,13 @@ def phase_timing(model, device, steps: int, launches, errs):
         f"(plain {dec_plain:.4f} ms); {frames / ((enc_ms + dec_ms) / 1e3):.1f}"
         f" frames/s kernel, {frames / ((enc_plain + dec_plain) / 1e3):.1f} "
         "frames/s plain")
-    _stage_shares("fused_encode", fe.prepare_encode(params, x, T_IN, **kw,
-                                                    profile=True),
-                  fe.ENC_STAGES, enc_ms, 1, "call")
+    prof = fe.prepare_encode(params, x, T_IN, **kw, profile=True)
+    prof()
+    torch.cuda.synchronize()
+    log("phase 8 fused_encode stages (us a call, block 0's clock split "
+        "into load, product and barrier wait, scaled to "
+        f"{enc_ms:.4f} ms): " + fe.format_split(
+            fe.profile_split(prof.stage_cycles.cpu().tolist(), enc_ms)))
     _stage_shares("fused_decode", fd.prepare_decode(
         weights, memory, num_steps=steps, **options, profile=True),
         fd.DEC_STAGES, dec_ms, steps, "step")
@@ -962,8 +972,8 @@ def _attention_inputs(device, B, T, D):
                  for s in range(3))
 
 
-def _step_inputs(device, B, t):
-    kc, vc = (_normal(device, B, ATTN_HEADS, ATTN_T, ATTN_D, seed=s)
+def _step_inputs(device, B, t, S=ATTN_T):
+    kc, vc = (_normal(device, B, ATTN_HEADS, S, ATTN_D, seed=s)
               for s in (1, 2))
     return _normal(device, B, ATTN_HEADS, ATTN_D, seed=3 + t), kc, vc
 
@@ -989,15 +999,19 @@ def phase_attention_kernels(device):
                                  f"{TOL_ATTENTION})")
         worst["fused_self_attention"] = max(worst["fused_self_attention"],
                                             err)
+    P = pa.STEP_CHUNK
     for B in (1, TRAIN_B):
-        for t in (0, 100, ATTN_T - 1):
-            q, kc, vc = _step_inputs(device, B, t)
+        for S, t in [(ATTN_T, t) for t in (0, P - 1, P, P + 1, 100,
+                                          ATTN_T - 1)] + [(SERVE_S,
+                                                           SERVE_S - 1)]:
+            q, kc, vc = _step_inputs(device, B, t, S)
             got = pa.incremental_attention_step(q, kc, vc, t)
             ref = pa.incremental_attention_step_reference(q, kc, vc, t)
             torch.cuda.synchronize()
             err = _max_err(got, ref)
             log(f"phase 9 incremental_attention_step B={B} H={ATTN_HEADS} "
-                f"S={ATTN_T} D={ATTN_D} t={t}: max abs err {err:.3e}")
+                f"S={S} D={ATTN_D} t={t} ({t // P + 1} chunks): max abs "
+                f"err {err:.3e}")
             if err > TOL_ATTENTION:
                 raise AssertionError(f"incremental_attention_step disagrees"
                                      f" (tol {TOL_ATTENTION})")
@@ -1230,10 +1244,12 @@ def phase_attention_timing(device, launches, errs, ckpt, data, val_keys):
                 "pallas_attention.py:39", launches,
                 errs["fused_self_attention"], *times[B][:2], bound,
                 times[B][2])
-    for B in (1, TRAIN_B):
-        t = ATTN_T - 1
-        q, kc, vc = _step_inputs(device, B, t)
-        mask = torch.ones(1, 1, 1, ATTN_T, dtype=torch.bool, device=device)
+    floor = _device_ms(pa.launch_floor(device))
+    log(f"phase 12 an empty kernel in the same queued loop: {floor:.5f} ms")
+    for B, S in ((1, ATTN_T), (TRAIN_B, ATTN_T), (1, SERVE_S)):
+        t = S - 1
+        q, kc, vc = _step_inputs(device, B, t, S)
+        mask = torch.ones(1, 1, 1, S, dtype=torch.bool, device=device)
         step_times = [_device_ms(fn) for fn in (
             lambda: pa.incremental_attention_step(q, kc, vc, t),
             lambda: pa.incremental_attention_step_reference(q, kc, vc, t),
@@ -1241,11 +1257,11 @@ def phase_attention_timing(device, launches, errs, ckpt, data, val_keys):
                                                    attn_mask=mask))]
         bound = step_bound(B, t)
         log(f"phase 12 incremental_attention_step B={B} H={ATTN_HEADS} "
-            f"S={ATTN_T} D={ATTN_D} t={t}: kernel {step_times[0]:.5f} ms, "
+            f"S={S} D={ATTN_D} t={t}: kernel {step_times[0]:.5f} ms, "
             f"plain {step_times[1]:.5f} ms, SDPA {step_times[2]:.5f} ms; "
             f"bound {_bound_ms(bound):.6f} ms ({bound[0]} bytes, {bound[1]} "
             "FLOPs)")
-        if B == 1:
+        if (B, S) == (1, ATTN_T):
             rows += _kernel_rows(
                 "incremental_attention_step", "incremental_attention",
                 "pallas_attention.py:109", launches,

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Cost of one grid-wide barrier on the card, for the port's cooperative
 kernels (``self_attention_tacotron_torch/ops/csrc``): cooperative groups'
-``this_grid().sync()`` (the fused encoder's) beside hand-written ones: the
-``GridBarrier`` of ``csrc/common.cuh`` (the fused decode's: one counter,
+``this_grid().sync()`` beside hand-written ones: the ``GridBarrier`` of
+``csrc/common.cuh`` (the one those kernels use: one counter,
 atom.add.acq_rel and an ld.acquire spin) and the designs it was chosen
 over (``csrc/grid_barrier_probe.cu`` lists them).
 

@@ -1,0 +1,259 @@
+#!/usr/bin/env python3
+"""A/B of the serving kernels #1 (the batch-1 encoder, ``fused_encode``) and
+#6 (the KV-cache attention step, ``incremental_attention_step``) against
+earlier versions of themselves, in one process on one card.
+
+    git archive <commit> self_attention_tacotron_torch/ops | tar -x -C build/ab/<name>
+    python3 scripts/torch_serving_ab.py [--variant NAME=build/ab/NAME ...]
+                                        [--cases encode,step,serve] [--reps 5]
+
+Each ``--variant`` directory holds a copy of the port's ``ops`` package
+from another commit (under ``self_attention_tacotron_torch/ops``, as ``git
+archive`` writes it; ``build/`` is git-ignored).  It is imported under a
+name of its own, so its ``cuda_build`` builds its own ``csrc`` into
+``<dir>/build/torch_kernels``; the working tree's package is the variant
+``tree``.  The card's name and power limit come first, then what ``nvcc
+-Xptxas -v`` says of each variant's two kernels (registers, stack frame,
+spills).  Random weights from seed 0 (``chip_smoke.py``'s models).
+
+* ``encode``: #1 at the codes recipe's widths and at the VCTK recipe's (T =
+  L = 64): each variant's max abs error against the working tree's plain
+  version, its time (CUDA events around one launch, median of ``--reps``
+  after a warm-up, the variants in turns A B B A ...) and its per-stage
+  split of one profiled launch in microseconds (load, product and barrier
+  wait where the variant splits its stages, else the stages' shares).
+* ``step``: #6 at B = 1 and 32, H = 2, D = 128, S = 250 and 450, t in {0,
+  63, 249, S - 1}: the error against the plain version and the device time
+  of one call in ``chip_smoke.py`` phase 12's queued loop (50 calls behind
+  a sleep kernel, median of 5, per call), in turns; the floor (an empty
+  kernel in the same loop) first; and, for a variant that can cut its
+  kernel short (``STEP_PASSES``), the time of each cut.
+* ``serve``: the codes model's call per utterance on the host clock (what
+  ``cli.predict.main_code`` prints as its wall), three synthetic sources of
+  40-64 phones, fused paths (#1, #2) and the Pallas attention mode (#5,
+  #6), each variant's kernels swapped into the working tree's model in
+  turns, median of ``--reps``.
+"""
+
+import argparse
+import importlib
+import os
+import statistics
+import subprocess
+import sys
+import time
+import types
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNELS = ("fused_encoder", "incremental_attention")
+STEP_SHAPES = [(B, S, t) for B in (1, 32) for S in (250, 450)
+               for t in sorted({0, 63, 249, S - 1})]
+
+
+def load_variant(name: str, path: str):
+    """The ops package copied under ``path``, imported as ``_ab_<name>``."""
+    pkg = f"_ab_{name}"
+    root = types.ModuleType(pkg)
+    root.__path__ = [os.path.join(path, "self_attention_tacotron_torch")]
+    sys.modules[pkg] = root
+    return importlib.import_module(f"{pkg}.ops")
+
+
+def _modules(ops):
+    return (importlib.import_module(f"{ops.__name__}.fused_encoder"),
+            importlib.import_module(f"{ops.__name__}.pallas_attention"))
+
+
+def _ms(launch) -> float:
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    launch()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def in_turns(fns, reps: int, timer):
+    """{name: [times]}: each of ``fns`` timed ``reps`` times, A B B A ..."""
+    order = list(fns)
+    times = {name: [] for name in order}
+    for rep in range(reps):
+        for name in (order if rep % 2 == 0 else order[::-1]):
+            times[name].append(timer(fns[name]))
+    return times
+
+
+def _runs(ts) -> str:
+    return (f"{statistics.median(ts):.5f} ms (runs {min(ts):.5f}-"
+            f"{max(ts):.5f})")
+
+
+def encode_split(fe, launch, ms: float) -> str:
+    """One profiled launch of a variant: microseconds of each stage, split
+    into load, product and wait where the variant splits them
+    (``profile_split``)."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    cycles = launch.stage_cycles.cpu().tolist()
+    if hasattr(fe, "profile_split"):
+        return fe.format_split(fe.profile_split(cycles, ms))
+    total = max(sum(cycles), 1)
+    return "; ".join(f"{s} {ms * 1e3 * c / total:.2f}"
+                     for s, c in zip(fe.ENC_STAGES, cycles) if c)
+
+
+def encode_case(variants, device, reps: int) -> None:
+    import torch
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import fused_encoder as tree
+    for width, hp in (("codes", cs.recipe_hparams()),
+                      ("vctk", cs._hp_with(cs.VCTK_SA_RECIPE))):
+        model = cs.make_model(hp, device)
+        params, x, kw = cs.encoder_case(model, cs.T_IN, cs.T_IN, device)
+        ref = tree.fused_encode_reference(params, x, cs.T_IN, **kw)
+        launches = {}
+        for name, ops in variants.items():
+            fe, _ = _modules(ops)
+            launches[name] = fe.prepare_encode(params, x, cs.T_IN, **kw)
+            got = launches[name]()
+            torch.cuda.synchronize()
+            err = max(cs._max_err(g, r) for g, r in zip(got, ref))
+            print(f"encode {width}: {name} max abs err {err:.3e}",
+                  flush=True)
+            launches[name]()
+        torch.cuda.synchronize()
+        times = in_turns(launches, reps, _ms)
+        for name, ts in times.items():
+            print(f"encode {width}: {name} fused_encode T={cs.T_IN} "
+                  f"{_runs(ts)}", flush=True)
+            fe, _ = _modules(variants[name])
+            ms = statistics.median(ts)
+            prof = fe.prepare_encode(params, x, cs.T_IN, **kw, profile=True)
+            print(f"encode {width}: {name} stages (us): "
+                  + encode_split(fe, prof, ms), flush=True)
+
+
+def step_case(variants, device) -> None:
+    import torch
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import pallas_attention as tree
+    H, D = cs.ATTN_HEADS, cs.ATTN_D
+    floor = cs._device_ms(tree.launch_floor(device))
+    print(f"step: empty kernel in the queued loop {floor:.5f} ms",
+          flush=True)
+    for B, S, t in STEP_SHAPES:
+        kc, vc = (cs._normal(device, B, H, S, D, seed=s) for s in (1, 2))
+        q = cs._normal(device, B, H, D, seed=3 + t)
+        ref = tree.incremental_attention_step_reference(q, kc, vc, t)
+        fns = {}
+        for name, ops in variants.items():
+            _, pa = _modules(ops)
+            got = pa.incremental_attention_step(q, kc, vc, t)
+            torch.cuda.synchronize()
+            print(f"step B={B} S={S} t={t}: {name} max abs err "
+                  f"{cs._max_err(got, ref):.3e}", flush=True)
+            fns[name] = (lambda pa=pa: pa.incremental_attention_step(
+                q, kc, vc, t))
+        times = in_turns(fns, 2, cs._device_ms)
+        bound = cs._bound_ms(cs.step_bound(B, t))
+        for name, ts in times.items():
+            _, pa = _modules(variants[name])
+            cuts = ""
+            for i, cut in enumerate(getattr(pa, "STEP_PASSES", ())[:-1]):
+                launch = pa.prepare_step(q, kc, vc, t, passes=i + 1)
+                cuts += f", {cut} {cs._device_ms(launch):.5f}"
+            print(f"step B={B} S={S} t={t}: {name} {_runs(ts)}"
+                  + (f"; cut short: {cuts[2:]} ms" if cuts else "")
+                  + f"; bound {bound:.6f} ms",
+                  flush=True)
+
+
+def serve_case(variants, device, reps: int) -> None:
+    """The codes model's call per utterance, host clock, in turns."""
+    import torch
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.models import Batch
+    from self_attention_tacotron_torch.ops import attention_core
+    from self_attention_tacotron_torch.ops import fused_encoder as tree_fe
+    import numpy as np
+    rng = np.random.default_rng(cs.SEED)
+    lengths = [int(rng.integers(40, cs.T_IN + 1)) for _ in range(3)]
+    own = (tree_fe.fused_encode, attention_core.incremental_attention_step)
+    for mode, extra in (("fused", ""), ("pallas", cs.PALLAS_SERVING)):
+        hp = cs._hp_with(cs.RECIPE, extra)
+        model = cs.make_model(hp, device)
+        batches = [Batch(source=cs.source_ids(hp, L, L, cs.SEED + i, device),
+                         source_length=torch.tensor([L], device=device),
+                         speaker_id=torch.tensor([0], device=device))
+                   for i, L in enumerate(lengths)]
+
+        def call(name, b):
+            fe, pa = _modules(variants[name])
+            tree_fe.fused_encode = fe.fused_encode
+            attention_core.incremental_attention_step = \
+                pa.incremental_attention_step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(b)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3, int(out.lengths[0])
+
+        for i, b in enumerate(batches):
+            steps = {name: call(name, b)[1] for name in variants}  # warm-up
+            times = in_turns({n: n for n in variants}, reps,
+                             lambda n: call(n, b)[0])
+            for name, ts in times.items():
+                print(f"serve {mode} utterance {i} (L={lengths[i]}, "
+                      f"{steps[name]} steps): {name} "
+                      f"{statistics.median(ts):.3f} ms (runs {min(ts):.3f}-"
+                      f"{max(ts):.3f})", flush=True)
+    tree_fe.fused_encode, attention_core.incremental_attention_step = own
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variant", action="append", default=[],
+                    help="NAME=DIR of an earlier ops package")
+    ap.add_argument("--cases", default="encode,step,serve")
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_grad_enabled(False)
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__}", flush=True)
+    from self_attention_tacotron_torch import ops as tree
+    variants = {"tree": tree}
+    for spec in args.variant:
+        name, path = spec.split("=", 1)
+        variants[name] = load_variant(name, os.path.abspath(path))
+    builds = {name: importlib.import_module(f"{ops.__name__}.cuda_build")
+              for name, ops in variants.items()}
+    jobs = {(name, k): b._start_build(k) for name, b in builds.items()
+            for k in KERNELS}                       # all at once
+    for (name, k), job in jobs.items():
+        for line in builds[name]._finish_build(k, job).splitlines():
+            if any(w in line for w in ("registers", "stack", "spill")):
+                print(f"ptxas {name} {k}: {line.strip()}", flush=True)
+    for case in args.cases.split(","):
+        if case == "encode":
+            encode_case(variants, device, args.reps)
+        elif case == "step":
+            step_case(variants, device)
+        elif case == "serve":
+            serve_case(variants, device, args.reps)
+        else:
+            raise ValueError(f"unknown case {case}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

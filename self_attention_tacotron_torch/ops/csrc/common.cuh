@@ -1,20 +1,15 @@
 // Building blocks shared by the port's persistent cooperative kernels.
 //
-// Both serving kernels run as ONE cooperative launch with one block per SM;
-// a grid-wide barrier separates dependent stages: cooperative_groups'
-// this_grid().sync() in the encoder, the hand-written GridBarrier below in
-// the decode.  Data another block wrote in an earlier stage is read
-// with __ldcg (L2, never a stale L1 line); weights and inputs with __ldg.
+// The serving and training kernels run as cooperative launches with one
+// block per SM; the hand-written GridBarrier below separates dependent
+// stages.  Data another block wrote in an earlier stage is read with
+// __ldcg (L2, never a stale L1 line); weights and inputs with __ldg.
 //
-//   warp_sum / warp_max, block_sum / block_max   reductions
-//   lstm_cell                                    zoneout LSTM update (i,g,f,o)
-//   gemm_stage                                   M x N tile product with an
-//                                                A loader and an epilogue
-//                                                functor (the encoder's
-//                                                sequence-wide layers)
-//   gemv_stage                                   one output column per warp
-//                                                over rows held in shared
-//                                                memory (the decoder's steps)
+//   warp_sum / warp_max, block_sum   reductions
+//   lstm_cell                        zoneout LSTM update (i, g, f, o)
+//   GridBarrier, StageClock          grid barrier, per-stage profile
+//   load_slice / load_bias_slice     a block's weight rows of a
+//                                    warp-per-column product (the decode)
 #pragma once
 
 #include <cooperative_groups.h>
@@ -46,15 +41,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   if (l == 0) red[w] = v;
   __syncthreads();
   return warp_sum(l < NWARPS ? red[l] : 0.f);
-}
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  __syncthreads();
-  if (l == 0) red[w] = v;
-  __syncthreads();
-  return warp_max(l < NWARPS ? red[l] : -3.0e38f);
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -133,129 +119,6 @@ struct StageClock {
   }
 };
 
-// ------------------------------------------------------------ tile product
-constexpr int TM = 32, TN = 32, TK = 128;
-
-struct GemmSmem {
-  float a[TK][TM + 1];  // A tile, transposed, padded against bank conflicts
-  float w[TK][TN];
-};
-
-// Accumulate tile (m0, n0) of A (M x Kd) @ W (Kd x N, row-major, leading
-// dim ldw) over k in [k_begin, k_end) into acc: thread (ty = warp,
-// tx = lane) owns rows m0 + ty + 8 i of column n0 + tx.  ``aload(m, k)``
-// gives A[m][k] (a window of a sequence, a pooled value, ...).
-template <class ALoad>
-__device__ void tile_product(int M, int N, int Kd, int m0, int n0,
-                             int k_begin, int k_end, const ALoad& aload,
-                             const float* __restrict__ W, int ldw,
-                             float (&acc)[TM / NWARPS], GemmSmem& sm) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < TM / NWARPS; ++i) acc[i] = 0.f;
-  for (int k0 = k_begin; k0 < k_end; k0 += TK) {
-    __syncthreads();
-#pragma unroll 4
-    for (int e = threadIdx.x; e < TM * TK; e += NT) {
-      const int mm = e / TK, kk = e % TK, m = m0 + mm, k = k0 + kk;
-      sm.a[kk][mm] = (m < M && k < k_end) ? aload(m, k) : 0.f;
-    }
-#pragma unroll 4
-    for (int e = threadIdx.x; e < TK * TN; e += NT) {
-      const int kk = e / TN, nn = e % TN, k = k0 + kk, n = n0 + nn;
-      sm.w[kk][nn] = (k < k_end && n < N) ? __ldg(W + (size_t)k * ldw + n)
-                                          : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < TK; ++kk) {
-      const float wv = sm.w[kk][tx];
-#pragma unroll
-      for (int i = 0; i < TM / NWARPS; ++i)
-        acc[i] = fmaf(sm.a[kk][ty + NWARPS * i], wv, acc[i]);
-    }
-  }
-}
-
-// C (M x N) = A @ W, tiles of 32 x 32 spread over the blocks, then
-// ``epi(m, n, acc, valid)``, called by all 32 lanes of a warp together
-// (lanes may shuffle; ``valid`` marks m < M, n < N).
-template <class ALoad, class Epi>
-__device__ void gemm_stage(int M, int N, int Kd, const ALoad& aload,
-                           const float* __restrict__ W, int ldw,
-                           const Epi& epi, GemmSmem& sm) {
-  const int tiles_n = (N + TN - 1) / TN;
-  const int tiles = ((M + TM - 1) / TM) * tiles_n;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float acc[TM / NWARPS];
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
-    tile_product(M, N, Kd, m0, n0, 0, Kd, aload, W, ldw, acc, sm);
-#pragma unroll
-    for (int i = 0; i < TM / NWARPS; ++i) {
-      const int m = m0 + ty + NWARPS * i, n = n0 + tx;
-      epi(m, n, acc[i], m < M && n < N);
-    }
-  }
-  __syncthreads();
-}
-
-// The same product for a deep K and few output tiles: the K chunks are
-// split over up to ``max_splits`` blocks per tile, each writes its partial
-// tile to ``part`` (max_splits * M * N floats), and after a grid barrier
-// one warp per (row, 32 columns) sums the partials and runs ``epi``.
-template <class ALoad, class Epi>
-__device__ void gemm_stage_split_k(int M, int N, int Kd, const ALoad& aload,
-                                   const float* __restrict__ W, int ldw,
-                                   const Epi& epi, GemmSmem& sm, float* part,
-                                   int max_splits, cg::grid_group& grid) {
-  const int tiles_n = (N + TN - 1) / TN;
-  const int tiles = ((M + TM - 1) / TM) * tiles_n;
-  const int chunks = (Kd + TK - 1) / TK;
-  int splits = gridDim.x / tiles;
-  if (splits > max_splits) splits = max_splits;
-  if (splits > chunks) splits = chunks;
-  if (splits < 1) splits = 1;
-  const int kper = ((chunks + splits - 1) / splits) * TK;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  float acc[TM / NWARPS];
-  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
-    const int tile = item % tiles, sp = item / tiles;
-    const int m0 = (tile / tiles_n) * TM, n0 = (tile % tiles_n) * TN;
-    const int k_begin = sp * kper;
-    const int k_end = k_begin + kper < Kd ? k_begin + kper : Kd;
-    tile_product(M, N, Kd, m0, n0, k_begin, k_end, aload, W, ldw, acc, sm);
-#pragma unroll
-    for (int i = 0; i < TM / NWARPS; ++i) {
-      const int m = m0 + ty + NWARPS * i, n = n0 + tx;
-      if (m < M && n < N) part[((size_t)sp * M + m) * N + n] = acc[i];
-    }
-  }
-  grid.sync();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int w = warp;; w += NWARPS) {
-    const int item = blockIdx.x + gridDim.x * w;
-    if (item >= M * tiles_n) break;
-    const int m = item / tiles_n, n = (item % tiles_n) * TN + lane;
-    const bool valid = n < N;
-    float sum = 0.f;
-    if (valid)
-      for (int sp = 0; sp < splits; ++sp)
-        sum += __ldcg(part + ((size_t)sp * M + m) * N + n);
-    epi(m, n, sum, valid);
-  }
-  __syncthreads();
-}
-
-// Row-major A read through L2 (it was written earlier in the same kernel).
-struct RowLoad {
-  const float* p;
-  int ld;
-  __device__ float operator()(int m, int k) const {
-    return __ldcg(p + (size_t)m * ld + k);
-  }
-};
-
 // ------------------------------------------------- warp-per-column product
 // Items n of a stage belong to block n % gridDim.x; that block's s-th item
 // is n = blockIdx.x + gridDim.x * s and its R weight rows (rows r * N + n of
@@ -287,30 +150,5 @@ __device__ inline void load_bias_slice(float* dst, const float* __restrict__ b,
   for (int e = threadIdx.x; e < cnt * R; e += NT) {
     const int r = e % R, s = e / R;
     dst[e] = __ldg(b + (size_t)r * N + blk + nb * s);
-  }
-}
-
-// Each warp dots its item's R rows with ``x`` (shared memory, Lr floats);
-// ``epi(n, s, acc)`` runs on lane 0 with the item, its slot s in this
-// block, and the R sums.
-template <int R, class Epi>
-__device__ void gemv_stage(int N, int Lr, const float* slice, const float* x,
-                           const Epi& epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int s = warp;; s += NWARPS) {
-    const int n = blockIdx.x + gridDim.x * s;
-    if (n >= N) break;
-    const float* w = slice + (size_t)s * R * Lr;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.f;
-    for (int k = lane; k < Lr; k += 32) {
-      const float xv = x[k];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(w[r * Lr + k], xv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = warp_sum(acc[r]);
-    if (lane == 0) epi(n, s, acc);
   }
 }

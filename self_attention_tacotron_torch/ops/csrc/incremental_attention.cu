@@ -5,125 +5,259 @@
 // decoder hop in the Pallas attention mode (the trainer's VALIDATION decodes
 // and the early-exit serving decode).
 //
-// One block per (b * h).  q sits in shared memory; each warp takes positions
-// p <= t four at a time, its lanes split the D-long dot products, and the
-// scores stay in shared memory.  Block reductions give the max and the sum (the softmax
-// shifted by the max, as the reference's); then the threads, in NT / D
-// groups of D, accumulate p * v over interleaved positions and the first D
-// threads add the groups' partial rows.  t is a kernel argument, so the
-// caller never waits for the device, and positions > t are never read (the
-// TPU kernel reads the whole padded cache and masks it with -1e9, which
-// gives these positions a weight of exactly 0).
-//
 // Bound on an H100: bytes, the 2 (t + 1) D floats of K and V rows a (b, h)
 // for 4 (t + 1) D FLOPs; at B = 1, H = 2, D = 128, t = 249 that is 0.51 MB,
-// ~0.15 us at 3.35 TB/s, far below the cost of a launch, which dominates a
-// step.  This first version is simple and right, not fast: one block per head
-// leaves most SMs idle at batch 1.
+// ~0.15 us at 3.35 TB/s.  What a call costs is latency: a load's round trip
+// to L2 or HBM (~0.6-1 us), a launch, and whatever chain of such round
+// trips the kernel makes.  The design keeps that chain short.
+//
+// The cache is split over blocks: block (c, bh) takes the chunk of P = 32
+// positions c P .. min(c P + P, t + 1) - 1 of head bh, so at B = 1 and
+// t = 249 sixteen blocks share a step (two heads x eight chunks) and at
+// B = 32 five hundred.  Positions > t are never read (the TPU kernel reads
+// the whole padded cache and masks it with -1e9, which gives them a weight
+// of exactly 0).  Each of the 8 warps takes 4 rows; every lane issues all of
+// its loads of K and V (16-byte vectors, 4 columns a lane and row at D = 128)
+// before it uses the first, so a block waits one round trip.  A row's score
+// is a warp sum; the chunk's max and sum come from the 32 scores in shared
+// memory (every warp reduces them itself, so no further barrier); each warp
+// sums p * v over its rows in registers and the warps add in shared memory.
+// A single chunk writes the output.  Otherwise each chunk writes (m, l,
+// o[D]), its max, sum and unnormalised p v row, to a scratch the wrapper
+// allocates, and takes a ticket from a per-(b, h) counter (an acq_rel
+// atomic, as GridBarrier's arrival); the last chunk to arrive resets the
+// counter to 0 (so the next call on the stream starts clean), copies the
+// chunks' partials into shared memory at once, merges them in max-shifted
+// form, o = sum_i e^(m_i - m) o_i / sum_i e^(m_i - m) l_i, and writes the
+// output: one launch a step.
+// D % 4 != 0 or a base that is not 16-byte aligned takes the same kernel
+// with scalar loads (one column a lane).
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
 
-struct StepArgs {
+struct StepArgs {   // mirrored by _StepArgs in ops/pallas_attention.py
   const float* q;   // (B * H, D)
   const float* k;   // (B * H, S, D)
   const float* v;
   float* o;         // (B * H, D)
+  float* part;      // (B * H, chunks, D + 2): m, l, o[D] of each chunk
+  unsigned* tickets;  // (B * H) zeroed words; each call leaves them at 0
   int bh;           // B * H
   int S;
   int D;
   int t;
+  int chunk;        // positions a block (STEP_CHUNK)
   float scale;      // 1 / sqrt(D)
+  int passes;       // profile: 1 scores, 2 + softmax, 3 + p v, 0 all
 };
 
 namespace {
 
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 200 * 1024;   // of the 227 KB a block may use
+constexpr int STEP_CHUNK = 32;   // = NWARPS x ROWS
+constexpr int ROWS = STEP_CHUNK / NWARPS;
+constexpr int MAX_D = 256;
+constexpr int MERGE_LOADS = 8;   // the merge's loads in flight a thread
 
+static_assert(STEP_CHUNK == 32, "a lane holds one position's score");
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&dst)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+    dst[0] = x.x;
+    dst[1] = x.y;
+    dst[2] = x.z;
+    dst[3] = x.w;
+  } else {
+    dst[0] = __ldg(p);
+  }
+}
+
+// VEC floats a load (4: float4, 1: scalar), CPL loads a lane and row:
+// column of load j of a lane = (j * 32 + lane) * VEC.
+template <int VEC, int CPL>
 __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
-  extern __shared__ float smem[];
-  __shared__ float red[NWARPS];
-  const int D = a.D, n = a.t + 1;
-  float* sq = smem;         // [D]
-  float* sp = sq + D;       // [n] scores, then exp(score - max)
-  float* part = sp + n;     // [NT / D][D] partial contexts
-  const size_t cache = (size_t)blockIdx.x * a.S * D;
-  for (int d = threadIdx.x; d < D; d += NT)
-    sq[d] = __ldg(a.q + (size_t)blockIdx.x * D + d);
-  __syncthreads();
-
-  // a warp takes 4 positions at a time, so that their loads are in flight
-  // together
+  __shared__ float sc[STEP_CHUNK];
+  __shared__ float red[NWARPS][MAX_D];
+  __shared__ int last;
+  const int D = a.D, bh = blockIdx.y, c = blockIdx.x;
+  const int p0 = c * STEP_CHUNK;
+  const int n = min(STEP_CHUNK, a.t + 1 - p0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int p0 = 4 * warp; p0 < n; p0 += 4 * NWARPS) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d = lane; d < D; d += 32) {
-      const float qd = sq[d];
+  const size_t cache = (size_t)bh * a.S * D;
+
+  float qv[CPL][VEC], kv[ROWS][CPL][VEC], vv[ROWS][CPL][VEC];
+  // every load of this lane first: q, then K and V of its rows
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (p0 + j < n)
-          acc[j] = fmaf(qd, __ldg(a.k + cache + (size_t)(p0 + j) * D + d),
-                        acc[j]);
-    }
+  for (int j = 0; j < CPL; ++j) {
+    const int col = (j * 32 + lane) * VEC;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float dot = warp_sum(acc[j]);
-      if (lane == 0 && p0 + j < n) sp[p0 + j] = dot * a.scale;
+    for (int e = 0; e < VEC; ++e) qv[j][e] = 0.f;
+    if (col < D) load_vec<VEC>(a.q + (size_t)bh * D + col, qv[j]);
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = warp + NWARPS * i;
+    const float* krow = a.k + cache + (size_t)(p0 + r) * D;
+    const float* vrow = a.v + cache + (size_t)(p0 + r) * D;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int col = (j * 32 + lane) * VEC;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) kv[i][j][e] = vv[i][j][e] = 0.f;
+      if (r < n && col < D) {
+        load_vec<VEC>(krow + col, kv[i][j]);
+        if (a.passes != 1) load_vec<VEC>(vrow + col, vv[i][j]);
+      }
     }
+  }
+
+  // scores of this warp's rows (a warp sum each)
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPL; ++j)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) dot = fmaf(qv[j][e], kv[i][j][e], dot);
+    dot = warp_sum(dot);
+    const int r = warp + NWARPS * i;
+    if (lane == 0 && r < n) sc[r] = dot * a.scale;
   }
   __syncthreads();
+  if (a.passes == 1) return;
 
-  float mx = -INFINITY;
-  for (int p = threadIdx.x; p < n; p += NT) mx = fmaxf(mx, sp[p]);
-  mx = block_max(mx, red);
-  float sum = 0.f;
-  for (int p = threadIdx.x; p < n; p += NT) {
-    const float e = expf(sp[p] - mx);
-    sp[p] = e;
-    sum += e;
-  }
-  sum = block_sum(sum, red);   // its barriers publish sp
+  // the chunk's max and sum, in every warp (lane l holds position l)
+  const float s = lane < n ? sc[lane] : -INFINITY;
+  const float m = warp_max(s);
+  const float p = lane < n ? expf(s - m) : 0.f;
+  const float l = warp_sum(p);
+  if (a.passes == 2) return;
 
-  const int groups = NT / D;
-  const int g = threadIdx.x / D, d = threadIdx.x - g * D;
-  if (g < groups) {   // four independent sums keep four loads in flight
-    const float* vc = a.v + cache + d;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    int p = g;
-    for (; p + 3 * groups < n; p += 4 * groups) {
+  // unnormalised p v over this warp's rows, then over the warps
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[j] = fmaf(sp[p + j * groups],
-                      __ldg(vc + (size_t)(p + j * groups) * D), acc[j]);
+  for (int j = 0; j < CPL; ++j) {
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const float pr = __shfl_sync(FULL, p, warp + NWARPS * i);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(pr, vv[i][j][e], acc[e]);
     }
-    for (; p < n; p += groups)
-      acc[0] = fmaf(sp[p], __ldg(vc + (size_t)p * D), acc[0]);
-    part[g * D + d] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    const int col = (j * 32 + lane) * VEC;
+    if (col < D)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red[warp][col + e] = acc[e];
   }
   __syncthreads();
-  if (threadIdx.x < D) {
-    float acc = 0.f;
-    for (int j = 0; j < groups; ++j) acc += part[j * D + threadIdx.x];
-    a.o[(size_t)blockIdx.x * D + threadIdx.x] = acc / sum;
+  const int d = threadIdx.x;
+  float od = 0.f;
+  if (d < D)
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) od += red[w][d];
+  if (a.passes == 3) return;
+
+  const int chunks = gridDim.x;
+  if (chunks == 1) {
+    if (d < D) a.o[(size_t)bh * D + d] = od / l;
+    return;
   }
+  float* mine = a.part + ((size_t)bh * chunks + c) * (D + 2);
+  if (d < D) mine[2 + d] = od;
+  if (d == 0) {
+    mine[0] = m;
+    mine[1] = l;
+  }
+  // the ticket: thread 0's atom.add.acq_rel after the block barrier
+  // releases the block's partial (bar.sync orders the block's writes
+  // before it; release is cumulative) and, for the last chunk, acquires
+  // every other chunk's; the second barrier hands that to the block
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned v;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+                 : "=r"(v) : "l"(a.tickets + bh) : "memory");
+    last = v == (unsigned)(chunks - 1);
+    if (last) a.tickets[bh] = 0u;   // every chunk of bh has its ticket
+  }
+  __syncthreads();
+  if (!last) return;
+  // merge: the chunks' (m, l, o[D]) rows into shared memory, as many as
+  // ``red`` holds a round, every load of a round issued before its first
+  // store; then each column in max-shifted form, online across rounds
+  const float* parts = a.part + (size_t)bh * chunks * (D + 2);
+  float* rows = &red[0][0];
+  const int per = NWARPS * MAX_D / (D + 2);
+  float mx = -INFINITY, num = 0.f, den = 0.f;
+  for (int i0 = 0; i0 < chunks; i0 += per) {
+    const int n_i = min(per, chunks - i0), total = n_i * (D + 2);
+    const float* src = parts + (size_t)i0 * (D + 2);
+    for (int e0 = 0; e0 < total; e0 += NT * MERGE_LOADS) {
+      float v[MERGE_LOADS];
+#pragma unroll
+      for (int k = 0; k < MERGE_LOADS; ++k) {
+        const int e = e0 + k * NT + threadIdx.x;
+        v[k] = e < total ? __ldcg(src + e) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < MERGE_LOADS; ++k) {
+        const int e = e0 + k * NT + threadIdx.x;
+        if (e < total) rows[e] = v[k];
+      }
+    }
+    __syncthreads();
+    float gm = mx;
+    for (int i = 0; i < n_i; ++i) gm = fmaxf(gm, rows[i * (D + 2)]);
+    const float keep = expf(mx - gm);   // 0 on the first round
+    num *= keep;
+    den *= keep;
+    for (int i = 0; i < n_i; ++i) {
+      const float* pi = rows + i * (D + 2);
+      const float w = expf(pi[0] - gm);
+      den = fmaf(w, pi[1], den);
+      if (d < D) num = fmaf(w, pi[2 + d], num);
+    }
+    mx = gm;
+    __syncthreads();
+  }
+  if (d < D) a.o[(size_t)bh * D + d] = num / den;
+}
+
+__global__ void empty_kernel() {}
+
+template <int VEC, int CPL>
+cudaError_t launch(const StepArgs& a, int chunks, cudaStream_t stream) {
+  incremental_attention_kernel<VEC, CPL>
+      <<<dim3(chunks, a.bh), NT, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+extern "C" int incremental_attention_empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
 extern "C" int incremental_attention_launch(const StepArgs* args,
                                             void* stream) {
   const StepArgs a = *args;
-  if (a.bh < 1 || a.D < 1 || a.D > NT || a.t < 0 || a.t >= a.S)
+  if (a.bh < 1 || a.bh > 65535 || a.D < 1 || a.D > MAX_D || a.t < 0 ||
+      a.t >= a.S || a.chunk != STEP_CHUNK)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(a.D + a.t + 1 + NT) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        incremental_attention_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  incremental_attention_kernel<<<a.bh, NT, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const int chunks = (a.t + STEP_CHUNK) / STEP_CHUNK;
+  if (chunks > 1 && (a.part == nullptr || a.tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t bases = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e;
+  if (a.D % 4 == 0 && bases % 16 == 0)
+    e = a.D <= 128 ? launch<4, 1>(a, chunks, s) : launch<4, 2>(a, chunks, s);
+  else
+    e = launch<1, MAX_D / 32>(a, chunks, s);
+  return (int)e;
 }

@@ -1,11 +1,15 @@
 """The whole batch-1 inference encoder as one CUDA kernel.
 
 Replaces the JAX package's ``ops/fused_encoder.py`` ``_kernel`` (Pallas,
-reached through ``fused_encode``): prenet -> K=1..16 conv bank as one
-im2col product with batch norm folded in -> width-2 max pool -> two width-3
-projection convs -> residual -> highway layers -> bidirectional zoneout
-LSTM (both directions in one loop, the backward one walking the per-row
-length-reversed sequence) -> self-attention projection and hops.
+reached through ``fused_encode``): prenet -> K=1..16 conv bank with batch
+norm folded in -> width-2 max pool -> two width-3 projection convs ->
+residual -> highway layers -> bidirectional zoneout LSTM (both directions
+in one loop, the backward one walking the per-row length-reversed sequence)
+-> self-attention projection and hops.  ``csrc/fused_encoder.cu`` runs it
+as two launches a call: the trunk up to the LSTM's input products (one
+cooperative launch, products on the tensor cores, the bank read width by
+width without its zero blocks) and the recurrence with the hop (a cluster
+of 8 blocks holding the recurrent weights in registers).
 
 ``FusedEncoderParams`` holds the merged weights in the layout the kernel
 reads (``(in, out)`` matrices, (1, N) bias rows, highway [H | T] columns
@@ -33,10 +37,18 @@ MAX_PRENET = 4
 MAX_HIGHWAY = 8
 MAX_HOPS = 4
 
-# the kernel's StageClock slots (csrc), in order: SM cycles of block 0
-# between consecutive grid barriers, summed over the call
+# the kernel's profile slots (csrc ``EncClock``): block 0's SM cycles of each
+# stage, split into copying operands in, the product and epilogue (a
+# recurrent step's dot products and cell) and the barrier wait; slot
+# stage * len(ENC_PARTS) + part, summed over the call
 ENC_STAGES = ("prenet", "bank", "proj", "highway", "lstm_input", "lstm_steps",
               "self_attention")
+ENC_PARTS = ("load", "product", "wait")
+# csrc constants of the shared-memory plan (``smem_bytes``)
+MT, NI, DENSE_C, BANK_C, PROJ1_C = 64, 8, 256, 128, 256
+RED_FLOATS, RNN_DIR_BLOCKS, RNN_GX_STEPS, NWARPS = 512, 4, 32, 8
+MAX_HALF = 128      # the recurrent cluster: 4 blocks a direction, <= 32 units
+
 
 Tensor = torch.Tensor
 
@@ -152,11 +164,72 @@ class _EncArgs(ctypes.Structure):
     ]
 
 
+def _round8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def _slab_ld(cp: int) -> int:
+    return ((cp + 31) & ~31) + 4
+
+
+def _dense(K: int) -> int:
+    cw = min(_round8(K), DENSE_C)
+    return MT * _slab_ld(cw) + cw * NI + NI
+
+
+def smem_bytes(T: int, E_in: int, prenet: Tuple[int, ...], K: int, C: int,
+               P1: int, P2: int, W: int, H: int, SA: int) -> Tuple[int, int]:
+    """Shared memory a block of the trunk and of the recurrent cluster
+    needs (``trunk_smem_floats`` / ``rnn_smem_floats`` in
+    csrc/fused_encoder.cu, which the CUDA tests hold this against): the
+    largest item's slab (64 rows, or 64 + taps - 1 for a convolution, at a
+    stride of 4 mod 32; the first projection also holds its raw rows
+    before the pool) and weight tile (8 columns), its bias entries (the
+    second projection also its first's bias and its residual rows), plus
+    the depth halves' partial tiles; the cluster's h, two groups of 32
+    steps of the gates' input halves and two mbarriers (its recurrent
+    weights stay in registers), or its hop's items, or its hop's K | V | Q
+    rows and scores."""
+    f, E = _dense(E_in), E_in
+    for n in prenet:
+        f, E = max(f, _dense(E)), n
+    cb = min(_round8(E), BANK_C)
+    f = max(f, (MT + K - 1) * _slab_ld(cb) + (K + 1) * cb * NI + 2 * NI)
+    c1 = min(_round8(K * C), PROJ1_C)     # the pooled slab and its raw rows
+    f = max(f, (2 * MT + 5) * _slab_ld(c1) + 3 * c1 * NI)
+    c2 = min(_round8(P1), DENSE_C)
+    f = max(f, (MT + 2) * _slab_ld(c2) + 3 * c2 * NI + c2 + NI + MT * NI,
+            _dense(P2), _dense(W))
+    rows = 4 * -(-H // RNN_DIR_BLOCKS)
+    r = max(2 * _round8(H) + 2 * RNN_GX_STEPS * rows + 4, _dense(2 * H),
+            _dense(SA), T * (_round8(3 * SA) + 4) + NWARPS * T)
+    return 4 * (f + RED_FLOATS), 4 * (r + RED_FLOATS)
+
+
+def profile_split(cycles, ms: float):
+    """{stage: (load, product, wait) in us}: block 0's cycles of a profiled
+    launch (``launch.stage_cycles``), scaled so that they sum to the
+    launch's measured time ``ms``."""
+    n, total = len(ENC_PARTS), max(sum(cycles), 1)
+    return {s: tuple(ms * 1e3 * c / total for c in cycles[i * n:(i + 1) * n])
+            for i, s in enumerate(ENC_STAGES)}
+
+
+def format_split(split) -> str:
+    return "; ".join(
+        f"{s} {sum(p):.2f} (" + ", ".join(
+            f"{name} {v:.2f}" for name, v in zip(ENC_PARTS, p)) + ")"
+        for s, p in split.items() if sum(p))
+
+
 def _lib():
     lib = cuda_build.load("fused_encoder")
     if not getattr(lib, "_typed", False):
         lib.fused_encoder_scratch_floats.argtypes = [ctypes.POINTER(_EncArgs)]
         lib.fused_encoder_scratch_floats.restype = ctypes.c_longlong
+        lib.fused_encoder_smem_bytes.argtypes = [ctypes.POINTER(_EncArgs),
+                                                 ctypes.c_int]
+        lib.fused_encoder_smem_bytes.restype = ctypes.c_longlong
         lib.fused_encoder_launch.argtypes = [ctypes.POINTER(_EncArgs), _P]
         lib.fused_encoder_launch.restype = ctypes.c_int
         lib._typed = True
@@ -170,7 +243,11 @@ def _check(t: Tensor, shape, name: str) -> Tensor:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    return t.contiguous()
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel copies 16-byte vectors; the "
+                         f"tensor's data is not 16-byte aligned")
+    return t
 
 
 def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
@@ -180,8 +257,8 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
                    profile: bool = False) -> cuda_build.KernelLaunch:
     """Check and lay out the operands once; the returned launch runs the
     kernel and returns (lstm_out (T, 2H), sa_out (T, SA)).  With
-    ``profile`` the launch also accumulates per-stage SM cycles into
-    ``launch.stage_cycles`` (one slot per ``ENC_STAGES`` name)."""
+    ``profile`` the launch also accumulates block 0's SM cycles into
+    ``launch.stage_cycles`` (``ENC_STAGES`` x ``ENC_PARTS`` slots)."""
     L, K, C = int(length), max_filter_width, conv_channels
     zc, zo = zoneout_cell, zoneout_output
     T, E_in = int(x.shape[1]), int(x.shape[2])
@@ -231,6 +308,11 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
         a.adj_w = use(params.w_adjust[0], (P2, W), "w_adjust")
         a.adj_b = use(params.w_adjust[1].reshape(-1), (W,), "b_adjust")
     a.W, a.H = W, half
+    widths = (E_in, *a.pre_out[:a.n_prenet], C, P1, P2, W, sa_units)
+    if any(w % 4 for w in widths) or half % 2 or not 1 <= half <= MAX_HALF:
+        raise ValueError(f"the kernel copies 16-byte rows: widths {widths} "
+                         f"must be multiples of 4, and the LSTM's {half} "
+                         f"units even and <= {MAX_HALF}")
     a.n_highway = len(params.highway)
     for i, (w, b) in enumerate(params.highway):
         a.hw_w[i] = use(w, (W, 2 * W), f"highway{i}.w")
@@ -257,8 +339,9 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
     sa_out = torch.empty(T, SA, device=x.device)
     scratch = torch.empty(int(lib.fused_encoder_scratch_floats(
         ctypes.byref(a))), device=x.device)
-    cycles = (torch.zeros(len(ENC_STAGES), dtype=torch.int64,
-                          device=x.device) if profile else None)
+    cycles = (torch.zeros(len(ENC_STAGES) * len(ENC_PARTS),
+                          dtype=torch.int64, device=x.device)
+              if profile else None)
     keep += [lstm_out, sa_out, scratch, cycles]
     a.lstm_out, a.sa_out, a.scratch = (lstm_out.data_ptr(),
                                        sa_out.data_ptr(), scratch.data_ptr())

@@ -11,8 +11,10 @@ kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
   with an online softmax, D up to 128);
 * ``incremental_attention_step`` — one (B, H, D) query against (B, H, S, D)
   key and value caches masked to positions <= t; replaces
-  ``_incremental_kernel`` (``csrc/incremental_attention.cu``: one block per
-  head, positions > t never read, t a kernel argument).
+  ``_incremental_kernel`` (``csrc/incremental_attention.cu``: the cache up
+  to t in chunks of 32 positions, one block each, merged by the chunk that
+  finishes last in the same launch; positions > t never read, t a kernel
+  argument).
 
 ``ops/attention_core.py`` selects them under ``use_pallas`` where no dropout
 is active, as the JAX package does.  Each has a plain PyTorch version
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -36,6 +39,10 @@ from . import cuda_build
 NEG_INF = -1e9
 MAX_HEAD_DIM = 128          # fused_self_attention's widest template width
 MAX_STEP_HEAD_DIM = 256     # incremental_attention_step: one thread a column
+# incremental_attention_step: positions a block (STEP_CHUNK in the kernel)
+STEP_CHUNK = 32
+# what prepare_step(passes=i + 1) keeps of the kernel (the last: all of it)
+STEP_PASSES = ("scores", "softmax", "values", "all")
 
 Tensor = torch.Tensor
 _P = ctypes.c_void_p
@@ -79,10 +86,34 @@ class _AttnArgs(ctypes.Structure):
 class _StepArgs(ctypes.Structure):
     """Mirror of ``StepArgs`` in csrc/incremental_attention.cu."""
 
-    _fields_ = [("q", _P), ("k", _P), ("v", _P), ("o", _P),
-                ("bh", ctypes.c_int), ("S", ctypes.c_int),
+    _fields_ = [("q", _P), ("k", _P), ("v", _P), ("o", _P), ("part", _P),
+                ("tickets", _P), ("bh", ctypes.c_int), ("S", ctypes.c_int),
                 ("D", ctypes.c_int), ("t", ctypes.c_int),
-                ("scale", ctypes.c_float)]
+                ("chunk", ctypes.c_int), ("scale", ctypes.c_float),
+                ("passes", ctypes.c_int)]
+
+
+def step_plan(bh: int, t: int, D: int) -> Tuple[int, int]:
+    """(blocks a head, scratch floats) of one step at position ``t``: the
+    cache up to ``t`` in chunks of ``STEP_CHUNK`` positions, one block each;
+    with more than one chunk each writes its max, sum and unnormalised
+    context row (D + 2 floats) for the last one to merge."""
+    chunks = t // STEP_CHUNK + 1
+    return chunks, (bh * chunks * (D + 2) if chunks > 1 else 0)
+
+
+_tickets: Dict[torch.device, Tensor] = {}
+
+
+def _ticket_words(device, bh: int) -> Tensor:
+    """The per-(b, h) ticket counters of ``device``: zeroed once, and left
+    at 0 by every launch (its last chunk resets its word), so launches on
+    one stream share them.  Grown (new zeros) for a larger B * H."""
+    words = _tickets.get(device)
+    if words is None or words.numel() < bh:
+        words = torch.zeros(max(bh, 64), dtype=torch.int32, device=device)
+        _tickets[device] = words
+    return words
 
 
 def _fn(name: str, struct):
@@ -141,6 +172,28 @@ def incremental_attention_step(q_t: Tensor, key_cache: Tensor,
     if not q_t.is_cuda:
         return incremental_attention_step_reference(q_t, key_cache,
                                                     value_cache, t)
+    return prepare_step(q_t, key_cache, value_cache, t)()
+
+
+def launch_floor(device) -> Callable[[], None]:
+    """A launch of an empty kernel on the current stream (not counted): the
+    floor under one step's time in a queued loop."""
+    fn = cuda_build.load("incremental_attention") \
+        .incremental_attention_empty_launch
+    fn.argtypes, fn.restype = [_P], ctypes.c_int
+
+    def launch():
+        err = fn(torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"empty kernel launch failed: cudaError {err}")
+    return launch
+
+
+def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
+                 passes: int = 0) -> cuda_build.KernelLaunch:
+    """Check the operands and lay out one step's launch (its scratch from
+    ``step_plan``).  ``passes`` cuts the kernel short for a profile: pass
+    i + 1 keeps ``STEP_PASSES[:i + 1]`` (0: all of it)."""
     if key_cache.dim() != 4:
         raise ValueError(f"key_cache: expected (B, H, S, D), got "
                          f"{tuple(key_cache.shape)}")
@@ -149,18 +202,24 @@ def incremental_attention_step(q_t: Tensor, key_cache: Tensor,
     _check(key_cache, (B, H, S, D), "key_cache", q_t.device)
     _check(value_cache, (B, H, S, D), "value_cache", q_t.device)
     t = int(t)
-    if not (1 <= D <= MAX_STEP_HEAD_DIM) or not 0 <= t < S:
+    if not (1 <= D <= MAX_STEP_HEAD_DIM) or not 0 <= t < S \
+            or B * H > 65535:
         raise ValueError(f"incremental_attention_step takes 1 <= D <= "
-                         f"{MAX_STEP_HEAD_DIM} and 0 <= t < S; got D={D}, "
-                         f"t={t}, S={S}")
+                         f"{MAX_STEP_HEAD_DIM}, 0 <= t < S and B * H <= "
+                         f"65535; got D={D}, t={t}, S={S}, B * H={B * H}")
     out = torch.empty_like(q_t)
+    _, floats = step_plan(B * H, t, D)
+    part = torch.empty(floats, device=q_t.device)
+    tickets = _ticket_words(q_t.device, B * H)
     args = _StepArgs(q_t.data_ptr(), key_cache.data_ptr(),
-                     value_cache.data_ptr(), out.data_ptr(), B * H, S, D, t,
-                     1.0 / math.sqrt(D))
+                     value_cache.data_ptr(), out.data_ptr(),
+                     part.data_ptr() if floats else None,
+                     tickets.data_ptr(), B * H, S, D, t, STEP_CHUNK,
+                     1.0 / math.sqrt(D), int(passes))
     return cuda_build.KernelLaunch(
         _fn("incremental_attention", _StepArgs), args,
-        (q_t, key_cache, value_cache, out), out, q_t.device,
-        incremental_attention_step)()
+        (q_t, key_cache, value_cache, out, part, tickets), out, q_t.device,
+        incremental_attention_step)
 
 
 fused_self_attention.launches = 0

@@ -87,11 +87,26 @@ def _close(a, b, tol=TOL):
                                b.detach().cpu().numpy(), rtol=tol, atol=tol)
 
 
+# the encoder widths of the codes and VCTK recipes (examples/{codes,vctk}/
+# self-attention-tacotron.json leave them at the defaults; VCTK differs in
+# its symbol table only)
+RECIPE_ENC = dict(embedding_dim=256, encoder_prenet_out_units=(256, 128),
+                  cbhg_out_units=256, conv_channels=128, max_filter_width=16,
+                  projection1_out_channels=128, projection2_out_channels=128,
+                  self_attention_out_units=32)
+
+
 @pytest.mark.parametrize("kw,T,L", [
     ({}, 32, 32),
     ({}, 32, 13),
     ({"max_filter_width": 5, "cbhg_out_units": 24,
       "self_attention_num_hop": 2}, 40, 29),
+    ({}, 32, 1),
+    (RECIPE_ENC, 64, 1),
+    (RECIPE_ENC, 64, 64),
+    (RECIPE_ENC, 64, 50),
+    (RECIPE_ENC, 70, 33),
+    (RECIPE_ENC, 100, 77),     # two 64-row tiles
 ])
 @torch.no_grad()
 def test_fused_encode_kernel_matches_plain(device, kw, T, L):
@@ -104,6 +119,21 @@ def test_fused_encode_kernel_matches_plain(device, kw, T, L):
     for g, r in zip(got, ref):
         _close(g, r)
     assert bool((got[0][0, L:] == 0).all())
+
+
+@pytest.mark.parametrize("kw,T", [({}, 32), (RECIPE_ENC, 64),
+                                  ({"max_filter_width": 5,
+                                    "cbhg_out_units": 24}, 40)])
+def test_encode_smem_plan_matches_the_kernel(device, kw, T):
+    import ctypes
+    params, x, kwargs = _enc_case(_model(device, **kw), T, T, device)
+    launch = fe.prepare_encode(params, x, T, **kwargs)
+    lib = fe._lib()
+    got = tuple(int(lib.fused_encoder_smem_bytes(ctypes.byref(launch.args),
+                                                 which)) for which in (0, 1))
+    a = launch.args
+    assert got == fe.smem_bytes(T, a.E_in, tuple(a.pre_out[:a.n_prenet]),
+                                a.K, a.C, a.P1, a.P2, a.W, a.H, a.SA)
 
 
 def _dec_case(model, T, L, device):
@@ -410,6 +440,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         fe.fused_encode(params, x.double(), 16, **kw)
     with pytest.raises(ValueError):
         fe.fused_encode(params, x, 17, **kw)      # length past T
+    flat = torch.zeros(x.numel() + 1, device=device)
+    shifted = flat[1:].view_as(x).copy_(x)        # 4 bytes past 16-aligned
+    with pytest.raises(ValueError, match="16-byte"):
+        fe.fused_encode(params, shifted, 16, **kw)
+    odd, xo, kwo = _enc_case(_model(device, embedding_dim=18), 16, 16, device)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fe.fused_encode(odd, xo, 16, **kwo)
     weights, memory, options = _rows_case(model, [16], device)
     big = fd.FusedDecodeMemory(*(tuple(t.expand(300, *t.shape[1:])
                                        for t in part) for part in memory))
@@ -645,6 +682,52 @@ def test_incremental_step_kernel_matches_plain(device, B, H, S, D):
         torch.cuda.synchronize()
         assert pa.incremental_attention_step.launches == before + 1
         _close(got, ref, tol=1e-5)
+
+
+P = pa.STEP_CHUNK
+
+
+@pytest.mark.parametrize("D", [16, 30, 128, 256])
+@pytest.mark.parametrize("B,H", [(1, 1), (1, 2), (32, 2)])
+@torch.no_grad()
+def test_incremental_step_kernel_at_chunk_edges(device, B, H, D):
+    """t at the chunk edges (one chunk, two with one position in the
+    second, the cache's end); D = 30 takes the scalar loads."""
+    S = 3 * P + 5
+    kc, vc = _normal(device, B, H, S, D, seed=1), _normal(device, B, H, S, D,
+                                                          seed=2)
+    for t in (0, P - 1, P, P + 1, S - 1):
+        q = _normal(device, B, H, D, seed=3 + t)
+        got = pa.incremental_attention_step(q, kc, vc, t)
+        ref = pa.incremental_attention_step_reference(q, kc, vc, t)
+        torch.cuda.synchronize()
+        _close(got, ref, tol=1e-5)
+
+
+@torch.no_grad()
+def test_incremental_step_counters_reset_between_calls(device):
+    """Calls with different t (so different chunk counts) queued on one
+    stream without a sync between them: each merge sees only its own
+    chunks, because the last chunk leaves its ticket word at 0; and a base
+    that is not 16-byte aligned takes the scalar loads."""
+    B, H, S, D = 2, 2, 300, 128
+    kc, vc = _normal(device, B, H, S, D, seed=1), _normal(device, B, H, S, D,
+                                                          seed=2)
+    ts = (S - 1, 40, 3 * P, 0, S - 1, 2 * P + 7)
+    qs = [_normal(device, B, H, D, seed=10 + i) for i in range(len(ts))]
+    outs = [pa.incremental_attention_step(q, kc, vc, t)
+            for q, t in zip(qs, ts)]
+    torch.cuda.synchronize()
+    for q, t, got in zip(qs, ts, outs):
+        _close(got, pa.incremental_attention_step_reference(q, kc, vc, t),
+               tol=1e-5)
+    flat = _normal(device, 2 * B * H * S * D + 1, seed=4)
+    ko = flat[1:1 + B * H * S * D].view(B, H, S, D)     # 4-byte offset
+    vo = flat[1 + B * H * S * D:].view(B, H, S, D)
+    assert ko.data_ptr() % 16 and ko.is_contiguous()
+    got = pa.incremental_attention_step(qs[0], ko, vo, S - 1)
+    _close(got, pa.incremental_attention_step_reference(qs[0], ko, vo,
+                                                        S - 1), tol=1e-5)
 
 
 def test_pallas_wrappers_reject_what_the_kernels_do_not_take(device):

@@ -100,3 +100,35 @@ def test_fused_encode_takes_batch_one_only():
         lstm_out, _, _ = enc(torch.from_numpy(np.concatenate([x, x])),
                              torch.tensor([13, 13]))
     assert lstm_out.shape == (2, 13, 16)
+
+
+# (T, E_in, prenet widths, K, C, P1, P2, W, H, SA) -> (trunk, cluster)
+# bytes of shared memory a block: the recipes' encoder widths (the codes
+# and VCTK recipes share them; the first projection's item, 66 pooled and
+# 67 raw rows of 256 channels and 3 taps of weights, sets the trunk's plan,
+# the hop's projection from the 2 x 128 LSTM outputs the cluster's) and
+# this file's tiny ones
+SMEM_PLANS = {
+    "recipe": ((64, 256, (256, 128), 16, 128, 128, 128, 128, 128, 32),
+               (4 * (133 * 260 + 3 * 256 * 8 + 512),
+                4 * (64 * 260 + 256 * 8 + 8 + 512))),
+    "tiny": ((32, 16, (16, 8), 4, 8, 8, 8, 8, 8, 8), (24272, 11808)),
+}
+
+
+@pytest.mark.parametrize("name", list(SMEM_PLANS))
+def test_fused_encode_smem_plan(name):
+    """The kernel's shared-memory plan (held against the kernel's own
+    figures in tests/test_torch_cuda.py) fits a block (227 KB)."""
+    dims, want = SMEM_PLANS[name]
+    assert fe.smem_bytes(*dims) == want
+    assert max(want) <= 232448
+
+
+def test_profile_split_scales_to_the_measured_time():
+    n = len(fe.ENC_STAGES) * len(fe.ENC_PARTS)
+    split = fe.profile_split(list(range(1, n + 1)), 0.25)
+    assert list(split) == list(fe.ENC_STAGES)
+    assert all(len(p) == len(fe.ENC_PARTS) for p in split.values())
+    assert abs(sum(sum(p) for p in split.values()) - 250.0) < 1e-9
+    assert fe.format_split(split).startswith("prenet ")

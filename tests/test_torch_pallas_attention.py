@@ -11,6 +11,8 @@
   KV-cache steps, the zeroed alignments included; with dropout active in
   training the gate keeps the einsum path, as in the JAX package.
 * The KV-cache step writes its row into the caches in place.
+* The step kernel's plan (``step_plan``): the cache up to t in chunks of
+  ``STEP_CHUNK`` positions, none past t, and the merge scratch.
 """
 
 import jax
@@ -42,6 +44,19 @@ def test_plain_fused_self_attention_matches_jax_kernel(causal, B, H, T, D):
                                   causal=causal)
     assert pa.fused_self_attention.launches == launches   # CPU: plain
     close(got, ref, TOL)
+
+
+@pytest.mark.parametrize("bh,t,D,chunks", [
+    (2, 0, 128, 1), (2, 31, 128, 1), (2, 32, 128, 2), (2, 249, 128, 8),
+    (64, 449, 128, 15), (1, 33, 30, 2)])
+def test_step_plan_chunks_the_cache(bh, t, D, chunks):
+    """One block per STEP_CHUNK positions up to t (the first block of each
+    head starts at 0, the last holds t); a single chunk needs no scratch,
+    more write D + 2 floats each (max, sum, unnormalised row)."""
+    got, floats = pa.step_plan(bh, t, D)
+    assert pa.STEP_CHUNK == 32 and got == chunks
+    assert (chunks - 1) * pa.STEP_CHUNK <= t < chunks * pa.STEP_CHUNK
+    assert floats == (0 if chunks == 1 else bh * chunks * (D + 2))
 
 
 @pytest.mark.parametrize("t", [0, 5, 23])
