@@ -119,6 +119,19 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    ``vctk_serving`` and ``batched_inference``, each row with its own
    shapes' times.
 
+20. the bf16 storage mode (``decoder_fused_dtype`` /
+   ``decoder_fused_train_dtype = bfloat16``) at the codes recipe's widths:
+   ``fused_decode`` against its plain bf16 version (B = 1, 450 steps, early
+   stop off and on; the batched mode at the bf16 plan's capacity), the
+   training kernels at B = 32, S = 256 (masks on) against theirs, each
+   timed beside its f32 twin in turns; ``main_code`` serving 3 utterances
+   with ``--hparams decoder_fused_dtype=bfloat16`` (one ``fused_decode``
+   launch an utterance, no fallback logged) and ``cli.train`` taking 3
+   steps with ``decoder_fused_train_dtype=bfloat16`` (3 launches of each
+   training kernel, finite losses, a checkpoint).  The kernels line gains
+   the paths ``bf16_serving`` and ``bf16_training``, bounded by the bytes
+   with bf16 storage and the BF16 tensor peak.
+
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
 holds this script without the package.  Imports nothing of JAX.
@@ -165,9 +178,25 @@ ATTN_HEADS, ATTN_T, ATTN_D = 2, 250, 128
 SERVE_S = 450       # the serving decode's cache (the codes recipe's cap)
 PALLAS_SERVING = ("use_pallas_attention=true,decoder_fused_inference=false,"
                   "encoder_fused_inference=false")
-# peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, FP32 non-tensor
+# peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, FP32 non-tensor,
+# dense BF16 tensor cores (the bf16 storage mode's bound)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
+# The bf16 storage mode (phase 20), kernel vs its plain bf16 version.  Both
+# round the same inputs to bf16, but an f32 sum that lands near a bf16
+# rounding boundary rounds one ulp (2^-8 relative) apart now and then and
+# the decode feeds it back, so: the decode's logits and stop logits within
+# 1e-2 (max abs) over the first 20 steps; over all 450 steps finite, the
+# same code argmax at >= 95 % of the frames and, with early stop, equal
+# lengths; the training forward (y, save rows, alignment columns) within
+# 1e-2 and each gradient within 1e-2 of its largest magnitude.
+BF16 = "bfloat16"
+BF16_HEAD_STEPS = 20
+TOL_BF16_DECODE_HEAD = 1e-2
+BF16_MIN_AGREE = 0.95
+TOL_BF16_TRAIN = 1e-2
+TOL_BF16_TRAIN_GRAD = 1e-2
 
 
 def log(msg: str) -> None:
@@ -343,8 +372,10 @@ def write_corpus(hp, root: str, n: int = 3):
     return keys
 
 
-def phase_end_to_end(model, device_name: str):
-    """main_code on a synthetic corpus; returns the launch counts."""
+def phase_end_to_end(model, device_name: str, hparams: str = "",
+                     phase: int = 5):
+    """main_code on a synthetic corpus (``hparams`` over the recipe);
+    returns the launch counts."""
     import numpy as np
     from self_attention_tacotron_torch.cli.predict import main_code
     from self_attention_tacotron_torch.data.records import (
@@ -363,7 +394,7 @@ def phase_end_to_end(model, device_name: str):
         fd.fused_decode.launches = 0
         rc = main_code(["--source-data-root", data, "--target-data-root", data,
                         "--checkpoint-dir", ckpt, "--output-dir", out,
-                        "--hparam-json-file", RECIPE,
+                        "--hparam-json-file", RECIPE, "--hparams", hparams,
                         "--device", device_name])
         counts = {"fused_encode": fe.fused_encode.launches,
                   "fused_decode": fd.fused_decode.launches}
@@ -379,8 +410,9 @@ def phase_end_to_end(model, device_name: str):
                     or not np.array_equal(rec.codes.sum(1),
                                           np.ones(rec.codes.shape[0]))):
                 raise AssertionError(f"bad prediction files for {key}")
-    log(f"phase 5 serving end to end: main_code served {len(keys)} utterances on "
-        f"{device_name}; launch counts {counts}")
+    log(f"phase {phase} serving end to end: main_code served {len(keys)} "
+        f"utterances on {device_name} (--hparams '{hparams}'); launch "
+        f"counts {counts}")
     if device_name == "cuda" and min(counts.values()) < 1:
         raise AssertionError("a kernel of the main path never launched")
     return counts
@@ -435,7 +467,8 @@ def encode_bound(params, x, kw):
     return _nbytes(tensors) + 4 * bank_taps + out_bytes, flops
 
 
-def decode_bound(params, w, memory, steps: int, speaker_row=None):
+def decode_bound(params, w, memory, steps: int, speaker_row=None,
+                 wbytes: int = 4):
     """(bytes, FLOPs) of ``steps`` decode steps of B rows: each product
     counted in the cheaper of its two exact forms, the decoder's own
     (``params``) or the kernel's merged one (``w``), with every weight of
@@ -445,7 +478,8 @@ def decode_bound(params, w, memory, steps: int, speaker_row=None):
     rather than frame @ W0) and Wo @ Wt; the module's form wins for
     outproj + lstm1 (the merged one carries Wop @ W1x and a zero block)
     and for the location conv and dense.  The speaker row adds one add a
-    step and element."""
+    step and element.  ``wbytes``: bytes of a matrix weight, key and value
+    (2 in the bf16 storage mode)."""
     B = memory.keys[0].shape[0]
     t_sizes = [k.shape[1] for k in memory.keys]
     D = w.l2_b.shape[0] // 4
@@ -475,12 +509,14 @@ def decode_bound(params, w, memory, steps: int, speaker_row=None):
             *(b for _, b in w.prenet),
             *(t for hop in w.hops for t in (hop[1], hop[3]))]
     mem = [*memory.keys, *memory.values, *memory.masks]
+    kv = sum(t.numel() for t in (*memory.keys, *memory.values))
     if speaker_row is not None:
         mem.append(speaker_row)
         flops += steps * speaker_row.numel()
     out_bytes = 4 * steps * (B * (w.cr + 1) + (sum(t_sizes) if B == 1
                                                else 0))
-    return 4 * (dense + sum(locs)) + _nbytes(vecs + mem) + out_bytes, flops
+    return (wbytes * dense + 4 * sum(locs) + _nbytes(vecs + mem)
+            - (4 - wbytes) * kv + out_bytes), flops
 
 
 def _stage_shares(name, launch, stages, ms: float, per: int, unit: str,
@@ -501,13 +537,14 @@ def _stage_shares(name, launch, stages, ms: float, per: int, unit: str,
 
 
 def _kernel_rows(name, src, line, launches, err, ms, plain, bound,
-                 library_ms=None):
+                 library_ms=None, peak_flops=PEAK_FP32_FLOP_PER_S):
     """One row of the kernels line for each main path that launched the
     kernel: ``launches`` maps a path to the counts of its own run (zeroed
-    just before it); the counts of two paths are never added."""
+    just before it); the counts of two paths are never added.  The bound's
+    operations run at ``peak_flops`` (FP32, or the BF16 tensor peak)."""
     nbytes, flops = bound
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return [{"name": name, "path": path, "route": "cuda",
              "source": f"self_attention_tacotron_torch/ops/csrc/{src}.cu",
              "replaces": f"self_attention_tacotron_tpu/ops/{line}",
@@ -589,12 +626,13 @@ def _leaves(tree):
 
 
 def train_case(model, device, deterministic: bool, seed: int,
-               steps: int = TRAIN_S):
+               steps: int = TRAIN_S, compute_dtype: str = "float32"):
     """The training trunk's inputs at the recipe widths: B = 32 random
     sources (lengths 40..64) through the encoder, their attention keys
     (with the folded biases) and values, ``steps`` teacher rows (one-hot
     codes, or mel frames for a mel-target recipe), and with speakers the
-    speaker rows of ids cycling over ``VCTK_SPEAKERS``."""
+    speaker rows of ids cycling over ``VCTK_SPEAKERS``; ``compute_dtype``
+    the kernels' storage mode (``ops`` rounded to bf16 in that mode)."""
     import numpy as np
     import torch
     from self_attention_tacotron_torch.data.dataset import target_kind_of
@@ -641,7 +679,8 @@ def train_case(model, device, deterministic: bool, seed: int,
                         zo_dec=zo, deterministic=deterministic,
                         p_dropout=dec.prenets.dense_layers()[1],
                         use_spk=spk is not None, src_kinds=kinds,
-                        cumulative=cum, loc_kernel=dec._loc_kernel())
+                        cumulative=cum, loc_kernel=dec._loc_kernel(),
+                        compute_dtype=compute_dtype)
     tf = teacher.transpose(0, 1).reshape(steps * TRAIN_B,
                                          spec.cf).contiguous()
     ops = ft.train_operands(spec, params, keys, values, masks, tf, spk,
@@ -788,16 +827,20 @@ def write_train_corpus(hp, root: str, n: int = 64):
     return keys
 
 
-def phase_train_end_to_end(hp, data: str, tmp: str, device_name: str):
-    """cli.train.main for 3 steps, then cli.predict from its checkpoint;
-    returns the training kernels' launch counts."""
+def phase_train_end_to_end(hp, data: str, tmp: str, device_name: str,
+                           hparams: str = "", phase: int = 7):
+    """cli.train.main for 3 steps (``hparams`` over the recipe), then
+    cli.predict from its checkpoint; returns the training kernels' launch
+    counts."""
     import math
     import re
     import torch
     from self_attention_tacotron_torch.cli.predict import main_code
     from self_attention_tacotron_torch.cli.train import main as train_main
     from self_attention_tacotron_torch.ops import fused_train as ft
-    ckpt, out = os.path.join(tmp, "train_ckpt"), os.path.join(tmp, "pred")
+    tag = f"_{phase}" if phase != 7 else ""
+    ckpt = os.path.join(tmp, "train_ckpt" + tag)
+    out = os.path.join(tmp, "pred" + tag)
     ft.fused_train_fwd.launches = 0
     ft.fused_train_bwd.launches = 0
     t0 = time.perf_counter()
@@ -805,7 +848,7 @@ def phase_train_end_to_end(hp, data: str, tmp: str, device_name: str):
         rc = train_main(["--source-data-root", data, "--target-data-root",
                          data, "--checkpoint-dir", ckpt,
                          "--hparam-json-file", RECIPE, "--max-steps", "3",
-                         "--device", device_name])
+                         "--hparams", hparams, "--device", device_name])
     wall = time.perf_counter() - t0
     counts = {"fused_train_fwd": ft.fused_train_fwd.launches,
               "fused_train_bwd": ft.fused_train_bwd.launches}
@@ -815,9 +858,10 @@ def phase_train_end_to_end(hp, data: str, tmp: str, device_name: str):
         losses = [float(m.group(2)) for m in re.finditer(
             r"step (\d+) loss ([-+0-9.eEinfa]+)", f.read())]
     files = sorted(os.listdir(ckpt))
-    log(f"phase 7 training end to end: cli.train took 3 steps at B="
-        f"{hp.batch_size} on {device_name} in {wall:.1f} s (build and start "
-        f"included); losses {losses}; launch counts {counts}; files {files}")
+    log(f"phase {phase} training end to end: cli.train took 3 steps at B="
+        f"{hp.batch_size} on {device_name} (--hparams '{hparams}') in "
+        f"{wall:.1f} s (build and start included); losses {losses}; launch "
+        f"counts {counts}; files {files}")
     if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
         raise AssertionError("training losses are missing or not finite")
     if device_name == "cuda" and counts != {"fused_train_fwd": 3,
@@ -829,16 +873,16 @@ def phase_train_end_to_end(hp, data: str, tmp: str, device_name: str):
     rc = main_code(["--source-data-root", data, "--target-data-root", data,
                     "--checkpoint-dir", ckpt, "--output-dir", out,
                     "--hparam-json-file", RECIPE, "--device", device_name,
-                    "--limit", "1"])
+                    "--hparams", hparams, "--limit", "1"])
     served = [f for f in os.listdir(out) if f.endswith(".tfrecord")]
-    log(f"phase 7 cli.predict served {len(served)} utterance from the "
+    log(f"phase {phase} cli.predict served {len(served)} utterance from the "
         "step-3 checkpoint")
     if rc != 0 or len(served) != 1:
         raise AssertionError("serving from the training checkpoint failed")
     return counts
 
 
-def train_bound(spec, tensors_in, tensors_out, backward: bool):
+def train_bound(spec, tensors_in, tensors_out, backward: bool, half=()):
     """(bytes, FLOPs) of the trunk function: each input read once and each
     output written once; one multiply-add per weight and row for every
     product, the attention's energies (the location taps, the v dot) and
@@ -847,7 +891,8 @@ def train_bound(spec, tensors_in, tensors_out, backward: bool):
     attention VJP (twice the energies' and contexts' work), the weight
     gradients (one multiply-add per weight and row) and the prenet
     backward (its weights, and the input cotangent of W_att's prenet rows
-    and of layers > 0)."""
+    and of layers > 0).  The tensors in ``half`` count 2 bytes an element
+    (what the bf16 storage mode stores as bf16)."""
     B, S, T, K = spec.batch, spec.num_steps, spec.t_mem, spec.loc_kernel
     A, D, P = spec.a_units, spec.d_units, spec.p_sizes
     sumU, sumC = sum(spec.u_sizes), sum(spec.c_sizes)
@@ -865,7 +910,8 @@ def train_bound(spec, tensors_in, tensors_out, backward: bool):
         fma = (M * (w_trunk - w_att_pre) + 2 * attn + M * (w_trunk + w_pre)
                + M * (w_att_pre + sum(i * o for i, o in zip(p_in[1:],
                                                              P[1:]))))
-    return _nbytes(tensors_in) + _nbytes(tensors_out), 2 * fma
+    return (_nbytes(tensors_in) + _nbytes(tensors_out)
+            - 2 * sum(t.numel() for t in half)), 2 * fma
 
 
 def phase_train_timing(model, device, data: str, launches, errs):
@@ -2356,6 +2402,281 @@ def phase_row_timing(cases, vctk_timing, codes_timing, batched_times,
     return out
 
 
+# ------------------------------------------------- the bf16 storage mode
+
+def _time_turns(fns, reps: int = 5):
+    """{name: median ms} of one call each, CUDA events, in turns (A B B A
+    ...) after one warm-up each: versions compared in one call."""
+    import torch
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for rep in range(reps):
+        for name in (order if rep % 2 == 0 else order[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[name]()
+            end.record()
+            end.synchronize()
+            times[name].append(start.elapsed_time(end))
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def _bf16_decode_check(tag, got, ref):
+    """The bf16 decode's statistics against its plain version: max abs over
+    the first BF16_HEAD_STEPS steps, over all, the code-argmax agreement,
+    finiteness; raises past the tolerances.  Returns the head error."""
+    head = max(_max_err(g[:, :BF16_HEAD_STEPS], r[:, :BF16_HEAD_STEPS])
+               for g, r in zip((got[0], got[1], *got[2]),
+                               (ref[0], ref[1], *ref[2])))
+    whole = max(_max_err(g, r) for g, r in zip((got[0], got[1], *got[2]),
+                                               (ref[0], ref[1], *ref[2])))
+    agree = float((got[0].argmax(-1) == ref[0].argmax(-1)).float().mean())
+    finite = all(bool(t.isfinite().all()) for t in (got[0], got[1],
+                                                    *got[2]))
+    log(f"phase 20 fused_decode bf16 {tag}: max abs err first "
+        f"{BF16_HEAD_STEPS} steps {head:.3e}, all steps {whole:.3e}; code "
+        f"argmax agreement {agree:.4f}; finite {finite}")
+    if head > TOL_BF16_DECODE_HEAD or agree < BF16_MIN_AGREE or not finite:
+        raise AssertionError(f"bf16 fused_decode disagrees ({tag})")
+    return head
+
+
+def phase_bf16_decode(hp, model32, device):
+    """Phase 20, serving: the bf16 decode kernel against its plain bf16
+    version at the codes widths, B = 1 (early stop off and on) and the
+    batched mode at the bf16 plan's capacity; B = 1 timed beside the f32
+    kernel in turns.  Returns (worst head error, (ms, plain ms, bound))."""
+    import numpy as np
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    model = make_model(hp.replace(decoder_fused_dtype=BF16), device)
+    steps = hp.max_iters
+    weights, memory, options = decoder_case(model, 50, T_IN, device)
+    options = dict(options, early_stop=False)
+    worst = _bf16_decode_check("B=1, early stop off", *_decode_pair(
+        weights, memory, options, steps))
+    head_b = weights.head_b.clone()
+    head_b[weights.cr] += 5.0
+    got, ref = _decode_pair(weights._replace(head_b=head_b), memory,
+                            dict(options, early_stop=True), steps)
+    n_got = _post_hoc_length(got[1], options["min_iters"])
+    n_ref = _post_hoc_length(ref[1], options["min_iters"])
+    tail_zero = bool((got[0][:, n_got:] == 0).all())
+    log(f"phase 20 fused_decode bf16 early stop on: lengths kernel {n_got} "
+        f"plain {n_ref}; zero after exit {tail_zero}")
+    worst = max(worst, _bf16_decode_check("B=1, early stop on", got, ref))
+    if n_got != n_ref or not tail_zero:
+        raise AssertionError("bf16 early-stop decode disagrees")
+
+    shape = dict(t_sizes=[T_IN] * len(memory.keys),
+                 c_sizes=[v.shape[2] for v in memory.values],
+                 num_steps=steps, num_heads=options["num_heads"])
+    cap = fd.max_batch(weights, **shape)
+    w32, mem32, opt32 = decoder_case(model32, T_IN, T_IN, device)
+    cap32 = fd.max_batch(w32, **shape)
+    rng = np.random.default_rng(SEED + 20)
+    lengths = [T_IN] + rng.integers(40, T_IN + 1, cap - 1).tolist()
+    wb, mb, ob = rows_case(model, lengths, T_IN, device, 20)
+    ob = dict(ob, early_stop=False)
+    worst = max(worst, _bf16_decode_check(
+        f"batched B={cap} (the bf16 plan's capacity; f32's {cap32})",
+        *_decode_pair(wb, mb, ob, steps)))
+
+    w1, m1, o1 = decoder_case(model, T_IN, T_IN, device)
+    o1 = dict(o1, early_stop=False)
+    opt32 = dict(opt32, early_stop=False)
+    ms = _time_turns({
+        "bf16": fd.prepare_decode(w1, m1, num_steps=steps, **o1),
+        "f32": fd.prepare_decode(w32, mem32, num_steps=steps, **opt32)})
+    plain = _time_ms(lambda: fd.fused_decode_reference(
+        w1, m1, num_steps=steps, **o1), reps=1)
+    rows32 = rows_case(model32, lengths[:cap32], T_IN, device, 20)
+    mb_ms = _time_turns({
+        "bf16": fd.prepare_decode(wb, mb, num_steps=steps, **ob),
+        "f32": fd.prepare_decode(*rows32[:2], num_steps=steps,
+                                 **dict(rows32[2], early_stop=False))})
+    params = model.decoder.fused_params()
+    bound = decode_bound(params, w1, m1, steps, wbytes=2)
+    b_bound = decode_bound(params, wb, mb, steps, wbytes=2)
+    _stage_shares("fused_decode bf16 B=1", fd.prepare_decode(
+        w1, m1, num_steps=steps, profile=True, **o1), fd.DEC_STAGES,
+        ms["bf16"], steps, "step", 20)
+    log(f"phase 20 timing fused_decode B=1 {steps} steps (in turns): bf16 "
+        f"{ms['bf16']:.4f} ms, f32 {ms['f32']:.4f} ms; bf16 plain "
+        f"{plain:.4f} ms; bf16 bound {_bf16_bound_ms(bound):.4f} ms "
+        f"({bound[0]} bytes, {bound[1]} FLOPs)")
+    log(f"phase 20 timing fused_decode batched (in turns): bf16 B={cap} "
+        f"{mb_ms['bf16']:.4f} ms ({mb_ms['bf16'] / cap:.3f} ms an "
+        f"utterance), f32 B={cap32} {mb_ms['f32']:.4f} ms "
+        f"({mb_ms['f32'] / cap32:.3f} ms an utterance); bf16 bound "
+        f"{_bf16_bound_ms(b_bound):.4f} ms ({b_bound[0]} bytes, "
+        f"{b_bound[1]} FLOPs)")
+    return worst, (ms["bf16"], plain, bound)
+
+
+def _bf16_bound_ms(bound) -> float:
+    return max(bound[0] / PEAK_BYTES_PER_S, bound[1] / PEAK_BF16_FLOP_PER_S) \
+        * 1e3
+
+
+def phase_bf16_train(model32, device):
+    """Phase 20, training: both kernels in the bf16 mode against their
+    plain bf16 versions at B = 32, S = 256, masks on, each timed beside
+    its f32 twin in turns.  Returns ({name: worst error}, {name: (ms,
+    plain ms, bound)})."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    spec, params, keys, values, masks, tf, loc_ws, ops, _ = train_case(
+        model32, device, False, 1, compute_dtype=BF16)
+    spec32, _, _, _, _, _, _, ops32, _ = train_case(model32, device, False,
+                                                    1)
+    seed = 1234
+    y, save, aux = ft.fused_train_fwd(spec, ops, seed)
+    y_r, save_r, aux_r = ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws)
+    torch.cuda.synchronize()
+    f_errs = {"y": _max_err(y, y_r), "save": _max_err(save, save_r),
+              "aux": _max_err(aux, aux_r)}
+    log(f"phase 20 fused_train_fwd bf16 B={spec.batch} S={spec.num_steps} "
+        "(masks on): max abs err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in f_errs.items()))
+    if max(f_errs.values()) > TOL_BF16_TRAIN:
+        raise AssertionError("bf16 fused_train_fwd disagrees")
+    g = torch.randn(y.shape, generator=torch.Generator(device)
+                    .manual_seed(7), device=device)
+    kern = _kernel_grads(spec, ft.fused_train_bwd(spec, ops, seed, g, save,
+                                                  aux))
+    d_params, d_keys, d_values, _, d_loc = ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws, g, save_r,
+        aux_r)
+    plain = _grad_leaves(spec, d_params, d_keys, d_values, d_loc)
+    torch.cuda.synchronize()
+    rel = {k: _rel_err(kern[k], plain[k].reshape(kern[k].shape))
+           for k in plain}
+    absolute = max(_max_err(kern[k], plain[k].reshape(kern[k].shape))
+                   for k in plain)
+    name, err = max(rel.items(), key=lambda kv: kv[1])
+    log(f"phase 20 fused_train_bwd bf16 vs the plain bf16 VJP: worst "
+        f"gradient {name} {err:.3e} of its max magnitude, max abs err "
+        f"{absolute:.3e}; " + ", ".join(f"{k} {v:.1e}"
+                                        for k, v in sorted(rel.items())))
+    if err > TOL_BF16_TRAIN_GRAD:
+        raise AssertionError("bf16 fused_train_bwd disagrees")
+
+    y32, save32, aux32 = ft.fused_train_fwd(spec32, ops32, seed)
+    launches = {
+        "fwd bf16": ft.prepare_train_fwd(spec, ops, seed),
+        "fwd f32": ft.prepare_train_fwd(spec32, ops32, seed),
+        "bwd bf16": ft.prepare_train_bwd(spec, ops, seed, g, save, aux),
+        "bwd f32": ft.prepare_train_bwd(spec32, ops32, seed, g, save32,
+                                        aux32)}
+    ms = _time_turns(launches)
+    fwd_plain = _time_ms(lambda: ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws), reps=1)
+    bwd_plain = _time_ms(lambda: ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws, g, save,
+        aux), reps=1)
+    for kname, stages, key in (("fused_train_fwd", ft.FWD_STAGES, "fwd"),
+                               ("fused_train_bwd", ft.BWD_STAGES, "bwd")):
+        prof = (ft.prepare_train_fwd(spec, ops, seed, profile=True)
+                if key == "fwd" else
+                ft.prepare_train_bwd(spec, ops, seed, g, save, aux,
+                                     profile=True))
+        prof()
+        torch.cuda.synchronize()
+        log(f"phase 20 {kname} bf16 stages (us a step, block 0's clock split "
+            "into copy, product, epilogue and barrier wait): "
+            + ft.format_split(*ft.profile_split(
+                prof.stage_cycles.cpu().tolist(), stages,
+                len(spec.src_kinds), ms[f"{key} bf16"], spec.num_steps)))
+    flat_in = ft._flat(ops)
+    half = [*(t for wb in ops.prenet for t in wb), ops.att_w, ops.att_b,
+            ops.q_w, ops.v, ops.op_w, ops.op_b, ops.l1_w, ops.l1_b,
+            ops.l2_w, ops.l2_b, *ops.keys, *ops.values, ops.teacher]
+    bwd = launches["bwd bf16"]
+    bounds = {"fused_train_fwd": train_bound(spec, flat_in, [y, save, aux],
+                                             False, half + [save]),
+              "fused_train_bwd": train_bound(spec, flat_in + [g, save, aux],
+                                             _leaves(bwd.outputs), True,
+                                             half + [save])}
+    log(f"phase 20 timing (in turns, B={spec.batch}, S={spec.num_steps}): "
+        f"fused_train_fwd bf16 {ms['fwd bf16']:.4f} ms, f32 "
+        f"{ms['fwd f32']:.4f} ms (bf16 plain {fwd_plain:.4f} ms, bound "
+        f"{_bf16_bound_ms(bounds['fused_train_fwd']):.4f} ms); "
+        f"fused_train_bwd bf16 {ms['bwd bf16']:.4f} ms, f32 "
+        f"{ms['bwd f32']:.4f} ms (bf16 plain {bwd_plain:.4f} ms, bound "
+        f"{_bf16_bound_ms(bounds['fused_train_bwd']):.4f} ms); bound inputs "
+        + "; ".join(f"{k} {b[0]} bytes, {b[1]} FLOPs"
+                    for k, b in bounds.items()))
+    errs = {"fused_train_fwd": max(f_errs.values()),
+            "fused_train_bwd": absolute}
+    timing = {"fused_train_fwd": (ms["fwd bf16"], fwd_plain,
+                                  bounds["fused_train_fwd"]),
+              "fused_train_bwd": (ms["bwd bf16"], bwd_plain,
+                                  bounds["fused_train_bwd"])}
+    return errs, timing
+
+
+class _Fallbacks:
+    """The warnings a run logs; ``refused`` holds those of a fused gate
+    that refused its configuration (the decoder's "... does not cover this
+    configuration — using the plain path: <reason>")."""
+
+    def __enter__(self):
+        import logging
+
+        class Keep(logging.Handler):
+            def __init__(self):
+                super().__init__(logging.WARNING)
+                self.messages = []
+
+            def emit(self, record):
+                self.messages.append(record.getMessage())
+        self.handler = Keep()
+        logging.getLogger().addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        import logging
+        logging.getLogger().removeHandler(self.handler)
+
+    @property
+    def refused(self):
+        return [m for m in self.handler.messages if "does not cover" in m]
+
+
+def phase_bf16(hp, model32, device, data: str, tmp: str):
+    """Phase 20: the bf16 storage mode.  Returns its rows of the kernels
+    line and the launch counts of its two main paths."""
+    d_err, d_timing = phase_bf16_decode(hp, model32, device)
+    t_errs, t_timing = phase_bf16_train(model32, device)
+    launches = {}
+    with _Fallbacks() as fb:
+        launches["bf16_serving"] = phase_end_to_end(
+            model32, "cuda", hparams=f"decoder_fused_dtype={BF16}", phase=20)
+        launches["bf16_training"] = phase_train_end_to_end(
+            hp, data, tmp, "cuda",
+            hparams=f"decoder_fused_train_dtype={BF16}", phase=20)
+    log(f"phase 20 fallbacks logged: {fb.refused or 'none'}")
+    if fb.refused:
+        raise AssertionError("a fused gate refused the bf16 mode")
+    if launches["bf16_serving"]["fused_decode"] != 3:
+        raise AssertionError("bf16 serving did not launch fused_decode once "
+                             "an utterance")
+    rows = _kernel_rows("fused_decode", "fused_decode", "fused_decode.py:250",
+                        {"bf16_serving": launches["bf16_serving"]}, d_err,
+                        *d_timing, peak_flops=PEAK_BF16_FLOP_PER_S)
+    for name, line in (("fused_train_fwd", 375), ("fused_train_bwd", 667)):
+        rows += _kernel_rows(name, name, f"fused_train.py:{line}",
+                             {"bf16_training": launches["bf16_training"]},
+                             t_errs[name], *t_timing[name],
+                             peak_flops=PEAK_BF16_FLOP_PER_S)
+    return rows, launches
+
+
 def phase_barriers(card: str):
     """Phase 2: the cost of one grid-wide barrier at one block per SM,
     cooperative groups' (the fused encoder's) beside the hand-written ones
@@ -2456,6 +2777,10 @@ def main() -> int:
             rows += vctk_and_row_modes(tmp, device, hp, codes_timing, errs,
                                        spec_err, spec_timing["VCTK"],
                                        launches)
+            bf16_rows, bf16_launches = phase_bf16(hp, model, device, data,
+                                                  tmp)
+            rows += bf16_rows
+            launches.update(bf16_launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

@@ -5,6 +5,7 @@ in one process on one card.
     git archive <commit> self_attention_tacotron_torch/ops | tar -x -C build/ab/<name>
     python3 scripts/torch_decode_ab.py [--variant NAME=build/ab/NAME ...]
                                        [--cases codes_b1,mel_b1,...] [--reps 7]
+                                       [--bf16]
 
 Each ``--variant`` directory holds a copy of the port's ``ops`` package
 from another commit (under ``self_attention_tacotron_torch/ops``, as ``git
@@ -19,7 +20,12 @@ version, then times the variants in turns (A B C, C B A, ...; CUDA events,
 one launch each, median of ``--reps`` after a warm-up) and prints block 0's
 per-stage split of a profiled launch in microseconds a step.  A variant
 that does not take a case (an older kernel without batched rows, say) is
-reported and skipped.  The card's name and power limit come first.
+reported and skipped.  With ``--bf16`` every case also runs the working
+tree's kernel in its bf16 storage mode (the variant ``tree_bf16``: the same
+weights with the bf16 mode's rounding, ``merge_weights(...,
+compute_dtype="bfloat16")``), checked against the plain bf16 version and
+timed in turns beside its f32 twin ``tree``.  The card's name and power
+limit come first.
 """
 
 import argparse
@@ -114,6 +120,8 @@ def main() -> int:
                     help="NAME=DIR of an earlier ops package")
     ap.add_argument("--cases", default=",".join(CASES))
     ap.add_argument("--reps", type=int, default=7)
+    ap.add_argument("--bf16", action="store_true",
+                    help="also time the bf16 storage mode (tree_bf16)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -140,17 +148,21 @@ def main() -> int:
         for fn, n in sass_sizes(lib).items():
             print(f"sass {name}: {fn} {n} instructions ({16 * n} bytes)",
                   flush=True)
+    runs = dict(variants)
+    if args.bf16:
+        runs["tree_bf16"] = tree
     for case in args.cases.split(","):
         steps, weights, memory, options = make_case(case, device)
-        ref = tree.fused_decode_reference(weights, memory, num_steps=steps,
-                                          **options)
         B = memory.keys[0].shape[0]
         launches, profiled = {}, {}
-        for name, mod in variants.items():
+        for name, mod in runs.items():
+            w = tree._bf16_storage(weights) if name == "tree_bf16" else weights
+            ref = tree.fused_decode_reference(w, memory, num_steps=steps,
+                                              **options)
             try:
-                launch = mod.prepare_decode(weights, memory,
-                                            num_steps=steps, **options)
-                prof = mod.prepare_decode(weights, memory, num_steps=steps,
+                launch = mod.prepare_decode(w, memory, num_steps=steps,
+                                            **options)
+                prof = mod.prepare_decode(w, memory, num_steps=steps,
                                           profile=True, **options)
             except (ValueError, TypeError) as e:
                 print(f"{case}: {name} does not take it ({e})", flush=True)
@@ -180,7 +192,7 @@ def main() -> int:
             torch.cuda.synchronize()
             cycles = prof.stage_cycles.cpu().tolist()
             total = max(sum(cycles), 1)
-            stages = variants[name].DEC_STAGES
+            stages = runs[name].DEC_STAGES
             print(f"{case}: {name} stages (us a step): " + ", ".join(
                 f"{s} {ms * 1e3 * c / total / steps:.2f}"
                 for s, c in zip(stages, cycles) if c), flush=True)

@@ -5,6 +5,7 @@ earlier versions of themselves, in one process on one card.
     git archive <commit> self_attention_tacotron_torch/ops | tar -x -C build/ab/<name>
     python3 scripts/torch_train_ab.py [--variant NAME=build/ab/NAME ...]
                                       [--cases codes,vctk,step] [--reps 5]
+                                      [--bf16]
 
 Each ``--variant`` directory holds a copy of the port's ``ops`` package
 from another commit (under ``self_attention_tacotron_torch/ops``, as ``git
@@ -29,7 +30,11 @@ training step of the codes recipe at B = 32 (``chip_smoke.py`` phase 8's:
 the first batch of its synthetic corpus, one model and optimizer state)
 with each variant's ``fused_teacher_scan`` swapped into the working
 tree's model, in turns: the end-to-end effect of the kernels on one host.
-The card's name and power limit come first.
+With ``--bf16`` the kernel cases also run the working tree's kernels in
+their bf16 storage mode (the variant ``tree_bf16``, ``compute_dtype =
+"bfloat16"`` on the same inputs), checked against the plain bf16 versions
+and timed in turns beside their f32 twins ``tree``.  The card's name and
+power limit come first.
 """
 
 import argparse
@@ -54,17 +59,20 @@ def load_variant(name: str, path: str):
     return importlib.import_module(f"{pkg}.ops.fused_train")
 
 
-def make_case(name: str, device):
+def make_case(name: str, device, compute_dtype: str = "float32"):
     """(spec, params, keys, values, masks, tf, loc_ws, ops, spk, seed) of a
-    PERF.md row of #3 / #4 (masks on)."""
+    PERF.md row of #3 / #4 (masks on), in the storage mode
+    ``compute_dtype``."""
     import chip_smoke as cs
     if name == "codes":
         model = cs.make_model(cs.recipe_hparams(), device)
-        return (*cs.train_case(model, device, False, 1), 1234)
+        return (*cs.train_case(model, device, False, 1,
+                               compute_dtype=compute_dtype), 1234)
     if name == "vctk":
         model = cs.make_model(cs._hp_with(cs.VCTK_SA_RECIPE), device)
         return (*cs.train_case(model, device, False, 2,
-                               steps=cs.VCTK_TRAIN_S), 4321)
+                               steps=cs.VCTK_TRAIN_S,
+                               compute_dtype=compute_dtype), 4321)
     raise ValueError(f"unknown case {name}")
 
 
@@ -162,6 +170,8 @@ def main() -> int:
                     help="NAME=DIR of an earlier ops package")
     ap.add_argument("--cases", default="codes,vctk")
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--bf16", action="store_true",
+                    help="also time the bf16 storage mode (tree_bf16)")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
@@ -189,20 +199,24 @@ def main() -> int:
         if case == "step":
             step_case(variants, device, args.reps)
             continue
-        (spec, params, keys, values, masks, tf, loc_ws, ops, spk,
-         seed) = make_case(case, device)
-        y_r, save_r, aux_r = tree.fused_train_fwd_reference(
-            spec, params, keys, values, masks, tf, seed, spk, loc_ws)
-        g = torch.randn(y_r.shape, generator=torch.Generator(device)
-                        .manual_seed(7), device=device)
-        d_params, d_keys, d_values, d_spk, d_loc = \
-            tree.fused_train_bwd_reference(spec, params, keys, values, masks,
-                                           tf, seed, spk, loc_ws, g, save_r,
-                                           aux_r)
-        plain = cs._grad_leaves(spec, d_params, d_keys, d_values, d_loc,
-                                d_spk)
+        runs = dict(variants)
+        if args.bf16:
+            runs["tree_bf16"] = tree
         launches = {}
-        for name, mod in variants.items():
+        for name, mod in runs.items():
+            dtype = "bfloat16" if name == "tree_bf16" else "float32"
+            (spec, params, keys, values, masks, tf, loc_ws, ops, spk,
+             seed) = make_case(case, device, dtype)
+            y_r, save_r, aux_r = tree.fused_train_fwd_reference(
+                spec, params, keys, values, masks, tf, seed, spk, loc_ws)
+            g = torch.randn(y_r.shape, generator=torch.Generator(device)
+                            .manual_seed(7), device=device)
+            d_params, d_keys, d_values, d_spk, d_loc = \
+                tree.fused_train_bwd_reference(spec, params, keys, values,
+                                               masks, tf, seed, spk, loc_ws,
+                                               g, save_r, aux_r)
+            plain = cs._grad_leaves(spec, d_params, d_keys, d_values, d_loc,
+                                    d_spk)
             fwd = mod.prepare_train_fwd(spec, ops, seed)
             y, save, aux = fwd()
             bwd = mod.prepare_train_bwd(spec, ops, seed, g, save, aux)
@@ -239,7 +253,7 @@ def main() -> int:
                       flush=True)
                 _, prof, stages = launches[name][k]
                 print(f"{case}: {name} {k} stages (us a step): "
-                      + split_text(variants[name], prof, stages, spec, ms),
+                      + split_text(runs[name], prof, stages, spec, ms),
                       flush=True)
     return 0
 

@@ -472,10 +472,8 @@ class TacotronDecoder(nn.Module):
     def _fused_train_unsupported_reason(self, B, packs, teacher
                                         ) -> Optional[str]:
         """Configuration gate of the training kernels (the JAX package's
-        ``_fused_train_supported`` without its TPU reasons)."""
-        if self.fused_train_dtype != "float32":
-            return (f"fused_train_dtype={self.fused_train_dtype!r} is not "
-                    "ported yet")
+        ``_fused_train_supported`` without its TPU reasons);
+        ``fused_train_dtype`` bfloat16 is their bf16 storage mode."""
         if len({int(p.values.shape[1]) for p in packs}) != 1:
             return "sources with different memory lengths"
         reason = self._fused_attention_unsupported_reason()
@@ -488,7 +486,8 @@ class TacotronDecoder(nn.Module):
             zo_att=0.0, zc_dec=0.0, zo_dec=0.0, deterministic=False,
             p_dropout=self.prenets.dense_layers()[1],
             use_spk=self.prenets.use_speaker_embed, src_kinds=kinds,
-            cumulative=cum, loc_kernel=self._loc_kernel())
+            cumulative=cum, loc_kernel=self._loc_kernel(),
+            compute_dtype=self.fused_train_dtype)
         return ft.unsupported_reason(spec)
 
     def _fused_attention_unsupported_reason(self) -> Optional[str]:
@@ -568,7 +567,8 @@ class TacotronDecoder(nn.Module):
             zo_att=self.zoneout_factor_output, zc_dec=zc_dec, zo_dec=zo_dec,
             deterministic=False, p_dropout=self.prenets.dense_layers()[1],
             speaker_row=self.speaker_row(speaker_embed), src_kinds=kinds,
-            cumulative=cum, loc_kernel=self._loc_kernel(), loc_ws=loc_ws)
+            cumulative=cum, loc_kernel=self._loc_kernel(), loc_ws=loc_ws,
+            compute_dtype=self.fused_train_dtype)
 
     # ------------------------------------------------- the fused kernel
     def _fused_unsupported_reason(self, B) -> Optional[str]:
@@ -580,15 +580,17 @@ class TacotronDecoder(nn.Module):
         kind and memory length is fused otherwise.  The JAX gate's other
         reasons (MGC/LF0 outputs, inference dropout, forced alignments,
         smoothing, the transition agent) are configurations the port's
-        model refuses before it gets here; bf16 weights are not ported."""
+        model refuses before it gets here.  ``fused_dtype`` bfloat16 is
+        the kernel's bf16 storage mode (``merge_weights``'s
+        ``compute_dtype``)."""
         buf_bytes = B * self.max_iters * 4 * (
             self.num_mels * self.outputs_per_step + 1
             + 2 * len(self.transformers) * self.self_attention_out_units)
         if buf_bytes > (64 << 20):
             return (f"output/KV buffers need {buf_bytes >> 20} MiB "
                     "(> 64 MiB gate)")
-        if self.fused_dtype != "float32":
-            return f"fused_dtype={self.fused_dtype!r} is not ported yet"
+        if self.fused_dtype not in ("float32", "bfloat16"):
+            return f"fused_dtype={self.fused_dtype!r} is not a storage dtype"
         return self._fused_attention_unsupported_reason()
 
     def _fused_kernel_unsupported_reason(self, inputs) -> Optional[str]:
@@ -646,7 +648,8 @@ class TacotronDecoder(nn.Module):
                 cumulative=tuple(getattr(m, "cumulative_weights", False)
                                  for m in mechs),
                 loc_kernel=max(getattr(m, "attention_kernel", 1)
-                               for m in mechs)))
+                               for m in mechs),
+                compute_dtype=self.fused_dtype))
         memory = fd.FusedDecodeMemory(
             keys=tuple(pk.keys for pk in packs),
             values=tuple(pk.values for pk in packs),

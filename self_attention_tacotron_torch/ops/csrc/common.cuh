@@ -10,9 +10,11 @@
 //   GridBarrier, StageClock          grid barrier, per-stage profile
 //   load_slice / load_bias_slice     a block's weight rows of a
 //                                    warp-per-column product (the decode)
+//   wload / xround, kIsBf16          the bf16 storage mode's conversions
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -128,9 +130,32 @@ __host__ __device__ inline int slice_items(int N, int nb) {
   return (N + nb - 1) / nb;
 }
 
-// Copy this block's rows of W (R * N, Lr) into ``dst``.
-__device__ inline void load_slice(float* dst, const float* __restrict__ W,
-                                  int N, int R, int Lr) {
+// ------------------------------------------------- bf16 storage mode
+// A weight of type W (float or __nv_bfloat16) read as f32, and an f32
+// activation rounded to W's precision before it enters a product (round
+// to nearest even, as the JAX kernels' astype); both identities for f32.
+template <class W>
+constexpr bool kIsBf16 = false;
+template <>
+constexpr bool kIsBf16<__nv_bfloat16> = true;
+
+__device__ __forceinline__ float wload(float x) { return x; }
+__device__ __forceinline__ float wload(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <class W>
+__device__ __forceinline__ float xround(float x) {
+  if constexpr (kIsBf16<W>)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// Copy this block's rows of W (R * N, Lr) into ``dst`` (elements of T).
+template <class T>
+__device__ inline void load_slice(T* dst, const T* __restrict__ W, int N,
+                                  int R, int Lr) {
   const int b = blockIdx.x, nb = gridDim.x;
   const int cnt = N > b ? (N - b + nb - 1) / nb : 0;
   const int total = cnt * R * Lr;

@@ -53,7 +53,18 @@
 // context (ctx @ W = alpha @ (V @ W)), so they read the alignment row that
 // every block already holds and the context stage and its barrier go:
 // 10 barriers a step at the codes recipe instead of 11.  Plain FP32 FMA
-// throughout; later work: bf16 weights.
+// throughout.
+//
+// The bf16 storage mode (the JAX kernel's compute_dtype=bf16) is the
+// instance W = __nv_bfloat16 of the same template (W = float is the f32
+// mode): the weight slices sit in shared memory as bf16 (half the bytes,
+// so the batch capacity grows), keys and values are read as bf16, and
+// every product rounds its input row to bf16 as it reads it (xround) and
+// sums the exact bf16 x bf16 products in f32, which is the JAX kernel's
+// _mm up to summation order.  The query projection and the location taps
+// round their inputs only where the JAX kernel's B = 1 row path does not
+// run (a.round_att).  Softmax, state, caches and outputs stay f32, and the
+// wrapper never folds the values into the weights in this mode.
 #include <cstddef>
 
 #include "common.cuh"
@@ -70,6 +81,9 @@ struct DecArgs {  // mirrored by _DecArgs in ops/fused_decode.py
   // B = 1 only: the products read the alignment row (sumT) in place of the
   // context (c_off == t_off), the values folded into att_w and big_w
   int alpha_ctx;
+  // bf16 storage: the matrices, keys and values below are __nv_bfloat16;
+  // round_att: the query projection and location taps round their inputs
+  int bf16, round_att;
   int kinds[MAX_SOURCES];
   int cumulative[MAX_SOURCES];
   int u_off[MAX_SOURCES + 1];
@@ -78,29 +92,30 @@ struct DecArgs {  // mirrored by _DecArgs in ops/fused_decode.py
   long long k_off[MAX_SOURCES + 1];  // source i's keys (B, T_i, U_i) here
   long long v_off[MAX_SOURCES + 1];  // source i's values (B, T_i, C_i)
   float zc_att, zo_att, zc_dec, zo_dec;
-  const float* keys;    // attention and conv biases folded
-  const float* values;
+  // float, or __nv_bfloat16 in the bf16 mode: keys, values and matrices
+  const void* keys;     // attention and conv biases folded
+  const void* values;
   const float* mask;    // (B, sumT)
   const float* loc_w;   // (K, sumU)
   const float* v;       // (sumU)
   const float* p0_init; // (P0)
   const float* spk;     // (B, P0) speaker row, or null
-  const float* pre_w[MAX_PRENET];  // layers 1..n_pre-1: (out, in)
+  const void* pre_w[MAX_PRENET];  // layers 1..n_pre-1: (out, in)
   const float* pre_b[MAX_PRENET];
   int pre_in[MAX_PRENET];
   int pre_out[MAX_PRENET];
-  const float* att_w;  // (4A, P + Cctx + A)
+  const void* att_w;  // (4A, P + Cctx + A)
   const float* att_b;
-  const float* q_w;    // (sumU, A)
-  const float* big_w;  // (5D, A + Cctx + D)
+  const void* q_w;    // (sumU, A)
+  const void* big_w;  // (5D, A + Cctx + D)
   const float* big_b;
-  const float* l2_w;   // (4D, 2D)
+  const void* l2_w;   // (4D, 2D)
   const float* l2_b;
-  const float* kvq_w[MAX_HOPS];  // (3D, D)
+  const void* kvq_w[MAX_HOPS];  // (3D, D)
   const float* kvq_b[MAX_HOPS];
-  const float* ot_w[MAX_HOPS];   // (D, D)
+  const void* ot_w[MAX_HOPS];   // (D, D)
   const float* ot_b[MAX_HOPS];
-  const float* head_w;  // (cr + 1 + P0, D)
+  const void* head_w;  // (cr + 1 + P0, D)
   const float* head_b;
   float* out;     // (B, S, cr + 1): logits and the stop logit
   float* aligns;  // (S, sumT) for B == 1, else null
@@ -172,6 +187,11 @@ __host__ __device__ inline int dec_xw(const DecArgs& a) {
   return xw;
 }
 
+// floats that n weights take (two bf16 weights a float in the bf16 mode)
+__host__ __device__ inline size_t dec_wf(const DecArgs& a, size_t n) {
+  return a.bf16 ? (n + 1) / 2 : n;
+}
+
 // ---- shared memory of one block (offsets in floats) for a grid of nb;
 // mirrored by smem_floats in ops/fused_decode.py
 struct DecSmem {
@@ -190,17 +210,17 @@ __host__ __device__ inline DecSmem dec_smem(const DecArgs& a, int nb) {
   size_t o = 0;
   for (int i = 0; i + 1 < a.n_pre; ++i) {
     m.pre[i] = o;
-    o += (size_t)slice_items(a.pre_out[i], nb) * a.pre_in[i];
+    o += dec_wf(a, (size_t)slice_items(a.pre_out[i], nb) * a.pre_in[i]);
   }
-  m.att = o; o += (size_t)slice_items(A, nb) * 4 * Zatt;
-  m.q = o; o += (size_t)slice_items(sumU, nb) * A;
-  m.big = o; o += (size_t)slice_items(D, nb) * 5 * Zbig;
-  m.l2 = o; o += (size_t)slice_items(D, nb) * 4 * 2 * D;
+  m.att = o; o += dec_wf(a, (size_t)slice_items(A, nb) * 4 * Zatt);
+  m.q = o; o += dec_wf(a, (size_t)slice_items(sumU, nb) * A);
+  m.big = o; o += dec_wf(a, (size_t)slice_items(D, nb) * 5 * Zbig);
+  m.l2 = o; o += dec_wf(a, (size_t)slice_items(D, nb) * 4 * 2 * D);
   for (int i = 0; i < a.n_hops; ++i) {
-    m.kvq[i] = o; o += (size_t)slice_items(3 * D, nb) * D;
-    m.ot[i] = o; o += (size_t)slice_items(D, nb) * D;
+    m.kvq[i] = o; o += dec_wf(a, (size_t)slice_items(3 * D, nb) * D);
+    m.ot[i] = o; o += dec_wf(a, (size_t)slice_items(D, nb) * D);
   }
-  m.head = o; o += (size_t)slice_items(a.cr + 1 + a.P0, nb) * D;
+  m.head = o; o += dec_wf(a, (size_t)slice_items(a.cr + 1 + a.P0, nb) * D);
   // this block's bias entries, and the state its LSTM units own ([slot][row])
   for (int i = 0; i + 1 < a.n_pre; ++i) {
     m.pre_b[i] = o;
@@ -293,9 +313,10 @@ __device__ __forceinline__ void reduce_scatter(float (&acc)[R][BB],
 // warps (split-K) and the partial sums meet in ``part`` (GEMV_PART
 // floats).  Lane j of the item's first warp then runs ``epi(n, s, b,
 // acc)`` for input row b = b0 + j with the R sums.  Every thread of the
-// block must call it (it may hold block barriers).
-template <int R, int BB, class Epi>
-__device__ __forceinline__ void gemv_rows(int N, int Lr, const float* slice,
+// block must call it (it may hold block barriers).  Weights of type W;
+// with kRnd the inputs are rounded to W's precision as they are read.
+template <int R, int BB, class W, bool kRnd, class Epi>
+__device__ __forceinline__ void gemv_rows(int N, int Lr, const W* slice,
                                           const float* x, int xs, int B,
                                           float* part, const Epi& epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -317,15 +338,16 @@ __device__ __forceinline__ void gemv_rows(int N, int Lr, const float* slice,
 #pragma unroll
         for (int j = 0; j < BB; ++j) acc[r][j] = 0.f;
       if (active) {
-        const float* w = slice + (size_t)s * R * Lr;
+        const W* w = slice + (size_t)s * R * Lr;
         for (int k = piece * 32 + lane; k < Lr; k += 32 * split) {
           float wv[R];
 #pragma unroll
-          for (int r = 0; r < R; ++r) wv[r] = w[r * Lr + k];
+          for (int r = 0; r < R; ++r) wv[r] = wload(w[r * Lr + k]);
 #pragma unroll
           for (int j = 0; j < BB; ++j) {
             if (BB == 1 || j < nr) {
-              const float xv = xb[j * xs + k];
+              const float xv =
+                  kRnd ? xround<W>(xb[j * xs + k]) : xb[j * xs + k];
 #pragma unroll
               for (int r = 0; r < R; ++r)
                 acc[r][j] = fmaf(wv[r], xv, acc[r][j]);
@@ -357,15 +379,15 @@ __device__ __forceinline__ void gemv_rows(int N, int Lr, const float* slice,
   }
 }
 
-template <int R, class Epi>
-__device__ __forceinline__ void gemv_b(int N, int Lr, const float* slice,
+template <int R, class W, bool kRnd = true, class Epi>
+__device__ __forceinline__ void gemv_b(int N, int Lr, const W* slice,
                                        const float* x, int xs, int B,
                                        float* part, const Epi& epi) {
   static_assert(R <= GEMV_R, "gemv scratch holds GEMV_R rows");
   if (B == 1)
-    gemv_rows<R, 1>(N, Lr, slice, x, xs, B, part, epi);
+    gemv_rows<R, 1, W, kRnd>(N, Lr, slice, x, xs, B, part, epi);
   else
-    gemv_rows<R, GEMV_BB>(N, Lr, slice, x, xs, B, part, epi);
+    gemv_rows<R, GEMV_BB, W, kRnd>(N, Lr, slice, x, xs, B, part, epi);
 }
 
 __device__ __forceinline__ int source_of(const int* off, int ns, int x) {
@@ -375,15 +397,21 @@ __device__ __forceinline__ int source_of(const int* off, int ns, int x) {
 }
 
 // kOneRow: the B = 1 instance, where the row loops, the row predicates
-// and the batched paths fold away at compile time.
+// and the batched paths fold away at compile time.  W: the weight, key and
+// value type (float, or __nv_bfloat16 in the bf16 mode).
 // The arguments are __grid_constant__, so the per-source arrays that the
 // kernel indexes at run time are read in place from the parameter space
 // (2 % faster at B = 1 on an H100, scripts/torch_decode_ab.py; ptxas
 // reports the same ~0.8 KB stack frame either way).
-template <bool kOneRow>
+template <bool kOneRow, class W>
 __global__ void __launch_bounds__(NT, 1)
     fused_decode_kernel(const __grid_constant__ DecArgs a) {
   extern __shared__ float sm[];
+  // this block's weight slices in shared memory, and the memory, as W
+  auto ws = [&](size_t off) { return reinterpret_cast<W*>(sm + off); };
+  auto wg = [](const void* p) { return static_cast<const W*>(p); };
+  // the query projection and location taps round their inputs (bf16 only)
+  const bool rq = kIsBf16<W> && a.round_att;
   const DecLayout l = dec_layout(a);
   GridBarrier grid(a.scratch + l.total);
   const DecSmem m = dec_smem(a, gridDim.x);
@@ -413,16 +441,16 @@ __global__ void __launch_bounds__(NT, 1)
 
   // ---- this block's weight rows, and the small replicated operands
   for (int i = 0; i + 1 < a.n_pre; ++i)
-    load_slice(sm + m.pre[i], a.pre_w[i], a.pre_out[i], 1, a.pre_in[i]);
-  load_slice(sm + m.att, a.att_w, A, 4, Zatt);
-  load_slice(sm + m.q, a.q_w, sumU, 1, A);
-  load_slice(sm + m.big, a.big_w, D, 5, Zbig);
-  load_slice(sm + m.l2, a.l2_w, D, 4, 2 * D);
+    load_slice(ws(m.pre[i]), wg(a.pre_w[i]), a.pre_out[i], 1, a.pre_in[i]);
+  load_slice(ws(m.att), wg(a.att_w), A, 4, Zatt);
+  load_slice(ws(m.q), wg(a.q_w), sumU, 1, A);
+  load_slice(ws(m.big), wg(a.big_w), D, 5, Zbig);
+  load_slice(ws(m.l2), wg(a.l2_w), D, 4, 2 * D);
   for (int i = 0; i < a.n_hops; ++i) {
-    load_slice(sm + m.kvq[i], a.kvq_w[i], 3 * D, 1, D);
-    load_slice(sm + m.ot[i], a.ot_w[i], D, 1, D);
+    load_slice(ws(m.kvq[i]), wg(a.kvq_w[i]), 3 * D, 1, D);
+    load_slice(ws(m.ot[i]), wg(a.ot_w[i]), D, 1, D);
   }
-  load_slice(sm + m.head, a.head_w, nhead, 1, D);
+  load_slice(ws(m.head), wg(a.head_w), nhead, 1, D);
   for (int i = 0; i + 1 < a.n_pre; ++i)
     load_bias_slice(sm + m.pre_b[i], a.pre_b[i], a.pre_out[i], 1);
   load_bias_slice(sm + m.att_b, a.att_b, A, 4);
@@ -484,7 +512,7 @@ __global__ void __launch_bounds__(NT, 1)
       float* pout = g + l.pbuf + (size_t)(i % 2) * B * l.maxp;
       const float* bias = sm + m.pre_b[i];
       const int maxp = l.maxp;
-      gemv_b<1>(a.pre_out[i], n_in, sm + m.pre[i], xin, xw, B, gpart,
+      gemv_b<1>(a.pre_out[i], n_in, ws(m.pre[i]), xin, xw, B, gpart,
                 [&](int n, int s, int b, const float* acc) {
                   pout[(size_t)b * maxp + n] = fmaxf(acc[0] + bias[s], 0.f);
                 });
@@ -514,7 +542,7 @@ __global__ void __launch_bounds__(NT, 1)
       const float* bias = sm + m.att_b;
       float* c = sm + m.c_att;
       const float zc = a.zc_att, zo = a.zo_att;
-      gemv_b<4>(A, Zatt, sm + m.att, xin, xw, B, gpart,
+      gemv_b<4>(A, Zatt, ws(m.att), xin, xw, B, gpart,
                 [&](int n, int s, int b, const float* acc) {
         const float* bs = bias + 4 * s;
         float c_new, h_new;
@@ -533,10 +561,13 @@ __global__ void __launch_bounds__(NT, 1)
     __syncthreads();
     {
       float* pq = g + l.pq;
-      gemv_b<1>(sumU, A, sm + m.q, xin, xw, B, gpart,
-                [&](int n, int, int b, const float* acc) {
-                  pq[(size_t)b * sumU + n] = acc[0];
-                });
+      auto epi = [&](int n, int, int b, const float* acc) {
+        pq[(size_t)b * sumU + n] = acc[0];
+      };
+      if (kIsBf16<W> && !rq)  // the B = 1 row path: an f32 query input
+        gemv_b<1, W, false>(sumU, A, ws(m.q), xin, xw, B, gpart, epi);
+      else
+        gemv_b<1>(sumU, A, ws(m.q), xin, xw, B, gpart, epi);
     }
     grid.sync();
     clk.mark(ST_QUERY);
@@ -555,19 +586,19 @@ __global__ void __launch_bounds__(NT, 1)
         const int tau = x - a.t_off[src];
         const int u0 = a.u_off[src], U = a.u_off[src + 1] - u0;
         const bool loc = a.kinds[src] != 0;
-        const float* krow =
-            a.keys + a.k_off[src] + ((size_t)b * T + tau) * U;
+        const W* krow = wg(a.keys) + a.k_off[src] + ((size_t)b * T + tau) * U;
         const float* conv = sm + m.conv + (size_t)b * sumT + a.t_off[src];
         const float* pq = sm + m.pq + (size_t)b * sumU + u0;
         float acc = 0.f;
         if (stride == NT) {  // a block an item: one unit a thread
           for (int u = u0_lane; u < U; u += NT) {
-            float pre = __ldg(krow + u) + pq[u];
+            float pre = wload(__ldg(krow + u)) + pq[u];
             if (loc) {
               for (int k = 0; k < a.K_loc; ++k) {
                 const int j = tau + k - pad;
                 if (j >= 0 && j < T)
-                  pre = fmaf(sm[m.loc + k * sumU + u0 + u], conv[j], pre);
+                  pre = fmaf(sm[m.loc + k * sumU + u0 + u],
+                             rq ? xround<W>(conv[j]) : conv[j], pre);
               }
             }
             acc = fmaf(sm[m.v + u0 + u], tanhf(pre), acc);
@@ -579,7 +610,7 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
             const int u = base + i * stride;
-            key[i] = u < U ? __ldg(krow + u) : 0.f;
+            key[i] = u < U ? wload(__ldg(krow + u)) : 0.f;
           }
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
@@ -590,7 +621,8 @@ __global__ void __launch_bounds__(NT, 1)
                 for (int k = 0; k < a.K_loc; ++k) {
                   const int j = tau + k - pad;
                   if (j >= 0 && j < T)
-                    pre = fmaf(sm[m.loc + k * sumU + u0 + u], conv[j], pre);
+                    pre = fmaf(sm[m.loc + k * sumU + u0 + u],
+                               rq ? xround<W>(conv[j]) : conv[j], pre);
                 }
               }
               acc = fmaf(sm[m.v + u0 + u], tanhf(pre), acc);
@@ -684,11 +716,11 @@ __global__ void __launch_bounds__(NT, 1)
         const int T = a.t_off[src + 1] - a.t_off[src];
         const int C = a.c_off[src + 1] - a.c_off[src];
         const float* er = erow + (size_t)b * sumT + a.t_off[src];
-        const float* vcol = a.values + a.v_off[src] + (size_t)b * T * C +
-                            (c - a.c_off[src]);
+        const W* vcol = wg(a.values) + a.v_off[src] + (size_t)b * T * C +
+                        (c - a.c_off[src]);
         float acc = 0.f;
         for (int tau = lane; tau < T; tau += 32)
-          acc = fmaf(er[tau], __ldg(vcol + (size_t)tau * C), acc);
+          acc = fmaf(er[tau], wload(__ldg(vcol + (size_t)tau * C)), acc);
         acc = warp_sum(acc);
         if (lane == 0) ctx[item] = acc;
       }
@@ -709,7 +741,7 @@ __global__ void __launch_bounds__(NT, 1)
       float* c = sm + m.c1;
       float* o1 = g + l.o1;
       const float zc = a.zc_dec, zo = a.zo_dec;
-      gemv_b<5>(D, Zbig, sm + m.big, xin, xw, B, gpart,
+      gemv_b<5>(D, Zbig, ws(m.big), xin, xw, B, gpart,
                 [&](int n, int s, int b, const float* acc) {
         const float* bs = bias + 5 * s;
         float c_new, h_new;
@@ -734,7 +766,7 @@ __global__ void __launch_bounds__(NT, 1)
       float* y = g + l.y;
       float* ys = sm + m.y;
       const float zc = a.zc_dec, zo = a.zo_dec;
-      gemv_b<4>(D, 2 * D, sm + m.l2, xin, xw, B, gpart,
+      gemv_b<4>(D, 2 * D, ws(m.l2), xin, xw, B, gpart,
                 [&](int n, int s, int b, const float* acc) {
         const float* bs = bias + 4 * s;
         float c_new, h_new;
@@ -758,7 +790,7 @@ __global__ void __launch_bounds__(NT, 1)
       {
         const float* bias = sm + m.kvq_b[hop];
         float* q = g + l.q;
-        gemv_b<1>(3 * D, D, sm + m.kvq[hop], xin, xw, B, gpart,
+        gemv_b<1>(3 * D, D, ws(m.kvq[hop]), xin, xw, B, gpart,
                   [&](int n, int s, int b, const float* acc) {
                     const float v = acc[0] + bias[s];
                     const size_t row = ((size_t)b * S + t) * D;
@@ -929,7 +961,7 @@ __global__ void __launch_bounds__(NT, 1)
         const float* bias = sm + m.ot_b[hop];
         float* y = g + l.y;
         float* ys = sm + m.y;
-        gemv_b<1>(D, D, sm + m.ot[hop], xin, xw, B, gpart,
+        gemv_b<1>(D, D, ws(m.ot[hop]), xin, xw, B, gpart,
                   [&](int n, int s, int b, const float* acc) {
                     ys[s * B + b] = y[(size_t)b * D + n] =
                         ys[s * B + b] + tanhf(acc[0] + bias[s]);
@@ -946,7 +978,7 @@ __global__ void __launch_bounds__(NT, 1)
       const float* bias = sm + m.head_b;
       float* p0 = g + l.p0;
       const int P0 = a.P0;
-      gemv_b<1>(nhead, D, sm + m.head, xin, xw, B, gpart,
+      gemv_b<1>(nhead, D, ws(m.head), xin, xw, B, gpart,
                 [&](int n, int s, int b, const float* acc) {
         const float v = acc[0] + bias[s];
         if (n <= cr)
@@ -987,8 +1019,11 @@ extern "C" long long fused_decode_smem_floats(const DecArgs* a, int nb) {
 
 extern "C" int fused_decode_launch(const DecArgs* args, void* stream) {
   DecArgs a = *args;
-  void (*kernel)(const DecArgs) = a.B == 1 ? fused_decode_kernel<true>
-                                           : fused_decode_kernel<false>;
+  void (*kernel)(const DecArgs) =
+      a.bf16 ? (a.B == 1 ? fused_decode_kernel<true, __nv_bfloat16>
+                         : fused_decode_kernel<false, __nv_bfloat16>)
+             : (a.B == 1 ? fused_decode_kernel<true, float>
+                         : fused_decode_kernel<false, float>);
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;

@@ -5,6 +5,17 @@
 // (mma.sync m16n8k8 TF32 in the 3xTF32 split of mma.cuh, f32 accuracy),
 // the attention items' enumeration, the zoneout LSTM step and its VJP, the
 // profile clock and the launcher.
+//
+// The bf16 storage mode (a.bf16, the kernels' bf16 instances; the JAX
+// kernels' compute_dtype =
+// "bfloat16"): the wrapper hands over weights, keys, values and the teacher
+// already rounded to bf16 (in f32 words); the resident weight slices are
+// held as bf16 pairs (half the shared memory) and the row and tile
+// products run as mma.sync m16n8k16 bf16 with f32 sums, the input rows
+// rounded to bf16 as their fragments are loaded (cvt.rn.bf16x2.f32): one
+// mma a 16-deep step where the f32 mode's split runs six.  Each step's
+// product starts from zero in the tensor core and is added in f32
+// outside it, as in the f32 mode (the tensor core's own long sums drift).
 #pragma once
 
 #include <cstddef>
@@ -18,7 +29,7 @@ constexpr int TR_MAX_SOURCES = 4, TR_MAX_PRENET = 4, TR_MAX_B = 64;
 
 struct TrainArgs {  // mirrored by _TrainArgs in ops/fused_train.py
   int B, S, T, cf, ns, n_pre, A, D, K, use_spk, deterministic, save_w,
-      stash_w;
+      stash_w, bf16;
   unsigned int seed;
   int kinds[TR_MAX_SOURCES], cumulative[TR_MAX_SOURCES];
   int u_off[TR_MAX_SOURCES + 1], c_off[TR_MAX_SOURCES + 1];
@@ -146,6 +157,12 @@ __host__ __device__ inline int tr_cdiv(int a, int b) { return (a + b - 1) / b; }
 // then read 32 different banks, and rows stay 16-byte aligned
 __host__ __device__ inline int tr_pad(int n) { return ((n + 27) / 32) * 32 + 4; }
 __host__ __device__ inline size_t tr_al4(size_t n) { return (n + 3) & ~(size_t)3; }
+// the row stride (floats) of a resident slice of n weights: tr_pad(n), or
+// in the bf16 mode tr_pad of its 32-bit words (a bf16 pair a word, so the
+// B fragments' 8 x 4 lanes still read 32 different banks)
+__host__ __device__ inline int tr_wpad(const TrainArgs& a, int n) {
+  return a.bf16 ? tr_pad((n + 1) / 2) : tr_pad(n);
+}
 
 // this block's share of N items (item n belongs to block n % nb)
 __host__ __device__ inline int tr_items(int N, int nb) {
@@ -290,11 +307,12 @@ __host__ __device__ inline FwdSmem fwd_smem(const TrainArgs& a, int nb_all) {
   const int nb = nb_all / tr_groups(a.B), rows = tr_cdiv(a.B, tr_groups(a.B));
   FwdSmem m;
   size_t o = 0;  // the plan fits in 32 bits (<= 227 KB); the sums are wide
-  m.att = o; o = tr_al4(o + (size_t)tr_items(A, nb) * 4 * tr_pad(tr_zatt(a)));
-  m.q = o; o = tr_al4(o + (size_t)tr_items(sumU, nb) * tr_pad(A));
-  m.op = o; o = tr_al4(o + (size_t)tr_items(D, nb) * tr_pad(A + sumC));
-  m.l1 = o; o = tr_al4(o + (size_t)tr_items(D, nb) * 4 * tr_pad(2 * D));
-  m.l2 = o; o = tr_al4(o + (size_t)tr_items(D, nb) * 4 * tr_pad(2 * D));
+  m.att = o;
+  o = tr_al4(o + (size_t)tr_items(A, nb) * 4 * tr_wpad(a, tr_zatt(a)));
+  m.q = o; o = tr_al4(o + (size_t)tr_items(sumU, nb) * tr_wpad(a, A));
+  m.op = o; o = tr_al4(o + (size_t)tr_items(D, nb) * tr_wpad(a, A + sumC));
+  m.l1 = o; o = tr_al4(o + (size_t)tr_items(D, nb) * 4 * tr_wpad(a, 2 * D));
+  m.l2 = o; o = tr_al4(o + (size_t)tr_items(D, nb) * 4 * tr_wpad(a, 2 * D));
   m.att_b = o; o = tr_al4(o + (size_t)tr_items(A, nb) * 4);
   m.op_b = o; o = tr_al4(o + tr_items(D, nb));
   m.l1_b = o; o = tr_al4(o + (size_t)tr_items(D, nb) * 4);
@@ -352,11 +370,12 @@ __host__ __device__ inline BwdSmem bwd_smem(const TrainArgs& a, int nb_all) {
   const int nb = nb_all / tr_groups(a.B), rows = tr_cdiv(a.B, tr_groups(a.B));
   BwdSmem m;
   size_t o = 0;
-  m.w2 = o; o = tr_al4(o + (size_t)tr_items(2 * D, nb) * tr_pad(4 * D));
-  m.w1 = o; o = tr_al4(o + (size_t)tr_items(2 * D, nb) * tr_pad(4 * D));
-  m.wop = o; o = tr_al4(o + (size_t)tr_items(A + sumC, nb) * tr_pad(D));
-  m.wq = o; o = tr_al4(o + (size_t)tr_items(A, nb) * tr_pad(sumU));
-  m.watt = o; o = tr_al4(o + (size_t)tr_items(sumC + A, nb) * tr_pad(4 * A));
+  m.w2 = o; o = tr_al4(o + (size_t)tr_items(2 * D, nb) * tr_wpad(a, 4 * D));
+  m.w1 = o; o = tr_al4(o + (size_t)tr_items(2 * D, nb) * tr_wpad(a, 4 * D));
+  m.wop = o; o = tr_al4(o + (size_t)tr_items(A + sumC, nb) * tr_wpad(a, D));
+  m.wq = o; o = tr_al4(o + (size_t)tr_items(A, nb) * tr_wpad(a, sumU));
+  m.watt = o;
+  o = tr_al4(o + (size_t)tr_items(sumC + A, nb) * tr_wpad(a, 4 * A));
   m.v = o; o = tr_al4(o + sumU);
   m.loc = o; o = tr_al4(o + (size_t)a.K * sumU);
   m.part = o; o = tr_al4(o + ROW_PART);
@@ -376,22 +395,53 @@ __host__ __device__ inline BwdSmem bwd_smem(const TrainArgs& a, int nb_all) {
 // with R gate groups of N columns is the R columns r * N + n, stored as R
 // rows of stride tr_pad(L) (transposed):
 // dst[(s * R + r) * Lp + k] = W[k * R * N + r * N + n].
+// BF (the bf16 instances): the same rows as bf16 pairs, word kw of a row
+// holding weights 2 kw (low half) and 2 kw + 1 (zero past L), rows of
+// stride tr_pad((L + 1) / 2) words; the weights arrive rounded to bf16, so
+// the conversion is exact.
+template <bool BF = false>
 __device__ inline void load_cols(float* dst, const float* __restrict__ W,
                                  int N, int R, int L, const RowGroup& rg) {
-  const int Lp = tr_pad(L), cnt = rg.items(N);
-  for (int e = threadIdx.x; e < cnt * R * L; e += NT) {
-    const int k = e % L, sr = e / L, r = sr % R, s = sr / R;
-    dst[sr * Lp + k] = __ldg(W + (size_t)k * R * N + r * N + rg.item(s));
+  const int cnt = rg.items(N);
+  if constexpr (BF) {
+    const int Lw = (L + 1) / 2, Lp = tr_pad(Lw);
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    for (int e = threadIdx.x; e < cnt * R * Lw; e += NT) {
+      const int kw = e % Lw, sr = e / Lw, r = sr % R, s = sr / R, k = 2 * kw;
+      const float* col = W + (size_t)r * N + rg.item(s);
+      d[sr * Lp + kw] = bf16x2(
+          __ldg(col + (size_t)k * R * N),
+          k + 1 < L ? __ldg(col + (size_t)(k + 1) * R * N) : 0.f);
+    }
+  } else {
+    const int Lp = tr_pad(L);
+    for (int e = threadIdx.x; e < cnt * R * L; e += NT) {
+      const int k = e % L, sr = e / L, r = sr % R, s = sr / R;
+      dst[sr * Lp + k] = __ldg(W + (size_t)k * R * N + r * N + rg.item(s));
+    }
   }
 }
 
 // Item n of a row-major (N, L) matrix is its row n (rows_mma with R = 1).
+template <bool BF = false>
 __device__ inline void load_rows(float* dst, const float* __restrict__ W,
                                  int N, int L, const RowGroup& rg) {
-  const int Lp = tr_pad(L), cnt = rg.items(N);
-  for (int e = threadIdx.x; e < cnt * L; e += NT) {
-    const int k = e % L, s = e / L;
-    dst[s * Lp + k] = __ldg(W + (size_t)rg.item(s) * L + k);
+  const int cnt = rg.items(N);
+  if constexpr (BF) {
+    const int Lw = (L + 1) / 2, Lp = tr_pad(Lw);
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+    for (int e = threadIdx.x; e < cnt * Lw; e += NT) {
+      const int kw = e % Lw, s = e / Lw, k = 2 * kw;
+      const float* row = W + (size_t)rg.item(s) * L;
+      d[s * Lp + kw] = bf16x2(__ldg(row + k),
+                              k + 1 < L ? __ldg(row + k + 1) : 0.f);
+    }
+  } else {
+    const int Lp = tr_pad(L);
+    for (int e = threadIdx.x; e < cnt * L; e += NT) {
+      const int k = e % L, s = e / L;
+      dst[s * Lp + k] = __ldg(W + (size_t)rg.item(s) * L + k);
+    }
   }
 }
 
@@ -518,7 +568,11 @@ struct Stager {
 // rg.r0 + rl the row; an item's R gates of a row go to R consecutive
 // lanes (lstm_fwd4 gathers them).  R divides 8, so an item's R columns sit
 // in one tile.
-template <int R, class Epi>
+// BF (the bf16 instances): the slice holds bf16 pairs (load_cols<true> /
+// load_rows<true>), the staged f32 rows are rounded to bf16 as their A
+// fragments are packed, and one m16n8k16 mma runs a 16-deep step (two
+// independent steps a loop), each from zero, summed in f32.
+template <int R, bool BF = false, class Epi>
 __device__ void rows_mma(int N, int L, const RowGroup& rg, const float* slice,
                          const float* zs, int ldz, float* part,
                          const Epi& epi, TrainClock& clk, int stage) {
@@ -526,11 +580,13 @@ __device__ void rows_mma(int N, int L, const RowGroup& rg, const float* slice,
   const int cnt = rg.items(N), B = rg.nr;
   if (cnt == 0 || B == 0) return;  // block-uniform
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, Lp = tr_pad(L);
+  const int g = lane >> 2, t = lane & 3;
+  const int Lp = BF ? tr_pad((L + 1) / 2) : tr_pad(L);
   const int Mt = (B + 15) >> 4, Nc = cnt * R, Nt = (Nc + 7) >> 3;
   const int tiles = Mt * Nt;
   const int splits = tiles >= NWARPS ? 1 : NWARPS / tiles;
-  const int per = tr_cdiv(tr_cdiv(L, 8), splits) * 8;
+  const int kstep = BF ? 16 : 8;
+  const int per = tr_cdiv(tr_cdiv(L, kstep), splits) * kstep;
   const int round = NWARPS / splits;
   constexpr int IPT = 8 / R;  // items a tile
   for (int t0 = 0; t0 < tiles; t0 += round) {
@@ -548,26 +604,56 @@ __device__ void rows_mma(int N, int L, const RowGroup& rg, const float* slice,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int c = 0; c < 4; ++c) c2[h][c] = 0.f;
-      for (int k0 = kb; k0 < ke; k0 += 16) {
+      if constexpr (BF) {
+        // the staged value (row ok, k), 0 past the split's end
+        auto zv = [&](const float* z, bool ok, int k) {
+          return ok && k < ke ? z[k] : 0.f;
+        };
+        const uint32_t* wp = reinterpret_cast<const uint32_t*>(w);
+        for (int k0 = kb; k0 < ke; k0 += 32) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int ka = k0 + 8 * h + t, kc = ka + 4;
-          const bool ia = ka < ke, ic = kc < ke;
-          uint32_t ah[4], al[4], bh[2], bl[2];
-          tf32_split(v0 && ia ? z0[ka] : 0.f, ah[0], al[0]);
-          tf32_split(v1 && ia ? z1[ka] : 0.f, ah[1], al[1]);
-          tf32_split(v0 && ic ? z0[kc] : 0.f, ah[2], al[2]);
-          tf32_split(v1 && ic ? z1[kc] : 0.f, ah[3], al[3]);
-          tf32_split(vc && ia ? w[ka] : 0.f, bh[0], bl[0]);
-          tf32_split(vc && ic ? w[kc] : 0.f, bh[1], bl[1]);
-          // three independent products from zero (see mma3), summed in f32
-          float d1[4] = {0.f, 0.f, 0.f, 0.f}, d2[4] = {0.f, 0.f, 0.f, 0.f},
-                d3[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(d1, al, bh);
-          mma_tf32(d2, ah, bl);
-          mma_tf32(d3, ah, bh);
+          for (int h = 0; h < 2; ++h) {
+            const int ka = k0 + 16 * h + 2 * t, kc = ka + 8;
+            uint32_t af[4], bf[2];
+            af[0] = bf16x2(zv(z0, v0, ka), zv(z0, v0, ka + 1));
+            af[1] = bf16x2(zv(z1, v1, ka), zv(z1, v1, ka + 1));
+            af[2] = bf16x2(zv(z0, v0, kc), zv(z0, v0, kc + 1));
+            af[3] = bf16x2(zv(z1, v1, kc), zv(z1, v1, kc + 1));
+            // a pair never straddles a split's end (kb, kb + per even);
+            // past L the slice's pad half is 0
+            bf[0] = vc && ka < ke ? wp[ka >> 1] : 0u;
+            bf[1] = vc && kc < ke ? wp[kc >> 1] : 0u;
+            float d[4];
+            mma_bf16(d, af, bf);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) c2[h][c] += (d1[c] + d2[c]) + d3[c];
+            for (int c = 0; c < 4; ++c) c2[h][c] += d[c];
+          }
+        }
+      } else {
+        for (int k0 = kb; k0 < ke; k0 += 16) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int ka = k0 + 8 * h + t, kc = ka + 4;
+            const bool ia = ka < ke, ic = kc < ke;
+            uint32_t ah[4], al[4], bh[2], bl[2];
+            tf32_split(v0 && ia ? z0[ka] : 0.f, ah[0], al[0]);
+            tf32_split(v1 && ia ? z1[ka] : 0.f, ah[1], al[1]);
+            tf32_split(v0 && ic ? z0[kc] : 0.f, ah[2], al[2]);
+            tf32_split(v1 && ic ? z1[kc] : 0.f, ah[3], al[3]);
+            tf32_split(vc && ia ? w[ka] : 0.f, bh[0], bl[0]);
+            tf32_split(vc && ic ? w[kc] : 0.f, bh[1], bl[1]);
+            // three independent products from zero (see mma3), summed
+            // in f32
+            float d1[4] = {0.f, 0.f, 0.f, 0.f},
+                  d2[4] = {0.f, 0.f, 0.f, 0.f},
+                  d3[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_tf32(d1, al, bh);
+            mma_tf32(d2, ah, bl);
+            mma_tf32(d3, ah, bh);
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              c2[h][c] += (d1[c] + d2[c]) + d3[c];
+          }
         }
       }
       float acc[4];
@@ -640,7 +726,9 @@ __device__ __forceinline__ void loc_term(const float* cvw, const float* lw,
 // contiguous too (no bank conflicts on the stores; the fragment reads are
 // conflict-free either way by the padded strides).  The next TBK-deep
 // chunk is fetched into registers while the current one is multiplied.
-// Eight warps of 32 x 32 each (2 x 4 mma tiles).
+// Eight warps of 32 x 32 each (2 x 4 mma tiles).  BF: the bf16 mode's
+// product, the shared tiles' f32 values rounded to bf16 as their fragments
+// are packed, one m16n8k16 mma a 16-deep step (from zero, summed in f32).
 constexpr int TA_PER = TBM * TBK / NT, TB_PER = TBN * TBK / NT;
 
 template <bool A_K, bool B_K, class AL, class BL>
@@ -663,7 +751,7 @@ __device__ __forceinline__ void tile_fetch(int M, int N, int ke, int m0,
   }
 }
 
-template <bool A_K, bool B_K, class AL, class BL, class Epi>
+template <bool A_K, bool B_K, bool BF = false, class AL, class BL, class Epi>
 __device__ void mma_tile(int M, int N, int kb, int ke, int m0, int n0,
                          const AL& al, const BL& bl, const Epi& epi,
                          float* sm) {
@@ -704,6 +792,37 @@ __device__ void mma_tile(int M, int N, int kb, int ke, int m0, int n0,
     __syncthreads();
     if (k0 + TBK < ke)
       tile_fetch<A_K, B_K>(M, N, ke, m0, n0, k0 + TBK, al, bl, ra, rb);
+    if constexpr (BF) {
+#pragma unroll
+      for (int kk = 0; kk < TBK; kk += 16) {
+        uint32_t af[2][4], bf[4][2];
+        const int ka = kk + 2 * t, kc = ka + 8;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int m = wm + i * 16 + g;
+          af[i][0] = bf16x2(A(m, ka), A(m, ka + 1));
+          af[i][1] = bf16x2(A(m + 8, ka), A(m + 8, ka + 1));
+          af[i][2] = bf16x2(A(m, kc), A(m, kc + 1));
+          af[i][3] = bf16x2(A(m + 8, kc), A(m + 8, kc + 1));
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = wn + j * 8 + g;
+          bf[j][0] = bf16x2(Bv(ka, n), Bv(ka + 1, n));
+          bf[j][1] = bf16x2(Bv(kc, n), Bv(kc + 1, n));
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float d[4];
+            mma_bf16(d, af[i], bf[j]);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[i][j][c] += d[c];
+          }
+      }
+      continue;
+    }
 #pragma unroll
     for (int kk = 0; kk < TBK; kk += 8) {
       uint32_t ah[2][4], alo[2][4], bh[4][2], blo[4][2];

@@ -43,6 +43,16 @@
 // values' gradient), handed out to the blocks by a counter; then the
 // deferred prenet backward runs layer by layer over all S*B rows.  Masks
 // are regenerated from masks.cuh.
+//
+// The bf16 storage mode (fused_train.cuh): the resident rows as bf16 pairs
+// and the serial and weight-gradient products on bf16 tensor cores; the
+// save rows read as the JAX kernel's bf16 save rows: the LSTM VJPs round
+// the gates and cells they read, the left operands of lstm2's and the
+// attention LSTM's weight gradients and the prenet's inputs are rebuilt
+// before the loop from the bf16 values (o1 = bf16(proj) + bf16(h1); a
+// prenet output = bf16(ReLU output) x dropout (+ the speaker row)), and
+// the products round their operands as the JAX kernel's bf16 stash does.
+// The location terms, d_values and the prenet bias gradients stay f32.
 #include "fused_train.cuh"
 
 struct BwdScratch {  // offsets in floats (32 bits, as BwdSmem's)
@@ -77,6 +87,26 @@ __host__ __device__ inline BwdScratch bwd_scratch(const TrainArgs& a) {
   s.bufB = o; o += (size_t)a.S * B * pmax;
   s.total = o;
   return s;
+}
+
+// The bf16 instance's rebuilt left operands, past the sync words (so that
+// the f32 layout stays as it is): o1 (S*B, D), then each prenet layer's
+// output (S*B, p_i).
+__host__ __device__ inline size_t bwd_bf16_floats(const TrainArgs& a) {
+  size_t n = (size_t)a.D;
+  for (int i = 0; i < a.n_pre; ++i) n += a.p_sizes[i];
+  return a.bf16 ? (size_t)a.S * a.B * n : 0;
+}
+
+__device__ inline float* bwd_o1b(const TrainArgs& a, const BwdScratch& sc) {
+  return a.scratch + sc.total + TR_SYNC_WORDS;
+}
+
+__device__ inline float* bwd_pdb(const TrainArgs& a, const BwdScratch& sc,
+                                 int li) {
+  size_t o = (size_t)a.S * a.B * a.D;
+  for (int i = 0; i < li; ++i) o += (size_t)a.S * a.B * a.p_sizes[i];
+  return bwd_o1b(a, sc) + o;
 }
 
 // The attention VJP of one (source, row, 32 units) item at step t on half
@@ -353,6 +383,7 @@ __device__ __forceinline__ void vjp_item(const TrainArgs& a,
 // After the step loop: the weight gradients, d_values, d_v and d_loc, then
 // the deferred prenet backward layer by layer.  A function of its own, so
 // that the tile product's registers are allocated apart from the loop's.
+template <bool BF>
 __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
                                       const BwdScratch& sc, float* sm,
                                       TrainClock& clk, GridBarrier& grid) {
@@ -411,24 +442,26 @@ __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
       auto dw = [&](const SegLoad& L, int Mo, int N, int off_r, float* out) {
         const int tn = tr_cdiv(N, TBN), tile = loc >> 1;
         const int kb = (loc & 1) * kper, ke = min(M, kb + kper);
-        mma_tile<false, false>(
-            Mo, N, kb, ke, (tile / tn) * TBM, (tile % tn) * TBN,
-            [&](int mm, int k) { return L(k, mm); },
-            [&](int k, int n) {
-              return __ldcg(st + (size_t)k * WS + off_r + n);
-            },
-            [&](int mm, int n, float v) {
-              atomicAdd(out + (size_t)mm * N + n, v);
-            },
-            zs);
+        auto ll = [&](int mm, int k) { return L(k, mm); };
+        auto rl = [&](int k, int n) {
+          return __ldcg(st + (size_t)k * WS + off_r + n);
+        };
+        auto ep = [&](int mm, int n, float v) {
+          atomicAdd(out + (size_t)mm * N + n, v);
+        };
+        const int m0 = (tile / tn) * TBM, n0 = (tile % tn) * TBN;
+        mma_tile<false, false, BF>(Mo, N, kb, ke, m0, n0, ll, rl, ep, zs);
       };
+      // the bf16 mode reads o1 and the last prenet output rebuilt
+      const float* pd_last = BF ? bwd_pdb(a, sc, a.n_pre - 1)
+                                : save + a.off_pd[a.n_pre - 1];
+      const size_t ld_pd = BF ? (size_t)P : (size_t)W;
       switch (job) {
         // the left operands, made where used (one lives at a time)
         case 0:
           dw(SegLoad{3, Zatt, {0, P, P + sumC, Zatt},
-                     {save + a.off_pd[a.n_pre - 1], save + a.off_ctx,
-                      save + a.off_hatt},
-                     {(size_t)W, (size_t)W, (size_t)W}, {0, -B, -B}},
+                     {pd_last, save + a.off_ctx, save + a.off_hatt},
+                     {ld_pd, (size_t)W, (size_t)W}, {0, -B, -B}},
              Zatt + 1, 4 * A, a.off_dgatt, a.d_att);
           break;
         case 1:
@@ -439,8 +472,10 @@ __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
           break;
         case 2:
           dw(SegLoad{2, 2 * D, {0, D, 2 * D, 0},
-                     {save + a.off_o1, save + a.off_h2, nullptr},
-                     {(size_t)W, (size_t)W, 0}, {0, -B, 0}},
+                     {BF ? bwd_o1b(a, sc) : save + a.off_o1,
+                      save + a.off_h2, nullptr},
+                     {BF ? (size_t)D : (size_t)W, (size_t)W, 0},
+                     {0, -B, 0}},
              2 * D + 1, 4 * D, a.off_dg2, a.d_l2);
           break;
         case 3:
@@ -457,14 +492,15 @@ __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
         case 5: {
           const int tn = tr_cdiv(P, TBN);
           const float* watt = a.att_w;
-          mma_tile<true, true>(
-              M, P, 0, 4 * A, (loc / tn) * TBM, (loc % tn) * TBN,
-              [&](int r, int k) {
-                return __ldcg(st + (size_t)r * WS + a.off_dgatt + k);
-              },
-              [&](int k, int n) { return __ldg(watt + (size_t)n * 4 * A + k); },
-              [&](int r, int n, float v) { bufA[(size_t)r * P + n] = v; },
-              zs);
+          auto ll = [&](int r, int k) {
+            return __ldcg(st + (size_t)r * WS + a.off_dgatt + k);
+          };
+          auto rl = [&](int k, int n) {
+            return __ldg(watt + (size_t)n * 4 * A + k);
+          };
+          auto ep = [&](int r, int n, float v) { bufA[(size_t)r * P + n] = v; };
+          const int m0 = (loc / tn) * TBM, n0 = (loc % tn) * TBN;
+          mma_tile<true, true, BF>(M, P, 0, 4 * A, m0, n0, ll, rl, ep, zs);
           break;
         }
         default: {
@@ -506,6 +542,9 @@ __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
   for (int li = a.n_pre - 1; li >= 0; --li) {
     const int N = a.p_sizes[li];
     const bool drop = a.drop_rate > 0.f && !det && a.p_dropout[li];
+    // the bf16 stash holds the dropout multiplier in bf16
+    const float scale = BF ? xround<__nv_bfloat16>(a.drop_scale)
+                           : a.drop_scale;
     if (a.use_spk && li == 0)
       for (int e = gtid; e < B * N; e += gstride) {
         float acc = 0.f;
@@ -518,18 +557,34 @@ __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
       float mr = act > 0.f ? 1.f : 0.f;
       if (drop)
         mr *= mask_keep(a.seed, r / B, li, r % B, n, a.drop_rate) > 0.f
-                  ? a.drop_scale : 0.f;
+                  ? scale : 0.f;
       bufB[e] = __ldcg(bufA + e) * mr;
     }
     grid.sync();
     const int Kin = li == 0 ? a.cf : a.p_sizes[li - 1];
-    SegLoad lp{1, Kin, {0, Kin, 0, 0},
-               {li == 0 ? a.teacher : save + a.off_pd[li - 1], nullptr,
-                nullptr},
-               {li == 0 ? (size_t)a.cf : (size_t)W, 0, 0}, {0, 0, 0}};
+    const float* pin = li == 0 ? a.teacher
+                       : BF ? bwd_pdb(a, sc, li - 1)
+                                : save + a.off_pd[li - 1];
+    const size_t ld_in = li == 0 ? (size_t)a.cf
+                         : BF ? (size_t)Kin : (size_t)W;
+    SegLoad lp{1, Kin, {0, Kin, 0, 0}, {pin, nullptr, nullptr},
+               {ld_in, 0, 0}, {0, 0, 0}};
+    if constexpr (BF) {
+      // the bias gradient, an f32 sum of d_pre (the JAX kernel's), each
+      // block over its share of the rows; the tile product below leaves
+      // out the bias row
+      const int rows = tr_cdiv(M, gridDim.x), rb0 = blockIdx.x * rows;
+      const int rb1 = min(M, rb0 + rows);
+      for (int n = tid; n < N; n += NT) {
+        float acc = 0.f;
+        for (int r = rb0; r < rb1; ++r) acc += __ldcg(bufB + (size_t)r * N + n);
+        if (rb0 < rb1) atomicAdd(a.d_pre_w[li] + (size_t)Kin * N + n, acc);
+      }
+    }
     // the weight gradient's few tiles are split along the rows until the
     // blocks have work (partials summed with atomics)
-    const int cw_tiles = tr_tiles(Kin + 1, N);
+    const int Mo = BF ? Kin : Kin + 1;   // rows of the tile product
+    const int cw_tiles = tr_tiles(Mo, N);
     int split = (int)gridDim.x / cw_tiles;
     split = split < 1 ? 1 : (split > tr_cdiv(M, 1024) ? tr_cdiv(M, 1024)
                                                       : split);
@@ -543,21 +598,24 @@ __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
       if (item < cw) {
         const int tn = tr_cdiv(N, TBN), tile = item / split;
         const int kb = (item % split) * kper, ke = min(M, kb + kper);
-        mma_tile<false, false>(
-            Kin + 1, N, kb, ke, (tile / tn) * TBM, (tile % tn) * TBN,
-            [&](int mm, int k) { return lp(k, mm); },
-            [&](int k, int n) { return __ldcg(bufB + (size_t)k * N + n); },
-            [&](int mm, int n, float v) {
-              atomicAdd(dwo + (size_t)mm * N + n, v);
-            },
-            zs);
+        auto ll = [&](int mm, int k) { return lp(k, mm); };
+        auto rl = [&](int k, int n) {
+          return __ldcg(bufB + (size_t)k * N + n);
+        };
+        auto ep = [&](int mm, int n, float v) {
+          atomicAdd(dwo + (size_t)mm * N + n, v);
+        };
+        const int m0 = (tile / tn) * TBM, n0 = (tile % tn) * TBN;
+        mma_tile<false, false, BF>(Mo, N, kb, ke, m0, n0, ll, rl, ep, zs);
       } else {
         const int loc = item - cw, tn = tr_cdiv(Kin, TBN);
-        mma_tile<true, true>(
-            M, Kin, 0, N, (loc / tn) * TBM, (loc % tn) * TBN,
-            [&](int r, int k) { return __ldcg(bufB + (size_t)r * N + k); },
-            [&](int k, int n) { return __ldg(wl + (size_t)n * N + k); },
-            [&](int r, int n, float v) { bufA[(size_t)r * Kin + n] = v; }, zs);
+        auto ll = [&](int r, int k) {
+          return __ldcg(bufB + (size_t)r * N + k);
+        };
+        auto rl = [&](int k, int n) { return __ldg(wl + (size_t)n * N + k); };
+        auto ep = [&](int r, int n, float v) { bufA[(size_t)r * Kin + n] = v; };
+        const int m0 = (loc / tn) * TBM, n0 = (loc % tn) * TBN;
+        mma_tile<true, true, BF>(M, Kin, 0, N, m0, n0, ll, rl, ep, zs);
       }
     }
     clk.part(B_PRENET, P_EPI);
@@ -566,6 +624,8 @@ __device__ __noinline__ void bwd_tail(const TrainArgs& a, const BwdSmem& m,
   }
 }
 
+// BF: the bf16 storage mode's instance (a.bf16)
+template <bool BF>
 __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
     const __grid_constant__ TrainArgs a) {
   TrainClock clk(a.stage_cycles, B_N);
@@ -590,11 +650,37 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
 
   // ---- resident rows of the (in, out) matrices; zeroed state and the
   // outputs that are summed into
-  load_rows(sm + m.w2, a.l2_w, 2 * D, 4 * D, rg);
-  load_rows(sm + m.w1, a.l1_w, 2 * D, 4 * D, rg);
-  load_rows(sm + m.wop, a.op_w, A + sumC, D, rg);
-  load_rows(sm + m.wq, a.q_w, A, sumU, rg);
-  load_rows(sm + m.watt, a.att_w + (size_t)P * 4 * A, sumC + A, 4 * A, rg);
+  load_rows<BF>(sm + m.w2, a.l2_w, 2 * D, 4 * D, rg);
+  load_rows<BF>(sm + m.w1, a.l1_w, 2 * D, 4 * D, rg);
+  load_rows<BF>(sm + m.wop, a.op_w, A + sumC, D, rg);
+  load_rows<BF>(sm + m.wq, a.q_w, A, sumU, rg);
+  load_rows<BF>(sm + m.watt, a.att_w + (size_t)P * 4 * A, sumC + A,
+                    4 * A, rg);
+  // a gate or cell of the save rows as the bf16 mode's save holds it
+  auto sv = [](float x) { return BF ? xround<__nv_bfloat16>(x) : x; };
+  if constexpr (BF) {
+    // the weight gradients' left operands rebuilt from the bf16 values
+    auto rnd = [](float x) { return xround<__nv_bfloat16>(x); };
+    float* o1b = bwd_o1b(a, sc);
+    for (size_t e = gtid; e < (size_t)S * B * D; e += gstride) {
+      const size_t r = e / D, n = e % D;
+      o1b[e] = rnd(__ldg(save + r * W + a.off_proj + n)) +
+               rnd(__ldg(save + r * W + a.off_h1 + n));
+    }
+    for (int li = 0; li < a.n_pre; ++li) {
+      const int N = a.p_sizes[li];
+      const bool drop = a.drop_rate > 0.f && !det && a.p_dropout[li];
+      for (size_t e = gtid; e < (size_t)S * B * N; e += gstride) {
+        const int r = (int)(e / N), n = (int)(e % N);
+        float v = rnd(__ldg(save + (size_t)r * W + a.off_p[li] + n));
+        if (drop)
+          v *= mask_keep(a.seed, r / B, li, r % B, n, a.drop_rate) > 0.f
+                   ? a.drop_scale : 0.f;
+        if (a.use_spk && li == 0) v += __ldg(a.spk + (size_t)(r % B) * N + n);
+        bwd_pdb(a, sc, li)[e] = v;
+      }
+    }
+  }
   for (int i = tid; i < sumU; i += NT) sm[m.v + i] = __ldg(a.v + i);
   for (int i = tid; i < K * sumU; i += NT) sm[m.loc + i] = __ldg(a.loc_w + i);
   for (size_t i = gtid; i < sc.state_end; i += gstride) g[i] = 0.f;
@@ -654,9 +740,9 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
       const int r = e / D, j = e % D;
       float gt[4], dg[4], dcp, dhp;
       for (int q = 0; q < 4; ++q)
-        gt[q] = __ldg(cur + (size_t)r * W + a.off_g2 + q * D + j);
-      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_c2 + j)
-                                : 0.f;
+        gt[q] = sv(__ldg(cur + (size_t)r * W + a.off_g2 + q * D + j));
+      const float c_prev =
+          prev ? sv(__ldg(prev + (size_t)r * W + a.off_c2 + j)) : 0.f;
       lstm_train_bwd(gt, c_prev, __ldg(gy + e) + __ldcg(g + sc.dh2 + e),
                      __ldcg(g + sc.dc2 + e), a.zc_dec, a.zo_dec,
                      zkeep(a, t, MASK_ZC2, r, j, a.zc_dec),
@@ -675,7 +761,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
     stg.group(zs, ldz, 0, rg, st + a.off_dg2, WS, 4 * D);
     stg.wait();
     clk.part(B_DZ2_LSTM1, P_COPY);
-    rows_mma<1>(2 * D, 4 * D, rg, sm + m.w2, zs, ldz, part,
+    rows_mma<1, BF>(2 * D, 4 * D, rg, sm + m.w2, zs, ldz, part,
                 [&](int n, int, int r, int, int, float acc) {
       if (n >= D) {
         const size_t e = (size_t)r * D + n - D;
@@ -687,9 +773,9 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
       g[sc.d_o1 + e] = d_o1;
       float gt[4], dg[4], dcp, dhp;
       for (int q = 0; q < 4; ++q)
-        gt[q] = __ldg(cur + (size_t)r * W + a.off_g1 + q * D + n);
-      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_c1 + n)
-                                : 0.f;
+        gt[q] = sv(__ldg(cur + (size_t)r * W + a.off_g1 + q * D + n));
+      const float c_prev =
+          prev ? sv(__ldg(prev + (size_t)r * W + a.off_c1 + n)) : 0.f;
       lstm_train_bwd(gt, c_prev, d_o1 + __ldcg(g + sc.dh1 + e),
                      __ldcg(g + sc.dc1 + e), a.zc_dec, a.zo_dec,
                      zkeep(a, t, MASK_ZC1, r, n, a.zc_dec),
@@ -707,7 +793,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
     stg.group(zs, ldz, 0, rg, st + a.off_dg1, WS, 4 * D);
     stg.wait();
     clk.part(B_DZ1, P_COPY);
-    rows_mma<1>(2 * D, 4 * D, rg, sm + m.w1, zs, ldz, part,
+    rows_mma<1, BF>(2 * D, 4 * D, rg, sm + m.w1, zs, ldz, part,
                 [&](int n, int, int r, int, int, float acc) {
       if (n < D) {
         st[(size_t)r * WS + a.off_dproj + n] =
@@ -724,7 +810,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
     stg.group(zs, ldz, 0, rg, st + a.off_dproj, WS, D);
     stg.wait();
     clk.part(B_DZOP, P_COPY);
-    rows_mma<1>(A + sumC, D, rg, sm + m.wop, zs, ldz, part,
+    rows_mma<1, BF>(A + sumC, D, rg, sm + m.wop, zs, ldz, part,
                 [&](int n, int, int r, int, int, float acc) {
       if (n < A) {
         g[sc.dhatt_part + (size_t)r * A + n] = acc;
@@ -800,14 +886,14 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
     stg.group(zs, ldz, 0, rg, st + a.off_dpq, WS, sumU);
     stg.wait();
     clk.part(B_DQ_ATT_LSTM, P_COPY);
-    rows_mma<1>(A, sumU, rg, sm + m.wq, zs, ldz, part,
+    rows_mma<1, BF>(A, sumU, rg, sm + m.wq, zs, ldz, part,
                 [&](int n, int, int r, int, int, float acc) {
       const size_t e = (size_t)r * A + n;
       float gt[4], dg[4], dcp, dhp;
       for (int q = 0; q < 4; ++q)
-        gt[q] = __ldg(cur + (size_t)r * W + a.off_gatt + q * A + n);
-      const float c_prev = prev ? __ldg(prev + (size_t)r * W + a.off_catt + n)
-                                : 0.f;
+        gt[q] = sv(__ldg(cur + (size_t)r * W + a.off_gatt + q * A + n));
+      const float c_prev =
+          prev ? sv(__ldg(prev + (size_t)r * W + a.off_catt + n)) : 0.f;
       const float dh = __ldcg(g + sc.dhatt_part + e) + acc +
                        __ldcg(g + sc.dh_att + e);
       lstm_train_bwd(gt, c_prev, dh, __ldcg(g + sc.dc_att + e), a.zc_att,
@@ -826,7 +912,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
     stg.group(zs, ldz, 0, rg, st + a.off_dgatt, WS, 4 * A);
     stg.wait();
     clk.part(B_DZATT, P_COPY);
-    rows_mma<1>(sumC + A, 4 * A, rg, sm + m.watt, zs, ldz, part,
+    rows_mma<1, BF>(sumC + A, 4 * A, rg, sm + m.watt, zs, ldz, part,
                 [&](int n, int, int r, int, int, float acc) {
       if (n < sumC) {
         g[sc.dctx + (size_t)r * sumC + n] = acc;
@@ -839,13 +925,14 @@ __global__ void __launch_bounds__(NT, 1) fused_train_bwd_kernel(
     clk.part(B_DZATT, P_WAIT);
   }
 
-  bwd_tail(a, m, sc, sm, clk, grid);
+  bwd_tail<BF>(a, m, sc, sm, clk, grid);
   clk.flush();
 }
 
 // ------------------------------------------------------------------- host
 extern "C" long long fused_train_bwd_scratch_floats(const TrainArgs* a) {
-  return (long long)bwd_scratch(*a).total + TR_SYNC_WORDS;
+  return (long long)(bwd_scratch(*a).total + TR_SYNC_WORDS +
+                     bwd_bf16_floats(*a));
 }
 
 extern "C" long long fused_train_bwd_smem_bytes(const TrainArgs* a, int nb) {
@@ -855,6 +942,8 @@ extern "C" long long fused_train_bwd_smem_bytes(const TrainArgs* a, int nb) {
 extern "C" int fused_train_bwd_launch(const TrainArgs* args, void* stream) {
   int sms = 0, e = tr_sms(&sms);
   if (e) return e;
-  return tr_launch(fused_train_bwd_kernel, *args, bwd_smem(*args, sms).total,
+  return tr_launch(args->bf16 ? fused_train_bwd_kernel<true>
+                              : fused_train_bwd_kernel<false>,
+                   *args, bwd_smem(*args, sms).total,
                    bwd_scratch(*args).total, sms, stream);
 }

@@ -37,7 +37,12 @@
 // value columns, each recomputing its pair's softmax from the partials).
 // The recurrent state lives in the save rows (step t reads step t - 1's
 // row), the conv-input and alpha columns in scratch (alpha in two buffers
-// by step parity).  Dropout and zoneout masks come from masks.cuh.
+// by step parity).  Dropout and zoneout masks come from masks.cuh.  The
+// bf16 storage mode (fused_train.cuh) changes only the products: the
+// resident slices as bf16 pairs, rows_mma and the prenet's tiles on
+// bf16 tensor cores; the save rows, the recurrent state and the attention
+// stay f32, as the JAX kernel keeps its state (its bf16 save rows are the
+// backward's reading of these).
 #include "fused_train.cuh"
 
 struct FwdScratch {  // offsets in floats (32 bits, as FwdSmem's)
@@ -256,6 +261,8 @@ __device__ __forceinline__ void context_item(const TrainArgs& a,
   hf.sync();
 }
 
+// BF: the bf16 storage mode's instance (a.bf16)
+template <bool BF>
 __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
     const __grid_constant__ TrainArgs a) {
   TrainClock clk(a.stage_cycles, F_N);
@@ -280,11 +287,11 @@ __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
   const Half hf;
 
   // ---- resident columns, biases, energy vectors, location weights
-  load_cols(sm + m.att, a.att_w, A, 4, Zatt, rg);
-  load_cols(sm + m.q, a.q_w, sumU, 1, A, rg);
-  load_cols(sm + m.op, a.op_w, D, 1, A + sumC, rg);
-  load_cols(sm + m.l1, a.l1_w, D, 4, 2 * D, rg);
-  load_cols(sm + m.l2, a.l2_w, D, 4, 2 * D, rg);
+  load_cols<BF>(sm + m.att, a.att_w, A, 4, Zatt, rg);
+  load_cols<BF>(sm + m.q, a.q_w, sumU, 1, A, rg);
+  load_cols<BF>(sm + m.op, a.op_w, D, 1, A + sumC, rg);
+  load_cols<BF>(sm + m.l1, a.l1_w, D, 4, 2 * D, rg);
+  load_cols<BF>(sm + m.l2, a.l2_w, D, 4, 2 * D, rg);
   load_bias_items(sm + m.att_b, a.att_b, A, 4, rg);
   load_bias_items(sm + m.op_b, a.op_b, D, 1, rg);
   load_bias_items(sm + m.l1_b, a.l1_b, D, 4, rg);
@@ -307,23 +314,24 @@ __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
     const bool drop = a.drop_rate > 0.f && !det && a.p_dropout[li];
     const bool spk = a.use_spk && li == 0;
     const int M = S * B, tn = tr_cdiv(N, TBN);
+    auto ld_in = [&](int r, int k) {
+      return __ldcg(in + (size_t)r * ldin + k);
+    };
+    auto ld_w = [&](int k, int n) { return __ldg(w + (size_t)k * N + n); };
+    auto epi = [&](int r, int n, float acc) {
+      const float act = fmaxf(acc + __ldg(bias + n), 0.f);
+      const int t = r / B, row = r % B;
+      float pd = act;
+      if (drop)
+        pd = act * (mask_keep(a.seed, t, li, row, n, a.drop_rate) > 0.f
+                        ? a.drop_scale : 0.f);
+      if (spk) pd += __ldg(a.spk + (size_t)row * N + n);
+      save[(size_t)r * W + a.off_p[li] + n] = act;
+      save[(size_t)r * W + a.off_pd[li] + n] = pd;
+    };
     for (int tile = blockIdx.x; tile < tr_tiles(M, N); tile += gridDim.x) {
-      mma_tile<true, false>(
-          M, N, 0, Kin, (tile / tn) * TBM, (tile % tn) * TBN,
-          [&](int r, int k) { return __ldcg(in + (size_t)r * ldin + k); },
-          [&](int k, int n) { return __ldg(w + (size_t)k * N + n); },
-          [&](int r, int n, float acc) {
-            const float act = fmaxf(acc + __ldg(bias + n), 0.f);
-            const int t = r / B, row = r % B;
-            float pd = act;
-            if (drop)
-              pd = act * (mask_keep(a.seed, t, li, row, n, a.drop_rate) > 0.f
-                              ? a.drop_scale : 0.f);
-            if (spk) pd += __ldg(a.spk + (size_t)row * N + n);
-            save[(size_t)r * W + a.off_p[li] + n] = act;
-            save[(size_t)r * W + a.off_pd[li] + n] = pd;
-          },
-          zs);
+      const int m0 = (tile / tn) * TBM, n0 = (tile % tn) * TBN;
+      mma_tile<true, false, BF>(M, N, 0, Kin, m0, n0, ld_in, ld_w, epi, zs);
     }
     clk.part(F_PRENET, P_EPI);
     grid.sync();
@@ -354,7 +362,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
     }
     stg.wait();
     clk.part(F_ATT_LSTM, P_COPY);
-    rows_mma<4>(A, Zatt, rg, sm + m.att, zp, ldz, part,
+    rows_mma<4, BF>(A, Zatt, rg, sm + m.att, zp, ldz, part,
                 [&](int n, int s, int r, int rl, int q, float acc) {
       const float gq = acc + sm[m.att_b + 4 * s + q];
       float& cs = sm[m.cst + (0 * cst_slots + s) * rg.nr + rl];
@@ -383,7 +391,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
     stg.wait();
     if (pre) stg.group(zp, ldz, D, rg, pf(a.off_h1), W, D);
     clk.part(F_QUERY, P_COPY);
-    rows_mma<1>(sumU, A, rg, sm + m.q, zs, ldz, part,
+    rows_mma<1, BF>(sumU, A, rg, sm + m.q, zs, ldz, part,
                 [&](int n, int, int r, int, int, float acc) {
                   cur[(size_t)r * W + a.off_pq + n] = acc;
                 }, clk, F_QUERY);
@@ -417,7 +425,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
     stg.group(zs, ldz, A, rg, cur + a.off_ctx, W, sumC);
     stg.wait();
     clk.part(F_PROJ, P_COPY);
-    rows_mma<1>(D, A + sumC, rg, sm + m.op, zs, ldz, part,
+    rows_mma<1, BF>(D, A + sumC, rg, sm + m.op, zs, ldz, part,
                 [&](int n, int s, int r, int, int, float acc) {
                   cur[(size_t)r * W + a.off_proj + n] = acc + sm[m.op_b + s];
                 }, clk, F_PROJ);
@@ -431,7 +439,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
     stg.wait();
     if (pre) stg.group(zs, ldz, D, rg, pf(a.off_h2), W, D);
     clk.part(F_LSTM1, P_COPY);
-    rows_mma<4>(D, 2 * D, rg, sm + m.l1, zp, ldz, part,
+    rows_mma<4, BF>(D, 2 * D, rg, sm + m.l1, zp, ldz, part,
                 [&](int n, int s, int r, int rl, int q, float acc) {
       const float gq = acc + sm[m.l1_b + 4 * s + q];
       float& cs = sm[m.cst + (1 * cst_slots + s) * rg.nr + rl];
@@ -468,7 +476,7 @@ __global__ void __launch_bounds__(NT, 1) fused_train_fwd_kernel(
       stg.group(zp, ldz, P + sumC, rg, cur + a.off_hatt, W, A);
     }
     clk.part(F_LSTM2, P_COPY);
-    rows_mma<4>(D, 2 * D, rg, sm + m.l2, zs, ldz, part,
+    rows_mma<4, BF>(D, 2 * D, rg, sm + m.l2, zs, ldz, part,
                 [&](int n, int s, int r, int rl, int q, float acc) {
       const float gq = acc + sm[m.l2_b + 4 * s + q];
       float& cs = sm[m.cst + (2 * cst_slots + s) * rg.nr + rl];
@@ -508,6 +516,8 @@ extern "C" long long fused_train_fwd_smem_bytes(const TrainArgs* a, int nb) {
 extern "C" int fused_train_fwd_launch(const TrainArgs* args, void* stream) {
   int sms = 0, e = tr_sms(&sms);
   if (e) return e;
-  return tr_launch(fused_train_fwd_kernel, *args, fwd_smem(*args, sms).total,
+  return tr_launch(args->bf16 ? fused_train_fwd_kernel<true>
+                              : fused_train_fwd_kernel<false>,
+                   *args, fwd_smem(*args, sms).total,
                    fwd_scratch(*args).total, sms, stream);
 }

@@ -1,7 +1,8 @@
 // Tensor-core and copy helpers shared by the port's kernels: the 3xTF32
 // split product on mma.sync (f32 accuracy from TF32 tensor cores; the
 // training kernels, fused_train_{fwd,bwd}.cu, and the encoder,
-// fused_encoder.cu) and cp.async copies into shared memory.
+// fused_encoder.cu), the bf16 product of the training kernels' bf16
+// storage mode, and cp.async copies into shared memory.
 #pragma once
 
 #include <cstdint>
@@ -56,6 +57,30 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
   mma_tf32(d, ah, bh);
 #pragma unroll
   for (int c = 0; c < 4; ++c) acc[c] += d[c];
+}
+
+// ------------------------------------------------- bf16 products
+// Two f32 values rounded to bf16 (nearest even) and packed as one mma
+// operand register: lo (the smaller k) in the low half.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// d = a b for one m16n8k16 tile, from zero: a (16 x 16, row) a0 = A[g][2t,
+// 2t+1], a1 = A[g + 8][2t, 2t+1], a2 = A[g][2t+8, 2t+9], a3 = A[g + 8][2t+8,
+// 2t+9]; b (16 x 8, col) b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]; d as
+// mma_tf32's.  A bf16 x bf16 product is exact in f32; the caller adds d to
+// its f32 sum outside the tensor core, one 16-deep step at a time, for the
+// reason mma3 gives.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  d[0] = d[1] = d[2] = d[3] = 0.f;
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // 16 bytes from global to shared memory with cp.async (L2 only, no

@@ -40,6 +40,20 @@ tensors only and launches the kernel (``csrc/fused_decode.cu``) for CUDA
 tensors, raising on anything the kernel does not take.
 ``unsupported_reason`` is the kernel's shared-memory plan as a
 configuration gate (``smem_floats`` mirrors ``dec_smem`` in the source).
+
+The bf16 storage mode (``merge_weights(..., compute_dtype="bfloat16")``,
+the JAX package's ``fused_decode(compute_dtype=bf16)``): after the f32
+merges every matrix is stored as bf16 and every bias, energy vector,
+location product and the step-0 prenet row is rounded to bf16; the keys
+(their fold added first) and values are stored as bf16.  Every product
+rounds its input row to bf16 and sums in f32 (``_mm`` of the JAX kernel),
+except the query projection and the location taps where the JAX kernel's
+B = 1 row path multiplies in f32 (``round_attention_inputs``); the
+softmax, the state, the KV caches and the outputs stay f32.  The fold of
+the values into the products' weights is off in this mode: the JAX kernel
+rounds the context to bf16 before its products, which the fold cannot
+reproduce.  The kernel holds its weight slices as bf16 in shared memory
+(one source, the weight type a template parameter).
 """
 
 from __future__ import annotations
@@ -126,13 +140,18 @@ class FusedDecodeWeights(NamedTuple):
     u_sizes: Tuple[int, ...]
     cr: int              # output columns per step (num_mels * r)
     loc_kernel: int
+    bf16: bool = False   # bf16 storage: matrices bf16, vectors rounded
 
 
 def merge_weights(params: FusedDecodeParams, *, num_mels: int,
                   outputs_per_step: int = 1, n_feed_frame: int = 1,
-                  src_kinds=None, cumulative=None,
-                  loc_kernel: int = 1) -> FusedDecodeWeights:
-    """The one-time weight products of the serial chain."""
+                  src_kinds=None, cumulative=None, loc_kernel: int = 1,
+                  compute_dtype: str = "float32") -> FusedDecodeWeights:
+    """The one-time weight products of the serial chain, in f32; with
+    ``compute_dtype="bfloat16"`` the storage rounding follows them."""
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {compute_dtype!r}: expected "
+                         "float32 or bfloat16")
     ns = len(params.query)
     src_kinds = tuple(src_kinds or ("additive",) * ns)
     if any(k not in KIND_IDS for k in src_kinds):
@@ -170,7 +189,7 @@ def merge_weights(params: FusedDecodeParams, *, num_mels: int,
         hops.append((torch.cat([wk, wv, wq], 1).t().contiguous(),
                      torch.cat([bk, bv, bq], 1).reshape(-1),
                      (wo @ wt).t().contiguous(), (bo @ wt + bt).reshape(-1)))
-    return FusedDecodeWeights(
+    merged = FusedDecodeWeights(
         p0_init=b0.reshape(-1),
         prenet=tuple((w.t().contiguous(), b.reshape(-1))
                      for w, b in params.prenet[1:]),
@@ -186,6 +205,30 @@ def merge_weights(params: FusedDecodeParams, *, num_mels: int,
         head_w=w_head.t().contiguous(), head_b=b_head.reshape(-1),
         kinds=kinds, cumulative=cumulative, u_sizes=u_sizes, cr=cr,
         loc_kernel=K)
+    return merged if compute_dtype == "float32" else _bf16_storage(merged)
+
+
+def round_bf16(x: Tensor) -> Tensor:
+    """x rounded to the nearest bf16 (ties to even), kept in f32; autograd
+    rounds the gradient to bf16 on its way back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf16_storage(w: FusedDecodeWeights) -> FusedDecodeWeights:
+    """The JAX kernel's ``w()`` casts after the merges: matrices as bf16
+    tensors, the vectors rounded in f32 (the kernel reads them as f32);
+    the key fold stays f32 (it joins the keys before their rounding)."""
+    mat = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    return w._replace(
+        p0_init=round_bf16(w.p0_init),
+        prenet=tuple((mat(pw), round_bf16(pb)) for pw, pb in w.prenet),
+        att_w=mat(w.att_w), att_b=round_bf16(w.att_b), q_w=mat(w.q_w),
+        v=round_bf16(w.v), loc_w=round_bf16(w.loc_w), big_w=mat(w.big_w),
+        big_b=round_bf16(w.big_b), l2_w=mat(w.l2_w),
+        l2_b=round_bf16(w.l2_b),
+        hops=tuple((mat(a), round_bf16(b), mat(c), round_bf16(d))
+                   for a, b, c, d in w.hops),
+        head_w=mat(w.head_w), head_b=round_bf16(w.head_b), bf16=True)
 
 
 def _offsets(sizes: Sequence[int]) -> Tuple[int, ...]:
@@ -197,7 +240,8 @@ def _offsets(sizes: Sequence[int]) -> Tuple[int, ...]:
 
 def _memory(w: FusedDecodeWeights, memory: FusedDecodeMemory):
     """Per source: keys (B, T_i, U_i) with the constant fold added, values
-    (B, T_i, C_i) and boolean masks (B, T_i)."""
+    (B, T_i, C_i) (both bf16 in the bf16 mode) and boolean masks (B,
+    T_i)."""
     B = int(memory.keys[0].shape[0])
     if any(int(t.shape[0]) != B for t in (*memory.keys, *memory.values,
                                           *memory.masks)):
@@ -205,9 +249,13 @@ def _memory(w: FusedDecodeWeights, memory: FusedDecodeMemory):
     u_off = _offsets(w.u_sizes)
     keys = tuple(k + w.key_fold[u_off[i]:u_off[i + 1]]
                  for i, k in enumerate(memory.keys))
+    values = memory.values
+    if w.bf16:
+        keys = tuple(k.to(torch.bfloat16) for k in keys)
+        values = tuple(v.to(torch.bfloat16) for v in values)
     masks = tuple(m.reshape(B, -1) > 0.5 if m.dtype != torch.bool
                   else m.reshape(B, -1) for m in memory.masks)
-    return keys, memory.values, masks
+    return keys, values, masks
 
 
 def _options(options) -> dict:
@@ -227,16 +275,32 @@ def _windows(cv: Tensor, K: int) -> Tensor:
 
 
 def context_from_alignments(batch: int, t_sizes: Sequence[int],
-                            c_sizes: Sequence[int]) -> bool:
+                            c_sizes: Sequence[int],
+                            bf16: bool = False) -> bool:
     """Whether the decode feeds the products the alignment row in place of
     the context: at B = 1, when the row (sum T_i) is no wider than the
-    context (sum C_i).  The context enters only the products of the
+    context (sum C_i), and not in the bf16 mode (whose products round the
+    context itself to bf16).  The context enters only the products of the
     attention LSTM and of the merged projection + lstm1, linearly, so
     ``ctx @ W_ctx = alpha @ (V @ W_ctx)`` with V @ W_ctx folded into their
     weights once a call (``context_weights``); the kernel then skips the
     context stage and its grid barrier.  A batch would need a folded copy
     a row."""
-    return batch == 1 and sum(t_sizes) <= sum(c_sizes)
+    return not bf16 and batch == 1 and sum(t_sizes) <= sum(c_sizes)
+
+
+def round_attention_inputs(w: FusedDecodeWeights, batch: int,
+                           t_sizes: Sequence[int]) -> bool:
+    """Whether the query projection and the location taps round their
+    inputs to bf16: the bf16 mode outside the JAX kernel's B = 1 row path
+    (one memory length for every source), which multiplies both in f32."""
+    return w.bf16 and not (batch == 1 and len(set(t_sizes)) == 1)
+
+
+def _mm(x: Tensor, weight: Tensor, rnd: bool) -> Tensor:
+    """x @ weight^T for a kernel-layout (out, in) weight; with ``rnd`` the
+    input row is rounded to bf16 first (the JAX kernel's ``_mm``)."""
+    return (round_bf16(x) if rnd else x) @ weight.float().t()
 
 
 def context_weights(w: FusedDecodeWeights, values: Sequence[Tensor],
@@ -279,7 +343,9 @@ def fused_decode_reference(weights: FusedDecodeWeights,
     hd = D // num_heads
     t_sizes = [int(k.shape[1]) for k in keys]
     c_sizes = [int(v.shape[2]) for v in values]
-    by_alpha = context_from_alignments(B, t_sizes, c_sizes)
+    by_alpha = context_from_alignments(B, t_sizes, c_sizes, w.bf16)
+    rq = round_attention_inputs(w, B, t_sizes)
+    mm = lambda x, weight: _mm(x, weight, w.bf16)  # noqa: E731
     att_w, big_w = (context_weights(w, values, c_sizes) if by_alpha
                     else (w.att_w, w.big_w))
     out = torch.zeros(B, S, cr + 1, device=dev)
@@ -300,17 +366,18 @@ def fused_decode_reference(weights: FusedDecodeWeights,
         if spk is not None:
             p = p + spk
         for pw, pb in w.prenet:
-            p = torch.relu(p @ pw.t() + pb)
+            p = torch.relu(mm(p, pw) + pb)
         c_att, h_att = lstm_update(
-            torch.cat([p, ctx, h_att], 1) @ att_w.t() + w.att_b, c_att,
+            mm(torch.cat([p, ctx, h_att], 1), att_w) + w.att_b, c_att,
             h_att, zc_att, zo_att)
-        pq = h_att @ w.q_w.t()
+        pq = _mm(h_att, w.q_w, rq)
         ctxs = []
         for i, kind in enumerate(w.kinds):
             us = slice(u_off[i], u_off[i + 1])
-            pre = keys[i] + pq[:, None, us]
+            pre = keys[i].float() + pq[:, None, us]
             if kind != 0:
-                pre = pre + _windows(conv[i], K) @ w.loc_w[:, us]
+                win = _windows(conv[i], K)
+                pre = pre + (round_bf16(win) if rq else win) @ w.loc_w[:, us]
             e = torch.tanh(pre) @ w.v[us]                    # (B, T_i)
             e = torch.where(masks[i], e, torch.full_like(e, NEG_INF))
             ex = torch.exp(e - e.amax(1, keepdim=True))
@@ -327,16 +394,17 @@ def fused_decode_reference(weights: FusedDecodeWeights,
                 conv[i] = conv[i] + a if w.cumulative[i] else a
             aligns[i][:, t] = a_out
             ctxs.append(a_out if by_alpha else
-                        torch.einsum("bt,btc->bc", a_out, values[i]))
+                        torch.einsum("bt,btc->bc", a_out,
+                                     values[i].float()))
         ctx = torch.cat(ctxs, 1)
-        big = torch.cat([h_att, ctx, h1], 1) @ big_w.t() + w.big_b
+        big = mm(torch.cat([h_att, ctx, h1], 1), big_w) + w.big_b
         c1, h1 = lstm_update(big[:, :4 * D], c1, h1, zc_dec, zo_dec)
         o1 = big[:, 4 * D:] + h1
-        c2, h2 = lstm_update(torch.cat([o1, h2], 1) @ w.l2_w.t() + w.l2_b,
+        c2, h2 = lstm_update(mm(torch.cat([o1, h2], 1), w.l2_w) + w.l2_b,
                              c2, h2, zc_dec, zo_dec)
         y = o1 + h2
         for (w_kvq, b_kvq, w_ot, b_ot), (kc, vc) in zip(w.hops, caches):
-            kvq = y @ w_kvq.t() + b_kvq
+            kvq = mm(y, w_kvq) + b_kvq
             kc[:, t], vc[:, t] = kvq[:, :D], kvq[:, D:2 * D]
             q = kvq[:, 2 * D:]
             hctx = []
@@ -347,8 +415,8 @@ def fused_decode_reference(weights: FusedDecodeWeights,
                 hctx.append(torch.einsum("bs,bsd->bd",
                                          torch.softmax(sc, dim=1),
                                          vc[:, :t + 1, sl]))
-            y = y + torch.tanh(torch.cat(hctx, 1) @ w_ot.t() + b_ot)
-        row = y @ w.head_w.t() + w.head_b
+            y = y + torch.tanh(mm(torch.cat(hctx, 1), w_ot) + b_ot)
+        row = mm(y, w.head_w) + w.head_b
         out[:, t] = row[:, :cr + 1]
         p0 = row[:, cr + 1:]
         if o["early_stop"] and t > o["min_iters"]:
@@ -377,10 +445,11 @@ def smem_floats(w: FusedDecodeWeights, *, batch: int,
     blocks: ``dec_smem`` in csrc/fused_decode.cu, which the CUDA tests hold
     this against.  It grows with the batch by the per-row state: the
     product inputs (B rows of the widest stage input), the query
-    projections, four (B, sum T_i) attention rows and the LSTM cells."""
+    projections, four (B, sum T_i) attention rows and the LSTM cells.  In
+    the bf16 mode each weight region holds two weights a float."""
     nb, B = blocks, int(batch)
     sumU, Cctx, sumT = sum(w.u_sizes), sum(c_sizes), sum(t_sizes)
-    if context_from_alignments(B, t_sizes, c_sizes):
+    if context_from_alignments(B, t_sizes, c_sizes, w.bf16):
         Cctx = sumT
     A = int(w.att_b.shape[0]) // 4
     D = int(w.l2_b.shape[0]) // 4
@@ -390,11 +459,12 @@ def smem_floats(w: FusedDecodeWeights, *, batch: int,
     z_att, z_big = P + Cctx + A, A + Cctx + D
     nhead = w.cr + 1 + P0
     maxch = _items(num_steps, CHUNK)
-    f = sum(_items(n, nb) * k for n, k in pre)
-    f += _items(A, nb) * 4 * z_att + _items(sumU, nb) * A
-    f += _items(D, nb) * 5 * z_big + _items(D, nb) * 8 * D
-    f += len(w.hops) * (_items(3 * D, nb) * D + _items(D, nb) * D)
-    f += _items(nhead, nb) * D
+    wf = (lambda n: (n + 1) // 2) if w.bf16 else (lambda n: n)  # noqa: E731
+    f = sum(wf(_items(n, nb) * k) for n, k in pre)
+    f += wf(_items(A, nb) * 4 * z_att) + wf(_items(sumU, nb) * A)
+    f += wf(_items(D, nb) * 5 * z_big) + wf(_items(D, nb) * 8 * D)
+    f += len(w.hops) * (wf(_items(3 * D, nb) * D) + wf(_items(D, nb) * D))
+    f += wf(_items(nhead, nb) * D)
     f += sum(_items(n, nb) for n, _ in pre) + _items(A, nb) * 4
     f += _items(D, nb) * 9 + len(w.hops) * (_items(3 * D, nb)
                                             + _items(D, nb))
@@ -454,7 +524,7 @@ class _DecArgs(ctypes.Structure):
         ("B", _I), ("S", _I), ("ns", _I), ("cr", _I), ("P0", _I), ("A", _I),
         ("D", _I), ("n_pre", _I), ("n_hops", _I), ("n_heads", _I),
         ("K_loc", _I), ("early_stop", _I), ("min_iters", _I),
-        ("use_spk", _I), ("alpha_ctx", _I),
+        ("use_spk", _I), ("alpha_ctx", _I), ("bf16", _I), ("round_att", _I),
         ("kinds", _I * MAX_SOURCES), ("cumulative", _I * MAX_SOURCES),
         ("u_off", _I * (MAX_SOURCES + 1)), ("c_off", _I * (MAX_SOURCES + 1)),
         ("t_off", _I * (MAX_SOURCES + 1)),
@@ -520,10 +590,12 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
     if D % o["num_heads"]:
         raise ValueError("decoder units must divide over the heads")
     keep = []
+    # the bf16 mode's matrices, keys and values are bf16 tensors
+    wdt = torch.bfloat16 if w.bf16 else torch.float32
 
-    def use(t, shape, name):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected a float32 CUDA tensor, got "
+    def use(t, shape, name, dtype=torch.float32):
+        if not t.is_cuda or t.dtype != dtype:
+            raise ValueError(f"{name}: expected a {dtype} CUDA tensor, got "
                              f"{t.dtype} on {t.device}")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
@@ -533,9 +605,9 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
         return t.data_ptr()
 
     for i in range(ns):
-        use(keys[i], (B, t_sizes[i], w.u_sizes[i]), f"keys[{i}]")
-        use(values[i], (B, t_sizes[i], c_sizes[i]), f"values[{i}]")
-    folded = context_from_alignments(B, t_sizes, c_sizes)
+        use(keys[i], (B, t_sizes[i], w.u_sizes[i]), f"keys[{i}]", wdt)
+        use(values[i], (B, t_sizes[i], c_sizes[i]), f"values[{i}]", wdt)
+    folded = context_from_alignments(B, t_sizes, c_sizes, w.bf16)
     att_w, big_w = (context_weights(w, values, c_sizes) if folded
                     else (w.att_w, w.big_w))
     if folded:   # the products read the alignment row as their "context"
@@ -546,6 +618,8 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
     a.n_heads, a.K_loc = o["num_heads"], w.loc_kernel
     a.early_stop, a.min_iters = int(o["early_stop"]), int(o["min_iters"])
     a.alpha_ctx = int(folded)
+    a.bf16 = int(w.bf16)
+    a.round_att = int(round_attention_inputs(w, B, t_sizes))
     u_off, c_off, t_off = (_offsets(w.u_sizes),
                            _offsets(t_sizes if folded else c_sizes),
                            _offsets(t_sizes))
@@ -559,9 +633,9 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
     a.zc_att, a.zo_att = o["zoneout_cell"], o["zoneout_output"]
     a.zc_dec, a.zo_dec = o["dec_zoneout_cell"], o["dec_zoneout_output"]
     a.keys = use(torch.cat([k.reshape(-1) for k in keys]), (k_off[-1],),
-                 "keys")
+                 "keys", wdt)
     a.values = use(torch.cat([v.reshape(-1) for v in values]), (v_off[-1],),
-                   "values")
+                   "values", wdt)
     a.mask = use(torch.cat(masks, 1).float(), (B, sumT), "mask")
     a.loc_w = use(w.loc_w, (w.loc_kernel, sumU), "loc_w")
     a.v = use(w.v, (sumU,), "v")
@@ -572,23 +646,23 @@ def prepare_decode(weights: FusedDecodeWeights, memory: FusedDecodeMemory,
     width = P0
     for i, (pw, pb) in enumerate(w.prenet):
         n = int(pw.shape[0])
-        a.pre_w[i] = use(pw, (n, width), f"prenet{i + 1}.w")
+        a.pre_w[i] = use(pw, (n, width), f"prenet{i + 1}.w", wdt)
         a.pre_b[i] = use(pb, (n,), f"prenet{i + 1}.b")
         a.pre_in[i], a.pre_out[i] = width, n
         width = n
-    a.att_w = use(att_w, (4 * A, width + Cctx + A), "att_w")
+    a.att_w = use(att_w, (4 * A, width + Cctx + A), "att_w", wdt)
     a.att_b = use(w.att_b, (4 * A,), "att_b")
-    a.q_w = use(w.q_w, (sumU, A), "q_w")
-    a.big_w = use(big_w, (5 * D, A + Cctx + D), "big_w")
+    a.q_w = use(w.q_w, (sumU, A), "q_w", wdt)
+    a.big_w = use(big_w, (5 * D, A + Cctx + D), "big_w", wdt)
     a.big_b = use(w.big_b, (5 * D,), "big_b")
-    a.l2_w = use(w.l2_w, (4 * D, 2 * D), "l2_w")
+    a.l2_w = use(w.l2_w, (4 * D, 2 * D), "l2_w", wdt)
     a.l2_b = use(w.l2_b, (4 * D,), "l2_b")
     for i, (w_kvq, b_kvq, w_ot, b_ot) in enumerate(w.hops):
-        a.kvq_w[i] = use(w_kvq, (3 * D, D), f"hop{i}.kvq_w")
+        a.kvq_w[i] = use(w_kvq, (3 * D, D), f"hop{i}.kvq_w", wdt)
         a.kvq_b[i] = use(b_kvq, (3 * D,), f"hop{i}.kvq_b")
-        a.ot_w[i] = use(w_ot, (D, D), f"hop{i}.ot_w")
+        a.ot_w[i] = use(w_ot, (D, D), f"hop{i}.ot_w", wdt)
         a.ot_b[i] = use(b_ot, (D,), f"hop{i}.ot_b")
-    a.head_w = use(w.head_w, (cr + 1 + P0, D), "head_w")
+    a.head_w = use(w.head_w, (cr + 1 + P0, D), "head_w", wdt)
     a.head_b = use(w.head_b, (cr + 1 + P0,), "head_b")
 
     lib = _lib()

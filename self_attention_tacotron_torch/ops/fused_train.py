@@ -31,6 +31,22 @@ bit for bit, so the kernels and the plain versions draw the same masks and
 the backward regenerates the forward's.  ``deterministic`` turns dropout
 off and zoneout into its expectation.
 
+The bf16 storage mode (``compute_dtype="bfloat16"``, the JAX package's
+``fused_teacher_scan(compute_dtype="bfloat16")``): the weights (with the
+energy vectors), keys, values and the teacher are rounded to bf16 (``train_
+operands``, by differentiable casts, so autograd rounds their gradients to
+bf16 where the JAX package's VJP does); the location products and the
+speaker row stay f32.  Every product rounds its input rows to bf16 and sums
+in f32 (the JAX kernels' ``_mm`` / ``_mm_tB`` / ``_mm_tA``), except the
+location terms and the values' gradient, which the JAX kernels keep in
+f32, and the prenet bias gradients (f32 sums).  The backward reads the
+save rows as the JAX kernel's bf16 save rows (the LSTM gates and cells
+rounded as they are read; the query projections, which the JAX backward
+recomputes in f32, are not) and contracts the weight gradients from a
+bf16-rounded stash.  The save rows and the stash keep their f32 layout in
+memory (bf16 values where the JAX kernels store bf16); the kernels hold
+their resident weight slices in bf16 and multiply on bf16 tensor cores.
+
 Not carried over from the TPU kernel, all TPU layout or tuning: the
 128-lane padding of ``fused_teacher_scan``, the ``AUX_W`` rows with stored
 conv windows, the (B*T, B) block indicator and ``_bcast`` (a block or warp
@@ -49,6 +65,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .fused_decode import round_bf16
 from .masks import (MASK_ZC1, MASK_ZC2, MASK_ZC_ATT, MASK_ZO1, MASK_ZO2,
                     MASK_ZO_ATT, keep_mask)
 
@@ -110,6 +127,7 @@ class TrainSpec(NamedTuple):
     zc_dec: float
     zo_dec: float
     deterministic: bool          # no dropout, zoneout by expectation
+    compute_dtype: str = "float32"   # float32 | bfloat16 storage
 
 
 def _fields(pairs):
@@ -239,6 +257,10 @@ def _window_adjoint(d_win: Tensor) -> Tensor:
     return out[:, pad:pad + T]
 
 
+def _bf16(spec: TrainSpec) -> bool:
+    return spec.compute_dtype == "bfloat16"
+
+
 def _sources(spec: TrainSpec):
     u_off, c_off = [0], [0]
     for u in spec.u_sizes:
@@ -262,7 +284,13 @@ def fused_train_fwd_reference(spec: TrainSpec, params: FusedTrainParams,
     (B, T) float, teacher_flat (S*B, cf) with rows t*B + b, loc_ws (K, U_i)
     or None.  Returns (y (S*B, D), save (S*B, W), aux (S, ns, 3, B, T):
     per source the softmax, the alignment and the conv input of the step).
-    Differentiable."""
+    Differentiable.  In the bf16 mode the stored operands are rounded to
+    bf16 first (``_storage``; a no-op on ``train_operands``' already
+    rounded ones) and every product but the location term rounds its
+    input rows to bf16."""
+    rb = round_bf16 if _bf16(spec) else (lambda x: x)
+    params, keys, values, teacher_flat = _storage(spec, params, keys, values,
+                                                  teacher_flat)
     B, S, T = spec.batch, spec.num_steps, spec.t_mem
     A, D, K = spec.a_units, spec.d_units, spec.loc_kernel
     dev = teacher_flat.device
@@ -270,7 +298,7 @@ def fused_train_fwd_reference(spec: TrainSpec, params: FusedTrainParams,
     x = teacher_flat
     acts = []
     for li, (w, b) in enumerate(params.prenet):
-        act = torch.relu(x @ w + b)
+        act = torch.relu(rb(x) @ w + b)
         pd = act * _prenet_mask(spec, seed, li, dev) if _dropout_on(
             spec, li) else act
         if spec.use_spk and li == 0:
@@ -292,11 +320,12 @@ def fused_train_fwd_reference(spec: TrainSpec, params: FusedTrainParams,
     ys, rows, auxs = [], [], []
     for t in range(S):
         mk = _step_masks(spec, seed, t, dev)
-        gates_att = torch.cat([pd_last[t], ctx, h_att], 1) @ att_w + att_b
+        gates_att = rb(torch.cat([pd_last[t], ctx, h_att], 1)) @ att_w \
+            + att_b
         c_att, h_att = _lstm_fwd(gates_att, c_att, h_att, spec.zc_att,
                                  spec.zo_att, mk["zc_att"], mk["zo_att"],
                                  spec.deterministic)
-        pq = h_att @ q_w
+        pq = rb(h_att) @ q_w
         ctxs, aux_t = [], []
         for i, kind in enumerate(spec.src_kinds):
             pre = keys[i] + pq[:, None, u_off[i]:u_off[i + 1]]
@@ -317,13 +346,15 @@ def fused_train_fwd_reference(spec: TrainSpec, params: FusedTrainParams,
                 cv[i] = cv[i] + a if spec.cumulative[i] else a
                 alpha[i] = w
         ctx = torch.cat(ctxs, 1)
-        proj = torch.cat([h_att, ctx], 1) @ params.outproj[0] \
+        proj = rb(torch.cat([h_att, ctx], 1)) @ params.outproj[0] \
             + params.outproj[1]
-        gates1 = torch.cat([proj, h1], 1) @ params.lstm1[0] + params.lstm1[1]
+        gates1 = rb(torch.cat([proj, h1], 1)) @ params.lstm1[0] \
+            + params.lstm1[1]
         c1, h1 = _lstm_fwd(gates1, c1, h1, spec.zc_dec, spec.zo_dec,
                            mk["zc1"], mk["zo1"], spec.deterministic)
         o1 = proj + h1
-        gates2 = torch.cat([o1, h2], 1) @ params.lstm2[0] + params.lstm2[1]
+        gates2 = rb(torch.cat([o1, h2], 1)) @ params.lstm2[0] \
+            + params.lstm2[1]
         c2, h2 = _lstm_fwd(gates2, c2, h2, spec.zc_dec, spec.zo_dec,
                            mk["zc2"], mk["zo2"], spec.deterministic)
         ys.append(o1 + h2)
@@ -341,7 +372,16 @@ def fused_train_bwd_reference(spec: TrainSpec, params: FusedTrainParams,
     """Plain reverse-time VJP from the forward's saves, in the order the
     backward kernel runs it.  Returns (d_params (FusedTrainParams layout),
     d_keys, d_values, d_spk (or None), d_loc (per source, None for
-    additive))."""
+    additive)).  In the bf16 mode the gates and cells are read as bf16
+    (the JAX kernel's bf16 save rows), the products round their inputs
+    and the weight gradients contract bf16-rounded operands (its bf16
+    stash); the location terms, the values' gradient and the prenet bias
+    gradients stay f32.  The stored operands are rounded first, as in the
+    forward; the gradients are the rounded operands' (autograd of the
+    casts in ``fused_teacher_scan`` rounds them to bf16)."""
+    rb = round_bf16 if _bf16(spec) else (lambda x: x)
+    params, keys, values, teacher_flat = _storage(spec, params, keys, values,
+                                                  teacher_flat)
     B, S, T = spec.batch, spec.num_steps, spec.t_mem
     A, D, K = spec.a_units, spec.d_units, spec.loc_kernel
     P = spec.p_sizes[-1]
@@ -354,6 +394,9 @@ def fused_train_bwd_reference(spec: TrainSpec, params: FusedTrainParams,
     def get(rows, name):
         o, w = off[name]
         return rows[:, o:o + w]
+
+    def saved(rows, name):   # a gate or cell row, as the bf16 save holds it
+        return rb(get(rows, name))
 
     att_w = params.att_lstm[0]
     q_w = torch.cat([wq for wq, _ in params.query], 1)
@@ -377,19 +420,19 @@ def fused_train_bwd_reference(spec: TrainSpec, params: FusedTrainParams,
         rt = save[t * B:(t + 1) * B]
         rp = save[(t - 1) * B:t * B] if t > 0 else torch.zeros_like(rt)
         g = g_y[t * B:(t + 1) * B]
-        dg2, d_c2, dh2_zo = _lstm_bwd(get(rt, "gates2"), get(rp, "c2"),
+        dg2, d_c2, dh2_zo = _lstm_bwd(saved(rt, "gates2"), saved(rp, "c2"),
                                       g + d_h2_c, d_c2, spec.zc_dec,
                                       spec.zo_dec, mk["zc2"], mk["zo2"], det)
-        dz2 = dg2 @ params.lstm2[0].t()
+        dz2 = rb(dg2) @ params.lstm2[0].t()
         d_o1 = g + dz2[:, :D]
         d_h2_c = dh2_zo + dz2[:, D:]
-        dg1, d_c1, dh1_zo = _lstm_bwd(get(rt, "gates1"), get(rp, "c1"),
+        dg1, d_c1, dh1_zo = _lstm_bwd(saved(rt, "gates1"), saved(rp, "c1"),
                                       d_o1 + d_h1_c, d_c1, spec.zc_dec,
                                       spec.zo_dec, mk["zc1"], mk["zo1"], det)
-        dz1 = dg1 @ params.lstm1[0].t()
+        dz1 = rb(dg1) @ params.lstm1[0].t()
         d_proj = d_o1 + dz1[:, :D]
         d_h1_c = dh1_zo + dz1[:, D:]
-        dzop = d_proj @ params.outproj[0].t()
+        dzop = rb(d_proj) @ params.outproj[0].t()
         d_h_att_part = dzop[:, :A]
         d_ctx = dzop[:, A:] + d_ctx_c
         pq = get(rt, "pq")
@@ -429,30 +472,48 @@ def fused_train_bwd_reference(spec: TrainSpec, params: FusedTrainParams,
                 dCV[i] = d_cv + dCV[i] if spec.cumulative[i] else d_cv
         d_pq = torch.cat(d_pqs, 1)
         dgatt, d_c_att, dhatt_zo = _lstm_bwd(
-            get(rt, "gates_att"), get(rp, "c_att"),
-            d_h_att_part + d_pq @ q_w.t() + d_h_att_c, d_c_att, spec.zc_att,
+            saved(rt, "gates_att"), saved(rp, "c_att"),
+            d_h_att_part + rb(d_pq) @ q_w.t() + d_h_att_c, d_c_att,
+            spec.zc_att,
             spec.zo_att, mk["zc_att"], mk["zo_att"], det)
-        dzatt = dgatt @ att_w[P:].t()
+        dzatt = rb(dgatt) @ att_w[P:].t()
         d_ctx_c = dzatt[:, :sumC]
         d_h_att_c = dhatt_zo + dzatt[:, sumC:]
         stash[t] = (dgatt, dg1, dg2, d_proj, d_pq)
     dgatt, dg1, dg2, d_proj, d_pq = (torch.cat(c) for c in zip(*stash))
 
-    def dense(left, right):
-        return left.t() @ right, right.sum(0, keepdim=True)
+    def dense(left, right, bias_f32=False):
+        bias = (right if bias_f32 else rb(right)).sum(0, keepdim=True)
+        return rb(left).t() @ rb(right), bias
 
     prev = lambda x: _prev_rows(x, B)  # noqa: E731
     h_att, ctx = get(save, "h_att"), get(save, "ctx")
-    d_att = dense(torch.cat([get(save, f"pd{len(spec.p_sizes) - 1}"),
-                             prev(ctx), prev(h_att)], 1), dgatt)
+
+    def pd(li):
+        """Prenet layer li's output as the backward's weight gradients see
+        it: the saved one in f32; in the bf16 mode rebuilt from the bf16
+        save of the ReLU output, as the JAX backward does."""
+        if not _bf16(spec):
+            return get(save, f"pd{li}")
+        out = rb(get(save, f"p{li}"))
+        if _dropout_on(spec, li):
+            out = out * _prenet_mask(spec, seed, li, dev)
+        if spec.use_spk and li == 0:
+            out = out + spk.repeat(S, 1)
+        return out
+
+    # lstm2's input o1 = proj + h1, in the bf16 mode from their bf16 saves
+    o1 = (rb(get(save, "proj")) + rb(get(save, "h1")) if _bf16(spec)
+          else get(save, "o1"))
+    d_att = dense(torch.cat([pd(len(spec.p_sizes) - 1), prev(ctx),
+                             prev(h_att)], 1), dgatt)
     d_l1 = dense(torch.cat([get(save, "proj"), prev(get(save, "h1"))], 1),
                  dg1)
-    d_l2 = dense(torch.cat([get(save, "o1"), prev(get(save, "h2"))], 1),
-                 dg2)
+    d_l2 = dense(torch.cat([o1, prev(get(save, "h2"))], 1), dg2)
     d_op = dense(torch.cat([h_att, ctx], 1), d_proj)
-    d_q = h_att.t() @ d_pq
+    d_q = rb(h_att).t() @ rb(d_pq)
     # prenet, deferred: d of the last prenet output, then layer by layer
-    d_out = dgatt @ att_w[:P].t()
+    d_out = rb(dgatt) @ att_w[:P].t()
     d_prenet = [None] * len(spec.p_sizes)
     d_spk = None
     for li in reversed(range(len(spec.p_sizes))):
@@ -460,12 +521,12 @@ def fused_train_bwd_reference(spec: TrainSpec, params: FusedTrainParams,
             d_spk = d_out.reshape(S, B, -1).sum(0)
         act = get(save, f"p{li}")
         d_pre = d_out * (act > 0).float()
-        if _dropout_on(spec, li):
-            d_pre = d_pre * _prenet_mask(spec, seed, li, dev)
-        left = teacher_flat if li == 0 else get(save, f"pd{li - 1}")
-        d_prenet[li] = dense(left, d_pre)
+        if _dropout_on(spec, li):   # the bf16 stash holds the mask in bf16
+            d_pre = d_pre * rb(_prenet_mask(spec, seed, li, dev))
+        left = teacher_flat if li == 0 else pd(li - 1)
+        d_prenet[li] = dense(left, d_pre, bias_f32=True)
         if li > 0:
-            d_out = d_pre @ params.prenet[li][0].t()
+            d_out = rb(d_pre) @ params.prenet[li][0].t()
     d_query = tuple((d_q[:, u_off[i]:u_off[i + 1]], d_v[i][:, None])
                     for i in range(ns))
     d_params = FusedTrainParams(prenet=tuple(d_prenet), att_lstm=d_att,
@@ -485,6 +546,13 @@ def _pad(n: int) -> int:
     return ((n + 27) // 32) * 32 + 4
 
 
+def _wpad(spec: TrainSpec, n: int) -> int:
+    """``tr_wpad``: the row stride (floats) of a resident weight slice of n
+    weights: ``_pad(n)``, or in the bf16 mode ``_pad`` of its 32-bit words
+    (two weights a word)."""
+    return _pad((n + 1) // 2) if _bf16(spec) else _pad(n)
+
+
 def _plan(sizes) -> int:
     """Floats of consecutive regions, each starting 16-byte aligned."""
     o = 0
@@ -501,7 +569,7 @@ def smem_bytes(spec: TrainSpec, blocks: int = H100_SMS) -> Tuple[int, int]:
     serves one of two row groups and holds twice the columns), biases,
     energy and location vectors, the product's partial tiles, and one
     region that the staged rows, the tile product and the attention items
-    share."""
+    share.  In the bf16 mode the weight slices hold two weights a float."""
     B, T, K = spec.batch, spec.t_mem, spec.loc_kernel
     A, D = spec.a_units, spec.d_units
     sumU, sumC = sum(spec.u_sizes), sum(spec.c_sizes)
@@ -511,9 +579,10 @@ def smem_bytes(spec: TrainSpec, blocks: int = H100_SMS) -> Tuple[int, int]:
     B = -(-B // groups)           # staged rows a block
     fwd_att = 2 * (-(-max(T + K + US, 4 * T + 2 * CS) // 4) * 4)  # 2 halves
     rows_f = B * _pad(max(zatt, A + sumC, 2 * D))
-    fwd = _plan([it(A) * 4 * _pad(zatt), it(sumU) * _pad(A),
-                 it(D) * _pad(A + sumC), it(D) * 4 * _pad(2 * D),
-                 it(D) * 4 * _pad(2 * D), it(A) * 4, it(D), it(D) * 4,
+    wp = lambda n: _wpad(spec, n)  # noqa: E731
+    fwd = _plan([it(A) * 4 * wp(zatt), it(sumU) * wp(A),
+                 it(D) * wp(A + sumC), it(D) * 4 * wp(2 * D),
+                 it(D) * 4 * wp(2 * D), it(A) * 4, it(D), it(D) * 4,
                  it(D) * 4, sumU, K * sumU, 3 * it(max(A, D)) * B, ROW_PART,
                  32, max(rows_f, TILE_SMEM), fwd_att])
     if 4 * _plan([fwd, rows_f]) <= SMEM_LIMIT:   # the second buffer, zp
@@ -522,9 +591,9 @@ def smem_bytes(spec: TrainSpec, blocks: int = H100_SMS) -> Tuple[int, int]:
                        + 2 * (NWARPS // 2) * US) // 4) * 4)   # 2 halves
     items = spec.batch * sum(-(-u // US) for u in spec.u_sizes)
     iacc = -(-items // blocks) * (US + K * US)   # bwd_iacc_floats
-    bwd = _plan([it(2 * D) * _pad(4 * D), it(2 * D) * _pad(4 * D),
-                 it(A + sumC) * _pad(D), it(A) * _pad(sumU),
-                 it(sumC + A) * _pad(4 * A), sumU, K * sumU, ROW_PART, 32,
+    bwd = _plan([it(2 * D) * wp(4 * D), it(2 * D) * wp(4 * D),
+                 it(A + sumC) * wp(D), it(A) * wp(sumU),
+                 it(sumC + A) * wp(4 * A), sumU, K * sumU, ROW_PART, 32,
                  iacc,
                  max(B * _pad(max(4 * D, 4 * A, D, sumU)), bwd_att,
                      TILE_SMEM)])
@@ -534,6 +603,8 @@ def smem_bytes(spec: TrainSpec, blocks: int = H100_SMS) -> Tuple[int, int]:
 def unsupported_reason(spec: TrainSpec,
                        blocks: int = H100_SMS) -> Optional[str]:
     """Why the kernels cannot take this configuration, or None."""
+    if spec.compute_dtype not in ("float32", "bfloat16"):
+        return f"compute_dtype {spec.compute_dtype!r} is not a storage dtype"
     if spec.batch > MAX_BATCH:
         return f"batch {spec.batch} > {MAX_BATCH} rows a step"
     if len(spec.src_kinds) > MAX_SOURCES:
@@ -562,7 +633,7 @@ class _TrainArgs(ctypes.Structure):
     _fields_ = [
         *[(n, _I) for n in ("B", "S", "T", "cf", "ns", "n_pre", "A", "D", "K",
                             "use_spk", "deterministic", "save_w",
-                            "stash_w")],
+                            "stash_w", "bf16")],
         ("seed", ctypes.c_uint),
         ("kinds", _I * MAX_SOURCES), ("cumulative", _I * MAX_SOURCES),
         ("u_off", _I * (MAX_SOURCES + 1)), ("c_off", _I * (MAX_SOURCES + 1)),
@@ -676,6 +747,7 @@ def _args(spec: TrainSpec, ops: TrainOperands, seed: int, keep: list):
     a.A, a.D, a.K = A, D, K
     a.use_spk, a.deterministic = int(spec.use_spk), int(spec.deterministic)
     a.save_w, a.stash_w, a.seed = save_w, stash_w, int(seed) & 0xFFFFFFFF
+    a.bf16 = int(_bf16(spec))
     u_off, c_off = _sources(spec)
     for i in range(ns):
         a.kinds[i], a.cumulative[i] = spec.src_kinds[i], int(
@@ -903,6 +975,71 @@ class _FusedTrainFn(torch.autograd.Function):
         return (None, None, *_flat(grads))
 
 
+class _PlainTrainFn(torch.autograd.Function):
+    """The plain forward, then the plain reverse-time VJP as its backward:
+    the CPU path of the bf16 mode, whose gradients follow the JAX
+    kernels' rounding (autograd of the plain forward would not).  Inputs:
+    the rounded params' leaves (``_param_leaves``), keys, values, masks,
+    the teacher rows, the speaker row and the location products (None
+    where absent)."""
+
+    @staticmethod
+    def forward(ctx, spec, seed, *flat):
+        params, keys, values, masks, tf, spk, loc_ws = _unflat_plain(
+            spec, flat)
+        y, save, aux = fused_train_fwd_reference(
+            spec, params, keys, values, masks, tf, seed, spk, loc_ws)
+        ctx.spec, ctx.seed = spec, seed
+        ctx.save_for_backward(*[t for t in flat if t is not None], save,
+                              aux)
+        ctx.present = [t is not None for t in flat]
+        ctx.mark_non_differentiable(aux)
+        return y, aux
+
+    @staticmethod
+    def backward(ctx, g_y, _g_aux):
+        it = iter(ctx.saved_tensors)
+        flat = [next(it) if p else None for p in ctx.present]
+        save, aux = next(it), next(it)
+        spec = ctx.spec
+        params, keys, values, masks, tf, spk, loc_ws = _unflat_plain(
+            spec, flat)
+        d_params, d_keys, d_values, d_spk, d_loc = fused_train_bwd_reference(
+            spec, params, keys, values, masks, tf, ctx.seed, spk, loc_ws,
+            g_y.contiguous(), save, aux)
+        ns = len(spec.src_kinds)
+        grads = (_param_leaves(d_params) + list(d_keys) + list(d_values)
+                 + [None] * (ns + 1) + [d_spk] + list(d_loc))
+        return (None, None, *grads)
+
+
+def _param_leaves(params: FusedTrainParams):
+    out = []
+    for w, b in params.prenet:
+        out += [w, b]
+    out += list(params.att_lstm)
+    for wq, v in params.query:
+        out += [wq, v]
+    out += [*params.outproj, *params.lstm1, *params.lstm2]
+    return out
+
+
+def _unflat_plain(spec: TrainSpec, flat):
+    n_pre, ns = len(spec.p_sizes), len(spec.src_kinds)
+    it = iter(flat)
+    prenet = tuple((next(it), next(it)) for _ in range(n_pre))
+    att = (next(it), next(it))
+    query = tuple((next(it), next(it)) for _ in range(ns))
+    outproj, l1, l2 = [(next(it), next(it)) for _ in range(3)]
+    params = FusedTrainParams(prenet, att, query, outproj, l1, l2)
+    keys = tuple(next(it) for _ in range(ns))
+    values = tuple(next(it) for _ in range(ns))
+    masks = tuple(next(it) for _ in range(ns))
+    tf, spk = next(it), next(it)
+    loc_ws = tuple(next(it) for _ in range(ns))
+    return params, keys, values, masks, tf, spk, loc_ws
+
+
 def _flat(ops: TrainOperands):
     out = []
     for w, b in ops.prenet:
@@ -925,11 +1062,32 @@ def _unflat(spec: TrainSpec, flat) -> TrainOperands:
                          teacher=teacher, spk=spk)
 
 
+def _storage(spec: TrainSpec, params: FusedTrainParams, keys, values,
+             teacher_flat: Tensor):
+    """The bf16 mode's rounding of the stored operands (identity in f32):
+    params, keys, values and the teacher, by differentiable casts."""
+    if not _bf16(spec):
+        return params, keys, values, teacher_flat
+    rb = round_bf16
+    params = FusedTrainParams(
+        prenet=tuple((rb(w), rb(b)) for w, b in params.prenet),
+        att_lstm=tuple(map(rb, params.att_lstm)),
+        query=tuple((rb(wq), rb(v)) for wq, v in params.query),
+        outproj=tuple(map(rb, params.outproj)),
+        lstm1=tuple(map(rb, params.lstm1)),
+        lstm2=tuple(map(rb, params.lstm2)))
+    return (params, tuple(map(rb, keys)), tuple(map(rb, values)),
+            rb(teacher_flat))
+
+
 def train_operands(spec: TrainSpec, params: FusedTrainParams, keys, values,
                    masks, teacher_flat: Tensor, speaker_row, loc_ws
                    ) -> TrainOperands:
     """The kernels' flat operands, made with differentiable torch ops from
-    the JAX-layout inputs (autograd carries their gradients back)."""
+    the JAX-layout inputs (autograd carries their gradients back); in the
+    bf16 mode the stored operands are rounded (``_storage``)."""
+    params, keys, values, teacher_flat = _storage(spec, params, keys, values,
+                                                  teacher_flat)
     B, T, K = spec.batch, spec.t_mem, spec.loc_kernel
     dev = teacher_flat.device
     loc = [lw if lw is not None else torch.zeros(K, u, device=dev)
@@ -960,7 +1118,8 @@ def make_spec(params: FusedTrainParams, keys, values, teacher_xs: Tensor, *,
               drop_rate: float, zc_att: float, zo_att: float, zc_dec: float,
               zo_dec: float, deterministic: bool, p_dropout=None,
               use_spk: bool = False, src_kinds=None, cumulative=None,
-              loc_kernel: int = 1) -> TrainSpec:
+              loc_kernel: int = 1, compute_dtype: str = "float32"
+              ) -> TrainSpec:
     B, S, cf = teacher_xs.shape
     ns = len(keys)
     p_sizes = tuple(int(b.shape[-1]) for _, b in params.prenet)
@@ -979,7 +1138,7 @@ def make_spec(params: FusedTrainParams, keys, values, teacher_xs: Tensor, *,
         d_units=int(params.lstm1[1].shape[-1]) // 4,
         drop_rate=float(drop_rate), zc_att=float(zc_att),
         zo_att=float(zo_att), zc_dec=float(zc_dec), zo_dec=float(zo_dec),
-        deterministic=bool(deterministic))
+        deterministic=bool(deterministic), compute_dtype=str(compute_dtype))
 
 
 def fused_teacher_scan(params: FusedTrainParams, keys, values, masks,
@@ -987,23 +1146,33 @@ def fused_teacher_scan(params: FusedTrainParams, keys, values, masks,
                        zc_att: float, zo_att: float, zc_dec: float,
                        zo_dec: float, deterministic: bool, p_dropout=None,
                        speaker_row: Optional[Tensor] = None, src_kinds=None,
-                       cumulative=None, loc_kernel: int = 1, loc_ws=None):
+                       cumulative=None, loc_kernel: int = 1, loc_ws=None,
+                       compute_dtype: str = "float32"):
     """Run the teacher-forced trunk: keys/values per source (B, T, U/C),
     masks (B, T), teacher_xs (B, S, cf), seed an int.  Returns (y
     (B, S, D), alignments per source (B, S, T), not differentiable).
     Differentiable w.r.t. params, keys, values, speaker_row and loc_ws.
-    CPU tensors run the plain version under autograd; CUDA tensors the two
-    kernels (or raise)."""
+    CPU tensors run the plain version, under autograd in f32 and with the
+    plain reverse-time VJP in the bf16 mode; CUDA tensors the two kernels
+    (or raise).  ``compute_dtype="bfloat16"``: the bf16 storage mode."""
     spec = make_spec(params, keys, values, teacher_xs, drop_rate=drop_rate,
                      zc_att=zc_att, zo_att=zo_att, zc_dec=zc_dec,
                      zo_dec=zo_dec, deterministic=deterministic,
                      p_dropout=p_dropout, use_spk=speaker_row is not None,
                      src_kinds=src_kinds, cumulative=cumulative,
-                     loc_kernel=loc_kernel)
+                     loc_kernel=loc_kernel, compute_dtype=compute_dtype)
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype {compute_dtype!r}: expected "
+                         "float32 or bfloat16")
     B, S = spec.batch, spec.num_steps
     loc_ws = tuple(loc_ws or (None,) * len(keys))
     teacher_flat = teacher_xs.transpose(0, 1).reshape(S * B, spec.cf)
-    if not teacher_xs.is_cuda:
+    if not teacher_xs.is_cuda and _bf16(spec):
+        rp, rk, rv, rt = _storage(spec, params, keys, values, teacher_flat)
+        y, aux = _PlainTrainFn.apply(
+            spec, int(seed), *_param_leaves(rp), *rk, *rv,
+            *[m.float() for m in masks], rt, speaker_row, *loc_ws)
+    elif not teacher_xs.is_cuda:
         y, _, aux = fused_train_fwd_reference(
             spec, params, keys, values, [m.float() for m in masks],
             teacher_flat, seed, speaker_row, loc_ws)

@@ -17,7 +17,14 @@ no JAX, so on a machine without it run
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerance 1e-4 (float32 both sides, TF32 off; the sums run in another
-order than the plain version's matmuls).
+order than the plain version's matmuls).  The bf16 storage mode of the
+decode and training kernels against their plain bf16 versions: both round
+the same inputs to bf16, but a value whose f32 sum lands near a bf16
+rounding boundary rounds one ulp (2^-8 relative) apart now and then, and
+the recurrence carries it on, so: the decode within 5e-3 over its first 10
+steps and 5e-2 over all 30, finite, and the same code argmax at >= 90 % of
+the frames; the training forward within 1e-2 and each gradient within
+1e-2 of its largest magnitude.
 """
 
 import os
@@ -411,6 +418,85 @@ def test_decode_smem_plan_matches_the_kernel(device, case):
                                          **options)
 
 
+BF16_DECODE_CASES = {
+    # (model options, row lengths): B = 1 two sources; batched with the
+    # speaker row; location-sensitive at B = 1 (the f32 query path)
+    "recipe_mechanisms_b1": ({}, [17]),
+    "speaker_b3": ({"use_speaker_embedding": True, "num_speakers": 3},
+                   [24, 13, 19]),
+    "location_b1": ({"attention": "location_sensitive"}, [21]),
+}
+
+
+def _bf16_decode_close(got, ref, head=10):
+    for g, r in zip((*got[:2], *got[2]), (*ref[:2], *ref[2])):
+        assert bool(g.isfinite().all())
+        _close(g[:, :head], r[:, :head], tol=5e-3)
+        _close(g, r, tol=5e-2)
+    agree = float((got[0].argmax(-1) == ref[0].argmax(-1)).float().mean())
+    assert agree >= 0.9
+
+
+@pytest.mark.parametrize("case", list(BF16_DECODE_CASES))
+@torch.no_grad()
+def test_fused_decode_bf16_kernel_matches_plain(device, case):
+    """The bf16 instance of the decode kernel (bf16 weight slices, keys
+    and values) against the plain bf16 version; one launch."""
+    kw, lengths = BF16_DECODE_CASES[case]
+    model = _model(device, seed=7, decoder_fused_dtype="bfloat16", **kw)
+    weights, memory, options = _rows_case(model, lengths, device)
+    assert weights.bf16 and weights.att_w.dtype == torch.bfloat16
+    S = model.hp.max_iters
+    before = fd.fused_decode.launches
+    got = fd.fused_decode(weights, memory, num_steps=S, **options)
+    ref = fd.fused_decode_reference(weights, memory, num_steps=S, **options)
+    torch.cuda.synchronize()
+    assert fd.fused_decode.launches == before + 1
+    _bf16_decode_close(got, ref)
+
+
+@pytest.mark.parametrize("case", ["speaker_b3", "batched_b8_recipe"])
+def test_decode_bf16_smem_plan_matches_the_kernel(device, case):
+    """The bf16 mode's shared-memory plan (weight regions of two bf16 a
+    float) against the kernel's own dec_smem; it is smaller than f32's."""
+    kw, lengths = ROW_CASES[case]
+    model = _model(device, decoder_fused_dtype="bfloat16", **kw)
+    weights, memory, options = _rows_case(model, lengths, device)
+    S = model.hp.max_iters
+    shape = dict(batch=len(lengths),
+                 t_sizes=[k.shape[1] for k in memory.keys],
+                 c_sizes=[v.shape[2] for v in memory.values], num_steps=S,
+                 num_heads=options["num_heads"])
+    plan = fd.smem_floats(weights, **shape)
+    assert plan == fd.kernel_smem_floats(weights, memory, num_steps=S,
+                                         **options)
+    f32 = _model(device, **kw)
+    w32, _, _ = _rows_case(f32, lengths, device)
+    assert plan < fd.smem_floats(w32, **shape)
+
+
+@torch.no_grad()
+def test_fused_decode_f32_instance_unchanged(device):
+    """The f32 instance still gives the plain f32 version's numbers at the
+    f32 tolerance, and the bf16 mode's output differs from it (the modes
+    are two instances, not one path)."""
+    kw, lengths = ROW_CASES["speaker_b3"]
+    outs = []
+    for dtype in ("float32", "bfloat16"):
+        model = _model(device, seed=7, decoder_fused_dtype=dtype, **kw)
+        weights, memory, options = _rows_case(model, lengths, device)
+        S = model.hp.max_iters
+        outs.append((fd.fused_decode(weights, memory, num_steps=S,
+                                     **options),
+                     fd.fused_decode_reference(weights, memory, num_steps=S,
+                                               **options)))
+    (g32, r32), (g16, _) = outs
+    torch.cuda.synchronize()
+    for g, r in zip(g32[:2], r32[:2]):
+        _close(g, r)
+    assert float((g16[0] - g32[0]).abs().max()) > 1e-4
+
+
 @torch.no_grad()
 def test_model_serves_a_batch_through_the_kernel(device):
     """The speaker codes model at B = 4 on cuda: one fused decode launch,
@@ -537,10 +623,10 @@ def test_fused_train_kernels_at_tile_edges(device, case):
 
 
 def _check_train_kernels(device, params, keys, values, masks, teacher, spk,
-                         loc_ws, kw, grad_tol=None):
-    """Both training kernels against their plain versions; gradients at
-    TOL, or with ``grad_tol`` within grad_tol of each one's largest
-    magnitude."""
+                         loc_ws, kw, grad_tol=None, fwd_tol=TOL):
+    """Both training kernels against their plain versions; the forward at
+    ``fwd_tol``, gradients at TOL, or with ``grad_tol`` within grad_tol of
+    each one's largest magnitude."""
     spec = ft.make_spec(params, keys, values, teacher, use_spk=spk is not None,
                         **kw)
     S, B = spec.num_steps, spec.batch
@@ -552,9 +638,9 @@ def _check_train_kernels(device, params, keys, values, masks, teacher, spk,
     y_r, save_r, aux_r = ft.fused_train_fwd_reference(
         spec, params, keys, values, masks, tf, 11, spk, loc_ws)
     torch.cuda.synchronize()
-    _close(y, y_r)
-    _close(save, save_r)
-    _close(aux, aux_r)
+    _close(y, y_r, fwd_tol)
+    _close(save, save_r, fwd_tol)
+    _close(aux, aux_r, fwd_tol)
     g = torch.randn(y.shape, generator=torch.Generator(device).manual_seed(1),
                     device=device)
     raw = ft.fused_train_bwd(spec, ops, 11, g, save_r, aux_r)
@@ -585,6 +671,44 @@ def _check_train_kernels(device, params, keys, values, masks, teacher, spk,
     for a, b in pairs:
         _close(a, b.reshape(a.shape), tol=TOL if grad_tol is None else
                grad_tol * max(float(b.abs().max()), 1e-30))
+
+
+@pytest.mark.parametrize("case", ["fwd_add_k10_masks", "fwd_fwd_k4_masks_spk",
+                                  "loc_fwd_k5_cum_det"])
+@torch.no_grad()
+def test_fused_train_bf16_kernels_match_plain(device, case):
+    """The bf16 storage mode of both training kernels against the plain
+    bf16 versions: forward within 1e-2, each gradient within 1e-2 of its
+    largest magnitude (see the module docstring)."""
+    params, keys, values, masks, teacher, spk, loc_ws, kw = train_case(
+        device, *TRAIN_CASES[case])
+    _check_train_kernels(device, params, keys, values, masks, teacher, spk,
+                         loc_ws, dict(kw, compute_dtype="bfloat16"),
+                         grad_tol=1e-2, fwd_tol=1e-2)
+
+
+def test_fused_train_bf16_at_tile_edges_and_plan(device):
+    """B = 20 and widths off the tiles in the bf16 mode; the bf16 plans
+    (slices of bf16 pairs) against the kernels' own."""
+    kw = dict(EDGE_CASES["edge_b20_masks"])
+    kw.pop("det")
+    case = train_case(device, ("forward", "location_sensitive"),
+                      (False, True), 10, False, True, seed=3, **kw)
+    params, keys, values, masks, teacher, spk, loc_ws, tkw = case
+    tkw = dict(tkw, compute_dtype="bfloat16")
+    _check_train_kernels(device, params, keys, values, masks, teacher, spk,
+                         loc_ws, tkw, grad_tol=1e-2, fwd_tol=1e-2)
+    spec = ft.make_spec(params, keys, values, teacher, use_spk=True, **tkw)
+    tf = teacher.transpose(0, 1).reshape(-1, spec.cf).contiguous()
+    a = ft._args(spec, ft.train_operands(spec, params, keys, values, masks,
+                                         tf, spk, loc_ws), 0, [])
+    import ctypes
+    got = tuple(int(getattr(ft._lib(n), f"{n}_smem_bytes")(
+        ctypes.byref(a), 132)) for n in ("fused_train_fwd",
+                                         "fused_train_bwd"))
+    assert got == ft.smem_bytes(spec, 132)
+    f32 = ft.smem_bytes(spec._replace(compute_dtype="float32"), 132)
+    assert got[0] < f32[0] and got[1] < f32[1]
 
 
 def test_fused_train_autograd_launches_both_kernels(device):

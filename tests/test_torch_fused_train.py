@@ -258,9 +258,8 @@ def test_fused_train_gate_reasons_are_logged_once(caplog):
                        for p in packs)
     assert "batch 65" in dec._fused_train_unsupported_reason(65, wide_packs,
                                                              wide)
-    dec.fused_train_dtype = "bfloat16"
-    assert "bfloat16" in dec._fused_train_unsupported_reason(2, packs,
-                                                             teacher)
+    dec.fused_train_dtype = "bfloat16"   # the kernels' bf16 storage mode
+    assert dec._fused_train_unsupported_reason(2, packs, teacher) is None
     dec.fused_train_dtype = "float32"
     dec.attention_mechanisms[1].attention_kernel = 3   # mixed conv widths
     reason = dec._fused_train_unsupported_reason(2, packs, teacher)
@@ -275,13 +274,14 @@ def test_fused_train_gate_reasons_are_logged_once(caplog):
     assert max(ft.smem_bytes(big)) > ft.SMEM_LIMIT
 
     # the training forward takes the plain path and logs its reason once
-    dec.fused_train_dtype = "bfloat16"
+    # (a storage dtype the kernels do not have)
+    dec.fused_train_dtype = "float16"
     with caplog.at_level(logging.WARNING):
         for _ in range(2):
             model.train_forward(_batch(hp))
     logged = [r for r in caplog.records if "decoder_fused_train" in
               r.getMessage()]
-    assert len(logged) == 1 and "bfloat16" in logged[0].getMessage()
+    assert len(logged) == 1 and "float16" in logged[0].getMessage()
 
 
 def _spec(batch, steps, cf, t_mem, u, c, p, a, d, k=10, spk=False):
@@ -337,3 +337,21 @@ def test_stash_and_smem_plans_hold_what_the_kernels_need(name):
         assert ft.unsupported_reason(spec) is None
         big = spec._replace(batch=ft.MAX_BATCH)
         assert "shared-memory plan" in ft.unsupported_reason(big)
+
+
+def test_bf16_plans_hold_the_weight_slices_in_half_the_space():
+    """The bf16 storage mode's resident slices hold bf16 pairs (rows of
+    ``_pad`` of their 32-bit words): at the codes recipe's trunk the plans
+    shrink from 228,304 / 200,416 to 168,912 / 142,560 bytes a block, so
+    the batch gate (64 rows) and not the plan bounds the bf16 kernels,
+    while f32 fits 46 rows."""
+    spec = PLAN_SPECS["codes"][0]
+    bf = spec._replace(compute_dtype="bfloat16")
+    assert ft.smem_bytes(bf) == (168912, 142560)
+    assert ft._wpad(bf, 1025) == ft._pad(513) < ft._wpad(spec, 1025)
+    assert ft.unsupported_reason(bf._replace(batch=ft.MAX_BATCH)) is None
+    assert ft.unsupported_reason(spec._replace(batch=46)) is None
+    assert "shared-memory plan" in ft.unsupported_reason(
+        spec._replace(batch=47))
+    assert "storage dtype" in ft.unsupported_reason(
+        spec._replace(compute_dtype="float16"))
