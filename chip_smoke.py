@@ -47,7 +47,10 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    path's own launch count;
 9. the Pallas-mode attention kernels against their plain versions:
    ``fused_self_attention`` at B = 1, H = 2, T = 64, D = 16 (the encoder
-   hop) and, causal and not, at B = 32, T = 250, D = 128;
+   hop) and, causal and not, at B = 32, T = 250, D = 128; at the edges of
+   its tiling (T in {1, 15, 16, 17, 61} at D = 16, causal and not), at
+   B = 8, T = 64, D = 16 (the batched encoder's hop), at (1, 2, 3000, 128)
+   causal (the longest decode) and with |q.k| ~ 1e3 (the running max);
    ``incremental_attention_step`` at B = 1 and 32, S = 250, D = 128,
    t in {0, 100, 249} and at the edges of its 32-position chunks (t = 31,
    32, 33), and at the serving cache (S = 450, t = 449);
@@ -65,10 +68,12 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    be within 1e-4 of the einsum path's over the steps both ran;
 12. times rows 5 and 6 (kernel, plain version, and one
    ``scaled_dot_product_attention`` call of the same function, which the
-   port never calls) beside their bounds, row 6 also at the serving cache
-   (B = 1, S = 450, t = 449) and beside an empty kernel in the same queued
-   loop (the launch floor), and one evaluation round with and without
-   ``use_pallas_attention``;
+   port never calls) beside their bounds, row 5 at B = 1, T = 64, D = 16
+   and at B = 32, T = 256, D = 128, causal and not, with the split of one
+   profiled launch (loads, scores, softmax, values), row 6 also at the
+   serving cache (B = 1, S = 450, t = 449) and beside an empty kernel in
+   the same queued loop (the launch floor), and one evaluation round with
+   and without ``use_pallas_attention``;
 13. the ``spectrogram`` kernel (the STFT of ``preprocess --on-device``,
    one launch from the signal) against its plain version at LJSpeech and
    VCTK widths (10 s, 1.3 s, and one frame from a signal shorter than the
@@ -168,8 +173,8 @@ TOL_TRAIN = 1e-4
 TOL_TRAIN_GRAD = 1e-3
 TRAIN_B, TRAIN_S = 32, 256
 # Pallas-mode attention kernels vs their plain versions: float32 both sides,
-# one softmax between two products of depth <= 250; 1e-5 still fails a
-# product that drops to TF32.
+# one softmax between two products of depth <= 3000 (#5's longest decode);
+# 1e-5 still fails a product that drops to TF32.
 TOL_ATTENTION = 1e-5
 # Pallas-mode serving vs the einsum path, logits over up to 450 fed-back
 # steps.
@@ -179,10 +184,13 @@ SERVE_S = 450       # the serving decode's cache (the codes recipe's cap)
 PALLAS_SERVING = ("use_pallas_attention=true,decoder_fused_inference=false,"
                   "encoder_fused_inference=false")
 # peaks of one H100 SXM (NVIDIA data sheet): HBM bandwidth, FP32 non-tensor,
-# dense BF16 tensor cores (the bf16 storage mode's bound)
+# dense BF16 tensor cores (the bf16 storage mode's bound), and the f32
+# products that run on the TF32 tensor cores in the 3xTF32 split (#1, #3,
+# #4, #5: 495 TFLOP/s dense TF32 over three products each)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_3XTF32_FLOP_PER_S = 495e12 / 3
 # The bf16 storage mode (phase 20), kernel vs its plain bf16 version.  Both
 # round the same inputs to bf16, but an f32 sum that lands near a bf16
 # rounding boundary rounds one ulp (2^-8 relative) apart now and then and
@@ -541,7 +549,8 @@ def _kernel_rows(name, src, line, launches, err, ms, plain, bound,
     """One row of the kernels line for each main path that launched the
     kernel: ``launches`` maps a path to the counts of its own run (zeroed
     just before it); the counts of two paths are never added.  The bound's
-    operations run at ``peak_flops`` (FP32, or the BF16 tensor peak)."""
+    operations run at ``peak_flops`` (FP32, the 3xTF32 split's rate or the
+    BF16 tensor peak)."""
     nbytes, flops = bound
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
@@ -597,7 +606,8 @@ def phase_timing(model, device, steps: int, launches, errs):
     return [*_kernel_rows("fused_encode", "fused_encoder",
                           "fused_encoder.py:94", launches,
                           errs["fused_encode"], enc_ms, enc_plain,
-                          bounds["fused_encode"]),
+                          bounds["fused_encode"],
+                          peak_flops=PEAK_3XTF32_FLOP_PER_S),
             *_kernel_rows("fused_decode", "fused_decode",
                           "fused_decode.py:250", launches,
                           errs["fused_decode"], dec_ms, dec_plain,
@@ -994,7 +1004,8 @@ def phase_train_timing(model, device, data: str, launches, errs):
                 ("fused_train_bwd", 667, bwd_ms, bwd_plain))
             for row in _kernel_rows(name, name, f"fused_train.py:{line}",
                                     launches, errs[name], ms, plain,
-                                    bounds[name])]
+                                    bounds[name],
+                                    peak_flops=PEAK_3XTF32_FLOP_PER_S)]
 
 
 # ------------------------------------------------- Pallas attention mode
@@ -1024,22 +1035,47 @@ def _step_inputs(device, B, t, S=ATTN_T):
     return _normal(device, B, ATTN_HEADS, ATTN_D, seed=3 + t), kc, vc
 
 
+def _large_scores(device, B, T, D):
+    """q, k of small integers with a shared column of 32, so |q.k| ~ 1e3
+    (exact in float32 and in the 3xTF32 split: both sides get the same
+    scores), and v normal: the running max moves by hundreds between key
+    tiles, and exp without it overflows."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 9)
+    q, k = (rng.integers(-16, 17, (B, ATTN_HEADS, T, D)).astype(np.float32)
+            for _ in range(2))
+    q[..., 0] = k[..., 0] = 32.0
+    v = rng.standard_normal((B, ATTN_HEADS, T, D)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(device) for x in (q, k, v))
+
+
 def phase_attention_kernels(device):
     """Rows 5 and 6 vs their plain versions; returns the worst max abs
     errors."""
     import torch
     from self_attention_tacotron_torch.ops import pallas_attention as pa
     worst = {"fused_self_attention": 0.0, "incremental_attention_step": 0.0}
-    for B, T, D, causal in ((1, T_IN, 16, False),
-                            (TRAIN_B, ATTN_T, ATTN_D, False),
-                            (TRAIN_B, ATTN_T, ATTN_D, True)):
-        q, k, v = _attention_inputs(device, B, T, D)
+    cases = [(1, T_IN, 16, False, False),
+             (TRAIN_B, ATTN_T, ATTN_D, False, False),
+             (TRAIN_B, ATTN_T, ATTN_D, True, False),
+             *[(1, T, 16, causal, False) for T in (1, 15, 16, 17, 61)
+               for causal in (False, True)],
+             (8, T_IN, 16, False, False),
+             (1, 3000, ATTN_D, True, False),
+             (1, 200, 16, False, True), (TRAIN_B, ATTN_T, 16, True, True)]
+    for B, T, D, causal, large in cases:
+        q, k, v = (_large_scores(device, B, T, D) if large else
+                   _attention_inputs(device, B, T, D))
         got = pa.fused_self_attention(q, k, v, causal)
         ref = pa.fused_self_attention_reference(q, k, v, causal)
         torch.cuda.synchronize()
-        err = _max_err(got, ref)
+        err = _max_err(got, ref) if got.isfinite().all() else float("inf")
+        plan = pa.attention_plan(B, ATTN_HEADS, T, D, causal)
         log(f"phase 9 fused_self_attention B={B} H={ATTN_HEADS} T={T} D={D}"
-            f" causal={causal}: max abs err {err:.3e}")
+            f" causal={causal}{' |q.k| ~ 1e3' if large else ''} "
+            f"({plan.rows}-row blocks of {plan.warps} warps, grid "
+            f"{plan.grid}): max abs err {err:.3e}")
         if err > TOL_ATTENTION:
             raise AssertionError(f"fused_self_attention disagrees (tol "
                                  f"{TOL_ATTENTION})")
@@ -1255,9 +1291,29 @@ def step_bound(B, t):
     return 4 * (2 * rows + 2 * B * ATTN_HEADS * ATTN_D), 4 * rows
 
 
-def _bound_ms(bound):
-    return max(bound[0] / PEAK_BYTES_PER_S, bound[1] / PEAK_FP32_FLOP_PER_S) \
-        * 1e3
+def _bound_ms(bound, peak_flops=PEAK_FP32_FLOP_PER_S):
+    return max(bound[0] / PEAK_BYTES_PER_S, bound[1] / peak_flops) * 1e3
+
+
+def attention_split(pa, q, k, v, causal, ms: float) -> str:
+    """One profiled ``fused_self_attention`` launch: the SM cycles of the
+    last row block of head 0 (its warp 0; the most key tiles) by stage,
+    beside the call's time ``ms``, with the launch's plan."""
+    import torch
+    launch = pa.prepare_attention(q, k, v, causal, profile=True)
+    launch()
+    torch.cuda.synchronize()
+    cycles = launch.stage_cycles.cpu().tolist()
+    total = max(sum(cycles), 1)
+    B, H, T, D = q.shape
+    plan = pa.attention_plan(B, H, T, D, causal)
+    return (f"plan: {plan.rows}-row blocks of {plan.warps} warps, grid "
+            f"{plan.grid}, {plan.keys}-key "
+            f"tiles x {plan.stages} stages, {plan.smem_bytes} B shared; "
+            f"its longest block {total} cycles "
+            f"(the call {ms * 1e3:.2f} us): " + ", ".join(
+                f"{s} {c / total:.1%}" for s, c in zip(pa.ATTN_STAGES,
+                                                      cycles)))
 
 
 def phase_attention_timing(device, launches, errs, ckpt, data, val_keys):
@@ -1269,27 +1325,33 @@ def phase_attention_timing(device, launches, errs, ckpt, data, val_keys):
     from self_attention_tacotron_torch.ops import pallas_attention as pa
     from self_attention_tacotron_torch.parallel import (create_train_state,
                                                         make_eval_step)
-    rows, times = [], {}
-    for B, T, D in ((1, T_IN, 16), (TRAIN_B, 256, ATTN_D)):
+    rows = []
+    for B, T, D, causal in ((1, T_IN, 16, False),
+                            (TRAIN_B, 256, ATTN_D, False),
+                            (TRAIN_B, 256, ATTN_D, True)):
         q, k, v = _attention_inputs(device, B, T, D)
-        sdpa = F.scaled_dot_product_attention(q, k, v)
-        times[B] = [_device_ms(fn) for fn in (
-            lambda: pa.fused_self_attention(q, k, v),
-            lambda: pa.fused_self_attention_reference(q, k, v),
-            lambda: F.scaled_dot_product_attention(q, k, v))]
-        bound = attention_bound(B, T, D, False)
+        sdpa = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+        ref = pa.fused_self_attention_reference(q, k, v, causal)
+        times = [_device_ms(fn) for fn in (
+            lambda: pa.fused_self_attention(q, k, v, causal),
+            lambda: pa.fused_self_attention_reference(q, k, v, causal),
+            lambda: F.scaled_dot_product_attention(q, k, v,
+                                                   is_causal=causal))]
+        bound = attention_bound(B, T, D, causal)
         log(f"phase 12 fused_self_attention B={B} H={ATTN_HEADS} T={T} D={D}"
-            f": kernel {times[B][0]:.5f} ms, plain {times[B][1]:.5f} ms, "
-            f"SDPA {times[B][2]:.5f} ms (vs plain max abs "
-            f"{_max_err(sdpa, pa.fused_self_attention_reference(q, k, v)):.1e})"
-            f"; bound {_bound_ms(bound):.5f} ms ({bound[0]} bytes, "
-            f"{bound[1]} FLOPs)")
+            f" causal={causal}: kernel {times[0]:.5f} ms, plain "
+            f"{times[1]:.5f} ms, SDPA {times[2]:.5f} ms (vs plain max abs "
+            f"{_max_err(sdpa, ref):.1e}); bound "
+            f"{_bound_ms(bound, PEAK_3XTF32_FLOP_PER_S):.5f} ms ({bound[0]} "
+            f"bytes, {bound[1]} FLOPs at the 3xTF32 rate)")
+        log(f"phase 12 fused_self_attention B={B} causal={causal} "
+            + attention_split(pa, q, k, v, causal, times[0]))
         if B == 1:
             rows += _kernel_rows(
                 "fused_self_attention", "self_attention",
                 "pallas_attention.py:39", launches,
-                errs["fused_self_attention"], *times[B][:2], bound,
-                times[B][2])
+                errs["fused_self_attention"], *times[:2], bound, times[2],
+                peak_flops=PEAK_3XTF32_FLOP_PER_S)
     floor = _device_ms(pa.launch_floor(device))
     log(f"phase 12 an empty kernel in the same queued loop: {floor:.5f} ms")
     for B, S in ((1, ATTN_T), (TRAIN_B, ATTN_T), (1, SERVE_S)):
@@ -2264,7 +2326,9 @@ def vctk_and_row_modes(tmp, device, codes_hp, codes_timing, errs,
     def rows(name, path, err, timing):
         ms, plain, bound = timing
         return _kernel_rows(name, *lines[name], {path: launches[path]}, err,
-                            ms, plain, bound)
+                            ms, plain, bound, peak_flops=(
+                                PEAK_FP32_FLOP_PER_S if name == "fused_decode"
+                                else PEAK_3XTF32_FLOP_PER_S))
 
     (spec_ms, spec_plain, spec_lib), spec_bound = vctk_spec
     out = _kernel_rows("spectrogram", "spectrogram", "stft.py:65",
@@ -2395,7 +2459,8 @@ def phase_row_timing(cases, vctk_timing, codes_timing, batched_times,
     for name in ("fused_train_fwd", "fused_train_bwd"):
         ms, plain, bound = vctk_timing[name]
         log(f"phase 19 {name} at the VCTK shape: kernel {ms:.4f} ms, plain "
-            f"{plain:.4f} ms, bound {_bound_ms(bound):.4f} ms")
+            f"{plain:.4f} ms, bound "
+            f"{_bound_ms(bound, PEAK_3XTF32_FLOP_PER_S):.4f} ms")
     for B, (f_ms, p_ms) in batched_times.items():
         log(f"phase 19 batched serving B={B}: {f_ms / B:.3f} ms an "
             f"utterance fused, {p_ms / B:.3f} plain")
@@ -2506,20 +2571,16 @@ def phase_bf16_decode(hp, model32, device):
         ms["bf16"], steps, "step", 20)
     log(f"phase 20 timing fused_decode B=1 {steps} steps (in turns): bf16 "
         f"{ms['bf16']:.4f} ms, f32 {ms['f32']:.4f} ms; bf16 plain "
-        f"{plain:.4f} ms; bf16 bound {_bf16_bound_ms(bound):.4f} ms "
-        f"({bound[0]} bytes, {bound[1]} FLOPs)")
+        f"{plain:.4f} ms; bf16 bound "
+        f"{_bound_ms(bound, PEAK_BF16_FLOP_PER_S):.4f} ms ({bound[0]} "
+        f"bytes, {bound[1]} FLOPs)")
     log(f"phase 20 timing fused_decode batched (in turns): bf16 B={cap} "
         f"{mb_ms['bf16']:.4f} ms ({mb_ms['bf16'] / cap:.3f} ms an "
         f"utterance), f32 B={cap32} {mb_ms['f32']:.4f} ms "
         f"({mb_ms['f32'] / cap32:.3f} ms an utterance); bf16 bound "
-        f"{_bf16_bound_ms(b_bound):.4f} ms ({b_bound[0]} bytes, "
-        f"{b_bound[1]} FLOPs)")
+        f"{_bound_ms(b_bound, PEAK_BF16_FLOP_PER_S):.4f} ms ({b_bound[0]} "
+        f"bytes, {b_bound[1]} FLOPs)")
     return worst, (ms["bf16"], plain, bound)
-
-
-def _bf16_bound_ms(bound) -> float:
-    return max(bound[0] / PEAK_BYTES_PER_S, bound[1] / PEAK_BF16_FLOP_PER_S) \
-        * 1e3
 
 
 def phase_bf16_train(model32, device):
@@ -2602,13 +2663,15 @@ def phase_bf16_train(model32, device):
               "fused_train_bwd": train_bound(spec, flat_in + [g, save, aux],
                                              _leaves(bwd.outputs), True,
                                              half + [save])}
+    bound_ms = {k: _bound_ms(b, PEAK_BF16_FLOP_PER_S)
+                for k, b in bounds.items()}
     log(f"phase 20 timing (in turns, B={spec.batch}, S={spec.num_steps}): "
         f"fused_train_fwd bf16 {ms['fwd bf16']:.4f} ms, f32 "
         f"{ms['fwd f32']:.4f} ms (bf16 plain {fwd_plain:.4f} ms, bound "
-        f"{_bf16_bound_ms(bounds['fused_train_fwd']):.4f} ms); "
+        f"{bound_ms['fused_train_fwd']:.4f} ms); "
         f"fused_train_bwd bf16 {ms['bwd bf16']:.4f} ms, f32 "
         f"{ms['bwd f32']:.4f} ms (bf16 plain {bwd_plain:.4f} ms, bound "
-        f"{_bf16_bound_ms(bounds['fused_train_bwd']):.4f} ms); bound inputs "
+        f"{bound_ms['fused_train_bwd']:.4f} ms); bound inputs "
         + "; ".join(f"{k} {b[0]} bytes, {b[1]} FLOPs"
                     for k, b in bounds.items()))
     errs = {"fused_train_fwd": max(f_errs.values()),

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""A/B of the serving kernels #1 (the batch-1 encoder, ``fused_encode``) and
-#6 (the KV-cache attention step, ``incremental_attention_step``) against
-earlier versions of themselves, in one process on one card.
+"""A/B of the serving kernels #1 (the batch-1 encoder, ``fused_encode``),
+#6 (the KV-cache attention step, ``incremental_attention_step``) and #5
+(the Pallas mode's full-sequence self-attention, ``fused_self_attention``)
+against earlier versions of themselves, in one process on one card.
 
     git archive <commit> self_attention_tacotron_torch/ops | tar -x -C build/ab/<name>
     python3 scripts/torch_serving_ab.py [--variant NAME=build/ab/NAME ...]
-                                        [--cases encode,step,serve] [--reps 5]
+                                        [--cases encode,step,serve,attention]
+                                        [--reps 5]
 
 Each ``--variant`` directory holds a copy of the port's ``ops`` package
 from another commit (under ``self_attention_tacotron_torch/ops``, as ``git
@@ -28,6 +30,15 @@ spills).  Random weights from seed 0 (``chip_smoke.py``'s models).
   a sleep kernel, median of 5, per call), in turns; the floor (an empty
   kernel in the same loop) first; and, for a variant that can cut its
   kernel short (``STEP_PASSES``), the time of each cut.
+* ``attention``: #5 at the serving shape (B = 1, H = 2, T = 64, D = 16)
+  and at B = 32, T = 256, D = 128, causal and not: the empty-kernel floor
+  first, then each variant's error against the working tree's plain
+  version, and the device time of one call in the same queued loop as
+  ``step``, the variants and one ``scaled_dot_product_attention`` call of
+  the same function (the yardstick) in turns, beside the bound at the
+  3xTF32 rate; for a variant that profiles its launch
+  (``prepare_attention(profile=True)``), the split of its longest block
+  into loads, scores, softmax and values.
 * ``serve``: the codes model's call per utterance on the host clock (what
   ``cli.predict.main_code`` prints as its wall), three synthetic sources of
   40-64 phones, fused paths (#1, #2) and the Pallas attention mode (#5,
@@ -45,7 +56,9 @@ import time
 import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("fused_encoder", "incremental_attention")
+KERNELS = ("fused_encoder", "incremental_attention", "self_attention")
+ATTENTION_SHAPES = [(1, 64, 16, False), (32, 256, 128, False),
+                    (32, 256, 128, True)]
 STEP_SHAPES = [(B, S, t) for B in (1, 32) for S in (250, 450)
                for t in sorted({0, 63, 249, S - 1})]
 
@@ -171,6 +184,43 @@ def step_case(variants, device) -> None:
                   flush=True)
 
 
+def attention_case(variants, device, reps: int) -> None:
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import pallas_attention as tree
+    floor = cs._device_ms(tree.launch_floor(device))
+    print(f"attention: empty kernel in the queued loop {floor:.5f} ms",
+          flush=True)
+    for B, T, D, causal in ATTENTION_SHAPES:
+        tag = f"attention B={B} H={cs.ATTN_HEADS} T={T} D={D} causal={causal}"
+        q, k, v = cs._attention_inputs(device, B, T, D)
+        ref = tree.fused_self_attention_reference(q, k, v, causal)
+        fns = {}
+        for name, ops in variants.items():
+            _, pa = _modules(ops)
+            got = pa.fused_self_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}",
+                  flush=True)
+            fns[name] = (lambda pa=pa: pa.fused_self_attention(q, k, v,
+                                                               causal))
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+        times = in_turns(fns, reps, cs._device_ms)
+        bound = cs._bound_ms(cs.attention_bound(B, T, D, causal),
+                             cs.PEAK_3XTF32_FLOP_PER_S)
+        for name, ts in times.items():
+            print(f"{tag}: {name} {_runs(ts)}; bound {bound:.5f} ms",
+                  flush=True)
+        for name, ops in variants.items():
+            _, pa = _modules(ops)
+            if hasattr(pa, "prepare_attention"):
+                print(f"{tag}: {name} " + cs.attention_split(
+                    pa, q, k, v, causal, statistics.median(times[name])),
+                    flush=True)
+
+
 def serve_case(variants, device, reps: int) -> None:
     """The codes model's call per utterance, host clock, in turns."""
     import torch
@@ -181,7 +231,8 @@ def serve_case(variants, device, reps: int) -> None:
     import numpy as np
     rng = np.random.default_rng(cs.SEED)
     lengths = [int(rng.integers(40, cs.T_IN + 1)) for _ in range(3)]
-    own = (tree_fe.fused_encode, attention_core.incremental_attention_step)
+    own = (tree_fe.fused_encode, attention_core.incremental_attention_step,
+           attention_core.fused_self_attention)
     for mode, extra in (("fused", ""), ("pallas", cs.PALLAS_SERVING)):
         hp = cs._hp_with(cs.RECIPE, extra)
         model = cs.make_model(hp, device)
@@ -195,6 +246,7 @@ def serve_case(variants, device, reps: int) -> None:
             tree_fe.fused_encode = fe.fused_encode
             attention_core.incremental_attention_step = \
                 pa.incremental_attention_step
+            attention_core.fused_self_attention = pa.fused_self_attention
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = model(b)
@@ -210,7 +262,8 @@ def serve_case(variants, device, reps: int) -> None:
                       f"{steps[name]} steps): {name} "
                       f"{statistics.median(ts):.3f} ms (runs {min(ts):.3f}-"
                       f"{max(ts):.3f})", flush=True)
-    tree_fe.fused_encode, attention_core.incremental_attention_step = own
+    (tree_fe.fused_encode, attention_core.incremental_attention_step,
+     attention_core.fused_self_attention) = own
 
 
 def main() -> int:
@@ -250,6 +303,8 @@ def main() -> int:
             step_case(variants, device)
         elif case == "serve":
             serve_case(variants, device, args.reps)
+        elif case == "attention":
+            attention_case(variants, device, args.reps)
         else:
             raise ValueError(f"unknown case {case}")
     return 0

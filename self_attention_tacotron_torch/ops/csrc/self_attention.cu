@@ -3,203 +3,463 @@
 // ``_attention_kernel`` (Pallas, reached through ``fused_self_attention``):
 // the Pallas attention mode's full-sequence self-attention hop.
 //
-// One block per (b * h, 64-row query tile).  K and V stream through shared
-// memory in 64-key tiles with an online softmax in FP32 (a running max and
-// sum per row), so no (rows, T) score row is kept: T may be thousands of
-// steps (the SIWIS recipe decodes up to 3000).  Causal tiles past the
-// diagonal are skipped.  Keys >= T and, when causal, keys past the query take
-// the reference's -1e9 fill; key 0 is visible to every row, so each running
-// max is a real score after the first tile and masked keys add exp(-1e9 - m)
-// = 0.  The width D is padded to a template width DP in {16, 32, 64, 128}
-// (zeros in q, k and v past D; only the first D output columns are written).
+// Design.  A warp owns 16 query rows; a block of ``rows`` = 16, 32 or 64
+// rows (``attention_plan`` in ops/pallas_attention.py picks it, the
+// launcher checks it) streams K and V through shared memory in tiles of BK
+// keys (64; 32 from DP = 64 on, where 64 keys spilled registers; 16 at DP
+// = 128 with a warp a row group, 4 % faster than 32 there) with an online
+// softmax, so nothing in shared memory scales with T (the SIWIS recipe
+// decodes up to 3000 steps).  Where even 16-row blocks leave most
+// SMs idle (``key_warps`` = 4: the serving shape), a 16-row block has 4
+// warps that each take a quarter of every key tile with a softmax state of
+// their own, merged through shared memory at the end: the dependent chain
+// of loads, products, exponentials and products that a lone warp would run
+// is cut to a quarter of its keys.
+//   * Both products run on the tensor cores, mma.sync m16n8k8 TF32 in the
+//     3xTF32 split of csrc/mma.cuh (``mma3``: each 8-deep step starts from
+//     zero in the tensor core and is added in f32 outside it), which keeps
+//     the f32 plain version's accuracy (1e-5).
+//   * The scores of a tile stay in the accumulator registers: the row max
+//     and sum reduce over the four lanes of a quad with shuffles, the
+//     running max, sum and rescale as in any online softmax, and P feeds
+//     the PV product as A fragments straight from those registers.  The
+//     PV product takes its keys in the order the C fragment holds them
+//     (A column t <-> key 2t, column t + 4 <-> key 2t + 1, and V's rows
+//     read in the same order), so no shuffle and no shared memory is
+//     needed between the two products.
+//   * K and V tiles arrive by cp.async (16-byte vectors, 4-byte copies for
+//     D % 4 != 0 or a base that is not 16-byte aligned) into a ring of NS
+//     = 3 stages: tiles j + 1 and j + 2 are in flight while tile j is
+//     multiplied, one block barrier a tile.  Both are stored row-major with
+//     rows padded by 4 floats, which makes the fragment reads of both
+//     products (K as the col-major B operand, V in the permuted key order)
+//     free of bank conflicts.  The ragged edge is zero-filled by the copies
+//     (keys >= T, columns >= D) and the keys >= T are masked in the scores.
+//   * Q's fragments go from global memory to registers once and are split
+//     again each tile (the split of all of Q held over the loop took 128
+//     registers and left the products no room to overlap).  The split
+//     itself is three instructions (``split3``).
+//   * Causal blocks stop at the tile that holds their last row, and a warp
+//     skips the products of tiles past its own last row.
+// Keys >= T and, when causal, keys past the query take the reference's
+// -1e9 fill; key 0 is visible to every row, so each running max is a real
+// score after the first tile and masked keys add exp(-1e9 - m) = 0.
 //
-// Thread layout: 256 threads = 16 row groups (ty) x 16 lanes (tx); thread
-// (ty, tx) owns query rows 4 ty .. 4 ty + 3 and, in each tile, keys tx + 16 j
-// (j < 4) and output columns tx + 16 c (c < DP / 16).  K is stored
-// transposed and rows are padded by one float, so the reads of both products
-// are free of bank conflicts.  A row's max and sum reduce over its 16 lanes,
-// which sit in one half of a warp.
-//
-// Bound on an H100: FP32 operations, 4 T^2 D FLOPs a (b, h) (2 T^2 D causal),
-// e.g. 2.15 GFLOP at B = 32, H = 2, T = 256, D = 128, ~32 us at 67 TFLOP/s;
-// at the serving shapes (B = 1, T <= 64) it is a few MFLOP and the launch
-// dominates.  This first version runs both products on FP32 FMAs from shared
-// memory (no tensor cores, no TMA): simple and right, not fast.
+// Bound on an H100.  4 T^2 D FLOPs a (b, h) (about half of it causal) at
+// the 3xTF32 rate (495 TFLOP/s dense TF32 over 3 products, 165 TFLOP/s),
+// against reading q, k, v and writing o once at 3.35 TB/s.  At B = 32, H =
+// 2, T = 256, D = 128: 2.15 GFLOP = 13.0 us against 33.5 MB = 10.0 us, the
+// operations.  There the kernel runs 64-row blocks of 4 warps, two an SM
+// (51 KB of shared memory and 255 registers a thread each), and what holds
+// it back is latency: each 8-deep step is a chain of three dependent
+// mma.sync (~26 cycles each) behind its fragment loads and splits, and two
+// warps a scheduler keep too few such chains in flight: the products reach
+// ~0.2 mma a cycle an SM, where independent mma.sync reach ~0.65 at the
+// same 8 warps an SM (scripts/torch_mma_probe.py).  wgmma, whose products
+// run asynchronously from shared memory, is the way past it.  At the
+// serving shape (B = 1, H = 2, T = 64, D = 16) the work is 0.5 MFLOP and
+// the launch and a chain of dependent steps bound it: 8 blocks of 16 rows
+// on 8 SMs, 4 warps each on a quarter of the keys, one round trip for Q,
+// K and V, one tile, the merge.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 struct AttnArgs {
   const float* q;   // (B * H, T, D) each
   const float* k;
   const float* v;
   float* o;
+  long long* cycles;  // nullptr, or ATTN_STAGES counters (profile)
   int bh;           // B * H
   int T;
   int D;
   int causal;
   float scale;      // 1 / sqrt(D)
+  int rows;         // query rows a block: 16, 32 or 64
+  int key_warps;    // warps that share a row group's key tiles: 1 or 4
 };
 
 namespace {
 
-constexpr int BQ = 64;   // query rows a block
-constexpr int BK = 64;   // keys a tile
+constexpr int NS = 3;        // stages of the K / V ring
+constexpr int PAD = 4;       // floats after each shared-memory row
+constexpr int MAX_ROWS = 64;
 constexpr float NEG_FILL = -1e9f;
+// profile counters: copy wait + barrier, QK^T, softmax, PV, the start (up
+// to the loop), the end (merge and stores)
+constexpr int ATTN_STAGES = 6;
 
-template <int DP>
-constexpr size_t smem_floats() {
-  return (size_t)BQ * (DP + 1) + (size_t)DP * (BK + 1) + (size_t)BK * DP +
-         (size_t)BQ * (BK + 1);
+// keys a tile at padded width dp with kw warps on a row group's keys
+__host__ __device__ constexpr int keys_a_tile(int dp, int kw) {
+  return dp == 128 && kw == 1 ? 16 : dp >= 64 ? 32 : 64;
 }
 
-// max / sum over the 16 lanes of a half warp
-__device__ __forceinline__ float lanes16_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
+__host__ __device__ constexpr size_t smem_bytes_of(int dp, int kw) {
+  return (size_t)NS * 2 * keys_a_tile(dp, kw) * (dp + PAD) * sizeof(float);
 }
 
-__device__ __forceinline__ float lanes16_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
+// x ~= hi + lo for mma3: hi rounded to TF32 by an integer add of half an
+// ulp and a mask, lo = x - hi exact and passed as it is.  The tensor core
+// reads a TF32 operand's top 19 bits, so lo is truncated there: |error| <
+// 2^-10 |lo| <= 2^-21 |x| (tf32_split of csrc/mma.cuh rounds lo too, two
+// instructions more, for half of that).
+__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rn(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(NT) self_attention_kernel(AttnArgs a) {
-  constexpr int NC = DP / 16;            // output columns a thread
-  extern __shared__ float smem[];
-  float* sq = smem;                      // [BQ][DP + 1]
-  float* skt = sq + BQ * (DP + 1);       // [DP][BK + 1]  K transposed
-  float* sv = skt + DP * (BK + 1);       // [BK][DP]
-  float* sp = sv + BK * DP;              // [BQ][BK + 1]  probabilities
+template <int N>
+__device__ __forceinline__ void cp_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// e^x as 2^(x log2 e): MUFU.EX2 and a multiply, where expf takes eight
+// instructions (2 ulp; exact for x = -inf)
+__device__ __forceinline__ float exp_e(float x) {
+  return exp2f(x * 1.4426950408889634f);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// Keys k0 .. k0 + BK - 1 of K and V into one ring stage (zeros past T and
+// past D).
+template <int DP, int BK>
+__device__ __forceinline__ void load_tile(float* ks, const AttnArgs& a,
+                                          size_t base, int k0, bool vec) {
+  constexpr int LD = DP + PAD;
+  float* vs = ks + BK * LD;
+  const int T = a.T, D = a.D;
+  if (vec) {
+    constexpr int CH = DP / 4;             // 16-byte chunks a row
+    for (int e = threadIdx.x; e < BK * CH; e += blockDim.x) {
+      const int r = e / CH, c = (e - r * CH) * 4;
+      const bool in = k0 + r < T && c < D;
+      const size_t g = in ? base + (size_t)(k0 + r) * D + c : 0;
+      cp16(ks + r * LD + c, a.k + g, in);
+      cp16(vs + r * LD + c, a.v + g, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < BK * DP; e += blockDim.x) {
+      const int r = e / DP, c = e - r * DP;
+      const bool in = k0 + r < T && c < D;
+      const size_t g = in ? base + (size_t)(k0 + r) * D + c : 0;
+      cp4(ks + r * LD + c, a.k + g, in);
+      cp4(vs + r * LD + c, a.v + g, in);
+    }
+  }
+}
+
+// KW warps share a row group's key tiles, each a KB-key slice of every
+// tile (KW = 1: a warp a row group, all of each tile).
+template <int DP, int KW, bool PROF>
+__global__ void __launch_bounds__(128, 2)
+self_attention_kernel(AttnArgs a, int vec) {
+  constexpr int BK = keys_a_tile(DP, KW), LD = DP + PAD;
+  constexpr int KD = DP / 8;     // 8-deep steps of QK^T, 8-wide tiles of PV
+  constexpr int KB = BK / KW;    // keys of a tile that this warp takes
+  constexpr int NK = KB / 8;     // ... in 8-key tiles
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int T = a.T, D = a.D;
   const size_t base = (size_t)blockIdx.y * T * D;
-  const int q0 = blockIdx.x * BQ;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = warp / KW, kb = (warp % KW) * KB;   // row group, key slice
+  const int q0 = blockIdx.x * a.rows;
+  const int r0 = q0 + rw * 16;               // this warp's first row
+  const int row_a = r0 + g, row_b = r0 + g + 8;
+  const int k_end = a.causal ? min(q0 + a.rows, T) : T;
+  const int nt = (k_end + BK - 1) / BK;
+  const bool active = r0 < T;
+  const int warp_last = min(r0 + 15, T - 1);
+  const bool prof = PROF && blockIdx.x == gridDim.x - 1 && blockIdx.y == 0 &&
+                    threadIdx.x == 0;
+  long long clk[ATTN_STAGES] = {0, 0, 0, 0, 0, 0};
+  long long mark = PROF ? clock64() : 0;
+  auto lap = [&](int stage) {
+    if (PROF) {
+      const long long now = clock64();
+      clk[stage] += now - mark;
+      mark = now;
+    }
+  };
 
-  for (int e = threadIdx.x; e < BQ * DP; e += NT) {
-    const int r = e / DP, d = e - r * DP;
-    sq[r * (DP + 1) + d] = (q0 + r < T && d < D)
-                               ? __ldg(a.q + base + (size_t)(q0 + r) * D + d)
-                               : 0.f;
-  }
-  float m[4], l[4], acc[4][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int s = 0; s < NS - 1; ++s) {
+    if (s < nt)
+      load_tile<DP, BK>(smem + s * 2 * BK * LD, a, base, s * BK, vec);
+    cp_commit();
   }
-  const int last_row = min(q0 + BQ, T) - 1;
-  const int k_end = a.causal ? last_row + 1 : T;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();   // the previous tile's readers are done
-    for (int e = threadIdx.x; e < BK * DP; e += NT) {
-      const int r = e / DP, d = e - r * DP;
-      const bool in = k0 + r < T && d < D;
-      const size_t g = base + (size_t)(k0 + r) * D + d;
-      skt[d * (BK + 1) + r] = in ? __ldg(a.k + g) : 0.f;
-      sv[r * DP + d] = in ? __ldg(a.v + g) : 0.f;
+
+  // Q's A fragments: qf[kk] = Q[g][8kk + t], Q[g + 8][..], Q[g][.. + 4],
+  // Q[g + 8][.. + 4] of this warp's 16 rows (zeros past T and D).
+  float qf[KD][4];
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int row = (c & 1) ? row_b : row_a;
+      const int col = kk * 8 + t + ((c & 2) ? 4 : 0);
+      qf[kk][c] = (row < T && col < D)
+                      ? __ldg(a.q + base + (size_t)row * D + col) : 0.f;
+    }
+  }
+
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
+  float o[KD][4];
+#pragma unroll
+  for (int j = 0; j < KD; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  lap(4);
+
+  for (int j = 0; j < nt; ++j) {
+    cp_wait_group<NS - 2>();   // tile j has landed (this thread's copies)
+    __syncthreads();           // ... everyone's; tile j - 1's readers done
+    if (j + NS - 1 < nt)
+      load_tile<DP, BK>(smem + ((j + NS - 1) % NS) * 2 * BK * LD, a, base,
+                    (j + NS - 1) * BK, vec);
+    cp_commit();
+    lap(0);
+    const int k0 = j * BK + kb;     // this warp's first key of the tile
+    if (!active || k0 >= T || (a.causal && k0 > warp_last)) continue;
+    const float* ks = smem + (j % NS) * 2 * BK * LD + kb * LD;
+    const float* vs = ks + BK * LD;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)   // split Q anew: see the design notes
+#pragma unroll
+      for (int c = 0; c < 4; ++c) asm volatile("" : "+f"(qf[kk][c]));
+
+    // S = Q K^T for this warp's 16 rows and its KB keys of the tile
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) split3(qf[kk][c], ah[c], al[c]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const float* kr = ks + (n * 8 + g) * LD + kk * 8 + t;
+        uint32_t bh[2], bl[2];
+        split3(kr[0], bh[0], bl[0]);
+        split3(kr[4], bh[1], bl[1]);
+        mma3(s[n], ah, al, bh, bl);
+      }
+    }
+    lap(1);
+
+    // scale, mask, online softmax; s[n] = C[g][2t, 2t+1], C[g+8][2t, 2t+1]
+    // of keys k0 + 8n ..
+    const bool edge = k0 + KB > T || (a.causal && k0 + KB - 1 > r0);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[n][c] * a.scale;
+        if (edge) {
+          const int key = k0 + n * 8 + 2 * t + (c & 1);
+          const int row = c < 2 ? row_a : row_b;
+          if (key >= T || (a.causal && key > row)) x = NEG_FILL;
+        }
+        s[n][c] = x;
+      }
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float al_a = exp_e(m_a - mn_a), al_b = exp_e(m_b - mn_b);  // 0 first
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+      s[n][0] = exp_e(s[n][0] - mn_a);
+      s[n][1] = exp_e(s[n][1] - mn_a);
+      s[n][2] = exp_e(s[n][2] - mn_b);
+      s[n][3] = exp_e(s[n][3] - mn_b);
+      sum_a += s[n][0] + s[n][1];
+      sum_b += s[n][2] + s[n][3];
+    }
+    l_a = l_a * al_a + sum_a;   // this lane's share; the quad's at the end
+    l_b = l_b * al_b + sum_b;
+#pragma unroll
+    for (int jn = 0; jn < KD; ++jn) {
+      o[jn][0] *= al_a;
+      o[jn][1] *= al_a;
+      o[jn][2] *= al_b;
+      o[jn][3] *= al_b;
+    }
+    lap(2);
+
+    // O += P V, P's A fragment from s[kk] in the key order 2t, 2t + 1
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      uint32_t ah[4], al[4];
+      split3(s[kk][0], ah[0], al[0]);   // P[g][8kk + 2t]
+      split3(s[kk][2], ah[1], al[1]);   // P[g + 8][8kk + 2t]
+      split3(s[kk][1], ah[2], al[2]);   // P[g][8kk + 2t + 1]
+      split3(s[kk][3], ah[3], al[3]);   // P[g + 8][8kk + 2t + 1]
+      const float* v0 = vs + (kk * 8 + 2 * t) * LD + g;
+#pragma unroll
+      for (int jn = 0; jn < KD; ++jn) {
+        uint32_t bh[2], bl[2];
+        split3(v0[jn * 8], bh[0], bl[0]);
+        split3(v0[LD + jn * 8], bh[1], bl[1]);
+        mma3(o[jn], ah, al, bh, bl);
+      }
+    }
+    lap(3);
+  }
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  if (KW > 1) {
+    // Merge the KW slices of the row group into its first warp's registers
+    // through the ring's memory: the other warps leave their o fragments
+    // at so[warp][KD * 4][32] and their (max, sum) pairs at sml[warp][4][32]
+    // (lane-minor: no bank conflicts); o = sum_w e^(m_w - M) o_w / sum_w
+    // e^(m_w - M) l_w.  A slice that saw no key keeps m = -inf and weighs
+    // 0; key 0 is in the first slice, so M is a real score.
+    float* so = smem;
+    float* sml = so + (blockDim.x >> 5) * KD * 4 * 32;
+    __syncthreads();   // every warp is done with the ring
+    if (kb > 0) {
+#pragma unroll
+      for (int jn = 0; jn < KD; ++jn)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          so[(warp * KD * 4 + jn * 4 + c) * 32 + lane] = o[jn][c];
+      float* ml = sml + warp * 4 * 32 + lane;
+      ml[0] = m_a;
+      ml[32] = l_a;
+      ml[64] = m_b;
+      ml[96] = l_b;
     }
     __syncthreads();
-
-    float s[4][4];
+    if (kb > 0) return;
+    float mx_a = m_a, mx_b = m_b;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float kv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = skt[d * (BK + 1) + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = sq[(ty * 4 + i) * (DP + 1) + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv, kv[j], s[i][j]);
-      }
+    for (int w = 1; w < KW; ++w) {
+      mx_a = fmaxf(mx_a, sml[(warp + w) * 4 * 32 + lane]);
+      mx_b = fmaxf(mx_b, sml[(warp + w) * 4 * 32 + 64 + lane]);
     }
-
+    float f_a = exp_e(m_a - mx_a), f_b = exp_e(m_b - mx_b);
+    l_a *= f_a;
+    l_b *= f_b;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float x = s[i][j] * a.scale;
-        if (key >= T || (a.causal && key > row)) x = NEG_FILL;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], lanes16_max(mx));
-      const float alpha = expf(m[i] - m_new);   // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sp[(ty * 4 + i) * (BK + 1) + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * alpha + lanes16_sum(sum);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-      m[i] = m_new;
+    for (int jn = 0; jn < KD; ++jn) {
+      o[jn][0] *= f_a;
+      o[jn][1] *= f_a;
+      o[jn][2] *= f_b;
+      o[jn][3] *= f_b;
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = sv[j * DP + tx + 16 * c];
+    for (int w = 1; w < KW; ++w) {
+      const float* ml = sml + (warp + w) * 4 * 32 + lane;
+      f_a = exp_e(ml[0] - mx_a);
+      f_b = exp_e(ml[64] - mx_b);
+      l_a += f_a * ml[32];
+      l_b += f_b * ml[96];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = sp[(ty * 4 + i) * (BK + 1) + j];
+      for (int jn = 0; jn < KD; ++jn)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        for (int c = 0; c < 4; ++c)
+          o[jn][c] += (c < 2 ? f_a : f_b) *
+                      so[((warp + w) * KD * 4 + jn * 4 + c) * 32 + lane];
+    }
+  }
+  // the reciprocals here, not in each guarded store (2 ulp)
+  const float inv_a = __fdividef(1.f, l_a), inv_b = __fdividef(1.f, l_b);
+  if (active) {
+#pragma unroll
+    for (int jn = 0; jn < KD; ++jn) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = c < 2 ? row_a : row_b;
+        const int col = jn * 8 + 2 * t + (c & 1);
+        if (row < T && col < D)
+          a.o[base + (size_t)row * D + col] = o[jn][c] * (c < 2 ? inv_a
+                                                               : inv_b);
       }
     }
   }
+  lap(5);
+  if (prof)
+    for (int i = 0; i < ATTN_STAGES; ++i) a.cycles[i] += clk[i];
+}
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= T) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < D) a.o[base + (size_t)row * D + col] = acc[i][c] / l[i];
-    }
-  }
+template <int DP, int KW, bool PROF>
+int launch(const AttnArgs& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes_of(DP, KW);
+  cudaError_t e = cudaFuncSetAttribute(
+      self_attention_kernel<DP, KW, PROF>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const bool vec = a.D % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(a.k) |
+                     reinterpret_cast<uintptr_t>(a.v)) & 15) == 0;
+  const dim3 grid((a.T + a.rows - 1) / a.rows, a.bh);
+  self_attention_kernel<DP, KW, PROF><<<grid, 2 * a.rows * KW, smem,
+                                        stream>>>(a, (int)vec);
+  return (int)cudaGetLastError();
 }
 
 template <int DP>
-int launch(const AttnArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_floats<DP>() * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      self_attention_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.T + BQ - 1) / BQ, a.bh);
-  self_attention_kernel<DP><<<grid, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+int launch_dp(const AttnArgs& a, cudaStream_t stream) {
+  if (a.key_warps == 4)
+    return a.cycles ? launch<DP, 4, true>(a, stream)
+                    : launch<DP, 4, false>(a, stream);
+  return a.cycles ? launch<DP, 1, true>(a, stream)
+                  : launch<DP, 1, false>(a, stream);
+}
+
+int padded_width(int D) {
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
 }
 
 }  // namespace
 
 extern "C" int self_attention_launch(const AttnArgs* args, void* stream) {
   const AttnArgs a = *args;
-  if (a.T < 1 || a.bh < 1 || a.bh > 65535 || a.D < 1)
+  if (a.T < 1 || a.bh < 1 || a.bh > 65535 || a.D < 1 ||
+      (a.rows != 16 && a.rows != 32 && a.rows != MAX_ROWS) ||
+      (a.key_warps != 1 && (a.key_warps != 4 || a.rows != 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (a.D <= 16) return launch<16>(a, s);
-  if (a.D <= 32) return launch<32>(a, s);
-  if (a.D <= 64) return launch<64>(a, s);
-  if (a.D <= 128) return launch<128>(a, s);
+  switch (padded_width(a.D)) {
+    case 16: return launch_dp<16>(a, s);
+    case 32: return launch_dp<32>(a, s);
+    case 64: return launch_dp<64>(a, s);
+    case 128: return launch_dp<128>(a, s);
+  }
   return (int)cudaErrorInvalidValue;
+}
+
+// The launcher's plan for head width D and key_warps (what
+// ``attention_plan`` mirrors): keys a tile, ring stages and dynamic
+// shared-memory bytes; 0 for a width the kernel does not take.
+extern "C" int self_attention_plan(int D, int key_warps, int* keys,
+                                   int* stages, int* smem_bytes) {
+  const int dp = padded_width(D);
+  if (D < 1 || dp == 0) return 0;
+  *keys = keys_a_tile(dp, key_warps);
+  *stages = NS;
+  *smem_bytes = (int)smem_bytes_of(dp, key_warps);
+  return 1;
 }

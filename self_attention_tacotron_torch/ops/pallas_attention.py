@@ -7,8 +7,11 @@ kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
 
 * ``fused_self_attention`` — softmax(Q K^T / sqrt(D)) V over (B, H, T, D),
   optionally causal; replaces ``_attention_kernel``
-  (``csrc/self_attention.cu``: 64-row query tiles, 64-key tiles streamed
-  with an online softmax, D up to 128);
+  (``csrc/self_attention.cu``: a warp a 16 query rows, blocks of 16-64
+  rows sized to the shape by ``attention_plan``, at small shapes 4 warps
+  that share a block's rows and split its keys, K and V tiles in a ring of
+  cp.async stages, both products on the tensor cores in the 3xTF32 split
+  and the online softmax in registers, D up to 128);
 * ``incremental_attention_step`` — one (B, H, D) query against (B, H, S, D)
   key and value caches masked to positions <= t; replaces
   ``_incremental_kernel`` (``csrc/incremental_attention.cu``: the cache up
@@ -30,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -38,6 +41,18 @@ from . import cuda_build
 
 NEG_INF = -1e9
 MAX_HEAD_DIM = 128          # fused_self_attention's widest template width
+# fused_self_attention's plan (mirrors csrc/self_attention.cu): query rows
+# a block, from the most to the fewest; blocks that fill an H100's 132 SMs
+# once; the warps that split the keys of a 16-row block that does not; the
+# K / V ring's stages and the floats after each of its rows
+ATTN_ROWS = (64, 32, 16)
+ATTN_FILL_BLOCKS = 132
+ATTN_KEY_WARPS = 4
+ATTN_RING = 3
+ATTN_ROW_PAD = 4
+# what a profiled launch (prepare_attention(profile=True)) splits its SM
+# cycles into
+ATTN_STAGES = ("loads", "scores", "softmax", "values", "start", "end")
 MAX_STEP_HEAD_DIM = 256     # incremental_attention_step: one thread a column
 # incremental_attention_step: positions a block (STEP_CHUNK in the kernel)
 STEP_CHUNK = 32
@@ -78,9 +93,10 @@ class _AttnArgs(ctypes.Structure):
     """Mirror of ``AttnArgs`` in csrc/self_attention.cu."""
 
     _fields_ = [("q", _P), ("k", _P), ("v", _P), ("o", _P),
-                ("bh", ctypes.c_int), ("T", ctypes.c_int),
+                ("cycles", _P), ("bh", ctypes.c_int), ("T", ctypes.c_int),
                 ("D", ctypes.c_int), ("causal", ctypes.c_int),
-                ("scale", ctypes.c_float)]
+                ("scale", ctypes.c_float), ("rows", ctypes.c_int),
+                ("key_warps", ctypes.c_int)]
 
 
 class _StepArgs(ctypes.Structure):
@@ -91,6 +107,58 @@ class _StepArgs(ctypes.Structure):
                 ("D", ctypes.c_int), ("t", ctypes.c_int),
                 ("chunk", ctypes.c_int), ("scale", ctypes.c_float),
                 ("passes", ctypes.c_int)]
+
+
+class AttnPlan(NamedTuple):
+    """One ``fused_self_attention`` launch: ``rows`` query rows a block,
+    ``key_warps`` warps on each 16 of them (each takes a slice of every key
+    tile; ``warps`` in all), ``grid`` = (row blocks, B * H), key tiles of
+    ``keys`` keys through a ring of ``stages``, and ``smem_bytes`` of
+    dynamic shared memory a block."""
+
+    rows: int
+    key_warps: int
+    warps: int
+    grid: Tuple[int, int]
+    keys: int
+    stages: int
+    smem_bytes: int
+
+
+def attention_plan(B: int, H: int, T: int, D: int,
+                   causal: bool) -> AttnPlan:
+    """The kernel's plan at (B, H, T, D): the most rows a block
+    (``ATTN_ROWS``, none past T's last 16) whose blocks still fill the card
+    once, or else 16 rows on ``ATTN_KEY_WARPS`` warps that split the keys;
+    D padded to 16, 32, 64 or 128; tiles of 64 keys, 32 from 64 wide on
+    (registers), 16 at 128 wide with a warp a row group (faster there).
+    ``causal`` does not change the plan: a causal block stops at its last
+    row's tile in the kernel."""
+    bh = B * H
+    rows = next((r for r in ATTN_ROWS if r < T + 16
+                 and -(-T // r) * bh >= ATTN_FILL_BLOCKS), None)
+    key_warps = 1 if rows else ATTN_KEY_WARPS
+    rows = rows or ATTN_ROWS[-1]
+    dp = next(w for w in (16, 32, 64, 128) if D <= w)
+    keys = 16 if (dp, key_warps) == (128, 1) else 32 if dp >= 64 else 64
+    smem = ATTN_RING * 2 * keys * (dp + ATTN_ROW_PAD) * 4
+    return AttnPlan(rows, key_warps, rows // 16 * key_warps,
+                    (-(-T // rows), bh), keys, ATTN_RING, smem)
+
+
+def kernel_plan(D: int, key_warps: int) -> Tuple[int, int, int]:
+    """(keys a tile, stages, shared-memory bytes) of the built kernel at
+    head width ``D`` and ``key_warps``: the launcher's own numbers, which
+    ``attention_plan`` mirrors.  Builds the kernel; raises for a width it
+    does not take."""
+    fn = cuda_build.load("self_attention").self_attention_plan
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    if not fn(D, key_warps, *map(ctypes.byref, out)):
+        raise ValueError(f"fused_self_attention takes 1 <= D <= "
+                         f"{MAX_HEAD_DIM}, got {D}")
+    return tuple(o.value for o in out)
 
 
 def step_plan(bh: int, t: int, D: int) -> Tuple[int, int]:
@@ -146,6 +214,15 @@ def fused_self_attention(q: Tensor, k: Tensor, v: Tensor,
     plain version; CUDA tensors launch the kernel (or raise)."""
     if not q.is_cuda:
         return fused_self_attention_reference(q, k, v, causal)
+    return prepare_attention(q, k, v, causal)()
+
+
+def prepare_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
+                      profile: bool = False) -> cuda_build.KernelLaunch:
+    """Check the operands and lay out one launch by ``attention_plan``.
+    With ``profile`` the launch adds the SM cycles of the last row block of
+    head 0 (its warp 0) to ``stage_cycles``, one counter per
+    ``ATTN_STAGES``."""
     if q.dim() != 4:
         raise ValueError(f"q: expected (B, H, T, D), got {tuple(q.shape)}")
     B, H, T, D = q.shape
@@ -156,12 +233,17 @@ def fused_self_attention(q: Tensor, k: Tensor, v: Tensor,
                          f"{MAX_HEAD_DIM}, T >= 1 and B * H <= 65535; got "
                          f"{tuple(q.shape)}")
     out = torch.empty_like(q)
+    plan = attention_plan(B, H, T, D, causal)
+    cycles = (torch.zeros(len(ATTN_STAGES), dtype=torch.int64,
+                          device=q.device) if profile else None)
     args = _AttnArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     out.data_ptr(), B * H, T, D, int(causal),
-                     1.0 / math.sqrt(D))
+                     out.data_ptr(),
+                     cycles.data_ptr() if profile else None, B * H, T, D,
+                     int(causal), 1.0 / math.sqrt(D), plan.rows,
+                     plan.key_warps)
     return cuda_build.KernelLaunch(
-        _fn("self_attention", _AttnArgs), args, (q, k, v, out), out,
-        q.device, fused_self_attention)()
+        _fn("self_attention", _AttnArgs), args, (q, k, v, out, cycles), out,
+        q.device, fused_self_attention, stage_cycles=cycles)
 
 
 def incremental_attention_step(q_t: Tensor, key_cache: Tensor,

@@ -5,7 +5,9 @@ configurations that the recipe run in chip_smoke.py does not cover: odd
 and even bank widths, the adjustment dense, two hops, three prenet
 layers, r = 2, additive-only sources, cumulative location weights, early
 stop; the Pallas-mode attention kernels at small and recipe shapes (head
-widths 4 to 128, T not a multiple of 64, t at both ends of the cache) and
+widths 4 to 128, T not a multiple of 64, t at both ends of the cache; the
+full-sequence kernel at the edges of its 16-row warp tiles, with 4-byte
+copies, at T = 3000, with |q.k| ~ 1e3, its plan and its profile) and
 the model's serving and VALIDATION decodes in that mode; the spectrogram
 kernel from the signal at F = 1, a prime F, LJSpeech and VCTK widths and
 signals shorter than the reflect pad, and the mel model's decode (one source, no hops, r = 2) through the
@@ -779,7 +781,12 @@ def _normal(device, *shape, seed=0):
 @pytest.mark.parametrize("B,H,T,D,causal", [
     (2, 2, 37, 16, False), (2, 2, 37, 16, True), (1, 2, 64, 16, False),
     (3, 2, 130, 64, True), (1, 1, 5, 4, True), (2, 2, 70, 24, False),
-    (32, 2, 250, 128, False), (32, 2, 250, 128, True)])
+    (32, 2, 250, 128, False), (32, 2, 250, 128, True),
+    # the edges of the 16-row warp tiles and 8-key products at D = 16
+    *[(1, 2, T, 16, c) for T in (1, 15, 16, 17, 61) for c in (False, True)],
+    (8, 2, 64, 16, False),        # the batched encoder's hop
+    (1, 2, 3000, 128, True),      # the longest decode: 94 key tiles
+    (2, 1, 45, 30, True), (1, 2, 33, 5, False)])   # 4-byte copies
 @torch.no_grad()
 def test_fused_self_attention_kernel_matches_plain(device, B, H, T, D,
                                                    causal):
@@ -790,6 +797,49 @@ def test_fused_self_attention_kernel_matches_plain(device, B, H, T, D,
     torch.cuda.synchronize()
     assert pa.fused_self_attention.launches == before + 1
     _close(got, ref, tol=1e-5)
+
+
+def large_scores(device, B, H, T, D, seed=0):
+    """q, k of small integers with a shared column of 32 (|q.k| ~ 1e3,
+    exact in float32 and in the 3xTF32 split) and v normal: the running max
+    moves by hundreds between tiles and exp without it overflows."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.integers(-16, 17, (B, H, T, D)).astype(np.float32)
+            for _ in range(2))
+    q[..., 0] = k[..., 0] = 32.0
+    v = rng.standard_normal((B, H, T, D)).astype(np.float32)
+    return (torch.from_numpy(x).to(device) for x in (q, k, v))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("B", [2, 32])     # 4 warps split the keys; 1 warp
+@torch.no_grad()
+def test_fused_self_attention_kernel_keeps_large_scores(device, causal, B):
+    q, k, v = large_scores(device, B, 2, 200, 16)
+    got = pa.fused_self_attention(q, k, v, causal)
+    ref = pa.fused_self_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.isfinite().all()
+    _close(got, ref, tol=1e-5)
+
+
+@pytest.mark.parametrize("D", [1, 16, 24, 64, 100, 128])
+@pytest.mark.parametrize("B", [1, 32])     # 4 warps split the keys; 1 warp
+def test_attention_plan_matches_the_kernel(device, D, B):
+    plan = pa.attention_plan(B, 2, 256, D, False)
+    assert pa.kernel_plan(D, plan.key_warps) == (plan.keys, plan.stages,
+                                                 plan.smem_bytes)
+
+
+@torch.no_grad()
+def test_fused_self_attention_profile_splits_the_stages(device):
+    q, k, v = (_normal(device, 4, 2, 256, 128, seed=s) for s in range(3))
+    launch = pa.prepare_attention(q, k, v, True, profile=True)
+    got = launch()
+    torch.cuda.synchronize()
+    cycles = launch.stage_cycles.cpu().tolist()
+    assert len(cycles) == len(pa.ATTN_STAGES) and min(cycles) > 0
+    _close(got, pa.fused_self_attention_reference(q, k, v, True), tol=1e-5)
 
 
 @pytest.mark.parametrize("B,H,S,D", [(1, 2, 250, 128), (32, 2, 250, 128),

@@ -13,6 +13,10 @@
 * The KV-cache step writes its row into the caches in place.
 * The step kernel's plan (``step_plan``): the cache up to t in chunks of
   ``STEP_CHUNK`` positions, none past t, and the merge scratch.
+* The full-sequence kernel's plan (``attention_plan``): the rows a block,
+  the warps that split the keys and the grid at the serving, batched-
+  encoder, training and long causal shapes, and shared memory that does
+  not grow with T and lets two blocks share an SM at D = 128.
 """
 
 import jax
@@ -57,6 +61,46 @@ def test_step_plan_chunks_the_cache(bh, t, D, chunks):
     assert pa.STEP_CHUNK == 32 and got == chunks
     assert (chunks - 1) * pa.STEP_CHUNK <= t < chunks * pa.STEP_CHUNK
     assert floats == (0 if chunks == 1 else bh * chunks * (D + 2))
+
+
+# an H100 SM: 228 KB of shared memory, a block at most 227 KB, 1 KB of it
+# reserved a block
+SM_SMEM, BLOCK_SMEM, RESERVED = 233472, 232448, 1024
+
+
+@pytest.mark.parametrize("B,H,T,D,causal,rows,key_warps", [
+    (1, 2, 64, 16, False, 16, 4),      # the serving encoder's hop
+    (8, 2, 64, 16, False, 16, 4),      # the batched encoder's hop
+    (32, 2, 256, 128, False, 64, 1),
+    (32, 2, 256, 128, True, 64, 1),
+    (1, 2, 3000, 128, True, 32, 1),    # the SIWIS recipe's longest decode
+    (1, 1, 1, 5, True, 16, 4),
+    (2, 2, 37, 24, False, 16, 4),
+    (66, 2, 16, 16, False, 16, 1),     # 132 one-warp blocks fill the card
+    (64, 4, 500, 64, False, 64, 1)])
+def test_attention_plan_fits_the_shape(B, H, T, D, causal, rows, key_warps):
+    plan = pa.attention_plan(B, H, T, D, causal)
+    blocks = -(-T // rows)
+    assert (plan.rows, plan.key_warps, plan.warps, plan.grid) == (
+        rows, key_warps, rows // 16 * key_warps, (blocks, B * H))
+    assert plan.stages >= 2 and plan.keys in (16, 32, 64)
+    assert 32 * plan.warps <= 128     # the kernel's launch bounds
+    # fewer rows only where larger blocks would not fill the card, and
+    # warps that split the keys only where 16-row blocks would not either
+    if rows < pa.ATTN_ROWS[0] and 2 * rows < T + 16:
+        assert -(-T // (2 * rows)) * B * H < pa.ATTN_FILL_BLOCKS
+    assert (key_warps > 1) == (blocks * B * H < pa.ATTN_FILL_BLOCKS)
+    # shared memory: the ring of K and V tiles only, whatever T
+    dp = next(w for w in (16, 32, 64, 128) if D <= w)
+    assert plan.smem_bytes == (plan.stages * 2 * plan.keys
+                               * (dp + pa.ATTN_ROW_PAD) * 4)
+    assert plan.smem_bytes <= BLOCK_SMEM
+    if D > 64:
+        assert 2 * (plan.smem_bytes + RESERVED) <= SM_SMEM
+    assert plan == pa.attention_plan(B, H, T, D, not causal)
+    if (B, T, D) == (1, 64, 16):   # spread: >= 8 warps on >= 4 SMs
+        assert plan.grid[0] * plan.grid[1] >= 4
+        assert plan.grid[0] * plan.grid[1] * plan.warps >= 8
 
 
 @pytest.mark.parametrize("t", [0, 5, 23])
