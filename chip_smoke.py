@@ -135,7 +135,40 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    steps with ``decoder_fused_train_dtype=bfloat16`` (3 launches of each
    training kernel, finite losses, a checkpoint).  The kernels line gains
    the paths ``bf16_serving`` and ``bf16_training``, bounded by the bytes
-   with bf16 storage and the BF16 tensor peak.
+   with bf16 storage and the BF16 tensor peak;
+21. forced-alignment prediction (``--hparams use_forced_alignment_mode=
+   true``) through ``cli.predict``: ``main_code`` on 3 synthetic codes
+   utterances (the first pass through ``fused_encode`` and
+   ``fused_decode``, the second the plain VALIDATION loop replaying the
+   first's alignments, its encoder call ``fused_encode`` again: 6 and 3
+   launches), then ``main_mel`` on phase 14's test utterances with
+   phase 15's checkpoint and ``decoder_fused_inference`` (3
+   ``fused_decode`` launches); each ``.mfbsp`` against the same predict
+   step on the plain path (1e-5 codes, 1e-4 mel), the passes' steps equal,
+   and the same step run with the served settings against the plain one:
+   the first pass's outputs and alignments over its decoded steps and the
+   forced pass's logits (1e-5 codes, 1e-4 mel).  Paths
+   ``forced_alignment`` and ``mel_forced_alignment``;
+22. the SIWIS recipe (``examples/codes_siwis/self-attention-tacotron.json``:
+   3000 steps, a 4-speaker table) at full width with weights from seed 0,
+   B = 1, a 64-phone source, speaker 3, early stop off: one call fused
+   (``fused_encode``, ``fused_decode``, path ``siwis_serving``) and one in
+   the Pallas mode (one ``fused_self_attention``, 3000
+   ``incremental_attention_step`` launches, path ``siwis_pallas_serving``),
+   their wall times, any gate refusal logged, their logits and stop logits
+   within 1e-4 over all 3000 steps; ``fused_decode`` at that shape (the
+   speaker row, 3000 steps, its hop over 94 cache chunks) against its
+   plain version over all steps (1e-5), ``incremental_attention_step`` at
+   S = 3000 beside SDPA, both timed with their bounds;
+23. the kernels past the edges of their earlier plans, each launched
+   through its caller (path ``long_and_wide``): the codes recipe's encoder
+   at T = 533 (the hop's rows in shared memory) and 534, 600 (streamed);
+   the Pallas mode's hop at head widths 128, 129 (the full sequence's wide
+   kernel) and 257 (both wide kernels), the full sequence and 64 cache
+   steps; ``MelExtractor`` at n_fft 2048 (the FFT) and 1998 (the direct
+   DFT): each against its plain path; then the streamed encoder, both
+   wide kernels and the DFT timed beside their plain versions, bounds and
+   library calls.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -1029,10 +1062,10 @@ def _attention_inputs(device, B, T, D):
                  for s in range(3))
 
 
-def _step_inputs(device, B, t, S=ATTN_T):
-    kc, vc = (_normal(device, B, ATTN_HEADS, S, ATTN_D, seed=s)
+def _step_inputs(device, B, t, S=ATTN_T, D=ATTN_D):
+    kc, vc = (_normal(device, B, ATTN_HEADS, S, D, seed=s)
               for s in (1, 2))
-    return _normal(device, B, ATTN_HEADS, ATTN_D, seed=3 + t), kc, vc
+    return _normal(device, B, ATTN_HEADS, D, seed=3 + t), kc, vc
 
 
 def _large_scores(device, B, T, D):
@@ -1284,11 +1317,11 @@ def attention_bound(B, T, D, causal):
     return 4 * 4 * B * ATTN_HEADS * T * D, 4 * B * ATTN_HEADS * pairs * D
 
 
-def step_bound(B, t):
+def step_bound(B, t, D=ATTN_D):
     """(bytes, FLOPs) of one cache step: q, the t + 1 K and V rows it needs
     and the output; the two products over those rows."""
-    rows = B * ATTN_HEADS * (t + 1) * ATTN_D
-    return 4 * (2 * rows + 2 * B * ATTN_HEADS * ATTN_D), 4 * rows
+    rows = B * ATTN_HEADS * (t + 1) * D
+    return 4 * (2 * rows + 2 * B * ATTN_HEADS * D), 4 * rows
 
 
 def _bound_ms(bound, peak_flops=PEAK_FP32_FLOP_PER_S):
@@ -2740,6 +2773,524 @@ def phase_bf16(hp, model32, device, data: str, tmp: str):
     return rows, launches
 
 
+# ------------- forced alignment, the SIWIS recipe and the kernels' gates
+
+SIWIS_RECIPE = os.path.join(ROOT, "examples", "codes_siwis",
+                            "self-attention-tacotron.json")
+SIWIS_SPEAKER = 3           # the last of the recipe's 4-speaker table
+FORCED = "use_forced_alignment_mode=true"
+PLAIN = "decoder_fused_inference=false,encoder_fused_inference=false"
+# the forced-alignment .mfbsp against the same predict step on the plain
+# path: one-hot codes (exact up to 1e-5), raw mel frames fed back (1e-4)
+TOL_FORCED_CODES = 1e-5
+TOL_FORCED_MEL = TOL_MEL_DECODE
+# the kernels' earlier edges: source lengths at the recipe's encoder
+# widths (the hop's rows in shared memory up to 533), Pallas head widths
+# (the tensor-core templates up to 128, the step's registers up to 256),
+# n_fft (num_freq 1025: the FFT, 1000: the direct DFT)
+EDGE_LENGTHS = (533, 534, 600)
+EDGE_HEAD_DIMS = (128, 129, 257)
+EDGE_NUM_FREQS = (1025, 1000)
+
+
+def _forced_batches(hp, data, keys, kind, device):
+    """(utterance, batch) as cli.predict builds them with the flag on: the
+    target padded to its bucket's length."""
+    from self_attention_tacotron_torch.data.dataset import (Bucketing,
+                                                            iter_utterances,
+                                                            pad_batch,
+                                                            to_model_batch)
+    bucketing = Bucketing(hp)
+    for u in iter_utterances(*_val_files(hp, data, keys), hp, kind):
+        pad = bucketing.target_pad_length(bucketing.bucket_id(
+            u.target_length))
+        yield u, to_model_batch(pad_batch([u], hp, pad,
+                                          target_kind=kind)).to(device)
+
+
+def _forced_reference(hp_args, ckpt, data, keys, kind, out, device):
+    """The served run against the plain path, utterance by utterance: the
+    same predict step run in this process with the served hparams (the
+    kernels) and with the fused gates off.  Returns ({what: largest abs
+    error}, the plain run's (first, second) pass steps): "mfbsp" the
+    served dump against the plain payload; "first outputs" and "first
+    alignments" the first pass over its decoded steps (past its stop the
+    rows are the path's own, which the forced pass replays); "forced
+    logits" the second pass's outputs, whole."""
+    import numpy as np
+    from self_attention_tacotron_torch.config import load_hparams
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.parallel import make_predict_step
+    from self_attention_tacotron_torch.utils.convert import load_checkpoint
+
+    runs = {}
+    for name, hparams in (("served", hp_args[1]),
+                          ("plain", _join(hp_args[1], PLAIN))):
+        class Args:
+            hparam_json_file = hp_args[0]
+        Args.hparams = hparams
+        hp = load_hparams(Args())
+        model = tacotron_model_factory(hp).eval()
+        load_checkpoint(model, ckpt)
+        runs[name] = (hp, model.to(device), make_predict_step(hp))
+    errs = dict.fromkeys(("mfbsp", "first outputs", "first alignments",
+                          "forced logits"), 0.0)
+    steps = []
+    hp = runs["plain"][0]
+    for u, batch in _forced_batches(hp, data, keys, kind, device):
+        (first, forced), (first_s, forced_s) = (
+            step(model, batch) for _, model, step in
+            (runs["plain"], runs["served"]))
+        n = int(forced.lengths[0]) * hp.outputs_per_step
+        frames = (forced.code_output if kind == "codes"
+                  else forced.postnet_outputs if hp.use_postnet_v2
+                  else forced.outputs)
+        payload = frames[0, :n].cpu().numpy().reshape(-1)
+        dump = np.fromfile(os.path.join(
+            out, f"{u.meta.key}.{hp.predicted_mel_extension}"), "<f4")
+        if dump.shape != payload.shape or not np.isfinite(dump).all():
+            raise AssertionError(f"bad forced-alignment dump for "
+                                 f"{u.meta.key}")
+        s = int(first.lengths[0])
+        if int(first_s.lengths[0]) != s:
+            raise AssertionError(f"{u.meta.key}: the first passes stop at "
+                                 f"{int(first_s.lengths[0])} and {s} steps")
+        f = s * hp.outputs_per_step
+        found = {"mfbsp": float(np.abs(dump - payload).max()),
+                 "first outputs": _max_err(first_s.outputs[:, :f],
+                                           first.outputs[:, :f]),
+                 "first alignments": max(
+                     _max_err(a[..., :s], b[..., :s]) for a, b in
+                     zip(first_s.alignments, first.alignments)),
+                 "forced logits": _max_err(forced_s.outputs,
+                                           forced.outputs)}
+        errs = {k: max(v, found[k]) for k, v in errs.items()}
+        steps.append((s, int(forced.lengths[0])))
+    return errs, steps
+
+
+def _predict_forced(main, data, ckpt, hp_json, hparams, out, device):
+    """``main`` (main_code or main_mel) with the flag on; returns each
+    utterance's (first pass steps, second pass steps, wall ms)."""
+    import contextlib
+    import io
+    import re
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(["--source-data-root", data, "--target-data-root", data,
+                   "--checkpoint-dir", ckpt, "--output-dir", out,
+                   "--hparam-json-file", hp_json, "--hparams", hparams,
+                   "--device", device.type])
+    sys.stdout.write(buf.getvalue())
+    if rc != 0:
+        raise AssertionError(f"{main.__name__} returned {rc}")
+    return [(int(a), int(n), float(ms)) for n, a, ms in re.findall(
+        r"predicted \S+: (\d+) decode steps \(forced-alignment pass after "
+        r"(\d+) free-running steps\), ([0-9.]+) ms", buf.getvalue())]
+
+
+def phase_forced_alignment(model, mel_data, mel_ckpt, mel_hp, tmp, device):
+    """Phase 21: forced-alignment prediction through cli.predict at full
+    width: the codes recipe (first pass through #1 and #2, second the plain
+    VALIDATION loop, whose encoder call is #1 again), then the mel recipe
+    on phase 14's records and phase 15's checkpoint (first pass through
+    #2); each .mfbsp against the same predict step on the plain path.
+    Returns the launch counts of the two paths."""
+    from self_attention_tacotron_torch.cli.predict import main_code, main_mel
+    from self_attention_tacotron_torch.data.dataset import load_key_list
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.utils.convert import save_checkpoint
+    data, ckpt = (os.path.join(tmp, d) for d in ("forced_data",
+                                                  "forced_ckpt"))
+    os.makedirs(data)
+    keys = write_corpus(model.hp, data)
+    save_checkpoint(model, ckpt, step=1)
+    launches = {}
+    # the .mfbsp (one-hot codes, or mel frames) and the passes' numbers
+    cases = (("forced_alignment", main_code, "codes", data, ckpt, RECIPE,
+              FORCED, keys, (TOL_FORCED_CODES, TOL_DECODE)),
+             ("mel_forced_alignment", main_mel, "mel", mel_data, mel_ckpt,
+              mel_hp, _join(FORCED, MEL_SERVE_FUSED),
+              load_key_list(os.path.join(mel_data, "test.csv")),
+              (TOL_FORCED_MEL, TOL_FORCED_MEL)))
+    for path, main, kind, d, c, hp_json, hparams, ks, tols in cases:
+        out = os.path.join(tmp, f"{path}_pred")
+        fe.fused_encode.launches = 0
+        fd.fused_decode.launches = 0
+        served = _predict_forced(main, d, c, hp_json, hparams, out, device)
+        launches[path] = {"fused_encode": fe.fused_encode.launches,
+                          "fused_decode": fd.fused_decode.launches}
+        errs, plain_steps = _forced_reference(
+            (hp_json, hparams), c, d, ks, kind, out, device)
+        tol = {k: tols[0] if k == "mfbsp" else tols[1] for k in errs}
+        log(f"phase 21 {path}: {main.__name__} --hparams '{hparams}' served "
+            f"{len(served)} utterances (first pass steps, forced pass "
+            f"steps, wall ms) {served}; the plain path's steps "
+            f"{plain_steps}; launch counts {launches[path]}; served vs the "
+            "plain path max abs err " + ", ".join(
+                f"{k} {v:.3e} (tol {tol[k]:g})" for k, v in errs.items()))
+        if len(served) != len(ks) or [s[:2] for s in served] != plain_steps:
+            raise AssertionError(f"{path}: the passes' steps disagree with "
+                                 "the plain path")
+        if any(v > tol[k] for k, v in errs.items()):
+            raise AssertionError(f"{path}: the served passes disagree with "
+                                 "the plain path")
+    want = {"forced_alignment": {"fused_encode": 2 * len(keys),
+                                 "fused_decode": len(keys)},
+            "mel_forced_alignment": {"fused_encode": 0,
+                                     "fused_decode": len(cases[1][7])}}
+    if device.type == "cuda" and launches != want:
+        raise AssertionError(f"forced alignment launched {launches}, "
+                             f"expected {want}")
+    return launches
+
+
+def forced_rows(launches, errs, codes_timing, mel_rows):
+    """The kernels line's rows of phase 21's paths, with the times of the
+    shapes they share: the codes recipe's #1 and #2 (phase 8) and the mel
+    recipe's #2 (phase 15)."""
+    codes = {"forced_alignment": launches["forced_alignment"]}
+    rows = [*_kernel_rows("fused_encode", "fused_encoder",
+                          "fused_encoder.py:94", codes, errs["fused_encode"],
+                          *codes_timing["fused_encode"],
+                          peak_flops=PEAK_3XTF32_FLOP_PER_S),
+            *_kernel_rows("fused_decode", "fused_decode",
+                          "fused_decode.py:250", codes, errs["fused_decode"],
+                          *codes_timing["fused_decode"])]
+    counts = launches["mel_forced_alignment"]
+    rows += [dict(row, path="mel_forced_alignment",
+                  launches=counts["fused_decode"])
+             for row in mel_rows if row["name"] == "fused_decode"
+             and counts["fused_decode"]]
+    return rows
+
+
+def _siwis_batch(hp, device):
+    """B = 1: a 64-phone source and speaker ``SIWIS_SPEAKER``."""
+    import torch
+    from self_attention_tacotron_torch.models import Batch
+    return Batch(source_ids(hp, T_IN, T_IN, SEED + 7, device),
+                 torch.tensor([T_IN], device=device),
+                 speaker_id=torch.tensor([SIWIS_SPEAKER], device=device))
+
+
+def _siwis_call(hp, model, device):
+    """One INFERENCE call of the SIWIS recipe; returns (output, host-clock
+    ms)."""
+    import torch
+    batch = _siwis_batch(hp, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model(batch)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_siwis(device, card: str):
+    """Phase 22: the SIWIS recipe at full width with weights from seed 0,
+    early stop off so that all 3000 steps run, speaker 3 of its table: one
+    call in the fused mode (#1, #2) and one in the Pallas mode (#5, #6),
+    each with its counters zeroed just before; the two calls' logits and
+    stop logits compared over all 3000 steps; #1, #2 and #6 timed at these
+    shapes
+    beside their plain versions and bounds.  Returns (rows, launches)."""
+    import torch
+    import torch.nn.functional as F
+    from self_attention_tacotron_torch.config import default_hparams
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    hp = default_hparams().parse_json_file(SIWIS_RECIPE).parse(
+        "decoder_early_stop=false")
+    steps = hp.max_iters
+    models = {"fused": make_model(hp, device),
+              "pallas": make_model(default_hparams().parse_json_file(
+                  SIWIS_RECIPE).parse(_join("decoder_early_stop=false",
+                                            PALLAS_SERVING)), device)}
+    launches, outs, wall, refused = {}, {}, {}, {}
+    for mode, path in (("fused", "siwis_serving"),
+                       ("pallas", "siwis_pallas_serving")):
+        for counter in (fe.fused_encode, fd.fused_decode,
+                        pa.fused_self_attention,
+                        pa.incremental_attention_step):
+            counter.launches = 0
+        with _Fallbacks() as fb:
+            outs[mode], wall[mode] = _siwis_call(hp, models[mode], device)
+        refused[mode] = fb.refused
+        launches[path] = {c.__name__: c.launches for c in (
+            fe.fused_encode, fd.fused_decode, pa.fused_self_attention,
+            pa.incremental_attention_step) if c.launches}
+    whole = max(_max_err(outs["fused"].outputs, outs["pallas"].outputs),
+                _max_err(outs["fused"].stop_token,
+                         outs["pallas"].stop_token))
+    finite = all(bool(o.outputs.isfinite().all()) for o in outs.values())
+    log(f"phase 22 SIWIS {os.path.basename(SIWIS_RECIPE)} B=1 T={T_IN} "
+        f"speaker {SIWIS_SPEAKER} {steps} steps (early stop off), card "
+        f"{card}: fused mode {wall['fused']:.1f} ms wall, launches "
+        f"{launches['siwis_serving']}, gate refusals "
+        f"{refused['fused'] or 'none'}; Pallas mode {wall['pallas']:.1f} ms "
+        f"wall, launches {launches['siwis_pallas_serving']}, gate refusals "
+        f"{refused['pallas'] or 'none'}; logits and stop logits fused vs "
+        f"Pallas max abs err {whole:.3e} over all {steps} steps; finite "
+        f"{finite}")
+    if refused["pallas"] or not finite or whole > TOL_PALLAS_SERVING:
+        raise AssertionError("SIWIS serving disagrees between the modes")
+    if device.type == "cuda" and (
+            launches["siwis_pallas_serving"] != {
+                "fused_self_attention": hp.self_attention_num_hop,
+                "incremental_attention_step":
+                    steps * hp.decoder_self_attention_num_hop}
+            or launches["siwis_serving"].get("fused_encode") != 1
+            or launches["siwis_serving"].get("fused_decode", 0)
+            != int(not refused["fused"])):
+        raise AssertionError(f"SIWIS serving launched {launches}")
+
+    # the kernels at these shapes
+    model = models["fused"]
+    params, x, kw = encoder_case(model, T_IN, T_IN, device)
+    enc_ms = _time_ms(fe.prepare_encode(params, x, T_IN, **kw))
+    enc_plain = _time_ms(lambda: fe.fused_encode_reference(params, x, T_IN,
+                                                           **kw))
+    enc_err = max(_max_err(g, r) for g, r in zip(
+        fe.fused_encode(params, x, T_IN, **kw),
+        fe.fused_encode_reference(params, x, T_IN, **kw)))
+    sources, lengths, _, speaker = model._encode(_siwis_batch(hp, device))
+    dec = model.decoder
+    packs = tuple(m.precompute(s, n) for m, s, n in
+                  zip(dec.attention_mechanisms, sources, lengths))
+    rows = []
+    if not refused["fused"]:
+        weights, memory, options = dec.fused_inputs(
+            packs, model._prenet_speaker(speaker))
+        options = dict(options, early_stop=False)
+        got, ref = _decode_pair(weights, memory, options, steps)
+        dec_err = max(_max_err(got[0], ref[0]), _max_err(got[1], ref[1]))
+        dec_ms = _time_ms(fd.prepare_decode(weights, memory, num_steps=steps,
+                                            **options))
+        dec_plain = _time_ms(lambda: fd.fused_decode_reference(
+            weights, memory, num_steps=steps, **options), reps=1)
+        dec_bound = decode_bound(dec.fused_params(), weights, memory, steps,
+                                 options["speaker_row"])
+        log(f"phase 22 fused_decode at the SIWIS shape (B=1, T={T_IN}, "
+            f"{steps} steps, speaker row): max abs err vs plain "
+            f"{dec_err:.3e} over all steps (logits and stop logits; the "
+            f"hop over {-(-steps // 32)} cache chunks); kernel {dec_ms:.4f} "
+            f"ms, plain {dec_plain:.4f} ms; bound {_bound_ms(dec_bound):.4f}"
+            f" ms ({dec_bound[0]} bytes, {dec_bound[1]} FLOPs); card {card}")
+        if dec_err > TOL_DECODE:
+            raise AssertionError("fused_decode disagrees at the SIWIS shape")
+        rows += _kernel_rows("fused_decode", "fused_decode",
+                             "fused_decode.py:250",
+                             {"siwis_serving": launches["siwis_serving"]},
+                             dec_err, dec_ms, dec_plain, dec_bound)
+    rows += _kernel_rows("fused_encode", "fused_encoder",
+                         "fused_encoder.py:94",
+                         {"siwis_serving": launches["siwis_serving"]},
+                         enc_err, enc_ms, enc_plain,
+                         encode_bound(params, x, kw),
+                         peak_flops=PEAK_3XTF32_FLOP_PER_S)
+    t = steps - 1
+    q, kc, vc = _step_inputs(device, 1, t, steps)
+    mask = torch.ones(1, 1, 1, steps, dtype=torch.bool, device=device)
+    step_err = _max_err(pa.incremental_attention_step(q, kc, vc, t),
+                        pa.incremental_attention_step_reference(q, kc, vc, t))
+    step_times = [_device_ms(fn) for fn in (
+        lambda: pa.incremental_attention_step(q, kc, vc, t),
+        lambda: pa.incremental_attention_step_reference(q, kc, vc, t),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                               attn_mask=mask))]
+    bound = step_bound(1, t)
+    log(f"phase 22 incremental_attention_step B=1 H={ATTN_HEADS} S={steps} "
+        f"D={ATTN_D} t={t}: max abs err {step_err:.3e}; kernel "
+        f"{step_times[0]:.5f} ms, plain {step_times[1]:.5f} ms, SDPA "
+        f"{step_times[2]:.5f} ms; bound {_bound_ms(bound):.6f} ms "
+        f"({bound[0]} bytes, {bound[1]} FLOPs); card {card}")
+    if step_err > TOL_ATTENTION:
+        raise AssertionError("incremental_attention_step disagrees at S = "
+                             f"{steps}")
+    q, k, v = _attention_inputs(device, 1, T_IN, 16)
+    att_err = _max_err(pa.fused_self_attention(q, k, v),
+                       pa.fused_self_attention_reference(q, k, v))
+    att_times = [_device_ms(fn) for fn in (
+        lambda: pa.fused_self_attention(q, k, v),
+        lambda: pa.fused_self_attention_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v))]
+    pallas = {"siwis_pallas_serving": launches["siwis_pallas_serving"]}
+    rows += _kernel_rows("incremental_attention_step",
+                         "incremental_attention", "pallas_attention.py:109",
+                         pallas, step_err, *step_times[:2], bound,
+                         step_times[2])
+    rows += _kernel_rows("fused_self_attention", "self_attention",
+                         "pallas_attention.py:39", pallas, att_err,
+                         *att_times[:2], attention_bound(1, T_IN, 16, False),
+                         att_times[2], peak_flops=PEAK_3XTF32_FLOP_PER_S)
+    return rows, launches
+
+
+def phase_edges(model, device, card: str):
+    """Phase 23: the kernels past the edges of their earlier plans, each
+    served once through its caller with every counter zeroed just before
+    and held against the plain path: the codes recipe's encoder at T = 533
+    (the hop's rows in shared memory), 534 and 600 (streamed); the Pallas
+    mode's hop at head widths 128, 129 (the full sequence's wide kernel)
+    and 257 (both wide kernels), the full sequence and 64 cache steps;
+    MelExtractor at n_fft 2048 (the FFT) and 1998 (the direct DFT).  Then
+    each new branch timed beside its plain version, bound and library
+    call.  Returns (rows, launch counts) of path ``long_and_wide``."""
+    import torch
+    import torch.nn.functional as F
+    from self_attention_tacotron_torch.ops import attention_core as ac
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    from self_attention_tacotron_torch.ops import stft
+    from self_attention_tacotron_torch.ops.stft import MelExtractor
+    enc = model.encoder
+    counters = {"fused_encode": fe.fused_encode,
+                "fused_self_attention": pa.fused_self_attention,
+                "incremental_attention_step": pa.incremental_attention_step,
+                "spectrogram": stft.spectrograms}   # the rows' names
+    for c in counters.values():
+        c.launches = 0
+    errs = {}
+    for T in EDGE_LENGTHS:
+        x = model.embedding(source_ids(model.hp, T, T, SEED + T, device))
+        lengths = torch.tensor([T], device=device)
+        before = fe.fused_encode.launches
+        got = enc(x, lengths)
+        launched = fe.fused_encode.launches - before
+        enc.fused_inference = False
+        ref = enc(x, lengths)
+        enc.fused_inference = True
+        err = max(_max_err(g, r) for g, r in zip(got[:2], ref[:2]))
+        errs["fused_encode"] = max(errs.get("fused_encode", 0.0), err)
+        streams = fe.hop_streams(T, enc.cbhg_out_units // 2,
+                                 enc.self_attention_out_units)
+        log(f"phase 23 encoder T={T}: fused_encode launches {launched} "
+            f"(hop {'streamed' if streams else 'in shared memory'}); vs the "
+            f"module path max abs err {err:.3e}; card {card}")
+        if launched != 1 or err > TOL_ENCODE or streams != (T > 533):
+            raise AssertionError(f"the encoder at T = {T}")
+    for D in EDGE_HEAD_DIMS:
+        torch.manual_seed(D)
+        mha = ac.MultiHeadAttention(2 * D, 2, use_subsequent_mask=True,
+                                    use_pallas=True).to(device).eval()
+        ref = ac.MultiHeadAttention(2 * D, 2, use_subsequent_mask=True).to(
+            device).eval()
+        ref.load_state_dict(mha.state_dict())
+        x = _normal(device, 1, T_IN, 2 * D, seed=D)
+        before = (pa.fused_self_attention.launches,
+                  pa.incremental_attention_step.launches)
+        err = _max_err(mha(x, x, x)[0], ref(x, x, x)[0])
+        cache = mha.init_cache(1, T_IN, device)
+        cache_r = ref.init_cache(1, T_IN, device)
+        for t in range(T_IN):
+            y, cache, _ = mha.step(x[:, t], t, cache)
+            y_r, cache_r, _ = ref.step(x[:, t], t, cache_r)
+            err = max(err, _max_err(y, y_r))
+        counts = (pa.fused_self_attention.launches - before[0],
+                  pa.incremental_attention_step.launches - before[1])
+        for name in ("fused_self_attention", "incremental_attention_step"):
+            errs[name] = max(errs.get(name, 0.0), err)
+        log(f"phase 23 Pallas-mode hop D={D} (sa_units {2 * D}, 2 heads), "
+            f"T={T_IN}: launches fused_self_attention {counts[0]}, "
+            f"incremental_attention_step {counts[1]}; vs the einsum path max "
+            f"abs err {err:.3e}")
+        if counts != (1, T_IN) or err > TOL_ATTENTION:
+            raise AssertionError(f"the Pallas-mode hop at D = {D}")
+    hp = _audio_hparams(MEL_RECIPE)
+    y = _wave(10 * hp.sample_rate, hp.sample_rate, seed=23)
+    for num_freq in EDGE_NUM_FREQS:
+        args = (hp.sample_rate, num_freq, hp.num_mels, hp.frame_length_ms,
+                hp.frame_shift_ms, hp.ref_level_db)
+        before = stft.spectrograms.launches
+        got = MelExtractor(*args, device=device).spectrograms(y)
+        launched = stft.spectrograms.launches - before
+        ref = MelExtractor(*args, device="cpu").spectrograms(y)
+        spec = [spec_errors(g.cpu().T + hp.ref_level_db,
+                            r.T + hp.ref_level_db) for g, r in zip(got, ref)]
+        n_fft = (num_freq - 1) * 2
+        errs["spectrogram"] = max(errs.get("spectrogram", 0.0),
+                                  *(d for _, d in spec))
+        log(f"phase 23 MelExtractor n_fft={n_fft} (10 s, "
+            f"{'FFT' if stft.takes_fft(n_fft) else 'direct DFT'}): "
+            f"spectrogram launches {launched}; vs the CPU (magnitude / "
+            f"peak, dB) {spec}")
+        if launched != 1 or any(m > TOL_SPEC_MAG or d > TOL_SPEC_DB
+                                for m, d in spec):
+            raise AssertionError(f"the spectrogram at n_fft = {n_fft}")
+    launches = {"long_and_wide": {name: c.launches
+                                  for name, c in counters.items()}}
+
+    # the new branches timed: the streamed hop, both wide kernels, the DFT
+    params, x, kw = encoder_case(model, EDGE_LENGTHS[-1], EDGE_LENGTHS[-1],
+                                 device)
+    T = EDGE_LENGTHS[-1]
+    enc_ms = {t: _time_ms(fe.prepare_encode(*encoder_case(
+        model, t, t, device)[:2], t, **kw)) for t in EDGE_LENGTHS}
+    enc_plain = _time_ms(lambda: fe.fused_encode_reference(params, x, T,
+                                                           **kw), reps=1)
+    enc_bound = encode_bound(params, x, kw)
+    enc_bound_ms = _bound_ms(enc_bound, PEAK_3XTF32_FLOP_PER_S)
+    log("phase 23 fused_encode at T = " + ", ".join(
+        f"{t}: {ms:.4f} ms" for t, ms in enc_ms.items()) + f"; plain at T = "
+        f"{T} {enc_plain:.4f} ms; bound {enc_bound_ms:.4f} ms "
+        f"({enc_bound[0]} bytes, {enc_bound[1]} FLOPs); card {card}")
+    rows = _kernel_rows("fused_encode", "fused_encoder",
+                        "fused_encoder.py:94", launches,
+                        errs["fused_encode"], enc_ms[T], enc_plain,
+                        enc_bound, peak_flops=PEAK_3XTF32_FLOP_PER_S)
+    Dw = EDGE_HEAD_DIMS[1]
+    q, k, v = _attention_inputs(device, 1, T_IN, Dw)
+    att = [_device_ms(fn) for fn in (
+        lambda: pa.fused_self_attention(q, k, v, True),
+        lambda: pa.fused_self_attention_reference(q, k, v, True),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))]
+    att_bound = attention_bound(1, T_IN, Dw, True)
+    Ds, t = EDGE_HEAD_DIMS[2], SERVE_S - 1
+    qs, kc, vc = _step_inputs(device, 1, t, SERVE_S, Ds)
+    mask = torch.ones(1, 1, 1, SERVE_S, dtype=torch.bool, device=device)
+    stp = [_device_ms(fn) for fn in (
+        lambda: pa.incremental_attention_step(qs, kc, vc, t),
+        lambda: pa.incremental_attention_step_reference(qs, kc, vc, t),
+        lambda: F.scaled_dot_product_attention(qs[:, :, None], kc, vc,
+                                               attn_mask=mask))]
+    stp_bound = step_bound(1, t, Ds)
+    log(f"phase 23 wide kernels: fused_self_attention B=1 H={ATTN_HEADS} "
+        f"T={T_IN} D={Dw} causal {att[0]:.5f} ms (plain {att[1]:.5f}, SDPA "
+        f"{att[2]:.5f}, bound {_bound_ms(att_bound):.6f}); "
+        f"incremental_attention_step S={SERVE_S} D={Ds} t={t} "
+        f"{stp[0]:.5f} ms (plain {stp[1]:.5f}, SDPA {stp[2]:.5f}, bound "
+        f"{_bound_ms(stp_bound):.6f}); card {card}")
+    rows += _kernel_rows("fused_self_attention", "self_attention",
+                         "pallas_attention.py:39", launches,
+                         errs["fused_self_attention"], *att[:2], att_bound,
+                         att[2])
+    rows += _kernel_rows("incremental_attention_step",
+                         "incremental_attention", "pallas_attention.py:109",
+                         launches, errs["incremental_attention_step"],
+                         *stp[:2], stp_bound, stp[2])
+    num_freq = EDGE_NUM_FREQS[1]
+    ex = MelExtractor(hp.sample_rate, num_freq, hp.num_mels,
+                      hp.frame_length_ms, hp.frame_shift_ms,
+                      hp.ref_level_db, device=device)
+    ys = ex.signal(y)
+    spec_t = [_time_ms(fn) for fn in (
+        lambda: stft.spectrograms(ys, ex.plan),
+        lambda: stft.spectrograms_plain(ys, ex.plan),
+        lambda: library_spectrograms(ex, ys))]
+    spec_bound = spectrogram_bound(ys.shape[0], ex.plan,
+                                   1 + ys.shape[0] // ex.hop_length)
+    log(f"phase 23 spectrogram direct DFT n_fft={ex.n_fft} (10 s): kernel "
+        f"{spec_t[0]:.4f} ms, plain {spec_t[1]:.4f} ms, torch.stft chain "
+        f"{spec_t[2]:.4f} ms; bound {_bound_ms(spec_bound):.4f} ms; card "
+        f"{card}")
+    rows += _kernel_rows("spectrogram", "spectrogram", "stft.py:65",
+                         launches, errs["spectrogram"], *spec_t[:2],
+                         spec_bound, spec_t[2])
+    return rows, launches
+
+
 def phase_barriers(card: str):
     """Phase 2: the cost of one grid-wide barrier at one block per SM,
     cooperative groups' (the fused encoder's) beside the hand-written ones
@@ -2785,7 +3336,8 @@ def main() -> int:
             timeout=60).stdout.strip().splitlines()
         log(f"phase 1 card: {smi[0] if smi else 'nvidia-smi gave nothing'}"
             f"; torch {torch.__version__} CUDA {torch.version.cuda}")
-        log(smi[0] if smi else torch.cuda.get_device_name(0))
+        card = smi[0] if smi else torch.cuda.get_device_name(0)
+        log(card)
 
         t0 = time.perf_counter()
         kernels = ["fused_encoder", "fused_decode", "fused_train_fwd",
@@ -2799,7 +3351,7 @@ def main() -> int:
             for line in text.splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
-        phase_barriers(smi[0] if smi else torch.cuda.get_device_name(0))
+        phase_barriers(card)
 
         hp = recipe_hparams()
         model = make_model(hp, device)
@@ -2844,6 +3396,16 @@ def main() -> int:
                                                   tmp)
             rows += bf16_rows
             launches.update(bf16_launches)
+            forced = phase_forced_alignment(model, mel_data, mel_ckpt,
+                                            mel_hp, tmp, device)
+            launches.update(forced)
+            rows += forced_rows(forced, errs, codes_timing, mel_rows)
+        siwis_rows, siwis_launches = phase_siwis(device, card)
+        rows += siwis_rows
+        launches.update(siwis_launches)
+        edge_rows, edge_launches = phase_edges(model, device, card)
+        rows += edge_rows
+        launches.update(edge_launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

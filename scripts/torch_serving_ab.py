@@ -4,19 +4,22 @@
 (the Pallas mode's full-sequence self-attention, ``fused_self_attention``)
 against earlier versions of themselves, in one process on one card.
 
-    git archive <commit> self_attention_tacotron_torch/ops | tar -x -C build/ab/<name>
+    git archive <commit> self_attention_tacotron_torch | tar -x -C build/ab/<name>
     python3 scripts/torch_serving_ab.py [--variant NAME=build/ab/NAME ...]
-                                        [--cases encode,step,serve,attention]
+                                        [--cases encode,step,serve,attention,
+                                         wide,whole-serve,whole-mel,
+                                         whole-pallas,whole-train]
                                         [--reps 5]
 
-Each ``--variant`` directory holds a copy of the port's ``ops`` package
-from another commit (under ``self_attention_tacotron_torch/ops``, as ``git
-archive`` writes it; ``build/`` is git-ignored).  It is imported under a
-name of its own, so its ``cuda_build`` builds its own ``csrc`` into
-``<dir>/build/torch_kernels``; the working tree's package is the variant
-``tree``.  The card's name and power limit come first, then what ``nvcc
--Xptxas -v`` says of each variant's two kernels (registers, stack frame,
-spills).  Random weights from seed 0 (``chip_smoke.py``'s models).
+Each ``--variant`` directory holds a copy of the port's package from
+another commit (under ``self_attention_tacotron_torch``, as ``git archive``
+writes it; ``build/`` is git-ignored; the kernel cases need only its
+``ops``).  It is imported under a name of its own, so its ``cuda_build``
+builds its own ``csrc`` into ``<dir>/build/torch_kernels``; the working
+tree's package is the variant ``tree``. The card's name and power limit come
+first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
+(registers, stack frame, spills). Random weights from seed 0
+(``chip_smoke.py``'s models).
 
 * ``encode``: #1 at the codes recipe's widths and at the VCTK recipe's (T =
   L = 64): each variant's max abs error against the working tree's plain
@@ -39,11 +42,28 @@ spills).  Random weights from seed 0 (``chip_smoke.py``'s models).
   3xTF32 rate; for a variant that profiles its launch
   (``prepare_attention(profile=True)``), the split of its longest block
   into loads, scores, softmax and values.
+* ``wide``: the branches past the kernels' earlier plans: #5's wide
+  kernel (B = 1, T = 64, D = 129, causal; B = 8, T = 256, D = 256), #6's
+  (S = 450, D = 257; S = 3000, D = 512) and #1's streamed hop (T = 600 at
+  the codes widths): errors and times as ``attention`` and ``encode``
+  (SDPA beside #5 and #6), in turns.
 * ``serve``: the codes model's call per utterance on the host clock (what
   ``cli.predict.main_code`` prints as its wall), three synthetic sources of
   40-64 phones, fused paths (#1, #2) and the Pallas attention mode (#5,
   #6), each variant's kernels swapped into the working tree's model in
   turns, median of ``--reps``.
+* ``whole-*``: the whole package of each variant end to end (its models,
+  ops and kernels), each variant building its own model from the same
+  recipe with weights from seed 0 (``utils.convert.init_parameters``), so
+  the variants compute the same function and their outputs are compared;
+  host clock, one warm-up, then ``--reps`` calls in turns.
+  ``whole-serve``: the codes recipe's call per utterance at batch 1 (#1,
+  #2), three sources of 40-64 phones; ``whole-mel``: the LJSpeech recipe
+  with ``decoder_fused_inference`` (the module encoder and #2), one
+  source of 64 characters, 500 steps; ``whole-pallas``: the codes recipe
+  in the Pallas attention mode (#5, #6), one source; ``whole-train``: one
+  codes training step at B = 32 on a synthetic batch of 250 steps
+  (``parallel.make_train_step``: the encoder's module path, #3 and #4).
 """
 
 import argparse
@@ -57,24 +77,36 @@ import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("fused_encoder", "incremental_attention", "self_attention")
+WHOLE_KERNELS = KERNELS + ("fused_decode", "fused_train_fwd",
+                           "fused_train_bwd")
+CODES = os.path.join(ROOT, "examples", "codes", "self-attention-tacotron.json")
+MEL = os.path.join(ROOT, "examples", "ljspeech", "tacotron.json")
+SEED = 0
 ATTENTION_SHAPES = [(1, 64, 16, False), (32, 256, 128, False),
                     (32, 256, 128, True)]
 STEP_SHAPES = [(B, S, t) for B in (1, 32) for S in (250, 450)
                for t in sorted({0, 63, 249, S - 1})]
+WIDE_SHAPES = [(1, 64, 129, True), (8, 256, 256, False)]
+WIDE_STEPS = [(450, 257), (3000, 512)]
+WIDE_ENCODE_T = 600
 
 
 def load_variant(name: str, path: str):
-    """The ops package copied under ``path``, imported as ``_ab_<name>``."""
+    """The package copied under ``path``, as ``_ab_<name>`` (its modules
+    import on first use)."""
     pkg = f"_ab_{name}"
     root = types.ModuleType(pkg)
     root.__path__ = [os.path.join(path, "self_attention_tacotron_torch")]
     sys.modules[pkg] = root
-    return importlib.import_module(f"{pkg}.ops")
+    return root
 
 
-def _modules(ops):
-    return (importlib.import_module(f"{ops.__name__}.fused_encoder"),
-            importlib.import_module(f"{ops.__name__}.pallas_attention"))
+def sub(pkg, name: str):
+    return importlib.import_module(f"{pkg.__name__}.{name}")
+
+
+def _modules(pkg):
+    return sub(pkg, "ops.fused_encoder"), sub(pkg, "ops.pallas_attention")
 
 
 def _ms(launch) -> float:
@@ -128,8 +160,8 @@ def encode_case(variants, device, reps: int) -> None:
         params, x, kw = cs.encoder_case(model, cs.T_IN, cs.T_IN, device)
         ref = tree.fused_encode_reference(params, x, cs.T_IN, **kw)
         launches = {}
-        for name, ops in variants.items():
-            fe, _ = _modules(ops)
+        for name, pkg in variants.items():
+            fe, _ = _modules(pkg)
             launches[name] = fe.prepare_encode(params, x, cs.T_IN, **kw)
             got = launches[name]()
             torch.cuda.synchronize()
@@ -162,8 +194,8 @@ def step_case(variants, device) -> None:
         q = cs._normal(device, B, H, D, seed=3 + t)
         ref = tree.incremental_attention_step_reference(q, kc, vc, t)
         fns = {}
-        for name, ops in variants.items():
-            _, pa = _modules(ops)
+        for name, pkg in variants.items():
+            _, pa = _modules(pkg)
             got = pa.incremental_attention_step(q, kc, vc, t)
             torch.cuda.synchronize()
             print(f"step B={B} S={S} t={t}: {name} max abs err "
@@ -197,8 +229,8 @@ def attention_case(variants, device, reps: int) -> None:
         q, k, v = cs._attention_inputs(device, B, T, D)
         ref = tree.fused_self_attention_reference(q, k, v, causal)
         fns = {}
-        for name, ops in variants.items():
-            _, pa = _modules(ops)
+        for name, pkg in variants.items():
+            _, pa = _modules(pkg)
             got = pa.fused_self_attention(q, k, v, causal)
             torch.cuda.synchronize()
             print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}",
@@ -213,12 +245,66 @@ def attention_case(variants, device, reps: int) -> None:
         for name, ts in times.items():
             print(f"{tag}: {name} {_runs(ts)}; bound {bound:.5f} ms",
                   flush=True)
-        for name, ops in variants.items():
-            _, pa = _modules(ops)
+        for name, pkg in variants.items():
+            _, pa = _modules(pkg)
             if hasattr(pa, "prepare_attention"):
                 print(f"{tag}: {name} " + cs.attention_split(
                     pa, q, k, v, causal, statistics.median(times[name])),
                     flush=True)
+
+
+def wide_case(variants, device, reps: int) -> None:
+    """The branches past the earlier plans: #5's wide kernel (D = 129 and
+    256), #6's (D = 257) and #1's streamed hop (T = 600 at the codes
+    widths): each variant's error against the working tree's plain
+    version and its time, in turns (#5 and #6 beside SDPA)."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import fused_encoder as tree_fe
+    from self_attention_tacotron_torch.ops import pallas_attention as tree
+    cases = []
+    for B, T, D, causal in WIDE_SHAPES:
+        q, k, v = cs._attention_inputs(device, B, T, D)
+        cases.append((
+            f"wide attention B={B} T={T} D={D} causal={causal}",
+            lambda pa, q=q, k=k, v=v, c=causal:
+                pa.fused_self_attention(q, k, v, c),
+            tree.fused_self_attention_reference(q, k, v, causal),
+            lambda q=q, k=k, v=v, c=causal:
+                F.scaled_dot_product_attention(q, k, v, is_causal=c)))
+    for S, D in WIDE_STEPS:
+        q, kc, vc = cs._step_inputs(device, 1, S - 1, S, D)
+        cases.append((
+            f"wide step S={S} D={D} t={S - 1}",
+            lambda pa, q=q, kc=kc, vc=vc, t=S - 1:
+                pa.incremental_attention_step(q, kc, vc, t),
+            tree.incremental_attention_step_reference(q, kc, vc, S - 1),
+            lambda q=q, kc=kc, vc=vc: F.scaled_dot_product_attention(
+                q[:, :, None], kc, vc)))
+    for tag, run, ref, sdpa in cases:
+        fns = {"sdpa": sdpa}
+        for name, pkg in variants.items():
+            _, pa = _modules(pkg)
+            got = run(pa)
+            torch.cuda.synchronize()
+            print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}",
+                  flush=True)
+            fns[name] = (lambda pa=pa: run(pa))
+        for name, ts in in_turns(fns, reps, cs._device_ms).items():
+            print(f"{tag}: {name} {_runs(ts)}", flush=True)
+    model = cs.make_model(cs.recipe_hparams(), device)
+    T = WIDE_ENCODE_T
+    params, x, kw = cs.encoder_case(model, T, T, device)
+    ref = tree_fe.fused_encode_reference(params, x, T, **kw)
+    launches = {}
+    for name, pkg in variants.items():
+        fe, _ = _modules(pkg)
+        launches[name] = fe.prepare_encode(params, x, T, **kw)
+        err = max(cs._max_err(g, r) for g, r in zip(launches[name](), ref))
+        print(f"wide encode T={T}: {name} max abs err {err:.3e}", flush=True)
+    for name, ts in in_turns(launches, reps, _ms).items():
+        print(f"wide encode T={T}: {name} {_runs(ts)}", flush=True)
 
 
 def serve_case(variants, device, reps: int) -> None:
@@ -266,11 +352,111 @@ def serve_case(variants, device, reps: int) -> None:
      attention_core.fused_self_attention) = own
 
 
+def host_ms(fn) -> float:
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def build_model(pkg, recipe: str, hparams: str, device):
+    hp = sub(pkg, "config").default_hparams().parse_json_file(recipe)
+    hp.parse(hparams)
+    model = sub(pkg, "models").tacotron_model_factory(hp)
+    sub(pkg, "utils.convert").init_parameters(model, SEED)
+    return hp, model.to(device).eval()
+
+
+def whole_report(case: str, fns, reps: int, outs) -> None:
+    """One warm-up each, ``reps`` calls in turns, then each variant's
+    median and range and the largest output difference between them."""
+    for fn in fns.values():
+        host_ms(fn)
+    times = in_turns(fns, reps, host_ms)
+    names = list(outs)
+    diff = max(float((outs[n] - outs[names[0]]).abs().max())
+               for n in names[1:]) if len(names) > 1 else 0.0
+    for name, ts in times.items():
+        print(f"{case}: {name} {statistics.median(ts):.3f} ms (runs "
+              f"{min(ts):.3f}-{max(ts):.3f})", flush=True)
+    print(f"{case}: outputs max abs diff between variants {diff:.3e}",
+          flush=True)
+
+
+def whole_serve_case(variants, case: str, device, reps: int) -> None:
+    import numpy as np
+    import torch
+    recipe, hparams, lengths = {
+        "whole-serve": (CODES, "", None),
+        "whole-mel": (MEL, "decoder_fused_inference=true", [64]),
+        "whole-pallas": (CODES, "use_pallas_attention=true,"
+                         "decoder_fused_inference=false,"
+                         "encoder_fused_inference=false", [64])}[case]
+    if lengths is None:
+        rng = np.random.default_rng(SEED)
+        lengths = [int(rng.integers(40, 65)) for _ in range(3)]
+    models = {n: build_model(p, recipe, hparams, device)[1]
+              for n, p in variants.items()}
+    for i, L in enumerate(lengths):
+        src = torch.from_numpy(np.random.default_rng(SEED + i).integers(
+            1, 40, (1, L))).to(device)
+        batches = {n: sub(p, "models").Batch(
+            source=src, source_length=torch.tensor([L], device=device))
+            for n, p in variants.items()}
+        outs = {}
+
+        def call(n):
+            outs[n] = models[n](batches[n]).outputs
+        whole_report(f"{case} utterance {i} (L={L})",
+                     {n: (lambda n=n: call(n)) for n in variants}, reps,
+                     outs)
+
+
+def whole_train_case(variants, device, reps: int) -> None:
+    import numpy as np
+    import torch
+    B, S, L = 32, 250, 64
+    rng = np.random.default_rng(SEED + 1)
+    lengths = rng.integers(40, L + 1, B)
+    src = np.zeros((B, L), np.int64)
+    for b, n in enumerate(lengths):
+        src[b, :n] = rng.integers(1, 40, n)
+    codes = None
+    done = np.zeros((B, S), np.float32)
+    done[:, -1] = 1.0
+    steps = {}
+    for n, p in variants.items():
+        hp, model = build_model(p, CODES, "", device)
+        step = sub(p, "parallel").make_train_step(hp)
+        state = sub(p, "parallel").create_train_state(model, hp)
+        if codes is None:
+            codes = rng.integers(0, hp.num_mels, (B, S))
+        target = np.eye(hp.num_mels, dtype=np.float32)[codes]
+        batch = sub(p, "models").Batch(
+            source=torch.from_numpy(src),
+            source_length=torch.from_numpy(lengths),
+            target=torch.from_numpy(target),
+            target_length=torch.full((B,), S),
+            done=torch.from_numpy(done),
+            spec_loss_mask=torch.ones(B, S), binary_loss_mask=torch.ones(B, S))
+        steps[n] = (step, state, batch)
+    losses = {}
+
+    def call(n):
+        step, state, batch = steps[n]
+        with torch.enable_grad():
+            losses[n] = step(state, batch)["loss"].reshape(1)
+    whole_report(f"whole-train step B={B} S={S}",
+                 {n: (lambda n=n: call(n)) for n in variants}, reps, losses)
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--variant", action="append", default=[],
-                    help="NAME=DIR of an earlier ops package")
+                    help="NAME=DIR of an earlier copy of the package")
     ap.add_argument("--cases", default="encode,step,serve")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
@@ -283,21 +469,28 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(f"card: {smi}; torch {torch.__version__}", flush=True)
-    from self_attention_tacotron_torch import ops as tree
+    import self_attention_tacotron_torch as tree
     variants = {"tree": tree}
     for spec in args.variant:
         name, path = spec.split("=", 1)
         variants[name] = load_variant(name, os.path.abspath(path))
-    builds = {name: importlib.import_module(f"{ops.__name__}.cuda_build")
-              for name, ops in variants.items()}
+    cases = args.cases.split(",")
+    kernels = (WHOLE_KERNELS if any(c.startswith("whole-") for c in cases)
+               else KERNELS)
+    builds = {name: sub(pkg, "ops.cuda_build")
+              for name, pkg in variants.items()}
     jobs = {(name, k): b._start_build(k) for name, b in builds.items()
-            for k in KERNELS}                       # all at once
+            for k in kernels}                       # all at once
     for (name, k), job in jobs.items():
         for line in builds[name]._finish_build(k, job).splitlines():
             if any(w in line for w in ("registers", "stack", "spill")):
                 print(f"ptxas {name} {k}: {line.strip()}", flush=True)
-    for case in args.cases.split(","):
-        if case == "encode":
+    for case in cases:
+        if case == "whole-train":
+            whole_train_case(variants, device, args.reps)
+        elif case in ("whole-serve", "whole-mel", "whole-pallas"):
+            whole_serve_case(variants, case, device, args.reps)
+        elif case == "encode":
             encode_case(variants, device, args.reps)
         elif case == "step":
             step_case(variants, device)
@@ -305,6 +498,8 @@ def main() -> int:
             serve_case(variants, device, args.reps)
         elif case == "attention":
             attention_case(variants, device, args.reps)
+        elif case == "wide":
+            wide_case(variants, device, args.reps)
         else:
             raise ValueError(f"unknown case {case}")
     return 0

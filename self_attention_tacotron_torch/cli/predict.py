@@ -12,9 +12,16 @@ at a time, restores the port's checkpoint, decodes each utterance
   ``use_postnet_v2``, the decoder's otherwise) and a mel prediction record
   with the normalised ground truth and the first source's alignment.
 
-It prints each utterance's decode steps and wall time.  Runs on ``cuda``
-unless ``--device cpu``.  The model logs which path serves the encoder's
-and the decoder's self-attention, as its gates chose it: the fused kernels
+Each utterance goes through ``parallel.make_predict_step``.  With
+``--hparams use_forced_alignment_mode=true`` it decodes twice: the first
+pass free-running (the fused kernels where their gates let it), the second
+in VALIDATION over the utterance's target steps (its target padded to its
+bucket's length, as the JAX CLI's merged batch does), replaying the first
+pass's alignments on the plain path; the dump and the record come from the
+second pass's output and lengths.  It prints each utterance's decode steps
+(of each pass) and wall time.  Runs on ``cuda`` unless ``--device cpu``.
+The model logs which path serves the encoder's and the decoder's
+self-attention, as its gates chose it: the fused kernels
 (``encoder_fused_inference``, ``decoder_fused_inference``), the Pallas
 attention mode (``use_pallas_attention`` with the fused paths off:
 ``--hparams use_pallas_attention=true,decoder_fused_inference=false,
@@ -66,11 +73,14 @@ def build_argparser(kind: str = "codes") -> argparse.ArgumentParser:
 def predict(kind: str, argv=None) -> int:
     args = build_argparser(kind).parse_args(argv)
     from ..config import load_hparams
-    from ..data.dataset import find_dataset_files, iter_utterances, load_key_list
+    from ..data.dataset import (Bucketing, find_dataset_files,
+                                iter_utterances, load_key_list, pad_batch,
+                                to_model_batch)
     from ..data.records import (MelPredictionRecord, PredictionRecord,
                                 write_mel_prediction_record,
                                 write_prediction_record)
     from ..models import Batch, tacotron_model_factory
+    from ..parallel import make_predict_step
     from ..utils.convert import load_checkpoint
 
     hp = load_hparams(args)
@@ -101,20 +111,30 @@ def predict(kind: str, argv=None) -> int:
 
     count = 0
     r = hp.outputs_per_step
+    predict_step = make_predict_step(hp)
+    bucketing = Bucketing(hp)
     for u in iter_utterances(src, tgt, hp, kind):
         if args.limit is not None and count >= args.limit:
             break
-        batch = Batch(source=torch.from_numpy(u.source[None]).to(device),
-                      source_length=torch.tensor([u.source_length],
-                                                 device=device),
-                      speaker_id=torch.tensor([u.speaker_id], device=device))
+        if hp.use_forced_alignment_mode:   # the second pass needs the target
+            batch = to_model_batch(pad_batch(
+                [u], hp, bucketing.target_pad_length(
+                    bucketing.bucket_id(u.target_length)),
+                target_kind=kind)).to(device)
+        else:
+            batch = Batch(source=torch.from_numpy(u.source[None]).to(device),
+                          source_length=torch.tensor([u.source_length],
+                                                     device=device),
+                          speaker_id=torch.tensor([u.speaker_id],
+                                                  device=device))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        out = model(batch)
+        passes = predict_step(model, batch)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
+        out = passes[-1]
         n_steps = int(out.lengths[0])
         n_frames = n_steps * r
         ground_truth = (u.target[:u.target_length] if u.target is not None
@@ -143,7 +163,9 @@ def predict(kind: str, argv=None) -> int:
                     ground_truth_mel=ground_truth,
                     alignment=out.alignments[0][0].cpu().numpy(),
                     text=u.meta.text, source=source), record)
-        print(f"predicted {u.meta.key}: {n_steps} decode steps, "
+        forced = (f" (forced-alignment pass after {int(passes[0].lengths[0])}"
+                  " free-running steps)" if len(passes) > 1 else "")
+        print(f"predicted {u.meta.key}: {n_steps} decode steps{forced}, "
               f"{wall * 1e3:.3f} ms wall on {device.type}", flush=True)
         count += 1
     log.info("wrote %d predictions to %s", count, args.output_dir)

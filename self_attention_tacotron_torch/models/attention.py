@@ -12,14 +12,20 @@ Counterpart of the JAX package's ``models/attention.py``:
   agent); ``cumulative_weights`` selects whether the conv sees the running
   sum of alignments.
 
+* ``TeacherForcingAttention`` — ``teacher_forcing_additive`` /
+  ``teacher_forcing_forward``: replays supplied alignments step by step
+  and ignores the query (no parameters).
+
 Each mechanism has ``precompute(memory, lengths)`` (keys + mask, once per
 utterance), ``initial_state`` and ``step(query, state, pack)`` ->
-(alignments (B, T_mem), new state).  Masking fills -1e9.
+(alignments (B, T_mem), new state).  Masking fills -1e9.  A pack's
+``teacher_alignments`` (B, T_steps, T_mem) makes the decoder replay them in
+place of any mechanism (the forced-alignment mode's second pass).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -33,6 +39,7 @@ class MemoryPack(NamedTuple):
     keys: torch.Tensor    # (B, T_mem, num_units)
     values: torch.Tensor  # (B, T_mem, C_mem)
     mask: torch.Tensor    # (B, T_mem) bool
+    teacher_alignments: Optional[torch.Tensor] = None  # (B, T_steps, T_mem)
 
 
 class AttentionOptions(NamedTuple):
@@ -160,6 +167,40 @@ class ForwardAttention(_LocationEnergy):
         return alpha, ForwardAttentionState(next_alignments, alpha, prev_u)
 
 
+def replayed_alignment(teacher_alignments: torch.Tensor,
+                       index: int) -> torch.Tensor:
+    """Step ``index``'s row of (B, T_steps, T_mem) supplied alignments,
+    the index clipped to [0, T_steps - 1] as the JAX package clips it."""
+    return teacher_alignments[:, min(max(index, 0),
+                                     teacher_alignments.shape[1] - 1)]
+
+
+class TeacherForcingState(NamedTuple):
+    alignments: torch.Tensor  # (B, T_mem)
+    index: int
+
+
+class TeacherForcingAttention(nn.Module):
+    """Replays ``pack.teacher_alignments`` one step at a time, ignoring the
+    query; no parameters."""
+
+    def precompute(self, memory, lengths,
+                   teacher_alignments=None) -> MemoryPack:
+        return MemoryPack(torch.zeros_like(memory[..., :1]), memory,
+                          _sequence_mask(memory, lengths),
+                          teacher_alignments)
+
+    def initial_state(self, batch: int, max_time: int, device=None
+                      ) -> TeacherForcingState:
+        return TeacherForcingState(
+            torch.zeros(batch, max_time, device=device), -1)
+
+    def step(self, query, state: TeacherForcingState, pack: MemoryPack):
+        index = state.index + 1
+        alignments = replayed_alignment(pack.teacher_alignments, index)
+        return alignments, TeacherForcingState(alignments, index)
+
+
 def attention_mechanism_factory(options: AttentionOptions, memory_dim: int,
                                 query_dim: int) -> nn.Module:
     if options.attention == "forward":
@@ -178,5 +219,8 @@ def attention_mechanism_factory(options: AttentionOptions, memory_dim: int,
                                           options.cumulative_weights)
     if options.attention == "additive":
         return AdditiveAttention(memory_dim, query_dim, options.num_units)
+    if options.attention in ("teacher_forcing_forward",
+                             "teacher_forcing_additive"):
+        return TeacherForcingAttention()
     raise NotImplementedError(
         f"attention mechanism {options.attention!r} is not ported yet")

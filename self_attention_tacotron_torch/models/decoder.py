@@ -35,7 +35,10 @@ inputs); free-running, it is fed its own outputs: as softmax probabilities
 with ``feedback_softmax`` (the code model), raw otherwise (the mel model).
 INFERENCE always feeds back the raw last ``n_feed_frame`` frames.
 VALIDATION never fuses; its lengths are the step count and nothing is
-masked.
+masked.  ``teacher_alignments`` (VALIDATION and INFERENCE) replay supplied
+alignments in place of the mechanisms, step t taking row min(t, T_steps -
+1) (the forced-alignment mode's second pass; the fused gate refuses the
+replay, as the JAX package's does).
 
 Three inference paths, as in the JAX package:
 * ``_decode_path`` — every one of ``max_iters`` steps (the scan path);
@@ -76,7 +79,8 @@ from ..ops import fused_decode as fd
 from ..ops import fused_train as ft
 from ..ops.rnn import ZoneoutLSTMCell
 from .attention import (AdditiveAttention, AttentionOptions, ForwardAttention,
-                        attention_mechanism_factory, compute_context)
+                        TeacherForcingAttention, attention_mechanism_factory,
+                        compute_context, replayed_alignment)
 from .encoders import (SelfAttentionTransformer, hop_path, log_path_once,
                        weights_key)
 from .prenet import PreNetStack
@@ -207,16 +211,17 @@ class TacotronDecoder(nn.Module):
     # ------------------------------------------------------------ public API
     def forward(self, sources: Sequence[torch.Tensor],
                 memory_lengths: Sequence[torch.Tensor],
-                speaker_embed: Optional[torch.Tensor] = None
+                speaker_embed: Optional[torch.Tensor] = None,
+                teacher_alignments: Optional[Sequence[torch.Tensor]] = None
                 ) -> DecoderOutput:
         """INFERENCE; ``speaker_embed`` (B, E) conditions the speaker
-        prenet (``speaker_dim``)."""
+        prenet (``speaker_dim``); ``teacher_alignments`` (per source (B,
+        T_steps, T_mem)) are replayed in place of the mechanisms."""
         assert len(sources) == self.num_sources
         B = sources[0].shape[0]
-        packs = tuple(mech.precompute(src, ln) for mech, src, ln in
-                      zip(self.attention_mechanisms, sources, memory_lengths))
+        packs = self._packs(sources, memory_lengths, teacher_alignments)
         if self.fused_inference:
-            reason = self._fused_unsupported_reason(B)
+            reason = self._fused_unsupported_reason(B, teacher_alignments)
             inputs = None
             if reason is None:
                 inputs = self.fused_inputs(packs, speaker_embed)
@@ -237,24 +242,42 @@ class TacotronDecoder(nn.Module):
     def validation_forward(self, sources: Sequence[torch.Tensor],
                            memory_lengths: Sequence[torch.Tensor],
                            target: torch.Tensor, teacher_forcing: bool,
-                           speaker_embed: Optional[torch.Tensor] = None
+                           speaker_embed: Optional[torch.Tensor] = None,
+                           teacher_alignments: Optional[
+                               Sequence[torch.Tensor]] = None
                            ) -> DecoderOutput:
         """VALIDATION: the decode loop over the target's T // r steps,
-        teacher-forced or free-running."""
+        teacher-forced or free-running; with ``teacher_alignments`` (per
+        source (B, T_steps, T_mem)) step t attends with row
+        min(t, T_steps - 1) of them, whatever the mechanism (the
+        forced-alignment mode's second pass)."""
         B = sources[0].shape[0]
         num_steps = target.shape[1] // self.outputs_per_step
-        packs = tuple(mech.precompute(src, ln) for mech, src, ln in
-                      zip(self.attention_mechanisms, sources, memory_lengths))
+        packs = self._packs(sources, memory_lengths, teacher_alignments)
         teacher = (self._teacher_inputs(target, num_steps) if teacher_forcing
                    else None)
         return self._decode_path(packs, B, num_steps, DecoderMode.VALIDATION,
                                  teacher, speaker_embed)
 
     # ----------------------------------------------------------- step pieces
+    def _packs(self, sources, memory_lengths, teacher_alignments=None):
+        """Each source's precomputed pack, carrying its supplied alignments
+        when there are any."""
+        packs = []
+        for i, (mech, src, ln) in enumerate(zip(
+                self.attention_mechanisms, sources, memory_lengths)):
+            ta = None if teacher_alignments is None else teacher_alignments[i]
+            if isinstance(mech, TeacherForcingAttention):
+                packs.append(mech.precompute(src, ln, ta))
+            else:
+                packs.append(mech.precompute(src, ln)._replace(
+                    teacher_alignments=ta))
+        return tuple(packs)
+
     def _initial_carry(self, B, packs, device, num_steps,
                        speaker_embed=None):
         ctx_dim = sum(int(p.values.shape[-1]) for p in packs)
-        return dict(speaker_embed=speaker_embed,
+        return dict(speaker_embed=speaker_embed, time=0,
             att_lstm=self.attention_lstm.initial_state(B, device),
             lstm1=self.decoder_lstm1.initial_state(B, device),
             lstm2=self.decoder_lstm2.initial_state(B, device),
@@ -277,7 +300,12 @@ class TacotronDecoder(nn.Module):
         aligns, contexts, new_states = [], [], []
         for mech, state, pack in zip(self.attention_mechanisms,
                                      carry["att_states"], packs):
-            alignment, new_state = mech.step(h, state, pack)
+            if (pack.teacher_alignments is not None
+                    and not isinstance(mech, TeacherForcingAttention)):
+                alignment, new_state = replayed_alignment(
+                    pack.teacher_alignments, carry["time"]), state
+            else:
+                alignment, new_state = mech.step(h, state, pack)
             aligns.append(alignment)
             contexts.append(compute_context(alignment, pack.values))
             new_states.append(new_state)
@@ -288,9 +316,9 @@ class TacotronDecoder(nn.Module):
         o1 = proj + l1
         lstm2_state, l2 = self.decoder_lstm2(carry["lstm2"], o1, training,
                                              generator)
-        new_carry = dict(carry, att_lstm=att_state, lstm1=lstm1_state,
-                         lstm2=lstm2_state, att_states=tuple(new_states),
-                         prev_context=context)
+        new_carry = dict(carry, time=carry["time"] + 1, att_lstm=att_state,
+                         lstm1=lstm1_state, lstm2=lstm2_state,
+                         att_states=tuple(new_states), prev_context=context)
         return new_carry, (o1 + l2, aligns)
 
     def _step(self, carry, t, packs, mode=DecoderMode.INFERENCE,
@@ -416,8 +444,7 @@ class TacotronDecoder(nn.Module):
         step loop with ``teacher_forcing``)."""
         B = sources[0].shape[0]
         num_steps = target.shape[1] // self.outputs_per_step
-        packs = tuple(mech.precompute(src, ln) for mech, src, ln in
-                      zip(self.attention_mechanisms, sources, memory_lengths))
+        packs = self._packs(sources, memory_lengths)
         teacher = self._teacher_inputs(target, num_steps)
         reason = None
         if self.fused_train:
@@ -491,6 +518,9 @@ class TacotronDecoder(nn.Module):
         return ft.unsupported_reason(spec)
 
     def _fused_attention_unsupported_reason(self) -> Optional[str]:
+        for m in self.attention_mechanisms:
+            if isinstance(m, TeacherForcingAttention):
+                return "unsupported attention mechanism: " + type(m).__name__
         loc_kernels = {m.attention_kernel for m in self.attention_mechanisms
                        if not isinstance(m, AdditiveAttention)}
         if len(loc_kernels) > 1:
@@ -571,16 +601,18 @@ class TacotronDecoder(nn.Module):
             compute_dtype=self.fused_train_dtype)
 
     # ------------------------------------------------- the fused kernel
-    def _fused_unsupported_reason(self, B) -> Optional[str]:
+    def _fused_unsupported_reason(self, B, teacher_alignments=None
+                                  ) -> Optional[str]:
         """Configuration gate of the fused decode (the JAX package's
         ``_fused_unsupported_reason`` and ``_fused_attention_unsupported_
         reason``): the output and KV-cache buffer limit and the mechanism
         checks; then ``_fused_kernel_unsupported_reason`` (the kernel's
         shared-memory plan, which bounds the batch).  Every batch, source
         kind and memory length is fused otherwise.  The JAX gate's other
-        reasons (MGC/LF0 outputs, inference dropout, forced alignments,
-        smoothing, the transition agent) are configurations the port's
-        model refuses before it gets here.  ``fused_dtype`` bfloat16 is
+        reasons (MGC/LF0 outputs, inference dropout, smoothing, the
+        transition agent) are configurations the port's model refuses
+        before it gets here; a forced-alignment replay is refused here, as
+        in the JAX package.  ``fused_dtype`` bfloat16 is
         the kernel's bf16 storage mode (``merge_weights``'s
         ``compute_dtype``)."""
         buf_bytes = B * self.max_iters * 4 * (
@@ -591,6 +623,8 @@ class TacotronDecoder(nn.Module):
                     "(> 64 MiB gate)")
         if self.fused_dtype not in ("float32", "bfloat16"):
             return f"fused_dtype={self.fused_dtype!r} is not a storage dtype"
+        if teacher_alignments is not None:
+            return "forced-alignment replay is not fused"
         return self._fused_attention_unsupported_reason()
 
     def _fused_kernel_unsupported_reason(self, inputs) -> Optional[str]:

@@ -4,13 +4,16 @@ Counterpart of the JAX package's ``models/encoders.py``:
 * ``_CBHGTrunk`` — conv bank K=1..16 -> max pool -> two projection convs ->
   residual -> (dim-adjust dense) -> highway stack;
 * ``ZoneoutCBHG`` — the trunk followed by a bidirectional zoneout LSTM;
+* ``CBHG`` — the trunk followed by a bidirectional GRU (original Tacotron);
 * ``SelfAttentionTransformer`` — one hop: x + tanh(Dense(MHA(x)));
-* ``ZoneoutEncoderV1`` — prenet -> ZoneoutCBHG (the mel recipe's encoder,
-  ``use_zoneout_at_encoder``; the bi-GRU ``CBHG`` of ``use_zoneout=False``
-  is not ported yet and raises);
+* ``ZoneoutEncoderV1`` — prenet -> ZoneoutCBHG with
+  ``use_zoneout_at_encoder`` (the mel recipes' encoder), else prenet ->
+  CBHG (``examples/codes/tacotron.json``);
 * ``SelfAttentionCBHGEncoder`` — prenet -> ZoneoutCBHG -> projection ->
   self-attention hops.  With ``fused_inference`` at batch 1 it merges its
-  weights (``_fused_call``) and runs ``ops/fused_encoder.fused_encode``;
+  weights (``_fused_call``) and runs ``ops/fused_encoder.fused_encode``
+  (any source length; widths the kernel has no room for raise on the
+  card, ``fused_encoder.unsupported_reason``);
   in training (``is_training``: prenet dropout, batch statistics, zoneout
   and attention dropout drawn from the caller's ``torch.Generator``) it
   always takes the module path.  ``use_pallas`` (the Pallas attention mode)
@@ -33,7 +36,7 @@ from torch import nn
 from ..ops import fused_encoder as fe
 from ..ops.attention_core import SelfAttention
 from ..ops.conv import BN_EPSILON, Conv1dBN, ConvBank, HighwayNet
-from ..ops.rnn import BiZoneoutLSTM, fold_forget_bias
+from ..ops.rnn import BiGRU, BiZoneoutLSTM, fold_forget_bias
 from .prenet import PreNetStack
 
 _logger = logging.getLogger(__name__)
@@ -110,11 +113,30 @@ class ZoneoutCBHG(nn.Module):
                            is_training, generator)
 
 
+class CBHG(nn.Module):
+    """The trunk followed by a bidirectional GRU of out_units // 2 units a
+    direction (no zoneout)."""
+
+    def __init__(self, in_channels: int, out_units: int, conv_channels: int,
+                 max_filter_width: int, projection1_out_channels: int,
+                 projection2_out_channels: int, num_highway: int):
+        super().__init__()
+        self.trunk = _CBHGTrunk(in_channels, out_units, conv_channels,
+                                max_filter_width, projection1_out_channels,
+                                projection2_out_channels, num_highway)
+        self.bigru = BiGRU(out_units // 2, out_units // 2)
+
+    def forward(self, xs, input_lengths=None, is_training: bool = False,
+                generator=None):
+        return self.bigru(self.trunk(xs, is_training), input_lengths)
+
+
 class ZoneoutEncoderV1(nn.Module):
-    """PreNet stack -> ZoneoutCBHG; returns the bi-LSTM output (B, T,
-    cbhg_out_units).  Training (``is_training``: prenet dropout, batch
-    statistics and zoneout from the caller's ``torch.Generator``) and
-    inference take the same module path."""
+    """PreNet stack -> ZoneoutCBHG (``use_zoneout``) or CBHG; returns the
+    bidirectional recurrence's output (B, T, cbhg_out_units).  Training
+    (``is_training``: prenet dropout, batch statistics and zoneout from the
+    caller's ``torch.Generator``) and inference take the same module
+    path."""
 
     def __init__(self, in_channels: int, cbhg_out_units: int = 256,
                  conv_channels: int = 128, max_filter_width: int = 16,
@@ -125,16 +147,13 @@ class ZoneoutEncoderV1(nn.Module):
                  zoneout_factor_cell: float = 0.0,
                  zoneout_factor_output: float = 0.0):
         super().__init__()
-        if not use_zoneout:
-            raise NotImplementedError(
-                "ZoneoutEncoderV1 with use_zoneout_at_encoder=False needs the "
-                "bi-GRU CBHG, which is not ported yet")
         self.prenets = PreNetStack(in_channels, prenet_out_units, drop_rate)
-        self.cbhg = ZoneoutCBHG(prenet_out_units[-1], cbhg_out_units,
-                                conv_channels, max_filter_width,
-                                projection1_out_channels,
-                                projection2_out_channels, num_highway,
-                                zoneout_factor_cell, zoneout_factor_output)
+        trunk = (prenet_out_units[-1], cbhg_out_units, conv_channels,
+                 max_filter_width, projection1_out_channels,
+                 projection2_out_channels, num_highway)
+        self.cbhg = (ZoneoutCBHG(*trunk, zoneout_factor_cell,
+                                 zoneout_factor_output)
+                     if use_zoneout else CBHG(*trunk))
 
     def forward(self, inputs, input_lengths=None, is_training: bool = False,
                 generator=None):

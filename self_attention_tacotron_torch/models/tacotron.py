@@ -15,11 +15,13 @@ for two of its kinds:
 
 ``forward`` is inference (no autograd); ``validation_forward`` the
 VALIDATION decode of the trainer's evaluation (no autograd, teacher-forced
-or free-running); ``train_forward`` is the TRAIN mode with autograd, its
-batch-norm statistics scoped to the rows whose loss mask is not empty
-(``bn_valid_rows``), its dropout and zoneout drawn from the caller's
-``torch.Generator``.  ``compute_loss`` is ``0.1 * codes_loss + done_loss``
-for codes and ``mel_loss (+ postnet_loss) + done_loss`` for mels (+ L2).
+or free-running) and, with supplied alignments, the second pass of the
+forced-alignment mode (``parallel.make_predict_step``); ``train_forward``
+is the TRAIN mode with autograd, its batch-norm statistics scoped to the
+rows whose loss mask is not empty (``bn_valid_rows``), its dropout and
+zoneout drawn from the caller's ``torch.Generator``.  ``compute_loss`` is
+``0.1 * codes_loss + done_loss`` for codes and ``mel_loss (+ postnet_loss)
++ done_loss`` for mels (+ L2).
 ``hp.use_pallas_attention`` reaches the encoder's and the decoder's
 self-attention hops.
 
@@ -130,10 +132,6 @@ class TacotronModel(nn.Module):
         if hp.apply_dropout_on_inference or hp.compute_dtype != "float32":
             raise NotImplementedError("inference dropout and bfloat16 "
                                       "compute are not ported yet")
-        if hp.use_forced_alignment_mode:
-            raise NotImplementedError(
-                "use_forced_alignment_mode (a second VALIDATION decode that "
-                "replays the first pass's alignments) is not ported yet")
         self.hp = hp
         self.is_code_model = (
             hp.tacotron_model == "DualSourceSelfAttentionTacotronModel")
@@ -296,18 +294,21 @@ class TacotronModel(nn.Module):
             enc_aligns, speaker=speaker)
 
     @torch.no_grad()
-    def validation_forward(self, batch: Batch,
-                           teacher_forcing: bool) -> TacotronOutput:
+    def validation_forward(self, batch: Batch, teacher_forcing: bool,
+                           teacher_alignments=None) -> TacotronOutput:
         """VALIDATION mode: the deterministic encoder (batch norm on its
         running statistics), then the decode loop over the target's
         T // r steps, fed the targets (``teacher_forcing``) or its own
         outputs (the JAX package's ``_forward`` in
-        ``DecoderMode.VALIDATION``)."""
+        ``DecoderMode.VALIDATION``); ``teacher_alignments`` (per source
+        (B, T_steps, T_mem)) are replayed in place of the attention
+        mechanisms (``parallel.make_predict_step``'s second pass)."""
         batch = batch.to(self.embedding.weight.device)
         sources, lengths, enc_aligns, speaker = self._encode(batch)
         return self._output(self.decoder.validation_forward(
             sources, lengths, batch.target.float(), teacher_forcing,
-            self._prenet_speaker(speaker)), enc_aligns, speaker=speaker)
+            self._prenet_speaker(speaker), teacher_alignments), enc_aligns,
+            speaker=speaker)
 
     def train_forward(self, batch: Batch,
                       generator: Optional[torch.Generator] = None

@@ -18,7 +18,9 @@ active, the full-sequence call runs ``ops/pallas_attention``
 ``fused_self_attention`` and the step ``incremental_attention_step`` (CUDA
 kernels; their plain versions on the CPU), and the alignments come back as
 zeros, as the JAX package's gates do: the kernels never materialise the
-probabilities.
+probabilities.  The full-sequence kernel takes head widths up to 1024 and
+the step any (each has a wide kernel past its tensor-core or register
+templates); what a kernel refuses raises on the card, as its wrapper does.
 """
 
 from __future__ import annotations

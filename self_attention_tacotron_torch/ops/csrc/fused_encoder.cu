@@ -47,10 +47,16 @@
 //    direction's h only, and there is no grid or cluster barrier in the
 //    loop.  The hop's products use the same items on the cluster's
 //    blocks; its 64 x 64 attention (0.1 MFLOP) stays on FP32 FMAs, one
-//    warp a (head, query row), from K | V | Q rows in shared memory.
+//    warp a (head, query row), from K | V | Q rows in shared memory.  A
+//    source whose rows do not fit there (T > 533 at the recipes' widths,
+//    ``hop_streams``) streams them instead: a block takes a head's 8 query
+//    rows at a time and the keys pass through shared memory in tiles with
+//    an online softmax (attend_rows, csrc/attention_rows.cuh), so the
+//    kernel takes any source length.
 #include <cstddef>
 #include <cstdint>
 
+#include "attention_rows.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -220,11 +226,27 @@ __host__ __device__ inline int trunk_smem_floats(const EncArgs& a) {
   return f + RED_FLOATS;
 }
 
+// The hop's attention holds the source's K | V | Q rows and each warp's
+// scores in shared memory while they fit beside the rest of the recurrent
+// block's plan in the 227 KB a block may opt in to (T <= 533 at the
+// recipes' widths); past that it streams them (attend_rows), whose tile
+// does not grow with T.
+constexpr int SMEM_OPT_IN = 232448;
+__host__ __device__ inline int hop_resident_floats(const EncArgs& a) {
+  return a.T * (round8(3 * a.SA) + 4) + NWARPS * a.T;
+}
+__host__ __device__ inline bool hop_streams(const EncArgs& a) {
+  const int f = imax(imax(rnn_floats(a.H), dense_floats(2 * a.H)),
+                     dense_floats(a.SA));
+  return 4LL * (imax(f, hop_resident_floats(a)) + RED_FLOATS) > SMEM_OPT_IN;
+}
+
 __host__ __device__ inline int rnn_smem_floats(const EncArgs& a) {
   int f = rnn_floats(a.H);
   f = imax(f, dense_floats(2 * a.H));
   f = imax(f, dense_floats(a.SA));
-  f = imax(f, a.T * (round8(3 * a.SA) + 4) + NWARPS * a.T);
+  f = imax(f, hop_streams(a) ? attend_rows_floats(a.SA / a.n_heads)
+                             : hop_resident_floats(a));
   return f + RED_FLOATS;
 }
 
@@ -888,45 +910,59 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
                 RNN_BLOCKS, clk);
     cluster.sync();
     clk.part(P_WAIT);
-    // kvq into shared memory at once, then one warp per (head, query row):
-    // scores, softmax, context with lanes over the head's columns
-    const int lq = round8(3 * SA) + 4;   // 4 mod 8: fewer bank conflicts
-    float* skvq = smem;
-    float* sc = smem + T * lq + warp * T;
-    cp_slab(skvq, lq, T, lq, kvq, 3 * SA, T, 0, 0, 3 * SA);
-    cp_wait();
-    __syncthreads();
-    clk.part(P_LOAD);
-    for (int w8 = warp;; w8 += NWARPS) {
-      const int n = rank + RNN_BLOCKS * w8;
-      if (n >= a.n_heads * T) break;
-      const int hh = n / T, tq = n % T;
-      const float* qr = skvq + tq * lq + 2 * SA + hh * hd;
-      float m = -3.0e38f;
-      for (int tk = lane; tk < T; tk += 32) {
-        const float* kr = skvq + tk * lq + hh * hd;
-        float v = 0.f;
-        for (int e = 0; e < hd; ++e) v = fmaf(qr[e], kr[e], v);
-        v *= scale;
-        sc[tk] = v;
-        m = fmaxf(m, v);
+    if (hop_streams(a)) {
+      // a long source: a block takes (head, 8 query rows) items, its warps
+      // a row each, the keys streamed through shared memory
+      const int groups = cdiv(T, NWARPS);
+      for (int n = rank; n < a.n_heads * groups; n += RNN_BLOCKS) {
+        const int hh = n / groups, row0 = (n % groups) * NWARPS;
+        attend_rows<true>(kvq + 2 * SA + hh * hd, 3 * SA, kvq + hh * hd,
+                          3 * SA, kvq + SA + hh * hd, 3 * SA, ctx + hh * hd,
+                          SA, row0, imin(NWARPS, T - row0), T, hd, scale,
+                          false, smem);
       }
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int tk = lane; tk < T; tk += 32) {
-        const float e = expf(sc[tk] - m);
-        sc[tk] = e;
-        sum += e;
+    } else {
+      // kvq into shared memory at once, then one warp per (head, query row):
+      // scores, softmax, context with lanes over the head's columns
+      const int lq = round8(3 * SA) + 4;   // 4 mod 8: fewer bank conflicts
+      float* skvq = smem;
+      float* sc = smem + T * lq + warp * T;
+      cp_slab(skvq, lq, T, lq, kvq, 3 * SA, T, 0, 0, 3 * SA);
+      cp_wait();
+      __syncthreads();
+      clk.part(P_LOAD);
+      for (int w8 = warp;; w8 += NWARPS) {
+        const int n = rank + RNN_BLOCKS * w8;
+        if (n >= a.n_heads * T) break;
+        const int hh = n / T, tq = n % T;
+        const float* qr = skvq + tq * lq + 2 * SA + hh * hd;
+        float m = -3.0e38f;
+        for (int tk = lane; tk < T; tk += 32) {
+          const float* kr = skvq + tk * lq + hh * hd;
+          float v = 0.f;
+          for (int e = 0; e < hd; ++e) v = fmaf(qr[e], kr[e], v);
+          v *= scale;
+          sc[tk] = v;
+          m = fmaxf(m, v);
+        }
+        m = warp_max(m);
+        float sum = 0.f;
+        for (int tk = lane; tk < T; tk += 32) {
+          const float e = expf(sc[tk] - m);
+          sc[tk] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        __syncwarp();
+        for (int e = lane; e < hd; e += 32) {
+          const float* vr = skvq + SA + hh * hd + e;
+          float acc = 0.f;
+          for (int tk = 0; tk < T; ++tk)
+            acc = fmaf(sc[tk], vr[tk * lq], acc);
+          ctx[(size_t)tq * SA + hh * hd + e] = acc / sum;
+        }
+        __syncwarp();
       }
-      sum = warp_sum(sum);
-      __syncwarp();
-      for (int e = lane; e < hd; e += 32) {
-        const float* vr = skvq + SA + hh * hd + e;
-        float acc = 0.f;
-        for (int tk = 0; tk < T; ++tk) acc = fmaf(sc[tk], vr[tk * lq], acc);
-        ctx[(size_t)tq * SA + hh * hd + e] = acc / sum;
-      }
-      __syncwarp();
     }
     clk.part(P_PRODUCT);
     cluster.sync();

@@ -31,7 +31,11 @@
 // form, o = sum_i e^(m_i - m) o_i / sum_i e^(m_i - m) l_i, and writes the
 // output: one launch a step.
 // D % 4 != 0 or a base that is not 16-byte aligned takes the same kernel
-// with scalar loads (one column a lane).
+// with scalar loads (one column a lane).  D > 256, past what the rows in
+// registers hold, takes ``incremental_attention_wide_kernel``: the same
+// chunks, tickets and merge, with the columns looped instead (a warp's
+// rows' scores over strided columns, then a thread a column for p v and
+// the merge), so no width limit and no shared memory that grows with D.
 #include <math.h>
 #include <stdint.h>
 
@@ -227,6 +231,88 @@ __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
   if (d < D) a.o[(size_t)bh * D + d] = num / den;
 }
 
+// D > MAX_D: the chunk's scores by warps over its rows (lanes over the
+// columns), its p in shared memory, then thread d of the block sums p v
+// over the chunk's rows for columns d, d + NT, ... (coalesced rows); a
+// single chunk writes the output, else the partials and the ticket as
+// above, and the last chunk merges the chunks' (m, l) and rows column by
+// column straight from the scratch.
+__global__ void __launch_bounds__(NT)
+incremental_attention_wide_kernel(StepArgs a) {
+  __shared__ float sc[STEP_CHUNK];
+  __shared__ int last;
+  const int D = a.D, bh = blockIdx.y, c = blockIdx.x;
+  const int p0 = c * STEP_CHUNK;
+  const int n = min(STEP_CHUNK, a.t + 1 - p0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t cache = (size_t)bh * a.S * D;
+  const float* q = a.q + (size_t)bh * D;
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = warp + NWARPS * i;
+    float dot = 0.f;
+    if (r < n) {
+      const float* krow = a.k + cache + (size_t)(p0 + r) * D;
+      for (int col = lane; col < D; col += 32)
+        dot = fmaf(__ldg(q + col), __ldg(krow + col), dot);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0 && r < n) sc[r] = dot * a.scale;
+  }
+  __syncthreads();
+  if (a.passes == 1) return;
+  float m = -INFINITY;
+  for (int r = 0; r < n; ++r) m = fmaxf(m, sc[r]);
+  __syncthreads();   // every thread has read the scores
+  if (threadIdx.x < n) sc[threadIdx.x] = expf(sc[threadIdx.x] - m);
+  __syncthreads();
+  float l = 0.f;
+  for (int r = 0; r < n; ++r) l += sc[r];
+  if (a.passes == 2) return;
+  const int chunks = gridDim.x;
+  float* mine = a.part + ((size_t)bh * chunks + c) * (D + 2);
+  const float* vbase = a.v + cache + (size_t)p0 * D;
+  for (int d = threadIdx.x; d < D; d += NT) {
+    float od = 0.f;
+    for (int r = 0; r < n; ++r)
+      od = fmaf(sc[r], __ldg(vbase + (size_t)r * D + d), od);
+    if (a.passes == 3) continue;
+    if (chunks == 1) a.o[(size_t)bh * D + d] = od / l;
+    else mine[2 + d] = od;
+  }
+  if (a.passes == 3 || chunks == 1) return;
+  if (threadIdx.x == 0) {
+    mine[0] = m;
+    mine[1] = l;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned v;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+                 : "=r"(v) : "l"(a.tickets + bh) : "memory");
+    last = v == (unsigned)(chunks - 1);
+    if (last) a.tickets[bh] = 0u;
+  }
+  __syncthreads();
+  if (!last) return;
+  const float* parts = a.part + (size_t)bh * chunks * (D + 2);
+  float gm = -INFINITY;
+  for (int i = 0; i < chunks; ++i)
+    gm = fmaxf(gm, __ldcg(parts + (size_t)i * (D + 2)));
+  float den = 0.f;
+  for (int i = 0; i < chunks; ++i) {
+    const float* pi = parts + (size_t)i * (D + 2);
+    den = fmaf(expf(__ldcg(pi) - gm), __ldcg(pi + 1), den);
+  }
+  for (int d = threadIdx.x; d < D; d += NT) {
+    float num = 0.f;
+    for (int i = 0; i < chunks; ++i) {
+      const float* pi = parts + (size_t)i * (D + 2);
+      num = fmaf(expf(__ldcg(pi) - gm), __ldcg(pi + 2 + d), num);
+    }
+    a.o[(size_t)bh * D + d] = num / den;
+  }
+}
+
 __global__ void empty_kernel() {}
 
 template <int VEC, int CPL>
@@ -246,7 +332,7 @@ extern "C" int incremental_attention_empty_launch(void* stream) {
 extern "C" int incremental_attention_launch(const StepArgs* args,
                                             void* stream) {
   const StepArgs a = *args;
-  if (a.bh < 1 || a.bh > 65535 || a.D < 1 || a.D > MAX_D || a.t < 0 ||
+  if (a.bh < 1 || a.bh > 65535 || a.D < 1 || a.t < 0 ||
       a.t >= a.S || a.chunk != STEP_CHUNK)
     return (int)cudaErrorInvalidValue;
   const int chunks = (a.t + STEP_CHUNK) / STEP_CHUNK;
@@ -255,7 +341,10 @@ extern "C" int incremental_attention_launch(const StepArgs* args,
   const uintptr_t bases = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
-  if (a.D % 4 == 0 && bases % 16 == 0)
+  if (a.D > MAX_D) {
+    incremental_attention_wide_kernel<<<dim3(chunks, a.bh), NT, 0, s>>>(a);
+    e = cudaGetLastError();
+  } else if (a.D % 4 == 0 && bases % 16 == 0)
     e = a.D <= 128 ? launch<4, 1>(a, chunks, s) : launch<4, 2>(a, chunks, s);
   else
     e = launch<1, MAX_D / 32>(a, chunks, s);

@@ -41,6 +41,10 @@
 //     itself is three instructions (``split3``).
 //   * Causal blocks stop at the tile that holds their last row, and a warp
 //     skips the products of tiles past its own last row.
+// Wider heads (128 < D <= MAX_WIDE_D) take ``self_attention_wide_kernel``:
+// eight query rows a block on FP32 FMAs, the keys streamed through shared
+// memory in tiles of 32 with an online softmax (csrc/attention_rows.cuh),
+// so any T and causal or not; its plan is rows = 8, key_warps = 1.
 // Keys >= T and, when causal, keys past the query take the reference's
 // -1e9 fill; key 0 is visible to every row, so each running max is a real
 // score after the first tile and masked keys add exp(-1e9 - m) = 0.
@@ -63,6 +67,7 @@
 // K and V, one tile, the merge.
 #include <math.h>
 
+#include "attention_rows.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -77,7 +82,7 @@ struct AttnArgs {
   int D;
   int causal;
   float scale;      // 1 / sqrt(D)
-  int rows;         // query rows a block: 16, 32 or 64
+  int rows;         // query rows a block: 16, 32 or 64 (8: the wide kernel)
   int key_warps;    // warps that share a row group's key tiles: 1 or 4
 };
 
@@ -86,6 +91,11 @@ namespace {
 constexpr int NS = 3;        // stages of the K / V ring
 constexpr int PAD = 4;       // floats after each shared-memory row
 constexpr int MAX_ROWS = 64;
+constexpr int MAX_MMA_D = 128;   // the widest tensor-core template
+// the wide kernel's limit: its tile, rows and contexts in 227 KB
+constexpr int MAX_WIDE_D = 1024;
+static_assert(4 * (ATT_TK * (MAX_WIDE_D + 1) + 2 * NWARPS * MAX_WIDE_D +
+                   NWARPS * ATT_TK) <= 232448, "wide plan past 227 KB");
 constexpr float NEG_FILL = -1e9f;
 // profile counters: copy wait + barrier, QK^T, softmax, PV, the start (up
 // to the loop), the end (merge and stores)
@@ -404,6 +414,28 @@ self_attention_kernel(AttnArgs a, int vec) {
     for (int i = 0; i < ATTN_STAGES; ++i) a.cycles[i] += clk[i];
 }
 
+// Heads wider than the tensor-core templates: block (g, bh) takes query
+// rows 8 g .. 8 g + 7 of head bh (attend_rows: a warp a row).
+__global__ void __launch_bounds__(NT) self_attention_wide_kernel(AttnArgs a) {
+  extern __shared__ __align__(16) float wide_smem[];
+  const size_t base = (size_t)blockIdx.y * a.T * a.D;
+  const int row0 = blockIdx.x * NWARPS;
+  attend_rows<false>(a.q + base, a.D, a.k + base, a.D, a.v + base, a.D,
+                     a.o + base, a.D, row0, min(NWARPS, a.T - row0), a.T,
+                     a.D, a.scale, a.causal != 0, wide_smem);
+}
+
+int launch_wide(const AttnArgs& a, cudaStream_t stream) {
+  const size_t smem = 4 * (size_t)attend_rows_floats(a.D);
+  cudaError_t e = cudaFuncSetAttribute(
+      self_attention_wide_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((a.T + NWARPS - 1) / NWARPS, a.bh);
+  self_attention_wide_kernel<<<grid, NT, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 template <int DP, int KW, bool PROF>
 int launch(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = smem_bytes_of(DP, KW);
@@ -437,6 +469,12 @@ int padded_width(int D) {
 
 extern "C" int self_attention_launch(const AttnArgs* args, void* stream) {
   const AttnArgs a = *args;
+  if (a.D > MAX_MMA_D) {   // no profile counters in the wide kernel
+    if (a.D > MAX_WIDE_D || a.T < 1 || a.bh < 1 || a.bh > 65535 ||
+        a.rows != NWARPS || a.key_warps != 1 || a.cycles != nullptr)
+      return (int)cudaErrorInvalidValue;
+    return launch_wide(a, (cudaStream_t)stream);
+  }
   if (a.T < 1 || a.bh < 1 || a.bh > 65535 || a.D < 1 ||
       (a.rows != 16 && a.rows != 32 && a.rows != MAX_ROWS) ||
       (a.key_warps != 1 && (a.key_warps != 4 || a.rows != 16)))
@@ -456,6 +494,12 @@ extern "C" int self_attention_launch(const AttnArgs* args, void* stream) {
 // shared-memory bytes; 0 for a width the kernel does not take.
 extern "C" int self_attention_plan(int D, int key_warps, int* keys,
                                    int* stages, int* smem_bytes) {
+  if (D > MAX_MMA_D && D <= MAX_WIDE_D && key_warps == 1) {
+    *keys = ATT_TK;
+    *stages = 1;
+    *smem_bytes = 4 * attend_rows_floats(D);
+    return 1;
+  }
   const int dp = padded_width(D);
   if (D < 1 || dp == 0) return 0;
   *keys = keys_a_tile(dp, key_warps);

@@ -31,6 +31,18 @@
 // filters touch each bin at most twice; ``mel_bands``) and writes its dB.
 // No frames, no magnitude scratch and no second launch.
 //
+// An n_fft that is not a power of two, or too long for the FFT's two
+// buffers (N > 16384), takes ``spectrogram_dft_kernel`` instead: the
+// windowed frame in shared memory, then a thread a bin sums the direct
+// DFT X[k] = sum_t x[t] W^(k t) with W^(k t) taken from the same twiddle
+// table (a float64 value rounded once, at index k t mod N kept by an add
+// and a compare) every 16 samples and rotated by W^k in between (15
+// complex products: a relative error of ~1e-6 at most), and the same
+// epilogue, the magnitudes kept after the
+// frame (6 N bytes of shared memory: N <= MAX_DFT).  O(N K) a frame
+// instead of O(N log N): the JAX kernel's own arithmetic (its dense DFT
+// products), on FP32 FMAs.
+//
 // Bound on an H100: bytes.  The signal in, lin and mel out, the band
 // weights, window and twiddles (4.46 MB at LJSpeech widths, 10 s: F = 802,
 // N = 2048, K = 1025, M = 80; 1.3 us at 3.35 TB/s) against ~5 (N / 2)
@@ -57,6 +69,9 @@ constexpr int NT = 256;
 constexpr int NWARPS = NT / 32;
 constexpr float kDb = 8.685889638065036f;   // 20 / ln 10
 constexpr float kFloor = 1e-5f;
+constexpr int MAX_FFT = 16384;   // the FFT's two buffers: 8 N bytes
+constexpr int MAX_DFT = 32768;   // the DFT's frame and magnitudes: 6 N
+constexpr int DFT_RESYNC = 16;   // samples between exact twiddles
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
@@ -77,10 +92,27 @@ __device__ __forceinline__ int reflect(int i, int T) {
   return m < T ? m : period - m;
 }
 
+// the epilogue of both kernels: mag[k] (k < K) in shared memory -> the mel
+// rows' dB, a warp a row over its band of bins
+__device__ void mel_rows(const SpecArgs& a, const float* mag, int f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < a.M; r += NWARPS) {
+    const int first = __ldg(a.band + 3 * r), cnt = __ldg(a.band + 3 * r + 1);
+    const float* w = a.band_w + __ldg(a.band + 3 * r + 2);
+    float acc = 0.f;
+    for (int j = lane; j < cnt; j += 32)
+      acc = fmaf(__ldg(w + j), mag[first + j], acc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) a.mel[(size_t)f * a.M + r] = kDb * logf(fmaxf(kFloor, acc));
+  }
+}
+
 __global__ void __launch_bounds__(NT) spectrogram_kernel(SpecArgs a) {
   extern __shared__ float2 buf[];   // two buffers of n complex values
   const int n = a.N >> 1, f = blockIdx.x;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int start = f * a.hop - n;  // the frame's first sample, unpadded
   // z[j] = x[2j] + i x[2j + 1]: the windowed frame, straight from y
   auto load = [&](int j) {
@@ -164,32 +196,67 @@ __global__ void __launch_bounds__(NT) spectrogram_kernel(SpecArgs a) {
     lin[k] = kDb * logf(fmaxf(kFloor, m));
   }
   __syncthreads();
-  for (int r = warp; r < a.M; r += NWARPS) {
-    const int first = __ldg(a.band + 3 * r), cnt = __ldg(a.band + 3 * r + 1);
-    const float* w = a.band_w + __ldg(a.band + 3 * r + 2);
-    float acc = 0.f;
-    for (int j = lane; j < cnt; j += 32)
-      acc = fmaf(__ldg(w + j), mag[first + j], acc);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0) a.mel[(size_t)f * a.M + r] = kDb * logf(fmaxf(kFloor, acc));
+  mel_rows(a, mag, f);
+}
+
+__global__ void __launch_bounds__(NT) spectrogram_dft_kernel(SpecArgs a) {
+  extern __shared__ float frame[];   // N samples, then K magnitudes
+  const int N = a.N, K = N / 2 + 1, f = blockIdx.x;
+  const int start = f * a.hop - N / 2;
+  for (int t = threadIdx.x; t < N; t += NT) {
+    const float w = __ldg(a.window + t);
+    frame[t] = w != 0.f ? w * __ldg(a.y + reflect(start + t, a.T)) : 0.f;
   }
+  __syncthreads();
+  float* mag = frame + N;
+  float* lin = a.lin + (size_t)f * K;
+  for (int k = threadIdx.x; k < K; k += NT) {
+    // twiddle W^(k t): the table's exact entry at every DFT_RESYNC-th
+    // sample, rotated by W^k between them (a gather of scattered entries
+    // a sample would bind the loop to L1's throughput)
+    const float2 rot = __ldg(a.tw + k);
+    const int jump = k * DFT_RESYNC % N;
+    float re = 0.f, im = 0.f;
+    int idx = 0;   // k t0 mod N
+    for (int t0 = 0; t0 < N; t0 += DFT_RESYNC) {
+      float2 w = __ldg(a.tw + idx);
+      const int t1 = t0 + DFT_RESYNC < N ? t0 + DFT_RESYNC : N;
+      for (int t = t0; t < t1; ++t) {
+        re = fmaf(frame[t], w.x, re);
+        im = fmaf(frame[t], w.y, im);
+        w = cmul(w, rot);
+      }
+      idx += jump;
+      if (idx >= N) idx -= N;
+    }
+    const float m = sqrtf(re * re + im * im);
+    mag[k] = m;
+    lin[k] = kDb * logf(fmaxf(kFloor, m));
+  }
+  __syncthreads();
+  mel_rows(a, mag, f);
 }
 
 }  // namespace
 
 extern "C" int spectrogram_launch(const SpecArgs* args, void* stream) {
   const SpecArgs a = *args;
-  if (a.T < 1 || a.F < 1 || a.hop < 1 || a.M < 0 || a.N < 8 ||
-      (a.N & (a.N - 1)))
+  if (a.T < 1 || a.F < 1 || a.hop < 1 || a.M < 0 || a.N < 1 || a.N > MAX_DFT)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)a.N * sizeof(float2);   // 2 x N / 2 complex
+  const bool fft = a.N >= 8 && a.N <= MAX_FFT && !(a.N & (a.N - 1));
+  // the FFT: 2 x N / 2 complex; the DFT: N samples and K magnitudes
+  const size_t smem = fft ? (size_t)a.N * sizeof(float2)
+                          : (size_t)(a.N + a.N / 2 + 1) * sizeof(float);
+  const void* fn = fft ? (const void*)spectrogram_kernel
+                       : (const void*)spectrogram_dft_kernel;
   cudaError_t e;
   if (smem > 48 * 1024 &&
-      (e = cudaFuncSetAttribute(spectrogram_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem)) != cudaSuccess)
     return (int)e;
-  spectrogram_kernel<<<a.F, NT, smem, (cudaStream_t)stream>>>(a);
+  if (fft)
+    spectrogram_kernel<<<a.F, NT, smem, (cudaStream_t)stream>>>(a);
+  else
+    spectrogram_dft_kernel<<<a.F, NT, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -18,7 +18,9 @@ recurrent weight transposed); ``models/encoders.py`` builds it once.
 ``fused_encode_reference`` is the plain PyTorch version of the kernel's
 math; ``fused_encode`` runs it for CPU tensors only and launches the kernel
 (``csrc/fused_encoder.cu``) for CUDA tensors, raising on anything the
-kernel does not take.
+kernel does not take: what ``unsupported_reason`` names (widths and layer
+counts it has no room for; any source length, the hop streaming past what
+shared memory holds).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ ENC_PARTS = ("load", "product", "wait")
 MT, NI, DENSE_C, BANK_C, PROJ1_C = 64, 8, 256, 128, 256
 RED_FLOATS, RNN_DIR_BLOCKS, RNN_GX_STEPS, NWARPS = 512, 4, 32, 8
 MAX_HALF = 128      # the recurrent cluster: 4 blocks a direction, <= 32 units
+SMEM_LIMIT = 232448  # bytes a block may opt in to on the H100 (227 KB)
 
 
 Tensor = torch.Tensor
@@ -178,7 +181,8 @@ def _dense(K: int) -> int:
 
 
 def smem_bytes(T: int, E_in: int, prenet: Tuple[int, ...], K: int, C: int,
-               P1: int, P2: int, W: int, H: int, SA: int) -> Tuple[int, int]:
+               P1: int, P2: int, W: int, H: int, SA: int,
+               heads: int) -> Tuple[int, int]:
     """Shared memory a block of the trunk and of the recurrent cluster
     needs (``trunk_smem_floats`` / ``rnn_smem_floats`` in
     csrc/fused_encoder.cu, which the CUDA tests hold this against): the
@@ -189,7 +193,9 @@ def smem_bytes(T: int, E_in: int, prenet: Tuple[int, ...], K: int, C: int,
     the depth halves' partial tiles; the cluster's h, two groups of 32
     steps of the gates' input halves and two mbarriers (its recurrent
     weights stay in registers), or its hop's items, or its hop's K | V | Q
-    rows and scores."""
+    rows and scores while they fit in ``SMEM_LIMIT`` beside the rest, else
+    (``hop_streams``) the streamed hop's key tile, query rows, contexts
+    and weights (``attend_rows_floats``)."""
     f, E = _dense(E_in), E_in
     for n in prenet:
         f, E = max(f, _dense(E)), n
@@ -202,8 +208,103 @@ def smem_bytes(T: int, E_in: int, prenet: Tuple[int, ...], K: int, C: int,
             _dense(P2), _dense(W))
     rows = 4 * -(-H // RNN_DIR_BLOCKS)
     r = max(2 * _round8(H) + 2 * RNN_GX_STEPS * rows + 4, _dense(2 * H),
-            _dense(SA), T * (_round8(3 * SA) + 4) + NWARPS * T)
+            _dense(SA))
+    if hop_streams(T, H, SA):
+        r = max(r, attend_rows_floats(SA // heads))
+    else:
+        r = max(r, _hop_resident(T, SA))
     return 4 * (f + RED_FLOATS), 4 * (r + RED_FLOATS)
+
+
+def _hop_resident(T: int, SA: int) -> int:
+    return T * (_round8(3 * SA) + 4) + NWARPS * T
+
+
+def hop_streams(T: int, H: int, SA: int) -> bool:
+    """Whether the recurrent cluster streams its hop's K | V | Q rows
+    (``hop_streams`` in csrc/fused_encoder.cu): they and every warp's
+    scores no longer fit in ``SMEM_LIMIT`` beside the rest of its plan
+    (T > 533 at the recipes' widths, H = 128, SA = 32)."""
+    rows = 4 * -(-H // RNN_DIR_BLOCKS)
+    r = max(2 * _round8(H) + 2 * RNN_GX_STEPS * rows + 4, _dense(2 * H),
+            _dense(SA), _hop_resident(T, SA))
+    return 4 * (r + RED_FLOATS) > SMEM_LIMIT
+
+
+def attend_rows_floats(D: int) -> int:
+    """The streamed hop's shared memory at head width D (mirrors
+    csrc/attention_rows.cuh): a tile of 32 keys at an odd row stride, each
+    warp's query row and context, each warp's tile of weights."""
+    return 32 * (D | 1) + 2 * NWARPS * D + NWARPS * 32
+
+
+class EncoderWidths(NamedTuple):
+    """The widths and layer counts that decide whether the kernel takes an
+    encoder (``encoder_widths`` reads them from merged weights)."""
+
+    E_in: int                  # the embedded source
+    prenet: Tuple[int, ...]    # each prenet layer's units
+    K: int                     # the conv bank's widths 1..K
+    C: int                     # its channels a width
+    P1: int                    # the projections' channels
+    P2: int
+    W: int                     # the highway width (P2 or the adjustment's)
+    H: int                     # the LSTM's units a direction
+    SA: int                    # the self-attention width
+    heads: int
+    n_highway: int
+    n_hops: int
+
+
+def encoder_widths(params: FusedEncoderParams, E_in: int, K: int, C: int,
+                   half: int, sa_units: int, num_heads: int) -> EncoderWidths:
+    """The widths of merged weights (``SelfAttentionCBHGEncoder
+    .fused_params``) and of the arguments ``fused_encode`` takes beside
+    them."""
+    P2 = int(params.w_proj2[0].shape[1])
+    return EncoderWidths(
+        E_in, tuple(int(w.shape[1]) for w, _ in params.prenet), K, C,
+        int(params.w_proj1[0].shape[1]), P2,
+        int(params.w_adjust[0].shape[1]) if params.w_adjust is not None
+        else P2, half, sa_units, num_heads, len(params.highway),
+        len(params.hops))
+
+
+def unsupported_reason(w: EncoderWidths, T: int) -> Optional[str]:
+    """Why the kernel cannot take this encoder at source length ``T``, or
+    None: the widths and layer counts it has no room for, decided without
+    a build (``prepare_encode`` raises with it), and both blocks' shared-
+    memory plans (``smem_bytes``) against the 227 KB a block may opt in
+    to.  The source length is not a limit: past T = 533 at the recipes'
+    widths the recurrent cluster streams its hop (``hop_streams``).  (A
+    valid length outside [1, T] is a malformed input, which
+    ``prepare_encode`` also raises for.)"""
+    E = w.prenet[-1] if w.prenet else w.E_in
+    if len(w.prenet) > MAX_PRENET:
+        return f"more than {MAX_PRENET} prenet layers"
+    if w.n_highway > MAX_HIGHWAY:
+        return f"more than {MAX_HIGHWAY} highway layers"
+    if w.n_hops > MAX_HOPS:
+        return f"more than {MAX_HOPS} self-attention hops"
+    if w.SA % w.heads:
+        return f"sa_units {w.SA} do not divide over {w.heads} heads"
+    if w.P2 != E:
+        return f"residual needs proj2 width {w.P2} == prenet width {E}"
+    widths = (w.E_in, *w.prenet, w.C, w.P1, w.P2, w.W, w.SA)
+    if any(n % 4 for n in widths):
+        return (f"the kernel copies 16-byte rows: widths {widths} must be "
+                "multiples of 4")
+    if w.H % 2 or not 1 <= w.H <= MAX_HALF:
+        return (f"the LSTM's {w.H} units a direction must be even and <= "
+                f"{MAX_HALF}")
+    if T < 1:
+        return "an empty source"
+    trunk, rnn = smem_bytes(T, w.E_in, w.prenet, w.K, w.C, w.P1, w.P2, w.W,
+                            w.H, w.SA, w.heads)
+    if max(trunk, rnn) > SMEM_LIMIT:
+        return (f"the kernel's shared-memory plan needs {trunk} bytes a "
+                f"trunk block and {rnn} a recurrent block (> {SMEM_LIMIT})")
+    return None
 
 
 def profile_split(cycles, ms: float):
@@ -264,12 +365,10 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
     T, E_in = int(x.shape[1]), int(x.shape[2])
     if not 1 <= L <= T:
         raise ValueError(f"length {L} outside [1, {T}]")
-    if len(params.prenet) > MAX_PRENET or len(params.highway) > MAX_HIGHWAY \
-            or len(params.hops) > MAX_HOPS:
-        raise ValueError("more prenet/highway/hop layers than the kernel "
-                         "takes")
-    if sa_units % num_heads:
-        raise ValueError("sa_units must divide over the heads")
+    reason = unsupported_reason(encoder_widths(
+        params, E_in, K, C, half, sa_units, num_heads), T)
+    if reason is not None:
+        raise ValueError(f"fused_encode: {reason}")
     keep = []  # every tensor whose pointer the kernel reads
 
     def use(t, shape, name):
@@ -294,9 +393,6 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
     a.bank_b = use(params.w_bank[1].reshape(-1), (K * C,), "b_bank")
     P1 = int(params.w_proj1[0].shape[1])
     P2 = int(params.w_proj2[0].shape[1])
-    if P2 != E:
-        raise ValueError(f"residual needs proj2 width {P2} == prenet "
-                         f"width {E}")
     a.P1, a.P2 = P1, P2
     a.p1_w = use(params.w_proj1[0], (3 * K * C, P1), "w_proj1")
     a.p1_b = use(params.w_proj1[1].reshape(-1), (P1,), "b_proj1")
@@ -308,11 +404,6 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
         a.adj_w = use(params.w_adjust[0], (P2, W), "w_adjust")
         a.adj_b = use(params.w_adjust[1].reshape(-1), (W,), "b_adjust")
     a.W, a.H = W, half
-    widths = (E_in, *a.pre_out[:a.n_prenet], C, P1, P2, W, sa_units)
-    if any(w % 4 for w in widths) or half % 2 or not 1 <= half <= MAX_HALF:
-        raise ValueError(f"the kernel copies 16-byte rows: widths {widths} "
-                         f"must be multiples of 4, and the LSTM's {half} "
-                         f"units even and <= {MAX_HALF}")
     a.n_highway = len(params.highway)
     for i, (w, b) in enumerate(params.highway):
         a.hw_w[i] = use(w, (W, 2 * W), f"highway{i}.w")

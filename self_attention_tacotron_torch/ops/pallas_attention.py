@@ -20,27 +20,34 @@ kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
   argument).
 
 ``ops/attention_core.py`` selects them under ``use_pallas`` where no dropout
-is active, as the JAX package does.  Each has a plain PyTorch version
-(``*_reference``: the einsum math of ``ops/attention_core.py`` with its -1e9
-fill).  The wrappers run it for CPU tensors only; a CUDA tensor launches the
-kernel or raises, on a type, shape, layout or width the kernel does not take
-and on an input that needs a gradient (neither kernel has a backward; with
-the recipe's attention dropout neither runs in training).  Each wrapper's
-``launches`` counts its kernel launches.
+is active, as the JAX package does.  Heads wider than the full-sequence
+kernel's tensor-core templates (D > ``MAX_MMA_HEAD_DIM``) take its wide
+kernel, and heads wider than the step's registers hold (D > 256) the
+step's wide kernel; ``attention_unsupported_reason`` /
+``step_unsupported_reason`` name what is left (D > ``MAX_HEAD_DIM`` for
+the full sequence, B * H past a grid).  Each has a plain PyTorch version
+(``*_reference``: the einsum math of ``ops/attention_core.py`` with its
+-1e9 fill).  The wrappers run it for CPU tensors only; a CUDA tensor
+launches the kernel or raises, on a type, shape, layout or width the
+kernel does not take and on an input that needs a gradient (neither
+kernel has a backward; with the recipe's attention dropout neither runs in
+training).  Each wrapper's ``launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import cuda_build
 
 NEG_INF = -1e9
-MAX_HEAD_DIM = 128          # fused_self_attention's widest template width
+MAX_MMA_HEAD_DIM = 128      # fused_self_attention's widest mma template
+MAX_HEAD_DIM = 1024         # its wide kernel's plan in 227 KB
+WIDE_ROWS, WIDE_KEYS = 8, 32   # the wide kernel: a warp a row, keys a tile
 # fused_self_attention's plan (mirrors csrc/self_attention.cu): query rows
 # a block, from the most to the fewest; blocks that fill an H100's 132 SMs
 # once; the warps that split the keys of a 16-row block that does not; the
@@ -53,7 +60,6 @@ ATTN_ROW_PAD = 4
 # what a profiled launch (prepare_attention(profile=True)) splits its SM
 # cycles into
 ATTN_STAGES = ("loads", "scores", "softmax", "values", "start", "end")
-MAX_STEP_HEAD_DIM = 256     # incremental_attention_step: one thread a column
 # incremental_attention_step: positions a block (STEP_CHUNK in the kernel)
 STEP_CHUNK = 32
 # what prepare_step(passes=i + 1) keeps of the kernel (the last: all of it)
@@ -133,8 +139,13 @@ def attention_plan(B: int, H: int, T: int, D: int,
     D padded to 16, 32, 64 or 128; tiles of 64 keys, 32 from 64 wide on
     (registers), 16 at 128 wide with a warp a row group (faster there).
     ``causal`` does not change the plan: a causal block stops at its last
-    row's tile in the kernel."""
+    row's tile in the kernel.  D > ``MAX_MMA_HEAD_DIM`` takes the wide
+    kernel: ``WIDE_ROWS`` rows a block, ``WIDE_KEYS`` keys a tile, one
+    stage, the tile, rows and contexts of ``wide_smem_floats``."""
     bh = B * H
+    if D > MAX_MMA_HEAD_DIM:
+        return AttnPlan(WIDE_ROWS, 1, WIDE_ROWS, (-(-T // WIDE_ROWS), bh),
+                        WIDE_KEYS, 1, 4 * wide_smem_floats(D))
     rows = next((r for r in ATTN_ROWS if r < T + 16
                  and -(-T // r) * bh >= ATTN_FILL_BLOCKS), None)
     key_warps = 1 if rows else ATTN_KEY_WARPS
@@ -144,6 +155,13 @@ def attention_plan(B: int, H: int, T: int, D: int,
     smem = ATTN_RING * 2 * keys * (dp + ATTN_ROW_PAD) * 4
     return AttnPlan(rows, key_warps, rows // 16 * key_warps,
                     (-(-T // rows), bh), keys, ATTN_RING, smem)
+
+
+def wide_smem_floats(D: int) -> int:
+    """Shared memory of the wide kernel (``attend_rows_floats`` of
+    csrc/attention_rows.cuh): a key tile at an odd row stride, each warp's
+    query row and context, and each warp's tile of weights."""
+    return WIDE_KEYS * (D | 1) + 2 * WIDE_ROWS * D + WIDE_ROWS * WIDE_KEYS
 
 
 def kernel_plan(D: int, key_warps: int) -> Tuple[int, int, int]:
@@ -157,7 +175,8 @@ def kernel_plan(D: int, key_warps: int) -> Tuple[int, int, int]:
     out = [ctypes.c_int() for _ in range(3)]
     if not fn(D, key_warps, *map(ctypes.byref, out)):
         raise ValueError(f"fused_self_attention takes 1 <= D <= "
-                         f"{MAX_HEAD_DIM}, got {D}")
+                         f"{MAX_HEAD_DIM} (key_warps 1 past "
+                         f"{MAX_MMA_HEAD_DIM}), got {D}")
     return tuple(o.value for o in out)
 
 
@@ -208,6 +227,37 @@ def _check(t: Tensor, shape, name: str, device) -> Tensor:
     return t
 
 
+MAX_GRID_Y = 65535    # B * H: the launches' second grid dimension
+
+
+def attention_unsupported_reason(B: int, H: int, T: int,
+                                 D: int) -> Optional[str]:
+    """Why ``fused_self_attention`` cannot take (B, H, T, D), or None: the
+    shapes ``prepare_attention`` raises for, decided without a build."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        return f"head width {D} outside [1, {MAX_HEAD_DIM}]"
+    if T < 1:
+        return "an empty sequence"
+    if not 1 <= B * H <= MAX_GRID_Y:
+        return f"B * H = {B * H} outside [1, {MAX_GRID_Y}]"
+    return None
+
+
+def step_unsupported_reason(B: int, H: int, S: int,
+                            D: int) -> Optional[str]:
+    """Why ``incremental_attention_step`` cannot take (B, H, S, D) caches,
+    or None: the shapes ``prepare_step`` raises for at every position t <
+    S, decided without a build (any head width: the wide kernel loops its
+    columns)."""
+    if D < 1:
+        return f"head width {D} < 1"
+    if S < 1:
+        return "an empty cache"
+    if not 1 <= B * H <= MAX_GRID_Y:
+        return f"B * H = {B * H} outside [1, {MAX_GRID_Y}]"
+    return None
+
+
 def fused_self_attention(q: Tensor, k: Tensor, v: Tensor,
                          causal: bool = False) -> Tensor:
     """softmax(q k^T / sqrt(D)) v over (B, H, T, D).  CPU tensors take the
@@ -228,10 +278,14 @@ def prepare_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
     B, H, T, D = q.shape
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check(t, (B, H, T, D), name, q.device)
-    if not (1 <= D <= MAX_HEAD_DIM) or T < 1 or not 1 <= B * H <= 65535:
+    reason = attention_unsupported_reason(B, H, T, D)
+    if reason is not None:
         raise ValueError(f"fused_self_attention takes 1 <= D <= "
-                         f"{MAX_HEAD_DIM}, T >= 1 and B * H <= 65535; got "
-                         f"{tuple(q.shape)}")
+                         f"{MAX_HEAD_DIM}, T >= 1 and B * H <= {MAX_GRID_Y}; "
+                         f"got {tuple(q.shape)}: {reason}")
+    if profile and D > MAX_MMA_HEAD_DIM:
+        raise ValueError("the wide kernel (D > "
+                         f"{MAX_MMA_HEAD_DIM}) has no profile counters")
     out = torch.empty_like(q)
     plan = attention_plan(B, H, T, D, causal)
     cycles = (torch.zeros(len(ATTN_STAGES), dtype=torch.int64,
@@ -284,11 +338,10 @@ def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
     _check(key_cache, (B, H, S, D), "key_cache", q_t.device)
     _check(value_cache, (B, H, S, D), "value_cache", q_t.device)
     t = int(t)
-    if not (1 <= D <= MAX_STEP_HEAD_DIM) or not 0 <= t < S \
-            or B * H > 65535:
-        raise ValueError(f"incremental_attention_step takes 1 <= D <= "
-                         f"{MAX_STEP_HEAD_DIM}, 0 <= t < S and B * H <= "
-                         f"65535; got D={D}, t={t}, S={S}, B * H={B * H}")
+    if step_unsupported_reason(B, H, S, D) is not None or not 0 <= t < S:
+        raise ValueError(f"incremental_attention_step takes D >= 1, 0 <= t "
+                         f"< S and B * H <= {MAX_GRID_Y}; got D={D}, t={t}, "
+                         f"S={S}, B * H={B * H}")
     out = torch.empty_like(q_t)
     _, floats = step_plan(B * H, t, D)
     part = torch.empty(floats, device=q_t.device)

@@ -1,4 +1,4 @@
-"""Zoneout LSTM cell and the bidirectional length-masked unroll.
+"""Zoneout LSTM and GRU cells and the bidirectional length-masked unroll.
 
 Counterpart of the JAX package's ``ops/rnn.py``:
 * ``ZoneoutLSTMCell`` — gate order i, g, f, o; the +1.0 forget bias is
@@ -9,9 +9,17 @@ Counterpart of the JAX package's ``ops/rnn.py``:
 * ``BiZoneoutLSTM`` — ``tf.nn.bidirectional_dynamic_rnn`` with
   ``sequence_length``: carries freeze and outputs are zero past each row's
   length; the backward cell runs over the per-row length-reversed sequence.
+* ``GRUCell`` — TF semantics: reset and update gates sigmoid([x, h] W_g +
+  b_g) (b_g starts at 1.0), candidate tanh([x, r * h] W_c + b_c),
+  ``h' = u * h + (1 - u) * cand``;
+* ``BiGRU`` — the same bidirectional unroll over two GRU cells (the
+  non-zoneout CBHG's recurrence).
 
 Parameter layout: ``weight`` (4u, in + u) is the JAX kernel (in + u, 4u)
-transposed (``utils/convert.py``), ``bias`` (4u,).
+transposed (``utils/convert.py``), ``bias`` (4u,); a GRU cell's ``gates``
+and ``candidate`` are linear layers whose weights are the JAX
+``gates/kernel`` (in + u, 2u) and ``candidate/kernel`` (in + u, u)
+transposed.
 """
 
 from __future__ import annotations
@@ -90,6 +98,36 @@ class ZoneoutLSTMCell(nn.Module):
         return z, z
 
 
+class GRUCell(nn.Module):
+    def __init__(self, input_size: int, num_units: int):
+        super().__init__()
+        self.num_units = num_units
+        self.gates = nn.Linear(input_size + num_units, 2 * num_units)
+        self.candidate = nn.Linear(input_size + num_units, num_units)
+
+    def forward(self, h_prev: torch.Tensor, x: torch.Tensor,
+                training: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """One step -> (h, h); ``training`` and ``generator`` are unused
+        (the cell has no dropout or zoneout)."""
+        r, u = torch.sigmoid(self.gates(torch.cat([x, h_prev], -1))).chunk(
+            2, dim=-1)
+        cand = torch.tanh(self.candidate(torch.cat([x, r * h_prev], -1)))
+        h = u * h_prev + (1.0 - u) * cand
+        return h, h
+
+    def initial_state(self, batch: int, device=None) -> torch.Tensor:
+        return torch.zeros(batch, self.num_units, device=device)
+
+
+def _hold(valid: torch.Tensor, new, prev):
+    """The new carry (a tensor or a tuple of them) where ``valid``, else
+    the previous one."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(valid, new, prev)
+    return tuple(torch.where(valid, n, p) for n, p in zip(new, prev))
+
+
 def reverse_sequence(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """tf.reverse_sequence over axis 1: per-row reversal of the valid prefix."""
     B, T = xs.shape[0], xs.shape[1]
@@ -100,7 +138,7 @@ def reverse_sequence(xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     return torch.gather(xs, 1, rev)
 
 
-def unroll(cell: ZoneoutLSTMCell, xs: torch.Tensor,
+def unroll(cell: nn.Module, xs: torch.Tensor,
            lengths: Optional[torch.Tensor], reverse: bool = False,
            training: bool = False,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -115,8 +153,7 @@ def unroll(cell: ZoneoutLSTMCell, xs: torch.Tensor,
         new_carry, y = cell(carry, xs[:, t], training, generator)
         if lengths is not None:
             valid = (t < lengths.to(xs.device))[:, None]
-            new_carry = tuple(torch.where(valid, n, p)
-                              for n, p in zip(new_carry, carry))
+            new_carry = _hold(valid, new_carry, carry)
             y = torch.where(valid, y, torch.zeros_like(y))
         carry = new_carry
         ys.append(y)
@@ -145,3 +182,18 @@ class BiZoneoutLSTM(nn.Module):
         ys_f = unroll(self.fw, xs, lengths, False, training, generator)
         ys_b = unroll(self.bw, xs, lengths, True, training, generator)
         return torch.cat([ys_f, ys_b], dim=-1)
+
+
+class BiGRU(nn.Module):
+    """(B, T, D) -> (B, T, 2 * units): [forward | backward], as
+    ``BiZoneoutLSTM``."""
+
+    def __init__(self, input_size: int, num_units: int):
+        super().__init__()
+        self.fw = GRUCell(input_size, num_units)
+        self.bw = GRUCell(input_size, num_units)
+
+    def forward(self, xs: torch.Tensor,
+                lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return torch.cat([unroll(self.fw, xs, lengths),
+                          unroll(self.bw, xs, lengths, True)], dim=-1)

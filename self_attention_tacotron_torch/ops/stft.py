@@ -20,6 +20,9 @@ is not copied here.
 
 ``MelExtractor`` has the JAX class's contract and orientation: (num_freq,
 F) and (num_mels, F) in dB re ``ref_level_db``, on an explicit device.
+The kernel takes a power-of-two n_fft by its FFT and any other (``num_freq``
+not 2^k + 1) by a direct DFT; ``spectrogram_unsupported_reason`` says what
+it refuses (an n_fft past ``MAX_DFT``), and the wrapper raises for it.
 Both centre-pad the signal by n_fft // 2 in reflect mode with numpy's
 semantics (``reflect_indices``; the kernel does the same index arithmetic
 itself): a signal shorter than the pad is folded again, an empty one
@@ -33,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -205,15 +208,31 @@ def _check(t: Tensor, shape, name: str, device, dtype=torch.float32) -> None:
         raise ValueError(f"{name}: the kernel has no backward")
 
 
-MAX_FFT = 16384   # 8 n_fft bytes of shared memory a block
+MAX_FFT = 16384   # the FFT: 8 n_fft bytes of shared memory a block
+MAX_DFT = 32768   # the direct DFT: 6 n_fft bytes (frame and magnitudes)
+
+
+def takes_fft(n_fft: int) -> bool:
+    """Whether the kernel's FFT takes ``n_fft`` (a power of two from 8 to
+    ``MAX_FFT``, ``num_freq`` = 2^k + 1); any other n_fft up to ``MAX_DFT``
+    takes its direct DFT."""
+    return 8 <= n_fft <= MAX_FFT and not n_fft & (n_fft - 1)
+
+
+def spectrogram_unsupported_reason(n_fft: int) -> Optional[str]:
+    """Why ``spectrograms``' kernel cannot take ``n_fft``, or None: the
+    FFT or the direct DFT takes every n_fft from 1 to ``MAX_DFT``."""
+    if not 1 <= n_fft <= MAX_DFT:
+        return f"n_fft {n_fft} outside [1, {MAX_DFT}]"
+    return None
 
 
 def spectrograms(y: Tensor, plan: SpecPlan) -> tuple:
     """(T,) signal -> (linear dB (F, bins), mel dB (F, mels)), F = 1 +
     T // hop: ``20 log10(max(1e-5, .))`` of the STFT magnitude and of its
     mel projection.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel (or raise), which takes a power-of-two n_fft from 8
-    to ``MAX_FFT``."""
+    launch the kernel (or raise): the FFT for a power-of-two n_fft from 8
+    to ``MAX_FFT``, else the direct DFT up to ``MAX_DFT``."""
     if not y.is_cuda:
         return spectrograms_plain(y, plan)
     N, M = plan.n_fft, plan.band.shape[0]
@@ -221,9 +240,9 @@ def spectrograms(y: Tensor, plan: SpecPlan) -> tuple:
     if y.dim() != 1 or y.shape[0] < 1:
         raise ValueError(f"spectrograms: expected a non-empty (T,) signal, "
                          f"got shape {tuple(y.shape)}")
-    if N < 8 or N > MAX_FFT or N & (N - 1):
-        raise ValueError(f"spectrograms: the kernel takes a power-of-two "
-                         f"n_fft from 8 to {MAX_FFT}, got {N}")
+    reason = spectrogram_unsupported_reason(N)
+    if reason is not None:
+        raise ValueError(f"spectrograms: {reason}")
     T, K = int(y.shape[0]), N // 2 + 1
     _check(y, (T,), "y", dev)
     _check(plan.window, (N,), "window", dev)

@@ -12,8 +12,9 @@ what an unbroken one would have.  The metrics are ``loss``, the main loss
 ``done_loss``, ``l2_regularization_loss``, ``learning_rate`` and
 ``grad_norm`` (the norm before clipping), as tensors on the model's device.
 ``make_eval_step`` is the two-pass evaluation (a free-running and a
-teacher-forced VALIDATION decode).  Data parallelism comes with a later
-slice.
+teacher-forced VALIDATION decode); ``make_predict_step`` is serving, with
+``use_forced_alignment_mode`` a second decode that replays the first's
+alignments.  Data parallelism comes with a later slice.
 """
 
 from __future__ import annotations
@@ -123,3 +124,30 @@ def make_eval_step(hp: HParams) -> Callable[
         return metrics, out_free, out_teacher
 
     return eval_step
+
+
+def make_predict_step(hp: HParams) -> Callable[
+        [nn.Module, Batch], Tuple[TacotronOutput, ...]]:
+    """``predict_step(model, batch) -> outputs``, one per decode pass; the
+    last is the prediction.  The first pass is INFERENCE (``model(batch)``:
+    the fused kernels where their gates let it).  With
+    ``hp.use_forced_alignment_mode`` a second pass decodes in VALIDATION,
+    free-running over the batch's target steps, replaying the first pass's
+    alignments, swapped to (B, T_dec, T_mem), in place of the attention
+    mechanisms (the JAX package's ``make_predict_step``); the batch must
+    then carry its target.  Past its stop step the first pass leaves what
+    its path wrote there (the plain loop keeps decoding, the early-exit
+    loop leaves zeros), and the replay takes those rows as they are."""
+
+    @torch.no_grad()
+    def predict_step(model: nn.Module, batch: Batch):
+        out = model(batch)
+        if not hp.use_forced_alignment_mode:
+            return (out,)
+        if batch.target is None:
+            raise ValueError("use_forced_alignment_mode decodes the target's "
+                             "steps again: the batch needs its target")
+        teacher = tuple(a.transpose(1, 2) for a in out.alignments)
+        return out, model.validation_forward(batch, False, teacher)
+
+    return predict_step

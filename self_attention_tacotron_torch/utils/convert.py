@@ -12,6 +12,9 @@ flax names (``encoder.cbhg.trunk.conv_bank.conv1d_K3.conv.weight``):
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, batch_stats
   ``mean``/``var`` -> ``running_mean``/``running_var`` (epsilon 1e-3 lives
   in the module);
+* a GRU cell's ``gates/kernel`` and ``candidate/kernel`` (in + u, 2u / u)
+  -> the ``gates`` and ``candidate`` linear layers' ``weight`` (transposed)
+  and their ``/bias`` -> ``bias`` (``cbhg/bigru/{fw,bw}``);
 * ``embedding`` -> ``weight``; every other leaf keeps its name
   (ForwardAttention's ``attention_variable`` (1, U) and ``attention_bias``,
   AdditiveAttention's ``attention_v``);
@@ -62,6 +65,8 @@ def from_flax(variables) -> Dict[str, torch.Tensor]:
         for path, leaf in _walk(variables.get(collection, {})):
             arr = np.asarray(leaf, np.float32)
             *mods, name = path
+            *sub, name = name.split("/")    # a GRU cell's "gates/kernel"
+            mods += sub
             if name == "kernel":
                 name = "weight"
                 arr = arr.T if arr.ndim == 2 else np.transpose(arr, (2, 1, 0))
@@ -78,19 +83,26 @@ def _flax_namer(model: nn.Module):
                   if type(m).__name__ == "Embedding"}
     norms = {n for n, m in model.named_modules()
              if type(m).__name__ == "BatchNorm"}
+    grus = {n for n, m in model.named_modules()
+            if type(m).__name__ == "GRUCell"}
 
     def name_of(key: str):
         *mods, name = key.split(".")
         owner = ".".join(mods)
+        collection, is_kernel = "params", False
         if name in _LEAF_TO_FLAX:
-            return "batch_stats", mods, _LEAF_TO_FLAX[name], False
-        if name == "weight" and owner in embeddings:
-            return "params", mods, "embedding", False
-        if name == "weight" and owner in norms:
-            return "params", mods, "scale", False
-        if name == "weight":
-            return "params", mods, "kernel", True
-        return "params", mods, name, False
+            collection, leaf = "batch_stats", _LEAF_TO_FLAX[name]
+        elif name == "weight" and owner in embeddings:
+            leaf = "embedding"
+        elif name == "weight" and owner in norms:
+            leaf = "scale"
+        elif name == "weight":
+            leaf, is_kernel = "kernel", True
+        else:
+            leaf = name
+        if ".".join(mods[:-1]) in grus:     # the cell's "gates/kernel"
+            mods, leaf = mods[:-1], f"{mods[-1]}/{leaf}"
+        return collection, mods, leaf, is_kernel
     return name_of
 
 
@@ -143,6 +155,8 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
             vals = rng.uniform(-lim, lim, tuple(p.shape))
         elif re.search(r"highway_\d+\.T\.bias$", name):
             vals = np.full(tuple(p.shape), -1.0)
+        elif name.endswith(".gates.bias"):     # a GRU cell's gate bias
+            vals = np.ones(tuple(p.shape))
         elif leaf == "weight":  # batch-norm scale
             vals = np.ones(tuple(p.shape))
         else:

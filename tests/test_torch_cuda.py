@@ -132,7 +132,8 @@ def test_fused_encode_kernel_matches_plain(device, kw, T, L):
 
 @pytest.mark.parametrize("kw,T", [({}, 32), (RECIPE_ENC, 64),
                                   ({"max_filter_width": 5,
-                                    "cbhg_out_units": 24}, 40)])
+                                    "cbhg_out_units": 24}, 40),
+                                  (RECIPE_ENC, 600)])
 def test_encode_smem_plan_matches_the_kernel(device, kw, T):
     import ctypes
     params, x, kwargs = _enc_case(_model(device, **kw), T, T, device)
@@ -142,7 +143,8 @@ def test_encode_smem_plan_matches_the_kernel(device, kw, T):
                                                  which)) for which in (0, 1))
     a = launch.args
     assert got == fe.smem_bytes(T, a.E_in, tuple(a.pre_out[:a.n_prenet]),
-                                a.K, a.C, a.P1, a.P2, a.W, a.H, a.SA)
+                                a.K, a.C, a.P1, a.P2, a.W, a.H, a.SA,
+                                a.n_heads)
 
 
 def _dec_case(model, T, L, device):
@@ -911,8 +913,8 @@ def test_pallas_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError):   # non-contiguous
         t = q.transpose(2, 3)
         pa.fused_self_attention(t, t, t)
-    with pytest.raises(ValueError):   # head width past the widest template
-        w = _normal(device, 1, 2, 8, 136)
+    with pytest.raises(ValueError):   # head width past the wide kernel's
+        w = _normal(device, 1, 2, 8, pa.MAX_HEAD_DIM + 8)
         pa.fused_self_attention(w, w, w)
     with pytest.raises(ValueError):   # no backward
         g = q.clone().requires_grad_()
@@ -926,9 +928,9 @@ def test_pallas_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError):   # non-contiguous cache
         pa.incremental_attention_step(q[:, :, 0], cache.transpose(0, 1),
                                       cache, 0)
-    with pytest.raises(ValueError):   # one thread a column: D <= 256
-        wide = _normal(device, 1, 1, 4, 300)
-        pa.incremental_attention_step(wide[:, :, 0], wide, wide, 1)
+    with pytest.raises(ValueError):   # B * H past the grid's 65535
+        many = _normal(device, 1, 65536, 2, 4)
+        pa.incremental_attention_step(many[:, :, 0], many, many, 1)
 
 
 @torch.no_grad()
@@ -1056,8 +1058,8 @@ def test_spectrogram_wrapper_rejects_what_the_kernel_does_not_take(device):
         S.spectrograms(y[:0], plan)
     with pytest.raises(ValueError):
         S.spectrograms(y, plan._replace(window=plan.window[:64]))
-    with pytest.raises(ValueError):
-        S.spectrograms(y, _plan(96, 8, device))     # not a power of two
+    with pytest.raises(ValueError):     # past the direct DFT's 32768
+        S.spectrograms(y, _plan(S.MAX_DFT + 2, 8, device))
 
 
 MEL = dict(tacotron_model="ExtendedTacotronV1Model",
@@ -1084,3 +1086,131 @@ def test_mel_model_serves_through_fused_decode(device):
         _close(getattr(outs[1], name), getattr(outs[0], name))
     _close(outs[1].alignments[0], outs[0].alignments[0])
     assert torch.equal(outs[1].lengths, outs[0].lengths)
+
+
+# ----------------------- the kernels at the edges of their earlier plans
+
+@torch.no_grad()
+@pytest.mark.parametrize("T,launches", [(533, 1), (534, 1), (600, 1)])
+def test_encoder_gate_at_the_plan_edge_on_the_card(device, T, launches):
+    """The recipe's encoder widths: up to T = 533 the hop's rows sit in
+    shared memory, past it the kernel streams them; both launch the kernel
+    and match the module path.  A configuration the kernel refuses raises
+    on the card."""
+    model = _model(device, seed=5, encoder_fused_inference=True,
+                   **RECIPE_ENC)
+    enc = model.encoder
+    x = model.embedding(_source(T, T, device, seed=T))
+    fe.fused_encode.launches = 0
+    got = enc(x, torch.tensor([T], device=device))
+    assert fe.fused_encode.launches == launches
+    assert fe.hop_streams(T, enc.cbhg_out_units // 2,
+                          enc.self_attention_out_units) == (T > 533)
+    enc.fused_inference = False
+    ref = enc(x, torch.tensor([T], device=device))
+    for g, r in zip(got[:2], ref[:2]):
+        _close(g, r)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        fe.fused_encode(enc.fused_params(), x[..., :-2], T,
+                        max_filter_width=enc.max_filter_width,
+                        conv_channels=enc.conv_channels,
+                        half=enc.cbhg_out_units // 2,
+                        sa_units=enc.self_attention_out_units,
+                        num_heads=enc.self_attention_num_heads)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("D", [128, 129, 257])
+def test_pallas_gates_at_the_head_width_edges_on_the_card(device, D):
+    """Head widths past the tensor-core templates (D > 128) and past the
+    step's registers (D > 256) launch the wide kernels and match the
+    einsum path; past 1024 the full-sequence wrapper raises."""
+    from self_attention_tacotron_torch.ops import attention_core as ac
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    torch.manual_seed(D)
+    mha = ac.MultiHeadAttention(2 * D, 2, use_subsequent_mask=True,
+                                use_pallas=True).to(device).eval()
+    ref = ac.MultiHeadAttention(2 * D, 2, use_subsequent_mask=True).to(
+        device).eval()
+    ref.load_state_dict(mha.state_dict())
+    x = _normal(device, 1, 40, 2 * D, seed=D)
+    pa.fused_self_attention.launches = 0
+    pa.incremental_attention_step.launches = 0
+    _close(mha(x, x, x)[0], ref(x, x, x)[0], tol=1e-5)
+    cache, cache_r = mha.init_cache(1, 40, device), ref.init_cache(1, 40,
+                                                                  device)
+    for t in range(40):
+        y, cache, _ = mha.step(x[:, t], t, cache)
+        y_r, cache_r, _ = ref.step(x[:, t], t, cache_r)
+        _close(y, y_r, tol=1e-5)
+    assert pa.fused_self_attention.launches == 1
+    assert pa.incremental_attention_step.launches == 40
+    q = _normal(device, 1, 2, 8, pa.MAX_HEAD_DIM + 1)
+    with pytest.raises(ValueError, match="head width"):
+        pa.fused_self_attention(q, q, q)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("D,T,causal", [(129, 1, False), (129, 70, True),
+                                        (200, 33, False), (1024, 40, True),
+                                        (300, 250, False)])
+def test_wide_self_attention_kernel_matches_plain(device, D, T, causal):
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    q, k, v = (_normal(device, 2, 2, T, D, seed=s) for s in range(3))
+    before = pa.fused_self_attention.launches
+    got = pa.fused_self_attention(q, k, v, causal)
+    assert pa.fused_self_attention.launches == before + 1
+    _close(got, pa.fused_self_attention_reference(q, k, v, causal),
+           tol=1e-5)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("D,S,t", [(257, 40, 0), (257, 40, 39),
+                                   (1000, 300, 250), (2050, 70, 65)])
+def test_wide_step_kernel_matches_plain(device, D, S, t):
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    q = _normal(device, 2, 2, D, seed=0)
+    kc, vc = (_normal(device, 2, 2, S, D, seed=s) for s in (1, 2))
+    before = pa.incremental_attention_step.launches
+    got = pa.incremental_attention_step(q, kc, vc, t)
+    assert pa.incremental_attention_step.launches == before + 1
+    _close(got, pa.incremental_attention_step_reference(q, kc, vc, t),
+           tol=1e-5)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("num_freq", [1025, 1000])      # n_fft 2048, 1998
+def test_mel_extractor_gate_on_the_card(device, num_freq):
+    """A power-of-two n_fft takes the kernel's FFT, any other its direct
+    DFT: both launch and match the plain version."""
+    from self_attention_tacotron_torch.ops import stft as S
+    args = (22050, num_freq, 80, 50.0, 12.5, 20.0)
+    y = (0.1 * np.random.default_rng(1).standard_normal(30000)).astype(
+        np.float32)
+    S.spectrograms.launches = 0
+    got = S.MelExtractor(*args, device=device).spectrograms(y)
+    assert S.spectrograms.launches == 1
+    ref = S.MelExtractor(*args, device="cpu").spectrograms(y)
+    for g, r in zip(got, ref):
+        mag_err, db_err = _db_errors(g.T + 20.0, r.T + 20.0)
+        assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("n_fft", [2, 30, 1998, 6000])
+def test_spectrogram_dft_matches_plain(device, n_fft):
+    from self_attention_tacotron_torch.ops import stft as S
+    from self_attention_tacotron_torch.utils.audio import (hann_window,
+                                                           mel_filterbank)
+    mel = mel_filterbank(22050, n_fft, 8)
+    plan = S.spectrogram_plan(mel, hann_window(n_fft, n_fft),
+                              max(1, n_fft // 4), device)
+    y = torch.from_numpy((0.1 * np.random.default_rng(n_fft)
+                          .standard_normal(3 * n_fft + 5))
+                         .astype(np.float32)).to(device)
+    before = S.spectrograms.launches
+    got = S.spectrograms(y, plan)
+    assert S.spectrograms.launches == before + 1
+    for g, r in zip(got, S.spectrograms_plain(y, plan)):
+        mag_err, db_err = _db_errors(g, r)
+        assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)

@@ -102,17 +102,23 @@ def test_fused_encode_takes_batch_one_only():
     assert lstm_out.shape == (2, 13, 16)
 
 
-# (T, E_in, prenet widths, K, C, P1, P2, W, H, SA) -> (trunk, cluster)
-# bytes of shared memory a block: the recipes' encoder widths (the codes
-# and VCTK recipes share them; the first projection's item, 66 pooled and
-# 67 raw rows of 256 channels and 3 taps of weights, sets the trunk's plan,
-# the hop's projection from the 2 x 128 LSTM outputs the cluster's) and
-# this file's tiny ones
+# (T, E_in, prenet widths, K, C, P1, P2, W, H, SA, heads) -> (trunk,
+# cluster) bytes of shared memory a block: the recipes' encoder widths (the
+# codes and VCTK recipes share them; the first projection's item, 66 pooled
+# and 67 raw rows of 256 channels and 3 taps of weights, sets the trunk's
+# plan, the hop's projection from the 2 x 128 LSTM outputs the cluster's),
+# the same at T = 600, where the hop streams its rows and the cluster's
+# plan is the one of T = 64 (the resident rows would need 4 * (600 * 100
+# + 8 * 600) bytes), and this file's tiny ones
 SMEM_PLANS = {
-    "recipe": ((64, 256, (256, 128), 16, 128, 128, 128, 128, 128, 32),
+    "recipe": ((64, 256, (256, 128), 16, 128, 128, 128, 128, 128, 32, 2),
                (4 * (133 * 260 + 3 * 256 * 8 + 512),
                 4 * (64 * 260 + 256 * 8 + 8 + 512))),
-    "tiny": ((32, 16, (16, 8), 4, 8, 8, 8, 8, 8, 8), (24272, 11808)),
+    "recipe_long": ((600, 256, (256, 128), 16, 128, 128, 128, 128, 128, 32,
+                     2),
+                    (4 * (133 * 260 + 3 * 256 * 8 + 512),
+                     4 * (64 * 260 + 256 * 8 + 8 + 512))),
+    "tiny": ((32, 16, (16, 8), 4, 8, 8, 8, 8, 8, 8, 2), (24272, 11808)),
 }
 
 

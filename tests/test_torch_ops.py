@@ -246,5 +246,7 @@ print("ok")
                 "data.preprocess.codes", "text.cleaners", "text.symbols",
                 "text.numbers_norm", "text.phoneset", "text.flite",
                 "cli.speaker_selection", "models.embedding",
-                "models.prenet", "models.tacotron", "models.decoder"):
+                "models.prenet", "models.tacotron", "models.decoder",
+                "ops.rnn", "ops.attention_core",
+                "models.encoders", "models.attention", "utils.convert"):
         assert f"self_attention_tacotron_torch.{mod}" in lines, mod

@@ -158,8 +158,7 @@ def test_model_rejects_kinds_not_ported():
     import pytest
     for kw in (dict(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel"),
                dict(apply_dropout_on_inference=True),
-               dict(use_accent_type=True),
-               dict(use_forced_alignment_mode=True)):
+               dict(use_accent_type=True)):
         with pytest.raises(NotImplementedError):
             tacotron_model_factory(tiny_codes_hp(**kw))
     # speakers are ported (the VCTK recipe); the two tables exclude each
