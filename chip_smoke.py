@@ -168,7 +168,28 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    steps; ``MelExtractor`` at n_fft 2048 (the FFT) and 1998 (the direct
    DFT): each against its plain path; then the streamed encoder, both
    wide kernels and the DFT timed beside their plain versions, bounds and
-   library calls.
+   library calls;
+24. the entry points (``entry_points``): four encoders past #1's earlier
+   limits (path ``widened_encoder_*``: widths of 130, the 4-byte copies;
+   129 and 256 LSTM units, the 16-block cluster; 5 prenet layers, 9
+   highway layers and 5 hops, the layer table) served through the model's
+   encoder and held against the plain version (1e-5), each timed beside
+   its bound; training with ``use_pallas_attention`` and both hop drop
+   rates at 0 refused with the named ``NotImplementedError``; ``main_code``
+   with matplotlib's presence patched in (path ``predict_replay``: the
+   fused pass and its plain-path replay; the replay's outputs within 1e-5
+   of the fused pass's, #1 within 1e-5 of its plain version on the served
+   sources, the plotted source alignments' columns summing to 1 within
+   1e-5, one "no PNG" line where matplotlib is absent) and the time the
+   replay adds; ``cli.train`` for 3 steps with ``alignment_save_steps=2``
+   and ``record_profile`` from step 1 (path ``plotted_training``: the
+   saver's payload, the Chrome trace, the device-busy share); ``cli.train``
+   for 3 steps without the profiler beside the training dataset alone and
+   the step function alone on its batches (each step's seconds);
+   ``entry()`` on the card; ``bench.measure`` over 3 decodes (path
+   ``bench``), its JSON line printed, then on the bench's own model and
+   source its decode against the flagship with the fused flags off (1e-5)
+   and #1 and #2 against their plain versions, timed beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -274,31 +295,43 @@ def source_ids(hp, length: int, T: int, seed: int, device):
     return torch.from_numpy(src).to(device)
 
 
-def encoder_case(model, length: int, T: int, device):
-    """(params, x, kwargs) of the fused encoder for a random source."""
+def encoder_inputs(model, source):
+    """(params, x, kwargs) of the fused encoder for ``source`` (1, T)."""
     enc = model.encoder
-    x = model.embedding(source_ids(model.hp, length, T, SEED + length, device))
     kw = dict(max_filter_width=enc.max_filter_width,
               conv_channels=enc.conv_channels, half=enc.cbhg_out_units // 2,
               sa_units=enc.self_attention_out_units,
               num_heads=enc.self_attention_num_heads,
               zoneout_cell=enc.zoneout_factor_cell,
               zoneout_output=enc.zoneout_factor_output)
-    return enc.fused_params(), x, kw
+    return enc.fused_params(), model.embedding(source), kw
+
+
+def encoder_case(model, length: int, T: int, device):
+    """(params, x, kwargs) of the fused encoder for a random source."""
+    return encoder_inputs(model, source_ids(model.hp, length, T,
+                                            SEED + length, device))
+
+
+def decoder_inputs(model, source, length: int):
+    """(weights, memory, options) of the fused decode from the encoder's
+    outputs (plain version) on ``source`` (1, T), ``length`` of it valid."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    params, x, kw = encoder_inputs(model, source)
+    lstm_out, sa = fe.fused_encode_reference(params, x, length, **kw)
+    lengths = torch.tensor([length], device=source.device)
+    dec = model.decoder
+    packs = tuple(m.precompute(s, lengths) for m, s in
+                  zip(dec.attention_mechanisms, (lstm_out, sa)))
+    return dec.fused_inputs(packs)
 
 
 def decoder_case(model, length: int, T: int, device):
     """(weights, memory, options) of the fused decode from the encoder's
     outputs (plain version) on a random source."""
-    import torch
-    from self_attention_tacotron_torch.ops import fused_encoder as fe
-    params, x, kw = encoder_case(model, length, T, device)
-    lstm_out, sa = fe.fused_encode_reference(params, x, length, **kw)
-    lengths = torch.tensor([length], device=device)
-    dec = model.decoder
-    packs = tuple(m.precompute(s, lengths) for m, s in
-                  zip(dec.attention_mechanisms, (lstm_out, sa)))
-    return dec.fused_inputs(packs)
+    return decoder_inputs(model, source_ids(model.hp, length, T,
+                                            SEED + length, device), length)
 
 
 def phase_encode(model, device):
@@ -3291,6 +3324,426 @@ def phase_edges(model, device, card: str):
     return rows, launches
 
 
+# Phase 24: encoders past #1's earlier limits (the codes recipe's widths
+# otherwise): widths of 130 (not multiples of 4), 129 and 256 LSTM units a
+# direction, more prenet, highway and hop layers than its fixed arrays held
+WIDE_ENCODERS = (
+    ("widened_encoder_w130",
+     "encoder_prenet_out_units=[256,130],projection2_out_channels=130"),
+    ("widened_encoder_h129", "cbhg_out_units=258"),
+    ("widened_encoder_h256", "cbhg_out_units=512"),
+    ("widened_encoder_layers",
+     "encoder_prenet_out_units=[256,128,128,128,128],num_highway=9,"
+     "self_attention_num_hop=5"),
+)
+PALLAS_NO_DROPOUT = ("use_pallas_attention=true,self_attention_drop_rate=0,"
+                     "decoder_self_attention_drop_rate=0")
+PLOTTED_TRAINING = "alignment_save_steps=2,record_profile=true,profile_steps=1"
+TOL_REPLAY = 1e-5
+
+
+def _reused_rows(rows, name, path, new_path, count):
+    """The rows of ``name`` measured on ``path``, for ``new_path``'s run,
+    which launched it ``count`` times at the same shapes."""
+    return [dict(row, path=new_path, launches=count) for row in rows
+            if row["name"] == name and row["path"] == path and count]
+
+
+def _widened_encoders(device, card):
+    import torch
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    rows, launches = [], {}
+    for path, extra in WIDE_ENCODERS:
+        model = make_model(_hp_with(RECIPE, extra), device)
+        params, x, kw = encoder_case(model, T_IN, T_IN, device)
+        fe.fused_encode.launches = 0
+        got = model.encoder(x, torch.tensor([T_IN], device=device))
+        launched = fe.fused_encode.launches
+        ref = fe.fused_encode_reference(params, x, T_IN, **kw)
+        err = max(_max_err(g, r) for g, r in zip(got[:2], ref))
+        launch = fe.prepare_encode(params, x, T_IN, **kw)
+        ms = _time_ms(launch)
+        plain = _time_ms(lambda: fe.fused_encode_reference(
+            params, x, T_IN, **kw), reps=1)
+        bound = encode_bound(params, x, kw)
+        log(f"phase 24 {path} ({extra}; H = {kw['half']}, 16-byte copies "
+            f"{bool(launch.args.v4)}, {2 * fe.dir_blocks(kw['half'])}-block "
+            f"cluster): launches {launched}; vs the plain version max abs "
+            f"err {err:.3e}; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{_bound_ms(bound, PEAK_3XTF32_FLOP_PER_S):.4f} ms; card {card}")
+        if launched != 1 or err > TOL_ENCODE:
+            raise AssertionError(f"the widened encoder {path}")
+        launches[path] = {"fused_encode": launched}
+        rows += _kernel_rows("fused_encode", "fused_encoder",
+                             "fused_encoder.py:94", {path: launches[path]},
+                             err, ms, plain, bound,
+                             peak_flops=PEAK_3XTF32_FLOP_PER_S)
+        del model, launch
+    return rows, launches
+
+
+def _pallas_training_refused(device):
+    import torch
+    from self_attention_tacotron_torch.entry import _make_batch
+    from self_attention_tacotron_torch.parallel import (create_train_state,
+                                                        make_train_step)
+    hp = _hp_with(RECIPE, PALLAS_NO_DROPOUT)
+    model = make_model(hp, device)
+    state = create_train_state(model, hp)
+    batch = _make_batch(hp, B=2, T_in=16, T_out=8).to(device)
+    try:
+        with torch.enable_grad():
+            make_train_step(hp)(state, batch)
+    except NotImplementedError as e:
+        said = str(e)
+    else:
+        raise AssertionError("Pallas-mode training without dropout ran")
+    named = all(h + " = 0" in said for h in (
+        "self_attention_drop_rate", "decoder_self_attention_drop_rate"))
+    log(f"phase 24 training with {PALLAS_NO_DROPOUT}: NotImplementedError "
+        f"before the first step (step {state.step}): {said[:160]}...")
+    if not named or state.step != 0:
+        raise AssertionError("the refusal does not name the hparams")
+
+
+def _predict_with_replay(model, tmp, card):
+    """main_code with the replay over 3 utterances (matplotlib's presence
+    patched in, so that the card, which has none, replays too).  Returns
+    its launch counts and the errors of its kernels: #2's as the replay's
+    distance from the served pass (the plain module path, the same weights
+    and encoder), #1's against its plain version on the served sources."""
+    import contextlib
+    import io
+    import logging
+    import re
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.cli.predict import main_code
+    from self_attention_tacotron_torch.data.records import (
+        parse_source_record, read_first_example)
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.utils import metrics
+    from self_attention_tacotron_torch.utils.convert import save_checkpoint
+    data, ckpt, out = (os.path.join(tmp, d) for d in (
+        "replay_data", "replay_ckpt", "replay_out"))
+    os.makedirs(data)
+    keys = write_corpus(model.hp, data)
+    save_checkpoint(model, ckpt, step=1)
+    plotted = []
+    plot, have = metrics.plot_predictions, metrics.have_matplotlib
+
+    def capture(alignments, *a, **k):   # the alignments the PNG shows
+        plotted.append([np.asarray(x) for x in alignments])
+        return plot(alignments, *a, **k)
+
+    said = []
+    handler = logging.Handler()
+    handler.emit = lambda record: said.append(record.getMessage())
+    logger = logging.getLogger("predict_codes")
+    logger.addHandler(handler)
+    metrics.plot_predictions = capture
+    metrics.have_matplotlib = lambda: True
+    printed = io.StringIO()
+    fe.fused_encode.launches = fd.fused_decode.launches = 0
+    try:
+        with contextlib.redirect_stdout(printed):
+            rc = main_code(["--source-data-root", data, "--target-data-root",
+                            data, "--checkpoint-dir", ckpt, "--output-dir",
+                            out, "--hparam-json-file", RECIPE])
+    finally:
+        metrics.plot_predictions, metrics.have_matplotlib = plot, have
+        logger.removeHandler(handler)
+    counts = {"fused_encode": fe.fused_encode.launches,
+              "fused_decode": fd.fused_decode.launches}
+    text = printed.getvalue()
+    print(text, end="")
+    lines = re.findall(r"([\d.]+) ms wall on \w+ \(the alignment replay "
+                       r"([\d.]+) ms, (\d+) steps, its outputs within "
+                       r"([-+.\deE]+) of the served pass\)", text)
+    errs = [float(m[3]) for m in lines]
+    # the columns of the decoded steps (the plain loop stops there)
+    sums = [float(np.abs(a[:, :int(m[2])].sum(0) - 1.0).max())
+            for p, m in zip(plotted, lines) for a in p[:2]]
+    self_attention = all(a.any() for p in plotted for a in p[2:])
+    no_png = sum(metrics.NO_PNG in m for m in said)
+    pngs = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    wall = [float(m[0]) for m in lines]
+    replay = [float(m[1]) for m in lines]
+    enc_err = 0.0
+    for key in keys:        # #1 on each served source, after the count
+        rec = parse_source_record(read_first_example(os.path.join(
+            data, f"{key}.{model.hp.source_file_extension}")))
+        source = torch.from_numpy(rec.source[None].astype(np.int64))
+        params, x, kw = encoder_inputs(
+            model, source.to(model.embedding.weight.device))
+        got = fe.fused_encode(params, x, rec.source_length, **kw)
+        ref = fe.fused_encode_reference(params, x, rec.source_length, **kw)
+        enc_err = max(enc_err, *(_max_err(g, r) for g, r in zip(got, ref)))
+    log(f"phase 24 predict with the replay: main_code served "
+        f"{len(lines)} utterances; launch counts {counts}; replay vs served "
+        f"outputs max abs err {max(errs, default=float('nan')):.3e}; "
+        f"fused_encode vs its plain version on the served sources "
+        f"{enc_err:.3e}; plotted "
+        f"source alignments' columns sum to 1 within "
+        f"{max(sums, default=float('nan')):.3e}; decoder self-attention "
+        f"plotted {self_attention}; 'no PNG' lines {no_png}, PNGs {pngs}; "
+        f"served pass {wall} ms, the replay adds {replay} ms an utterance "
+        f"(median {statistics.median(replay) if replay else 0:.3f}); card "
+        f"{card}")
+    png_ok = (no_png == 1 and not pngs) if not metrics.have_matplotlib() \
+        else pngs == sorted(f"{k}.png" for k in keys)
+    if (rc != 0 or len(lines) != len(keys) or len(plotted) != len(keys)
+            or max(errs) > TOL_REPLAY or max(sums) > TOL_REPLAY
+            or enc_err > TOL_ENCODE
+            or not self_attention or not png_ok
+            or counts != {"fused_encode": 2 * len(keys),
+                          "fused_decode": len(keys)}):
+        raise AssertionError("predict with the alignment replay")
+    return counts, {"fused_encode": enc_err, "fused_decode": max(errs)}
+
+
+def _plotted_training(data, tmp, card):
+    """cli.train for 3 steps with the train-time plots and the profiler;
+    returns its launch counts."""
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    from self_attention_tacotron_torch.utils import metrics
+    ckpt = os.path.join(tmp, "plotted_ckpt")
+    payloads = []
+    save = metrics.MetricsSaver.save
+
+    def capture(self, step, key, text, alignments, ground_truth, predicted,
+                *a, **k):
+        payloads.append((self.mode, step, [x.shape for x in alignments],
+                         ground_truth.shape, predicted.shape))
+        return save(self, step, key, text, alignments, ground_truth,
+                    predicted, *a, **k)
+
+    metrics.MetricsSaver.save = capture
+    ft.fused_train_fwd.launches = ft.fused_train_bwd.launches = 0
+    try:
+        with torch.enable_grad():
+            rc = train_main(["--source-data-root", data, "--target-data-root",
+                             data, "--checkpoint-dir", ckpt,
+                             "--hparam-json-file", RECIPE, "--max-steps",
+                             "3", "--hparams", PLOTTED_TRAINING])
+    finally:
+        metrics.MetricsSaver.save = save
+    counts = {"fused_train_fwd": ft.fused_train_fwd.launches,
+              "fused_train_bwd": ft.fused_train_bwd.launches}
+    with open(os.path.join(ckpt, "log.txt")) as f:
+        text = f.read()
+    busy = re.search(r"profile of steps (\d+)-(\d+): device busy "
+                     r"([\d.]+) % \(([\d.]+) ms a step\) of ([\d.]+) ms "
+                     r"wall on cuda; trace (\S+)", text)
+    trace = busy.group(6) if busy else ""
+    steps = re.findall(r"step (\d+) loss [-+0-9.eEinfa]+ \(([\d.]+)s\)", text)
+    log(f"phase 24 plotted training: cli.train 3 steps ({PLOTTED_TRAINING}); "
+        f"launch counts {counts}; saver payloads (mode, step, alignment "
+        f"shapes, ground truth, outputs) {payloads}; profile "
+        f"{busy.group(0) if busy else 'missing'}; seconds a step (the "
+        f"profiled ones under the profiler) {[float(t) for _, t in steps]}; "
+        "trace "
+        f"{os.path.getsize(trace) if os.path.exists(trace) else 0} bytes; "
+        f"card {card}")
+    if os.path.exists(trace):
+        log("phase 24 plotted training: the profiled window's device time "
+            "by event (name, ms, count): " + "; ".join(
+                f"{name[:70]} {ms:.3f} ms x{n}"
+                for name, ms, n in _device_time_by_name(trace)[:8]))
+    C = recipe_hparams().num_mels
+    ok = (len(payloads) == 1 and payloads[0][:2] == ("train", 2)
+          and len(payloads[0][2]) == 2
+          and all(s[1] == payloads[0][4][0] for s in payloads[0][2])
+          and payloads[0][4][1] == C and payloads[0][3][1] == C)
+    if (rc != 0 or not ok or busy is None or not os.path.exists(trace)
+            or counts != {"fused_train_fwd": 3, "fused_train_bwd": 3}):
+        raise AssertionError("training with plots and the profiler")
+    return counts
+
+
+def _device_time_by_name(trace):
+    """[(name, ms, count)] of the device's work in a ``torch.profiler``
+    trace, the most time first."""
+    from self_attention_tacotron_torch.cli.train import device_events
+    total = {}
+    for e in device_events(trace):
+        ms, n = total.get(e["name"], (0.0, 0))
+        total[e["name"]] = (ms + e["dur"] / 1e3, n + 1)
+    return sorted(((name, ms, n) for name, (ms, n) in total.items()),
+                  key=lambda row: -row[1])
+
+
+def _bench(device, card):
+    """``bench.measure`` over 3 decodes (path ``bench``; its JSON line
+    printed), then on the bench's own model and source: its decode against
+    the flagship built with the fused flags off (the same weights), and #1
+    and #2 against their plain versions, timed beside their bounds.
+    Returns (rows, launch counts)."""
+    import torch
+    from self_attention_tacotron_torch import bench
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    fe.fused_encode.launches = fd.fused_decode.launches = 0
+    line = bench.measure(reps=3, warmup=1)
+    counts = {"fused_encode": fe.fused_encode.launches,
+              "fused_decode": fd.fused_decode.launches}
+    log(f"phase 24 bench.measure(reps=3, warmup=1): launch counts {counts}; "
+        f"card {card}; its line:")
+    print(json.dumps(line), flush=True)
+    if line["metric"] != "decoder_frames_per_sec_per_chip" or not (
+            line["value"] > 0) or counts != {"fused_encode": 4,
+                                             "fused_decode": 4}:
+        raise AssertionError("the bench")
+    hp, model, batch = bench.make_flagship(device)
+    plain = tacotron_model_factory(hp.replace(encoder_fused_inference=False,
+                                              decoder_fused_inference=False))
+    plain.load_state_dict(model.state_dict())
+    plain = plain.to(device).eval()
+    got, ref = model(batch), plain(batch)
+    model_err = max(_max_err(got.outputs, ref.outputs),
+                    _max_err(got.stop_token, ref.stop_token))
+    steps, L = hp.max_iters, int(batch.source_length[0])
+    params, x, kw = encoder_inputs(model, batch.source)
+    enc_err = max(_max_err(g, r) for g, r in zip(
+        fe.fused_encode(params, x, L, **kw),
+        fe.fused_encode_reference(params, x, L, **kw)))
+    weights, memory, options = decoder_inputs(model, batch.source, L)
+    got_d, ref_d = _decode_pair(weights, memory, options, steps)
+    dec_err = max(_max_err(got_d[0], ref_d[0]), _max_err(got_d[1], ref_d[1]),
+                  *(_max_err(g, r) for g, r in zip(got_d[2], ref_d[2])))
+    enc_t = (_time_ms(fe.prepare_encode(params, x, L, **kw)),
+             _time_ms(lambda: fe.fused_encode_reference(params, x, L, **kw)))
+    dec_t = (_time_ms(fd.prepare_decode(weights, memory, num_steps=steps,
+                                        **options)),
+             _time_ms(lambda: fd.fused_decode_reference(
+                 weights, memory, num_steps=steps, **options), reps=3))
+    bounds = (encode_bound(params, x, kw),
+              decode_bound(model.decoder.fused_params(), weights, memory,
+                           steps))
+    log(f"phase 24 bench inputs (the flagship at full width, T = {L}, "
+        f"{steps} steps, early stop {options['early_stop']}): the fused "
+        f"decode vs the flagship with the fused flags off max abs err "
+        f"{model_err:.3e} (outputs {tuple(got.outputs.shape)}); fused_encode "
+        f"vs plain {enc_err:.3e}, {enc_t[0]:.4f} ms (plain {enc_t[1]:.4f}, "
+        f"bound {_bound_ms(bounds[0], PEAK_3XTF32_FLOP_PER_S):.4f}); "
+        f"fused_decode vs plain {dec_err:.3e}, {dec_t[0]:.4f} ms (plain "
+        f"{dec_t[1]:.4f}, bound {_bound_ms(bounds[1]):.4f}); card {card}")
+    if max(model_err, dec_err) > TOL_DECODE or enc_err > TOL_ENCODE:
+        raise AssertionError("the bench's decode disagrees with its plain "
+                             "version")
+    return [*_kernel_rows("fused_encode", "fused_encoder",
+                          "fused_encoder.py:94", {"bench": counts}, enc_err,
+                          *enc_t, bounds[0],
+                          peak_flops=PEAK_3XTF32_FLOP_PER_S),
+            *_kernel_rows("fused_decode", "fused_decode",
+                          "fused_decode.py:250", {"bench": counts}, dec_err,
+                          *dec_t, bounds[1])], counts
+
+
+LOOP_STEPS = 3
+
+
+def _training_loop_split(data, tmp, device, card):
+    """Where a ``cli.train`` step's wall goes, without the profiler: the
+    CLI for ``LOOP_STEPS`` steps (each ``step N loss L (s)`` line is one
+    step of the loop: the batch, the step, the logging), then, on the same
+    corpus and recipe, the training dataset alone (each batch's wait) and
+    the step function alone on those batches (the copy to the card
+    included, the loss read back as the CLI does)."""
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    from self_attention_tacotron_torch.data.dataset import (
+        dataset_factory, find_dataset_files, load_key_list, to_model_batch)
+    from self_attention_tacotron_torch.parallel import (create_train_state,
+                                                        make_train_step)
+    ckpt = os.path.join(tmp, "loop_ckpt")
+    with torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt,
+                         "--hparam-json-file", RECIPE, "--max-steps",
+                         str(LOOP_STEPS)])
+    hp = recipe_hparams()
+    with open(os.path.join(ckpt, os.path.basename(hp.logfile))) as f:
+        loop = [float(t) for t in re.findall(
+            r"step \d+ loss [-+0-9.eEinfa]+ \(([\d.]+)s\)", f.read())]
+    keys = load_key_list(os.path.join(data, "train.csv"))
+    ds = iter(dataset_factory(
+        find_dataset_files(data, keys, hp.source_file_extension),
+        find_dataset_files(data, keys, hp.target_file_extension), hp,
+        shuffle=True, repeat=True, drop_remainder=True,
+        batch_size=hp.batch_size, seed=hp.seed))
+    waits, batches = [], []
+    for _ in range(LOOP_STEPS):
+        t0 = time.perf_counter()
+        batches.append(next(ds))
+        waits.append(time.perf_counter() - t0)
+    state = create_train_state(make_model(hp, device).train(), hp)
+    train_step = make_train_step(hp)
+    steps = []
+    with torch.enable_grad():
+        for nb in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(train_step(state, to_model_batch(nb))["loss"])
+            steps.append(time.perf_counter() - t0)
+    med = statistics.median
+    log(f"phase 24 training loop without the profiler: cli.train "
+        f"{LOOP_STEPS} steps, s a step {loop} (past the first: median "
+        f"{med(loop[1:]) if len(loop) > 1 else float('nan'):.4f}); the "
+        f"dataset alone, s a batch {[round(t, 4) for t in waits]} (past the "
+        f"first: median {med(waits[1:]):.4f}); the step function alone on "
+        f"those batches, s {[round(t, 4) for t in steps]} (past the first: "
+        f"median {med(steps[1:]):.4f}); B = {hp.batch_size}; card {card}")
+    if rc != 0 or len(loop) != LOOP_STEPS:
+        raise AssertionError("the unprofiled training loop")
+
+
+def phase_entry_points(model, device, card: str, data: str, tmp: str,
+                       rows, codes_timing):
+    """Phase 24 (``entry_points``): the widened #1, the Pallas mode refused
+    under autograd, predict with the replay, training with plots and the
+    profiler and without the profiler, ``entry()`` and the bench.  Returns
+    (rows, launch counts)."""
+    import math
+    from self_attention_tacotron_torch.entry import entry
+    t0 = time.perf_counter()
+    new_rows, launches = _widened_encoders(device, card)
+    _pallas_training_refused(device)
+    launches["predict_replay"], replay_errs = _predict_with_replay(
+        model, tmp, card)
+    launches["plotted_training"] = _plotted_training(data, tmp, card)
+    _training_loop_split(data, tmp, device, card)
+    fn, args = entry()
+    loss = float(fn(*args))
+    log(f"phase 24 entry(): teacher-forced VALIDATION loss {loss:.6f} of the "
+        f"tiny flagship on {args[1].source.device}")
+    if not math.isfinite(loss):
+        raise AssertionError("entry() gave a loss that is not finite")
+    bench_rows, launches["bench"] = _bench(device, card)
+    # the replay's run served the codes recipe: phase 8 timed its #1 and #2
+    # (T = 64, the corpus's longest source; 450 steps)
+    replayed = {"predict_replay": launches["predict_replay"]}
+    for name, src, line, peak in (
+            ("fused_encode", "fused_encoder", "fused_encoder.py:94",
+             PEAK_3XTF32_FLOP_PER_S),
+            ("fused_decode", "fused_decode", "fused_decode.py:250",
+             PEAK_FP32_FLOP_PER_S)):
+        new_rows += _kernel_rows(name, src, line, replayed, replay_errs[name],
+                                 *codes_timing[name], peak_flops=peak)
+    new_rows += bench_rows
+    for name in ("fused_train_fwd", "fused_train_bwd"):
+        new_rows += _reused_rows(rows, name, "training", "plotted_training",
+                                 launches["plotted_training"][name])
+    log(f"phase 24 entry points took {time.perf_counter() - t0:.1f} s")
+    return new_rows, launches
+
+
 def phase_barriers(card: str):
     """Phase 2: the cost of one grid-wide barrier at one block per SM,
     cooperative groups' (the fused encoder's) beside the hand-written ones
@@ -3406,6 +3859,14 @@ def main() -> int:
         edge_rows, edge_launches = phase_edges(model, device, card)
         rows += edge_rows
         launches.update(edge_launches)
+        with tempfile.TemporaryDirectory() as tmp:
+            data = os.path.join(tmp, "train_data")
+            os.makedirs(data)
+            write_train_corpus(hp, data)
+            entry_rows, entry_launches = phase_entry_points(
+                model, device, card, data, tmp, rows, codes_timing)
+        rows += entry_rows
+        launches.update(entry_launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

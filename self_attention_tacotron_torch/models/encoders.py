@@ -57,6 +57,15 @@ def hop_path(use_pallas: bool, kernel: str) -> str:
             else "einsum module path")
 
 
+def _contiguous(tree):
+    """Each tensor of a nest of tuples made contiguous (the layout the
+    kernel reads, so that a cached merge keeps its pointers from call to
+    call)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.contiguous()
+    return None if tree is None else tuple(map(_contiguous, tree))
+
+
 def weights_key(module: nn.Module) -> tuple:
     """Identifies the current values of a module's parameters and buffers:
     storage, device and in-place version of each (a ``load_state_dict``,
@@ -316,14 +325,14 @@ class SelfAttentionCBHGEncoder(nn.Module):
             hops.append((torch.cat([p.weight.t() for p in projs], 1),
                          row(torch.cat([p.bias for p in projs])),
                          wo @ wt, row(bo @ wt + bt)))
-        return fe.FusedEncoderParams(
+        return fe.FusedEncoderParams(*map(_contiguous, fe.FusedEncoderParams(
             prenet=prenet, w_bank=(w_bank, b_bank),
             w_proj1=proj_fold(trunk.proj1), w_proj2=proj_fold(trunk.proj2),
             w_adjust=(dense(trunk.adjustment_layer)
                       if trunk.adjustment_layer is not None else None),
             highway=tuple(highway), lstm=(wx, wh_t, b_lstm),
             sa_proj=dense(self.self_attention_projection_layer),
-            hops=tuple(hops))
+            hops=tuple(hops))))
 
     def _fused_call(self, inputs, input_lengths):
         """Batch 1 through the fused encoder.  Its self-attention

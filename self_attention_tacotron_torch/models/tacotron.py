@@ -47,6 +47,8 @@ from torch import nn
 
 from ..config import HParams
 from ..ops import losses as L
+from ..ops.attention_core import (DROP_RATE_HPARAMS, MultiHeadAttention,
+                                  PallasTrainingError)
 from ..ops.conv import bn_valid_rows
 from ..utils.convert import flax_param_paths
 from .attention import AttentionOptions
@@ -310,6 +312,20 @@ class TacotronModel(nn.Module):
             self._prenet_speaker(speaker), teacher_alignments), enc_aligns,
             speaker=speaker)
 
+    def pallas_training_refusal(self) -> Optional[PallasTrainingError]:
+        """The error a TRAIN step with autograd must raise before it starts,
+        or None: a self-attention hop in the Pallas mode without dropout
+        would send its training call to ``fused_self_attention``, which the
+        JAX package cannot differentiate either (``ops/attention_core``)."""
+        if not torch.is_grad_enabled():
+            return None
+        hparams = sorted({
+            DROP_RATE_HPARAMS[name.split(".")[0]]
+            for name, m in self.named_modules()
+            if isinstance(m, MultiHeadAttention) and m.use_pallas
+            and m.drop_rate <= 0.0})
+        return PallasTrainingError(hparams) if hparams else None
+
     def train_forward(self, batch: Batch,
                       generator: Optional[torch.Generator] = None
                       ) -> TacotronOutput:
@@ -317,6 +333,9 @@ class TacotronModel(nn.Module):
         statistics, with autograd.  Rows whose spectrogram loss mask is all
         zero (duplicates padding a batch) stay out of the batch-norm
         statistics."""
+        refused = self.pallas_training_refusal()
+        if refused is not None:
+            raise refused
         device = self.embedding.weight.device
         batch = batch.to(device)
         valid = None

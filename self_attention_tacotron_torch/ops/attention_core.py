@@ -21,6 +21,11 @@ zeros, as the JAX package's gates do: the kernels never materialise the
 probabilities.  The full-sequence kernel takes head widths up to 1024 and
 the step any (each has a wide kernel past its tensor-core or register
 templates); what a kernel refuses raises on the card, as its wrapper does.
+A training call that would reach the full-sequence kernel (no dropout,
+grad mode on, an input that needs a gradient) raises ``PallasTrainingError``
+on every device: the kernel has no backward, and the JAX package cannot
+differentiate its ``pallas_call`` either (no ``custom_vjp``, no transpose
+rule), so the reference cannot train this configuration on any backend.
 """
 
 from __future__ import annotations
@@ -34,6 +39,24 @@ from torch import nn
 from .pallas_attention import fused_self_attention, incremental_attention_step
 
 NEG_INF = -1e9
+
+# which hparam sets each module's hop drop rate
+DROP_RATE_HPARAMS = {"encoder": "self_attention_drop_rate",
+                     "decoder": "decoder_self_attention_drop_rate"}
+
+
+class PallasTrainingError(NotImplementedError):
+    """Training with ``use_pallas_attention`` where a hop has no dropout."""
+
+    def __init__(self, hparams):
+        named = " and ".join(f"{h} = 0" for h in hparams)
+        super().__init__(
+            f"use_pallas_attention with {named} sends a training call to "
+            "fused_self_attention, which has no backward: the JAX package "
+            "cannot differentiate its pallas_call either (no custom_vjp, no "
+            "transpose rule), so the reference trains this configuration on "
+            "no backend.  Train with use_pallas_attention=false or a drop "
+            "rate above 0; serve with the flag on.")
 
 
 class AttentionCache(NamedTuple):
@@ -98,6 +121,11 @@ class MultiHeadAttention(nn.Module):
         q = self._split_heads(self.query_projection(query))
         B, Tq, Tk = q.shape[0], q.shape[2], k.shape[2]
         if self.use_pallas and not (training and self.drop_rate > 0.0):
+            if training and torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (q, k, v)):
+                raise PallasTrainingError(
+                    ("self_attention_drop_rate or "
+                     "decoder_self_attention_drop_rate",))
             context = fused_self_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 causal=self.use_subsequent_mask)

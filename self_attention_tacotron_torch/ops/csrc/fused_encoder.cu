@@ -53,6 +53,19 @@
 //    rows at a time and the keys pass through shared memory in tiles with
 //    an online softmax (attend_rows, csrc/attention_rows.cuh), so the
 //    kernel takes any source length.
+//
+// Any configuration the JAX kernel takes (its only bound is VMEM):
+// * widths that are not multiples of 4 (or operands not 16-byte aligned)
+//   take the instance kV4 = false, whose copies move 4 bytes a thread
+//   (cp4) where the recipes' instance moves 16 (cp16); the epilogues write
+//   a last odd column alone.  The wrapper chooses (``vector_copies``).
+// * the layers' weights and widths come from a table in device memory
+//   (pointers and widths, as many as the configuration has), so prenet,
+//   highway and hop counts are not bounded.
+// * the recurrence holds 32 units a block: a cluster of 8 blocks (4 a
+//   direction) up to 128 units, of 16 (8 a direction, a non-portable
+//   cluster size) up to 256.  An odd H is the same code (h is padded to 8
+//   with zeros); only its rows are not 16-byte aligned (kV4 = false).
 #include <cstddef>
 #include <cstdint>
 
@@ -60,24 +73,28 @@
 #include "common.cuh"
 #include "mma.cuh"
 
-constexpr int MAX_PRENET = 4, MAX_HIGHWAY = 8, MAX_HOPS = 4;
 constexpr int MT = 64;          // rows an item
 constexpr int NI = 8;           // output columns an item
 constexpr int DENSE_C = 256;    // channels a dense layer's slab holds
 constexpr int BANK_C = 128;     // channels the bank's slab holds
 constexpr int PROJ1_C = 256;    // channels of a first-projection split
 constexpr int RED_FLOATS = 4 * 32 * 4;  // the depth halves' partial tiles
-constexpr int RNN_DIR_BLOCKS = 4;       // blocks a direction (the cluster
-constexpr int RNN_BLOCKS = 2 * RNN_DIR_BLOCKS;  // holds both directions)
-// a block's 4 x units gate rows, two threads a row: H <= 128
-constexpr int MAX_H = RNN_DIR_BLOCKS * NT / 8;
+// The recurrent cluster holds both directions, DIRB blocks each; a block's
+// 4 x units gate rows, two threads a row: H <= DIRB * 32.
+constexpr int UNITS_A_BLOCK = NT / 8;
+__host__ __device__ inline int dir_blocks(int H) {
+  return H <= 4 * UNITS_A_BLOCK ? 4 : 8;
+}
+constexpr int MAX_H = 8 * UNITS_A_BLOCK;   // a 16-block cluster: 256 units
 
 struct EncArgs {  // mirrored by _EncArgs in ops/fused_encoder.py
   const float* x;
   int T, L, E_in, n_prenet;
-  const float* pre_w[MAX_PRENET];
-  const float* pre_b[MAX_PRENET];
-  int pre_out[MAX_PRENET];
+  int pre_max;  // the widest of E_in and the prenet layers (host plans)
+  // device tables, n_prenet entries each
+  const float* const* pre_w;
+  const float* const* pre_b;
+  const int* pre_out;
   const float* bank_w;
   const float* bank_b;
   int K, C;
@@ -90,8 +107,8 @@ struct EncArgs {  // mirrored by _EncArgs in ops/fused_encoder.py
   const float* adj_w;
   const float* adj_b;
   int n_highway;
-  const float* hw_w[MAX_HIGHWAY];
-  const float* hw_b[MAX_HIGHWAY];
+  const float* const* hw_w;   // device tables, n_highway entries each
+  const float* const* hw_b;
   int W, H;
   const float* lstm_wx[2];
   const float* lstm_whT[2];
@@ -101,14 +118,16 @@ struct EncArgs {  // mirrored by _EncArgs in ops/fused_encoder.py
   const float* sa_b;
   int SA;
   int n_hops, n_heads;
-  const float* kvq_w[MAX_HOPS];
-  const float* kvq_b[MAX_HOPS];
-  const float* ot_w[MAX_HOPS];
-  const float* ot_b[MAX_HOPS];
+  const float* const* kvq_w;  // device tables, n_hops entries each
+  const float* const* kvq_b;
+  const float* const* ot_w;
+  const float* const* ot_b;
   float* lstm_out;  // (T, 2H)
   float* sa_out;    // (T, SA)
   float* scratch;
   long long* stage_cycles;  // optional (ENC_STAGES x ENC_PARTS), EncClock
+  int v4;           // every width a multiple of 4, every operand 16-byte
+                    // aligned: the instance with 16-byte copies
 };
 
 // the profile's slots: stage x part
@@ -172,7 +191,7 @@ __host__ __device__ inline int proj1_splits(const EncArgs& a) {
 // group parity, and the two h buffers' mbarriers.
 constexpr int RNN_GX_STEPS = 32;
 __host__ __device__ inline int rnn_rows(int H) {
-  return 4 * cdiv(H, RNN_DIR_BLOCKS);
+  return 4 * cdiv(H, dir_blocks(H));
 }
 __host__ __device__ inline int rnn_floats(int H) {
   return 2 * round8(H) + 2 * RNN_GX_STEPS * rnn_rows(H) + 4;
@@ -184,12 +203,10 @@ struct EncLayout {
 };
 
 __host__ __device__ inline EncLayout enc_layout(const EncArgs& a) {
-  int maxw = a.P2 > a.W ? a.P2 : a.W;
-  for (int i = 0; i < a.n_prenet; ++i)
-    if (a.pre_out[i] > maxw) maxw = a.pre_out[i];
+  const int maxw = imax(imax(a.P2, a.W), a.pre_max);
   const size_t T = a.T;
   EncLayout l;
-  size_t o = 0;   // every region a multiple of 4 floats (16-byte copies)
+  size_t o = 0;   // each region a multiple of 4 floats where the widths are
   l.pre0 = o; o += T * maxw;
   l.pre1 = o; o += T * maxw;
   l.banked = o; o += T * a.K * a.C;
@@ -209,13 +226,10 @@ __host__ __device__ inline EncLayout enc_layout(const EncArgs& a) {
 
 // shared memory (floats) of the trunk's block and of the recurrent one
 __host__ __device__ inline int trunk_smem_floats(const EncArgs& a) {
-  int f = dense_floats(a.E_in);
-  int E = a.E_in;
-  for (int i = 0; i < a.n_prenet; ++i) {
-    f = imax(f, dense_floats(E));
-    E = a.pre_out[i];
-  }
-  const int cb = imin(round8(E), BANK_C);
+  // every prenet layer's input, and the last one's output, which the
+  // residual makes P2 (dense_floats grows with its width)
+  int f = dense_floats(a.pre_max);
+  const int cb = imin(round8(a.P2), BANK_C);
   f = imax(f, (MT + a.K - 1) * slab_ld(cb) + (a.K + 1) * cb * NI + 2 * NI);
   const int c1 = proj1_chunk(a);
   f = imax(f, (2 * MT + 5) * slab_ld(c1) + 3 * c1 * NI);
@@ -253,27 +267,47 @@ __host__ __device__ inline int rnn_smem_floats(const EncArgs& a) {
 // ------------------------------------------------------------ the items
 
 // Rows r < rows of the slab: sequence row row0 + r of X (leading dim ldx;
-// zero outside [0, M)), channels [c0, c0 + cw), zero-padded to cp.
+// zero outside [0, M)), channels [c0, c0 + cw), zero-padded to cp.  kV4:
+// 16 bytes a copy (ldx, c0 and cw multiples of 4), else 4.
+template <bool kV4>
 __device__ void cp_slab(float* slab, int ld, int rows, int cp,
                         const float* X, int ldx, int M, int row0, int c0,
                         int cw) {
-  const int n4 = cp / 4;
+  constexpr int S = kV4 ? 4 : 1;
+  const int n4 = cp / S;
   for (int e = threadIdx.x; e < rows * n4; e += NT) {
-    const int r = e / n4, c = (e - r * n4) * 4, row = row0 + r;
+    const int r = e / n4, c = (e - r * n4) * S, row = row0 + r;
     const bool ok = row >= 0 && row < M && c < cw;
-    cp16(slab + r * ld + c, ok ? X + (size_t)row * ldx + c0 + c : X, ok);
+    const float* src = ok ? X + (size_t)row * ldx + c0 + c : X;
+    if constexpr (kV4) cp16(slab + r * ld + c, src, ok);
+    else cp4(slab + r * ld + c, src, ok);
   }
 }
 
 // Rows i < rows of the weight tile: row row_of(i) of W (-1: zero),
 // columns [col, col + NI) (zero at or past col_end).
-template <class RowOf>
+template <bool kV4, class RowOf>
 __device__ void cp_wtile(float* sw, int rows, const float* W, int ldw,
                          int col, int col_end, const RowOf& row_of) {
-  for (int e = threadIdx.x; e < rows * 2; e += NT) {
-    const int i = e >> 1, n = col + (e & 1) * 4, wr = row_of(i);
+  constexpr int S = kV4 ? 4 : 1, PER = NI / S;
+  for (int e = threadIdx.x; e < rows * PER; e += NT) {
+    const int i = e / PER, n = col + (e % PER) * S, wr = row_of(i);
     const bool ok = wr >= 0 && n < col_end;
-    cp16(sw + i * NI + (e & 1) * 4, ok ? W + (size_t)wr * ldw + n : W, ok);
+    const float* src = ok ? W + (size_t)wr * ldw + n : W;
+    if constexpr (kV4) cp16(sw + e * S, src, ok);
+    else cp4(sw + e, src, ok);
+  }
+}
+
+// A row of n floats from global into shared memory, zero from cw on.
+template <bool kV4>
+__device__ __forceinline__ void cp_row(float* dst, const float* src, int n,
+                                       int cw, int tid, int nthreads) {
+  constexpr int S = kV4 ? 4 : 1;
+  for (int e = tid; e < n / S; e += nthreads) {
+    const bool ok = e * S < cw;
+    if constexpr (kV4) cp16(dst + 4 * e, ok ? src + 4 * e : src, ok);
+    else cp4(dst + e, ok ? src + e : src, ok);
   }
 }
 
@@ -310,12 +344,11 @@ __device__ __forceinline__ void item_mma(float (&acc)[4], const float* slab,
 
 // The 8 bias entries of an item's columns [col, col + NI) into shared
 // memory (zero at or past col_end), with its operands.
+template <bool kV4>
 __device__ __forceinline__ void cp_bias(float* sb, const float* b, int col,
                                         int col_end) {
-  if (threadIdx.x < 2) {
-    const int n = col + 4 * threadIdx.x;
-    cp16(sb + 4 * threadIdx.x, n < col_end ? b + n : b, n < col_end);
-  }
+  if (threadIdx.x < NI)
+    cp_row<kV4>(sb, b + col, NI, col_end - col, threadIdx.x, NI);
 }
 
 // Adds the two depth halves (through ``red``) and the bias (``sb``, the
@@ -354,7 +387,7 @@ __device__ void item_finish(float (&acc)[4], float* red, int m0, int n0,
 // on block i % nblk counted from ``first`` (so two layers of one stage can
 // start on different blocks); the depth in slabs of DENSE_C channels.
 // With K <= DENSE_C the epilogue gets the item's input row (xs).
-template <class Epi>
+template <bool kV4, class Epi>
 __device__ void dense_stage(int M, int N, int K, const float* X, int ldx,
                             const float* W, int ldw, const float* b,
                             const Epi& epi, float* smem, int bid, int nblk,
@@ -368,11 +401,11 @@ __device__ void dense_stage(int M, int N, int K, const float* X, int ldx,
   for (int it = (bid - first % nblk + nblk) % nblk; it < items; it += nblk) {
     const int m0 = (it / nt) * MT, n0 = (it % nt) * NI;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    cp_bias(sb, b, n0, N);
+    cp_bias<kV4>(sb, b, n0, N);
     for (int c0 = 0; c0 < K; c0 += DENSE_C) {
       const int cw = imin(K - c0, DENSE_C), cp = round8(cw);
-      cp_slab(slab, ld, MT, cp, X, ldx, M, m0, c0, cw);
-      cp_wtile(sw, cp, W, ldw, n0, N,
+      cp_slab<kV4>(slab, ld, MT, cp, X, ldx, M, m0, c0, cw);
+      cp_wtile<kV4>(sw, cp, W, ldw, n0, N,
                [&](int i) { return i < cw ? c0 + i : -1; });
       cp_wait();
       __syncthreads();
@@ -387,7 +420,8 @@ __device__ void dense_stage(int M, int N, int K, const float* X, int ldx,
 }
 
 // ------------------------------------------------------------- epilogues
-// Each gets the biased sums v, w of columns n, n + 1 of row m.
+// Each gets the biased sums v, w of columns n, n + 1 of row m (n even;
+// column n + 1 is past an odd width's last).
 struct EpiBias {  // out = act(v)
   float* out;
   int ld, N;
@@ -396,7 +430,7 @@ struct EpiBias {  // out = act(v)
                              const float*) const {
     if (n >= N) return;
     out[(size_t)m * ld + n] = relu ? fmaxf(v, 0.f) : v;
-    out[(size_t)m * ld + n + 1] = relu ? fmaxf(w, 0.f) : w;
+    if (n + 1 < N) out[(size_t)m * ld + n + 1] = relu ? fmaxf(w, 0.f) : w;
   }
 };
 
@@ -407,7 +441,7 @@ struct EpiBank {  // width k's columns: out = relu(v), base (k-1) C
                              const float*) const {
     if (n >= C) return;
     out[(size_t)m * ld + base + n] = fmaxf(v, 0.f);
-    out[(size_t)m * ld + base + n + 1] = fmaxf(w, 0.f);
+    if (n + 1 < C) out[(size_t)m * ld + base + n + 1] = fmaxf(w, 0.f);
   }
 };
 
@@ -418,7 +452,7 @@ struct EpiAdd {  // a first-projection chunk's partial sums, added
                              const float*) const {
     if (n >= ld) return;
     atomicAdd(out + (size_t)m * ld + n, v);
-    atomicAdd(out + (size_t)m * ld + n + 1, w);
+    if (n + 1 < ld) atomicAdd(out + (size_t)m * ld + n + 1, w);
   }
 };
 
@@ -429,7 +463,7 @@ struct EpiResidual {  // out = v + res  (proj2 + prenet output, res = xs)
                              const float* xs) const {
     if (n >= ld) return;
     out[(size_t)m * ld + n] = v + xs[n];
-    out[(size_t)m * ld + n + 1] = w + xs[n + 1];
+    if (n + 1 < ld) out[(size_t)m * ld + n + 1] = w + xs[n + 1];
   }
 };
 
@@ -459,7 +493,7 @@ struct EpiHop {  // out = prev + tanh(v)
     if (n >= ld) return;
     const size_t o = (size_t)m * ld + n;
     out[o] = __ldcg(prev + o) + tanhf(v);
-    out[o + 1] = __ldcg(prev + o + 1) + tanhf(w);
+    if (n + 1 < ld) out[o + 1] = __ldcg(prev + o + 1) + tanhf(w);
   }
 };
 
@@ -470,6 +504,7 @@ struct EpiHop {  // out = prev + tanh(v)
 // holds rows m0 - pad .. m0 + 63 + (K - 1 - pad) of h (pad = (K - 1) / 2,
 // the stacked window's), so width k's tap j of row m is slab row
 // (m - m0) + first_k + j, first_k = pad - (k - 1) / 2 (its SAME offset).
+template <bool kV4>
 __device__ void bank_stage(const EncArgs& a, const float* h, int E,
                            float* banked, float* smem, EncClock& clk) {
   const int T = a.T, K = a.K, C = a.C, KC = K * C;
@@ -488,19 +523,20 @@ __device__ void bank_stage(const EncArgs& a, const float* h, int E,
     const bool two = k2 != k1;
     const int f1 = pad - (k1 - 1) / 2, f2 = pad - (k2 - 1) / 2;
     float acc1[4] = {0.f, 0.f, 0.f, 0.f}, acc2[4] = {0.f, 0.f, 0.f, 0.f};
-    cp_bias(sb, a.bank_b, (k1 - 1) * C + n0, k1 * C);
-    cp_bias(sb + NI, a.bank_b, (k2 - 1) * C + n0, k2 * C);
+    cp_bias<kV4>(sb, a.bank_b, (k1 - 1) * C + n0, k1 * C);
+    cp_bias<kV4>(sb + NI, a.bank_b, (k2 - 1) * C + n0, k2 * C);
     for (int c0 = 0; c0 < E; c0 += BANK_C) {
       const int cw = imin(E - c0, BANK_C), cp = round8(cw);
       float* sw2 = sw + k1 * cp * NI;
-      cp_slab(slab, ld, rows, cp, h, E, T, m0 - pad, c0, cw);
-      cp_wtile(sw, k1 * cp, a.bank_w, KC, (k1 - 1) * C + n0, k1 * C,
+      cp_slab<kV4>(slab, ld, rows, cp, h, E, T, m0 - pad, c0, cw);
+      cp_wtile<kV4>(sw, k1 * cp, a.bank_w, KC, (k1 - 1) * C + n0, k1 * C,
                [&](int i) {
                  const int j = i / cp, c = i - j * cp;
                  return c < cw ? (f1 + j) * E + c0 + c : -1;
                });
       if (two)
-        cp_wtile(sw2, k2 * cp, a.bank_w, KC, (k2 - 1) * C + n0, k2 * C,
+        cp_wtile<kV4>(sw2, k2 * cp, a.bank_w, KC, (k2 - 1) * C + n0,
+                      k2 * C,
                  [&](int i) {
                    const int j = i / cp, c = i - j * cp;
                    return c < cw ? (f2 + j) * E + c0 + c : -1;
@@ -528,6 +564,7 @@ __device__ void bank_stage(const EncArgs& a, const float* h, int E,
 // banked[r + 1]), the last row alone since banked >= 0 and rows past T
 // are copied as zeros; rows outside [0, T) zero) into the slab.  Each item
 // adds its partial sums into ``p1`` (zeroed before the bank) with atomics.
+template <bool kV4>
 __device__ void proj1_stage(const EncArgs& a, const float* banked,
                             float* p1, float* smem, EncClock& clk) {
   const int T = a.T, KC = a.K * a.C, P1 = a.P1;
@@ -542,8 +579,8 @@ __device__ void proj1_stage(const EncArgs& a, const float* banked,
     const int sp = it % splits, n0 = ((it / splits) % nt) * NI;
     const int m0 = (it / (splits * nt)) * MT;
     const int c0 = sp * chunk, cw = imin(KC - c0, chunk), cp = round8(cw);
-    cp_slab(raw, ld, rows + 1, cp, banked, KC, T, m0 - 1, c0, cw);
-    cp_wtile(sw, 3 * cp, a.p1_w, P1, n0, P1, [&](int i) {
+    cp_slab<kV4>(raw, ld, rows + 1, cp, banked, KC, T, m0 - 1, c0, cw);
+    cp_wtile<kV4>(sw, 3 * cp, a.p1_w, P1, n0, P1, [&](int i) {
       const int j = i / cp, c = i - j * cp;
       return c < cw ? j * KC + c0 + c : -1;
     });
@@ -575,6 +612,7 @@ __device__ void proj1_stage(const EncArgs& a, const float* banked,
 // The second projection (width-3 windows, pad 1) + bias + the prenet
 // output: its slab, rows m0 - 1 .. m0 + 64 of p1 by cp.async, becomes
 // relu(p1 + b1) in a pass in shared memory (rows outside [0, T) zero).
+template <bool kV4>
 __device__ void proj2_stage(const EncArgs& a, const float* p1,
                             const float* h, float* out, float* smem,
                             EncClock& clk) {
@@ -591,22 +629,18 @@ __device__ void proj2_stage(const EncArgs& a, const float* p1,
   for (int it = blockIdx.x; it < items; it += gridDim.x) {
     const int n0 = (it % nt) * NI, m0 = (it / nt) * MT;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    cp_bias(sb2, a.p2_b, n0, P2);
-    for (int e = threadIdx.x; e < MT * 2; e += NT) {
-      const int r = e >> 1, n = n0 + (e & 1) * 4;
-      const bool ok = m0 + r < T && n < P2;
-      cp16(sres + e * 4, ok ? h + (size_t)(m0 + r) * P2 + n : h, ok);
-    }
+    cp_bias<kV4>(sb2, a.p2_b, n0, P2);
+    // the residual's rows: 64 rows x 8 columns, as a weight tile is laid
+    cp_wtile<kV4>(sres, MT, h, P2, n0, P2,
+                  [&](int r) { return m0 + r < T ? m0 + r : -1; });
     for (int c0 = 0; c0 < P1; c0 += DENSE_C) {
       const int cw = imin(P1 - c0, DENSE_C), cp = round8(cw), n4 = cp / 4;
-      cp_slab(slab, ld, rows, cp, p1, P1, T, m0 - 1, c0, cw);
-      cp_wtile(sw, 3 * cp, a.p2_w, P2, n0, P2, [&](int i) {
+      cp_slab<kV4>(slab, ld, rows, cp, p1, P1, T, m0 - 1, c0, cw);
+      cp_wtile<kV4>(sw, 3 * cp, a.p2_w, P2, n0, P2, [&](int i) {
         const int j = i / cp, c = i - j * cp;
         return c < cw ? j * P1 + c0 + c : -1;
       });
-      for (int e = threadIdx.x; e < n4; e += NT)
-        cp16(sb + 4 * e, 4 * e < cw ? a.p1_b + c0 + 4 * e : a.p1_b,
-             4 * e < cw);
+      cp_row<kV4>(sb, a.p1_b + c0, cp, cw, threadIdx.x, NT);
       cp_wait();
       __syncthreads();
       for (int e = threadIdx.x; e < rows * n4; e += NT) {
@@ -630,6 +664,7 @@ __device__ void proj2_stage(const EncArgs& a, const float* p1,
 }
 
 // ----------------------------------------------------------- the trunk
+template <bool kV4>
 __global__ void __launch_bounds__(NT, 1) encoder_trunk_kernel(EncArgs a) {
   extern __shared__ __align__(16) float smem[];
   const EncLayout l = enc_layout(a);
@@ -653,7 +688,7 @@ __global__ void __launch_bounds__(NT, 1) encoder_trunk_kernel(EncArgs a) {
   for (int i = 0; i < a.n_prenet; ++i) {
     float* out = s + (i % 2 ? l.pre1 : l.pre0);
     const int n = a.pre_out[i];
-    dense_stage(T, n, E, h, E, a.pre_w[i], n, a.pre_b[i],
+    dense_stage<kV4>(T, n, E, h, E, a.pre_w[i], n, a.pre_b[i],
                 EpiBias{out, n, n, true}, smem, bid, nb, clk);
     sync();
     h = out;
@@ -663,19 +698,19 @@ __global__ void __launch_bounds__(NT, 1) encoder_trunk_kernel(EncArgs a) {
   // ---- conv bank (BN folded), ReLU
   float* banked = s + l.banked;
   clk.stage = ES_BANK;
-  bank_stage(a, h, E, banked, smem, clk);
+  bank_stage<kV4>(a, h, E, banked, smem, clk);
   sync();
 
   // ---- max pool + two width-3 projections + residual (+ adjustment)
   clk.stage = ES_PROJ;
-  proj1_stage(a, banked, s + l.p1, smem, clk);
+  proj1_stage<kV4>(a, banked, s + l.p1, smem, clk);
   sync();
   float* hw = s + l.hwA;
   float* hw_other = s + l.hwB;
-  proj2_stage(a, s + l.p1, h, hw, smem, clk);
+  proj2_stage<kV4>(a, s + l.p1, h, hw, smem, clk);
   sync();
   if (a.adj_w != nullptr) {
-    dense_stage(T, W, a.P2, hw, a.P2, a.adj_w, W, a.adj_b,
+    dense_stage<kV4>(T, W, a.P2, hw, a.P2, a.adj_w, W, a.adj_b,
                 EpiBias{hw_other, W, W, false}, smem, bid, nb, clk);
     sync();
     float* t = hw; hw = hw_other; hw_other = t;
@@ -684,8 +719,8 @@ __global__ void __launch_bounds__(NT, 1) encoder_trunk_kernel(EncArgs a) {
   // ---- highway layers
   clk.stage = ES_HIGHWAY;
   for (int i = 0; i < a.n_highway; ++i) {
-    dense_stage(T, 2 * W, W, hw, W, a.hw_w[i], 2 * W, a.hw_b[i],
-                EpiHighway{hw_other, W, hw}, smem, bid, nb, clk);
+    dense_stage<kV4>(T, 2 * W, W, hw, W, a.hw_w[i], 2 * W, a.hw_b[i],
+                     EpiHighway{hw_other, W, hw}, smem, bid, nb, clk);
     sync();
     float* t = hw; hw = hw_other; hw_other = t;
   }
@@ -695,9 +730,9 @@ __global__ void __launch_bounds__(NT, 1) encoder_trunk_kernel(EncArgs a) {
   clk.stage = ES_LSTM_INPUT;
   const int first = cdiv(T, MT) * cdiv(4 * H, NI);
   for (int d = 0; d < 2; ++d)
-    dense_stage(T, 4 * H, W, hw, W, a.lstm_wx[d], 4 * H, a.lstm_b[d],
-                EpiBias{s + (d ? l.gx1 : l.gx0), 4 * H, 4 * H, false},
-                smem, bid, nb, clk, d * first);
+    dense_stage<kV4>(T, 4 * H, W, hw, W, a.lstm_wx[d], 4 * H, a.lstm_b[d],
+                     EpiBias{s + (d ? l.gx1 : l.gx0), 4 * H, 4 * H, false},
+                     smem, bid, nb, clk, d * first);
   clk.flush();
 }
 
@@ -745,15 +780,18 @@ __device__ __forceinline__ void st_async(unsigned dst, unsigned bar,
                :: "r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
 }
 
+template <bool kV4, int DIRB>
 __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
+  constexpr int NB = 2 * DIRB;                // the cluster's blocks
+  constexpr int MH = DIRB * UNITS_A_BLOCK;    // the units it holds
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const EncLayout l = enc_layout(a);
   float* s = a.scratch;
   const int T = a.T, L = a.L, H = a.H, SA = a.SA;
-  const int d = rank / RNN_DIR_BLOCKS, q = rank % RNN_DIR_BLOCKS;
-  const int U = cdiv(H, RNN_DIR_BLOCKS), u0 = q * U, Hp = round8(H);
+  const int d = rank / DIRB, q = rank % DIRB;
+  const int U = cdiv(H, DIRB), u0 = q * U, Hp = round8(H);
   const int R = 4 * imax(0, imin(H - u0, U));   // this block's gate rows
   const int G = RNN_GX_STEPS;
   float* hb = smem;                    // this direction's h, [parity][Hp]
@@ -765,7 +803,7 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
 
   // rows past L stay zero
   for (int i = rank * NT + threadIdx.x; i < (T - L) * 2 * H;
-       i += RNN_BLOCKS * NT)
+       i += NB * NT)
     a.lstm_out[(size_t)L * 2 * H + i] = 0.f;
   // thread: row r = 16 warp + lane % 16 (unit r / 4, gate r % 4), columns
   // 8 i + 4 (lane / 16) as 16-byte pieces; the unit's gate-0 lane runs the
@@ -776,11 +814,11 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
   const int j = u0 + (r >> 2);
   // this thread's half of its row of Wh (whT row gate * H + j) stays in
   // registers for the whole loop, zero past H
-  float4 wr[MAX_H / 8];
+  float4 wr[MH / 8];
   {
     const float* wrow = a.lstm_whT[d] + (size_t)((r & 3) * H + j) * H;
 #pragma unroll
-    for (int i = 0; i < MAX_H / 8; ++i) {
+    for (int i = 0; i < MH / 8; ++i) {
       const int k0 = 8 * i + 4 * kp;
       float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < R && k0 < H) {
@@ -824,11 +862,13 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
   cluster.sync();
   clk.part(P_LOAD);
 
-  // the unit's four lanes send its h to the direction's four blocks, lane
-  // (gate) b to block b: h buffer p at dst + 4 Hp p, its mbarrier at
+  // the unit's lanes send its h to the direction's DIRB blocks, the lane
+  // of gate b and column half kp to block b + 4 kp (4 blocks: the first
+  // half's lanes only): h buffer p at dst + 4 Hp p, its mbarrier at
   // bar + 8 p
-  const bool sender = kp == 0 && r < R;
-  const int to = d * RNN_DIR_BLOCKS + (r & 3);
+  const int to_q = (r & 3) + 4 * kp;
+  const bool sender = to_q < DIRB && r < R;
+  const int to = d * DIRB + (sender ? to_q : 0);
   const unsigned dst = cluster_addr(hb + j, to), bar = cluster_addr(mb, to);
   float c = 0.f;
   for (int t = 0; t < L; ++t) {
@@ -837,7 +877,7 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
       cp_wait_one();                // group t / G has landed
       __syncthreads();
     }
-    if (t > 0) {   // h of step t - 1, from the direction's 4 blocks
+    if (t > 0) {   // h of step t - 1, from the direction's blocks
       if (threadIdx.x == 0) mbar_expect(mb + (t & 1), 4u * H);
       mbar_wait(mb + (t & 1), ((t - 1) >> 1) & 1);
     }
@@ -847,7 +887,7 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
     const float4* hp = reinterpret_cast<const float4*>(hb + (t & 1) * Hp) + kp;
     float acc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < MAX_H / 8; ++i) {
+    for (int i = 0; i < MH / 8; ++i) {
       if (i < Hp / 8) {
         const float4 x = hp[2 * i];
         acc[0] = fmaf(wr[i].x, x.x, acc[0]);
@@ -877,7 +917,7 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
       c = cn;
       a.lstm_out[(size_t)gx_row(t) * 2 * H + d * H + j] = h_new;
     }
-    h_new = __shfl_sync(FULL, h_new, lane & ~3);
+    h_new = __shfl_sync(FULL, h_new, lane & 12);   // the unit's owner
     if (sender && t + 1 < L)
       st_async(dst + 4 * Hp * ((t + 1) & 1), bar + 8 * ((t + 1) & 1), h_new);
     clk.part(P_PRODUCT);
@@ -895,9 +935,8 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
   // ---- self-attention projection and hops (unmasked, as the JAX kernel)
   clk.stage = ES_SELF_ATTENTION;
   float* sa = a.n_hops ? s + l.sa0 : a.sa_out;
-  dense_stage(T, SA, 2 * H, a.lstm_out, 2 * H, a.sa_w, SA, a.sa_b,
-              EpiBias{sa, SA, SA, false}, smem, rank, RNN_BLOCKS,
-              clk);
+  dense_stage<kV4>(T, SA, 2 * H, a.lstm_out, 2 * H, a.sa_w, SA, a.sa_b,
+                   EpiBias{sa, SA, SA, false}, smem, rank, NB, clk);
   cluster.sync();
   clk.part(P_WAIT);
   const int hd = SA / a.n_heads;
@@ -905,16 +944,16 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
   float* kvq = s + l.kvq;
   float* ctx = s + l.ctx;
   for (int i = 0; i < a.n_hops; ++i) {
-    dense_stage(T, 3 * SA, SA, sa, SA, a.kvq_w[i], 3 * SA, a.kvq_b[i],
-                EpiBias{kvq, 3 * SA, 3 * SA, false}, smem, rank,
-                RNN_BLOCKS, clk);
+    dense_stage<kV4>(T, 3 * SA, SA, sa, SA, a.kvq_w[i], 3 * SA, a.kvq_b[i],
+                     EpiBias{kvq, 3 * SA, 3 * SA, false}, smem, rank, NB,
+                     clk);
     cluster.sync();
     clk.part(P_WAIT);
     if (hop_streams(a)) {
       // a long source: a block takes (head, 8 query rows) items, its warps
       // a row each, the keys streamed through shared memory
       const int groups = cdiv(T, NWARPS);
-      for (int n = rank; n < a.n_heads * groups; n += RNN_BLOCKS) {
+      for (int n = rank; n < a.n_heads * groups; n += NB) {
         const int hh = n / groups, row0 = (n % groups) * NWARPS;
         attend_rows<true>(kvq + 2 * SA + hh * hd, 3 * SA, kvq + hh * hd,
                           3 * SA, kvq + SA + hh * hd, 3 * SA, ctx + hh * hd,
@@ -927,12 +966,12 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
       const int lq = round8(3 * SA) + 4;   // 4 mod 8: fewer bank conflicts
       float* skvq = smem;
       float* sc = smem + T * lq + warp * T;
-      cp_slab(skvq, lq, T, lq, kvq, 3 * SA, T, 0, 0, 3 * SA);
+      cp_slab<kV4>(skvq, lq, T, lq, kvq, 3 * SA, T, 0, 0, 3 * SA);
       cp_wait();
       __syncthreads();
       clk.part(P_LOAD);
       for (int w8 = warp;; w8 += NWARPS) {
-        const int n = rank + RNN_BLOCKS * w8;
+        const int n = rank + NB * w8;
         if (n >= a.n_heads * T) break;
         const int hh = n / T, tq = n % T;
         const float* qr = skvq + tq * lq + 2 * SA + hh * hd;
@@ -969,9 +1008,8 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
     clk.part(P_WAIT);
     float* next = i == a.n_hops - 1 ? a.sa_out
                                     : (sa == s + l.sa0 ? s + l.sa1 : s + l.sa0);
-    dense_stage(T, SA, SA, ctx, SA, a.ot_w[i], SA, a.ot_b[i],
-                EpiHop{next, SA, sa}, smem, rank, RNN_BLOCKS,
-                clk);
+    dense_stage<kV4>(T, SA, SA, ctx, SA, a.ot_w[i], SA, a.ot_b[i],
+                     EpiHop{next, SA, sa}, smem, rank, NB, clk);
     cluster.sync();
     clk.part(P_WAIT);
     sa = next;
@@ -989,53 +1027,69 @@ extern "C" long long fused_encoder_smem_bytes(const EncArgs* a, int which) {
   return 4LL * (which ? rnn_smem_floats(*a) : trunk_smem_floats(*a));
 }
 
-extern "C" int fused_encoder_launch(const EncArgs* args, void* stream) {
-  EncArgs a = *args;
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (a.H < 1 || a.H > MAX_H || a.T < 1 || a.L < 1 || a.L > a.T)
-    return (int)cudaErrorInvalidValue;
+// The two launches of one instance: the trunk (cooperative, a block per SM)
+// and the recurrent cluster of 2 DIRB blocks (16: a non-portable size).
+template <bool kV4, int DIRB>
+static cudaError_t launch_instance(EncArgs& a, cudaStream_t st) {
+  auto trunk = encoder_trunk_kernel<kV4>;
+  auto rnn = encoder_rnn_kernel<kV4, DIRB>;
   const size_t smem_t = 4 * (size_t)trunk_smem_floats(a);
   const size_t smem_r = 4 * (size_t)rnn_smem_floats(a);
   cudaError_t e = cudaFuncSetAttribute(
-      encoder_trunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_t);
-  if (e != cudaSuccess) return (int)e;
-  if ((e = cudaFuncSetAttribute(encoder_rnn_kernel,
+      trunk, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_t);
+  if (e != cudaSuccess) return e;
+  if ((e = cudaFuncSetAttribute(rnn,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem_r)) != cudaSuccess)
-    return (int)e;
+    return e;
+  if (2 * DIRB > 8 &&
+      (e = cudaFuncSetAttribute(
+           rnn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1)) !=
+          cudaSuccess)
+    return e;
   int dev = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                   dev)) != cudaSuccess)
-    return (int)e;
+    return e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, encoder_trunk_kernel, NT, smem_t)) != cudaSuccess)
-    return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+           &per_sm, trunk, NT, smem_t)) != cudaSuccess)
+    return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const EncLayout l = enc_layout(a);
   if ((e = cudaMemsetAsync(a.scratch + l.bar, 0,
                            GRID_BAR_WORDS * sizeof(unsigned), st)) !=
       cudaSuccess)
-    return (int)e;
+    return e;
   void* params[] = {&a};
-  if ((e = cudaLaunchCooperativeKernel((void*)encoder_trunk_kernel, dim3(sms),
-                                       dim3(NT), params, smem_t, st)) !=
-      cudaSuccess)
-    return (int)e;
+  if ((e = cudaLaunchCooperativeKernel((void*)trunk, dim3(sms), dim3(NT),
+                                       params, smem_t, st)) != cudaSuccess)
+    return e;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(RNN_BLOCKS);
+  cfg.gridDim = dim3(2 * DIRB);
   cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem_r;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = RNN_BLOCKS;
+  attr[0].val.clusterDim.x = 2 * DIRB;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  if ((e = cudaLaunchKernelEx(&cfg, encoder_rnn_kernel, a)) != cudaSuccess)
-    return (int)e;
-  return (int)cudaGetLastError();
+  if ((e = cudaLaunchKernelEx(&cfg, rnn, a)) != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+extern "C" int fused_encoder_launch(const EncArgs* args, void* stream) {
+  EncArgs a = *args;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a.H < 1 || a.H > MAX_H || a.T < 1 || a.L < 1 || a.L > a.T)
+    return (int)cudaErrorInvalidValue;
+  const bool four = dir_blocks(a.H) == 4;
+  if (a.v4)
+    return (int)(four ? launch_instance<true, 4>(a, st)
+                      : launch_instance<true, 8>(a, st));
+  return (int)(four ? launch_instance<false, 4>(a, st)
+                    : launch_instance<false, 8>(a, st));
 }

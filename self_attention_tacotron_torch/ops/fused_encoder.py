@@ -9,7 +9,10 @@ in one loop, the backward one walking the per-row length-reversed sequence)
 as two launches a call: the trunk up to the LSTM's input products (one
 cooperative launch, products on the tensor cores, the bank read width by
 width without its zero blocks) and the recurrence with the hop (a cluster
-of 8 blocks holding the recurrent weights in registers).
+of 8 blocks holding the recurrent weights in registers, 16 past 128 units
+a direction).  Widths that are not multiples of 4 take the kernel's
+instance with 4-byte copies (``vector_copies``); the layers' weights reach
+it through a table in device memory, so their counts are not bounded.
 
 ``FusedEncoderParams`` holds the merged weights in the layout the kernel
 reads (``(in, out)`` matrices, (1, N) bias rows, highway [H | T] columns
@@ -18,9 +21,10 @@ recurrent weight transposed); ``models/encoders.py`` builds it once.
 ``fused_encode_reference`` is the plain PyTorch version of the kernel's
 math; ``fused_encode`` runs it for CPU tensors only and launches the kernel
 (``csrc/fused_encoder.cu``) for CUDA tensors, raising on anything the
-kernel does not take: what ``unsupported_reason`` names (widths and layer
-counts it has no room for; any source length, the hop streaming past what
-shared memory holds).
+kernel does not take: what ``unsupported_reason`` names (an LSTM wider than
+its largest cluster holds, shared-memory plans past 227 KB, and the two
+conditions the JAX kernel's shapes need too; any source length, the hop
+streaming past what shared memory holds).
 """
 
 from __future__ import annotations
@@ -35,9 +39,6 @@ from . import cuda_build
 from .rnn import lstm_update
 
 NEG_INF = -1e9
-MAX_PRENET = 4
-MAX_HIGHWAY = 8
-MAX_HOPS = 4
 
 # the kernel's profile slots (csrc ``EncClock``): block 0's SM cycles of each
 # stage, split into copying operands in, the product and epilogue (a
@@ -48,8 +49,9 @@ ENC_STAGES = ("prenet", "bank", "proj", "highway", "lstm_input", "lstm_steps",
 ENC_PARTS = ("load", "product", "wait")
 # csrc constants of the shared-memory plan (``smem_bytes``)
 MT, NI, DENSE_C, BANK_C, PROJ1_C = 64, 8, 256, 128, 256
-RED_FLOATS, RNN_DIR_BLOCKS, RNN_GX_STEPS, NWARPS = 512, 4, 32, 8
-MAX_HALF = 128      # the recurrent cluster: 4 blocks a direction, <= 32 units
+RED_FLOATS, RNN_GX_STEPS, NWARPS = 512, 32, 8
+UNITS_A_BLOCK = 32   # the recurrent cluster: 32 units a block,
+MAX_HALF = 256       # 4 blocks a direction up to 128 units, 8 up to 256
 SMEM_LIMIT = 232448  # bytes a block may opt in to on the H100 (227 KB)
 
 
@@ -146,24 +148,23 @@ class _EncArgs(ctypes.Structure):
     _fields_ = [
         ("x", _P), ("T", ctypes.c_int), ("L", ctypes.c_int),
         ("E_in", ctypes.c_int), ("n_prenet", ctypes.c_int),
-        ("pre_w", _P * MAX_PRENET), ("pre_b", _P * MAX_PRENET),
-        ("pre_out", ctypes.c_int * MAX_PRENET),
+        ("pre_max", ctypes.c_int),
+        ("pre_w", _P), ("pre_b", _P), ("pre_out", _P),
         ("bank_w", _P), ("bank_b", _P), ("K", ctypes.c_int),
         ("C", ctypes.c_int),
         ("p1_w", _P), ("p1_b", _P), ("P1", ctypes.c_int),
         ("p2_w", _P), ("p2_b", _P), ("P2", ctypes.c_int),
         ("adj_w", _P), ("adj_b", _P),
         ("n_highway", ctypes.c_int),
-        ("hw_w", _P * MAX_HIGHWAY), ("hw_b", _P * MAX_HIGHWAY),
+        ("hw_w", _P), ("hw_b", _P),
         ("W", ctypes.c_int), ("H", ctypes.c_int),
         ("lstm_wx", _P * 2), ("lstm_whT", _P * 2), ("lstm_b", _P * 2),
         ("zc", ctypes.c_float), ("zo", ctypes.c_float),
         ("sa_w", _P), ("sa_b", _P), ("SA", ctypes.c_int),
         ("n_hops", ctypes.c_int), ("n_heads", ctypes.c_int),
-        ("kvq_w", _P * MAX_HOPS), ("kvq_b", _P * MAX_HOPS),
-        ("ot_w", _P * MAX_HOPS), ("ot_b", _P * MAX_HOPS),
+        ("kvq_w", _P), ("kvq_b", _P), ("ot_w", _P), ("ot_b", _P),
         ("lstm_out", _P), ("sa_out", _P), ("scratch", _P),
-        ("stage_cycles", _P),
+        ("stage_cycles", _P), ("v4", ctypes.c_int),
     ]
 
 
@@ -206,9 +207,7 @@ def smem_bytes(T: int, E_in: int, prenet: Tuple[int, ...], K: int, C: int,
     c2 = min(_round8(P1), DENSE_C)
     f = max(f, (MT + 2) * _slab_ld(c2) + 3 * c2 * NI + c2 + NI + MT * NI,
             _dense(P2), _dense(W))
-    rows = 4 * -(-H // RNN_DIR_BLOCKS)
-    r = max(2 * _round8(H) + 2 * RNN_GX_STEPS * rows + 4, _dense(2 * H),
-            _dense(SA))
+    r = max(_rnn_floats(H), _dense(2 * H), _dense(SA))
     if hop_streams(T, H, SA):
         r = max(r, attend_rows_floats(SA // heads))
     else:
@@ -220,14 +219,26 @@ def _hop_resident(T: int, SA: int) -> int:
     return T * (_round8(3 * SA) + 4) + NWARPS * T
 
 
+def dir_blocks(H: int) -> int:
+    """The recurrent cluster's blocks a direction (``dir_blocks`` in
+    csrc/fused_encoder.cu): 4 up to 128 units, 8 (a 16-block cluster) up
+    to 256."""
+    return 4 if H <= 4 * UNITS_A_BLOCK else 8
+
+
+def _rnn_floats(H: int) -> int:
+    """h by parity and two groups of 32 steps of a block's gate rows' input
+    halves, and two mbarriers."""
+    rows = 4 * -(-H // dir_blocks(H))
+    return 2 * _round8(H) + 2 * RNN_GX_STEPS * rows + 4
+
+
 def hop_streams(T: int, H: int, SA: int) -> bool:
     """Whether the recurrent cluster streams its hop's K | V | Q rows
     (``hop_streams`` in csrc/fused_encoder.cu): they and every warp's
     scores no longer fit in ``SMEM_LIMIT`` beside the rest of its plan
     (T > 533 at the recipes' widths, H = 128, SA = 32)."""
-    rows = 4 * -(-H // RNN_DIR_BLOCKS)
-    r = max(2 * _round8(H) + 2 * RNN_GX_STEPS * rows + 4, _dense(2 * H),
-            _dense(SA), _hop_resident(T, SA))
+    r = max(_rnn_floats(H), _dense(2 * H), _dense(SA), _hop_resident(T, SA))
     return 4 * (r + RED_FLOATS) > SMEM_LIMIT
 
 
@@ -272,31 +283,27 @@ def encoder_widths(params: FusedEncoderParams, E_in: int, K: int, C: int,
 
 def unsupported_reason(w: EncoderWidths, T: int) -> Optional[str]:
     """Why the kernel cannot take this encoder at source length ``T``, or
-    None: the widths and layer counts it has no room for, decided without
-    a build (``prepare_encode`` raises with it), and both blocks' shared-
-    memory plans (``smem_bytes``) against the 227 KB a block may opt in
-    to.  The source length is not a limit: past T = 533 at the recipes'
-    widths the recurrent cluster streams its hop (``hop_streams``).  (A
-    valid length outside [1, T] is a malformed input, which
-    ``prepare_encode`` also raises for.)"""
+    None, decided without a build (``prepare_encode`` raises with it): the
+    two conditions the JAX kernel's shapes need as well (the residual adds
+    the second projection to the prenet output; the heads split the
+    self-attention width), an LSTM wider than the recurrent cluster holds
+    (``MAX_HALF`` units a direction), and both blocks' shared-memory plans
+    (``smem_bytes``) against the 227 KB a block may opt in to, the
+    counterpart of the JAX kernel's VMEM bound.  Widths, layer counts and
+    the source length are not limits: odd widths take the 4-byte copies
+    (``vector_copies``), the layers come from a table in device memory,
+    and past T = 533 at the recipes' widths the recurrent cluster streams
+    its hop (``hop_streams``).  (A valid length outside [1, T] is a
+    malformed input, which ``prepare_encode`` also raises for.)"""
     E = w.prenet[-1] if w.prenet else w.E_in
-    if len(w.prenet) > MAX_PRENET:
-        return f"more than {MAX_PRENET} prenet layers"
-    if w.n_highway > MAX_HIGHWAY:
-        return f"more than {MAX_HIGHWAY} highway layers"
-    if w.n_hops > MAX_HOPS:
-        return f"more than {MAX_HOPS} self-attention hops"
     if w.SA % w.heads:
         return f"sa_units {w.SA} do not divide over {w.heads} heads"
     if w.P2 != E:
         return f"residual needs proj2 width {w.P2} == prenet width {E}"
-    widths = (w.E_in, *w.prenet, w.C, w.P1, w.P2, w.W, w.SA)
-    if any(n % 4 for n in widths):
-        return (f"the kernel copies 16-byte rows: widths {widths} must be "
-                "multiples of 4")
-    if w.H % 2 or not 1 <= w.H <= MAX_HALF:
-        return (f"the LSTM's {w.H} units a direction must be even and <= "
-                f"{MAX_HALF}")
+    if not 1 <= w.H <= MAX_HALF:
+        return (f"the LSTM's {w.H} units a direction: the recurrent cluster "
+                f"holds 1 to {MAX_HALF} ({UNITS_A_BLOCK} a block, 16 "
+                "blocks)")
     if T < 1:
         return "an empty source"
     trunk, rnn = smem_bytes(T, w.E_in, w.prenet, w.K, w.C, w.P1, w.P2, w.W,
@@ -305,6 +312,18 @@ def unsupported_reason(w: EncoderWidths, T: int) -> Optional[str]:
         return (f"the kernel's shared-memory plan needs {trunk} bytes a "
                 f"trunk block and {rnn} a recurrent block (> {SMEM_LIMIT})")
     return None
+
+
+def vector_copies(w: EncoderWidths) -> bool:
+    """Whether every row the kernel copies is 16-byte aligned: each width
+    it reads rows of (the source, the prenet layers, the bank, the
+    projections, the highway, the LSTM's 2H outputs and 4H gates, the
+    self-attention's SA and 3 SA) a multiple of 4.  Then it runs its
+    instance with 16-byte copies (the recipes' widths), else the one with
+    4-byte copies (the wrapper also takes it for an operand that is not
+    16-byte aligned)."""
+    widths = (w.E_in, *w.prenet, w.C, w.P1, w.P2, w.W, 2 * w.H, w.SA)
+    return not any(n % 4 for n in widths)
 
 
 def profile_split(cycles, ms: float):
@@ -344,11 +363,27 @@ def _check(t: Tensor, shape, name: str) -> Tensor:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
-    t = t.contiguous()
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: the kernel copies 16-byte vectors; the "
-                         f"tensor's data is not 16-byte aligned")
-    return t
+    return t.contiguous()
+
+
+# the layers' device tables, by (device, pointers, widths): a model's merged
+# weights keep their pointers from call to call, so a table is copied to
+# the card once
+_tables: dict = {}
+_MAX_TABLES = 16
+
+
+def _layer_table(device, ptrs: Tuple[int, ...], widths: Tuple[int, ...]):
+    """(pointer table (int64), width table (int32)) on ``device``."""
+    key = (device, ptrs, widths)
+    got = _tables.get(key)
+    if got is None:
+        if len(_tables) >= _MAX_TABLES:
+            _tables.pop(next(iter(_tables)))
+        got = (torch.tensor(ptrs or (0,), dtype=torch.int64).to(device),
+               torch.tensor(widths or (0,), dtype=torch.int32).to(device))
+        _tables[key] = got
+    return got
 
 
 def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
@@ -365,8 +400,8 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
     T, E_in = int(x.shape[1]), int(x.shape[2])
     if not 1 <= L <= T:
         raise ValueError(f"length {L} outside [1, {T}]")
-    reason = unsupported_reason(encoder_widths(
-        params, E_in, K, C, half, sa_units, num_heads), T)
+    widths = encoder_widths(params, E_in, K, C, half, sa_units, num_heads)
+    reason = unsupported_reason(widths, T)
     if reason is not None:
         raise ValueError(f"fused_encode: {reason}")
     keep = []  # every tensor whose pointer the kernel reads
@@ -380,34 +415,32 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
     a.x = use(x[0], (T, E_in), "x")
     a.T, a.L, a.E_in = T, L, E_in
     a.n_prenet = len(params.prenet)
-    width = E_in
+    a.pre_max = max((E_in, *widths.prenet))
+    pre_w, pre_b, width = [], [], E_in
     for i, (w, b) in enumerate(params.prenet):
         n = int(w.shape[1])
-        a.pre_w[i] = use(w, (width, n), f"prenet{i}.w")
-        a.pre_b[i] = use(b.reshape(-1), (n,), f"prenet{i}.b")
-        a.pre_out[i] = n
+        pre_w.append(use(w, (width, n), f"prenet{i}.w"))
+        pre_b.append(use(b.reshape(-1), (n,), f"prenet{i}.b"))
         width = n
     E = width
     a.K, a.C = K, C
     a.bank_w = use(params.w_bank[0], (K * E, K * C), "w_bank")
     a.bank_b = use(params.w_bank[1].reshape(-1), (K * C,), "b_bank")
-    P1 = int(params.w_proj1[0].shape[1])
-    P2 = int(params.w_proj2[0].shape[1])
+    P1, P2, W = widths.P1, widths.P2, widths.W
     a.P1, a.P2 = P1, P2
     a.p1_w = use(params.w_proj1[0], (3 * K * C, P1), "w_proj1")
     a.p1_b = use(params.w_proj1[1].reshape(-1), (P1,), "b_proj1")
     a.p2_w = use(params.w_proj2[0], (3 * P1, P2), "w_proj2")
     a.p2_b = use(params.w_proj2[1].reshape(-1), (P2,), "b_proj2")
-    W = P2
     if params.w_adjust is not None:
-        W = int(params.w_adjust[0].shape[1])
         a.adj_w = use(params.w_adjust[0], (P2, W), "w_adjust")
         a.adj_b = use(params.w_adjust[1].reshape(-1), (W,), "b_adjust")
     a.W, a.H = W, half
     a.n_highway = len(params.highway)
-    for i, (w, b) in enumerate(params.highway):
-        a.hw_w[i] = use(w, (W, 2 * W), f"highway{i}.w")
-        a.hw_b[i] = use(b.reshape(-1), (2 * W,), f"highway{i}.b")
+    hw_w = [use(w, (W, 2 * W), f"highway{i}.w")
+            for i, (w, _) in enumerate(params.highway)]
+    hw_b = [use(b.reshape(-1), (2 * W,), f"highway{i}.b")
+            for i, (_, b) in enumerate(params.highway)]
     wx, whT, b_lstm = params.lstm
     for d in range(2):
         a.lstm_wx[d] = use(wx[d], (W, 4 * half), f"lstm{d}.wx")
@@ -419,11 +452,27 @@ def prepare_encode(params: FusedEncoderParams, x: Tensor, length, *,
     a.sa_w = use(params.sa_proj[0], (2 * half, SA), "sa_proj.w")
     a.sa_b = use(params.sa_proj[1].reshape(-1), (SA,), "sa_proj.b")
     a.n_hops, a.n_heads = len(params.hops), num_heads
+    kvq_w, kvq_b, ot_w, ot_b = [], [], [], []
     for i, (w_kvq, b_kvq, w_ot, b_ot) in enumerate(params.hops):
-        a.kvq_w[i] = use(w_kvq, (SA, 3 * SA), f"hop{i}.w_kvq")
-        a.kvq_b[i] = use(b_kvq.reshape(-1), (3 * SA,), f"hop{i}.b_kvq")
-        a.ot_w[i] = use(w_ot, (SA, SA), f"hop{i}.w_ot")
-        a.ot_b[i] = use(b_ot.reshape(-1), (SA,), f"hop{i}.b_ot")
+        kvq_w.append(use(w_kvq, (SA, 3 * SA), f"hop{i}.w_kvq"))
+        kvq_b.append(use(b_kvq.reshape(-1), (3 * SA,), f"hop{i}.b_kvq"))
+        ot_w.append(use(w_ot, (SA, SA), f"hop{i}.w_ot"))
+        ot_b.append(use(b_ot.reshape(-1), (SA,), f"hop{i}.b_ot"))
+    # the layers' table: a run of pointers for each field, in the order of
+    # _EncArgs; the prenet's widths in a table of their own
+    runs = [pre_w, pre_b, hw_w, hw_b, kvq_w, kvq_b, ot_w, ot_b]
+    ptrs, widths_t = _layer_table(
+        x.device, tuple(p for run in runs for p in run),
+        tuple(int(w.shape[1]) for w, _ in params.prenet))
+    keep += [ptrs, widths_t]
+    slot, base = 0, ptrs.data_ptr()
+    for field, run in zip(("pre_w", "pre_b", "hw_w", "hw_b", "kvq_w",
+                           "kvq_b", "ot_w", "ot_b"), runs):
+        setattr(a, field, base + 8 * slot)
+        slot += len(run)
+    a.pre_out = widths_t.data_ptr()
+    a.v4 = int(vector_copies(widths)
+               and all(t.data_ptr() % 16 == 0 for t in keep))
 
     lib = _lib()
     lstm_out = torch.empty(T, 2 * half, device=x.device)

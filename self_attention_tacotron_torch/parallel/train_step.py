@@ -10,7 +10,9 @@ global-norm clipping at 1.0, then Adam (``adam_beta1``, ``adam_beta2``,
 what an unbroken one would have.  The metrics are ``loss``, the main loss
 (``code_loss``, or ``mel_loss`` and with a postnet ``postnet_loss``),
 ``done_loss``, ``l2_regularization_loss``, ``learning_rate`` and
-``grad_norm`` (the norm before clipping), as tensors on the model's device.
+``grad_norm`` (the norm before clipping), as tensors on the model's device;
+``with_alignments`` also returns row 0's source alignments and outputs of
+the TRAIN forward, detached, for the train-time plots.
 ``make_eval_step`` is the two-pass evaluation (a free-running and a
 teacher-forced VALIDATION decode); ``make_predict_step`` is serving, with
 ``use_forced_alignment_mode`` a second decode that replays the first's
@@ -63,9 +65,13 @@ def step_generator(hp: HParams, step: int, device) -> torch.Generator:
     return gen
 
 
-def make_train_step(hp: HParams) -> Callable[[TrainState, Batch],
-                                             Dict[str, torch.Tensor]]:
-    """``train_step(state, batch) -> metrics``; updates ``state`` in place."""
+def make_train_step(hp: HParams, with_alignments: bool = False) -> Callable:
+    """``train_step(state, batch) -> metrics``; updates ``state`` in place.
+    With ``with_alignments`` it returns ``(metrics, (alignments, outputs))``:
+    row 0 of each source's (T_mem, S) alignments and its (S, C) outputs from
+    the TRAIN forward, detached (on the fused trunk, the alignments its
+    kernel saves; the JAX package's ``make_train_step(...,
+    with_alignments=True)``)."""
 
     def train_step(state: TrainState, batch: Batch):
         model = state.model
@@ -90,6 +96,9 @@ def make_train_step(hp: HParams) -> Callable[[TrainState, Batch],
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["learning_rate"] = torch.tensor(lr, device=device)
         metrics["grad_norm"] = grad_norm.detach()
+        if with_alignments:
+            return metrics, (tuple(a[0].detach() for a in out.alignments),
+                             out.outputs[0].detach())
         return metrics
 
     return train_step

@@ -130,10 +130,30 @@ def test_fused_encode_kernel_matches_plain(device, kw, T, L):
     assert bool((got[0][0, L:] == 0).all())
 
 
+# configurations the encoder kernel takes since it was widened: widths that
+# are not multiples of 4 (the 4-byte copies), an odd LSTM half, 129 and 256
+# units a direction (the 16-block cluster), more prenet, highway and hop
+# layers than its earlier fixed arrays held
+WIDE_ENC = {
+    "odd_widths": dict(embedding_dim=18, encoder_prenet_out_units=(22, 10),
+                       conv_channels=6, projection1_out_channels=7,
+                       projection2_out_channels=10,
+                       self_attention_out_units=10),
+    "H7": dict(cbhg_out_units=14),
+    "H129": dict(cbhg_out_units=258),
+    "H256": dict(cbhg_out_units=512),
+    "layers": dict(encoder_prenet_out_units=(16, 12, 8, 8, 8), num_highway=9,
+                   self_attention_num_hop=5),
+}
+
+
 @pytest.mark.parametrize("kw,T", [({}, 32), (RECIPE_ENC, 64),
                                   ({"max_filter_width": 5,
                                     "cbhg_out_units": 24}, 40),
-                                  (RECIPE_ENC, 600)])
+                                  (RECIPE_ENC, 600),
+                                  (WIDE_ENC["odd_widths"], 40),
+                                  (WIDE_ENC["H129"], 40),
+                                  (WIDE_ENC["layers"], 40)])
 def test_encode_smem_plan_matches_the_kernel(device, kw, T):
     import ctypes
     params, x, kwargs = _enc_case(_model(device, **kw), T, T, device)
@@ -142,9 +162,35 @@ def test_encode_smem_plan_matches_the_kernel(device, kw, T):
     got = tuple(int(lib.fused_encoder_smem_bytes(ctypes.byref(launch.args),
                                                  which)) for which in (0, 1))
     a = launch.args
-    assert got == fe.smem_bytes(T, a.E_in, tuple(a.pre_out[:a.n_prenet]),
+    assert got == fe.smem_bytes(T, a.E_in,
+                                tuple(int(w.shape[1]) for w, _ in
+                                      params.prenet),
                                 a.K, a.C, a.P1, a.P2, a.W, a.H, a.SA,
                                 a.n_heads)
+
+
+@pytest.mark.parametrize("name,T,L", [
+    ("odd_widths", 40, 33), ("H7", 40, 40), ("H129", 70, 51),
+    ("H256", 40, 40), ("layers", 70, 64)])
+@torch.no_grad()
+def test_widened_encoder_matches_plain(device, name, T, L):
+    """Each instance the widening added against the plain version: the
+    4-byte copies (odd widths, an odd H), the 16-block cluster (H > 128),
+    the layer table (5 prenet layers, 9 highway layers, 5 hops)."""
+    kw = WIDE_ENC[name]
+    params, x, kwargs = _enc_case(_model(device, **kw), T, L, device)
+    launch = fe.prepare_encode(params, x, L, **kwargs)
+    H = kwargs["half"]
+    assert launch.args.v4 == (name in ("H256", "layers"))
+    assert fe.dir_blocks(H) == (8 if H > 128 else 4)
+    before = fe.fused_encode.launches
+    got = launch()
+    ref = fe.fused_encode_reference(params, x, L, **kwargs)
+    torch.cuda.synchronize()
+    assert fe.fused_encode.launches == before + 1
+    for g, r in zip(got, ref):
+        _close(g, r[0], 1e-5)
+    assert bool((got[0][L:] == 0).all())
 
 
 def _dec_case(model, T, L, device):
@@ -530,13 +576,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
         fe.fused_encode(params, x.double(), 16, **kw)
     with pytest.raises(ValueError):
         fe.fused_encode(params, x, 17, **kw)      # length past T
+    # a source 4 bytes past 16-byte alignment and a width that is not a
+    # multiple of 4 are taken, by the instance with 4-byte copies
     flat = torch.zeros(x.numel() + 1, device=device)
-    shifted = flat[1:].view_as(x).copy_(x)        # 4 bytes past 16-aligned
-    with pytest.raises(ValueError, match="16-byte"):
-        fe.fused_encode(params, shifted, 16, **kw)
+    shifted = flat[1:].view_as(x).copy_(x)
+    assert fe.prepare_encode(params, shifted, 16, **kw).args.v4 == 0
+    for g, r in zip(fe.fused_encode(params, shifted, 16, **kw),
+                    fe.fused_encode_reference(params, x, 16, **kw)):
+        _close(g, r)
     odd, xo, kwo = _enc_case(_model(device, embedding_dim=18), 16, 16, device)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        fe.fused_encode(odd, xo, 16, **kwo)
+    for g, r in zip(fe.fused_encode(odd, xo, 16, **kwo),
+                    fe.fused_encode_reference(odd, xo, 16, **kwo)):
+        _close(g, r)
+    wide, xw, kww = _enc_case(_model(device, cbhg_out_units=514), 16, 16,
+                              device)
+    with pytest.raises(ValueError, match="cluster"):
+        fe.fused_encode(wide, xw, 16, **kww)
     weights, memory, options = _rows_case(model, [16], device)
     big = fd.FusedDecodeMemory(*(tuple(t.expand(300, *t.shape[1:])
                                        for t in part) for part in memory))
@@ -1110,13 +1165,12 @@ def test_encoder_gate_at_the_plan_edge_on_the_card(device, T, launches):
     ref = enc(x, torch.tensor([T], device=device))
     for g, r in zip(got[:2], ref[:2]):
         _close(g, r)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        fe.fused_encode(enc.fused_params(), x[..., :-2], T,
+    with pytest.raises(ValueError, match="divide"):
+        fe.fused_encode(enc.fused_params(), x, T,
                         max_filter_width=enc.max_filter_width,
                         conv_channels=enc.conv_channels,
                         half=enc.cbhg_out_units // 2,
-                        sa_units=enc.self_attention_out_units,
-                        num_heads=enc.self_attention_num_heads)
+                        sa_units=enc.self_attention_out_units, num_heads=3)
 
 
 @torch.no_grad()

@@ -2,19 +2,27 @@
 
 Each used to raise on the card for configurations the JAX package serves:
 the batch-1 encoder past T = 533 at the recipes' widths (its hop's rows
-outgrew shared memory), the Pallas mode's attention past D = 128 and its
-step past D = 256, the spectrogram for an n_fft that is not a power of
-two.  The kernels now take them (the encoder streams its hop, both
-attention kernels have wide variants, the spectrogram a direct DFT), and
-each module's pure-Python ``*unsupported_reason`` names what is left,
-which its wrapper raises for on the card.  Here:
+outgrew shared memory), for widths that are not multiples of 4, an odd
+LSTM half or one over 128 units, more than 4 prenet, 8 highway or 4 hop
+layers; the Pallas mode's attention past D = 128 and its step past D =
+256, the spectrogram for an n_fft that is not a power of two.  The
+kernels now take them (the encoder streams its hop, copies 4 bytes at a
+time where rows are not 16-byte aligned, reads its layers from a table in
+device memory and runs a 16-block cluster past 128 units; both attention
+kernels have wide variants, the spectrogram a direct DFT), and each
+module's pure-Python ``*unsupported_reason`` names what is left, which its
+wrapper raises for on the card.  Here:
 
 * the reasons at their edges: the encoder's layer counts (4 prenet layers
-  against 5, 8 highway layers against 9, 4 hops against 5), widths that
-  are not multiples of 4 and LSTM halves that are odd or over 128, and its
-  hop's plan at the recipes' widths (T = 533 resident, T = 534 streamed,
-  neither refused); head widths 1024 against 1025 (#5), any for #6; n_fft
-  from 1 to 32768 (#7, the FFT for powers of two up to 16384);
+  and 5, 8 highway layers and 9, 4 hops and 5: none refused), widths that
+  are not multiples of 4 and LSTM halves that are odd or over 128 (not
+  refused; the 4-byte copies where a row is not 16-byte aligned), the
+  heads that do not divide the self-attention width (refused, as the JAX
+  kernel's shapes need), the recurrent cluster's edge (256 units a
+  direction, 257 refused), and its hop's plan at the recipes' widths (T =
+  533 resident, T = 534 streamed, neither refused); head widths 1024
+  against 1025 (#5), any for #6; n_fft from 1 to 32768 (#7, the FFT for
+  powers of two up to 16384);
 * the callers on CPU: the fused encoder, the Pallas mode and
   ``MelExtractor`` reach the kernels' wrappers, whose plain versions match
   the module path, the einsum path and ``spectrograms_plain``; a refused
@@ -81,31 +89,53 @@ def test_encoder_plan_edge_at_the_recipe_widths(T, fits):
     assert (rnn == resident) == (T > 64 and fits)
 
 
-@pytest.mark.parametrize("kw,refused", [
-    (dict(prenet=(256, 128, 128, 128)), None),
-    (dict(prenet=(256, 128, 128, 128, 128)), "prenet"),
-    (dict(num_highway=8), None),
-    (dict(num_highway=9), "highway"),
-    (dict(num_hop=4), None),
-    (dict(num_hop=5), "hops"),
+@pytest.mark.parametrize("kw", [
+    dict(prenet=(256, 128, 128, 128)),
+    dict(prenet=(256, 128, 128, 128, 128)),
+    dict(num_highway=8),
+    dict(num_highway=9),
+    dict(num_hop=4),
+    dict(num_hop=5),
 ], ids=["prenet4", "prenet5", "highway8", "highway9", "hops4", "hops5"])
-def test_encoder_layer_counts(kw, refused):
-    reason = fe.unsupported_reason(widths_of(**kw), 64)
-    assert (reason is None) == (refused is None), reason
-    if refused:
-        assert refused in reason
+def test_encoder_layer_counts(kw):
+    """No layer count is refused: the kernel reads the layers' weights and
+    widths from a table in device memory, as long as the configuration."""
+    w = widths_of(**kw)
+    assert fe.unsupported_reason(w, 64) is None
+    assert fe.vector_copies(w)      # the recipes' 16-byte instance
 
 
-@pytest.mark.parametrize("field,value,word", [
-    ("E_in", 30, "multiples of 4"), ("C", 6, "multiples of 4"),
-    ("SA", 34, "multiples of 4"), ("H", 7, "even"), ("H", 130, "<= 128"),
-    ("heads", 3, "divide")])
-def test_encoder_widths(field, value, word):
+@pytest.mark.parametrize("field,value,refused", [
+    ("E_in", 30, None), ("C", 6, None), ("SA", 34, None), ("H", 7, None),
+    ("H", 130, None), ("heads", 3, "divide")])
+def test_encoder_widths(field, value, refused):
+    """Widths that are not multiples of 4 and an odd LSTM half take the
+    instance with 4-byte copies; 130 units a direction the 16-block
+    cluster.  What stays refused is what the JAX kernel's shapes need too:
+    heads that divide the self-attention width."""
     w = widths_of()
-    reason = fe.unsupported_reason(w._replace(**{field: value}), 64)
-    assert reason is not None and word in reason
+    changed = w._replace(**{field: value})
+    reason = fe.unsupported_reason(changed, 64)
+    if refused is None:
+        assert reason is None, reason
+        assert fe.vector_copies(changed) == (field == "H" and value % 2 == 0)
+    else:
+        assert reason is not None and refused in reason
     assert fe.unsupported_reason(w, 0) is not None
     assert fe.unsupported_reason(w, 64) is None
+
+
+@pytest.mark.parametrize("H,blocks", [(1, 4), (128, 4), (129, 8), (256, 8),
+                                      (257, None)])
+def test_encoder_recurrent_cluster_edge(H, blocks):
+    """32 units a block: 4 blocks a direction up to 128 units, 8 (a
+    16-block cluster) up to 256; past that the reason names the cluster."""
+    reason = fe.unsupported_reason(widths_of()._replace(H=H), 64)
+    if blocks is None:
+        assert reason is not None and "cluster" in reason
+    else:
+        assert reason is None, reason
+        assert fe.dir_blocks(H) == blocks
 
 
 def _tiny_encoder(E, **kw):
@@ -143,14 +173,18 @@ def _run(enc, T, E, seed=0):
 
 
 def test_encoder_refused_widths_raise_before_a_launch():
-    """E_in = 10 is not a multiple of 4: ``prepare_encode`` raises with the
-    reason before it reads a tensor (so on the card, before any launch);
-    on CPU the wrapper's plain version serves, as for any CPU tensor, and
-    matches the module path."""
+    """257 LSTM units a direction are past the recurrent cluster:
+    ``prepare_encode`` raises with the reason before it reads a tensor (so
+    on the card, before any launch).  E_in = 10, not a multiple of 4, is
+    taken (the 4-byte copies); on CPU the wrapper's plain version serves,
+    as for any CPU tensor, and matches the module path."""
+    wide = _tiny_encoder(12, cbhg_out_units=514)
+    with pytest.raises(ValueError, match="cluster"):
+        fe.prepare_encode(wide.fused_params(), torch.zeros(1, 9, 12), 9,
+                          **_kernel_args(wide))
     enc = _tiny_encoder(10)
-    x = torch.zeros(1, 9, 10)
-    with pytest.raises(ValueError, match="multiples of 4"):
-        fe.prepare_encode(enc.fused_params(), x, 9, **_kernel_args(enc))
+    assert fe.unsupported_reason(fe.encoder_widths(
+        enc.fused_params(), 10, *_kernel_args(enc).values()), 9) is None
     got = _run(enc, 9, 10)
     plain = _tiny_encoder(10)
     plain.fused_inference = False

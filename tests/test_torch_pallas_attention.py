@@ -177,3 +177,66 @@ def test_step_writes_the_caches_in_place(use_pallas):
         full, _ = tm(xs, xs, xs)
     assert cache.key is keys and keys.abs().sum(-1).all()
     torch.testing.assert_close(out, full[:, -1], rtol=TOL, atol=TOL)
+
+
+def test_jax_package_cannot_differentiate_the_pallas_kernel():
+    """The reference: ``jax.grad`` through the JAX package's
+    ``fused_self_attention`` (interpret mode, causal, (1, 2, 16, 16))
+    fails, since its ``pallas_call`` has no transpose rule and the function
+    no ``custom_vjp``; so the port owes no backward kernel for #5."""
+    q, k, v = (jnp.asarray(randn(s, 1, 2, 16, 16)) for s in (0, 1, 2))
+
+    def loss(q):
+        return jpa.fused_self_attention(q, k, v, causal=True,
+                                        interpret=True).sum()
+
+    with pytest.raises(AssertionError):
+        jax.grad(loss)(q)
+
+
+@pytest.mark.parametrize("enc_rate,dec_rate,named", [
+    (0.0, 0.05, ["self_attention_drop_rate"]),
+    (0.05, 0.0, ["decoder_self_attention_drop_rate"]),
+    (0.0, 0.0, ["self_attention_drop_rate",
+                "decoder_self_attention_drop_rate"]),
+    (0.05, 0.05, [])])
+def test_port_refuses_pallas_training_without_dropout(enc_rate, dec_rate,
+                                                      named):
+    """The port refuses the configuration the reference cannot train, on
+    the CPU as on the card, before the first step: the train step raises a
+    ``NotImplementedError`` that names the hparams (and leaves the step
+    count alone); under ``torch.no_grad`` and with dropout on each hop it
+    does not."""
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.parallel import (create_train_state,
+                                                        make_train_step)
+    from test_torch_ops import tiny_codes_hp
+    hp = tiny_codes_hp(use_pallas_attention=True,
+                       self_attention_drop_rate=enc_rate,
+                       decoder_self_attention_drop_rate=dec_rate)
+    model = tacotron_model_factory(hp)
+    state = create_train_state(model, hp)
+    refusal = model.pallas_training_refusal()
+    if not named:
+        assert refusal is None
+        return
+    assert isinstance(refusal, NotImplementedError)
+    with pytest.raises(NotImplementedError, match="use_pallas_attention") \
+            as info:
+        make_train_step(hp)(state, None)
+    assert all(n + " = 0" in str(info.value) for n in named)
+    assert "pallas_call" in str(info.value) and state.step == 0
+    with torch.no_grad():
+        assert model.pallas_training_refusal() is None
+
+
+def test_hop_refuses_a_differentiated_pallas_call():
+    """The hop itself: a training call in the Pallas mode without dropout
+    raises where an input needs a gradient, and runs under no_grad."""
+    tm = tattn.MultiHeadAttention(8, 2, drop_rate=0.0, use_pallas=True)
+    x = torch.from_numpy(randn(4, 1, 5, 8))
+    with pytest.raises(NotImplementedError, match="no backward"):
+        tm(x, x, x, training=True)
+    with torch.no_grad():
+        out, align = tm(x, x, x, training=True)
+    assert out.shape == (1, 5, 8) and not align.any()
