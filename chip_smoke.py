@@ -189,7 +189,24 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    ``entry()`` on the card; ``bench.measure`` over 3 decodes (path
    ``bench``), its JSON line printed, then on the bench's own model and
    source its decode against the flagship with the fused flags off (1e-5)
-   and #1 and #2 against their plain versions, timed beside their bounds.
+   and #1 and #2 against their plain versions, timed beside their bounds;
+25. data parallelism (``data_parallel``): the input pipeline (the reader
+   that served the run must be the native one; phase 24's ``cli.train``
+   seconds a step, its dataset's seconds a batch and the step function's,
+   beside one fresh batch of B = 32 through the pure-Python reader and
+   checksum and through the native one); ``cli.train --num-processes 2``
+   for 3 steps at global B = 32 (16 a rank, the shared bucket schedule on
+   the corpus' one bucket), the two ranks sharing the card over gloo: each
+   rank's log must show 3 launches of #3 and #4, finite global losses equal
+   on both ranks and the native reader, and rank 0 the one checkpoint
+   (path ``dp_training``, the ranks' launches added); ``cli.train`` as one
+   rank over NCCL (path ``dp_training_nccl``); one deterministic 2-rank
+   step held against the one-process step on the same 32 rows (every
+   gradient and running statistic within 1e-4 of its tensor's largest
+   magnitude, every parameter within 1e-4 of the largest parameter
+   magnitude, each rank launching #3 and #4 once);
+   ``entry.dryrun_multichip(2)``; #3 and #4 at a rank's shape (B = 16, S =
+   250) against their plain versions, timed beside their bounds.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -702,8 +719,9 @@ def _leaves(tree):
 
 
 def train_case(model, device, deterministic: bool, seed: int,
-               steps: int = TRAIN_S, compute_dtype: str = "float32"):
-    """The training trunk's inputs at the recipe widths: B = 32 random
+               steps: int = TRAIN_S, compute_dtype: str = "float32",
+               batch: int = TRAIN_B):
+    """The training trunk's inputs at the recipe widths: ``batch`` random
     sources (lengths 40..64) through the encoder, their attention keys
     (with the folded biases) and values, ``steps`` teacher rows (one-hot
     codes, or mel frames for a mel-target recipe), and with speakers the
@@ -716,15 +734,15 @@ def train_case(model, device, deterministic: bool, seed: int,
     from self_attention_tacotron_torch.ops import fused_train as ft
     hp, dec = model.hp, model.decoder
     rng = np.random.default_rng(SEED + seed)
-    lengths = rng.integers(40, T_IN + 1, TRAIN_B)
+    lengths = rng.integers(40, T_IN + 1, batch)
     lengths[0] = T_IN
-    src = np.zeros((TRAIN_B, T_IN), np.int64)
+    src = np.zeros((batch, T_IN), np.int64)
     for b, L in enumerate(lengths):
         src[b, :L] = rng.integers(1, hp.num_symbols, L)
     src_t = torch.from_numpy(src).to(device)
     len_t = torch.from_numpy(lengths).to(device)
     sid = torch.tensor([VCTK_SPEAKERS[b % len(VCTK_SPEAKERS)]
-                        for b in range(TRAIN_B)], device=device)
+                        for b in range(batch)], device=device)
     sources, lens, _, speaker = model._encode(Batch(src_t, len_t,
                                                     speaker_id=sid))
     packs = tuple(m.precompute(s, ln) for m, s, ln in
@@ -734,11 +752,11 @@ def train_case(model, device, deterministic: bool, seed: int,
     frames = steps * hp.outputs_per_step
     if target_kind_of(hp) == "codes":
         codes = torch.from_numpy(rng.integers(0, hp.num_mels,
-                                               (TRAIN_B, frames)))
+                                               (batch, frames)))
         target = torch.nn.functional.one_hot(codes, hp.num_mels).float()
     else:
         target = torch.from_numpy(rng.standard_normal(
-            (TRAIN_B, frames, hp.num_mels)).astype(np.float32))
+            (batch, frames, hp.num_mels)).astype(np.float32))
     teacher = dec._teacher_inputs(target.to(device), steps)
     kinds, cum, loc_ws, folds = dec._fused_attention_params()
     params = _detach(dec.fused_train_params())
@@ -757,7 +775,7 @@ def train_case(model, device, deterministic: bool, seed: int,
                         use_spk=spk is not None, src_kinds=kinds,
                         cumulative=cum, loc_kernel=dec._loc_kernel(),
                         compute_dtype=compute_dtype)
-    tf = teacher.transpose(0, 1).reshape(steps * TRAIN_B,
+    tf = teacher.transpose(0, 1).reshape(steps * batch,
                                          spec.cf).contiguous()
     ops = ft.train_operands(spec, params, keys, values, masks, tf, spk,
                             loc_ws)
@@ -3702,6 +3720,7 @@ def _training_loop_split(data, tmp, device, card):
         f"median {med(steps[1:]):.4f}); B = {hp.batch_size}; card {card}")
     if rc != 0 or len(loop) != LOOP_STEPS:
         raise AssertionError("the unprofiled training loop")
+    return {"loop": loop, "dataset": waits, "step": steps}
 
 
 def phase_entry_points(model, device, card: str, data: str, tmp: str,
@@ -3718,7 +3737,7 @@ def phase_entry_points(model, device, card: str, data: str, tmp: str,
     launches["predict_replay"], replay_errs = _predict_with_replay(
         model, tmp, card)
     launches["plotted_training"] = _plotted_training(data, tmp, card)
-    _training_loop_split(data, tmp, device, card)
+    loop_split = _training_loop_split(data, tmp, device, card)
     fn, args = entry()
     loss = float(fn(*args))
     log(f"phase 24 entry(): teacher-forced VALIDATION loss {loss:.6f} of the "
@@ -3741,6 +3760,285 @@ def phase_entry_points(model, device, card: str, data: str, tmp: str,
         new_rows += _reused_rows(rows, name, "training", "plotted_training",
                                  launches["plotted_training"][name])
     log(f"phase 24 entry points took {time.perf_counter() - t0:.1f} s")
+    return new_rows, launches, loop_split
+
+
+# ------------------------------------------------- data parallelism
+
+DP_RANKS = 2
+# the corpus' one bucket (targets of 200-249 codes: pad 250) on every rank,
+# its sources (40-64 phones) in one pad of 64
+DP_HPARAMS = ("multihost_bucket_weights=[0,0,1,0,0,0,0],"
+              "multihost_source_pad_length=64")
+# a 2-rank step against the one-process step on the same 32 rows: every
+# gradient and running statistic within 1e-4 of its tensor's largest
+# magnitude, every parameter within 1e-4 of the largest parameter
+# magnitude (``entry.step_disagreements`` says why not of its own tensor's:
+# a zero-initialised bias is one Adam update, which carries the rounding
+# of gradients near Adam's eps: on an H100 such a tensor reads ~1.3e-4 of
+# its own magnitude and ~1e-8 of the largest), the loss and gradient norm
+# relative (the ranks sum the batch in another order)
+TOL_DP = 1e-4
+
+
+def _rank_logs(ckpt: str, n: int):
+    """(losses, launches, text, seconds a step) of each rank's log of a
+    ``cli.train``."""
+    import re
+    name = os.path.basename(recipe_hparams().logfile)
+    out = []
+    for r in range(n):
+        with open(os.path.join(ckpt, name + (f".p{r}" if r else ""))) as f:
+            text = f.read()
+        losses = [float(x) for x in re.findall(
+            r"step \d+ loss ([-+0-9.eEinfa]+)", text)]
+        m = re.search(r"training kernel launches: fused_train_fwd (\d+), "
+                      r"fused_train_bwd (\d+)", text)
+        launches = ({"fused_train_fwd": int(m.group(1)),
+                     "fused_train_bwd": int(m.group(2))} if m else {})
+        secs = [float(x) for x in re.findall(
+            r"step \d+ loss [-+0-9.eEinfa]+ \(([\d.]+)s\)", text)]
+        out.append((losses, launches, text, secs))
+    return out
+
+
+def _cli_ranks(data, ckpt, args, n: int, steps: int = 3):
+    """``cli.train`` on the recipe for ``steps`` steps with ``args``;
+    each rank's log read back, its losses finite, its training kernels
+    launched once a step, the reader native; returns the rank logs."""
+    import math
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    with torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt,
+                         "--hparam-json-file", RECIPE, "--max-steps",
+                         str(steps), *args])
+    logs = _rank_logs(ckpt, n)
+    for r, (losses, launches, text, _) in enumerate(logs):
+        if (rc != 0 or len(losses) != steps
+                or not all(math.isfinite(x) for x in losses)):
+            raise AssertionError(f"rank {r}: cli.train rc {rc}, losses "
+                                 f"{losses}")
+        if launches != {"fused_train_fwd": steps, "fused_train_bwd": steps}:
+            raise AssertionError(f"rank {r} launched {launches}, not one of "
+                                 "each training kernel a step")
+        if "TFRecord reader: native" not in text:
+            raise AssertionError(f"rank {r} was not served by the native "
+                                 "reader")
+    if sorted(f for f in os.listdir(ckpt) if f.endswith(".pt")) != [
+            f"model-{steps}.pt", f"train-{steps}.pt"]:
+        raise AssertionError(f"no single checkpoint of step {steps}: "
+                             f"{sorted(os.listdir(ckpt))}")
+    return logs
+
+
+def _python_reader_batch(data):
+    """Seconds for one B = 32 batch of the training dataset through the
+    pure-Python reader and checksum (what served before the native one),
+    and through the native reader, each from a fresh dataset."""
+    from self_attention_tacotron_torch.data import dataset as ds
+    from self_attention_tacotron_torch.data import tfrecord
+    hp = recipe_hparams()
+    keys = ds.load_key_list(os.path.join(data, "train.csv"))
+    files = [ds.find_dataset_files(data, keys, ext) for ext in
+             (hp.source_file_extension, hp.target_file_extension)]
+    times = {}
+    for which in ("python", "native"):
+        saved = ds._reader, tfrecord._crc32c
+        if which == "python":
+            ds._reader, tfrecord._crc32c = "python", tfrecord.crc32c_python
+        try:
+            it = iter(ds.dataset_factory(*files, hp, shuffle=True,
+                                         repeat=True, drop_remainder=True,
+                                         seed=hp.seed + 7))
+            t0 = time.perf_counter()
+            next(it)
+            times[which] = time.perf_counter() - t0
+            it.close()
+        finally:
+            ds._reader, tfrecord._crc32c = saved
+    return times
+
+
+def _dp_step_check(device, data, card):
+    """One deterministic 2-rank step (16 rows a rank, gloo on the one card)
+    against the one-process step on the same 32 rows of the corpus, the
+    recipe at full width with the fused trunk."""
+    from self_attention_tacotron_torch import entry
+    from self_attention_tacotron_torch.data import dataset as ds
+    from self_attention_tacotron_torch.parallel.train_step import \
+        learning_rate
+    hp = recipe_hparams()
+    for k, v in entry.DETERMINISTIC.items():
+        hp.set_hparam(k, v)
+    keys = ds.load_key_list(os.path.join(data, "train.csv"))
+    nb = next(iter(ds.dataset_factory(*[ds.find_dataset_files(
+        data, keys, ext) for ext in (hp.source_file_extension,
+                                     hp.target_file_extension)], hp,
+        shuffle=True, seed=SEED, drop_remainder=True)))
+    batch = ds.to_model_batch(nb)
+    t0 = time.perf_counter()
+    [ranks] = entry.data_parallel_steps([(hp, batch)], DP_RANKS, "cuda",
+                                        SEED)
+    t_dp = time.perf_counter() - t0
+    single = entry.single_process_step(hp, batch, "cuda", SEED)
+    errs = entry.step_errors(single, ranks, learning_rate(hp, 0))
+    log(f"phase 25 deterministic step, {DP_RANKS} ranks x "
+        f"{batch.source.shape[0] // DP_RANKS} rows vs one process x "
+        f"{batch.source.shape[0]} (S = {nb.target.shape[1]}, T = "
+        f"{nb.source.shape[1]}): loss {ranks[0]['metrics']['loss']:.7f} vs "
+        f"{single['metrics']['loss']:.7f} (rel {errs['loss']:.2e}), "
+        f"grad_norm rel {errs['grad_norm']:.2e}; worst tensor over its "
+        f"largest magnitude: params {errs['params']:.2e}, grads "
+        f"{errs['grads']:.2e}, running stats {errs['stats']:.2e} (over "
+        f"the largest of all: {errs['params_global']:.2e}, "
+        f"{errs['grads_global']:.2e}, {errs['stats_global']:.2e}); noise "
+        f"tensors {len(errs['noise'])} held: {errs['noise_ok']}; ranks "
+        f"identical: {errs['ranks_identical']}; launches a rank "
+        f"{[r['launches'] for r in ranks]}; the spawn took {t_dp:.1f} s; "
+        f"card {card}")
+    bad = entry.step_disagreements(errs, TOL_DP)
+    if bad:
+        raise AssertionError(f"the 2-rank step disagrees: {bad}")
+    if any(r["launches"] != {"fused_train_fwd": 1, "fused_train_bwd": 1}
+           for r in ranks):
+        raise AssertionError("a rank did not launch each training kernel "
+                             "once")
+
+
+def _dp_kernel_rows(model, device, launches, card):
+    """#3 and #4 at a rank's shape (B = 16, S = 250, T = 64, masks on)
+    against their plain versions, timed (plain once) beside their
+    bounds."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    B = TRAIN_B // DP_RANKS
+    spec, params, keys, values, masks, tf, loc_ws, ops, _ = train_case(
+        model, device, False, 3, steps=250, batch=B)
+    seed = 4321
+    y, save, aux = ft.fused_train_fwd(spec, ops, seed)
+    y_r, save_r, aux_r = ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws)
+    fwd_err = max(_max_err(y, y_r), _max_err(save, save_r),
+                  _max_err(aux, aux_r))
+    g = torch.randn(y.shape, generator=torch.Generator(device)
+                    .manual_seed(11), device=device)
+    kern = _kernel_grads(spec, ft.fused_train_bwd(spec, ops, seed, g, save,
+                                                  aux))
+    d_params, d_keys, d_values, _, d_loc = ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws, g,
+        save_r, aux_r)
+    plain = _grad_leaves(spec, d_params, d_keys, d_values, d_loc)
+    rel = max(_rel_err(kern[k], plain[k].reshape(kern[k].shape))
+              for k in plain)
+    bwd_err = max(_max_err(kern[k], plain[k].reshape(kern[k].shape))
+                  for k in plain)
+    fwd = ft.prepare_train_fwd(spec, ops, seed)
+    bwd = ft.prepare_train_bwd(spec, ops, seed, g, save, aux)
+    times = {"fused_train_fwd": (_time_ms(fwd), _time_ms(
+        lambda: ft.fused_train_fwd_reference(
+            spec, params, keys, values, masks, tf, seed, None, loc_ws),
+        reps=1)),
+        "fused_train_bwd": (_time_ms(bwd), _time_ms(
+            lambda: ft.fused_train_bwd_reference(
+                spec, params, keys, values, masks, tf, seed, None, loc_ws,
+                g, save, aux), reps=1))}
+    flat_in = ft._flat(ops)
+    bounds = {
+        "fused_train_fwd": train_bound(spec, flat_in, [y, save, aux], False),
+        "fused_train_bwd": train_bound(spec, flat_in + [g, save, aux],
+                                       _leaves(bwd.outputs), True)}
+    log(f"phase 25 training kernels at a rank's shape (B = {spec.batch}, S "
+        f"= {spec.num_steps}, T = {spec.t_mem}, masks on): fused_train_fwd "
+        f"max abs err {fwd_err:.3e}, {times['fused_train_fwd'][0]:.4f} ms "
+        f"(plain {times['fused_train_fwd'][1]:.4f}); fused_train_bwd worst "
+        f"gradient {rel:.3e} of its max magnitude (max abs {bwd_err:.3e}), "
+        f"{times['fused_train_bwd'][0]:.4f} ms (plain "
+        f"{times['fused_train_bwd'][1]:.4f}); card {card}")
+    if fwd_err > TOL_TRAIN or rel > TOL_TRAIN_GRAD:
+        raise AssertionError("a training kernel disagrees with its plain "
+                             "version at a rank's shape")
+    return [row for name, line, err in (
+                ("fused_train_fwd", 375, fwd_err),
+                ("fused_train_bwd", 667, bwd_err))
+            for row in _kernel_rows(name, name, f"fused_train.py:{line}",
+                                    launches, err, *times[name],
+                                    bounds[name],
+                                    peak_flops=PEAK_3XTF32_FLOP_PER_S)]
+
+
+def phase_data_parallel(model, device, card: str, data: str, tmp: str,
+                        rows, loop_split):
+    """Phase 25 (``data_parallel``): the input pipeline's reader and times,
+    ``cli.train`` on two ranks sharing the card over gloo and on one rank
+    over NCCL, a deterministic 2-rank step against the one-process step,
+    ``entry.dryrun_multichip(2)``, and #3 / #4 at a rank's shape.  Returns
+    (rows, launch counts)."""
+    import statistics as st
+    from self_attention_tacotron_torch.data import dataset as ds
+    from self_attention_tacotron_torch.entry import dryrun_multichip
+    from self_attention_tacotron_torch.parallel.multihost import free_port
+    t0 = time.perf_counter()
+    reader, reads = ds.reader_in_use(), dict(ds.reads)
+    if reader != "native" or reads.get("python"):
+        raise AssertionError(f"the card run was served by the pure-Python "
+                             f"reader: {reads}")
+    batch_s = _python_reader_batch(data)
+    med = st.median
+    log(f"phase 25 input pipeline: reader {reader} (records read in this "
+        f"process before the next line's batches: {reads}); phase 24's cli.train s a step "
+        f"{loop_split['loop']} (past the first: median "
+        f"{med(loop_split['loop'][1:]):.4f}), its dataset alone s a batch "
+        f"{[round(t, 4) for t in loop_split['dataset']]} (past the first: "
+        f"median {med(loop_split['dataset'][1:]):.4f}), the step function "
+        f"alone s {[round(t, 4) for t in loop_split['step']]} (past the "
+        f"first: median {med(loop_split['step'][1:]):.4f}); one fresh "
+        f"batch of B = 32: pure-Python reader {batch_s['python']:.4f} s, "
+        f"native {batch_s['native']:.4f} s; card {card}")
+
+    launches = {}
+    ckpt = os.path.join(tmp, "dp_ckpt")
+    t1 = time.perf_counter()
+    logs = _cli_ranks(data, ckpt, ["--num-processes", str(DP_RANKS),
+                                   "--hparams", DP_HPARAMS], DP_RANKS)
+    wall = time.perf_counter() - t1
+    launches["dp_training"] = {k: sum(lg[1][k] for lg in logs)
+                               for k in logs[0][1]}
+    backends = ["gloo" if "backend gloo" in lg[2] else "?" for lg in logs]
+    log(f"phase 25 cli.train --num-processes {DP_RANKS}: global B = 32 "
+        f"({32 // DP_RANKS} a rank), 3 steps in {wall:.1f} s (spawn and "
+        f"start included), s a step per rank {[lg[3] for lg in logs]}; "
+        f"backends {backends}; losses per rank "
+        f"{[lg[0] for lg in logs]}; launches per rank "
+        f"{[lg[1] for lg in logs]}; card {card}")
+    if backends != ["gloo"] * DP_RANKS or logs[0][0] != logs[1][0]:
+        raise AssertionError("the ranks did not share the card over gloo "
+                             "with the same global losses")
+    ckpt = os.path.join(tmp, "nccl_ckpt")
+    t1 = time.perf_counter()
+    [(losses, counts, text, secs)] = _cli_ranks(
+        data, ckpt, ["--num-processes", "1", "--process-id", "0",
+                     "--coordinator-address", f"localhost:{free_port()}"], 1)
+    log(f"phase 25 cli.train, one rank over NCCL: 3 steps in "
+        f"{time.perf_counter() - t1:.1f} s, s a step {secs}, losses "
+        f"{losses}, launches {counts}; card {card}")
+    if "backend nccl" not in text:
+        raise AssertionError("the one-rank run did not use NCCL")
+    launches["dp_training_nccl"] = counts
+
+    _dp_step_check(device, data, card)
+    t1 = time.perf_counter()
+    dryrun_multichip(DP_RANKS, "cuda")
+    log(f"phase 25 dryrun_multichip({DP_RANKS}) took "
+        f"{time.perf_counter() - t1:.1f} s")
+    new_rows = _dp_kernel_rows(model, device,
+                               {"dp_training": launches["dp_training"]},
+                               card)
+    for name in ("fused_train_fwd", "fused_train_bwd"):
+        new_rows += _reused_rows(rows, name, "training", "dp_training_nccl",
+                                 counts[name])
+    log(f"phase 25 data parallelism took {time.perf_counter() - t0:.1f} s")
     return new_rows, launches
 
 
@@ -3863,10 +4161,14 @@ def main() -> int:
             data = os.path.join(tmp, "train_data")
             os.makedirs(data)
             write_train_corpus(hp, data)
-            entry_rows, entry_launches = phase_entry_points(
+            entry_rows, entry_launches, loop_split = phase_entry_points(
                 model, device, card, data, tmp, rows, codes_timing)
-        rows += entry_rows
-        launches.update(entry_launches)
+            rows += entry_rows
+            launches.update(entry_launches)
+            dp_rows, dp_launches = phase_data_parallel(
+                model, device, card, data, tmp, rows, loop_split)
+        rows += dp_rows
+        launches.update(dp_launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

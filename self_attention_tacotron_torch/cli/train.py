@@ -35,13 +35,39 @@ trace to ``<checkpoint-dir>/profile/trace_step{N}.json``, and one line
 logs the window's device-busy share: the union of the device's activity
 intervals (kernels, copies, sets) over the window's wall time, and the
 busy milliseconds a step (the profiler slows the host, not the device).
-Multi-device training is not ported yet.
+The batches come from the training dataset's ``prefetch()``, read by the
+native reader where a C++ compiler is found.
+
+Data parallelism (the JAX package's ``--multi-gpus``,
+``--coordinator-address``, ``--num-processes`` and ``--process-id``):
+``--num-processes N --process-id I --coordinator-address HOST:PORT`` makes
+this process rank I of N (``parallel/multihost.py``; torch's
+``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` serve in
+the flags' absence); ``--num-processes N`` without ``--process-id``
+spawns the N ranks here (on ``localhost`` at a free port unless a
+coordinator is given), and ``--multi-gpus`` one rank per visible GPU (one
+process on a one-GPU host), after building the kernels and the native
+reader once.  Rank r runs on ``cuda:<r mod the GPUs>`` (``--device cpu``:
+the CPU) over ``nccl`` where each rank has a GPU of its own and ``gloo``
+where ranks share one.  Each rank reads ``shard_files`` of the train keys
+with the data seed ``hp.seed + r``, batches of ``batch_size / N`` rows
+(``batch_size`` must divide; ``--multi-gpus`` shrinks its rank count to
+the largest divisor instead) in lockstep shapes: the shared bucket
+schedule (``multihost_bucket_schedule``, ``multihost_bucket_weights``,
+``multihost_bucket_buffer_cap``) or one fixed target pad
+(``multihost_target_pad_length``), sources padded to
+``multihost_source_pad_length``.  The step sums the gradient over the
+ranks (``make_train_step(hp, mesh=...)``); rank 0 writes the checkpoints,
+``metrics.jsonl``, the plots and the profile and runs the evaluation;
+rank r > 0 logs to ``<hp.logfile>.p<r>``.  Each rank logs its training
+kernels' launch counts at the end.
 
     python -m self_attention_tacotron_torch.cli.train \\
         --source-data-root DIR --target-data-root DIR --checkpoint-dir DIR \\
         --hparam-json-file examples/codes/self-attention-tacotron.json \\
         [--selected-list-dir DIR] [--hparams k=v,...] [--max-steps N] \\
-        [--dataset-kind codes|mel] [--device cpu]
+        [--dataset-kind codes|mel] [--device cpu] [--multi-gpus] \\
+        [--num-processes N [--process-id I --coordinator-address H:P]]
 """
 
 from __future__ import annotations
@@ -70,6 +96,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="the targets' kind (default: derived from "
                         "hp.dataset)")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--multi-gpus", action="store_true",
+                   help="one rank per visible GPU, spawned here")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p
 
 
@@ -198,8 +230,12 @@ class StepProfiler:
         self.prof, self.on = None, False
 
 
-def setup_logging(hp, checkpoint_dir: str) -> logging.Logger:
+def setup_logging(hp, checkpoint_dir: str,
+                  process_index: int = 0) -> logging.Logger:
     os.makedirs(checkpoint_dir, exist_ok=True)
+    name = os.path.basename(hp.logfile)
+    if process_index:   # one log a rank under the shared directory
+        name = f"{name}.p{process_index}"
     log = logging.getLogger("train")
     log.setLevel(logging.INFO)
     log.propagate = False
@@ -208,30 +244,112 @@ def setup_logging(hp, checkpoint_dir: str) -> logging.Logger:
         h.close()
     fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
     for h in (logging.StreamHandler(sys.stdout), logging.FileHandler(
-            os.path.join(checkpoint_dir, os.path.basename(hp.logfile)))):
+            os.path.join(checkpoint_dir, name))):
         h.setFormatter(fmt)
         log.addHandler(h)
     return log
 
 
+def _spawned_ranks(args) -> int:
+    """How many ranks this command spawns (0: it runs as one process, the
+    only one or the rank ``--process-id`` names)."""
+    if args.process_id is not None:
+        return 0
+    if args.num_processes is not None and args.num_processes > 1:
+        return args.num_processes
+    if args.multi_gpus and args.device == "cuda":
+        n = torch.cuda.device_count()
+        return n if n > 1 else 0
+    return 0
+
+
+def _rank_main(rank: int, argv, coordinator: str, world: int) -> None:
+    """One spawned rank: ``main`` as rank ``rank`` of ``world``."""
+    rc = main([*argv, "--coordinator-address", coordinator,
+               "--num-processes", str(world), "--process-id", str(rank)])
+    if rc != 0:
+        raise SystemExit(rc)
+
+
+def _build_before_spawning(hp, device_type: str, log) -> None:
+    """Build the native reader and the training kernels once, so that the
+    ranks load them instead of racing to build them."""
+    from ..data import native_reader
+    log.info("native TFRecord reader: %s", "built" if native_reader.available()
+             else native_reader.unavailable_reason())
+    if device_type == "cuda":
+        from ..ops import cuda_build
+        names = ["fused_train_fwd", "fused_train_bwd"]
+        if hp.use_pallas_attention:
+            names += ["self_attention", "incremental_attention"]
+        t0 = time.perf_counter()
+        cuda_build.build_all(names)
+        log.info("built %s in %.1f s", ", ".join(names),
+                 time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_argparser().parse_args(argv)
     from ..config import hparams_debug_string, load_hparams
+    from ..parallel import multihost
+    from ..parallel.mesh import check_mesh_shape
+
+    hp = load_hparams(args)
+    n_spawn = _spawned_ranks(args)
+    if n_spawn:
+        if args.multi_gpus and hp.batch_size % n_spawn:
+            # the JAX CLI's rule: the largest rank count dividing the batch
+            n_spawn = max(d for d in range(1, n_spawn + 1)
+                          if hp.batch_size % d == 0)
+        multihost.local_batch_size(hp.batch_size, n_spawn)
+        check_mesh_shape(hp.mesh_shape, n_spawn)
+        log = setup_logging(hp, args.checkpoint_dir)
+        _build_before_spawning(hp, args.device, log)
+        coordinator = (args.coordinator_address
+                       or f"localhost:{multihost.free_port()}")
+        log.info("spawning %d ranks, coordinator %s", n_spawn, coordinator)
+        # each rank parses these flags again; the ones _rank_main adds win
+        multihost.spawn(_rank_main, n_spawn, (argv, coordinator, n_spawn))
+        return 0
+    joined = multihost.initialize_distributed(
+        args.coordinator_address, args.num_processes, args.process_id,
+        device_type=torch.device(args.device).type)
+    try:
+        return _train(args, hp, hparams_debug_string(hp), joined)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(args, hp, hparams_text: str, joined: bool) -> int:
     from ..data.dataset import (dataset_factory, find_dataset_files,
-                                load_key_list, to_model_batch)
+                                load_key_list, pad_model_batch_rows,
+                                reader_in_use, to_model_batch)
     from ..models import tacotron_model_factory
+    from ..ops import fused_train as ft
     from ..parallel import create_train_state, make_eval_step, make_train_step
+    from ..parallel import multihost
+    from ..parallel.mesh import create_mesh
     from ..utils.checkpoint import CheckpointManager, warm_start
     from ..utils.convert import init_parameters
     from ..utils.metrics import MetricsLogger, MetricsSaver
 
-    hp = load_hparams(args)
-    log = setup_logging(hp, args.checkpoint_dir)
-    log.info(hparams_debug_string(hp))
+    rank, world = multihost.process_index(), multihost.world_size()
+    coordinator = multihost.is_coordinator()
+    log = setup_logging(hp, args.checkpoint_dir, rank)
+    log.info(hparams_text)
     device = torch.device(args.device)
     if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device()) \
+            if joined else device
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+    mesh = create_mesh(hp.mesh_shape)
+    if joined:
+        log.info("rank %d of %d on %s, backend %s", rank, world, device,
+                 mesh.backend)
 
     def files(keys):
         return (find_dataset_files(args.source_data_root, keys,
@@ -247,9 +365,29 @@ def main(argv=None) -> int:
     if not val_keys:
         log.warning("no utterances in %s: evaluation is off", val_list)
     kind_kw = {"target_kind": args.dataset_kind} if args.dataset_kind else {}
+    train_kw = dict(kind_kw, batch_size=hp.batch_size, seed=hp.seed)
+    if world > 1:
+        # lockstep shapes on every rank: the shared bucket schedule (drawn
+        # from the common seed, filled from the rank's shard) or one fixed
+        # target pad; the data seed differs by rank, the model's does not
+        keys = multihost.shard_files(keys)
+        train_kw.update(batch_size=multihost.local_batch_size(hp.batch_size),
+                        seed=hp.seed + rank,
+                        fixed_source_pad=hp.multihost_source_pad_length)
+        if (hp.multihost_bucket_schedule
+                and not hp.multihost_target_pad_length):
+            train_kw.update(bucket_schedule_seed=hp.seed,
+                            bucket_weights=hp.multihost_bucket_weights or None,
+                            bucket_buffer_cap=hp.multihost_bucket_buffer_cap)
+        else:
+            train_kw["fixed_target_pad"] = (hp.multihost_target_pad_length
+                                            or hp.max_iters
+                                            * hp.outputs_per_step)
+        log.info("rank %d shard: %d train keys, %d rows a batch", rank,
+                 len(keys), train_kw["batch_size"])
     train_ds = dataset_factory(*files(keys), hp, shuffle=True, repeat=True,
-                               drop_remainder=True, batch_size=hp.batch_size,
-                               seed=hp.seed, **kind_kw)
+                               drop_remainder=True, **train_kw)
+    log.info("TFRecord reader: %s", reader_in_use())
     val_files = files(val_keys)
 
     model = init_parameters(tacotron_model_factory(hp), hp.seed).to(device)
@@ -264,13 +402,14 @@ def main(argv=None) -> int:
                              max_to_keep=hp.keep_checkpoint_max)
     if ckpt.restore(state) is not None:
         log.info("resumed from step %d", state.step)
+    multihost.replicate(model, mesh)
 
-    train_step = make_train_step(hp)
+    train_step = make_train_step(hp, mesh=mesh)
     # the plot steps' variant: the same update, and row 0's alignments and
     # outputs from the TRAIN forward itself
-    train_step_plot = make_train_step(hp, with_alignments=True)
+    train_step_plot = make_train_step(hp, with_alignments=True, mesh=mesh)
     eval_step = make_eval_step(hp)
-    metrics_log = MetricsLogger(args.checkpoint_dir)
+    metrics_log = MetricsLogger(args.checkpoint_dir) if coordinator else None
     throttle = EvalThrottle(hp.eval_start_delay_secs, hp.eval_throttle_secs)
     train_saver = MetricsSaver(
         os.path.join(args.checkpoint_dir, "alignments"),
@@ -280,6 +419,8 @@ def main(argv=None) -> int:
                               keep_max=hp.keep_eval_results_max_epoch,
                               log=log)
     profiler = StepProfiler(hp, args.checkpoint_dir, device, log)
+    profiler.on = profiler.on and coordinator
+    launched = (ft.fused_train_fwd.launches, ft.fused_train_bwd.launches)
 
     def host(t):
         return t.float().cpu().numpy()
@@ -309,18 +450,25 @@ def main(argv=None) -> int:
                      time.perf_counter() - t0)
 
     t_last = time.perf_counter()
+    batches = train_ds.prefetch()
     try:
-        for nb in train_ds:
+        for nb in batches:
             if args.max_steps is not None and state.step >= args.max_steps:
                 break
+            mb = to_model_batch(nb)
+            if nb.source.shape[0] < train_kw["batch_size"]:
+                # a short batch: rows with empty loss masks, outside the
+                # losses and the batch-norm statistics
+                mb, _ = pad_model_batch_rows(mb, train_kw["batch_size"])
             profiler.before(state.step)
+            # the same decision on every rank: the shared step counter
             will_plot = (hp.alignment_save_steps > 0 and
                          (state.step + 1) % hp.alignment_save_steps == 0)
             plot = None
             if will_plot:
-                metrics, plot = train_step_plot(state, to_model_batch(nb))
+                metrics, plot = train_step_plot(state, mb)
             else:
-                metrics = train_step(state, to_model_batch(nb))
+                metrics = train_step(state, mb)
             profiler.after(state.step)
             if state.step % hp.log_step_count_steps == 0:
                 # float() waits for the device
@@ -328,10 +476,11 @@ def main(argv=None) -> int:
                 scalars["sec_per_step"] = ((time.perf_counter() - t_last)
                                            / hp.log_step_count_steps)
                 t_last = time.perf_counter()
-                metrics_log.log(state.step, scalars)
+                if metrics_log:
+                    metrics_log.log(state.step, scalars)
                 log.info("step %d loss %.5f (%.3fs)", state.step,
                          scalars["loss"], scalars["sec_per_step"])
-            if plot is not None:
+            if plot is not None and coordinator:
                 try:
                     meta = nb.meta[0]
                     gt = nb.target[0] if nb.target is not None else None
@@ -342,13 +491,19 @@ def main(argv=None) -> int:
                     log.warning("alignment save failed: %s", e)  # training
             if ckpt.save(state.step, state):
                 log.info("checkpoint @%d", state.step)
-                if val_keys and throttle.should_eval():
+                if coordinator and val_keys and throttle.should_eval():
                     run_eval(state.step)
         profiler.after(state.step, force=True)
         if ckpt.save(state.step, state, force=True):
             log.info("checkpoint @%d", state.step)
     finally:
-        metrics_log.close()
+        batches.close()
+        if metrics_log:
+            metrics_log.close()
+    log.info("rank %d training kernel launches: fused_train_fwd %d, "
+             "fused_train_bwd %d", rank,
+             ft.fused_train_fwd.launches - launched[0],
+             ft.fused_train_bwd.launches - launched[1])
     log.info("done at step %d", state.step)
     return 0
 

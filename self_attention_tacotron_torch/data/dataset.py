@@ -20,21 +20,43 @@ for two target kinds:
   ``to_model_batch``, ``pad_model_batch_rows`` and ``dataset_factory``
   (the target kind from ``hp.dataset``, as in the JAX package).  Each
   utterance's ``speaker_id`` goes from its source record to the model's
-  batch.  The multi-host bucket schedule and the MGC-LF0 targets come with
-  later slices.
+  batch.
+
+The input pipeline is the JAX package's: records are read by the C++
+reader (``native_reader``, built at first use) where a C++ compiler is
+found, else by the pure-Python codec (``reader_in_use`` says which, logged
+once with the reason); ``num_workers`` threads read ahead in a bounded
+window of ``2 * num_workers`` utterances consumed in order, so the seeded
+epoch order is that of serial reading; ``prefetch`` prepares batches on a
+background thread.  For data parallelism every rank's batches must keep
+the same shapes: ``fixed_target_pad`` / ``fixed_source_pad`` pad every
+batch to one shape (utterances that do not fit are skipped with a
+warning), or the shared bucket schedule (``bucket_schedule_seed``,
+``bucket_weights``, ``bucket_buffer_cap``) draws each batch's bucket from a
+seed common to the ranks and fills it from the rank's own shard.  The
+targetless (predict-time) iteration and the MGC-LF0 targets are not
+ported.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import queue
 import random
+import threading
+from collections import Counter, deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..config import HParams
+from . import native_reader
 from . import records as R
-from .tfrecord import read_examples
+from .tfrecord import checksum_in_use, read_examples
+
+log = logging.getLogger(__name__)
 
 SOURCE_PAD_WIDTH = 32
 
@@ -55,7 +77,33 @@ class Utterance(NamedTuple):
     speaker_id: int = 0           # the source record's (VCTK: 225-376)
 
 
+_reader: Optional[str] = None
+reads: Counter = Counter()   # records read, by reader
+
+
+def reader_in_use() -> str:
+    """``native`` or ``python``: which reader serves ``_read_example``
+    (logged once, with the reason when it is not the native one)."""
+    global _reader
+    if _reader is None:
+        reason = native_reader.unavailable_reason()
+        _reader = "native" if reason is None else "python"
+        if reason is None:
+            log.info("TFRecord reader: native (%s); checksum %s",
+                     native_reader.library_path().name, checksum_in_use())
+        else:
+            log.warning("TFRecord reader: pure Python (%s); checksum %s",
+                        reason, checksum_in_use())
+    return _reader
+
+
 def _read_example(path: str) -> dict:
+    """The file's first Example, native-first; a corrupt record raises
+    from either reader."""
+    which = reader_in_use()
+    reads[which] += 1
+    if which == "native":
+        return next(native_reader.read_examples_native(path))
     return next(iter(read_examples(path)))
 
 
@@ -205,17 +253,27 @@ def pad_batch(utts: Sequence[Utterance], hp: HParams,
 
 class Dataset:
     """Utterances with ``target_kind`` targets -> padded batches of one
-    bucket each:
+    bucket each (the JAX package's ``Dataset``):
     shuffled (``seed``) per epoch, repeated, targets longer than
     ``max_iters * r`` skipped; a batch leaves its bucket when it holds
     ``batch_size`` utterances, the remainders at the end of a finite pass
-    unless ``drop_remainder``."""
+    unless ``drop_remainder``.  ``num_workers`` (0: from the
+    ``interleave_cycle_length_*`` hparams) threads read ahead in order;
+    ``fixed_target_pad`` / ``fixed_source_pad`` fix every batch's shape;
+    ``bucket_schedule_seed`` turns on the shared bucket schedule
+    (``_iter_scheduled``)."""
 
     def __init__(self, source_files: Sequence[str],
                  target_files: Sequence[str], hp: HParams,
                  batch_size: Optional[int] = None, shuffle: bool = True,
                  repeat: bool = False, seed: int = 0,
-                 drop_remainder: bool = False, target_kind: str = "codes"):
+                 drop_remainder: bool = False, target_kind: str = "codes",
+                 num_workers: int = 0,
+                 fixed_target_pad: Optional[int] = None,
+                 fixed_source_pad: Optional[int] = None,
+                 bucket_schedule_seed: Optional[int] = None,
+                 bucket_weights: Optional[Sequence[float]] = None,
+                 bucket_buffer_cap: int = 4096):
         assert len(source_files) == len(target_files)
         self.pairs = list(zip(source_files, target_files))
         self.hp = hp
@@ -223,29 +281,132 @@ class Dataset:
         self.shuffle, self.repeat = shuffle, repeat
         self.seed, self.drop_remainder = seed, drop_remainder
         self.target_kind = target_kind
+        self.fixed_target_pad = fixed_target_pad
+        self.fixed_source_pad = fixed_source_pad
+        self.bucket_schedule_seed = bucket_schedule_seed
+        self.bucket_weights = list(bucket_weights) if bucket_weights else None
+        self.bucket_buffer_cap = bucket_buffer_cap
         self.bucketing = Bucketing(hp)
+        if num_workers <= 0:
+            n = int((os.cpu_count() or 4)
+                    * hp.interleave_cycle_length_cpu_factor)
+            num_workers = min(max(n, hp.interleave_cycle_length_min),
+                              hp.interleave_cycle_length_max)
+        self.num_workers = num_workers
 
     def _utterances(self) -> Iterator[Utterance]:
+        """Each epoch's utterances in its shuffled order, read by
+        ``num_workers`` threads through a window of at most
+        ``2 * num_workers`` pending reads consumed first in, first out
+        (the reference's ``parallel_interleave``: bounded parallel reads,
+        an ordered stream); targets longer than ``max_iters * r`` are
+        skipped."""
         rng = random.Random(self.seed)
+        window = max(2 * self.num_workers, 1)
+        max_out = self.hp.max_iters * self.hp.outputs_per_step
         while True:
             pairs = list(self.pairs)
             if self.shuffle:
                 rng.shuffle(pairs)
-            yield from iter_utterances([s for s, _ in pairs],
-                                       [t for _, t in pairs], self.hp,
-                                       self.target_kind)
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                def submit(pair):
+                    return pool.submit(load_utterance, pair[0], pair[1],
+                                       self.hp, self.target_kind)
+                it = iter(pairs)
+                pending = deque(submit(p) for _, p in zip(range(window), it))
+                while pending:
+                    u = pending.popleft().result()
+                    nxt = next(it, None)
+                    if nxt is not None:
+                        pending.append(submit(nxt))
+                    if u.target is not None and u.target_length > max_out:
+                        continue
+                    yield u
             if not self.repeat:
                 return
 
     def _pads_for(self, bid: int, batch: Sequence[Utterance]
                   ) -> Tuple[int, int]:
-        return (self.bucketing.target_pad_length(bid),
-                self.bucketing.source_pad_length(
+        return (self.fixed_target_pad
+                or self.bucketing.target_pad_length(bid),
+                self.fixed_source_pad
+                or self.bucketing.source_pad_length(
                     max(u.source_length for u in batch)))
 
+    def _fits_fixed_pads(self, u: Utterance) -> bool:
+        for what, length, pad in (
+                ("source", u.source_length, self.fixed_source_pad),
+                ("target", u.target_length if u.target is not None else 0,
+                 self.fixed_target_pad)):
+            if pad and length > pad:
+                log.warning("skipping %s: %s length %d > fixed pad %d",
+                            u.meta.key, what, length, pad)
+                return False
+        return True
+
+    def _iter_scheduled(self) -> Iterator[NumpyBatch]:
+        """The shared bucket schedule: each batch's bucket is drawn (by
+        ``bucket_weights``) from a generator seeded with
+        ``bucket_schedule_seed``, the same on every rank, and filled from
+        the rank's buffered utterances of that bucket or below (the
+        largest first).  A rank whose shard cannot fill the drawn bucket
+        buffers utterances until ``bucket_buffer_cap``, then raises."""
+        rng = random.Random(self.bucket_schedule_seed)
+        bk = self.bucketing
+        max_out = self.hp.max_iters * self.hp.outputs_per_step
+        ids = [b for b in range(bk.num_buckets + 1)
+               if bk.target_pad_length(b) <= max_out or b == 0]
+        weights = self.bucket_weights or [1.0] * len(ids)
+        if len(weights) != len(ids):
+            raise ValueError(f"multihost_bucket_weights needs {len(ids)} "
+                             f"entries (one per bucket), got {len(weights)}")
+        if self.fixed_source_pad is None:
+            log.warning("bucket schedule without fixed_source_pad: source "
+                        "shapes depend on the data and are not the same on "
+                        "every rank")
+        stream = self._utterances()
+        buckets: dict = {}
+        buffered = 0
+        while True:
+            b = rng.choices(ids, weights)[0]
+            batch: List[Utterance] = []
+            while len(batch) < self.batch_size:
+                bid = next((i for i in range(b, -1, -1) if buckets.get(i)),
+                           None)
+                if bid is not None:
+                    batch.append(buckets[bid].pop())
+                    buffered -= 1
+                    continue
+                u = next(stream, None)
+                if u is None:
+                    return      # a finite stream ran out
+                if not self._fits_fixed_pads(u):
+                    continue
+                buckets.setdefault(bk.bucket_id(u.target_length),
+                                   []).append(u)
+                buffered += 1
+                if buffered > self.bucket_buffer_cap:
+                    raise RuntimeError(
+                        f"bucket-schedule starvation: buffered {buffered} "
+                        f"utterances without filling bucket {b} (pad "
+                        f"{bk.target_pad_length(b)}); this rank's shard has "
+                        "no utterances that short: set "
+                        "multihost_bucket_weights to skip short buckets or "
+                        "use multihost_target_pad_length")
+            sp = (self.fixed_source_pad
+                  or bk.source_pad_length(max(u.source_length
+                                              for u in batch)))
+            yield pad_batch(batch, self.hp, bk.target_pad_length(b), sp,
+                            self.target_kind)
+
     def __iter__(self) -> Iterator[NumpyBatch]:
+        if self.bucket_schedule_seed is not None:
+            yield from self._iter_scheduled()
+            return
         buckets: dict = {}
         for u in self._utterances():
+            if not self._fits_fixed_pads(u):
+                continue
             bid = self.bucketing.bucket_id(u.target_length)
             buckets.setdefault(bid, []).append(u)
             if len(buckets[bid]) == self.batch_size:
@@ -256,6 +417,54 @@ class Dataset:
             for bid, batch in sorted(buckets.items()):
                 yield pad_batch(batch, self.hp, *self._pads_for(bid, batch),
                                 self.target_kind)
+
+    def prefetch(self, buffer_size: Optional[int] = None
+                 ) -> Iterator[NumpyBatch]:
+        """The batches of ``iter(self)``, prepared up to ``buffer_size``
+        (``hp.prefetch_buffer_size``) ahead on a background thread.  An
+        error there is raised here; closing the iterator stops the
+        thread."""
+        buffer_size = buffer_size or self.hp.prefetch_buffer_size
+        q: queue.Queue = queue.Queue(maxsize=buffer_size)
+        stop = threading.Event()
+        end = object()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            batches = iter(self)
+            try:
+                for batch in batches:
+                    if not put(batch):
+                        break
+            except BaseException as e:  # noqa: BLE001 - raised below
+                put(e)
+                return
+            finally:
+                batches.close()
+            put(end)
+
+        t = threading.Thread(target=worker, daemon=True,
+                             name="dataset-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            t.join(timeout=60)
 
 
 def to_model_batch(nb: NumpyBatch):
@@ -307,8 +516,9 @@ def target_kind_of(hp: HParams) -> str:
 def dataset_factory(source_files, target_files, hp: HParams,
                     **kwargs) -> Dataset:
     """The JAX package's name-keyed dispatch: ``target_kind`` (a keyword,
-    or derived from ``hp.dataset``) selects codes or mel targets; MGC-LF0
-    targets are not ported yet."""
+    or derived from ``hp.dataset``) selects codes or mel targets; the
+    other keywords go to ``Dataset``.  MGC-LF0 targets are not ported
+    yet."""
     kind = kwargs.pop("target_kind", None) or target_kind_of(hp)
     if kind not in ("codes", "mel"):
         raise NotImplementedError(f"{kind!r} targets are not ported yet")

@@ -10,14 +10,22 @@ implements the same container natively:
 * A minimal protobuf wire codec for the ``Example`` message tree
   (Features map of BytesList / FloatList / Int64List).
 
-A C++ fast-path reader lives in ``native/`` (see ``native_reader.py``); this
-pure-Python implementation is the portable reference and the writer.
+The checksum is the C++ one of ``native/`` (``native_reader.py``, built
+at first use) wherever a C++ compiler is found, else the pure-Python
+table (``crc32c_python``, the reference the tests hold the native one
+to); the first checksum logs which one serves, and why when it is not the
+native one.  The C++ reader of whole files is ``native_reader.
+read_examples_native``; this module is the portable reference and the
+writer.
 """
 
 from __future__ import annotations
 
+import logging
 import struct
-from typing import Dict, Iterator, List, Union
+from typing import Callable, Dict, Iterator, List, Optional, Union
+
+log = logging.getLogger(__name__)
 
 # ------------------------------------------------------------------- crc32c
 
@@ -37,11 +45,37 @@ def _make_table():
 _TABLE = _make_table()
 
 
-def crc32c(data: bytes) -> int:
+def crc32c_python(data: bytes) -> int:
     crc = 0xFFFFFFFF
     for b in data:
         crc = (_TABLE[(crc ^ b) & 0xFF] ^ (crc >> 8)) & 0xFFFFFFFF
     return crc ^ 0xFFFFFFFF
+
+
+_crc32c: Optional[Callable[[bytes], int]] = None
+
+
+def checksum_in_use() -> str:
+    """``native`` or ``python``: which crc32c serves this process (logged
+    once, with the reason when it is not the native one)."""
+    global _crc32c
+    if _crc32c is None:
+        from . import native_reader
+        reason = native_reader.unavailable_reason()
+        if reason is None:
+            _crc32c = native_reader.crc32c_native
+            log.info("TFRecord checksum: native crc32c (%s)",
+                     native_reader.library_path().name)
+        else:
+            _crc32c = crc32c_python
+            log.warning("TFRecord checksum: pure-Python crc32c (%s)", reason)
+    return "python" if _crc32c is crc32c_python else "native"
+
+
+def crc32c(data: bytes) -> int:
+    if _crc32c is None:
+        checksum_in_use()
+    return _crc32c(data)
 
 
 def masked_crc32c(data: bytes) -> int:

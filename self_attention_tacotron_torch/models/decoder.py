@@ -21,7 +21,9 @@ plain loop over ``_rnn_step`` (prenet dropout and zoneout from the
 caller's ``torch.Generator``), or, for decoders with hops and
 ``fused_train`` where ``_fused_train_unsupported_reason`` finds nothing,
 ``ops/fused_train.fused_teacher_scan`` (its own counter-based masks,
-seeded from the generator).  Decoders without hops (``ExtendedDecoder``)
+seeded from the generator; rank r of a data axis adds ``r *
+TRUNK_SEED_STRIDE`` to the seed, and the kernels' gate judges the rank's
+local batch).  Decoders without hops (``ExtendedDecoder``)
 always take the step loop, as the JAX package does.  The loop is
 teacher-forced for them too: the JAX package's ``make_train_step`` calls
 its TRAIN mode without ``teacher_forcing``, so its hop-less decoders train
@@ -77,6 +79,7 @@ from torch import nn
 
 from ..ops import fused_decode as fd
 from ..ops import fused_train as ft
+from ..ops.collectives import axis_rank
 from ..ops.rnn import ZoneoutLSTMCell
 from .attention import (AdditiveAttention, AttentionOptions, ForwardAttention,
                         TeacherForcingAttention, attention_mechanism_factory,
@@ -87,6 +90,8 @@ from .prenet import PreNetStack
 
 _logger = logging.getLogger(__name__)
 _warned_fused_fallback: set = set()
+# the JAX package's per-shard seed offset of the fused trunk
+TRUNK_SEED_STRIDE = 40507
 
 
 def _warn_fused_fallback(reason: str,
@@ -582,9 +587,12 @@ class TacotronDecoder(nn.Module):
     def _train_trunk_fused(self, packs, teacher, generator,
                            speaker_embed=None):
         kinds, cum, loc_ws, folds = self._fused_attention_params()
+        # rank r of a data axis adds r * 40507, as the JAX package's
+        # shard_map adds its axis index (``_shard_mapped_fused_scan``)
         seed = int(torch.randint(0, 1 << 31, (1,), generator=generator,
                                  device=(generator.device if generator
                                          is not None else "cpu")))
+        seed += axis_rank() * TRUNK_SEED_STRIDE
         zc_dec, zo_dec = self._dec_zoneout()
         return ft.fused_teacher_scan(
             self.fused_train_params(),

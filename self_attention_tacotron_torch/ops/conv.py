@@ -10,6 +10,10 @@ biased variance and moves the running statistics at momentum 0.99
 (``running = 0.99 * running + 0.01 * batch``).  ``bn_valid_rows`` scopes a
 (B,) row-validity mask over the training statistics, so that rows padded
 with duplicates (``data/dataset.py`` ``pad_model_batch_rows``) stay out.
+Under a data axis (``ops/collectives.py``) the training statistics are the
+global batch's: the weighted count, sum and sum of squares are summed over
+the ranks, with their gradient, so the running statistics come out the
+same on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .collectives import current_axis, global_sum
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99
@@ -87,11 +93,16 @@ class BatchNorm(nn.Module):
         else:   # (B,) -> one weight per (B, T) row
             w = valid.to(x.dtype).reshape(-1, *([1] * (x.dim() - 2)))
             w = w.expand(*x.shape[:-1]).reshape(-1, 1)
-        count = w.sum()
-        mean = (rows * w).sum(0) / count
+        count, s1, s2 = w.sum(), (rows * w).sum(0), (rows.square() * w).sum(0)
+        if current_axis() is not None:
+            # the global batch's statistics, as GSPMD computes them over a
+            # sharded batch: one sum of [count, s1, s2] over the ranks
+            C = s1.shape[0]
+            total = global_sum(torch.cat([count[None], s1, s2]), True)
+            count, s1, s2 = total[0], total[1:C + 1], total[C + 1:]
+        mean = s1 / count
         # flax's fast variance: E[x^2] - E[x]^2, clipped at 0 (biased)
-        var = torch.clamp((rows.square() * w).sum(0) / count - mean.square(),
-                          min=0.0)
+        var = torch.clamp(s2 / count - mean.square(), min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(
                 (1.0 - BN_MOMENTUM) * mean.detach())

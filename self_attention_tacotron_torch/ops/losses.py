@@ -5,7 +5,11 @@ Counterpart of the JAX package's ``ops/losses.py``.  Reductions follow
 ``tf.losses`` SUM_BY_NONZERO_WEIGHTS: the masked sum over the number of
 (broadcast) elements with a nonzero weight.  ``global_norm_clip`` is written
 out rather than taken from ``torch.nn.utils.clip_grad_norm_``, which adds
-1e-6 to the norm (optax and ``tf.clip_by_global_norm`` do not).
+1e-6 to the norm (optax and ``tf.clip_by_global_norm`` do not).  Under a
+data axis (``ops/collectives.py``) each masked loss divides its local sum
+by the valid-element count of the global batch, so that the ranks' losses
+add up to the global batch's loss (a mean of per-rank means is wrong
+whenever the ranks' valid counts differ).
 """
 
 from __future__ import annotations
@@ -14,12 +18,14 @@ from typing import Iterable, List, Sequence, Tuple
 
 import torch
 
+from .collectives import global_sum
+
 
 def _masked_mean(per_element: torch.Tensor, mask: torch.Tensor
                  ) -> torch.Tensor:
     if mask.dim() == per_element.dim() - 1:
         mask = mask[..., None]
-    denom = mask.sum() * (per_element.numel() / mask.numel())
+    denom = global_sum(mask.sum() * (per_element.numel() / mask.numel()))
     return (per_element * mask).sum() / torch.clamp(denom, min=1.0)
 
 
@@ -45,14 +51,14 @@ def binary_loss(stop_token_logits: torch.Tensor, done: torch.Tensor,
     logits = stop_token_logits.reshape(done.shape)
     ce = (torch.clamp(logits, min=0.0) - logits * done
           + torch.log1p(torch.exp(-logits.abs())))
-    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (ce * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 def classification_loss(logits: torch.Tensor, onehot_targets: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """Masked softmax cross-entropy over a class axis."""
     ce = -(onehot_targets * torch.log_softmax(logits, -1)).sum(-1)
-    return (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (ce * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 
 DEFAULT_L2_BLACKLIST: List[str] = [

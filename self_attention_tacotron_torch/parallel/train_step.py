@@ -1,4 +1,4 @@
-"""The training step on one device.
+"""The training step, on one device or data-parallel over ranks.
 
 Counterpart of the JAX package's ``parallel/train_step.py``
 ``make_optimizer``, ``create_train_state`` and ``make_train_step``:
@@ -16,18 +16,30 @@ the TRAIN forward, detached, for the train-time plots.
 ``make_eval_step`` is the two-pass evaluation (a free-running and a
 teacher-forced VALIDATION decode); ``make_predict_step`` is serving, with
 ``use_forced_alignment_mode`` a second decode that replays the first's
-alignments.  Data parallelism comes with a later slice.
+alignments.
+
+Data parallelism (``make_train_step(hp, mesh=axis)``, ``axis`` from
+``parallel.mesh.create_mesh``): each rank runs the step on its local rows
+inside ``ops.collectives.data_axis``, so that the batch-norm statistics
+and the losses' valid counts are the global batch's; the L2 term enters
+the gradient on rank 0 only; the flattened gradients are summed over the
+ranks in one all-reduce before ``global_norm_clip``, so every rank takes
+the same update, and the metrics are the global batch's on every rank.
+Rank r draws its dropout and zoneout from its own generator
+(``step_generator(hp, n, device, r)``; rank 0's is the one-process one).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ..config import HParams
 from ..models.tacotron import Batch, TacotronOutput, compute_loss
+from ..ops.collectives import DataAxis, data_axis
 from ..ops.losses import global_norm_clip, noam_learning_rate
 
 
@@ -58,42 +70,83 @@ def learning_rate(hp: HParams, step: int) -> float:
     return hp.initial_learning_rate
 
 
-def step_generator(hp: HParams, step: int, device) -> torch.Generator:
-    """The dropout and zoneout generator of update ``step``."""
+def step_generator(hp: HParams, step: int, device,
+                   rank: int = 0) -> torch.Generator:
+    """The dropout and zoneout generator of update ``step`` on ``rank``."""
+    seed = (int(hp.seed) & 0xFFFFFFFF) << 32 | int(step)
+    if rank:
+        seed = (seed + rank * 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
     gen = torch.Generator(device=device)
-    gen.manual_seed((int(hp.seed) & 0xFFFFFFFF) << 32 | int(step))
+    gen.manual_seed(seed)
     return gen
 
 
-def make_train_step(hp: HParams, with_alignments: bool = False) -> Callable:
+def _main_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``compute_loss``'s loss without its L2 term."""
+    if "code_loss" in losses:
+        main = losses["code_loss"]
+    else:
+        main = losses["mel_loss"]
+        if "postnet_loss" in losses:
+            main = main + losses["postnet_loss"]
+    return main + losses["done_loss"]
+
+
+def _global_metrics(losses: Dict[str, torch.Tensor], axis: DataAxis
+                    ) -> Dict[str, torch.Tensor]:
+    """Each loss part summed over the ranks (each rank's is its rows' sum
+    over the global count), and their total as ``compute_loss`` adds it."""
+    parts = [k for k in losses if k not in ("loss", "l2_regularization_loss")]
+    total = axis.all_reduce_(torch.stack([losses[k].detach().float()
+                                          for k in parts]))
+    metrics = {k: total[i] for i, k in enumerate(parts)}
+    metrics["l2_regularization_loss"] = \
+        losses["l2_regularization_loss"].detach()
+    metrics["loss"] = (_main_loss(metrics)
+                       + metrics["l2_regularization_loss"])
+    return metrics
+
+
+def make_train_step(hp: HParams, with_alignments: bool = False,
+                    mesh: Optional[DataAxis] = None) -> Callable:
     """``train_step(state, batch) -> metrics``; updates ``state`` in place.
     With ``with_alignments`` it returns ``(metrics, (alignments, outputs))``:
     row 0 of each source's (T_mem, S) alignments and its (S, C) outputs from
     the TRAIN forward, detached (on the fused trunk, the alignments its
     kernel saves; the JAX package's ``make_train_step(...,
-    with_alignments=True)``)."""
+    with_alignments=True)``).  With a data axis ``mesh``, ``batch`` is this
+    rank's rows of the global batch and every rank must call the step."""
 
     def train_step(state: TrainState, batch: Batch):
         model = state.model
         device = next(model.parameters()).device
         model.train()
-        out = model.train_forward(batch, step_generator(hp, state.step,
-                                                        device))
-        losses = compute_loss(hp, out, batch, model)
-        state.optimizer.zero_grad(set_to_none=False)
-        losses["loss"].backward()
+        rank = mesh.rank if mesh is not None else 0
+        with data_axis(mesh):
+            out = model.train_forward(batch, step_generator(
+                hp, state.step, device, rank))
+            losses = compute_loss(hp, out, batch, model)
+            state.optimizer.zero_grad(set_to_none=False)
+            # the L2 term is the same on every rank: it enters once
+            (losses["loss"] if rank == 0 else _main_loss(losses)).backward()
         grads = []
         for p in model.parameters():
             if p.grad is None:      # no path to the loss: a zero gradient
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        if mesh is not None:
+            flat = mesh.all_reduce_(_flatten_dense_tensors(grads))
+            for g, total in zip(grads, _unflatten_dense_tensors(flat,
+                                                                grads)):
+                g.copy_(total)
         grad_norm = global_norm_clip(grads, 1.0)
         lr = learning_rate(hp, state.step)
         for group in state.optimizer.param_groups:
             group["lr"] = lr
         state.optimizer.step()
         state.step += 1
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = ({k: v.detach() for k, v in losses.items()}
+                   if mesh is None else _global_metrics(losses, mesh))
         metrics["learning_rate"] = torch.tensor(lr, device=device)
         metrics["grad_norm"] = grad_norm.detach()
         if with_alignments:

@@ -8,6 +8,12 @@ is), and ``train-<n>.pt`` with the optimizer state and the step.
 ``warm_start`` copies the parameters whose flax path ("decoder/
 attention_lstm/kernel", ``utils/convert.py`` ``flax_param_paths``) matches
 one of the regexes from another run's checkpoint.
+
+Under a process group (data parallelism) the coordinator (rank 0) decides
+whether a step is saved and writes the files; every rank learns its
+decision and waits at a barrier until the files are there, so that a rank
+never reads a half-written checkpoint or decides otherwise from a
+directory that is being written.  Every rank restores.
 """
 
 from __future__ import annotations
@@ -46,14 +52,28 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def _due(self, step: int, force: bool) -> bool:
+        if step in self.all_steps():
+            return False
+        return bool(force or step % self.save_interval_steps == 0)
+
     def save(self, step: int, state, force: bool = False) -> bool:
         """Save ``state`` (a ``parallel.train_step.TrainState``) at ``step``
         when it falls on the interval or ``force``; drop the oldest
-        checkpoints past ``max_to_keep``.  False when nothing was saved."""
-        if step in self.all_steps():
-            return False
-        if not force and step % self.save_interval_steps:
-            return False
+        checkpoints past ``max_to_keep``.  False when nothing was saved.
+        Under a process group every rank must call it."""
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            return self._due(step, force) and self._write(step, state)
+        decision = [self._due(step, force) if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(decision, src=0)
+        if decision[0]:
+            if dist.get_rank() == 0:
+                self._write(step, state)
+            dist.barrier()
+        return bool(decision[0])
+
+    def _write(self, step: int, state) -> bool:
         save_checkpoint(state.model, self.directory, step)
         torch.save({"step": int(step),
                     "optimizer": state.optimizer.state_dict()},

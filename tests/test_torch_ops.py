@@ -248,5 +248,7 @@ print("ok")
                 "cli.speaker_selection", "models.embedding",
                 "models.prenet", "models.tacotron", "models.decoder",
                 "ops.rnn", "ops.attention_core",
-                "models.encoders", "models.attention", "utils.convert"):
+                "models.encoders", "models.attention", "utils.convert",
+                "data.native_reader", "data.tfrecord", "ops.collectives",
+                "parallel.mesh", "parallel.multihost", "entry"):
         assert f"self_attention_tacotron_torch.{mod}" in lines, mod
