@@ -166,7 +166,8 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    the Pallas mode's hop at head widths 128, 129 (the full sequence's wide
    kernel) and 257 (both wide kernels), the full sequence and 64 cache
    steps; ``MelExtractor`` at n_fft 2048 (the FFT) and 1998 (the direct
-   DFT): each against its plain path; then the streamed encoder, both
+   DFT), against the plain version evaluated in float64: each against its
+   plain path; then the streamed encoder, both
    wide kernels and the DFT timed beside their plain versions, bounds and
    library calls;
 24. the entry points (``entry_points``): four encoders past #1's earlier
@@ -206,7 +207,28 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    magnitude, every parameter within 1e-4 of the largest parameter
    magnitude, each rank launching #3 and #4 once);
    ``entry.dryrun_multichip(2)``; #3 and #4 at a rank's shape (B = 16, S =
-   250) against their plain versions, timed beside their bounds.
+   250) against their plain versions, timed beside their bounds;
+26. the rest of the model surface (``model_surface``): the codes recipe
+   with ``TransformerDecoder`` (one forward source, one causal hop): #1 and
+   #2 (B = 1, 450 steps) against their plain versions, #3 and #4 at B =
+   32, S = 250 (masks on and off; the backward also against autograd),
+   ``main_code`` serving 3 utterances (path
+   ``transformer_decoder_serving``: one #1 and one #2 launch each, no gate
+   refusing) and ``cli.train`` for 3 steps (path
+   ``transformer_decoder_training``: 3 launches of #3 and #4), #2, #3 and
+   #4 timed beside their plain versions and bounds, the model's serving
+   call and a training step on the host clock; then the paper's
+   pitch-accent configuration (``entry.PITCH_ACCENT`` over the codes
+   recipe: accent-type encoder, MGC/LF0 model and decoder) on a synthetic
+   40-utterance corpus with accent ids and MGC/LF0 targets: ``cli.train
+   --dataset-kind mgclf0`` for 3 steps at B = 32 with one evaluation (its
+   MGC/LF0 prediction record with the lf0 softmax; the training gate's
+   reason logged), INFERENCE of 3 utterances from its checkpoint on the
+   plain path (the decode gate's reason logged) and in the Pallas mode
+   (path ``pitch_accent_pallas_serving``: one ``fused_self_attention``
+   launch an utterance and one ``incremental_attention_step`` launch a
+   decode step; mgc and lf0 logits within 1e-4 of the plain path's), and
+   #5 / #6 at that path's shapes against their plain versions (1e-5).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -351,7 +373,7 @@ def decoder_case(model, length: int, T: int, device):
                                             SEED + length, device), length)
 
 
-def phase_encode(model, device):
+def phase_encode(model, device, phase: int = 3):
     """Kernel vs plain version; returns the worst max abs error."""
     import torch
     from self_attention_tacotron_torch.ops import fused_encoder as fe
@@ -364,7 +386,7 @@ def phase_encode(model, device):
             torch.cuda.synchronize()
         errs = [(_max_err(g, r), _rel_err(g, r)) for g, r in zip(got, ref)]
         zero_tail = bool((got[0][0, L:] == 0).all())
-        log(f"phase 3 fused_encode T={T_IN} L={L}: lstm_out abs "
+        log(f"phase {phase} fused_encode T={T_IN} L={L}: lstm_out abs "
             f"{errs[0][0]:.3e} rel {errs[0][1]:.3e}; sa_out abs "
             f"{errs[1][0]:.3e} rel {errs[1][1]:.3e}; zero past L: {zero_tail}")
         if max(e[0] for e in errs) > TOL_ENCODE or not zero_tail:
@@ -392,7 +414,7 @@ def _post_hoc_length(stop, min_iters) -> int:
     return int(stop_lengths(torch.cumsum(fired.int(), 1) > 0)[0])
 
 
-def phase_decode(model, device, steps: int):
+def phase_decode(model, device, steps: int, phase: int = 4):
     """Kernel vs plain version; returns the worst max abs error."""
     weights, memory, options = decoder_case(model, 50, T_IN, device)
     options = dict(options, early_stop=False)
@@ -400,7 +422,8 @@ def phase_decode(model, device, steps: int):
     errs = {"out": _max_err(got[0], ref[0]), "stop": _max_err(got[1], ref[1]),
             "aligns": max(_max_err(g, r) for g, r in zip(got[2], ref[2]))}
     agree = float((got[0].argmax(-1) == ref[0].argmax(-1)).float().mean())
-    log(f"phase 4 fused_decode {steps} steps, early stop off: max abs err "
+    log(f"phase {phase} fused_decode {steps} steps, early stop off: max abs "
+        "err "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; code argmax agreement {agree:.4f}")
     if max(errs.values()) > TOL_DECODE or agree < 1.0:
@@ -415,7 +438,8 @@ def phase_decode(model, device, steps: int):
     n_ref = _post_hoc_length(ref_s[1], options["min_iters"])
     err_s = _max_err(got_s[0], ref_s[0])
     tail_zero = bool((got_s[0][:, n_got:] == 0).all())
-    log(f"phase 4 fused_decode early stop on: lengths kernel {n_got} plain "
+    log(f"phase {phase} fused_decode early stop on: lengths kernel {n_got} "
+        "plain "
         f"{n_ref}; out max abs err {err_s:.3e}; zero after exit {tail_zero}")
     if n_got != n_ref or err_s > TOL_DECODE or not tail_zero:
         raise AssertionError("early-stop decode disagrees")
@@ -426,7 +450,8 @@ def phase_decode(model, device, steps: int):
                                 memory, options, steps)
     finite = all(bool(t.isfinite().all()) for t in (got_v[0], got_v[1],
                                                     *got_v[2]))
-    log(f"phase 4 fused_decode |v| x{scale:g}: finite {finite}; out max abs "
+    log(f"phase {phase} fused_decode |v| x{scale:g}: finite {finite}; out "
+        "max abs "
         f"err vs plain {_max_err(got_v[0], ref_v[0]):.3e}")
     if not finite:
         raise AssertionError("large-|v| decode is not finite")
@@ -823,17 +848,18 @@ def _kernel_grads(spec, raw):
     return out
 
 
-def phase_train_kernels(model, device):
-    """Both training kernels vs their plain versions, masks on and off;
-    returns the worst max abs errors {"fused_train_fwd": ...,
-    "fused_train_bwd": ...}.  The backward's tolerance is relative to each
-    gradient's largest magnitude."""
+def phase_train_kernels(model, device, phase: int = 6,
+                        steps: int = TRAIN_S):
+    """Both training kernels vs their plain versions, masks on and off, at
+    B = 32 and ``steps`` decoder steps; returns the worst max abs errors
+    {"fused_train_fwd": ..., "fused_train_bwd": ...}.  The backward's
+    tolerance is relative to each gradient's largest magnitude."""
     import torch
     from self_attention_tacotron_torch.ops import fused_train as ft
     worst = {"fused_train_fwd": 0.0, "fused_train_bwd": 0.0}
     for deterministic in (False, True):
         spec, params, keys, values, masks, tf, loc_ws, ops, _ = train_case(
-            model, device, deterministic, 1)
+            model, device, deterministic, 1, steps)
         seed = 1234
         y, save, aux = ft.fused_train_fwd(spec, ops, seed)
         y_r, save_r, aux_r = ft.fused_train_fwd_reference(
@@ -843,7 +869,8 @@ def phase_train_kernels(model, device):
                 "aligns": _max_err(aux[:, :, 1], aux_r[:, :, 1]),
                 "aux": _max_err(aux, aux_r)}
         mode = "deterministic" if deterministic else "masks on"
-        log(f"phase 6 fused_train_fwd B={spec.batch} S={spec.num_steps} "
+        log(f"phase {phase} fused_train_fwd B={spec.batch} "
+            f"S={spec.num_steps} "
             f"T={spec.t_mem} ({mode}): max abs err " + ", ".join(
                 f"{k} {v:.3e}" for k, v in errs.items()))
         if max(errs.values()) > TOL_TRAIN:
@@ -877,7 +904,8 @@ def phase_train_kernels(model, device):
             absolute = max(_max_err(kern[k], ref[k].reshape(kern[k].shape))
                            for k in ref)
             name, err = max(rel.items(), key=lambda kv: kv[1])
-            log(f"phase 6 fused_train_bwd ({mode}) vs {ref_name}: worst "
+            log(f"phase {phase} fused_train_bwd ({mode}) vs {ref_name}: "
+                "worst "
                 f"gradient {name} {err:.3e} of its max magnitude, max abs "
                 f"err {absolute:.3e}; " +
                 ", ".join(f"{k} {v:.1e}" for k, v in sorted(rel.items())))
@@ -1541,6 +1569,24 @@ def spec_errors(got_db, ref_db):
     loud = (ref > -80.0) & (ref > ref.amax(1, keepdim=True) - 60.0)
     db = float((got - ref).abs()[loud].max()) if bool(loud.any()) else 0.0
     return float(((mg - mr).abs() / peak).max()), db
+
+
+def plain_spectrograms_f64(ex, y):
+    """``MelExtractor.spectrograms`` through the plain version's arithmetic
+    (``frames_of``, then ``spectrograms_reference``) in float64 on the CPU,
+    from the same float32 window, DFT matrices and filterbank: its sums do
+    not round, so a comparison with it measures the kernel's error and not
+    that of a float32 reference.  ``ex`` is a CPU ``MelExtractor``."""
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.ops import stft
+    wr, wi = (torch.from_numpy(m).double()
+              for m in stft.dft_matrices(ex.n_fft))
+    frames = stft.frames_of(torch.from_numpy(np.asarray(y, np.float64)),
+                            ex.n_fft, ex.hop_length, ex.plan.window.double())
+    lin, mel = stft.spectrograms_reference(frames, wr, wi,
+                                           ex.plan.mel_t.double())
+    return lin.T - ex.ref_level_db, mel.T - ex.ref_level_db
 
 
 def spectrogram_bound(T, plan, F):
@@ -3186,7 +3232,8 @@ def phase_edges(model, device, card: str):
     (the hop's rows in shared memory), 534 and 600 (streamed); the Pallas
     mode's hop at head widths 128, 129 (the full sequence's wide kernel)
     and 257 (both wide kernels), the full sequence and 64 cache steps;
-    MelExtractor at n_fft 2048 (the FFT) and 1998 (the direct DFT).  Then
+    MelExtractor at n_fft 2048 (the FFT) and 1998 (the direct DFT) against
+    the plain version in float64 (``plain_spectrograms_f64``).  Then
     each new branch timed beside its plain version, bound and library
     call.  Returns (rows, launch counts) of path ``long_and_wide``."""
     import torch
@@ -3257,7 +3304,7 @@ def phase_edges(model, device, card: str):
         before = stft.spectrograms.launches
         got = MelExtractor(*args, device=device).spectrograms(y)
         launched = stft.spectrograms.launches - before
-        ref = MelExtractor(*args, device="cpu").spectrograms(y)
+        ref = plain_spectrograms_f64(MelExtractor(*args, device="cpu"), y)
         spec = [spec_errors(g.cpu().T + hp.ref_level_db,
                             r.T + hp.ref_level_db) for g, r in zip(got, ref)]
         n_fft = (num_freq - 1) * 2
@@ -3265,11 +3312,14 @@ def phase_edges(model, device, card: str):
                                   *(d for _, d in spec))
         log(f"phase 23 MelExtractor n_fft={n_fft} (10 s, "
             f"{'FFT' if stft.takes_fft(n_fft) else 'direct DFT'}): "
-            f"spectrogram launches {launched}; vs the CPU (magnitude / "
-            f"peak, dB) {spec}")
+            f"spectrogram launches {launched}; vs the plain version in "
+            f"float64 on the CPU (magnitude / peak, dB) {spec}")
         if launched != 1 or any(m > TOL_SPEC_MAG or d > TOL_SPEC_DB
                                 for m, d in spec):
-            raise AssertionError(f"the spectrogram at n_fft = {n_fft}")
+            raise AssertionError(
+                f"the spectrogram at n_fft = {n_fft}: launches {launched}, "
+                f"(magnitude / peak, dB) errors {spec} against tolerances "
+                f"{TOL_SPEC_MAG} and {TOL_SPEC_DB}")
     launches = {"long_and_wide": {name: c.launches
                                   for name, c in counters.items()}}
 
@@ -4042,6 +4092,412 @@ def phase_data_parallel(model, device, card: str, data: str, tmp: str,
     return new_rows, launches
 
 
+# ------------------------------- the rest of the model surface (phase 26)
+
+TRANSFORMER_DECODER = "decoder=TransformerDecoder"
+PITCH_ACCENT_UTTERANCES = 40    # 35 to train (one batch of 32), 2 to
+#                                 evaluate, 3 to serve
+PITCH_ACCENT_EVAL = ("eval_start_delay_secs=0,eval_throttle_secs=0,"
+                     "save_checkpoints_steps=3,num_evaluation_steps=2")
+TD_TRAIN_S = 250                # the corpus' one bucket: S = 250
+PITCH_STEP_TS = (0, 31, 32, 100)   # cache steps checked beside the last
+
+
+def _time_serving(model, batch, reps: int = 5):
+    """Host-clock ms of one INFERENCE call ending in a synchronise, after a
+    warm-up: the median and the spread."""
+    import torch
+    model(batch)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def _transformer_decoder(device, card, data, tmp, rows):
+    """The codes recipe with ``TransformerDecoder`` (one forward source and
+    a causal hop): #1 and #2 against their plain versions and on the
+    serving path, #3 and #4 at B = 32, S = 250 against theirs and on 3
+    ``cli.train`` steps, each timed beside its bound."""
+    import torch
+    from self_attention_tacotron_torch.models import Batch
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    from self_attention_tacotron_torch.parallel import (create_train_state,
+                                                        make_train_step)
+    hp = _hp_with(RECIPE, TRANSFORMER_DECODER)
+    model = make_model(hp, device)
+    dec = model.decoder
+    log(f"phase 26 transformer_decoder: {dec.num_sources} source(s) "
+        f"({type(dec.attention_mechanism_0).__name__}, "
+        f"{hp.attention_out_units} units, kernel {hp.attention_kernel}, "
+        f"{hp.attention_filters} filters), {len(dec.transformers)} hop(s) "
+        f"of {hp.decoder_self_attention_out_units}, {hp.num_mels} codes, "
+        f"r = {hp.outputs_per_step}; card {card}")
+    steps = hp.max_iters
+    errs = {"fused_encode": phase_encode(model, device, phase=26),
+            "fused_decode": phase_decode(model, device, steps, phase=26)}
+    errs.update(phase_train_kernels(model, device, phase=26,
+                                    steps=TD_TRAIN_S))
+    launches = {}
+    with _Fallbacks() as fb:
+        launches["transformer_decoder_serving"] = phase_end_to_end(
+            model, "cuda", hparams=TRANSFORMER_DECODER, phase=26)
+        launches["transformer_decoder_training"] = phase_train_end_to_end(
+            hp, data, tmp, "cuda", hparams=TRANSFORMER_DECODER, phase=26)
+    log(f"phase 26 transformer_decoder fallbacks logged: "
+        f"{fb.refused or 'none'}")
+    if fb.refused or launches["transformer_decoder_serving"] != {
+            "fused_encode": 3, "fused_decode": 3}:
+        raise AssertionError("TransformerDecoder serving did not launch #1 "
+                             "and #2 once an utterance")
+
+    # #2 at the serving shape: B = 1, 64 phones, 450 steps, early stop off
+    weights, memory, options = decoder_case(model, T_IN, T_IN, device)
+    options = dict(options, early_stop=False)
+    dec_ms = _time_ms(fd.prepare_decode(weights, memory, num_steps=steps,
+                                        **options))
+    dec_plain = _time_ms(lambda: fd.fused_decode_reference(
+        weights, memory, num_steps=steps, **options), reps=1)
+    dec_bound = decode_bound(dec.fused_params(), weights, memory, steps)
+    # #3 / #4 at the training shape: B = 32, S = 250, masks on
+    spec, params, keys, values, masks, tf, loc_ws, ops, _ = train_case(
+        model, device, False, 1, TD_TRAIN_S)
+    seed = 1234
+    fwd = ft.prepare_train_fwd(spec, ops, seed)
+    fwd_ms = _time_ms(fwd)
+    y, save, aux = fwd()
+    g = torch.randn(y.shape, generator=torch.Generator(device).manual_seed(7),
+                    device=device)
+    bwd = ft.prepare_train_bwd(spec, ops, seed, g, save, aux)
+    bwd_ms = _time_ms(bwd)
+    fwd_plain = _time_ms(lambda: ft.fused_train_fwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws), reps=1)
+    bwd_plain = _time_ms(lambda: ft.fused_train_bwd_reference(
+        spec, params, keys, values, masks, tf, seed, None, loc_ws, g, save,
+        aux), reps=1)
+    flat_in = ft._flat(ops)
+    bounds = {"fused_decode": dec_bound,
+              "fused_train_fwd": train_bound(spec, flat_in, [y, save, aux],
+                                             False),
+              "fused_train_bwd": train_bound(spec, flat_in + [g, save, aux],
+                                             _leaves(bwd.outputs), True)}
+    log("phase 26 transformer_decoder bound inputs: " + "; ".join(
+        f"{k} {b[0]} bytes, {b[1]} FLOPs" for k, b in bounds.items()))
+    log(f"phase 26 transformer_decoder timing: fused_decode B=1 {steps} "
+        f"steps {dec_ms:.4f} ms (plain {dec_plain:.4f} ms, bound "
+        f"{_bound_ms(dec_bound):.4f} ms); fused_train_fwd B={spec.batch} "
+        f"S={spec.num_steps} {fwd_ms:.4f} ms (plain {fwd_plain:.4f} ms, "
+        f"bound {_bound_ms(bounds['fused_train_fwd'], PEAK_3XTF32_FLOP_PER_S):.4f}"
+        f" ms); fused_train_bwd {bwd_ms:.4f} ms (plain {bwd_plain:.4f} ms, "
+        f"bound {_bound_ms(bounds['fused_train_bwd'], PEAK_3XTF32_FLOP_PER_S):.4f}"
+        f" ms); card {card}")
+
+    # the model's serving call and one training step, host clock
+    src = source_ids(hp, T_IN, T_IN, SEED + T_IN, device)
+    serve = _time_serving(model, Batch(src, torch.tensor([T_IN],
+                                                         device=device)))
+    batch = next(iter(_train_batches(hp, data))).to(device)
+    state = create_train_state(make_model(hp, device).train(), hp)
+    step = make_train_step(hp)
+    with torch.enable_grad():
+        step(state, batch)      # warm-up
+        step_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"phase 26 transformer_decoder serving call (B = 1, {T_IN} phones, "
+        f"{steps} steps cap, early stop on) median {serve[0]:.3f} ms "
+        f"(min {serve[1]:.3f}, max {serve[2]:.3f}); train step B="
+        f"{batch.source.shape[0]} S={batch.target.shape[1]} ms "
+        f"{[round(t, 3) for t in step_ms]}; card {card}")
+    del state, model
+    new_rows = _reused_rows(
+        rows, "fused_encode", "serving", "transformer_decoder_serving",
+        launches["transformer_decoder_serving"]["fused_encode"])
+    new_rows = [dict(r, max_abs_err=errs["fused_encode"]) for r in new_rows]
+    new_rows += _kernel_rows(
+        "fused_decode", "fused_decode", "fused_decode.py:250",
+        {"transformer_decoder_serving":
+            launches["transformer_decoder_serving"]},
+        errs["fused_decode"], dec_ms, dec_plain, dec_bound)
+    for name, line, ms, plain in (
+            ("fused_train_fwd", 375, fwd_ms, fwd_plain),
+            ("fused_train_bwd", 667, bwd_ms, bwd_plain)):
+        new_rows += _kernel_rows(
+            name, name, f"fused_train.py:{line}",
+            {"transformer_decoder_training":
+                launches["transformer_decoder_training"]},
+            errs[name], ms, plain, bounds[name],
+            peak_flops=PEAK_3XTF32_FLOP_PER_S)
+    return new_rows, launches
+
+
+def _train_batches(hp, data):
+    from self_attention_tacotron_torch.data.dataset import (
+        dataset_factory, find_dataset_files, load_key_list, to_model_batch)
+    keys = load_key_list(os.path.join(data, "train.csv"))
+    for nb in dataset_factory(
+            find_dataset_files(data, keys, hp.source_file_extension),
+            find_dataset_files(data, keys, hp.target_file_extension), hp,
+            shuffle=False, drop_remainder=True):
+        yield to_model_batch(nb)
+
+
+def write_pitch_accent_corpus(hp, root: str,
+                              n: int = PITCH_ACCENT_UTTERANCES):
+    """A synthetic corpus for the pitch-accent configuration: phone
+    sources (40..64) with an accent id each, and MGC/LF0 targets of
+    200..249 frames (one bucket, pad 250): 60 mgc coefficients and an f0
+    track in Hz with a quarter of its frames unvoiced.  Lists: train (35),
+    validation (2), test (3)."""
+    import numpy as np
+    from self_attention_tacotron_torch.data.records import (
+        MgcLf0TargetRecord, SourceRecord, write_mgc_lf0_target_record,
+        write_source_record)
+    rng = np.random.default_rng(SEED + 26)
+    keys = []
+    for i in range(n):
+        key = f"accent{i:03d}"
+        L = int(rng.integers(40, T_IN + 1))
+        phone = rng.integers(1, hp.num_symbols, L).astype(np.int64)
+        accent = hp.accent_type_offset + rng.integers(
+            0, hp.num_accent_type, L)
+        write_source_record(SourceRecord(
+            id=i, key=key, source=phone, source_length=L, text=f"accent {i}",
+            phone=phone, phone_length=L, phone_txt=" ".join(map(str, phone)),
+            accent_type=accent),
+            os.path.join(root, f"{key}.{hp.source_file_extension}"),
+            with_phone=True)
+        frames = int(rng.integers(200, 250))
+        f0 = rng.uniform(50.0, 600.0, frames).astype(np.float32)
+        f0[rng.random(frames) < 0.25] = 0.0
+        write_mgc_lf0_target_record(MgcLf0TargetRecord(
+            i, key, rng.standard_normal((frames, hp.num_mgcs)).astype(
+                np.float32), hp.num_mgcs, f0, frames),
+            os.path.join(root, f"{key}.{hp.target_file_extension}"))
+        keys.append(key)
+    for name, part in (("train", keys[:-5]), ("validation", keys[-5:-3]),
+                       ("test", keys[-3:])):
+        with open(os.path.join(root, f"{name}.csv"), "w") as f:
+            f.write("\n".join(part) + "\n")
+    return keys
+
+
+def _pitch_accent_serving(hp, ckpt, data, device, card):
+    """INFERENCE of the 3 test utterances from the training checkpoint on
+    the plain path (the fused decode gate's reason logged) and in the
+    Pallas mode; #5 and #6 at the path's shapes against their plain
+    versions.  Returns (launch counts, errors)."""
+    import torch
+    from self_attention_tacotron_torch.data.dataset import (
+        find_dataset_files, iter_utterances, load_key_list)
+    from self_attention_tacotron_torch.models import (Batch,
+                                                      tacotron_model_factory)
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    from self_attention_tacotron_torch.utils.convert import load_checkpoint
+    keys = load_key_list(os.path.join(data, "test.csv"))
+    utts = list(iter_utterances(
+        find_dataset_files(data, keys, hp.source_file_extension),
+        find_dataset_files(data, keys, hp.target_file_extension), hp,
+        "mgclf0"))
+    batches = [Batch(source=torch.from_numpy(u.source[None]).to(device),
+                     source_length=torch.tensor([u.source_length],
+                                                device=device),
+                     accent_type=torch.from_numpy(u.accent_type[None]).to(
+                         device)) for u in utts]
+    outs, launches, walls = {}, {}, {}
+    for mode in ("plain", "pallas"):
+        hp_m = hp.replace(use_pallas_attention=mode == "pallas")
+        model = tacotron_model_factory(hp_m).eval()
+        load_checkpoint(model, ckpt)
+        model.to(device)
+        for counter in (fe.fused_encode, fd.fused_decode,
+                        pa.fused_self_attention,
+                        pa.incremental_attention_step):
+            counter.launches = 0
+        with _Fallbacks() as fb:
+            outs[mode], walls[mode] = [], []
+            for b in batches:
+                _sync(device)
+                t0 = time.perf_counter()
+                outs[mode].append(model(b))
+                _sync(device)
+                walls[mode].append((time.perf_counter() - t0) * 1e3)
+        launches[mode] = {
+            "fused_encode": fe.fused_encode.launches,
+            "fused_decode": fd.fused_decode.launches,
+            "fused_self_attention": pa.fused_self_attention.launches,
+            "incremental_attention_step":
+                pa.incremental_attention_step.launches}
+        steps = [int(o.lengths[0]) for o in outs[mode]]
+        finite = all(bool(o.outputs.isfinite().all()
+                          and o.outputs2.isfinite().all())
+                     for o in outs[mode])
+        log(f"phase 26 pitch_accent serving ({mode}): 3 utterances, "
+            f"{steps} decode steps, ms a call "
+            f"{[round(w, 3) for w in walls[mode]]}; launches "
+            f"{launches[mode]}; finite {finite}; gates that took the plain "
+            f"path: {fb.refused or 'none'}; card {card}")
+        if not finite:
+            raise AssertionError("pitch-accent serving is not finite")
+        if mode == "plain" and (launches[mode]["fused_decode"]
+                                or not any("mgclf0 not fused" in m
+                                           for m in fb.refused)):
+            # the gate's reason is logged once a process: by this call
+            raise AssertionError("the MGC/LF0 decode gate did not log its "
+                                 "reason")
+        del model
+    want = {"fused_self_attention": len(batches) * hp.self_attention_num_hop,
+            "incremental_attention_step":
+                sum(int(o.lengths[0]) for o in outs["pallas"])
+                * hp.decoder_self_attention_num_hop}
+    got = {k: launches["pallas"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"Pallas-mode pitch-accent serving launched "
+                             f"{got}, expected {want}")
+    worst = 0.0
+    for a, b in zip(outs["pallas"], outs["plain"]):
+        ran = min(int(a.lengths[0]), int(b.lengths[0]))
+        worst = max(worst, _max_err(a.outputs[:, :ran], b.outputs[:, :ran]),
+                    _max_err(a.outputs2[:, :ran], b.outputs2[:, :ran]))
+    log(f"phase 26 pitch_accent Pallas mode vs the einsum path: mgc and lf0 "
+        f"logits max abs err {worst:.3e} (tol {TOL_PALLAS_SERVING})")
+    if worst > TOL_PALLAS_SERVING:
+        raise AssertionError("Pallas-mode pitch-accent serving disagrees")
+
+    # the kernels at the path's shapes, against their plain versions
+    heads = hp.self_attention_num_heads
+    D = hp.self_attention_out_units // heads
+    errs = {"fused_self_attention": 0.0, "incremental_attention_step": 0.0}
+    for u in utts:
+        q, k, v = (_normal(device, 1, heads, u.source_length, D, seed=s)
+                   for s in range(3))
+        err = _max_err(pa.fused_self_attention(q, k, v, False),
+                       pa.fused_self_attention_reference(q, k, v, False))
+        errs["fused_self_attention"] = max(errs["fused_self_attention"],
+                                           err)
+    dh = hp.decoder_self_attention_num_heads
+    Dd = hp.decoder_self_attention_out_units // dh
+    S = hp.max_iters
+    kc, vc = (_normal(device, 1, dh, S, Dd, seed=s) for s in (4, 5))
+    for t in (*PITCH_STEP_TS, S - 1):
+        q = _normal(device, 1, dh, Dd, seed=6 + t)
+        err = _max_err(pa.incremental_attention_step(q, kc, vc, t),
+                       pa.incremental_attention_step_reference(q, kc, vc, t))
+        errs["incremental_attention_step"] = max(
+            errs["incremental_attention_step"], err)
+    _sync(device)
+    log(f"phase 26 pitch_accent kernels vs plain at the path's shapes "
+        f"(fused_self_attention B=1 H={heads} T=source lengths "
+        f"{[u.source_length for u in utts]} D={D}; "
+        f"incremental_attention_step B=1 H={dh} S={S} D={Dd} t in "
+        f"{[*PITCH_STEP_TS, S - 1]}): max abs err {errs}")
+    if max(errs.values()) > TOL_ATTENTION:
+        raise AssertionError(f"a Pallas-mode kernel disagrees (tol "
+                             f"{TOL_ATTENTION})")
+    return launches, errs
+
+
+def _pitch_accent(device, card, tmp):
+    """The paper's configuration (``entry.PITCH_ACCENT`` over the codes
+    recipe): 3 ``cli.train`` steps at B = 32 with one evaluation, then
+    serving on the plain path and in the Pallas mode.  Returns (launch
+    counts of the Pallas-mode serving, kernel errors)."""
+    import json as js
+    import math
+    import re
+    import numpy as np
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    from self_attention_tacotron_torch.config import default_hparams
+    from self_attention_tacotron_torch.data.records import read_first_example
+    from self_attention_tacotron_torch.entry import PITCH_ACCENT
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    with open(RECIPE) as f:
+        recipe = dict(js.load(f), **PITCH_ACCENT)
+    hp_json = os.path.join(tmp, "pitch_accent.json")
+    with open(hp_json, "w") as f:
+        js.dump(recipe, f)
+    hp = default_hparams().parse_json_file(hp_json)
+    data = os.path.join(tmp, "pitch_accent_data")
+    ckpt = os.path.join(tmp, "pitch_accent_ckpt")
+    os.makedirs(data)
+    write_pitch_accent_corpus(hp, data)
+    log(f"phase 26 pitch_accent: {hp.tacotron_model}, {hp.encoder}, "
+        f"{hp.decoder}; {hp.num_mgcs} mgcs, {hp.num_lf0s} lf0 classes over "
+        f"{hp.f0_min:g}-{hp.f0_max:g} Hz, {hp.num_accent_type} accent types "
+        f"of {hp.accent_type_embedding_dim}, prenets "
+        f"{hp.encoder_prenet_out_units_if_accent} and "
+        f"{hp.accent_type_prenet_out_units}, lf0_loss_factor "
+        f"{hp.lf0_loss_factor}; {PITCH_ACCENT_UTTERANCES} utterances")
+    ft.fused_train_fwd.launches = ft.fused_train_bwd.launches = 0
+    t0 = time.perf_counter()
+    with _Fallbacks() as fb, torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt,
+                         "--hparam-json-file", hp_json, "--max-steps", "3",
+                         "--dataset-kind", "mgclf0", "--hparams",
+                         PITCH_ACCENT_EVAL, "--device", device.type])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(ckpt, os.path.basename(hp.logfile))) as f:
+        text = f.read()
+    losses = [float(m.group(2)) for m in re.finditer(
+        r"step (\d+) loss ([-+0-9.eEinfa]+) \(([0-9.]+)s\)", text)]
+    secs = [float(m.group(3)) for m in re.finditer(
+        r"step (\d+) loss ([-+0-9.eEinfa]+) \(([0-9.]+)s\)", text)]
+    evals = re.findall(r"eval @(\d+): (\{.*?\}) \((\d+) utterances, "
+                       r"([0-9.]+)s\)", text)
+    artifacts = sorted(os.listdir(os.path.join(ckpt, "eval")))
+    records = [a for a in artifacts if a.endswith(".tfrecord")]
+    log(f"phase 26 pitch_accent cli.train: 3 steps at B={hp.batch_size} in "
+        f"{wall:.1f} s (start included); losses {losses}; s a step {secs}; "
+        f"evaluations {evals}; eval artifacts {artifacts}; training kernel "
+        f"launches fwd {ft.fused_train_fwd.launches} bwd "
+        f"{ft.fused_train_bwd.launches}; gates that took the plain path: "
+        f"{fb.refused or 'none'}; card {card}")
+    if rc != 0 or len(losses) != 3 or not all(map(math.isfinite, losses)):
+        raise AssertionError("pitch-accent training failed")
+    if len(evals) != 1 or "mgc_loss_with_teacher" not in evals[0][1]:
+        raise AssertionError("the pitch-accent evaluation did not run")
+    if not any("output_kind='mgclf0' is not fused" in m for m in fb.refused):
+        raise AssertionError("the training gate did not log its reason")
+    ex = read_first_example(os.path.join(ckpt, "eval", records[0]))
+    lf0 = np.frombuffer(ex["lf0"][1][0], np.float32).reshape(-1, hp.num_lf0s)
+    if len(records) != 1 or not np.allclose(lf0.sum(-1), 1.0, atol=1e-4):
+        raise AssertionError("no MGC/LF0 prediction record with the lf0 "
+                             "softmax")
+    return _pitch_accent_serving(hp, ckpt, data, device, card)
+
+
+def phase_model_surface(device, card: str, data: str, tmp: str, rows):
+    """Phase 26: ``TransformerDecoder`` on #1-#4 and the pitch-accent
+    configuration (its Pallas mode on #5 and #6).  Returns (rows, launch
+    counts)."""
+    t0 = time.perf_counter()
+    new_rows, launches = _transformer_decoder(device, card, data, tmp, rows)
+    pallas, errs = _pitch_accent(device, card, tmp)
+    launches["pitch_accent_pallas_serving"] = {
+        k: pallas["pallas"][k] for k in ("fused_self_attention",
+                                         "incremental_attention_step")}
+    for name in ("fused_self_attention", "incremental_attention_step"):
+        new_rows += [dict(r, max_abs_err=errs[name]) for r in _reused_rows(
+            rows, name, "pallas_serving", "pitch_accent_pallas_serving",
+            launches["pitch_accent_pallas_serving"][name])]
+    log(f"phase 26 the rest of the model surface took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return new_rows, launches
+
+
 def phase_barriers(card: str):
     """Phase 2: the cost of one grid-wide barrier at one block per SM,
     cooperative groups' (the fused encoder's) beside the hand-written ones
@@ -4167,8 +4623,12 @@ def main() -> int:
             launches.update(entry_launches)
             dp_rows, dp_launches = phase_data_parallel(
                 model, device, card, data, tmp, rows, loop_split)
-        rows += dp_rows
-        launches.update(dp_launches)
+            rows += dp_rows
+            launches.update(dp_launches)
+            surface_rows, surface_launches = phase_model_surface(
+                device, card, data, tmp, rows)
+        rows += surface_rows
+        launches.update(surface_launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

@@ -29,7 +29,10 @@ bucket's length, as the JAX CLI's merged batch does), replaying the first
 pass's alignments on the plain path; the dump and the record come from the
 second pass's output and lengths.  It prints each utterance's decode steps
 (of each pass) and wall time (the replay's beside it).  Runs on ``cuda``
-unless ``--device cpu``.
+unless ``--device cpu``.  With ``use_accent_type`` each utterance's
+accent ids go with it; with ``apply_dropout_on_inference`` the decoder's
+prenet dropout comes from a generator seeded with ``hp.seed``
+(``make_predict_step``).
 The model logs which path serves the encoder's and the decoder's
 self-attention, as its gates chose it: the fused kernels
 (``encoder_fused_inference``, ``decoder_fused_inference``), the Pallas
@@ -174,7 +177,10 @@ def predict(kind: str, argv=None) -> int:
                           source_length=torch.tensor([u.source_length],
                                                      device=device),
                           speaker_id=torch.tensor([u.speaker_id],
-                                                  device=device))
+                                                  device=device),
+                          accent_type=(None if u.accent_type is None else
+                                       torch.from_numpy(u.accent_type[None])
+                                       .to(device)))
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()

@@ -13,22 +13,27 @@ the first ``num_evaluation_steps`` validation utterances run through
 logged as ``eval @N`` (without a ``validation.csv`` there is no
 evaluation).  Scalars go to ``<checkpoint-dir>/metrics.jsonl`` and a
 TensorBoard event file (the eval ones under ``eval/``), the log also to
-``<checkpoint-dir>/<hp.logfile>``.  The targets are codes or mel
-spectrograms, by ``--dataset-kind`` or else by ``hp.dataset`` (the JAX
-package's rule): the VQ-code recipe and the LJSpeech mel recipe
-(``examples/ljspeech/tacotron.json``, with the corpus statistics that
-``cli.preprocess`` writes to ``hparams.json`` merged in) train through the
-same CLI.  The alignment plots, on the JAX package's cadence and names:
+``<checkpoint-dir>/<hp.logfile>``.  The targets are codes, mel
+spectrograms or MGC/LF0 frames, by ``--dataset-kind`` or else by
+``hp.dataset`` (the JAX package's rule): the VQ-code recipe, the LJSpeech
+mel recipe (``examples/ljspeech/tacotron.json``, with the corpus
+statistics that ``cli.preprocess`` writes to ``hparams.json`` merged in)
+and the paper's pitch-accent configuration (``entry.PITCH_ACCENT``:
+``--dataset-kind mgclf0``, source records with accent ids from
+``cli.preprocess --accent-file``) train through the same CLI.  The alignment plots, on the JAX package's cadence and names:
 every ``alignment_save_steps`` steps (``(step + 1) % alignment_save_steps
 == 0``) the train step also returns row 0's TRAIN-forward alignments and
 outputs (``make_train_step(hp, with_alignments=True)``), plotted as
 ``<checkpoint-dir>/alignments/train_step{N:09d}_{key}.png``; each
 evaluation plots its first utterance's free-running alignments and outputs
 as ``<checkpoint-dir>/eval/eval_step{N:09d}_{key}.png``, the newest
-``keep_eval_results_max_epoch`` kept.  A failed save only logs, and
-without matplotlib each saver says once that it writes no PNG.  (The JAX
-package's MGC/LF0 evaluation plots wait for that model kind, which the
-port does not have yet.)  With ``record_profile`` the steps from
+``keep_eval_results_max_epoch`` kept; for the MGC/LF0 model, as in the
+JAX package, ``eval/alignment_eval_step{N:09d}_{key}.png``, the four
+``mgc_lf0_...`` panels (the lf0 prediction as its softmax) and an
+``MgcLf0PredictionRecord`` beside them.  A failed save only logs, and
+without matplotlib each saver says once that it writes no PNG.  With
+``apply_dropout_on_inference`` the evaluation's prenet dropout comes from
+a generator seeded with ``hp.seed``.  With ``record_profile`` the steps from
 ``profile_steps`` to ``profile_steps + 5`` (or to the end of the run) run
 under ``torch.profiler`` (CPU and CUDA activities), written as a Chrome
 trace to ``<checkpoint-dir>/profile/trace_step{N}.json``, and one line
@@ -66,7 +71,7 @@ kernels' launch counts at the end.
         --source-data-root DIR --target-data-root DIR --checkpoint-dir DIR \\
         --hparam-json-file examples/codes/self-attention-tacotron.json \\
         [--selected-list-dir DIR] [--hparams k=v,...] [--max-steps N] \\
-        [--dataset-kind codes|mel] [--device cpu] [--multi-gpus] \\
+        [--dataset-kind codes|mel|mgclf0] [--device cpu] [--multi-gpus] \\
         [--num-processes N [--process-id I --coordinator-address H:P]]
 """
 
@@ -92,7 +97,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--hparams", default="")
     p.add_argument("--hparam-json-file", default=None)
     p.add_argument("--max-steps", type=int, default=None)
-    p.add_argument("--dataset-kind", default=None, choices=["codes", "mel"],
+    p.add_argument("--dataset-kind", default=None,
+                   choices=["codes", "mel", "mgclf0"],
                    help="the targets' kind (default: derived from "
                         "hp.dataset)")
     p.add_argument("--device", default="cuda")
@@ -327,6 +333,8 @@ def _train(args, hp, hparams_text: str, joined: bool) -> int:
     from ..data.dataset import (dataset_factory, find_dataset_files,
                                 load_key_list, pad_model_batch_rows,
                                 reader_in_use, to_model_batch)
+    from ..data.records import (MgcLf0PredictionRecord,
+                                write_mgc_lf0_prediction_record)
     from ..models import tacotron_model_factory
     from ..ops import fused_train as ft
     from ..parallel import create_train_state, make_eval_step, make_train_step
@@ -425,6 +433,26 @@ def _train(args, hp, hparams_text: str, joined: bool) -> int:
     def host(t):
         return t.float().cpu().numpy()
 
+    def save_eval(step_no: int, nb, out) -> None:
+        """The first evaluation utterance's plot (and, for the MGC/LF0
+        model, its panels and prediction record)."""
+        meta = nb.meta[0]
+        aligns = [host(a[0]) for a in out.alignments]
+        pred = host(out.outputs[0])
+        if not model.is_mgclf0:
+            gt = nb.target[0] if nb.target is not None else None
+            eval_saver.save(step_no, meta.key, meta.text, aligns, gt, pred)
+            return
+        lf0_pred = host(torch.softmax(out.outputs2[0], -1))
+        rec = MgcLf0PredictionRecord(
+            id=meta.id, key=meta.key, mgc=pred, ground_truth_mgc=nb.target[0],
+            lf0=lf0_pred, ground_truth_lf0=nb.target2[0], alignments=aligns,
+            text=meta.text, source=nb.source[0][:int(nb.source_length[0])])
+        eval_saver.save_mgc_lf0(
+            step_no, meta.key, meta.text, aligns, nb.target[0], pred,
+            nb.target2[0], lf0_pred, prediction_record_writer=lambda path: (
+                write_mgc_lf0_prediction_record(rec, path)))
+
     def run_eval(step_no: int) -> None:
         t0 = time.perf_counter()
         n, acc = 0, {}
@@ -436,11 +464,7 @@ def _train(args, hp, hparams_text: str, joined: bool) -> int:
             for k, v in metrics.items():
                 acc[k] = acc.get(k, 0.0) + float(v)
             if n == 0:
-                meta = nb.meta[0]
-                gt = nb.target[0] if nb.target is not None else None
-                eval_saver.save(step_no, meta.key, meta.text,
-                                [host(a[0]) for a in out_free.alignments],
-                                gt, host(out_free.outputs[0]))
+                save_eval(step_no, nb, out_free)
             n += 1
         if n:
             acc = {k: v / n for k, v in acc.items()}

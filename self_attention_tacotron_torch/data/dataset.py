@@ -1,14 +1,23 @@
-"""Readers of the VQ-code and mel corpora: batch-1 serving and single-host
+"""Readers of the VQ-code, mel and MGC/LF0 corpora: batch-1 serving and
 training.
 
-The subset of the JAX package's ``data/dataset.py`` that the port runs,
-for two target kinds:
+The JAX package's ``data/dataset.py`` for its three target kinds:
 
 * ``codes`` — one-hot (T, num_codes) targets, target length codes * r;
 * ``mel`` — (T, num_mels) dB targets normalised by
   ``average_mel_level_db`` and ``stddev_mel_level_db``, r frames of
   ``silence_mel_level_db`` added at head and tail and the length padded to
-  a multiple of r with it.
+  a multiple of r with it;
+* ``mgclf0`` — the (T, num_mgcs) mgc frames as ``target`` and, as
+  ``target2``, the f0 track quantised to one-hot classes: class 0 for an
+  unvoiced frame (f0 <= 0), else 1 + floor of its log-f0, clipped to
+  [log f0_min, log f0_max], over that range times ``num_lf0s - 2``;
+  target length T * r.
+
+With ``use_accent_type`` each utterance carries ``accent_type``: the
+source record's accent ids, cut to the source length or padded with
+``accent_type_unknown``, or all unknown when the record has none; batches
+pad it with ``accent_type_unknown``.
 
 * serving — one utterance at a time, the source padded to the bucketing's
   32-step source width (``Bucketing.source_pad_length``), the target kept
@@ -34,8 +43,7 @@ batch to one shape (utterances that do not fit are skipped with a
 warning), or the shared bucket schedule (``bucket_schedule_seed``,
 ``bucket_weights``, ``bucket_buffer_cap``) draws each batch's bucket from a
 seed common to the ranks and fills it from the rank's own shard.  The
-targetless (predict-time) iteration and the MGC-LF0 targets are not
-ported.
+targetless (predict-time) iteration is not ported.
 """
 
 from __future__ import annotations
@@ -75,6 +83,8 @@ class Utterance(NamedTuple):
     target: Optional[np.ndarray]  # (T, C) one-hot codes or mel frames
     target_length: int
     speaker_id: int = 0           # the source record's (VCTK: 225-376)
+    accent_type: Optional[np.ndarray] = None  # (T_pad,) int64
+    target2: Optional[np.ndarray] = None      # (T, num_lf0s) one-hot lf0
 
 
 _reader: Optional[str] = None
@@ -113,8 +123,8 @@ def _round_up(x: int, m: int) -> int:
 
 def load_utterance(source_file: str, target_file: Optional[str],
                    hp: HParams, target_kind: str = "codes") -> Utterance:
-    """One source record (+ its ``codes`` or ``mel`` target) padded for the
-    model."""
+    """One source record (+ its ``codes``, ``mel`` or ``mgclf0`` target)
+    padded for the model."""
     src = R.parse_source_record(_read_example(source_file))
     use_phone = hp.source == "phone" and src.phone is not None
     source = src.phone if use_phone else src.source
@@ -122,7 +132,8 @@ def load_utterance(source_file: str, target_file: Optional[str],
     text = src.phone_txt if use_phone else src.text
     padded = np.zeros(_round_up(max(length, 1), SOURCE_PAD_WIDTH), np.int64)
     padded[:length] = np.asarray(source, np.int64)[:length]
-    target, target_length = None, 0
+    target = target2 = None
+    target_length = 0
     if target_file is not None and target_kind == "codes":
         tgt = R.parse_code_target_record(_read_example(target_file))
         target = tgt.codes.astype(np.float32)
@@ -130,12 +141,36 @@ def load_utterance(source_file: str, target_file: Optional[str],
     elif target_file is not None and target_kind == "mel":
         target, target_length = _mel_target(
             R.parse_mel_target_record(_read_example(target_file)), hp)
+    elif target_file is not None and target_kind == "mgclf0":
+        tgt = R.parse_mgc_lf0_target_record(_read_example(target_file))
+        target = tgt.mgc.astype(np.float32)
+        target2 = lf0_classes(tgt.lf0, hp)
+        target_length = tgt.target_length * hp.outputs_per_step
     elif target_file is not None:
-        raise NotImplementedError(f"{target_kind!r} targets are not ported "
-                                  "yet")
+        raise ValueError(f"unknown target kind {target_kind!r}")
+    accent = None
+    if hp.use_accent_type:
+        accent = np.full(len(padded), hp.accent_type_unknown, np.int64)
+        if src.accent_type is not None and len(src.accent_type) > 0:
+            ids = np.asarray(src.accent_type, np.int64)[:length]
+            accent[:len(ids)] = ids
     return Utterance(UtteranceMeta(src.id, src.key, text, src.lang), padded,
                      length, target, int(target_length),
-                     int(src.speaker_id))
+                     int(src.speaker_id), accent, target2)
+
+
+def lf0_classes(lf0: np.ndarray, hp: HParams) -> np.ndarray:
+    """(T,) f0 in Hz -> (T, num_lf0s) one-hot classes: 0 for an unvoiced
+    frame (f0 <= 0), else 1 + floor((clip(log f0, lo, hi) - lo) / (hi - lo)
+    * (num_lf0s - 2)) with lo, hi = log f0_min, log f0_max (the JAX
+    package's quantisation, in its arithmetic)."""
+    lo, hi = np.log(hp.f0_min), np.log(hp.f0_max)
+    voiced = lf0 > 0
+    idx = np.zeros(len(lf0), np.int64)
+    safe = np.clip(np.log(np.maximum(lf0, 1e-8)), lo, hi)
+    idx[voiced] = 1 + np.floor(
+        (safe[voiced] - lo) / (hi - lo) * (hp.num_lf0s - 2)).astype(np.int64)
+    return np.eye(hp.num_lf0s, dtype=np.float32)[idx]
 
 
 def _mel_target(tgt: R.MelTargetRecord, hp: HParams):
@@ -191,6 +226,8 @@ class NumpyBatch(NamedTuple):
     spec_loss_mask: np.ndarray    # (B, T)
     binary_loss_mask: np.ndarray  # (B, T // r)
     speaker_id: np.ndarray        # (B,) int32
+    accent_type: Optional[np.ndarray] = None  # (B, T_in) int64
+    target2: Optional[np.ndarray] = None      # (B, T, num_lf0s) float32
 
 
 class Bucketing:
@@ -219,25 +256,35 @@ def pad_batch(utts: Sequence[Utterance], hp: HParams,
               target_pad: Optional[int] = None,
               source_pad: Optional[int] = None,
               target_kind: str = "codes") -> NumpyBatch:
-    """Pad utterances to common shapes: sources 0, codes 0.0 or mel frames
-    ``silence_mel_level_db``, done 1 and loss masks 0 past each length;
-    done is [0, ..., 0, 1] and the masks are 1 within it."""
+    """Pad utterances to common shapes: sources 0, accent types
+    ``accent_type_unknown``, codes and mgc frames 0.0 or mel frames
+    ``silence_mel_level_db``, lf0 classes 0.0, done 1 and loss masks 0
+    past each length; done is [0, ..., 0, 1] and the masks are 1 within
+    it."""
     B, r = len(utts), hp.outputs_per_step
     src_len = max(u.source_length for u in utts)
     source = np.zeros((B, max(source_pad or src_len, src_len)), np.int64)
+    accent = (np.full(source.shape, hp.accent_type_unknown, np.int64)
+              if hp.use_accent_type else None)
     tgt_len = max(u.target_length for u in utts)
     tgt_pad = _round_up(max(target_pad or tgt_len, tgt_len), r)
     fill = hp.silence_mel_level_db if target_kind == "mel" else 0.0
     target = np.full((B, tgt_pad, utts[0].target.shape[1]), fill,
                      np.float32)
+    target2 = (np.zeros((B, tgt_pad, utts[0].target2.shape[1]), np.float32)
+               if utts[0].target2 is not None else None)
     done = np.ones((B, tgt_pad // r), np.float32)
     spec_mask = np.zeros((B, tgt_pad), np.float32)
     binary_mask = np.zeros((B, tgt_pad // r), np.float32)
     for i, u in enumerate(utts):
         source[i, :u.source_length] = u.source[:u.source_length]
+        if accent is not None and u.accent_type is not None:
+            accent[i, :u.source_length] = u.accent_type[:u.source_length]
         L = u.target_length
         s = L // r
         target[i, :L] = u.target[:L]
+        if target2 is not None:
+            target2[i, :L] = u.target2[:L]
         done[i, :s] = 0.0
         done[i, s - 1] = 1.0
         spec_mask[i, :L] = 1.0
@@ -248,7 +295,8 @@ def pad_batch(utts: Sequence[Utterance], hp: HParams,
         target=target,
         target_length=np.asarray([u.target_length for u in utts], np.int32),
         done=done, spec_loss_mask=spec_mask, binary_loss_mask=binary_mask,
-        speaker_id=np.asarray([u.speaker_id for u in utts], np.int32))
+        speaker_id=np.asarray([u.speaker_id for u in utts], np.int32),
+        accent_type=accent, target2=target2)
 
 
 class Dataset:
@@ -471,12 +519,16 @@ def to_model_batch(nb: NumpyBatch):
     """NumpyBatch -> models.Batch of CPU tensors."""
     import torch
     from ..models.tacotron import Batch
-    t = torch.from_numpy
+    def t(x):
+        return None if x is None else torch.from_numpy(x)
+    target = t(nb.target)
+    if nb.target2 is not None:      # MGC/LF0: (mgc, lf0), as the JAX batch
+        target = (target, t(nb.target2))
     return Batch(source=t(nb.source), source_length=t(nb.source_length),
-                 target=t(nb.target), target_length=t(nb.target_length),
+                 target=target, target_length=t(nb.target_length),
                  done=t(nb.done), spec_loss_mask=t(nb.spec_loss_mask),
                  binary_loss_mask=t(nb.binary_loss_mask),
-                 speaker_id=t(nb.speaker_id))
+                 speaker_id=t(nb.speaker_id), accent_type=t(nb.accent_type))
 
 
 def pad_model_batch_rows(mb, multiple: int):
@@ -489,9 +541,8 @@ def pad_model_batch_rows(mb, multiple: int):
     pad = (-B) % multiple
     if pad == 0:
         return mb, 0
-    rows = [None if x is None else torch.cat(
-        [x, x[-1:].expand(pad, *x.shape[1:])]) for x in mb]
-    padded = type(mb)(*rows)
+    padded = mb.map(lambda x: torch.cat([x, x[-1:].expand(pad,
+                                                          *x.shape[1:])]))
     masks = {}
     for name in ("spec_loss_mask", "binary_loss_mask"):
         m = getattr(padded, name)
@@ -516,11 +567,10 @@ def target_kind_of(hp: HParams) -> str:
 def dataset_factory(source_files, target_files, hp: HParams,
                     **kwargs) -> Dataset:
     """The JAX package's name-keyed dispatch: ``target_kind`` (a keyword,
-    or derived from ``hp.dataset``) selects codes or mel targets; the
-    other keywords go to ``Dataset``.  MGC-LF0 targets are not ported
-    yet."""
+    or derived from ``hp.dataset``) selects codes, mel or mgclf0 targets;
+    the other keywords go to ``Dataset``."""
     kind = kwargs.pop("target_kind", None) or target_kind_of(hp)
-    if kind not in ("codes", "mel"):
-        raise NotImplementedError(f"{kind!r} targets are not ported yet")
+    if kind not in ("codes", "mel", "mgclf0"):
+        raise ValueError(f"unknown target kind {kind!r}")
     return Dataset(source_files, target_files, hp, target_kind=kind,
                    **kwargs)

@@ -38,6 +38,19 @@ import torch
 from .config import HParams, default_hparams
 
 
+# The paper's pitch-accent configuration (arXiv:1810.11960: Japanese pitch
+# accent, MGC and LF0 for a WaveNet vocoder) as overrides of a codes
+# recipe: accent-type encoder, MGC/LF0 model and decoder, mgclf0 targets;
+# every other hparam stays at its default (60 mgcs, 256 lf0 classes over
+# 66-529 Hz, 129 accent types of 32 dims, prenets (224, 112) and (32, 16),
+# lf0_loss_factor 0.5).
+PITCH_ACCENT = dict(
+    tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel",
+    encoder="SelfAttentionCBHGEncoderWithAccentType",
+    decoder="DualSourceMgcLf0TransformerDecoder", use_accent_type=True,
+    dataset="mgclf0.dataset.DatasetSource")
+
+
 def _flagship_hparams(tiny: bool = False) -> HParams:
     """The flagship configuration: dual-source self-attention Tacotron over
     VQ codes, r = 1; full width with 1025 codes, or tiny widths."""

@@ -5,12 +5,16 @@ Counterpart of the JAX package's ``models/attention.py``:
   energy = sum(v * tanh(keys + query_layer(query))), masked softmax.
 * ``LocationSensitiveAttention`` — Tacotron-2's: adds a SAME conv over the
   previous (or, with ``cumulative_weights``, the accumulated) alignments,
-  a location dense and a shared bias inside the tanh.
+  a location dense and a shared bias inside the tanh; with ``smoothing``
+  the alignments are the masked sigmoid energies over their sum (at least
+  1e-8) in place of the softmax.
 * ``ForwardAttention`` — the location-sensitive energy followed by the
   forward recursion ``alpha = ((1 - u) alpha + u shift(alpha) + 1e-7) a``,
-  normalized; alpha starts at [1, 0, ...] and u stays 0.5 (no transition
-  agent); ``cumulative_weights`` selects whether the conv sees the running
-  sum of alignments.
+  normalized; alpha starts at [1, 0, ...] and u at 0.5.  Without the
+  transition agent u stays 0.5; with it (``use_transition_agent``) the
+  next u is sigmoid(``transition_factor_projection``([context of alpha,
+  processed query])).  ``cumulative_weights`` selects whether the conv
+  sees the running sum of alignments.
 
 * ``TeacherForcingAttention`` — ``teacher_forcing_additive`` /
   ``teacher_forcing_forward``: replays supplied alignments step by step
@@ -47,6 +51,7 @@ class AttentionOptions(NamedTuple):
     num_units: int
     attention_kernel: int = 31
     attention_filters: int = 32
+    smoothing: bool = False
     cumulative_weights: bool = False
     use_transition_agent: bool = False
 
@@ -126,6 +131,13 @@ class _LocationEnergy(nn.Module):
 class LocationSensitiveAttention(_LocationEnergy):
     """State: (alignments, accumulated alignments)."""
 
+    def __init__(self, memory_dim: int, query_dim: int, num_units: int,
+                 attention_kernel: int, attention_filters: int,
+                 cumulative_weights: bool, smoothing: bool = False):
+        super().__init__(memory_dim, query_dim, num_units, attention_kernel,
+                         attention_filters, cumulative_weights)
+        self.smoothing = smoothing
+
     def initial_state(self, batch: int, max_time: int, device=None):
         zeros = torch.zeros(batch, max_time, device=device)
         return zeros, zeros
@@ -134,8 +146,12 @@ class LocationSensitiveAttention(_LocationEnergy):
         prev_alignments, accumulation = state
         conv_input = accumulation if self.cumulative_weights \
             else prev_alignments
-        alignments = _masked_softmax(self._energy(query, conv_input, pack),
-                                     pack.mask)
+        energy = self._energy(query, conv_input, pack)
+        if self.smoothing:
+            sig = torch.sigmoid(energy) * pack.mask
+            alignments = sig / sig.sum(-1, keepdim=True).clamp_min(1e-8)
+        else:
+            alignments = _masked_softmax(energy, pack.mask)
         return alignments, (alignments, accumulation + alignments)
 
 
@@ -146,6 +162,17 @@ class ForwardAttentionState(NamedTuple):
 
 
 class ForwardAttention(_LocationEnergy):
+    def __init__(self, memory_dim: int, query_dim: int, num_units: int,
+                 attention_kernel: int, attention_filters: int,
+                 cumulative_weights: bool,
+                 use_transition_agent: bool = False):
+        super().__init__(memory_dim, query_dim, num_units, attention_kernel,
+                         attention_filters, cumulative_weights)
+        self.use_transition_agent = use_transition_agent
+        if use_transition_agent:
+            self.transition_factor_projection = nn.Linear(
+                memory_dim + num_units, 1)
+
     def initial_state(self, batch: int, max_time: int, device=None
                       ) -> ForwardAttentionState:
         alpha = torch.zeros(batch, max_time, device=device)
@@ -162,9 +189,14 @@ class ForwardAttention(_LocationEnergy):
         alpha = ((1.0 - prev_u) * prev_alpha + prev_u * shifted
                  + 1e-7) * alignments
         alpha = alpha / alpha.sum(dim=1, keepdim=True)
+        u = prev_u
+        if self.use_transition_agent:
+            u = torch.sigmoid(self.transition_factor_projection(torch.cat(
+                [compute_context(alpha, pack.values),
+                 self.query_layer(query)], -1)))
         next_alignments = (alignments + prev_alignments
                            if self.cumulative_weights else alignments)
-        return alpha, ForwardAttentionState(next_alignments, alpha, prev_u)
+        return alpha, ForwardAttentionState(next_alignments, alpha, u)
 
 
 def replayed_alignment(teacher_alignments: torch.Tensor,
@@ -204,19 +236,18 @@ class TeacherForcingAttention(nn.Module):
 def attention_mechanism_factory(options: AttentionOptions, memory_dim: int,
                                 query_dim: int) -> nn.Module:
     if options.attention == "forward":
-        if options.use_transition_agent:
-            raise NotImplementedError(
-                "the forward-attention transition agent is not ported yet")
         return ForwardAttention(memory_dim, query_dim, options.num_units,
                                 options.attention_kernel,
                                 options.attention_filters,
-                                options.cumulative_weights)
+                                options.cumulative_weights,
+                                options.use_transition_agent)
     if options.attention == "location_sensitive":
         return LocationSensitiveAttention(memory_dim, query_dim,
                                           options.num_units,
                                           options.attention_kernel,
                                           options.attention_filters,
-                                          options.cumulative_weights)
+                                          options.cumulative_weights,
+                                          options.smoothing)
     if options.attention == "additive":
         return AdditiveAttention(memory_dim, query_dim, options.num_units)
     if options.attention in ("teacher_forcing_forward",

@@ -1,8 +1,12 @@
 """The decoder: teacher-forced training, validation and inference.
 
 Counterpart of the JAX package's ``models/decoder.py`` ``TacotronDecoder``
-in its TRAIN, VALIDATION and INFERENCE modes (``output_kind="single"``).
-Per step:
+in its TRAIN, VALIDATION and INFERENCE modes, for both output kinds:
+``single`` (code logits or mel frames) and ``mgclf0`` (two prenet stacks,
+``mgc_prenets`` and ``lf0_prenets``, whose outputs are concatenated; the
+heads ``mgc_out_projection2(tanh(mgc_out_projection1(y)))`` and
+``lf0_out_projection(y)``, the lf0 logits in ``outputs2``; the lf0 stream
+is always fed back as its softmax, the mgc stream raw).  Per step:
 
     x        = prenet(next_input)                # see below
     h        = attention_LSTM([x, prev_context])
@@ -35,7 +39,10 @@ VALIDATION (``validation_forward``, the trainer's evaluation) runs
 fed target step t (``feed[t] = shifted[t + 1]`` of the GO-shifted teacher
 inputs); free-running, it is fed its own outputs: as softmax probabilities
 with ``feedback_softmax`` (the code model), raw otherwise (the mel model).
-INFERENCE always feeds back the raw last ``n_feed_frame`` frames.
+INFERENCE always feeds back the raw last ``n_feed_frame`` frames (the
+lf0 stream: its softmax).  With ``apply_dropout_on_inference`` the
+prenets drop out in VALIDATION and INFERENCE too, drawn from the caller's
+generator; the fused and the early-exit loops are not taken then.
 VALIDATION never fuses; its lengths are the step count and nothing is
 masked.  ``teacher_alignments`` (VALIDATION and INFERENCE) replay supplied
 alignments in place of the mechanisms, step t taking row min(t, T_steps -
@@ -130,6 +137,18 @@ class DecoderOutput(NamedTuple):
     alignments: Tuple[torch.Tensor, ...]  # per source (B, T_mem, S)
     self_attention_alignments: List[torch.Tensor]  # per hop*head (B, T_k, T_q)
     lengths: torch.Tensor              # (B,) decoded steps
+    outputs2: Optional[torch.Tensor] = None  # (B, S * r, num_lf0s) mgclf0
+
+
+def _first(x):
+    """A tensor, or the first of a tuple of them."""
+    return x[0] if isinstance(x, tuple) else x
+
+
+def _map(fn, x):
+    """``fn`` over a tensor, or over each of a tuple of them (the MGC/LF0
+    decoder's two streams)."""
+    return tuple(map(fn, x)) if isinstance(x, tuple) else fn(x)
 
 
 class TacotronDecoder(nn.Module):
@@ -151,11 +170,19 @@ class TacotronDecoder(nn.Module):
                  fused_train: bool = False,
                  fused_train_dtype: str = "float32",
                  use_pallas: bool = False, feedback_softmax: bool = False,
-                 speaker_dim: Optional[int] = None):
+                 speaker_dim: Optional[int] = None,
+                 output_kind: str = "single", num_mgcs: int = 60,
+                 num_lf0s: int = 256,
+                 apply_dropout_on_inference: bool = False):
         super().__init__()
         assert len(attention_options) == len(source_dims)
+        assert output_kind in ("single", "mgclf0"), output_kind
         self.num_sources = len(source_dims)
+        self.output_kind = output_kind
         self.num_mels = num_mels
+        self.num_mgcs = num_mgcs
+        self.num_lf0s = num_lf0s
+        self.apply_dropout_on_inference = apply_dropout_on_inference
         self.outputs_per_step = outputs_per_step
         self.n_feed_frame = n_feed_frame
         self.max_iters = max_iters
@@ -175,15 +202,26 @@ class TacotronDecoder(nn.Module):
         self.feedback_softmax = feedback_softmax
         self.self_attention_out_units = self_attention_out_units
 
-        self.prenets = PreNetStack(num_mels * n_feed_frame, prenet_out_units,
-                                   drop_rate, speaker_dim)
+        prenet_width = prenet_out_units[-1]
+        if output_kind == "mgclf0":
+            self.mgc_prenets = PreNetStack(
+                num_mgcs * n_feed_frame, prenet_out_units, drop_rate,
+                speaker_dim, apply_dropout_on_inference)
+            self.lf0_prenets = PreNetStack(
+                num_lf0s * n_feed_frame, prenet_out_units, drop_rate,
+                speaker_dim, apply_dropout_on_inference)
+            prenet_width *= 2
+        else:
+            self.prenets = PreNetStack(
+                num_mels * n_feed_frame, prenet_out_units, drop_rate,
+                speaker_dim, apply_dropout_on_inference)
         A, D = attention_rnn_out_units, decoder_out_units
         for i, (opt, dim) in enumerate(zip(attention_options, source_dims)):
             self.add_module(f"attention_mechanism_{i}",
                             attention_mechanism_factory(opt, dim, A))
         ctx_dim = sum(source_dims)
         self.attention_lstm = ZoneoutLSTMCell(
-            prenet_out_units[-1] + ctx_dim, A, zoneout_factor_cell,
+            prenet_width + ctx_dim, A, zoneout_factor_cell,
             zoneout_factor_output)
         self.output_projection_wrapper = nn.Linear(A + ctx_dim, D)
         zc, zo = self._dec_zoneout()
@@ -195,8 +233,28 @@ class TacotronDecoder(nn.Module):
                 self_attention_num_heads, use_subsequent_mask=True,
                 drop_rate=self_attention_drop_rate, use_pallas=use_pallas))
         head_in = self_attention_out_units if use_transformer else D
-        self.out_projection = nn.Linear(head_in, num_mels * outputs_per_step)
+        r = outputs_per_step
+        if output_kind == "mgclf0":
+            self.mgc_out_projection1 = nn.Linear(head_in, head_in)
+            self.mgc_out_projection2 = nn.Linear(head_in, num_mgcs * r)
+            self.lf0_out_projection = nn.Linear(head_in, num_lf0s * r)
+        else:
+            self.out_projection = nn.Linear(head_in, num_mels * r)
         self.stop_token_projection = nn.Linear(head_in, 1)
+
+    def _frame_dims(self) -> Tuple[int, ...]:
+        if self.output_kind == "mgclf0":
+            return self.num_mgcs, self.num_lf0s
+        return (self.num_mels,)
+
+    def _heads(self, y):
+        """-> (outputs per stream, stop logits), over (..., D) rows."""
+        if self.output_kind == "mgclf0":
+            return (self.mgc_out_projection2(torch.tanh(
+                self.mgc_out_projection1(y))),
+                    self.lf0_out_projection(y)), \
+                self.stop_token_projection(y)
+        return (self.out_projection(y),), self.stop_token_projection(y)
 
     def _dec_zoneout(self):
         if self.decoder_version == "v2":
@@ -217,11 +275,16 @@ class TacotronDecoder(nn.Module):
     def forward(self, sources: Sequence[torch.Tensor],
                 memory_lengths: Sequence[torch.Tensor],
                 speaker_embed: Optional[torch.Tensor] = None,
-                teacher_alignments: Optional[Sequence[torch.Tensor]] = None
+                teacher_alignments: Optional[Sequence[torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> DecoderOutput:
         """INFERENCE; ``speaker_embed`` (B, E) conditions the speaker
         prenet (``speaker_dim``); ``teacher_alignments`` (per source (B,
-        T_steps, T_mem)) are replayed in place of the mechanisms."""
+        T_steps, T_mem)) are replayed in place of the mechanisms;
+        ``generator`` draws the prenet dropout of
+        ``apply_dropout_on_inference``, which takes neither the fused nor
+        the early-exit loop (the JAX package's gates): the scan path's
+        post-hoc lengths serve."""
         assert len(sources) == self.num_sources
         B = sources[0].shape[0]
         packs = self._packs(sources, memory_lengths, teacher_alignments)
@@ -238,31 +301,34 @@ class TacotronDecoder(nn.Module):
         log_path_once("decoder", hop_path(
             self.use_pallas, "incremental_attention_step")
             if self.transformers else "none (no hops)")
-        if self.early_stop:
+        if self.early_stop and not self.apply_dropout_on_inference:
             return self._decode_path_while(packs, B, self.max_iters,
                                            speaker_embed)
         return self._decode_path(packs, B, self.max_iters,
-                                 speaker_embed=speaker_embed)
+                                 speaker_embed=speaker_embed,
+                                 generator=generator)
 
     def validation_forward(self, sources: Sequence[torch.Tensor],
                            memory_lengths: Sequence[torch.Tensor],
                            target: torch.Tensor, teacher_forcing: bool,
                            speaker_embed: Optional[torch.Tensor] = None,
                            teacher_alignments: Optional[
-                               Sequence[torch.Tensor]] = None
+                               Sequence[torch.Tensor]] = None,
+                           generator: Optional[torch.Generator] = None
                            ) -> DecoderOutput:
         """VALIDATION: the decode loop over the target's T // r steps,
         teacher-forced or free-running; with ``teacher_alignments`` (per
         source (B, T_steps, T_mem)) step t attends with row
         min(t, T_steps - 1) of them, whatever the mechanism (the
-        forced-alignment mode's second pass)."""
+        forced-alignment mode's second pass).  ``target`` is (mgc, lf0)
+        for the MGC/LF0 decoder; ``generator`` as in ``forward``."""
         B = sources[0].shape[0]
-        num_steps = target.shape[1] // self.outputs_per_step
+        num_steps = _first(target).shape[1] // self.outputs_per_step
         packs = self._packs(sources, memory_lengths, teacher_alignments)
         teacher = (self._teacher_inputs(target, num_steps) if teacher_forcing
                    else None)
         return self._decode_path(packs, B, num_steps, DecoderMode.VALIDATION,
-                                 teacher, speaker_embed)
+                                 teacher, speaker_embed, generator)
 
     # ----------------------------------------------------------- step pieces
     def _packs(self, sources, memory_lengths, teacher_alignments=None):
@@ -290,15 +356,25 @@ class TacotronDecoder(nn.Module):
                              for mech, p in zip(self.attention_mechanisms,
                                                 packs)),
             prev_context=torch.zeros(B, ctx_dim, device=device),
-            next_input=torch.zeros(B, self.num_mels * self.n_feed_frame,
-                                   device=device),
+            next_input=self._go_frame(B, device),
             caches=tuple(hop.init_cache(B, num_steps, device)
                          for hop in self.transformers))
+
+    def _go_frame(self, B, device):
+        go = tuple(torch.zeros(B, C * self.n_feed_frame, device=device)
+                   for C in self._frame_dims())
+        return go if self.output_kind == "mgclf0" else go[0]
 
     def _rnn_step(self, carry, x, packs, training: bool = False,
                   generator=None):
         """The recurrent trunk of one step -> (carry, (o2, aligns))."""
-        x = self.prenets(x, training, generator, carry["speaker_embed"])
+        spk = carry["speaker_embed"]
+        if self.output_kind == "mgclf0":
+            x = torch.cat([self.mgc_prenets(x[0], training, generator, spk),
+                           self.lf0_prenets(x[1], training, generator, spk)],
+                          -1)
+        else:
+            x = self.prenets(x, training, generator, spk)
         att_state, h = self.attention_lstm(
             carry["att_lstm"], torch.cat([x, carry["prev_context"]], -1),
             training, generator)
@@ -327,36 +403,42 @@ class TacotronDecoder(nn.Module):
         return new_carry, (o1 + l2, aligns)
 
     def _step(self, carry, t, packs, mode=DecoderMode.INFERENCE,
-              teacher_x_t=None):
-        """One decode step -> (carry, (out_t, stop_t, aligns, sa_rows))."""
-        carry, (y, aligns) = self._rnn_step(carry, carry["next_input"], packs)
+              teacher_x_t=None, generator=None):
+        """One decode step -> (carry, (outs_t, stop_t, aligns, sa_rows)),
+        ``outs_t`` a tuple of one (B, C * r) row per stream."""
+        carry, (y, aligns) = self._rnn_step(carry, carry["next_input"], packs,
+                                            generator=generator)
         caches, sa_rows = [], []
         for hop, cache in zip(self.transformers, carry["caches"]):
             y, cache, row = hop.step(y, t, cache)
             caches.append(cache)
             sa_rows.append(row)
-        out_t = self.out_projection(y)
-        stop_t = self.stop_token_projection(y)
+        outs_t, stop_t = self._heads(y)
         new_carry = dict(carry, next_input=self._next_input_from_output(
-            out_t, mode, teacher_x_t), caches=tuple(caches))
-        return new_carry, (out_t, stop_t, aligns, sa_rows)
+            outs_t, mode, teacher_x_t), caches=tuple(caches))
+        return new_carry, (outs_t, stop_t, aligns, sa_rows)
 
-    def _next_input_from_output(self, out_t, mode, teacher_x_t):
+    def _next_input_from_output(self, outs_t, mode, teacher_x_t):
         """What the next step is fed: the teacher frame(s) when
         teacher-forced (``teacher_x_t`` given), else the last n_feed_frame
-        frames of this step's output — softmax probabilities in VALIDATION
-        with ``feedback_softmax``, the raw frames otherwise."""
+        frames of each stream's output — softmax probabilities for the lf0
+        stream always and, with ``feedback_softmax``, for the one stream in
+        VALIDATION; the raw frames otherwise."""
         if teacher_x_t is not None:
             return teacher_x_t
-        C, n = self.num_mels, self.n_feed_frame
-        if mode == DecoderMode.VALIDATION and self.feedback_softmax:
-            probs = torch.softmax(out_t.reshape(out_t.shape[0], -1, C), -1)
-            return probs[:, -n:].reshape(out_t.shape[0], C * n)
-        return out_t[:, -C * n:]
+        n, feeds = self.n_feed_frame, []
+        for idx, (o, C) in enumerate(zip(outs_t, self._frame_dims())):
+            if (idx == 1 or (mode == DecoderMode.VALIDATION
+                             and self.feedback_softmax)):
+                probs = torch.softmax(o.reshape(o.shape[0], -1, C), -1)
+                feeds.append(probs[:, -n:].reshape(o.shape[0], C * n))
+            else:
+                feeds.append(o[:, -C * n:])
+        return tuple(feeds) if self.output_kind == "mgclf0" else feeds[0]
 
     # -------------------------------------------------------- decode paths
     def _decode_path(self, packs, B, num_steps, mode=DecoderMode.INFERENCE,
-                     teacher=None, speaker_embed=None):
+                     teacher=None, speaker_embed=None, generator=None):
         """All ``num_steps`` steps.  INFERENCE: lengths from the first step
         at which every row's stop token has fired (dynamic_decode
         semantics), outputs masked past them.  VALIDATION: lengths are
@@ -368,14 +450,15 @@ class TacotronDecoder(nn.Module):
         if teacher is not None:
             # next_inputs(time=t) feeds target step t itself: the shifted
             # teacher sequence advanced by one, feed[t] = shifted[t + 1]
-            teacher = torch.cat([teacher[:, 1:],
-                                 torch.zeros_like(teacher[:, :1])], 1)
+            teacher = _map(lambda x: torch.cat(
+                [x[:, 1:], torch.zeros_like(x[:, :1])], 1), teacher)
         finished = torch.zeros(B, dtype=torch.bool, device=device)
         outs, stops, aligns, sa_rows, row_fin = [], [], [], [], []
         for t in range(num_steps):
             carry, (out_t, stop_t, al, sa) = self._step(
                 carry, t, packs, mode,
-                None if teacher is None else teacher[:, t])
+                None if teacher is None else _map(lambda x: x[:, t], teacher),
+                generator)
             finished = finished | ((torch.sigmoid(stop_t[:, 0]) > 0.5)
                                    & (t > self.min_iters))
             outs.append(out_t)
@@ -388,7 +471,8 @@ class TacotronDecoder(nn.Module):
                    torch.full((B,), num_steps, dtype=torch.long,
                               device=device))
         return self._package(
-            torch.stack(outs, 1), torch.stack(stops, 1),
+            tuple(torch.stack([o[i] for o in outs], 1)
+                  for i in range(len(outs[0]))), torch.stack(stops, 1),
             tuple(torch.stack([a[i] for a in aligns], 1)
                   for i in range(self.num_sources)),
             self._sa_aligns(sa_rows, B, num_steps, device), lengths,
@@ -400,10 +484,11 @@ class TacotronDecoder(nn.Module):
         device = packs[0].keys.device
         carry = self._initial_carry(B, packs, device, num_steps,
                                     speaker_embed)
-        C, r = self.num_mels, self.outputs_per_step
+        r = self.outputs_per_step
         finished = torch.zeros(B, dtype=torch.bool, device=device)
         lengths = torch.zeros(B, dtype=torch.int64, device=device)
-        buf_out = torch.zeros(B, num_steps, C * r, device=device)
+        buf_out = tuple(torch.zeros(B, num_steps, C * r, device=device)
+                        for C in self._frame_dims())
         buf_stop = torch.zeros(B, num_steps, 1, device=device)
         buf_al = [torch.zeros(B, num_steps, p.values.shape[1], device=device)
                   for p in packs]
@@ -415,7 +500,8 @@ class TacotronDecoder(nn.Module):
             lengths = lengths + (~finished).long()
             finished = finished | ((torch.sigmoid(stop_t[:, 0]) > 0.5)
                                    & (t > self.min_iters))
-            buf_out[:, t] = out_t
+            for buf, o in zip(buf_out, out_t):
+                buf[:, t] = o
             buf_stop[:, t] = stop_t
             for i, a in enumerate(al):
                 buf_al[i][:, t] = a
@@ -446,9 +532,10 @@ class TacotronDecoder(nn.Module):
         """Teacher-forced training over the target's T // r steps: the
         trunk, then the causal hops over the whole sequence and the heads
         (the JAX package's ``_train_transformer_path``; without hops, its
-        step loop with ``teacher_forcing``)."""
+        step loop with ``teacher_forcing``); ``target`` is (mgc, lf0) for
+        the MGC/LF0 decoder."""
         B = sources[0].shape[0]
-        num_steps = target.shape[1] // self.outputs_per_step
+        num_steps = _first(target).shape[1] // self.outputs_per_step
         packs = self._packs(sources, memory_lengths)
         teacher = self._teacher_inputs(target, num_steps)
         reason = None
@@ -469,8 +556,7 @@ class TacotronDecoder(nn.Module):
         for hop in self.transformers:
             y, heads = hop(y, True, generator)
             sa_aligns.extend(heads)
-        outs = self.out_projection(y)
-        stop = self.stop_token_projection(y)
+        outs, stop = self._heads(y)
         lengths = torch.full((B,), num_steps, dtype=torch.long,
                              device=y.device)
         return self._package(outs, stop, aligns, sa_aligns, lengths,
@@ -478,23 +564,28 @@ class TacotronDecoder(nn.Module):
 
     def _teacher_inputs(self, target, num_steps):
         """[GO, tgt_0, ..., tgt_{S-2}] per reduced step, keeping the last
-        n_feed_frame frames of each step."""
-        B, C = target.shape[0], self.num_mels
-        reduced = target.reshape(B, num_steps, C * self.outputs_per_step)
-        feed = reduced[:, :-1, -C * self.n_feed_frame:]
-        go = torch.zeros(B, 1, C * self.n_feed_frame, dtype=target.dtype,
-                         device=target.device)
-        return torch.cat([go, feed], 1)
+        n_feed_frame frames of each step (of each stream)."""
+        targets = target if self.output_kind == "mgclf0" else (target,)
+        xs = []
+        for tgt, C in zip(targets, self._frame_dims()):
+            B = tgt.shape[0]
+            reduced = tgt.reshape(B, num_steps, C * self.outputs_per_step)
+            feed = reduced[:, :-1, -C * self.n_feed_frame:]
+            go = torch.zeros(B, 1, C * self.n_feed_frame, dtype=tgt.dtype,
+                             device=tgt.device)
+            xs.append(torch.cat([go, feed], 1))
+        return tuple(xs) if self.output_kind == "mgclf0" else xs[0]
 
     def _train_trunk_plain(self, packs, teacher, generator,
                            speaker_embed=None):
-        B = teacher.shape[0]
-        carry = self._initial_carry(B, packs, teacher.device,
-                                    teacher.shape[1], speaker_embed)
+        B, S = _first(teacher).shape[:2]
+        carry = self._initial_carry(B, packs, _first(teacher).device, S,
+                                    speaker_embed)
         ys, aligns = [], []
-        for t in range(teacher.shape[1]):
-            carry, (y, al) = self._rnn_step(carry, teacher[:, t], packs,
-                                            True, generator)
+        for t in range(S):
+            carry, (y, al) = self._rnn_step(
+                carry, _map(lambda x: x[:, t], teacher), packs, True,
+                generator)
             ys.append(y)
             aligns.append(al)
         return torch.stack(ys, 1), tuple(
@@ -506,6 +597,8 @@ class TacotronDecoder(nn.Module):
         """Configuration gate of the training kernels (the JAX package's
         ``_fused_train_supported`` without its TPU reasons);
         ``fused_train_dtype`` bfloat16 is their bf16 storage mode."""
+        if self.output_kind != "single":
+            return f"output_kind={self.output_kind!r} is not fused"
         if len({int(p.values.shape[1]) for p in packs}) != 1:
             return "sources with different memory lengths"
         reason = self._fused_attention_unsupported_reason()
@@ -526,6 +619,10 @@ class TacotronDecoder(nn.Module):
         for m in self.attention_mechanisms:
             if isinstance(m, TeacherForcingAttention):
                 return "unsupported attention mechanism: " + type(m).__name__
+            if getattr(m, "smoothing", False):
+                return "sigmoid-smoothing attention is not fused"
+            if getattr(m, "use_transition_agent", False):
+                return "the forward-attention transition agent is not fused"
         loc_kernels = {m.attention_kernel for m in self.attention_mechanisms
                        if not isinstance(m, AdditiveAttention)}
         if len(loc_kernels) > 1:
@@ -616,19 +713,21 @@ class TacotronDecoder(nn.Module):
         reason``): the output and KV-cache buffer limit and the mechanism
         checks; then ``_fused_kernel_unsupported_reason`` (the kernel's
         shared-memory plan, which bounds the batch).  Every batch, source
-        kind and memory length is fused otherwise.  The JAX gate's other
-        reasons (MGC/LF0 outputs, inference dropout, smoothing, the
-        transition agent) are configurations the port's model refuses
-        before it gets here; a forced-alignment replay is refused here, as
-        in the JAX package.  ``fused_dtype`` bfloat16 is
-        the kernel's bf16 storage mode (``merge_weights``'s
-        ``compute_dtype``)."""
+        kind and memory length is fused otherwise.  As in the JAX package
+        the MGC/LF0 outputs, inference dropout, a forced-alignment replay,
+        sigmoid smoothing and the transition agent are refused here.
+        ``fused_dtype`` bfloat16 is the kernel's bf16 storage mode
+        (``merge_weights``'s ``compute_dtype``)."""
         buf_bytes = B * self.max_iters * 4 * (
             self.num_mels * self.outputs_per_step + 1
             + 2 * len(self.transformers) * self.self_attention_out_units)
         if buf_bytes > (64 << 20):
             return (f"output/KV buffers need {buf_bytes >> 20} MiB "
                     "(> 64 MiB gate)")
+        if self.output_kind != "single":
+            return f"output_kind={self.output_kind!r} (mgclf0 not fused)"
+        if self.apply_dropout_on_inference:
+            return "inference-time prenet dropout is not fused"
         if self.fused_dtype not in ("float32", "bfloat16"):
             return f"fused_dtype={self.fused_dtype!r} is not a storage dtype"
         if teacher_alignments is not None:
@@ -721,24 +820,27 @@ class TacotronDecoder(nn.Module):
         sa_aligns = [torch.zeros(B, S, S, device=device)
                      for _ in range(self.self_attention_num_hop
                                     * self.self_attention_num_heads)]
-        return self._package(out, stop[..., None], aligns, sa_aligns,
+        return self._package((out,), stop[..., None], aligns, sa_aligns,
                              lengths, S, mask_by_lengths=True)
 
     # ------------------------------------------------------------ packaging
     def _package(self, outs, stop, aligns, sa_aligns, lengths, num_steps,
                  mask_by_lengths: bool = False) -> DecoderOutput:
-        r, C = self.outputs_per_step, self.num_mels
-        B = outs.shape[0]
+        """``outs``: one (B, S, C * r) tensor per stream."""
+        r, dims = self.outputs_per_step, self._frame_dims()
+        B = outs[0].shape[0]
         lengths = lengths.long()
         if mask_by_lengths:
-            valid = (torch.arange(num_steps, device=outs.device)[None, :]
+            valid = (torch.arange(num_steps, device=stop.device)[None, :]
                      < lengths[:, None]).float()
-            outs = outs * valid[..., None]
+            outs = tuple(o * valid[..., None] for o in outs)
             stop = stop * valid[..., None]
-        samples = outs.reshape(B, num_steps, r, C).argmax(-1).int()
+        samples = outs[0].reshape(B, num_steps, r, dims[0]).argmax(-1).int()
         return DecoderOutput(
-            outputs=outs.reshape(B, num_steps * r, C), stop_token=stop,
-            predicted_samples=samples,
+            outputs=outs[0].reshape(B, num_steps * r, dims[0]),
+            stop_token=stop, predicted_samples=samples,
             alignments=tuple(a.transpose(1, 2) for a in aligns),
             self_attention_alignments=[a.transpose(1, 2) for a in sa_aligns],
-            lengths=lengths)
+            lengths=lengths,
+            outputs2=(outs[1].reshape(B, num_steps * r, dims[1])
+                      if len(outs) > 1 else None))

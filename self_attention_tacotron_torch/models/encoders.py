@@ -1,4 +1,4 @@
-"""The self-attention CBHG encoder.
+"""The encoders.
 
 Counterpart of the JAX package's ``models/encoders.py``:
 * ``_CBHGTrunk`` — conv bank K=1..16 -> max pool -> two projection convs ->
@@ -19,7 +19,17 @@ Counterpart of the JAX package's ``models/encoders.py``:
   always takes the module path.  ``use_pallas`` (the Pallas attention mode)
   reaches each hop's ``MultiHeadAttention``; the batch-1 fused encoder keeps
   its precedence over it.  An inference call logs once which path serves
-  its self-attention (``log_path_once``; the decoder does the same).
+  its self-attention (``log_path_once``; the decoder does the same);
+* ``EncoderV1WithAccentType`` — the phone prenet stack (``prenets``) and
+  the accent-type prenet stack (``accent_type_prenets``) over the accent
+  embedding, concatenated, then ZoneoutCBHG (``use_zoneout``) or CBHG;
+* ``SelfAttentionCBHGEncoderWithAccentType`` — the same two stacks, then
+  ZoneoutCBHG, the projection and the self-attention hops of
+  ``SelfAttentionCBHGEncoder``.  As in the JAX package it has no fused
+  encoder path; in the Pallas attention mode its hops run
+  ``fused_self_attention``;
+* ``EncoderV2`` — Tacotron 2's: N x (conv k -> batch norm -> ReLU ->
+  dropout), then a zoneout bi-LSTM of ``out_units // 2`` a direction.
 
 Submodule names follow the flax tree so ``utils/convert.py`` maps
 parameters one to one.
@@ -28,13 +38,13 @@ parameters one to one.
 from __future__ import annotations
 
 import logging
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..ops import fused_encoder as fe
-from ..ops.attention_core import SelfAttention
+from ..ops.attention_core import SelfAttention, dropout
 from ..ops.conv import BN_EPSILON, Conv1dBN, ConvBank, HighwayNet
 from ..ops.rnn import BiGRU, BiZoneoutLSTM, fold_forget_bias
 from .prenet import PreNetStack
@@ -170,6 +180,69 @@ class ZoneoutEncoderV1(nn.Module):
                          input_lengths, is_training, generator)
 
 
+class EncoderV1WithAccentType(nn.Module):
+    """Phone and accent-type prenet stacks, concatenated -> ZoneoutCBHG
+    (``use_zoneout``) or CBHG; returns the recurrence's output."""
+
+    def __init__(self, in_channels: int, accent_channels: int,
+                 cbhg_out_units: int = 256, conv_channels: int = 128,
+                 max_filter_width: int = 16,
+                 projection1_out_channels: int = 128,
+                 projection2_out_channels: int = 128, num_highway: int = 4,
+                 prenet_out_units: Sequence[int] = (224, 112),
+                 accent_type_prenet_out_units: Sequence[int] = (32, 16),
+                 drop_rate: float = 0.5, use_zoneout: bool = False,
+                 zoneout_factor_cell: float = 0.0,
+                 zoneout_factor_output: float = 0.0):
+        super().__init__()
+        self.prenets = PreNetStack(in_channels, prenet_out_units, drop_rate)
+        self.accent_type_prenets = PreNetStack(
+            accent_channels, accent_type_prenet_out_units, drop_rate)
+        trunk = (prenet_out_units[-1] + accent_type_prenet_out_units[-1],
+                 cbhg_out_units, conv_channels, max_filter_width,
+                 projection1_out_channels, projection2_out_channels,
+                 num_highway)
+        self.cbhg = (ZoneoutCBHG(*trunk, zoneout_factor_cell,
+                                 zoneout_factor_output)
+                     if use_zoneout else CBHG(*trunk))
+
+    def forward(self, inputs, accent, input_lengths=None,
+                is_training: bool = False, generator=None):
+        h = torch.cat([self.prenets(inputs, is_training, generator),
+                       self.accent_type_prenets(accent, is_training,
+                                                generator)], -1)
+        return self.cbhg(h, input_lengths, is_training, generator)
+
+
+class EncoderV2(nn.Module):
+    """N x (conv ``kernel_size`` -> batch norm -> ReLU -> dropout) -> a
+    zoneout bi-LSTM of ``out_units // 2`` units a direction."""
+
+    def __init__(self, in_channels: int, num_conv_layers: int = 3,
+                 kernel_size: int = 5, out_units: int = 512,
+                 drop_rate: float = 0.5, zoneout_factor_cell: float = 0.0,
+                 zoneout_factor_output: float = 0.0):
+        super().__init__()
+        self.num_conv_layers = num_conv_layers
+        self.drop_rate = drop_rate
+        for i in range(num_conv_layers):
+            self.add_module(f"conv_{i}", Conv1dBN(
+                in_channels if i == 0 else out_units, kernel_size,
+                out_units, torch.relu))
+        self.bilstm = BiZoneoutLSTM(
+            in_channels if num_conv_layers == 0 else out_units,
+            out_units // 2, zoneout_factor_cell, zoneout_factor_output)
+
+    def forward(self, inputs, input_lengths=None, is_training: bool = False,
+                generator=None):
+        h = inputs
+        for i in range(self.num_conv_layers):
+            h = getattr(self, f"conv_{i}")(h, is_training)
+            if is_training:
+                h = dropout(h, self.drop_rate, generator)
+        return self.bilstm(h, input_lengths, is_training, generator)
+
+
 class SelfAttentionTransformer(nn.Module):
     """One hop: x + tanh(transform(MHA(x))); ``step`` is its KV-cache form."""
 
@@ -212,7 +285,8 @@ class SelfAttentionCBHGEncoder(nn.Module):
                  zoneout_factor_output: float = 0.0,
                  fused_inference: bool = False, drop_rate: float = 0.5,
                  self_attention_drop_rate: float = 0.0,
-                 use_pallas: bool = False):
+                 use_pallas: bool = False,
+                 cbhg_in_channels: Optional[int] = None):
         super().__init__()
         self.cbhg_out_units = cbhg_out_units
         self.conv_channels = conv_channels
@@ -226,8 +300,9 @@ class SelfAttentionCBHGEncoder(nn.Module):
         self.fused_inference = fused_inference
         self.use_pallas = use_pallas
         self.prenets = PreNetStack(in_channels, prenet_out_units, drop_rate)
-        self.cbhg = ZoneoutCBHG(prenet_out_units[-1], cbhg_out_units,
-                                conv_channels, max_filter_width,
+        self.cbhg = ZoneoutCBHG(cbhg_in_channels or prenet_out_units[-1],
+                                cbhg_out_units, conv_channels,
+                                max_filter_width,
                                 projection1_out_channels,
                                 projection2_out_channels, num_highway,
                                 zoneout_factor_cell, zoneout_factor_output)
@@ -251,13 +326,18 @@ class SelfAttentionCBHGEncoder(nn.Module):
         lstm_output = self.cbhg(
             self.prenets(inputs, is_training, generator), input_lengths,
             is_training, generator)
+        return (lstm_output,
+                *self._hops(lstm_output, is_training, generator))
+
+    def _hops(self, lstm_output, is_training: bool, generator):
+        """The projection and the hops -> (output, alignments)."""
         sa = self.self_attention_projection_layer(lstm_output)
         alignments: List[torch.Tensor] = []
         for i in range(self.self_attention_num_hop):
             sa, heads = getattr(self, f"self_attention_{i}")(
                 sa, is_training, generator)
             alignments.extend(heads)
-        return lstm_output, sa, alignments
+        return sa, alignments
 
     # ------------------------------------------------------ kernel weights
     def fused_params(self) -> fe.FusedEncoderParams:
@@ -356,3 +436,33 @@ class SelfAttentionCBHGEncoder(nn.Module):
                   for _ in range(self.self_attention_num_hop
                                  * self.self_attention_num_heads)]
         return lstm_out, sa, aligns
+
+
+class SelfAttentionCBHGEncoderWithAccentType(SelfAttentionCBHGEncoder):
+    """``SelfAttentionCBHGEncoder`` whose CBHG reads the phone prenet stack
+    and the accent-type prenet stack, concatenated; no fused encoder path.
+    Returns (lstm_out, self_attention_out, alignments)."""
+
+    def __init__(self, in_channels: int, accent_channels: int,
+                 prenet_out_units: Sequence[int] = (224, 112),
+                 accent_type_prenet_out_units: Sequence[int] = (32, 16),
+                 drop_rate: float = 0.5, **kwargs):
+        super().__init__(
+            in_channels, prenet_out_units=prenet_out_units,
+            drop_rate=drop_rate, fused_inference=False,
+            cbhg_in_channels=(prenet_out_units[-1]
+                              + accent_type_prenet_out_units[-1]), **kwargs)
+        self.accent_type_prenets = PreNetStack(
+            accent_channels, accent_type_prenet_out_units, drop_rate)
+
+    def forward(self, inputs, accent, input_lengths=None,
+                is_training: bool = False, generator=None):
+        if not is_training:
+            log_path_once("encoder", hop_path(self.use_pallas,
+                                              "fused_self_attention"))
+        h = torch.cat([self.prenets(inputs, is_training, generator),
+                       self.accent_type_prenets(accent, is_training,
+                                                generator)], -1)
+        lstm_output = self.cbhg(h, input_lengths, is_training, generator)
+        return (lstm_output,
+                *self._hops(lstm_output, is_training, generator))

@@ -1,4 +1,4 @@
-"""The Tacotron-2 conv-stack postnet.
+"""The postnets: Tacotron 2's conv stack and the original post-CBHG.
 
 Counterpart of the JAX package's ``models/postnet.py`` ``PostNetV2``
 (selected by ``use_postnet_v2``): N - 1 x (conv -> batch norm -> tanh ->
@@ -9,9 +9,11 @@ speaker embedding (``speaker_embedd_to_postnet``) its projection to
 input, as the JAX package's ``PostNetV2`` does (its
 ``MultiSpeakerPostNet`` is the same class).
 Dropout is flax's, drawn from the caller's ``torch.Generator`` in
-training.  ``PostNetCBHG`` comes with a later slice.  Submodule names
-follow the flax tree (``conv_<i>``, ``projection``,
-``speaker_projection``).
+training.  ``PostNetCBHG`` is the original Tacotron's: mel frames -> CBHG
+(the bi-GRU one) -> a dense to ``num_freq`` linear-spectrogram bins (the
+``post_net_*`` hparams); like the JAX package's, no model builds it.
+Submodule names follow the flax tree (``conv_<i>``, ``projection``,
+``speaker_projection``; ``cbhg``, ``linear_projection``).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from torch import nn
 
 from ..ops.attention_core import dropout
 from ..ops.conv import Conv1dBN
+from .encoders import CBHG
 
 
 class PostNetV2(nn.Module):
@@ -56,3 +59,23 @@ class PostNetV2(nn.Module):
             if is_training:
                 h = dropout(h, self.drop_rate, generator)
         return self.projection(h)
+
+
+class PostNetCBHG(nn.Module):
+    """(B, T, in_channels) mel frames -> CBHG -> (B, T, out_dim)."""
+
+    def __init__(self, in_channels: int, out_dim: int,
+                 cbhg_out_units: int = 256, conv_channels: int = 128,
+                 max_filter_width: int = 8,
+                 projection1_out_channels: int = 256,
+                 projection2_out_channels: int = 80, num_highway: int = 4):
+        super().__init__()
+        self.cbhg = CBHG(in_channels, cbhg_out_units, conv_channels,
+                         max_filter_width, projection1_out_channels,
+                         projection2_out_channels, num_highway)
+        self.linear_projection = nn.Linear(cbhg_out_units // 2 * 2, out_dim)
+
+    def forward(self, xs: torch.Tensor, input_lengths=None,
+                is_training: bool = False) -> torch.Tensor:
+        return self.linear_projection(self.cbhg(xs, input_lengths,
+                                                is_training))

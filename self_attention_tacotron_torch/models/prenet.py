@@ -4,9 +4,10 @@ Counterpart of the JAX package's ``models/prenet.py``: ``PreNet``,
 ``MultiSpeakerPreNet`` (dense0 -> ReLU -> + softsign(speaker projection)
 -> dense -> ReLU -> dropout; no dropout after dense0) and ``PreNetStack``,
 whose first layer is a ``MultiSpeakerPreNet`` with ``use_speaker_embed``.
-Inference-time dropout is not ported.  Dropout is flax's
-(``ops/attention_core.py`` ``dropout``), drawn from an explicit
-``torch.Generator``.
+With ``apply_dropout_on_inference`` a ``PreNet`` drops out outside
+training too (VALIDATION and INFERENCE); a ``MultiSpeakerPreNet`` never
+does, as in the JAX package.  Dropout is flax's (``ops/attention_core.py``
+``dropout``), drawn from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -20,15 +21,19 @@ from ..ops.attention_core import dropout
 
 
 class PreNet(nn.Module):
-    def __init__(self, in_units: int, out_units: int, drop_rate: float = 0.5):
+    def __init__(self, in_units: int, out_units: int, drop_rate: float = 0.5,
+                 apply_dropout_on_inference: bool = False):
         super().__init__()
         self.drop_rate = drop_rate
+        self.apply_dropout_on_inference = apply_dropout_on_inference
         self.dense = nn.Linear(in_units, out_units)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = torch.relu(self.dense(x))
-        return dropout(h, self.drop_rate, generator) if training else h
+        if training or self.apply_dropout_on_inference:
+            return dropout(h, self.drop_rate, generator)
+        return h
 
 
 class MultiSpeakerPreNet(nn.Module):
@@ -55,7 +60,8 @@ class MultiSpeakerPreNet(nn.Module):
 
 class PreNetStack(nn.Module):
     def __init__(self, in_units: int, out_units: Sequence[int],
-                 drop_rate: float = 0.5, speaker_dim: Optional[int] = None):
+                 drop_rate: float = 0.5, speaker_dim: Optional[int] = None,
+                 apply_dropout_on_inference: bool = False):
         super().__init__()
         self.num_layers = len(out_units)
         self.drop_rate = drop_rate
@@ -64,7 +70,8 @@ class PreNetStack(nn.Module):
             layer = (MultiSpeakerPreNet(in_units, units, speaker_dim,
                                         drop_rate)
                      if i == 0 and self.use_speaker_embed
-                     else PreNet(in_units, units, drop_rate))
+                     else PreNet(in_units, units, drop_rate,
+                                 apply_dropout_on_inference))
             self.add_module(f"prenet_{i}", layer)
             in_units = units
 

@@ -1,7 +1,7 @@
 """Model assembly: embedding -> encoder -> decoder (+ postnet), and the loss.
 
 Counterpart of the JAX package's ``models/tacotron.py`` ``TacotronModel``
-for two of its kinds:
+for its three kinds:
 
 * the VQ-code kind (``DualSourceSelfAttentionTacotronModel``): with
   ``SelfAttentionCBHGEncoder`` the two encoder outputs (bi-LSTM and
@@ -11,7 +11,25 @@ for two of its kinds:
 * the mel kind (``ExtendedTacotronV1Model``, the LJSpeech recipe): with
   ``ZoneoutEncoderV1`` and ``ExtendedDecoder`` the bi-LSTM output is the
   one source; the decoder emits mel frames, fed back raw, and
-  ``use_postnet_v2`` adds ``PostNetV2``'s residual (``postnet_outputs``).
+  ``use_postnet_v2`` adds ``PostNetV2``'s residual (``postnet_outputs``);
+* the MGC/LF0 kind (``DualSourceSelfAttentionMgcLf0TacotronModel``, the
+  paper's pitch-accent configuration, ``entry.PITCH_ACCENT``): an MGC/LF0
+  decoder (``MgcLf0Decoder``, ``MgcLf0DualSourceDecoder``,
+  ``DualSourceMgcLf0TransformerDecoder``) emits mgc frames (``outputs``)
+  and lf0 class logits (``outputs2``); the batch's ``target`` is the pair
+  (mgc frames, one-hot lf0 classes), as in the JAX package.
+
+Every encoder and decoder of the JAX package's factory is here:
+``SelfAttentionCBHGEncoder``, ``ZoneoutEncoderV1``, ``EncoderV2``,
+``EncoderV1WithAccentType`` and ``SelfAttentionCBHGEncoderWithAccentType``
+(whose self-attention output, like ``SelfAttentionCBHGEncoder``'s, feeds
+the dual-source decoders); the decoders of ``_DECODERS``.  With
+``use_accent_type`` an ``accent_embedding`` (shifted by
+``accent_type_offset``) looks up the batch's ``accent_type`` ids for the
+accent encoders.  ``apply_dropout_on_inference`` keeps the decoder's
+prenet dropout on in VALIDATION and INFERENCE, drawn from the caller's
+``generator``.  ``compute_dtype`` ``bfloat16`` (the JAX package's
+model-wide bf16) is refused; any other string runs f32, as there.
 
 ``forward`` is inference (no autograd); ``validation_forward`` the
 VALIDATION decode of the trainer's evaluation (no autograd, teacher-forced
@@ -34,13 +52,12 @@ from ``embedding_file``) looks up each row's ``speaker_id``, or
 then goes to the decoder's speaker prenet (``speaker_embedd_to_prenet``),
 is tiled over time onto both attention sources
 (``speaker_embedd_to_decoder``) and to the postnet
-(``speaker_embedd_to_postnet``), as in the JAX package.  The MGC/LF0 kind
-and accent types come with later slices.
+(``speaker_embedd_to_postnet``), as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -54,23 +71,37 @@ from ..utils.convert import flax_param_paths
 from .attention import AttentionOptions
 from .decoder import DecoderOutput, TacotronDecoder
 from .embedding import Embedding, ExternalEmbedding
-from .encoders import SelfAttentionCBHGEncoder, ZoneoutEncoderV1
+from .encoders import (EncoderV1WithAccentType, EncoderV2,
+                       SelfAttentionCBHGEncoder,
+                       SelfAttentionCBHGEncoderWithAccentType,
+                       ZoneoutEncoderV1)
 from .postnet import PostNetV2
+
+
+def _apply(fn, x):
+    if isinstance(x, tuple):
+        return tuple(_apply(fn, t) for t in x)
+    return None if x is None else fn(x)
 
 
 class Batch(NamedTuple):
     source: torch.Tensor         # (B, T_in) int
     source_length: torch.Tensor  # (B,)
-    target: Optional[torch.Tensor] = None            # (B, T, C)
+    target: Any = None           # (B, T, C), or (mgc, one-hot lf0) mgclf0
     target_length: Optional[torch.Tensor] = None
     done: Optional[torch.Tensor] = None              # (B, T // r)
     spec_loss_mask: Optional[torch.Tensor] = None    # (B, T)
     binary_loss_mask: Optional[torch.Tensor] = None  # (B, T // r)
     speaker_id: Optional[torch.Tensor] = None        # (B,)
+    accent_type: Optional[torch.Tensor] = None       # (B, T_in) int
+
+    def map(self, fn) -> "Batch":
+        """``fn`` over every tensor (both of an MGC/LF0 target pair); None
+        fields stay None."""
+        return Batch(*(_apply(fn, x) for x in self))
 
     def to(self, device) -> "Batch":
-        return Batch(*(None if x is None else torch.as_tensor(x).to(device)
-                       for x in self))
+        return self.map(lambda x: torch.as_tensor(x).to(device))
 
 
 class TacotronOutput(NamedTuple):
@@ -83,14 +114,27 @@ class TacotronOutput(NamedTuple):
     decoder_self_attention_alignments: List[torch.Tensor]
     lengths: torch.Tensor
     predicted_samples: torch.Tensor
+    outputs2: Optional[torch.Tensor] = None  # (B, T, num_lf0s) lf0 logits
 
 
 MODEL_KINDS = ("DualSourceSelfAttentionTacotronModel",
-               "ExtendedTacotronV1Model")
-# decoder name -> (number of sources, self-attention hops)
-_DECODERS = {"DualSourceTransformerDecoder": (2, True),
-             "DualSourceDecoder": (2, False),
-             "ExtendedDecoder": (1, False)}
+               "ExtendedTacotronV1Model",
+               "DualSourceSelfAttentionMgcLf0TacotronModel")
+# decoder name -> (number of sources, self-attention hops, output kind)
+_DECODERS = {"ExtendedDecoder": (1, False, "single"),
+             "TransformerDecoder": (1, True, "single"),
+             "DualSourceDecoder": (2, False, "single"),
+             "DualSourceTransformerDecoder": (2, True, "single"),
+             "MgcLf0Decoder": (1, False, "mgclf0"),
+             "MgcLf0DualSourceDecoder": (2, False, "mgclf0"),
+             "DualSourceMgcLf0TransformerDecoder": (2, True, "mgclf0")}
+_ACCENT_ENCODERS = ("EncoderV1WithAccentType",
+                    "SelfAttentionCBHGEncoderWithAccentType")
+# the encoders with a self-attention output (a second decoder source)
+_DUAL_ENCODERS = ("SelfAttentionCBHGEncoder",
+                  "SelfAttentionCBHGEncoderWithAccentType")
+ENCODERS = ("SelfAttentionCBHGEncoder", "ZoneoutEncoderV1", "EncoderV2",
+            *_ACCENT_ENCODERS)
 
 
 def attention_options_from_hparams(hp: HParams, dual: bool
@@ -102,7 +146,7 @@ def attention_options_from_hparams(hp: HParams, dual: bool
         return AttentionOptions(
             attention=attention, num_units=units,
             attention_kernel=hp.attention_kernel,
-            attention_filters=hp.attention_filters,
+            attention_filters=hp.attention_filters, smoothing=False,
             cumulative_weights=hp.cumulative_weights,
             use_transition_agent=hp.use_forward_attention_transition_agent)
     if dual:
@@ -115,29 +159,35 @@ class TacotronModel(nn.Module):
     def __init__(self, hp: HParams):
         super().__init__()
         if hp.tacotron_model not in MODEL_KINDS:
-            raise NotImplementedError(
-                f"{hp.tacotron_model} is not ported yet")
-        if hp.encoder not in ("SelfAttentionCBHGEncoder", "ZoneoutEncoderV1"):
-            raise NotImplementedError(f"encoder {hp.encoder} is not ported yet")
+            raise ValueError(f"Unknown Tacotron model: {hp.tacotron_model}")
+        if hp.encoder not in ENCODERS:
+            raise ValueError(f"Unknown encoder: {hp.encoder}")
         if hp.decoder not in _DECODERS:
-            raise NotImplementedError(f"decoder {hp.decoder} is not ported yet")
-        num_sources, use_transformer = _DECODERS[hp.decoder]
-        if num_sources == 2 and hp.encoder != "SelfAttentionCBHGEncoder":
+            raise ValueError(f"Unknown decoder: {hp.decoder}")
+        num_sources, use_transformer, output_kind = _DECODERS[hp.decoder]
+        if num_sources == 2 and hp.encoder not in _DUAL_ENCODERS:
             raise ValueError(f"{hp.decoder} attends to the self-attention "
                              f"output, which {hp.encoder} does not have")
-        if hp.use_accent_type:
-            raise NotImplementedError("accent types are not ported yet")
+        if bool(hp.use_accent_type) != (hp.encoder in _ACCENT_ENCODERS):
+            raise ValueError(f"use_accent_type={hp.use_accent_type} with "
+                             f"{hp.encoder}: the accent-type encoders take "
+                             "accent types and the others do not")
         if hp.use_speaker_embedding and hp.use_external_speaker_embedding:
             raise ValueError("use_speaker_embedding and "
                              "use_external_speaker_embedding exclude each "
                              "other")
-        if hp.apply_dropout_on_inference or hp.compute_dtype != "float32":
-            raise NotImplementedError("inference dropout and bfloat16 "
-                                      "compute are not ported yet")
+        if hp.compute_dtype == "bfloat16":
+            raise NotImplementedError(
+                "compute_dtype=bfloat16 (model-wide bf16) is not ported yet: "
+                "ROADMAP queue 1 item 1")
         self.hp = hp
         self.is_code_model = (
             hp.tacotron_model == "DualSourceSelfAttentionTacotronModel")
         self.embedding = Embedding(hp.num_symbols, hp.embedding_dim)
+        if hp.use_accent_type:
+            self.accent_embedding = Embedding(
+                hp.num_accent_type, hp.accent_type_embedding_dim,
+                index_offset=hp.accent_type_offset)
         speaker_dim = None
         if hp.use_speaker_embedding:
             self.speaker_embedding = Embedding(
@@ -167,25 +217,48 @@ class TacotronModel(nn.Module):
                       drop_rate=hp.encoder_prenet_drop_rate,
                       zoneout_factor_cell=hp.zoneout_factor_cell,
                       zoneout_factor_output=hp.zoneout_factor_output)
+        self_attention = dict(
+            self_attention_out_units=hp.self_attention_out_units,
+            self_attention_num_heads=hp.self_attention_num_heads,
+            self_attention_num_hop=hp.self_attention_num_hop,
+            self_attention_drop_rate=hp.self_attention_drop_rate,
+            use_pallas=hp.use_pallas_attention)
+        accent = dict(
+            accent_channels=hp.accent_type_embedding_dim,
+            prenet_out_units=hp.encoder_prenet_out_units_if_accent,
+            accent_type_prenet_out_units=hp.accent_type_prenet_out_units)
+        lstm_dim = hp.cbhg_out_units
         if hp.encoder == "ZoneoutEncoderV1":
             self.encoder = ZoneoutEncoderV1(
                 hp.embedding_dim, use_zoneout=hp.use_zoneout_at_encoder,
                 **common)
-        else:
+        elif hp.encoder == "SelfAttentionCBHGEncoder":
             self.encoder = SelfAttentionCBHGEncoder(
-                hp.embedding_dim,
-                self_attention_out_units=hp.self_attention_out_units,
-                self_attention_num_heads=hp.self_attention_num_heads,
-                self_attention_num_hop=hp.self_attention_num_hop,
-                fused_inference=hp.encoder_fused_inference,
-                self_attention_drop_rate=hp.self_attention_drop_rate,
-                use_pallas=hp.use_pallas_attention, **common)
+                hp.embedding_dim, fused_inference=hp.encoder_fused_inference,
+                **self_attention, **common)
+        elif hp.encoder == "EncoderV1WithAccentType":
+            del common["prenet_out_units"]
+            self.encoder = EncoderV1WithAccentType(
+                hp.embedding_dim, use_zoneout=hp.use_zoneout_at_encoder,
+                **accent, **common)
+        elif hp.encoder == "SelfAttentionCBHGEncoderWithAccentType":
+            del common["prenet_out_units"]
+            self.encoder = SelfAttentionCBHGEncoderWithAccentType(
+                hp.embedding_dim, **accent, **self_attention, **common)
+        else:
+            self.encoder = EncoderV2(
+                hp.embedding_dim, hp.encoder_v2_num_conv_layers,
+                hp.encoder_v2_kernel_size, hp.encoder_v2_out_units,
+                hp.encoder_v2_drop_rate, hp.zoneout_factor_cell,
+                hp.zoneout_factor_output)
+            lstm_dim = hp.encoder_v2_out_units // 2 * 2
         self.decoder = TacotronDecoder(
             attention_options_from_hparams(hp, dual=num_sources == 2),
             source_dims=tuple(d + to_decoder for d in (
-                hp.cbhg_out_units, hp.self_attention_out_units
-            )[:num_sources]),
-            use_transformer=use_transformer,
+                lstm_dim, hp.self_attention_out_units)[:num_sources]),
+            use_transformer=use_transformer, output_kind=output_kind,
+            num_mgcs=hp.num_mgcs, num_lf0s=hp.num_lf0s,
+            apply_dropout_on_inference=hp.apply_dropout_on_inference,
             prenet_out_units=hp.decoder_prenet_out_units,
             attention_rnn_out_units=hp.attention_out_units,
             decoder_version=hp.decoder_version,
@@ -218,6 +291,11 @@ class TacotronModel(nn.Module):
                              and hp.speaker_embedd_to_postnet else None))
 
     @property
+    def is_mgclf0(self) -> bool:
+        return self.hp.tacotron_model == \
+            "DualSourceSelfAttentionMgcLf0TacotronModel"
+
+    @property
     def has_speaker(self) -> bool:
         return bool(self.hp.use_speaker_embedding
                     or self.hp.use_external_speaker_embedding)
@@ -246,12 +324,19 @@ class TacotronModel(nn.Module):
         alignments, the speaker embedding or None)."""
         emb = self.embedding(batch.source)
         lengths = batch.source_length
-        if isinstance(self.encoder, ZoneoutEncoderV1):
-            lstm_out = self.encoder(emb, lengths, is_training, generator)
-            sa_out, enc_aligns = None, []
+        if self.hp.use_accent_type:
+            if batch.accent_type is None:
+                raise ValueError("use_accent_type: the batch needs "
+                                 "accent_type")
+            out = self.encoder(emb, self.accent_embedding(
+                batch.accent_type.to(emb.device)), lengths, is_training,
+                generator)
         else:
-            lstm_out, sa_out, enc_aligns = self.encoder(
-                emb, lengths, is_training, generator)
+            out = self.encoder(emb, lengths, is_training, generator)
+        if isinstance(out, tuple):
+            lstm_out, sa_out, enc_aligns = out
+        else:
+            lstm_out, sa_out, enc_aligns = out, None, []
         speaker = self._speaker(batch)
         n = self.decoder.num_sources
         sources = (lstm_out, sa_out)[:n]
@@ -281,36 +366,52 @@ class TacotronModel(nn.Module):
             encoder_self_attention_alignments=[a.transpose(1, 2)
                                                for a in enc_aligns],
             decoder_self_attention_alignments=dec.self_attention_alignments,
-            lengths=dec.lengths, predicted_samples=dec.predicted_samples)
+            lengths=dec.lengths, predicted_samples=dec.predicted_samples,
+            outputs2=dec.outputs2)
+
+    def _targets(self, batch: Batch):
+        """The decoder's target: (mgc, lf0) for the MGC/LF0 kind."""
+        if self.is_mgclf0:
+            return tuple(t.float() for t in batch.target)
+        return batch.target.float()
 
     @torch.no_grad()
-    def forward(self, batch: Batch) -> TacotronOutput:
+    def forward(self, batch: Batch,
+                generator: Optional[torch.Generator] = None
+                ) -> TacotronOutput:
+        """INFERENCE; ``generator`` draws the prenet dropout of
+        ``apply_dropout_on_inference``."""
         device = self.embedding.weight.device
         batch = Batch(batch.source.to(device), batch.source_length.to(device),
-                      speaker_id=(None if batch.speaker_id is None
-                                  else torch.as_tensor(batch.speaker_id)
-                                  .to(device)))
+                      **{k: None if v is None else torch.as_tensor(v).to(
+                          device) for k, v in (
+                              ("speaker_id", batch.speaker_id),
+                              ("accent_type", batch.accent_type))})
         sources, lengths, enc_aligns, speaker = self._encode(batch)
         return self._output(
-            self.decoder(sources, lengths, self._prenet_speaker(speaker)),
+            self.decoder(sources, lengths, self._prenet_speaker(speaker),
+                         generator=generator),
             enc_aligns, speaker=speaker)
 
     @torch.no_grad()
     def validation_forward(self, batch: Batch, teacher_forcing: bool,
-                           teacher_alignments=None) -> TacotronOutput:
+                           teacher_alignments=None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> TacotronOutput:
         """VALIDATION mode: the deterministic encoder (batch norm on its
         running statistics), then the decode loop over the target's
         T // r steps, fed the targets (``teacher_forcing``) or its own
         outputs (the JAX package's ``_forward`` in
         ``DecoderMode.VALIDATION``); ``teacher_alignments`` (per source
         (B, T_steps, T_mem)) are replayed in place of the attention
-        mechanisms (``parallel.make_predict_step``'s second pass)."""
+        mechanisms (``parallel.make_predict_step``'s second pass);
+        ``generator`` as in ``forward``."""
         batch = batch.to(self.embedding.weight.device)
         sources, lengths, enc_aligns, speaker = self._encode(batch)
         return self._output(self.decoder.validation_forward(
-            sources, lengths, batch.target.float(), teacher_forcing,
-            self._prenet_speaker(speaker), teacher_alignments), enc_aligns,
-            speaker=speaker)
+            sources, lengths, self._targets(batch), teacher_forcing,
+            self._prenet_speaker(speaker), teacher_alignments, generator),
+            enc_aligns, speaker=speaker)
 
     def pallas_training_refusal(self) -> Optional[PallasTrainingError]:
         """The error a TRAIN step with autograd must raise before it starts,
@@ -346,26 +447,37 @@ class TacotronModel(nn.Module):
             sources, lengths, enc_aligns, speaker = self._encode(
                 batch, True, generator)
             dec = self.decoder.train_forward(
-                sources, lengths, batch.target.float(), generator,
+                sources, lengths, self._targets(batch), generator,
                 self._prenet_speaker(speaker))
             return self._output(dec, enc_aligns, True, generator, speaker)
 
 
 def compute_loss(hp: HParams, out: TacotronOutput, batch: Batch,
                  model: Optional[nn.Module] = None) -> dict:
-    """The losses: code_loss = 0.1 * codes_loss (the codes model) or
+    """The losses: code_loss = 0.1 * codes_loss (the codes model);
     mel_loss = spec_loss and, with ``use_postnet_v2``, postnet_loss (the
-    mel model); done_loss; l2_regularization_loss (with
-    ``use_l2_regularization`` and a model, over the flax paths outside
-    ``DEFAULT_L2_BLACKLIST``); and their sum loss."""
+    mel model); mgc_loss = spec_loss(``code_loss_type``) and lf0_loss =
+    ``lf0_loss_factor`` * the lf0 classification loss (the MGC/LF0 model);
+    done_loss; l2_regularization_loss (with ``use_l2_regularization`` and a
+    model, over the flax paths outside ``DEFAULT_L2_BLACKLIST``); and their
+    sum loss."""
     device = out.outputs.device
     batch = batch.to(device)
-    target, mask = batch.target.float(), batch.spec_loss_mask.float()
-    if hp.tacotron_model == "DualSourceSelfAttentionTacotronModel":
+    mask = batch.spec_loss_mask.float()
+    if hp.tacotron_model == "DualSourceSelfAttentionMgcLf0TacotronModel":
+        mgc, lf0 = (t.float() for t in batch.target)
+        losses = {"mgc_loss": L.spec_loss(out.outputs, mgc, mask,
+                                          hp.code_loss_type),
+                  "lf0_loss": hp.lf0_loss_factor * L.classification_loss(
+                      out.outputs2, lf0, mask)}
+        main = losses["mgc_loss"] + losses["lf0_loss"]
+    elif hp.tacotron_model == "DualSourceSelfAttentionTacotronModel":
+        target = batch.target.float()
         losses = {"code_loss": 0.1 * L.codes_loss(
             out.outputs, target, mask, hp.code_loss_type)}
         main = losses["code_loss"]
     else:
+        target = batch.target.float()
         losses = {"mel_loss": L.spec_loss(out.outputs, target, mask,
                                           hp.spec_loss_type)}
         main = losses["mel_loss"]

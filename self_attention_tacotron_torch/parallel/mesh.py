@@ -49,8 +49,8 @@ def create_mesh(mesh_shape: Sequence[int] = (), group=None
 
 
 def shard_batch(batch, axis: Optional[DataAxis]):
-    """This rank's rows of a global ``models.Batch`` (every field's leading
-    axis; None fields pass through).  The batch must divide evenly."""
+    """This rank's rows of a global ``models.Batch`` (every tensor's leading
+    axis, ``Batch.map``).  The batch must divide evenly."""
     if axis is None or axis.size == 1:
         return batch
     B = batch.source.shape[0]
@@ -59,4 +59,4 @@ def shard_batch(batch, axis: Optional[DataAxis]):
                          f"{axis.size} ranks of the data axis")
     n = B // axis.size
     rows = slice(axis.rank * n, (axis.rank + 1) * n)
-    return type(batch)(*(None if x is None else x[rows] for x in batch))
+    return batch.map(lambda x: x[rows])

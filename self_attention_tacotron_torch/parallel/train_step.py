@@ -8,7 +8,8 @@ global-norm clipping at 1.0, then Adam (``adam_beta1``, ``adam_beta2``,
 ``decay_learning_rate``.  Dropout and zoneout of step n draw from a
 ``torch.Generator`` seeded with (``hp.seed``, n), so a resumed run draws
 what an unbroken one would have.  The metrics are ``loss``, the main loss
-(``code_loss``, or ``mel_loss`` and with a postnet ``postnet_loss``),
+(``code_loss``; ``mel_loss`` and with a postnet ``postnet_loss``; or
+``mgc_loss`` and ``lf0_loss``),
 ``done_loss``, ``l2_regularization_loss``, ``learning_rate`` and
 ``grad_norm`` (the norm before clipping), as tensors on the model's device;
 ``with_alignments`` also returns row 0's source alignments and outputs of
@@ -16,7 +17,11 @@ the TRAIN forward, detached, for the train-time plots.
 ``make_eval_step`` is the two-pass evaluation (a free-running and a
 teacher-forced VALIDATION decode); ``make_predict_step`` is serving, with
 ``use_forced_alignment_mode`` a second decode that replays the first's
-alignments.
+alignments.  With ``apply_dropout_on_inference`` both draw the prenet
+dropout from a generator seeded with ``hp.seed`` (``inference_generator``);
+the JAX package's ``make_eval_step`` and ``make_predict_step`` pass no
+dropout key there and fail with that hparam (a reference fault, not
+copied).
 
 Data parallelism (``make_train_step(hp, mesh=axis)``, ``axis`` from
 ``parallel.mesh.create_mesh``): each rank runs the step on its local rows
@@ -81,10 +86,27 @@ def step_generator(hp: HParams, step: int, device,
     return gen
 
 
+def inference_generator(hp: HParams, device) -> Optional[torch.Generator]:
+    """The generator of the prenet dropout in VALIDATION and INFERENCE
+    (``apply_dropout_on_inference``), seeded with ``hp.seed``; None without
+    that hparam."""
+    if not hp.apply_dropout_on_inference:
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(hp.seed) & 0xFFFFFFFFFFFFFFFF)
+    return gen
+
+
+def _model_device(model: nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
 def _main_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:
     """``compute_loss``'s loss without its L2 term."""
     if "code_loss" in losses:
         main = losses["code_loss"]
+    elif "mgc_loss" in losses:
+        main = losses["mgc_loss"] + losses["lf0_loss"]
     else:
         main = losses["mel_loss"]
         if "postnet_loss" in losses:
@@ -119,7 +141,7 @@ def make_train_step(hp: HParams, with_alignments: bool = False,
 
     def train_step(state: TrainState, batch: Batch):
         model = state.model
-        device = next(model.parameters()).device
+        device = _model_device(model)
         model.train()
         rank = mesh.rank if mesh is not None else 0
         with data_axis(mesh):
@@ -163,17 +185,22 @@ def make_eval_step(hp: HParams) -> Callable[
     """``eval_step(state, batch) -> (metrics, out_free, out_teacher)``: the
     reference's two-pass evaluation.  The free-running decode gives the
     main losses; the teacher-forced one, the reliable ``*_with_teacher``
-    metrics.  The main key is ``code_loss`` or ``mel_loss``, by the model's
-    kind (the JAX package's ``make_eval_step``)."""
+    metrics.  The main key is ``code_loss``, ``mel_loss`` or ``mgc_loss``,
+    by the model's
+    kind (the JAX package's ``make_eval_step``).  With
+    ``apply_dropout_on_inference`` each call draws its prenet dropout from
+    a fresh ``inference_generator``."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         model = state.model
-        out_free = model.validation_forward(batch, False)
+        gen = inference_generator(hp, _model_device(model))
+        out_free = model.validation_forward(batch, False, generator=gen)
         losses_free = compute_loss(hp, out_free, batch, model)
-        out_teacher = model.validation_forward(batch, True)
+        out_teacher = model.validation_forward(batch, True, generator=gen)
         losses_teacher = compute_loss(hp, out_teacher, batch, model)
-        main_key = "code_loss" if "code_loss" in losses_free else "mel_loss"
+        main_key = next(k for k in ("code_loss", "mel_loss", "mgc_loss")
+                        if k in losses_free)
         metrics = {
             main_key: losses_free[main_key],
             "done_loss": losses_free["done_loss"],
@@ -199,17 +226,21 @@ def make_predict_step(hp: HParams) -> Callable[
     mechanisms (the JAX package's ``make_predict_step``); the batch must
     then carry its target.  Past its stop step the first pass leaves what
     its path wrote there (the plain loop keeps decoding, the early-exit
-    loop leaves zeros), and the replay takes those rows as they are."""
+    loop leaves zeros), and the replay takes those rows as they are.  With
+    ``apply_dropout_on_inference`` each call draws its prenet dropout from
+    a fresh ``inference_generator``."""
 
     @torch.no_grad()
     def predict_step(model: nn.Module, batch: Batch):
-        out = model(batch)
+        gen = inference_generator(hp, _model_device(model))
+        out = model(batch, generator=gen)
         if not hp.use_forced_alignment_mode:
             return (out,)
         if batch.target is None:
             raise ValueError("use_forced_alignment_mode decodes the target's "
                              "steps again: the batch needs its target")
         teacher = tuple(a.transpose(1, 2) for a in out.alignments)
-        return out, model.validation_forward(batch, False, teacher)
+        return out, model.validation_forward(batch, False, teacher,
+                                             generator=gen)
 
     return predict_step

@@ -23,7 +23,14 @@ flax names (``encoder.cbhg.trunk.conv_bank.conv1d_K3.conv.weight``):
   ``decoder/prenets/prenet_0/{dense0,speaker_projection,dense}`` and the
   postnet's ``speaker_projection``.  An ``ExternalEmbedding``'s table lives
   in the JAX package's ``constants`` collection and in no state dict: both
-  read it from its file.
+  read it from its file;
+* so do the rest of the model surface's: ``accent_embedding/embedding``,
+  ``encoder/{prenets,accent_type_prenets}``, ``encoder/conv_<i>`` and
+  ``encoder/bilstm`` (``EncoderV2``), ``decoder/{mgc,lf0}_prenets``,
+  ``decoder/{mgc_out_projection1,mgc_out_projection2,lf0_out_projection}``,
+  ``.../attention_mechanism_<i>/transition_factor_projection`` and
+  ``PostNetCBHG``'s ``cbhg`` and ``linear_projection``: the port's modules
+  carry the flax names, so no leaf needs a rule of its own.
 
 ``to_flax`` is the inverse.  Loading orbax checkpoints would need JAX and
 is not part of the port; ``save_checkpoint``/``load_checkpoint`` write and

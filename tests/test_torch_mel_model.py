@@ -329,8 +329,9 @@ def test_mel_batches_match_jax(tmp_path):
     short = int(got[0].target_length.min())
     assert short % 2 == 0 and np.all(got[0].target[
         int(got[0].target_length.argmin()), short:] == -3.0)
-    with pytest.raises(NotImplementedError):
-        tds.dataset_factory(*files, hp.replace(dataset="mgclf0.dataset"))
+    # MGC/LF0 targets are ported (tests/test_torch_mgclf0.py)
+    assert tds.dataset_factory(*files, hp.replace(
+        dataset="mgclf0.dataset")).target_kind == "mgclf0"
 
 
 def test_preprocess_train_and_main_mel_on_cpu(ljspeech_corpus, tmp_path):  # noqa: F811

@@ -155,12 +155,34 @@ def test_records_read_back_by_the_jax_reader(tmp_path):
 
 
 def test_model_rejects_kinds_not_ported():
+    """What the port refuses: ``compute_dtype=bfloat16`` (model-wide bf16,
+    the next slice).  The MGC/LF0 kind, inference dropout, accent types and
+    the transition agent, refused before they were ported, build and
+    serve."""
     import pytest
-    for kw in (dict(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel"),
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        tacotron_model_factory(tiny_codes_hp(compute_dtype="bfloat16"))
+    batch = Batch(source=torch.randint(1, 30, (1, 7)),
+                  source_length=torch.tensor([7]),
+                  accent_type=torch.full((1, 7), 0x3100 + 3))
+    for kw in (dict(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel",
+                    decoder="DualSourceMgcLf0TransformerDecoder",
+                    num_mgcs=6, num_lf0s=9),
                dict(apply_dropout_on_inference=True),
-               dict(use_accent_type=True)):
-        with pytest.raises(NotImplementedError):
-            tacotron_model_factory(tiny_codes_hp(**kw))
+               dict(use_accent_type=True,
+                    encoder="SelfAttentionCBHGEncoderWithAccentType",
+                    encoder_prenet_out_units_if_accent=(8, 6),
+                    accent_type_prenet_out_units=(4, 2),
+                    accent_type_embedding_dim=4),
+               dict(compute_dtype="float16")):
+        model = convert.init_parameters(
+            tacotron_model_factory(tiny_codes_hp(**kw)), 0).eval()
+        out = model(batch)
+        assert torch.isfinite(out.outputs).all()
+    # accent types need an accent-type encoder, as the JAX encoders' calls
+    # do
+    with pytest.raises(ValueError):
+        tacotron_model_factory(tiny_codes_hp(use_accent_type=True))
     # speakers are ported (the VCTK recipe); the two tables exclude each
     # other, as in the JAX package
     assert tacotron_model_factory(tiny_codes_hp(
@@ -168,7 +190,8 @@ def test_model_rejects_kinds_not_ported():
     with pytest.raises(ValueError):
         tacotron_model_factory(tiny_codes_hp(
             use_speaker_embedding=True, use_external_speaker_embedding=True))
-    with pytest.raises(NotImplementedError):
-        tacotron_model_factory(tiny_codes_hp(
-            use_forward_attention_transition_agent=True))
+    agent = tacotron_model_factory(tiny_codes_hp(
+        use_forward_attention_transition_agent=True))
+    assert hasattr(agent.decoder.attention_mechanism_0,
+                   "transition_factor_projection")
     assert torch.get_default_dtype() == torch.float32
