@@ -229,6 +229,24 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    launch an utterance and one ``incremental_attention_step`` launch a
    decode step; mgc and lf0 logits within 1e-4 of the plain path's), and
    #5 / #6 at that path's shapes against their plain versions (1e-5).
+27. model-wide bf16 (``compute_dtype=bfloat16``, path names
+   ``bf16_model_*`` and ``bf16_pallas_serving``) at the codes recipe's
+   full width: ``cli.train`` for 3 steps at B = 32 through #3 / #4 (3
+   launches each, no gate refusing) with one evaluation of 2 utterances,
+   then 10 train steps in bf16 and in float32 from one initialisation on
+   the same batches (every loss within 5 %, ms a step); ``main_code``
+   serving 3 utterances through #1 / #2 in bf16 and in float32 (ms a
+   call), and the code argmax of bf16 against float32 teacher-forced on
+   the same checkpoint; Pallas-mode serving of 3 utterances in bf16 (the
+   bf16 instances of #5 / #6 launched, one an utterance and one a decode
+   step, and no float32 instance), its logits against the bf16 einsum
+   path's at phase 20's bf16 tolerances; each bf16 instance against its
+   plain version (1e-2 of its largest magnitude; each kernel call moves
+   the bf16 counter by one) and timed beside SDPA in bf16 and its bound
+   (products at the bf16 tensor cores' peak; the serving hop, B = 32 T =
+   256 D = 128 causal and not, the serving cache S = 450, the wide
+   kernels at D = 256 and S = 3000 D = 512).  The kernels line gains ``fused_self_attention_bf16`` and
+   ``incremental_attention_step_bf16``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -1294,15 +1312,15 @@ def phase_train_with_eval(data: str, tmp: str, device_name: str):
     return ckpt, keys, counts
 
 
-def _pallas_models(ckpt, device):
+def _pallas_models(ckpt, device, extra=""):
     """The checkpoint in the Pallas serving mode and with the einsum
-    attention (fused paths off in both)."""
+    attention (fused paths off in both, ``extra`` hparams on both)."""
     from self_attention_tacotron_torch.models import tacotron_model_factory
     from self_attention_tacotron_torch.utils.convert import load_checkpoint
     models = {}
     for pallas in (True, False):
         hp = recipe_hparams()
-        hp.parse(PALLAS_SERVING)
+        hp.parse(_join(PALLAS_SERVING, extra))
         hp.set_hparam("use_pallas_attention", pallas)
         models[pallas] = tacotron_model_factory(hp).eval()
         load_checkpoint(models[pallas], ckpt)
@@ -1310,55 +1328,77 @@ def _pallas_models(ckpt, device):
     return models
 
 
-def phase_pallas_serving(ckpt, data, tmp, device, n: int = 3):
-    """main_code serves ``n`` utterances in the Pallas mode; the launch
-    counts, then the logits against the einsum path's."""
-    import contextlib
-    import io
-    import re
+def _pallas_pairs(ckpt, data, keys, device, extra=""):
+    """Each of ``keys`` served free-running by both of ``_pallas_models``:
+    (Pallas logits, einsum logits) over the steps both ran."""
     import torch
-    from self_attention_tacotron_torch.cli.predict import main_code
-    from self_attention_tacotron_torch.data.dataset import (iter_utterances,
-                                                            load_key_list)
+    from self_attention_tacotron_torch.data.dataset import iter_utterances
     from self_attention_tacotron_torch.models import Batch
-    from self_attention_tacotron_torch.ops import pallas_attention as pa
-    keys = load_key_list(os.path.join(data, "train.csv"))[-n:]
-    with open(os.path.join(data, "pallas.csv"), "w") as f:
-        f.write("\n".join(keys) + "\n")
-    buf = io.StringIO()
-    pa.fused_self_attention.launches = 0
-    pa.incremental_attention_step.launches = 0
-    with contextlib.redirect_stdout(buf):
-        rc = main_code(["--source-data-root", data, "--target-data-root",
-                        data, "--checkpoint-dir", ckpt, "--output-dir",
-                        os.path.join(tmp, "pallas_pred"), "--list-filename",
-                        "pallas.csv", "--hparam-json-file", RECIPE,
-                        "--hparams", PALLAS_SERVING, "--device", device.type])
-    counts = {"fused_self_attention": pa.fused_self_attention.launches,
-              "incremental_attention_step":
-                  pa.incremental_attention_step.launches}
-    sys.stdout.write(buf.getvalue())
-    steps = [int(m) for m in re.findall(r"predicted \S+: (\d+) decode steps",
-                                        buf.getvalue())]
-    models = _pallas_models(ckpt, device)
+    models = _pallas_models(ckpt, device, extra)
     hp = models[True].hp
-    worst = 0.0
+    pairs = []
     for u in iter_utterances(*_val_files(hp, data, keys), hp):
         batch = Batch(source=torch.from_numpy(u.source[None]).to(device),
                       source_length=torch.tensor([u.source_length],
                                                  device=device))
         got, ref = models[True](batch), models[False](batch)
         ran = min(int(got.lengths[0]), int(ref.lengths[0]))
-        worst = max(worst, _max_err(got.outputs[:, :ran],
-                                    ref.outputs[:, :ran]))
+        pairs.append((got.outputs[:, :ran], ref.outputs[:, :ran]))
+    return pairs
+
+
+def _serve(data, ckpt, out, device, hparams, counters, n: int = 3):
+    """``main_code`` serves the last ``n`` training utterances under the
+    recipe with ``hparams``; each (function, attribute) launch counter of
+    ``counters`` is zeroed just before.  Returns (keys, counts by name (an
+    attribute ``launches_bf16`` counts as ``<function>_bf16``), decode
+    steps, ms a call, the gates that refused)."""
+    import contextlib
+    import io
+    import re
+    from self_attention_tacotron_torch.cli.predict import main_code
+    from self_attention_tacotron_torch.data.dataset import load_key_list
+    keys = load_key_list(os.path.join(data, "train.csv"))[-n:]
+    with open(os.path.join(data, "serve.csv"), "w") as f:
+        f.write("\n".join(keys) + "\n")
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    buf = io.StringIO()
+    with _Fallbacks() as fb, contextlib.redirect_stdout(buf):
+        rc = main_code(["--source-data-root", data, "--target-data-root",
+                        data, "--checkpoint-dir", ckpt, "--output-dir", out,
+                        "--list-filename", "serve.csv", "--hparam-json-file",
+                        RECIPE, "--hparams", hparams, "--device",
+                        device.type])
+    counts = {fn.__name__ + ("_bf16" if attr.endswith("bf16") else ""):
+              getattr(fn, attr) for fn, attr in counters}
+    sys.stdout.write(buf.getvalue())
+    found = re.findall(r"predicted \S+: (\d+) decode steps, ([0-9.]+) ms",
+                       buf.getvalue())
+    if rc != 0 or len(found) != n:
+        raise AssertionError(f"main_code --hparams '{hparams}' failed")
+    return (keys, counts, [int(s) for s, _ in found],
+            [float(m) for _, m in found], fb.refused)
+
+
+def phase_pallas_serving(ckpt, data, tmp, device, n: int = 3):
+    """main_code serves ``n`` utterances in the Pallas mode; the launch
+    counts, then the logits against the einsum path's."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    keys, counts, steps, _, _ = _serve(
+        data, ckpt, os.path.join(tmp, "pallas_pred"), device, PALLAS_SERVING,
+        ((pa.fused_self_attention, "launches"),
+         (pa.incremental_attention_step, "launches")), n)
+    worst = max(_max_err(got, ref)
+                for got, ref in _pallas_pairs(ckpt, data, keys, device))
+    hp = recipe_hparams()
     log(f"phase 11 Pallas-mode serving: main_code served {len(steps)} "
         f"utterances ({steps} decode steps); launch counts {counts}; logits "
         f"vs the einsum path max abs err {worst:.3e}")
     want = {"fused_self_attention": n * hp.self_attention_num_hop,
             "incremental_attention_step":
                 sum(steps) * hp.decoder_self_attention_num_hop}
-    if rc != 0 or len(steps) != n or (device.type == "cuda"
-                                      and counts != want):
+    if device.type == "cuda" and counts != want:
         raise AssertionError(f"Pallas-mode serving launched {counts}, "
                              f"expected {want}")
     if worst > TOL_PALLAS_SERVING:
@@ -4498,6 +4538,334 @@ def phase_model_surface(device, card: str, data: str, tmp: str, rows):
     return new_rows, launches
 
 
+# ------------------------------------------------- model-wide bf16 (27)
+
+BF16_MODEL = "compute_dtype=bfloat16"
+BF16_EVAL = ("eval_start_delay_secs=0,eval_throttle_secs=0,"
+             "save_checkpoints_steps=3,num_evaluation_steps=2")
+BF16_COMPARE_STEPS = 10
+# bf16 training against float32 from one initialisation: every loss
+# within 5 % (the JAX package's own bf16 trajectory test's bound)
+TOL_BF16_LOSS = 5e-2
+# a bf16 instance of #5 / #6 against its plain version (f32 math on the
+# same bf16 inputs, rounded once): within 1e-2 of the plain output's
+# largest magnitude, as phase 20's bf16 storage mode (one bf16 ulp is
+# 2^-8 = 3.9e-3 relative; the f32 sums' order can move a value across a
+# rounding boundary)
+TOL_BF16_ATTENTION = 1e-2
+# (name, B, T or S, D, causal or None for a cache step) of the timed
+# bf16 instances: the serving hop, the training shape causal and not, the
+# serving cache, the wide kernels
+BF16_ATTENTION_SHAPES = (
+    ("fused_self_attention", 1, T_IN, 16, False),
+    ("fused_self_attention", TRAIN_B, 256, ATTN_D, False),
+    ("fused_self_attention", TRAIN_B, 256, ATTN_D, True),
+    ("incremental_attention_step", 1, SERVE_S, ATTN_D, None),
+    ("fused_self_attention", 1, SERVE_S, 256, True),
+    ("incremental_attention_step", 1, 3000, 512, None))
+
+
+def bf16_attention_bound(B, T, D, causal):
+    """(bytes, FLOPs) of the full-sequence attention with bf16 operands:
+    q, k, v read and the output written once, 2 bytes an element."""
+    nbytes, flops = attention_bound(B, T, D, causal)
+    return nbytes // 2, flops
+
+
+def bf16_step_bound(B, t, D):
+    nbytes, flops = step_bound(B, t, D)
+    return nbytes // 2, flops
+
+
+def _bf16_attention_case(device, name, B, T, D, causal):
+    """(kernel call, plain call, SDPA call, bound) of one bf16 instance at
+    its shape (a cache step at t = S - 1).  Its bound takes the products
+    at the bf16 tensor cores' peak: bf16 operands, float32 sums."""
+    import torch
+    import torch.nn.functional as F
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    bf = torch.bfloat16
+    if causal is not None:
+        q, k, v = (x.to(bf) for x in _attention_inputs(device, B, T, D))
+        return (lambda: pa.fused_self_attention(q, k, v, causal),
+                lambda: pa.fused_self_attention_reference(q, k, v, causal),
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=causal),
+                bf16_attention_bound(B, T, D, causal))
+    t = T - 1
+    q, kc, vc = (x.to(bf) for x in _step_inputs(device, B, t, T, D))
+    mask = torch.ones(1, 1, 1, T, dtype=torch.bool, device=device)
+    return (lambda: pa.incremental_attention_step(q, kc, vc, t),
+            lambda: pa.incremental_attention_step_reference(q, kc, vc, t),
+            lambda: F.scaled_dot_product_attention(q[:, :, None], kc, vc,
+                                                   attn_mask=mask)[:, :, 0],
+            bf16_step_bound(B, t, D))
+
+
+def _bf16_attention_kernels(device, card):
+    """(d): each bf16 instance against its plain version and timed beside
+    SDPA in bf16 (the library call, never called by the port) and its
+    bound; the bf16 counter moves by one a kernel call, the float32 one
+    not at all.  Returns {name: (err, ms, plain_ms, bound, library_ms)} at
+    the serving shape (the first of each name)."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    out = {}
+    for name, B, T, D, causal in BF16_ATTENTION_SHAPES:
+        kernel, plain, sdpa, bound = _bf16_attention_case(
+            device, name, B, T, D, causal)
+        fn = getattr(pa, name)
+
+        def counted(call, calls):
+            before = (fn.launches, fn.launches_bf16)
+            result = call()
+            if (fn.launches, fn.launches_bf16) != (before[0],
+                                                    before[1] + calls):
+                raise AssertionError(
+                    f"{name} at B={B} T={T} D={D}: {calls} calls moved the "
+                    f"counters from {before} to "
+                    f"{(fn.launches, fn.launches_bf16)}")
+            return result
+        got, ref = counted(kernel, 1), plain()
+        if got.dtype != ref.dtype:
+            raise AssertionError(f"{name} wrote {got.dtype}")
+        err = _max_err(got.float(), ref.float()) / max(
+            float(ref.float().abs().max()), 1e-12)
+        lib_err = _max_err(sdpa().float(), ref.float())
+        # _device_ms calls once to warm up, then 5 runs of reps
+        times = [counted(lambda: _device_ms(kernel, reps=20), 101),
+                 _device_ms(plain, reps=20), _device_ms(sdpa, reps=20)]
+        log(f"phase 27 {name} bf16 B={B} H={ATTN_HEADS} "
+            f"{'T' if causal is not None else 'S'}={T} D={D}"
+            f"{'' if causal is None else f' causal={causal}'}: error "
+            f"{err:.2e} of the plain version's largest magnitude (SDPA's "
+            f"max abs {lib_err:.1e}); kernel {times[0]:.5f} ms, plain "
+            f"{times[1]:.5f} ms, SDPA bf16 {times[2]:.5f} ms; bound "
+            f"{_bound_ms(bound, PEAK_BF16_FLOP_PER_S):.6f} ms ({bound[0]} "
+            f"bytes, {bound[1]} FLOPs at {PEAK_BF16_FLOP_PER_S / 1e12:g} "
+            f"TFLOP/s); card {card}")
+        if err > TOL_BF16_ATTENTION:
+            raise AssertionError(f"the bf16 {name} disagrees (tol "
+                                 f"{TOL_BF16_ATTENTION})")
+        out.setdefault(name, (err, times[0], times[1], bound, times[2]))
+    return out
+
+
+def _bf16_train(hp, data, tmp, device, card):
+    """(a): cli.train for 3 steps in bf16 with one evaluation, then
+    BF16_COMPARE_STEPS train steps in bf16 and in float32 from one
+    initialisation on the same batches.  Returns the checkpoint directory
+    and the training kernels' launch counts."""
+    import math
+    import re
+    import torch
+    from self_attention_tacotron_torch.cli.train import main as train_main
+    from self_attention_tacotron_torch.data.dataset import load_key_list
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import fused_train as ft
+    from self_attention_tacotron_torch.parallel import (create_train_state,
+                                                        make_train_step)
+    from self_attention_tacotron_torch.utils.convert import init_parameters
+    keys = load_key_list(os.path.join(data, "train.csv"))[:2]
+    with open(os.path.join(data, "validation.csv"), "w") as f:
+        f.write("\n".join(keys) + "\n")
+    ckpt = os.path.join(tmp, "bf16_ckpt")
+    ft.fused_train_fwd.launches = ft.fused_train_bwd.launches = 0
+    fe.fused_encode.launches = 0
+    t0 = time.perf_counter()
+    with _Fallbacks() as fb, torch.enable_grad():
+        rc = train_main(["--source-data-root", data, "--target-data-root",
+                         data, "--checkpoint-dir", ckpt,
+                         "--hparam-json-file", RECIPE, "--max-steps", "3",
+                         "--hparams", f"{BF16_MODEL},{BF16_EVAL}",
+                         "--device", device.type])
+    wall = time.perf_counter() - t0
+    counts = {"fused_train_fwd": ft.fused_train_fwd.launches,
+              "fused_train_bwd": ft.fused_train_bwd.launches,
+              "fused_encode": fe.fused_encode.launches}
+    with open(os.path.join(ckpt, os.path.basename(hp.logfile))) as f:
+        text = f.read()
+    steps = re.findall(r"step (\d+) loss ([-+0-9.eEinfa]+) \(([0-9.]+)s\)",
+                       text)
+    evals = re.findall(r"eval @3: (\{.*?\})", text)
+    log(f"phase 27 (a) cli.train --hparams {BF16_MODEL}: 3 steps at B="
+        f"{hp.batch_size} in {wall:.1f} s (start and evaluation included); "
+        f"(step, loss, s) {steps}; eval @3 {evals}; launch counts {counts}; "
+        f"gates that refused: {fb.refused or 'none'}; card {card}")
+    if rc != 0 or len(steps) != 3 or not all(
+            math.isfinite(float(s[1])) for s in steps):
+        raise AssertionError("bf16 training failed")
+    if len(evals) != 1:
+        raise AssertionError("the bf16 evaluation did not run")
+    if fb.refused or (device.type == "cuda" and (
+            counts["fused_train_fwd"], counts["fused_train_bwd"]) != (3, 3)):
+        raise AssertionError(f"bf16 training launched {counts}")
+
+    # the corpus' batches in turn (64 utterances: 2 batches of 32)
+    batches = [b.to(device) for b in _train_batches(hp, data)]
+    batches = [batches[i % len(batches)] for i in range(BF16_COMPARE_STEPS)]
+    losses, step_ms = {}, {}
+    for name in ("float32", "bfloat16"):
+        h = recipe_hparams()
+        h.set_hparam("compute_dtype", name)
+        model = init_parameters(tacotron_model_factory(h), SEED).to(device)
+        state, step = create_train_state(model, h), make_train_step(h)
+        losses[name], step_ms[name] = [], []
+        with torch.enable_grad():
+            for b in batches:
+                _sync(device)
+                t0 = time.perf_counter()
+                losses[name].append(float(step(state, b)["loss"]))
+                step_ms[name].append((time.perf_counter() - t0) * 1e3)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["bfloat16"],
+                                                    losses["float32"]))
+    log(f"phase 27 (a) {BF16_COMPARE_STEPS} train steps at B={TRAIN_B} from "
+        f"one initialisation: float32 losses {losses['float32']}; bf16 "
+        f"{losses['bfloat16']}; worst relative gap {worst:.3e} (tol "
+        f"{TOL_BF16_LOSS}); ms a step (host clock, after the first) float32 "
+        f"median {statistics.median(step_ms['float32'][1:]):.1f}, bf16 "
+        f"median {statistics.median(step_ms['bfloat16'][1:]):.1f}; card "
+        f"{card}")
+    if worst > TOL_BF16_LOSS:
+        raise AssertionError("bf16 training left the float32 trajectory")
+    return ckpt, {k: v for k, v in counts.items() if k != "fused_encode"}
+
+
+def _bf16_serve(data, ckpt, tmp, device, card, hparams, tag):
+    """``_serve`` with every counter of #1, #2, #5 and #6 (both instances
+    of the last two), logged; no gate may refuse."""
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    keys, counts, steps, ms, refused = _serve(
+        data, ckpt, os.path.join(tmp, f"bf16_pred_{tag}"), device, hparams,
+        ((fe.fused_encode, "launches"), (fd.fused_decode, "launches"),
+         *((fn, attr) for fn in (pa.fused_self_attention,
+                                 pa.incremental_attention_step)
+           for attr in ("launches", "launches_bf16"))))
+    log(f"phase 27 main_code --hparams '{hparams}': {steps} decode steps, "
+        f"ms a call (host clock) {ms}; launch counts {counts}; gates that "
+        f"refused: {refused or 'none'}; card {card}")
+    if refused:
+        raise AssertionError("a gate refused the bf16 model")
+    return keys, counts, steps, ms
+
+
+def _bf16_agreement(data, keys, ckpt, device, card):
+    """(b): the code argmax of the bf16 model against the float32 model's
+    on the same checkpoint, teacher-forced over ``keys``."""
+    import torch
+    from self_attention_tacotron_torch.data.dataset import (
+        dataset_factory, find_dataset_files, to_model_batch)
+    from self_attention_tacotron_torch.models import tacotron_model_factory
+    from self_attention_tacotron_torch.utils.convert import load_checkpoint
+    outs = {}
+    for name in ("float32", "bfloat16"):
+        h = recipe_hparams()
+        h.set_hparam("compute_dtype", name)
+        nb = next(iter(dataset_factory(
+            find_dataset_files(data, keys, h.source_file_extension),
+            find_dataset_files(data, keys, h.target_file_extension), h,
+            batch_size=len(keys), shuffle=False)))
+        model = tacotron_model_factory(h).eval()
+        load_checkpoint(model, ckpt)
+        model.to(device)
+        batch = to_model_batch(nb).to(device)
+        outs[name] = model.validation_forward(batch, True)
+    mask = batch.spec_loss_mask.bool()
+    agree = float((outs["float32"].outputs.argmax(-1)
+                   == outs["bfloat16"].outputs.argmax(-1))[mask].float()
+                  .mean())
+    err = _max_err(outs["bfloat16"].outputs.float(),
+                   outs["float32"].outputs)
+    log(f"phase 27 (b) teacher-forced VALIDATION of the 3 utterances: code "
+        f"argmax of bf16 against float32 agrees at {agree:.4f} of "
+        f"{int(mask.sum())} frames; logits max abs diff {err:.3e}; outputs "
+        f"{outs['bfloat16'].outputs.dtype}; card {card}")
+    if outs["bfloat16"].outputs.dtype != torch.bfloat16 or not bool(
+            torch.isfinite(outs["bfloat16"].outputs.float()).all()):
+        raise AssertionError("the bf16 model's outputs are not finite bf16")
+    return agree
+
+
+def phase_model_bf16(device, card: str, tmp: str, rows):
+    """Phase 27: ``compute_dtype=bfloat16`` at the codes recipe's full
+    width: (a) training through #3 / #4 with one evaluation and its losses
+    against float32, (b) serving through #1 / #2 and the argmax agreement
+    with float32, (c) Pallas-mode serving through the bf16 instances of #5
+    / #6, (d) those instances against their plain versions, timed.
+    Returns (rows, launch counts)."""
+    import torch
+    t0 = time.perf_counter()
+    hp = recipe_hparams()
+    data = os.path.join(tmp, "bf16_data")
+    os.makedirs(data)
+    write_train_corpus(hp, data)
+    launches = {}
+    ckpt, launches["bf16_model_training"] = _bf16_train(hp, data, tmp,
+                                                        device, card)
+    keys, served, _, bf16_ms = _bf16_serve(data, ckpt, tmp, device, card,
+                                           BF16_MODEL, "fused")
+    _, _, _, f32_ms = _bf16_serve(data, ckpt, tmp, device, card, "",
+                                  "fused32")
+    log(f"phase 27 (b) main_code ms a call, bf16 {bf16_ms} against float32 "
+        f"{f32_ms} (host clock, one call each; card {card})")
+    launches["bf16_model_serving"] = {k: served[k] for k in (
+        "fused_encode", "fused_decode")}
+    if device.type == "cuda" and launches["bf16_model_serving"] != {
+            "fused_encode": 3, "fused_decode": 3}:
+        raise AssertionError(f"bf16 serving launched {served}")
+    _bf16_agreement(data, keys, ckpt, device, card)
+    _, pallas, steps, _ = _bf16_serve(data, ckpt, tmp, device, card,
+                                      f"{BF16_MODEL},{PALLAS_SERVING}",
+                                      "pallas")
+    want = {"fused_self_attention_bf16": 3 * hp.self_attention_num_hop,
+            "incremental_attention_step_bf16":
+                sum(steps) * hp.decoder_self_attention_num_hop,
+            "fused_self_attention": 0, "incremental_attention_step": 0}
+    got = {k: pallas[k] for k in want}
+    if device.type == "cuda" and got != want:
+        raise AssertionError(f"bf16 Pallas-mode serving launched {got}, "
+                             f"expected {want}")
+    launches["bf16_pallas_serving"] = got
+    # the served logits against the bf16 einsum path's, at phase 20's bf16
+    # tolerances (the kernels round once, the einsum path at each op)
+    pairs = _pallas_pairs(ckpt, data, keys, device, BF16_MODEL)
+    head = max(_max_err(g[:, :BF16_HEAD_STEPS].float(),
+                        r[:, :BF16_HEAD_STEPS].float()) for g, r in pairs)
+    agree = (sum(int((g.argmax(-1) == r.argmax(-1)).sum()) for g, r in pairs)
+             / sum(g.shape[1] for g, _ in pairs))
+    finite = all(bool(g.float().isfinite().all()) for g, _ in pairs)
+    log(f"phase 27 (c) bf16 Pallas-mode logits against the bf16 einsum path "
+        f"({[g.shape[1] for g, _ in pairs]} steps): max abs err first "
+        f"{BF16_HEAD_STEPS} steps {head:.3e}; code argmax agreement "
+        f"{agree:.4f}; finite {finite}; dtype {pairs[0][0].dtype}")
+    if (head > TOL_BF16_DECODE_HEAD or agree < BF16_MIN_AGREE or not finite
+            or pairs[0][0].dtype != torch.bfloat16):
+        raise AssertionError("bf16 Pallas-mode logits disagree with the "
+                             "bf16 einsum path")
+    timed = _bf16_attention_kernels(device, card)
+    # #1-#4 run their float32 instances at phases 8's shapes: those rows
+    # with this run's counts; #5 / #6 their new bf16 instances
+    new_rows = []
+    for name, path, src in (
+            ("fused_encode", "bf16_model_serving", "serving"),
+            ("fused_decode", "bf16_model_serving", "serving"),
+            ("fused_train_fwd", "bf16_model_training", "training"),
+            ("fused_train_bwd", "bf16_model_training", "training")):
+        new_rows += _reused_rows(rows, name, src, path, launches[path][name])
+    for name, src, line in (
+            ("fused_self_attention", "self_attention", 39),
+            ("incremental_attention_step", "incremental_attention", 109)):
+        err, ms, plain, bound, lib = timed[name]
+        new_rows += _kernel_rows(
+            f"{name}_bf16", src, f"pallas_attention.py:{line}",
+            {"bf16_pallas_serving": launches["bf16_pallas_serving"]}, err,
+            ms, plain, bound, lib, peak_flops=PEAK_BF16_FLOP_PER_S)
+    log(f"phase 27 model-wide bf16 took {time.perf_counter() - t0:.1f} s")
+    return new_rows, launches
+
+
 def phase_barriers(card: str):
     """Phase 2: the cost of one grid-wide barrier at one block per SM,
     cooperative groups' (the fused encoder's) beside the hand-written ones
@@ -4534,6 +4902,7 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_grad_enabled(False)
     device = torch.device("cuda", 0)
     try:
@@ -4544,6 +4913,11 @@ def main() -> int:
         log(f"phase 1 card: {smi[0] if smi else 'nvidia-smi gave nothing'}"
             f"; torch {torch.__version__} CUDA {torch.version.cuda}")
         card = smi[0] if smi else torch.cuda.get_device_name(0)
+        matmul = torch.backends.cuda.matmul
+        log(f"phase 1 precision: matmul.allow_tf32 {matmul.allow_tf32}, "
+            f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+            "matmul.allow_bf16_reduced_precision_reduction "
+            f"{matmul.allow_bf16_reduced_precision_reduction}")
         log(card)
 
         t0 = time.perf_counter()
@@ -4627,8 +5001,12 @@ def main() -> int:
             launches.update(dp_launches)
             surface_rows, surface_launches = phase_model_surface(
                 device, card, data, tmp, rows)
-        rows += surface_rows
-        launches.update(surface_launches)
+            rows += surface_rows
+            launches.update(surface_launches)
+            bf16_rows, bf16_launches = phase_model_bf16(device, card, tmp,
+                                                        rows)
+        rows += bf16_rows
+        launches.update(bf16_launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

@@ -55,6 +55,7 @@ def measure(reps: int = 20, warmup: int = 2, device="cuda") -> dict:
         raise RuntimeError("the benchmark times the card: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     hp, model, batch = make_flagship(torch.device(device))
 
     @torch.no_grad()

@@ -12,6 +12,10 @@ at a time, restores the port's checkpoint, decodes each utterance
   ``use_postnet_v2``, the decoder's otherwise) and a mel prediction record
   with the normalised ground truth and the first source's alignment.
 
+Under ``compute_dtype=bfloat16`` every output is cast to float32 before it
+reaches numpy, a record, a ``.mfbsp`` file or a plot, as the JAX CLI's
+``np.asarray`` + ``astype("<f4")`` does.
+
 Each utterance goes through ``parallel.make_predict_step``, and its
 alignment plot ``<key>.png`` (``utils/metrics.plot_predictions``: the
 source alignments, the first two decoder self-attention alignments, the
@@ -130,8 +134,10 @@ def predict(kind: str, argv=None) -> int:
     log = logging.getLogger(f"predict_{kind}")
     device = torch.device(args.device)
     if device.type == "cuda":
-        torch.backends.cuda.matmul.allow_tf32 = False
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = False
 
     os.makedirs(args.output_dir, exist_ok=True)
     list_dir = args.selected_list_dir or args.source_data_root
@@ -195,11 +201,12 @@ def predict(kind: str, argv=None) -> int:
                         else np.zeros((0, hp.num_mels), np.float32))
         raw_mel = postnet_mel = None
         if kind == "codes":
-            payload = out.code_output[0, :n_frames].cpu().numpy()
+            payload = out.code_output[0, :n_frames].float().cpu().numpy()
         else:   # the vocoder's input: the postnet's refinement when enabled
-            raw_mel = out.outputs[0, :n_frames].cpu().numpy()
+            raw_mel = out.outputs[0, :n_frames].float().cpu().numpy()
             if hp.use_postnet_v2:
-                postnet_mel = out.postnet_outputs[0, :n_frames].cpu().numpy()
+                postnet_mel = (out.postnet_outputs[0, :n_frames].float()
+                               .cpu().numpy())
             payload = postnet_mel if hp.use_postnet_v2 else raw_mel
 
         mfbsp = os.path.join(args.output_dir,
@@ -220,8 +227,8 @@ def predict(kind: str, argv=None) -> int:
                         f"{int(plot_src.lengths[0])} steps, its outputs "
                         f"within {err:.3e} of the served pass)")
         if plots:
-            aligns = [a[0].cpu().numpy() for a in plot_src.alignments]
-            aligns += [a[0].cpu().numpy() for a in
+            aligns = [a[0].float().cpu().numpy() for a in plot_src.alignments]
+            aligns += [a[0].float().cpu().numpy() for a in
                        plot_src.decoder_self_attention_alignments[:2]]
             # the raw decoder mel beside the postnet's, as the reference
             if not plot_predictions(
@@ -244,7 +251,7 @@ def predict(kind: str, argv=None) -> int:
                 MelPredictionRecord(
                     id=u.meta.id, key=u.meta.key, mel=payload,
                     ground_truth_mel=ground_truth,
-                    alignment=out.alignments[0][0].cpu().numpy(),
+                    alignment=out.alignments[0][0].float().cpu().numpy(),
                     text=u.meta.text, source=source), record)
         forced = (f" (forced-alignment pass after {int(passes[0].lengths[0])}"
                   " free-running steps)" if len(passes) > 1 else "")

@@ -337,6 +337,7 @@ def _train(args, hp, hparams_text: str, joined: bool) -> int:
                                 write_mgc_lf0_prediction_record)
     from ..models import tacotron_model_factory
     from ..ops import fused_train as ft
+    from ..ops.compute_dtype import softmax
     from ..parallel import create_train_state, make_eval_step, make_train_step
     from ..parallel import multihost
     from ..parallel.mesh import create_mesh
@@ -352,8 +353,10 @@ def _train(args, hp, hparams_text: str, joined: bool) -> int:
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device()) \
             if joined else device
-        torch.backends.cuda.matmul.allow_tf32 = False
+        matmul = torch.backends.cuda.matmul
+        matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        matmul.allow_bf16_reduced_precision_reduction = False
     mesh = create_mesh(hp.mesh_shape)
     if joined:
         log.info("rank %d of %d on %s, backend %s", rank, world, device,
@@ -443,7 +446,7 @@ def _train(args, hp, hparams_text: str, joined: bool) -> int:
             gt = nb.target[0] if nb.target is not None else None
             eval_saver.save(step_no, meta.key, meta.text, aligns, gt, pred)
             return
-        lf0_pred = host(torch.softmax(out.outputs2[0], -1))
+        lf0_pred = host(softmax(out.outputs2[0], -1))
         rec = MgcLf0PredictionRecord(
             id=meta.id, key=meta.key, mgc=pred, ground_truth_mgc=nb.target[0],
             lf0=lf0_pred, ground_truth_lf0=nb.target2[0], alignments=aligns,

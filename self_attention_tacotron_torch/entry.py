@@ -178,8 +178,10 @@ def _dp_rank(rank: int, world: int, port: int, cases, device_type: str,
     try:
         device = multihost.rank_device(device_type, rank, world)
         if device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
+            matmul = torch.backends.cuda.matmul
+            matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
+            matmul.allow_bf16_reduced_precision_reduction = False
         recs = [_one_step(hp, batch, device, seed,
                           create_mesh(hp.mesh_shape)) for hp, batch in cases]
         torch.save(recs, os.path.join(out_dir, f"rank{rank}.pt"))

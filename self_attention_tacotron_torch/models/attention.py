@@ -25,6 +25,11 @@ utterance), ``initial_state`` and ``step(query, state, pack)`` ->
 (alignments (B, T_mem), new state).  Masking fills -1e9.  A pack's
 ``teacher_alignments`` (B, T_steps, T_mem) makes the decoder replay them in
 place of any mechanism (the forced-alignment mode's second pass).
+
+Model-wide bf16 (``ops/compute_dtype.py``): the denses and the location
+conv compute in the mechanism's ``dtype``, the energy vector and bias are
+cast to it, and the energies, alignments and states (alpha, u, the
+accumulated alignments) stay in it, as the JAX package's mechanisms.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..ops.compute_dtype import Linear, cast, sigmoid, softmax, weak
 from ..ops.conv import Conv1d
 
 NEG_INF = -1e9
@@ -63,7 +69,7 @@ def compute_context(alignments: torch.Tensor,
 
 
 def _masked_softmax(energy: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.softmax(
+    return softmax(
         torch.where(mask, energy, torch.full_like(energy, NEG_INF)), dim=-1)
 
 
@@ -76,10 +82,12 @@ def _sequence_mask(memory: torch.Tensor, lengths: torch.Tensor):
 class AdditiveAttention(nn.Module):
     """State: the previous alignments (unused by the energy)."""
 
+    dtype = torch.float32
+
     def __init__(self, memory_dim: int, query_dim: int, num_units: int):
         super().__init__()
-        self.memory_layer = nn.Linear(memory_dim, num_units, bias=False)
-        self.query_layer = nn.Linear(query_dim, num_units, bias=False)
+        self.memory_layer = Linear(memory_dim, num_units, bias=False)
+        self.query_layer = Linear(query_dim, num_units, bias=False)
         self.attention_v = nn.Parameter(torch.empty(1, num_units))
 
     def precompute(self, memory, lengths) -> MemoryPack:
@@ -87,11 +95,12 @@ class AdditiveAttention(nn.Module):
                           _sequence_mask(memory, lengths))
 
     def initial_state(self, batch: int, max_time: int, device=None):
-        return torch.zeros(batch, max_time, device=device)
+        return torch.zeros(batch, max_time, dtype=self.dtype, device=device)
 
     def step(self, query, state, pack: MemoryPack):
         pq = self.query_layer(query)[:, None, :]
-        energy = (self.attention_v[0] * torch.tanh(pack.keys + pq)).sum(-1)
+        energy = (cast(self, self.attention_v, self.dtype)[0]
+                  * torch.tanh(pack.keys + pq)).sum(-1)
         alignments = _masked_softmax(energy, pack.mask)
         return alignments, alignments
 
@@ -100,17 +109,19 @@ class _LocationEnergy(nn.Module):
     """Layers of the location-sensitive energy, shared by the two
     location-based mechanisms."""
 
+    dtype = torch.float32
+
     def __init__(self, memory_dim: int, query_dim: int, num_units: int,
                  attention_kernel: int, attention_filters: int,
                  cumulative_weights: bool):
         super().__init__()
         self.attention_kernel = attention_kernel
         self.cumulative_weights = cumulative_weights
-        self.memory_layer = nn.Linear(memory_dim, num_units, bias=False)
-        self.query_layer = nn.Linear(query_dim, num_units, bias=False)
+        self.memory_layer = Linear(memory_dim, num_units, bias=False)
+        self.query_layer = Linear(query_dim, num_units, bias=False)
         self.location_convolution = Conv1d(1, attention_filters,
                                            attention_kernel, use_bias=True)
-        self.location_layer = nn.Linear(attention_filters, num_units,
+        self.location_layer = Linear(attention_filters, num_units,
                                         bias=False)
         self.attention_variable = nn.Parameter(torch.empty(1, num_units))
         self.attention_bias = nn.Parameter(torch.zeros(num_units))
@@ -123,9 +134,10 @@ class _LocationEnergy(nn.Module):
         pq = self.query_layer(query)[:, None, :]
         loc = self.location_layer(
             self.location_convolution(conv_input[:, :, None]))
-        return (self.attention_variable[0]
-                * torch.tanh(pack.keys + pq + loc + self.attention_bias)
-                ).sum(-1)
+        dt = self.dtype
+        return (cast(self, self.attention_variable, dt)[0]
+                * torch.tanh(pack.keys + pq + loc
+                             + cast(self, self.attention_bias, dt))).sum(-1)
 
 
 class LocationSensitiveAttention(_LocationEnergy):
@@ -139,7 +151,7 @@ class LocationSensitiveAttention(_LocationEnergy):
         self.smoothing = smoothing
 
     def initial_state(self, batch: int, max_time: int, device=None):
-        zeros = torch.zeros(batch, max_time, device=device)
+        zeros = torch.zeros(batch, max_time, dtype=self.dtype, device=device)
         return zeros, zeros
 
     def step(self, query, state, pack: MemoryPack):
@@ -148,8 +160,9 @@ class LocationSensitiveAttention(_LocationEnergy):
             else prev_alignments
         energy = self._energy(query, conv_input, pack)
         if self.smoothing:
-            sig = torch.sigmoid(energy) * pack.mask
-            alignments = sig / sig.sum(-1, keepdim=True).clamp_min(1e-8)
+            sig = sigmoid(energy) * pack.mask
+            alignments = sig / sig.sum(-1, keepdim=True).clamp_min(
+                weak(1e-8, sig.dtype))
         else:
             alignments = _masked_softmax(energy, pack.mask)
         return alignments, (alignments, accumulation + alignments)
@@ -170,16 +183,17 @@ class ForwardAttention(_LocationEnergy):
                          attention_filters, cumulative_weights)
         self.use_transition_agent = use_transition_agent
         if use_transition_agent:
-            self.transition_factor_projection = nn.Linear(
+            self.transition_factor_projection = Linear(
                 memory_dim + num_units, 1)
 
     def initial_state(self, batch: int, max_time: int, device=None
                       ) -> ForwardAttentionState:
-        alpha = torch.zeros(batch, max_time, device=device)
+        dt = self.dtype
+        alpha = torch.zeros(batch, max_time, dtype=dt, device=device)
         alpha[:, 0] = 1.0
         return ForwardAttentionState(
-            torch.zeros(batch, max_time, device=device), alpha,
-            torch.full((batch, 1), 0.5, device=device))
+            torch.zeros(batch, max_time, dtype=dt, device=device), alpha,
+            torch.full((batch, 1), 0.5, dtype=dt, device=device))
 
     def step(self, query, state: ForwardAttentionState, pack: MemoryPack):
         prev_alignments, prev_alpha, prev_u = state
@@ -187,11 +201,11 @@ class ForwardAttention(_LocationEnergy):
             self._energy(query, prev_alignments, pack), pack.mask)
         shifted = torch.nn.functional.pad(prev_alpha[:, :-1], (1, 0))
         alpha = ((1.0 - prev_u) * prev_alpha + prev_u * shifted
-                 + 1e-7) * alignments
+                 + weak(1e-7, prev_alpha.dtype)) * alignments
         alpha = alpha / alpha.sum(dim=1, keepdim=True)
         u = prev_u
         if self.use_transition_agent:
-            u = torch.sigmoid(self.transition_factor_projection(torch.cat(
+            u = sigmoid(self.transition_factor_projection(torch.cat(
                 [compute_context(alpha, pack.values),
                  self.query_layer(query)], -1)))
         next_alignments = (alignments + prev_alignments
@@ -216,6 +230,8 @@ class TeacherForcingAttention(nn.Module):
     """Replays ``pack.teacher_alignments`` one step at a time, ignoring the
     query; no parameters."""
 
+    dtype = torch.float32
+
     def precompute(self, memory, lengths,
                    teacher_alignments=None) -> MemoryPack:
         return MemoryPack(torch.zeros_like(memory[..., :1]), memory,
@@ -225,7 +241,7 @@ class TeacherForcingAttention(nn.Module):
     def initial_state(self, batch: int, max_time: int, device=None
                       ) -> TeacherForcingState:
         return TeacherForcingState(
-            torch.zeros(batch, max_time, device=device), -1)
+            torch.zeros(batch, max_time, dtype=self.dtype, device=device), -1)
 
     def step(self, query, state: TeacherForcingState, pack: MemoryPack):
         index = state.index + 1

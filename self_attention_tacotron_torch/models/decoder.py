@@ -71,6 +71,19 @@ With ``use_pallas`` the hops' attention runs the kernels of
 KV-cache step in every decode loop, the full-sequence call in training
 where no attention dropout is active.
 
+Model-wide bf16 (``ops/compute_dtype.py``): the trunk, the hops and the
+heads compute in their ``dtype``, and so do the carries, the feeds (the
+teacher frames cast to it, as the JAX package's scan carry), the caches,
+the attention states and every buffer of the loops.  The fused kernels
+keep their own storage dtype (``fused_dtype``, ``fused_train_dtype``):
+the keys, values and teacher reach them upcast to float32 (the keys before
+the fold joins them; in training outside the ``autograd.Function``, so the
+gradients return through the casts to the bf16 keys and values), the
+speaker row is made in float32, and what they return is cast back to
+``dtype`` after the lengths are read from the float32 stop logits.  Their
+gates see the same configuration in either dtype and choose the same
+path.
+
 Submodule names follow the flax tree so ``utils/convert.py`` maps
 parameters one to one.
 """
@@ -87,6 +100,7 @@ from torch import nn
 from ..ops import fused_decode as fd
 from ..ops import fused_train as ft
 from ..ops.collectives import axis_rank
+from ..ops.compute_dtype import Linear, sigmoid, softmax
 from ..ops.rnn import ZoneoutLSTMCell
 from .attention import (AdditiveAttention, AttentionOptions, ForwardAttention,
                         TeacherForcingAttention, attention_mechanism_factory,
@@ -152,6 +166,8 @@ def _map(fn, x):
 
 
 class TacotronDecoder(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, attention_options: Sequence[AttentionOptions],
                  source_dims: Sequence[int], use_transformer: bool = True,
                  prenet_out_units: Sequence[int] = (256, 128),
@@ -223,7 +239,7 @@ class TacotronDecoder(nn.Module):
         self.attention_lstm = ZoneoutLSTMCell(
             prenet_width + ctx_dim, A, zoneout_factor_cell,
             zoneout_factor_output)
-        self.output_projection_wrapper = nn.Linear(A + ctx_dim, D)
+        self.output_projection_wrapper = Linear(A + ctx_dim, D)
         zc, zo = self._dec_zoneout()
         self.decoder_lstm1 = ZoneoutLSTMCell(D, D, zc, zo)
         self.decoder_lstm2 = ZoneoutLSTMCell(D, D, zc, zo)
@@ -235,12 +251,12 @@ class TacotronDecoder(nn.Module):
         head_in = self_attention_out_units if use_transformer else D
         r = outputs_per_step
         if output_kind == "mgclf0":
-            self.mgc_out_projection1 = nn.Linear(head_in, head_in)
-            self.mgc_out_projection2 = nn.Linear(head_in, num_mgcs * r)
-            self.lf0_out_projection = nn.Linear(head_in, num_lf0s * r)
+            self.mgc_out_projection1 = Linear(head_in, head_in)
+            self.mgc_out_projection2 = Linear(head_in, num_mgcs * r)
+            self.lf0_out_projection = Linear(head_in, num_lf0s * r)
         else:
-            self.out_projection = nn.Linear(head_in, num_mels * r)
-        self.stop_token_projection = nn.Linear(head_in, 1)
+            self.out_projection = Linear(head_in, num_mels * r)
+        self.stop_token_projection = Linear(head_in, 1)
 
     def _frame_dims(self) -> Tuple[int, ...]:
         if self.output_kind == "mgclf0":
@@ -355,13 +371,15 @@ class TacotronDecoder(nn.Module):
             att_states=tuple(mech.initial_state(B, p.values.shape[1], device)
                              for mech, p in zip(self.attention_mechanisms,
                                                 packs)),
-            prev_context=torch.zeros(B, ctx_dim, device=device),
+            prev_context=torch.zeros(B, ctx_dim, dtype=self.dtype,
+                                     device=device),
             next_input=self._go_frame(B, device),
             caches=tuple(hop.init_cache(B, num_steps, device)
                          for hop in self.transformers))
 
     def _go_frame(self, B, device):
-        go = tuple(torch.zeros(B, C * self.n_feed_frame, device=device)
+        go = tuple(torch.zeros(B, C * self.n_feed_frame, dtype=self.dtype,
+                               device=device)
                    for C in self._frame_dims())
         return go if self.output_kind == "mgclf0" else go[0]
 
@@ -425,12 +443,12 @@ class TacotronDecoder(nn.Module):
         stream always and, with ``feedback_softmax``, for the one stream in
         VALIDATION; the raw frames otherwise."""
         if teacher_x_t is not None:
-            return teacher_x_t
+            return _map(lambda x: x.to(self.dtype), teacher_x_t)
         n, feeds = self.n_feed_frame, []
         for idx, (o, C) in enumerate(zip(outs_t, self._frame_dims())):
             if (idx == 1 or (mode == DecoderMode.VALIDATION
                              and self.feedback_softmax)):
-                probs = torch.softmax(o.reshape(o.shape[0], -1, C), -1)
+                probs = softmax(o.reshape(o.shape[0], -1, C), -1)
                 feeds.append(probs[:, -n:].reshape(o.shape[0], C * n))
             else:
                 feeds.append(o[:, -C * n:])
@@ -459,7 +477,7 @@ class TacotronDecoder(nn.Module):
                 carry, t, packs, mode,
                 None if teacher is None else _map(lambda x: x[:, t], teacher),
                 generator)
-            finished = finished | ((torch.sigmoid(stop_t[:, 0]) > 0.5)
+            finished = finished | ((sigmoid(stop_t[:, 0]) > 0.5)
                                    & (t > self.min_iters))
             outs.append(out_t)
             stops.append(stop_t)
@@ -487,10 +505,13 @@ class TacotronDecoder(nn.Module):
         r = self.outputs_per_step
         finished = torch.zeros(B, dtype=torch.bool, device=device)
         lengths = torch.zeros(B, dtype=torch.int64, device=device)
-        buf_out = tuple(torch.zeros(B, num_steps, C * r, device=device)
+        dt = self.dtype
+        buf_out = tuple(torch.zeros(B, num_steps, C * r, dtype=dt,
+                                    device=device)
                         for C in self._frame_dims())
-        buf_stop = torch.zeros(B, num_steps, 1, device=device)
-        buf_al = [torch.zeros(B, num_steps, p.values.shape[1], device=device)
+        buf_stop = torch.zeros(B, num_steps, 1, dtype=dt, device=device)
+        buf_al = [torch.zeros(B, num_steps, p.values.shape[1], dtype=dt,
+                              device=device)
                   for p in packs]
         sa_rows = []
         for t in range(num_steps):
@@ -498,7 +519,7 @@ class TacotronDecoder(nn.Module):
                 break
             carry, (out_t, stop_t, al, sa) = self._step(carry, t, packs)
             lengths = lengths + (~finished).long()
-            finished = finished | ((torch.sigmoid(stop_t[:, 0]) > 0.5)
+            finished = finished | ((sigmoid(stop_t[:, 0]) > 0.5)
                                    & (t > self.min_iters))
             for buf, o in zip(buf_out, out_t):
                 buf[:, t] = o
@@ -516,7 +537,7 @@ class TacotronDecoder(nn.Module):
         out = []
         for hop in range(self.self_attention_num_hop):
             rows = torch.zeros(B, num_steps, self.self_attention_num_heads,
-                               num_steps, device=device)
+                               num_steps, dtype=self.dtype, device=device)
             for t, step_rows in enumerate(sa_rows):
                 rows[:, t] = step_rows[hop]
             out.extend(rows[:, :, h] for h in range(rows.shape[2]))
@@ -675,11 +696,11 @@ class TacotronDecoder(nn.Module):
             lstm1=dense(self.decoder_lstm1), lstm2=dense(self.decoder_lstm2))
 
     def speaker_row(self, speaker_embed) -> Optional[torch.Tensor]:
-        """The (B, P0) row the speaker prenet adds after dense0's ReLU (the
-        JAX package's ``_fused_prenet_params``), or None."""
+        """The (B, P0) float32 row the speaker prenet adds after dense0's
+        ReLU (the JAX package's ``_fused_prenet_params``), or None."""
         if not self.prenets.use_speaker_embed:
             return None
-        return self.prenets.prenet_0.speaker_row(speaker_embed)
+        return self.prenets.prenet_0.speaker_row(speaker_embed, float32=True)
 
     def _train_trunk_fused(self, packs, teacher, generator,
                            speaker_embed=None):
@@ -691,12 +712,12 @@ class TacotronDecoder(nn.Module):
                                          is not None else "cpu")))
         seed += axis_rank() * TRUNK_SEED_STRIDE
         zc_dec, zo_dec = self._dec_zoneout()
-        return ft.fused_teacher_scan(
+        y, aligns = ft.fused_teacher_scan(
             self.fused_train_params(),
-            tuple(p.keys if f is None else p.keys + f
+            tuple(p.keys.float() if f is None else p.keys.float() + f
                   for p, f in zip(packs, folds)),
-            tuple(p.values for p in packs),
-            tuple(p.mask.float() for p in packs), teacher, seed,
+            tuple(p.values.float() for p in packs),
+            tuple(p.mask.float() for p in packs), teacher.float(), seed,
             drop_rate=self.prenets.drop_rate,
             zc_att=self.zoneout_factor_cell,
             zo_att=self.zoneout_factor_output, zc_dec=zc_dec, zo_dec=zo_dec,
@@ -704,6 +725,7 @@ class TacotronDecoder(nn.Module):
             speaker_row=self.speaker_row(speaker_embed), src_kinds=kinds,
             cumulative=cum, loc_kernel=self._loc_kernel(), loc_ws=loc_ws,
             compute_dtype=self.fused_train_dtype)
+        return y.to(self.dtype), tuple(a.to(self.dtype) for a in aligns)
 
     # ------------------------------------------------- the fused kernel
     def _fused_unsupported_reason(self, B, teacher_alignments=None
@@ -792,8 +814,8 @@ class TacotronDecoder(nn.Module):
                                for m in mechs),
                 compute_dtype=self.fused_dtype))
         memory = fd.FusedDecodeMemory(
-            keys=tuple(pk.keys for pk in packs),
-            values=tuple(pk.values for pk in packs),
+            keys=tuple(pk.keys.float() for pk in packs),
+            values=tuple(pk.values.float() for pk in packs),
             masks=tuple(pk.mask for pk in packs))
         zc_dec, zo_dec = self._dec_zoneout()
         options = dict(
@@ -817,10 +839,12 @@ class TacotronDecoder(nn.Module):
         fired = (stop > 0) & (torch.arange(S, device=device)[None, :]
                               > self.min_iters)
         lengths = stop_lengths(torch.cumsum(fired.int(), 1) > 0)
-        sa_aligns = [torch.zeros(B, S, S, device=device)
+        dt = self.dtype
+        sa_aligns = [torch.zeros(B, S, S, dtype=dt, device=device)
                      for _ in range(self.self_attention_num_hop
                                     * self.self_attention_num_heads)]
-        return self._package((out,), stop[..., None], aligns, sa_aligns,
+        return self._package((out.to(dt),), stop[..., None].to(dt),
+                             tuple(a.to(dt) for a in aligns), sa_aligns,
                              lengths, S, mask_by_lengths=True)
 
     # ------------------------------------------------------------ packaging
@@ -832,9 +856,9 @@ class TacotronDecoder(nn.Module):
         lengths = lengths.long()
         if mask_by_lengths:
             valid = (torch.arange(num_steps, device=stop.device)[None, :]
-                     < lengths[:, None]).float()
-            outs = tuple(o * valid[..., None] for o in outs)
-            stop = stop * valid[..., None]
+                     < lengths[:, None])[..., None]
+            outs = tuple(o * valid.to(o.dtype) for o in outs)
+            stop = stop * valid.to(stop.dtype)
         samples = outs[0].reshape(B, num_steps, r, dims[0]).argmax(-1).int()
         return DecoderOutput(
             outputs=outs[0].reshape(B, num_steps * r, dims[0]),

@@ -6,7 +6,8 @@ Counterpart of the JAX package's ``models/embedding.py``: ``Embedding``
 ``.npz`` (its first array) or text file and kept frozen: a buffer that is
 neither a parameter nor part of the state dict, loaded again whenever the
 model is built, as the JAX package keeps it in a ``constants`` collection
-outside the gradients and the optimizer.
+outside the gradients and the optimizer.  Both return their float32 rows
+cast to their ``dtype`` (``ops/compute_dtype.py``), as the JAX package's.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from torch import nn
 
 
 class Embedding(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, num_symbols: int, embedding_dim: int,
                  index_offset: int = 0):
         super().__init__()
@@ -27,7 +30,7 @@ class Embedding(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         idx = torch.clamp(ids.long() - self.index_offset, 0,
                           self.num_symbols - 1)
-        return self.weight[idx]
+        return self.weight[idx].to(self.dtype)
 
 
 def load_external_embedding(path: str) -> np.ndarray:
@@ -42,6 +45,8 @@ def load_external_embedding(path: str) -> np.ndarray:
 
 class ExternalEmbedding(nn.Module):
     """File-backed, non-trainable embedding."""
+
+    dtype = torch.float32
 
     def __init__(self, embedding_file: str, num_speakers: int,
                  embedding_dim: int, index_offset: int = 0):
@@ -58,4 +63,4 @@ class ExternalEmbedding(nn.Module):
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         idx = torch.clamp(ids.long() - self.index_offset, 0,
                           self.num_speakers - 1)
-        return self.table[idx]
+        return self.table[idx].to(self.dtype)

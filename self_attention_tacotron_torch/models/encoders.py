@@ -31,6 +31,11 @@ Counterpart of the JAX package's ``models/encoders.py``:
 * ``EncoderV2`` — Tacotron 2's: N x (conv k -> batch norm -> ReLU ->
   dropout), then a zoneout bi-LSTM of ``out_units // 2`` a direction.
 
+Model-wide bf16 (``ops/compute_dtype.py``): every layer computes in its
+``dtype``; the batch-1 fused encoder takes the bf16 embeddings upcast to
+float32 and its outputs are cast back to ``dtype`` (the JAX package's
+``fused_encode`` boundary), its merged weights float32 as ever.
+
 Submodule names follow the flax tree so ``utils/convert.py`` maps
 parameters one to one.
 """
@@ -45,6 +50,7 @@ from torch import nn
 
 from ..ops import fused_encoder as fe
 from ..ops.attention_core import SelfAttention, dropout
+from ..ops.compute_dtype import Linear
 from ..ops.conv import BN_EPSILON, Conv1dBN, ConvBank, HighwayNet
 from ..ops.rnn import BiGRU, BiZoneoutLSTM, fold_forget_bias
 from .prenet import PreNetStack
@@ -97,7 +103,7 @@ class _CBHGTrunk(nn.Module):
                               projection1_out_channels, torch.relu)
         self.proj2 = Conv1dBN(projection1_out_channels, 3,
                               projection2_out_channels, None)
-        self.adjustment_layer = (nn.Linear(projection2_out_channels, half)
+        self.adjustment_layer = (Linear(projection2_out_channels, half)
                                  if projection2_out_channels != half else None)
         for i in range(num_highway):
             self.add_module(f"highway_{i}", HighwayNet(half, half))
@@ -255,7 +261,7 @@ class SelfAttentionTransformer(nn.Module):
                                             self_attention_num_heads,
                                             use_subsequent_mask, drop_rate,
                                             use_pallas)
-        self.transform = nn.Linear(self_attention_out_units, out_units)
+        self.transform = Linear(self_attention_out_units, out_units)
 
     def forward(self, inputs, training: bool = False, generator=None):
         attn_out, alignment = self.self_attention(inputs, training, generator)
@@ -272,6 +278,8 @@ class SelfAttentionTransformer(nn.Module):
 
 class SelfAttentionCBHGEncoder(nn.Module):
     """Returns (lstm_out, self_attention_out, alignments)."""
+
+    dtype = torch.float32
 
     def __init__(self, in_channels: int, cbhg_out_units: int = 224,
                  conv_channels: int = 128, max_filter_width: int = 16,
@@ -306,7 +314,7 @@ class SelfAttentionCBHGEncoder(nn.Module):
                                 projection1_out_channels,
                                 projection2_out_channels, num_highway,
                                 zoneout_factor_cell, zoneout_factor_output)
-        self.self_attention_projection_layer = nn.Linear(
+        self.self_attention_projection_layer = Linear(
             cbhg_out_units, self_attention_out_units)
         for i in range(self_attention_num_hop):
             self.add_module(f"self_attention_{i}", SelfAttentionTransformer(
@@ -425,17 +433,17 @@ class SelfAttentionCBHGEncoder(nn.Module):
         if getattr(self, "_merged", (None,))[0] != key:
             self._merged = (key, self.fused_params())
         lstm_out, sa = fe.fused_encode(
-            self._merged[1], inputs, L,
+            self._merged[1], inputs.float(), L,
             max_filter_width=self.max_filter_width,
             conv_channels=self.conv_channels, half=self.cbhg_out_units // 2,
             sa_units=self.self_attention_out_units,
             num_heads=self.self_attention_num_heads,
             zoneout_cell=self.zoneout_factor_cell,
             zoneout_output=self.zoneout_factor_output)
-        aligns = [torch.zeros(1, T, T, device=inputs.device)
+        aligns = [torch.zeros(1, T, T, dtype=self.dtype, device=inputs.device)
                   for _ in range(self.self_attention_num_hop
                                  * self.self_attention_num_heads)]
-        return lstm_out, sa, aligns
+        return lstm_out.to(self.dtype), sa.to(self.dtype), aligns
 
 
 class SelfAttentionCBHGEncoderWithAccentType(SelfAttentionCBHGEncoder):

@@ -12,6 +12,7 @@ Dropout is flax's, drawn from the caller's ``torch.Generator`` in
 training.  ``PostNetCBHG`` is the original Tacotron's: mel frames -> CBHG
 (the bi-GRU one) -> a dense to ``num_freq`` linear-spectrogram bins (the
 ``post_net_*`` hparams); like the JAX package's, no model builds it.
+Every layer computes in its ``dtype`` (``ops/compute_dtype.py``).
 Submodule names follow the flax tree (``conv_<i>``, ``projection``,
 ``speaker_projection``; ``cbhg``, ``linear_projection``).
 """
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.attention_core import dropout
+from ..ops.compute_dtype import Linear
 from ..ops.conv import Conv1dBN
 from .encoders import CBHG
 
@@ -37,14 +39,14 @@ class PostNetV2(nn.Module):
         self.drop_rate = drop_rate
         in_channels = out_units
         if speaker_dim is not None:
-            self.speaker_projection = nn.Linear(speaker_dim, out_channels)
+            self.speaker_projection = Linear(speaker_dim, out_channels)
             in_channels += out_channels
         for i in range(num_layers):
             act = torch.tanh if i < num_layers - 1 else None
             self.add_module(f"conv_{i}", Conv1dBN(in_channels, kernel_size,
                                                   out_channels, act))
             in_channels = out_channels
-        self.projection = nn.Linear(out_channels, out_units)
+        self.projection = Linear(out_channels, out_units)
 
     def forward(self, xs: torch.Tensor, is_training: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -73,7 +75,7 @@ class PostNetCBHG(nn.Module):
         self.cbhg = CBHG(in_channels, cbhg_out_units, conv_channels,
                          max_filter_width, projection1_out_channels,
                          projection2_out_channels, num_highway)
-        self.linear_projection = nn.Linear(cbhg_out_units // 2 * 2, out_dim)
+        self.linear_projection = Linear(cbhg_out_units // 2 * 2, out_dim)
 
     def forward(self, xs: torch.Tensor, input_lengths=None,
                 is_training: bool = False) -> torch.Tensor:

@@ -7,7 +7,9 @@ whose first layer is a ``MultiSpeakerPreNet`` with ``use_speaker_embed``.
 With ``apply_dropout_on_inference`` a ``PreNet`` drops out outside
 training too (VALIDATION and INFERENCE); a ``MultiSpeakerPreNet`` never
 does, as in the JAX package.  Dropout is flax's (``ops/attention_core.py``
-``dropout``), drawn from an explicit ``torch.Generator``.
+``dropout``), drawn from an explicit ``torch.Generator``.  Each dense
+computes in its ``dtype`` (``ops/compute_dtype.py``), and so does the
+dropout after it.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.attention_core import dropout
+from ..ops.compute_dtype import Linear
 
 
 class PreNet(nn.Module):
@@ -26,7 +29,7 @@ class PreNet(nn.Module):
         super().__init__()
         self.drop_rate = drop_rate
         self.apply_dropout_on_inference = apply_dropout_on_inference
-        self.dense = nn.Linear(in_units, out_units)
+        self.dense = Linear(in_units, out_units)
 
     def forward(self, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -41,14 +44,21 @@ class MultiSpeakerPreNet(nn.Module):
                  drop_rate: float = 0.5):
         super().__init__()
         self.drop_rate = drop_rate
-        self.dense0 = nn.Linear(in_units, out_units)
-        self.speaker_projection = nn.Linear(speaker_dim, out_units)
-        self.dense = nn.Linear(out_units, out_units)
+        self.dense0 = Linear(in_units, out_units)
+        self.speaker_projection = Linear(speaker_dim, out_units)
+        self.dense = Linear(out_units, out_units)
 
-    def speaker_row(self, speaker_embed: torch.Tensor) -> torch.Tensor:
+    def speaker_row(self, speaker_embed: torch.Tensor,
+                    float32: bool = False) -> torch.Tensor:
         """softsign(speaker projection): the (B, out) row added after
-        dense0's ReLU, constant over the steps of a decode."""
-        return nn.functional.softsign(self.speaker_projection(speaker_embed))
+        dense0's ReLU, constant over the steps of a decode; with
+        ``float32`` computed in float32 from the upcast embedding whatever
+        the ``dtype`` (the fused kernels' operand, as the JAX package's
+        ``_fused_prenet_params`` makes it)."""
+        p = self.speaker_projection
+        s = (nn.functional.linear(speaker_embed.float(), p.weight, p.bias)
+             if float32 else p(speaker_embed))
+        return nn.functional.softsign(s)
 
     def forward(self, x: torch.Tensor, speaker_embed: torch.Tensor,
                 training: bool = False,

@@ -28,8 +28,11 @@ the dual-source decoders); the decoders of ``_DECODERS``.  With
 ``accent_type_offset``) looks up the batch's ``accent_type`` ids for the
 accent encoders.  ``apply_dropout_on_inference`` keeps the decoder's
 prenet dropout on in VALIDATION and INFERENCE, drawn from the caller's
-``generator``.  ``compute_dtype`` ``bfloat16`` (the JAX package's
-model-wide bf16) is refused; any other string runs f32, as there.
+``generator``.  ``compute_dtype`` ``bfloat16`` is the JAX package's
+model-wide bf16 (``ops/compute_dtype.py``: every module computes in bf16
+from its float32 parameters, and the outputs are bf16; batch statistics,
+checkpoints, gradients and the optimizer stay float32); any other string
+runs float32, as there.
 
 ``forward`` is inference (no autograd); ``validation_forward`` the
 VALIDATION decode of the trainer's evaluation (no autograd, teacher-forced
@@ -66,6 +69,7 @@ from ..config import HParams
 from ..ops import losses as L
 from ..ops.attention_core import (DROP_RATE_HPARAMS, MultiHeadAttention,
                                   PallasTrainingError)
+from ..ops.compute_dtype import Linear, compute_dtype, set_compute_dtype
 from ..ops.conv import bn_valid_rows
 from ..utils.convert import flax_param_paths
 from .attention import AttentionOptions
@@ -176,10 +180,6 @@ class TacotronModel(nn.Module):
             raise ValueError("use_speaker_embedding and "
                              "use_external_speaker_embedding exclude each "
                              "other")
-        if hp.compute_dtype == "bfloat16":
-            raise NotImplementedError(
-                "compute_dtype=bfloat16 (model-wide bf16) is not ported yet: "
-                "ROADMAP queue 1 item 1")
         self.hp = hp
         self.is_code_model = (
             hp.tacotron_model == "DualSourceSelfAttentionTacotronModel")
@@ -201,7 +201,7 @@ class TacotronModel(nn.Module):
         if self.has_speaker:
             speaker_dim = hp.speaker_embedding_dim
             if hp.speaker_embedding_projection_out_dim > -1:
-                self.speaker_projection = nn.Linear(
+                self.speaker_projection = Linear(
                     speaker_dim, hp.speaker_embedding_projection_out_dim)
                 speaker_dim = hp.speaker_embedding_projection_out_dim
         to_decoder = (speaker_dim
@@ -289,6 +289,8 @@ class TacotronModel(nn.Module):
                 hp.postnet_v2_drop_rate,
                 speaker_dim=(speaker_dim if self.has_speaker
                              and hp.speaker_embedd_to_postnet else None))
+        self.dtype = compute_dtype(hp.compute_dtype)
+        set_compute_dtype(self, self.dtype)
 
     @property
     def is_mgclf0(self) -> bool:

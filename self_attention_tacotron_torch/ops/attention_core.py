@@ -26,16 +26,24 @@ grad mode on, an input that needs a gradient) raises ``PallasTrainingError``
 on every device: the kernel has no backward, and the JAX package cannot
 differentiate its ``pallas_call`` either (no ``custom_vjp``, no transpose
 rule), so the reference cannot train this configuration on any backend.
+
+Model-wide bf16 (``ops/compute_dtype.py``): the projections, the scores,
+the softmax and the context run in the module's ``dtype``; the scale is
+1 / sqrt(head_dim) taken in that dtype (the JAX package's
+``1 / jnp.sqrt(jnp.asarray(head_dim, q.dtype))``), the KV caches and the
+zero alignments of the Pallas branches are in it too, and the kernels take
+the bf16 q, k and v as they are (their bf16 instances).
 """
 
 from __future__ import annotations
 
-import math
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
+from .compute_dtype import Linear, softmax, weak
 from .pallas_attention import fused_self_attention, incremental_attention_step
 
 NEG_INF = -1e9
@@ -64,12 +72,23 @@ class AttentionCache(NamedTuple):
     value: torch.Tensor  # (B, H, max_len, head_dim)
 
 
-def positional_encoding(length: int, dim: int, device=None) -> torch.Tensor:
-    """Sinusoidal positions (length, dim): [sin | cos] halves."""
+def positional_encoding(length: int, dim: int, device=None,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Sinusoidal positions (length, dim): [sin | cos] halves, computed in
+    float32 and returned in ``dtype``."""
     pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
     i = torch.arange(dim // 2, dtype=torch.float32, device=device)[None, :]
     angle = pos / torch.pow(10000.0, 2.0 * i / dim)
-    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """1 / sqrt(head_dim) with each step rounded to ``dtype``, as a Python
+    float: a tensor of ``dtype`` times it is that dtype's product with the
+    scale in that dtype, with no tensor made on the device."""
+    return float(1.0 / torch.sqrt(torch.tensor(float(head_dim),
+                                               dtype=dtype)))
 
 
 def dropout(x: torch.Tensor, rate: float,
@@ -79,17 +98,20 @@ def dropout(x: torch.Tensor, rate: float,
     if rate <= 0.0:
         return x
     u = torch.rand(x.shape, generator=generator, device=x.device)
-    return torch.where(u >= rate, x / (1.0 - rate), torch.zeros_like(x))
+    return torch.where(u >= rate, x / weak(1.0 - rate, x.dtype),
+                       torch.zeros_like(x))
 
 
 def _masked_softmax(scores: torch.Tensor,
                     mask: Optional[torch.Tensor]) -> torch.Tensor:
     if mask is not None:
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    return torch.softmax(scores, dim=-1)
+    return softmax(scores, -1)
 
 
 class MultiHeadAttention(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, model_dim: int, num_heads: int,
                  use_subsequent_mask: bool = False, drop_rate: float = 0.0,
                  use_pallas: bool = False):
@@ -100,10 +122,10 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.use_subsequent_mask = use_subsequent_mask
         self.use_pallas = use_pallas
-        self.key_projection = nn.Linear(model_dim, model_dim)
-        self.value_projection = nn.Linear(model_dim, model_dim)
-        self.query_projection = nn.Linear(model_dim, model_dim)
-        self.output_projection = nn.Linear(model_dim, model_dim)
+        self.key_projection = Linear(model_dim, model_dim)
+        self.value_projection = Linear(model_dim, model_dim)
+        self.query_projection = Linear(model_dim, model_dim)
+        self.output_projection = Linear(model_dim, model_dim)
 
     @property
     def head_dim(self) -> int:
@@ -131,8 +153,10 @@ class MultiHeadAttention(nn.Module):
                 causal=self.use_subsequent_mask)
             return (self.output_projection(context.transpose(1, 2).reshape(
                         B, Tq, self.model_dim)),
-                    torch.zeros(B, self.num_heads, Tq, Tk, device=q.device))
-        scores = q @ k.transpose(-1, -2) / math.sqrt(self.head_dim)
+                    torch.zeros(B, self.num_heads, Tq, Tk, dtype=q.dtype,
+                                device=q.device))
+        scores = (q @ k.transpose(-1, -2)) * attention_scale(
+            self.head_dim, q.dtype)
         mask = None
         if self.use_subsequent_mask:
             mask = torch.ones(Tq, Tk, dtype=torch.bool,
@@ -147,8 +171,9 @@ class MultiHeadAttention(nn.Module):
     def init_cache(self, batch: int, max_len: int, device=None
                    ) -> AttentionCache:
         shape = (batch, self.num_heads, max_len, self.head_dim)
-        return AttentionCache(torch.zeros(shape, device=device),
-                              torch.zeros(shape, device=device))
+        return AttentionCache(
+            torch.zeros(shape, dtype=self.dtype, device=device),
+            torch.zeros(shape, dtype=self.dtype, device=device))
 
     def step(self, x_t: torch.Tensor, t: int, cache: AttentionCache
              ) -> Tuple[torch.Tensor, AttentionCache, torch.Tensor]:
@@ -169,9 +194,9 @@ class MultiHeadAttention(nn.Module):
                                                  t)
             out = self.output_projection(context.reshape(B, self.model_dim))
             return out, cache, torch.zeros(B, self.num_heads, max_len,
-                                           device=x_t.device)
+                                           dtype=q_t.dtype, device=x_t.device)
         scores = torch.einsum("bhd,bhkd->bhk", q_t, key_cache) \
-            / math.sqrt(self.head_dim)
+            * attention_scale(self.head_dim, q_t.dtype)
         valid = (torch.arange(max_len, device=x_t.device) <= t)[None, None]
         probs = _masked_softmax(scores, valid)
         context = torch.einsum("bhk,bhkd->bhd", probs, value_cache)

@@ -14,6 +14,14 @@ Under a data axis (``ops/collectives.py``) the training statistics are the
 global batch's: the weighted count, sum and sum of squares are summed over
 the ranks, with their gradient, so the running statistics come out the
 same on every rank.
+
+Model-wide bf16 (``ops/compute_dtype.py``): each module's ``dtype`` is that
+of its result.  ``Conv1d`` casts its input, weight and bias to it (the
+bias added after the product, as flax's ``Conv``); ``BatchNorm`` takes its
+statistics and normalises in float32 against its float32 scale, bias and
+running statistics and returns ``dtype`` (flax's ``BatchNorm(dtype=bf16)``
+with ``force_float32_reductions``); the highway layer and the max pool run
+in their input's dtype.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .collectives import current_axis, global_sum
+from .compute_dtype import Linear, cast, sigmoid
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.99
@@ -58,6 +67,8 @@ class Conv1d(nn.Module):
     """SAME-padded convolution; ``weight`` (out, in, K) is the flax
     kernel (K, in, out) permuted."""
 
+    dtype = torch.float32
+
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int, use_bias: bool = False):
         super().__init__()
@@ -67,12 +78,19 @@ class Conv1d(nn.Module):
                      else None)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
-        return conv1d_same(xs, self.weight, self.bias)
+        if self.dtype == torch.float32:
+            return conv1d_same(xs, self.weight, self.bias)
+        y = conv1d_same(xs.to(self.dtype), cast(self, self.weight, self.dtype))
+        return (y if self.bias is None
+                else y + cast(self, self.bias, self.dtype))
 
 
 class BatchNorm(nn.Module):
     """Batch norm over the last axis: running statistics at inference,
-    batch statistics (and a running update) in training."""
+    batch statistics (and a running update) in training; float32 inside,
+    ``dtype`` out."""
+
+    dtype = torch.float32
 
     def __init__(self, channels: int, epsilon: float = BN_EPSILON):
         super().__init__()
@@ -83,6 +101,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self._normalize(x.float(), train).to(self.dtype)
+
+    def _normalize(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         if not train:
             mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
             return (x - self.running_mean) * mul + self.bias
@@ -132,12 +153,12 @@ class HighwayNet(nn.Module):
 
     def __init__(self, in_units: int, out_units: int):
         super().__init__()
-        self.H = nn.Linear(in_units, out_units)
-        self.T = nn.Linear(in_units, out_units)
+        self.H = Linear(in_units, out_units)
+        self.T = Linear(in_units, out_units)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         h = torch.relu(self.H(xs))
-        t = torch.sigmoid(self.T(xs))
+        t = sigmoid(self.T(xs))
         return h * t + xs * (1.0 - t)
 
 

@@ -22,7 +22,9 @@
 // the same launch (an L1 line of an earlier hop would be stale); else
 // through the read-only path, whose L1 serves V's rows to every warp.
 // Called by every thread of the block (it has block barriers); ``smem``
-// holds ``attend_rows_floats(D)`` floats.
+// holds ``attend_rows_floats(D)`` floats.  ``T`` is the operands' element
+// type: float, or __nv_bfloat16 (the Pallas mode's bf16 instance), read
+// into the same float tiles and rounded once on the store.
 #pragma once
 
 #include <math.h>
@@ -37,18 +39,17 @@ __host__ __device__ inline int attend_rows_floats(int D) {
   return ATT_TK * att_ld(D) + 2 * NWARPS * D + NWARPS * ATT_TK;
 }
 
-template <bool kL2>
-__device__ __forceinline__ float att_load(const float* p) {
-  if constexpr (kL2) return __ldcg(p);
-  else return __ldg(p);
+template <bool kL2, class T>
+__device__ __forceinline__ float att_load(const T* p) {
+  if constexpr (kL2) return wload(__ldcg(p));
+  else return wload(__ldg(p));
 }
 
-template <bool kL2>
-__device__ inline void attend_rows(const float* q, int ldq, const float* k,
-                                   int ldk, const float* v, int ldv, float* o,
-                                   int ldo, int row0, int nrows, int Tk,
-                                   int D, float scale, bool causal,
-                                   float* smem) {
+template <bool kL2, class T>
+__device__ inline void attend_rows(const T* q, int ldq, const T* k, int ldk,
+                                   const T* v, int ldv, T* o, int ldo,
+                                   int row0, int nrows, int Tk, int D,
+                                   float scale, bool causal, float* smem) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ld = att_ld(D);
   float* sk = smem;
@@ -92,7 +93,7 @@ __device__ inline void attend_rows(const float* q, int ldq, const float* k,
     __syncwarp();
     for (int c = lane; c < D; c += 32) {
       float acc = sacc[c] * corr;
-      const float* vc = v + (size_t)j0 * ldv + c;
+      const T* vc = v + (size_t)j0 * ldv + c;
       for (int j = 0; j < nv; ++j)
         acc = fmaf(sp[j], att_load<kL2>(vc + (size_t)j * ldv), acc);
       sacc[c] = acc;
@@ -103,6 +104,6 @@ __device__ inline void attend_rows(const float* q, int ldq, const float* k,
   if (active) {
     const float inv = 1.f / l;
     for (int c = lane; c < D; c += 32)
-      o[(size_t)row * ldo + c] = sacc[c] * inv;
+      wstore(o + (size_t)row * ldo + c, sacc[c] * inv);
   }
 }

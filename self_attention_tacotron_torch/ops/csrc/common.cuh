@@ -10,7 +10,8 @@
 //   GridBarrier, StageClock          grid barrier, per-stage profile
 //   load_slice / load_bias_slice     a block's weight rows of a
 //                                    warp-per-column product (the decode)
-//   wload / xround, kIsBf16          the bf16 storage mode's conversions
+//   wload / wstore / xround, kIsBf16 the bf16 conversions (storage mode,
+//                                    bf16 attention operands)
 #pragma once
 
 #include <cooperative_groups.h>
@@ -142,6 +143,12 @@ constexpr bool kIsBf16<__nv_bfloat16> = true;
 __device__ __forceinline__ float wload(float x) { return x; }
 __device__ __forceinline__ float wload(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// A float result stored as T (bf16: rounded to nearest even once).
+__device__ __forceinline__ void wstore(float* p, float x) { *p = x; }
+__device__ __forceinline__ void wstore(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
 }
 
 template <class W>

@@ -36,16 +36,22 @@
 // chunks, tickets and merge, with the columns looped instead (a warp's
 // rows' scores over strided columns, then a thread a column for p v and
 // the merge), so no width limit and no shared memory that grows with D.
+// bf16 operands (``elem`` = 1: the model-wide bf16's query and bf16 KV
+// cache) run both kernels with the element type a template parameter: four
+// bf16 columns a lane in one 8-byte load (D % 4 == 0 and 8-byte aligned
+// bases; else one column a lane), each converted to f32, the f32 math
+// above (the scratch is f32), and one rounding on the store.  The cache
+// is read as it is: no f32 copy of it is ever made.
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
 struct StepArgs {   // mirrored by _StepArgs in ops/pallas_attention.py
-  const float* q;   // (B * H, D)
-  const float* k;   // (B * H, S, D)
-  const float* v;
-  float* o;         // (B * H, D)
+  const void* q;    // (B * H, D), float or bf16 (``elem``)
+  const void* k;    // (B * H, S, D)
+  const void* v;
+  void* o;          // (B * H, D)
   float* part;      // (B * H, chunks, D + 2): m, l, o[D] of each chunk
   unsigned* tickets;  // (B * H) zeroed words; each call leaves them at 0
   int bh;           // B * H
@@ -55,6 +61,7 @@ struct StepArgs {   // mirrored by _StepArgs in ops/pallas_attention.py
   int chunk;        // positions a block (STEP_CHUNK)
   float scale;      // 1 / sqrt(D)
   int passes;       // profile: 1 scores, 2 + softmax, 3 + p v, 0 all
+  int elem;         // 0: float32 operands, 1: bfloat16
 };
 
 namespace {
@@ -79,9 +86,27 @@ __device__ __forceinline__ void load_vec(const float* p, float (&dst)[VEC]) {
   }
 }
 
-// VEC floats a load (4: float4, 1: scalar), CPL loads a lane and row:
-// column of load j of a lane = (j * 32 + lane) * VEC.
-template <int VEC, int CPL>
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&dst)[VEC]) {
+  if constexpr (VEC == 4) {   // four bf16 in one 8-byte load
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+    dst[0] = lo.x;
+    dst[1] = lo.y;
+    dst[2] = hi.x;
+    dst[3] = hi.y;
+  } else {
+    dst[0] = wload(__ldg(p));
+  }
+}
+
+// VEC elements a load (4: one vector, 1: scalar), CPL loads a lane and
+// row: column of load j of a lane = (j * 32 + lane) * VEC.
+template <class TE, int VEC, int CPL>
 __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
   __shared__ float sc[STEP_CHUNK];
   __shared__ float red[NWARPS][MAX_D];
@@ -91,6 +116,10 @@ __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
   const int n = min(STEP_CHUNK, a.t + 1 - p0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t cache = (size_t)bh * a.S * D;
+  const TE* gq = static_cast<const TE*>(a.q);
+  const TE* gk = static_cast<const TE*>(a.k);
+  const TE* gv = static_cast<const TE*>(a.v);
+  TE* go = static_cast<TE*>(a.o);
 
   float qv[CPL][VEC], kv[ROWS][CPL][VEC], vv[ROWS][CPL][VEC];
   // every load of this lane first: q, then K and V of its rows
@@ -99,13 +128,13 @@ __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
     const int col = (j * 32 + lane) * VEC;
 #pragma unroll
     for (int e = 0; e < VEC; ++e) qv[j][e] = 0.f;
-    if (col < D) load_vec<VEC>(a.q + (size_t)bh * D + col, qv[j]);
+    if (col < D) load_vec<VEC>(gq + (size_t)bh * D + col, qv[j]);
   }
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int r = warp + NWARPS * i;
-    const float* krow = a.k + cache + (size_t)(p0 + r) * D;
-    const float* vrow = a.v + cache + (size_t)(p0 + r) * D;
+    const TE* krow = gk + cache + (size_t)(p0 + r) * D;
+    const TE* vrow = gv + cache + (size_t)(p0 + r) * D;
 #pragma unroll
     for (int j = 0; j < CPL; ++j) {
       const int col = (j * 32 + lane) * VEC;
@@ -167,7 +196,7 @@ __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
 
   const int chunks = gridDim.x;
   if (chunks == 1) {
-    if (d < D) a.o[(size_t)bh * D + d] = od / l;
+    if (d < D) wstore(go + (size_t)bh * D + d, od / l);
     return;
   }
   float* mine = a.part + ((size_t)bh * chunks + c) * (D + 2);
@@ -228,7 +257,7 @@ __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
     mx = gm;
     __syncthreads();
   }
-  if (d < D) a.o[(size_t)bh * D + d] = num / den;
+  if (d < D) wstore(go + (size_t)bh * D + d, num / den);
 }
 
 // D > MAX_D: the chunk's scores by warps over its rows (lanes over the
@@ -237,6 +266,7 @@ __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
 // single chunk writes the output, else the partials and the ticket as
 // above, and the last chunk merges the chunks' (m, l) and rows column by
 // column straight from the scratch.
+template <class TE>
 __global__ void __launch_bounds__(NT)
 incremental_attention_wide_kernel(StepArgs a) {
   __shared__ float sc[STEP_CHUNK];
@@ -246,14 +276,16 @@ incremental_attention_wide_kernel(StepArgs a) {
   const int n = min(STEP_CHUNK, a.t + 1 - p0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t cache = (size_t)bh * a.S * D;
-  const float* q = a.q + (size_t)bh * D;
+  const TE* q = static_cast<const TE*>(a.q) + (size_t)bh * D;
+  TE* go = static_cast<TE*>(a.o);
   for (int i = 0; i < ROWS; ++i) {
     const int r = warp + NWARPS * i;
     float dot = 0.f;
     if (r < n) {
-      const float* krow = a.k + cache + (size_t)(p0 + r) * D;
+      const TE* krow = static_cast<const TE*>(a.k) + cache +
+                       (size_t)(p0 + r) * D;
       for (int col = lane; col < D; col += 32)
-        dot = fmaf(__ldg(q + col), __ldg(krow + col), dot);
+        dot = fmaf(wload(__ldg(q + col)), wload(__ldg(krow + col)), dot);
     }
     dot = warp_sum(dot);
     if (lane == 0 && r < n) sc[r] = dot * a.scale;
@@ -270,13 +302,13 @@ incremental_attention_wide_kernel(StepArgs a) {
   if (a.passes == 2) return;
   const int chunks = gridDim.x;
   float* mine = a.part + ((size_t)bh * chunks + c) * (D + 2);
-  const float* vbase = a.v + cache + (size_t)p0 * D;
+  const TE* vbase = static_cast<const TE*>(a.v) + cache + (size_t)p0 * D;
   for (int d = threadIdx.x; d < D; d += NT) {
     float od = 0.f;
     for (int r = 0; r < n; ++r)
-      od = fmaf(sc[r], __ldg(vbase + (size_t)r * D + d), od);
+      od = fmaf(sc[r], wload(__ldg(vbase + (size_t)r * D + d)), od);
     if (a.passes == 3) continue;
-    if (chunks == 1) a.o[(size_t)bh * D + d] = od / l;
+    if (chunks == 1) wstore(go + (size_t)bh * D + d, od / l);
     else mine[2 + d] = od;
   }
   if (a.passes == 3 || chunks == 1) return;
@@ -309,17 +341,31 @@ incremental_attention_wide_kernel(StepArgs a) {
       const float* pi = parts + (size_t)i * (D + 2);
       num = fmaf(expf(__ldcg(pi) - gm), __ldcg(pi + 2 + d), num);
     }
-    a.o[(size_t)bh * D + d] = num / den;
+    wstore(go + (size_t)bh * D + d, num / den);
   }
 }
 
 __global__ void empty_kernel() {}
 
-template <int VEC, int CPL>
+template <class TE, int VEC, int CPL>
 cudaError_t launch(const StepArgs& a, int chunks, cudaStream_t stream) {
-  incremental_attention_kernel<VEC, CPL>
+  incremental_attention_kernel<TE, VEC, CPL>
       <<<dim3(chunks, a.bh), NT, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class TE>
+cudaError_t launch_elem(const StepArgs& a, int chunks, cudaStream_t s) {
+  // a vector of 4 elements: 16 bytes of float, 8 of bf16
+  const uintptr_t bases = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v;
+  if (a.D > MAX_D) {
+    incremental_attention_wide_kernel<TE><<<dim3(chunks, a.bh), NT, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  if (a.D % 4 == 0 && bases % (4 * sizeof(TE)) == 0)
+    return a.D <= 128 ? launch<TE, 4, 1>(a, chunks, s)
+                      : launch<TE, 4, 2>(a, chunks, s);
+  return launch<TE, 1, MAX_D / 32>(a, chunks, s);
 }
 
 }  // namespace
@@ -333,20 +379,12 @@ extern "C" int incremental_attention_launch(const StepArgs* args,
                                             void* stream) {
   const StepArgs a = *args;
   if (a.bh < 1 || a.bh > 65535 || a.D < 1 || a.t < 0 ||
-      a.t >= a.S || a.chunk != STEP_CHUNK)
+      a.t >= a.S || a.chunk != STEP_CHUNK || (a.elem != 0 && a.elem != 1))
     return (int)cudaErrorInvalidValue;
   const int chunks = (a.t + STEP_CHUNK) / STEP_CHUNK;
   if (chunks > 1 && (a.part == nullptr || a.tickets == nullptr))
     return (int)cudaErrorInvalidValue;
-  const uintptr_t bases = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v;
   const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e;
-  if (a.D > MAX_D) {
-    incremental_attention_wide_kernel<<<dim3(chunks, a.bh), NT, 0, s>>>(a);
-    e = cudaGetLastError();
-  } else if (a.D % 4 == 0 && bases % 16 == 0)
-    e = a.D <= 128 ? launch<4, 1>(a, chunks, s) : launch<4, 2>(a, chunks, s);
-  else
-    e = launch<1, MAX_D / 32>(a, chunks, s);
-  return (int)e;
+  return (int)(a.elem ? launch_elem<__nv_bfloat16>(a, chunks, s)
+                      : launch_elem<float>(a, chunks, s));
 }

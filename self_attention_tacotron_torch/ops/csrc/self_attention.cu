@@ -1,5 +1,5 @@
-// softmax(Q K^T / sqrt(D)) V over (B, H, T, D) float32 tensors, optionally
-// causal.  Replaces the JAX package's ops/pallas_attention.py
+// softmax(Q K^T / sqrt(D)) V over (B, H, T, D) float32 or bfloat16 tensors,
+// optionally causal.  Replaces the JAX package's ops/pallas_attention.py
 // ``_attention_kernel`` (Pallas, reached through ``fused_self_attention``):
 // the Pallas attention mode's full-sequence self-attention hop.
 //
@@ -31,7 +31,7 @@
 //     D % 4 != 0 or a base that is not 16-byte aligned) into a ring of NS
 //     = 3 stages: tiles j + 1 and j + 2 are in flight while tile j is
 //     multiplied, one block barrier a tile.  Both are stored row-major with
-//     rows padded by 4 floats, which makes the fragment reads of both
+//     rows padded by 16 bytes (4 floats), which makes the fragment reads of both
 //     products (K as the col-major B operand, V in the permuted key order)
 //     free of bank conflicts.  The ragged edge is zero-filled by the copies
 //     (keys >= T, columns >= D) and the keys >= T are masked in the scores.
@@ -41,6 +41,15 @@
 //     itself is three instructions (``split3``).
 //   * Causal blocks stop at the tile that holds their last row, and a warp
 //     skips the products of tiles past its own last row.
+// bf16 operands (``elem`` = 1: the model-wide bf16's q, k and v, the JAX
+// kernel's bf16 call) run the same kernels with the element type a
+// template parameter: the ring holds bf16 rows (8 elements of padding,
+// 16 bytes as in f32), every load converts to f32 (__bfloat162float) into
+// the same fragments, the math is the f32 kernel's, and the store rounds
+// once (__float2bfloat16_rn).  bf16 products are exact in f32, the
+// accumulation and the softmax are f32: the JAX kernel's math on bf16
+// inputs.  The 16-byte copies need D % 8 == 0; otherwise the tile is
+// loaded element by element.
 // Wider heads (128 < D <= MAX_WIDE_D) take ``self_attention_wide_kernel``:
 // eight query rows a block on FP32 FMAs, the keys streamed through shared
 // memory in tiles of 32 with an online softmax (csrc/attention_rows.cuh),
@@ -72,10 +81,10 @@
 #include "mma.cuh"
 
 struct AttnArgs {
-  const float* q;   // (B * H, T, D) each
-  const float* k;
-  const float* v;
-  float* o;
+  const void* q;    // (B * H, T, D) each, float or bf16 (``elem``)
+  const void* k;
+  const void* v;
+  void* o;
   long long* cycles;  // nullptr, or ATTN_STAGES counters (profile)
   int bh;           // B * H
   int T;
@@ -84,12 +93,17 @@ struct AttnArgs {
   float scale;      // 1 / sqrt(D)
   int rows;         // query rows a block: 16, 32 or 64 (8: the wide kernel)
   int key_warps;    // warps that share a row group's key tiles: 1 or 4
+  int elem;         // 0: float32 operands, 1: bfloat16
 };
 
 namespace {
 
+int padded_width(int D) {
+  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+}
+
 constexpr int NS = 3;        // stages of the K / V ring
-constexpr int PAD = 4;       // floats after each shared-memory row
+constexpr int PAD_BYTES = 16;   // after each shared-memory row
 constexpr int MAX_ROWS = 64;
 constexpr int MAX_MMA_D = 128;   // the widest tensor-core template
 // the wide kernel's limit: its tile, rows and contexts in 227 KB
@@ -106,8 +120,17 @@ __host__ __device__ constexpr int keys_a_tile(int dp, int kw) {
   return dp == 128 && kw == 1 ? 16 : dp >= 64 ? 32 : 64;
 }
 
-__host__ __device__ constexpr size_t smem_bytes_of(int dp, int kw) {
-  return (size_t)NS * 2 * keys_a_tile(dp, kw) * (dp + PAD) * sizeof(float);
+// elements of padding after a ring row of element size ``es``
+__host__ __device__ constexpr int pad_of(int es) { return PAD_BYTES / es; }
+
+// the ring (element size es), or, when larger, the merge of kw > 1 warps
+// (each of the 4 warps' o fragments and (max, sum) pairs, in floats)
+__host__ __device__ constexpr size_t smem_bytes_of(int dp, int kw,
+                                                   int es = 4) {
+  const size_t ring =
+      (size_t)NS * 2 * keys_a_tile(dp, kw) * (dp + pad_of(es)) * es;
+  const size_t merge = kw > 1 ? (size_t)kw * (dp / 8 * 4 + 4) * 32 * 4 : 0;
+  return ring > merge ? ring : merge;
 }
 
 // x ~= hi + lo for mma3: hi rounded to TF32 by an integer add of half an
@@ -141,45 +164,64 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(FULL, v, 2);
 }
 
+// One element from global into shared memory: cp.async for a float, a
+// plain load and store for a bf16 (cp.async copies 4 bytes at least).
+__device__ __forceinline__ void cp_elem(float* dst, const float* src,
+                                        bool in) {
+  cp4(dst, src, in);
+}
+__device__ __forceinline__ void cp_elem(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src, bool in) {
+  *dst = in ? __ldg(src) : __float2bfloat16_rn(0.f);
+}
+
 // Keys k0 .. k0 + BK - 1 of K and V into one ring stage (zeros past T and
 // past D).
-template <int DP, int BK>
-__device__ __forceinline__ void load_tile(float* ks, const AttnArgs& a,
+template <class T, int DP, int BK>
+__device__ __forceinline__ void load_tile(T* ks, const AttnArgs& a,
                                           size_t base, int k0, bool vec) {
-  constexpr int LD = DP + PAD;
-  float* vs = ks + BK * LD;
-  const int T = a.T, D = a.D;
+  constexpr int LD = DP + pad_of(sizeof(T));
+  T* vs = ks + BK * LD;
+  const T* gk = static_cast<const T*>(a.k);
+  const T* gv = static_cast<const T*>(a.v);
+  const int Tn = a.T, D = a.D;
   if (vec) {
-    constexpr int CH = DP / 4;             // 16-byte chunks a row
+    constexpr int EPC = 16 / sizeof(T);    // elements a 16-byte chunk
+    constexpr int CH = DP / EPC;           // chunks a row
     for (int e = threadIdx.x; e < BK * CH; e += blockDim.x) {
-      const int r = e / CH, c = (e - r * CH) * 4;
-      const bool in = k0 + r < T && c < D;
+      const int r = e / CH, c = (e - r * CH) * EPC;
+      const bool in = k0 + r < Tn && c < D;
       const size_t g = in ? base + (size_t)(k0 + r) * D + c : 0;
-      cp16(ks + r * LD + c, a.k + g, in);
-      cp16(vs + r * LD + c, a.v + g, in);
+      cp16(reinterpret_cast<float*>(ks + r * LD + c),
+           reinterpret_cast<const float*>(gk + g), in);
+      cp16(reinterpret_cast<float*>(vs + r * LD + c),
+           reinterpret_cast<const float*>(gv + g), in);
     }
   } else {
     for (int e = threadIdx.x; e < BK * DP; e += blockDim.x) {
       const int r = e / DP, c = e - r * DP;
-      const bool in = k0 + r < T && c < D;
+      const bool in = k0 + r < Tn && c < D;
       const size_t g = in ? base + (size_t)(k0 + r) * D + c : 0;
-      cp4(ks + r * LD + c, a.k + g, in);
-      cp4(vs + r * LD + c, a.v + g, in);
+      cp_elem(ks + r * LD + c, gk + g, in);
+      cp_elem(vs + r * LD + c, gv + g, in);
     }
   }
 }
 
 // KW warps share a row group's key tiles, each a KB-key slice of every
 // tile (KW = 1: a warp a row group, all of each tile).
-template <int DP, int KW, bool PROF>
+template <class TE, int DP, int KW, bool PROF>
 __global__ void __launch_bounds__(128, 2)
 self_attention_kernel(AttnArgs a, int vec) {
-  constexpr int BK = keys_a_tile(DP, KW), LD = DP + PAD;
+  constexpr int BK = keys_a_tile(DP, KW), LD = DP + pad_of(sizeof(TE));
   constexpr int KD = DP / 8;     // 8-deep steps of QK^T, 8-wide tiles of PV
   constexpr int KB = BK / KW;    // keys of a tile that this warp takes
   constexpr int NK = KB / 8;     // ... in 8-key tiles
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
+  float* smem = reinterpret_cast<float*>(smem4);   // the merge's view
+  TE* ring = reinterpret_cast<TE*>(smem4);
+  const TE* gq = static_cast<const TE*>(a.q);
+  TE* go = static_cast<TE*>(a.o);
   const int T = a.T, D = a.D;
   const size_t base = (size_t)blockIdx.y * T * D;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -207,7 +249,7 @@ self_attention_kernel(AttnArgs a, int vec) {
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < nt)
-      load_tile<DP, BK>(smem + s * 2 * BK * LD, a, base, s * BK, vec);
+      load_tile<TE, DP, BK>(ring + s * 2 * BK * LD, a, base, s * BK, vec);
     cp_commit();
   }
 
@@ -221,7 +263,7 @@ self_attention_kernel(AttnArgs a, int vec) {
       const int row = (c & 1) ? row_b : row_a;
       const int col = kk * 8 + t + ((c & 2) ? 4 : 0);
       qf[kk][c] = (row < T && col < D)
-                      ? __ldg(a.q + base + (size_t)row * D + col) : 0.f;
+                      ? wload(__ldg(gq + base + (size_t)row * D + col)) : 0.f;
     }
   }
 
@@ -237,14 +279,14 @@ self_attention_kernel(AttnArgs a, int vec) {
     cp_wait_group<NS - 2>();   // tile j has landed (this thread's copies)
     __syncthreads();           // ... everyone's; tile j - 1's readers done
     if (j + NS - 1 < nt)
-      load_tile<DP, BK>(smem + ((j + NS - 1) % NS) * 2 * BK * LD, a, base,
-                    (j + NS - 1) * BK, vec);
+      load_tile<TE, DP, BK>(ring + ((j + NS - 1) % NS) * 2 * BK * LD, a,
+                            base, (j + NS - 1) * BK, vec);
     cp_commit();
     lap(0);
     const int k0 = j * BK + kb;     // this warp's first key of the tile
     if (!active || k0 >= T || (a.causal && k0 > warp_last)) continue;
-    const float* ks = smem + (j % NS) * 2 * BK * LD + kb * LD;
-    const float* vs = ks + BK * LD;
+    const TE* ks = ring + (j % NS) * 2 * BK * LD + kb * LD;
+    const TE* vs = ks + BK * LD;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk)   // split Q anew: see the design notes
 #pragma unroll
@@ -263,10 +305,10 @@ self_attention_kernel(AttnArgs a, int vec) {
       for (int c = 0; c < 4; ++c) split3(qf[kk][c], ah[c], al[c]);
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
-        const float* kr = ks + (n * 8 + g) * LD + kk * 8 + t;
+        const TE* kr = ks + (n * 8 + g) * LD + kk * 8 + t;
         uint32_t bh[2], bl[2];
-        split3(kr[0], bh[0], bl[0]);
-        split3(kr[4], bh[1], bl[1]);
+        split3(wload(kr[0]), bh[0], bl[0]);
+        split3(wload(kr[4]), bh[1], bl[1]);
         mma3(s[n], ah, al, bh, bl);
       }
     }
@@ -325,12 +367,12 @@ self_attention_kernel(AttnArgs a, int vec) {
       split3(s[kk][2], ah[1], al[1]);   // P[g + 8][8kk + 2t]
       split3(s[kk][1], ah[2], al[2]);   // P[g][8kk + 2t + 1]
       split3(s[kk][3], ah[3], al[3]);   // P[g + 8][8kk + 2t + 1]
-      const float* v0 = vs + (kk * 8 + 2 * t) * LD + g;
+      const TE* v0 = vs + (kk * 8 + 2 * t) * LD + g;
 #pragma unroll
       for (int jn = 0; jn < KD; ++jn) {
         uint32_t bh[2], bl[2];
-        split3(v0[jn * 8], bh[0], bl[0]);
-        split3(v0[LD + jn * 8], bh[1], bl[1]);
+        split3(wload(v0[jn * 8]), bh[0], bl[0]);
+        split3(wload(v0[LD + jn * 8]), bh[1], bl[1]);
         mma3(o[jn], ah, al, bh, bl);
       }
     }
@@ -404,8 +446,8 @@ self_attention_kernel(AttnArgs a, int vec) {
         const int row = c < 2 ? row_a : row_b;
         const int col = jn * 8 + 2 * t + (c & 1);
         if (row < T && col < D)
-          a.o[base + (size_t)row * D + col] = o[jn][c] * (c < 2 ? inv_a
-                                                               : inv_b);
+          wstore(go + base + (size_t)row * D + col,
+                 o[jn][c] * (c < 2 ? inv_a : inv_b));
       }
     }
   }
@@ -416,84 +458,93 @@ self_attention_kernel(AttnArgs a, int vec) {
 
 // Heads wider than the tensor-core templates: block (g, bh) takes query
 // rows 8 g .. 8 g + 7 of head bh (attend_rows: a warp a row).
+template <class TE>
 __global__ void __launch_bounds__(NT) self_attention_wide_kernel(AttnArgs a) {
   extern __shared__ __align__(16) float wide_smem[];
   const size_t base = (size_t)blockIdx.y * a.T * a.D;
   const int row0 = blockIdx.x * NWARPS;
-  attend_rows<false>(a.q + base, a.D, a.k + base, a.D, a.v + base, a.D,
-                     a.o + base, a.D, row0, min(NWARPS, a.T - row0), a.T,
-                     a.D, a.scale, a.causal != 0, wide_smem);
+  attend_rows<false>(static_cast<const TE*>(a.q) + base, a.D,
+                     static_cast<const TE*>(a.k) + base, a.D,
+                     static_cast<const TE*>(a.v) + base, a.D,
+                     static_cast<TE*>(a.o) + base, a.D, row0,
+                     min(NWARPS, a.T - row0), a.T, a.D, a.scale,
+                     a.causal != 0, wide_smem);
 }
 
+template <class TE>
 int launch_wide(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = 4 * (size_t)attend_rows_floats(a.D);
   cudaError_t e = cudaFuncSetAttribute(
-      self_attention_wide_kernel,
+      self_attention_wide_kernel<TE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.T + NWARPS - 1) / NWARPS, a.bh);
-  self_attention_wide_kernel<<<grid, NT, smem, stream>>>(a);
+  self_attention_wide_kernel<TE><<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int DP, int KW, bool PROF>
+template <class TE, int DP, int KW, bool PROF>
 int launch(const AttnArgs& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes_of(DP, KW);
+  const size_t smem = smem_bytes_of(DP, KW, sizeof(TE));
   cudaError_t e = cudaFuncSetAttribute(
-      self_attention_kernel<DP, KW, PROF>,
+      self_attention_kernel<TE, DP, KW, PROF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const bool vec = a.D % 4 == 0 &&
+  const bool vec = a.D % (16 / (int)sizeof(TE)) == 0 &&
                    ((reinterpret_cast<uintptr_t>(a.k) |
                      reinterpret_cast<uintptr_t>(a.v)) & 15) == 0;
   const dim3 grid((a.T + a.rows - 1) / a.rows, a.bh);
-  self_attention_kernel<DP, KW, PROF><<<grid, 2 * a.rows * KW, smem,
-                                        stream>>>(a, (int)vec);
+  self_attention_kernel<TE, DP, KW, PROF><<<grid, 2 * a.rows * KW, smem,
+                                            stream>>>(a, (int)vec);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <class TE, int DP>
 int launch_dp(const AttnArgs& a, cudaStream_t stream) {
   if (a.key_warps == 4)
-    return a.cycles ? launch<DP, 4, true>(a, stream)
-                    : launch<DP, 4, false>(a, stream);
-  return a.cycles ? launch<DP, 1, true>(a, stream)
-                  : launch<DP, 1, false>(a, stream);
+    return a.cycles ? launch<TE, DP, 4, true>(a, stream)
+                    : launch<TE, DP, 4, false>(a, stream);
+  return a.cycles ? launch<TE, DP, 1, true>(a, stream)
+                  : launch<TE, DP, 1, false>(a, stream);
 }
 
-int padded_width(int D) {
-  return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+template <class TE>
+int launch_elem(const AttnArgs& a, cudaStream_t s) {
+  if (a.D > MAX_MMA_D) return launch_wide<TE>(a, s);
+  switch (padded_width(a.D)) {
+    case 16: return launch_dp<TE, 16>(a, s);
+    case 32: return launch_dp<TE, 32>(a, s);
+    case 64: return launch_dp<TE, 64>(a, s);
+    case 128: return launch_dp<TE, 128>(a, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int self_attention_launch(const AttnArgs* args, void* stream) {
   const AttnArgs a = *args;
+  if (a.elem != 0 && a.elem != 1) return (int)cudaErrorInvalidValue;
   if (a.D > MAX_MMA_D) {   // no profile counters in the wide kernel
     if (a.D > MAX_WIDE_D || a.T < 1 || a.bh < 1 || a.bh > 65535 ||
         a.rows != NWARPS || a.key_warps != 1 || a.cycles != nullptr)
       return (int)cudaErrorInvalidValue;
-    return launch_wide(a, (cudaStream_t)stream);
-  }
-  if (a.T < 1 || a.bh < 1 || a.bh > 65535 || a.D < 1 ||
-      (a.rows != 16 && a.rows != 32 && a.rows != MAX_ROWS) ||
-      (a.key_warps != 1 && (a.key_warps != 4 || a.rows != 16)))
+  } else if (a.T < 1 || a.bh < 1 || a.bh > 65535 || a.D < 1 ||
+             (a.rows != 16 && a.rows != 32 && a.rows != MAX_ROWS) ||
+             (a.key_warps != 1 && (a.key_warps != 4 || a.rows != 16))) {
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (padded_width(a.D)) {
-    case 16: return launch_dp<16>(a, s);
-    case 32: return launch_dp<32>(a, s);
-    case 64: return launch_dp<64>(a, s);
-    case 128: return launch_dp<128>(a, s);
   }
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return a.elem ? launch_elem<__nv_bfloat16>(a, s) : launch_elem<float>(a, s);
 }
 
-// The launcher's plan for head width D and key_warps (what
-// ``attention_plan`` mirrors): keys a tile, ring stages and dynamic
-// shared-memory bytes; 0 for a width the kernel does not take.
-extern "C" int self_attention_plan(int D, int key_warps, int* keys,
-                                   int* stages, int* smem_bytes) {
+// The launcher's plan for head width D, key_warps and element size
+// ``elem_bytes`` (4 or 2; what ``attention_plan`` mirrors): keys a tile,
+// ring stages and dynamic shared-memory bytes; 0 for a width the kernel
+// does not take.
+extern "C" int self_attention_plan(int D, int key_warps, int elem_bytes,
+                                   int* keys, int* stages, int* smem_bytes) {
+  if (elem_bytes != 4 && elem_bytes != 2) return 0;
   if (D > MAX_MMA_D && D <= MAX_WIDE_D && key_warps == 1) {
     *keys = ATT_TK;
     *stages = 1;
@@ -504,6 +555,6 @@ extern "C" int self_attention_plan(int D, int key_warps, int* keys,
   if (D < 1 || dp == 0) return 0;
   *keys = keys_a_tile(dp, key_warps);
   *stages = NS;
-  *smem_bytes = (int)smem_bytes_of(dp, key_warps);
+  *smem_bytes = (int)smem_bytes_of(dp, key_warps, elem_bytes);
   return 1;
 }

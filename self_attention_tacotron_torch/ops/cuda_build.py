@@ -84,13 +84,14 @@ class KernelLaunch:
     preallocated outputs and scratch (and, when profiling, the per-stage
     cycle counts the kernel adds to).  Each call launches the kernel on the
     current stream, raises on a non-zero cudaError_t, adds one to
-    ``owner.launches`` and returns the outputs."""
+    ``owner.launches`` (or to the ``counter`` it names: a kernel's bf16
+    instance counts in ``launches_bf16``) and returns the outputs."""
 
     def __init__(self, fn, args, keep, outputs, device, owner,
-                 stage_cycles=None):
+                 stage_cycles=None, counter: str = "launches"):
         self.fn, self.args, self.keep = fn, args, keep
         self.outputs, self.device, self.owner = outputs, device, owner
-        self.stage_cycles = stage_cycles
+        self.stage_cycles, self.counter = stage_cycles, counter
 
     def __call__(self):
         import torch
@@ -100,7 +101,8 @@ class KernelLaunch:
         if err != 0:
             raise RuntimeError(f"{self.owner.__name__} launch failed: "
                                f"cudaError {err}")
-        self.owner.launches += 1
+        setattr(self.owner, self.counter,
+                getattr(self.owner, self.counter) + 1)
         return self.outputs
 
 

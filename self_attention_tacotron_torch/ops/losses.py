@@ -19,6 +19,7 @@ from typing import Iterable, List, Sequence, Tuple
 import torch
 
 from .collectives import global_sum
+from .compute_dtype import log_softmax
 
 
 def _masked_mean(per_element: torch.Tensor, mask: torch.Tensor
@@ -57,7 +58,7 @@ def binary_loss(stop_token_logits: torch.Tensor, done: torch.Tensor,
 def classification_loss(logits: torch.Tensor, onehot_targets: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """Masked softmax cross-entropy over a class axis."""
-    ce = -(onehot_targets * torch.log_softmax(logits, -1)).sum(-1)
+    ce = -(onehot_targets * log_softmax(logits, -1)).sum(-1)
     return (ce * mask).sum() / torch.clamp(global_sum(mask.sum()), min=1.0)
 
 

@@ -32,6 +32,15 @@ launches the kernel or raises, on a type, shape, layout or width the
 kernel does not take and on an input that needs a gradient (neither
 kernel has a backward; with the recipe's attention dropout neither runs in
 training).  Each wrapper's ``launches`` counts its kernel launches.
+
+Both kernels take float32 or bfloat16 operands (every operand of a call in
+one dtype; anything else raises, on the CPU too): bf16 q, k and v (the
+model-wide bf16's hops, ``ops/compute_dtype.py``; its KV cache is bf16)
+launch each kernel's bf16 instance, which reads bf16, computes in f32 and
+writes bf16 once, as the JAX kernels do on bf16 inputs; those launches
+count in ``launches_bf16``, the f32 ones in ``launches``.  The plain
+versions compute in float32 on the upcast inputs and round the result to
+q's dtype.
 """
 
 from __future__ import annotations
@@ -56,7 +65,7 @@ ATTN_ROWS = (64, 32, 16)
 ATTN_FILL_BLOCKS = 132
 ATTN_KEY_WARPS = 4
 ATTN_RING = 3
-ATTN_ROW_PAD = 4
+ATTN_ROW_PAD = 4     # floats of padding after a ring row (8 bf16)
 # what a profiled launch (prepare_attention(profile=True)) splits its SM
 # cycles into
 ATTN_STAGES = ("loads", "scores", "softmax", "values", "start", "end")
@@ -71,26 +80,33 @@ _P = ctypes.c_void_p
 
 def fused_self_attention_reference(q: Tensor, k: Tensor, v: Tensor,
                                    causal: bool = False) -> Tensor:
-    """Plain PyTorch version: (B, H, T, D) -> (B, H, T, D)."""
+    """Plain PyTorch version: (B, H, T, D) -> (B, H, T, D), in float32,
+    rounded to q's dtype."""
+    dt = q.dtype
+    q, k, v = q.float(), k.float(), v.float()
     scores = q @ k.transpose(-1, -2) / math.sqrt(q.shape[-1])
     if causal:
         Tq, Tk = q.shape[2], k.shape[2]
         mask = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device).tril()
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
-    return torch.softmax(scores, dim=-1) @ v
+    return (torch.softmax(scores, dim=-1) @ v).to(dt)
 
 
 def incremental_attention_step_reference(q_t: Tensor, key_cache: Tensor,
                                          value_cache: Tensor, t: int
                                          ) -> Tensor:
     """Plain PyTorch version: (B, H, D) against (B, H, S, D) caches, the
-    positions past ``t`` filled with -1e9 -> (B, H, D)."""
+    positions past ``t`` filled with -1e9 -> (B, H, D), in float32,
+    rounded to q_t's dtype."""
+    dt = q_t.dtype
+    q_t, key_cache, value_cache = (q_t.float(), key_cache.float(),
+                                   value_cache.float())
     D, S = q_t.shape[-1], key_cache.shape[2]
     scores = torch.einsum("bhd,bhkd->bhk", q_t, key_cache) / math.sqrt(D)
     valid = (torch.arange(S, device=q_t.device) <= t)[None, None]
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     return torch.einsum("bhk,bhkd->bhd", torch.softmax(scores, dim=-1),
-                        value_cache)
+                        value_cache).to(dt)
 
 
 # ---------------------------------------------------------------- kernels
@@ -102,7 +118,7 @@ class _AttnArgs(ctypes.Structure):
                 ("cycles", _P), ("bh", ctypes.c_int), ("T", ctypes.c_int),
                 ("D", ctypes.c_int), ("causal", ctypes.c_int),
                 ("scale", ctypes.c_float), ("rows", ctypes.c_int),
-                ("key_warps", ctypes.c_int)]
+                ("key_warps", ctypes.c_int), ("elem", ctypes.c_int)]
 
 
 class _StepArgs(ctypes.Structure):
@@ -112,7 +128,7 @@ class _StepArgs(ctypes.Structure):
                 ("tickets", _P), ("bh", ctypes.c_int), ("S", ctypes.c_int),
                 ("D", ctypes.c_int), ("t", ctypes.c_int),
                 ("chunk", ctypes.c_int), ("scale", ctypes.c_float),
-                ("passes", ctypes.c_int)]
+                ("passes", ctypes.c_int), ("elem", ctypes.c_int)]
 
 
 class AttnPlan(NamedTuple):
@@ -131,17 +147,20 @@ class AttnPlan(NamedTuple):
     smem_bytes: int
 
 
-def attention_plan(B: int, H: int, T: int, D: int,
-                   causal: bool) -> AttnPlan:
+def attention_plan(B: int, H: int, T: int, D: int, causal: bool,
+                   elem_bytes: int = 4) -> AttnPlan:
     """The kernel's plan at (B, H, T, D): the most rows a block
     (``ATTN_ROWS``, none past T's last 16) whose blocks still fill the card
     once, or else 16 rows on ``ATTN_KEY_WARPS`` warps that split the keys;
     D padded to 16, 32, 64 or 128; tiles of 64 keys, 32 from 64 wide on
     (registers), 16 at 128 wide with a warp a row group (faster there).
     ``causal`` does not change the plan: a causal block stops at its last
-    row's tile in the kernel.  D > ``MAX_MMA_HEAD_DIM`` takes the wide
-    kernel: ``WIDE_ROWS`` rows a block, ``WIDE_KEYS`` keys a tile, one
-    stage, the tile, rows and contexts of ``wide_smem_floats``."""
+    row's tile in the kernel.  The ring holds operands of ``elem_bytes``
+    (4: float32, 2: bf16) in rows padded by 16 bytes; with 4 key warps
+    the block's merge reuses it and sizes it when it is the larger.  D >
+    ``MAX_MMA_HEAD_DIM`` takes the wide kernel: ``WIDE_ROWS`` rows a
+    block, ``WIDE_KEYS`` keys a tile, one stage, the tile, rows and
+    contexts of ``wide_smem_floats``."""
     bh = B * H
     if D > MAX_MMA_HEAD_DIM:
         return AttnPlan(WIDE_ROWS, 1, WIDE_ROWS, (-(-T // WIDE_ROWS), bh),
@@ -152,9 +171,11 @@ def attention_plan(B: int, H: int, T: int, D: int,
     rows = rows or ATTN_ROWS[-1]
     dp = next(w for w in (16, 32, 64, 128) if D <= w)
     keys = 16 if (dp, key_warps) == (128, 1) else 32 if dp >= 64 else 64
-    smem = ATTN_RING * 2 * keys * (dp + ATTN_ROW_PAD) * 4
+    ring = ATTN_RING * 2 * keys * (dp + ATTN_ROW_PAD * 4 // elem_bytes) \
+        * elem_bytes
+    merge = key_warps * (dp // 8 * 4 + 4) * 32 * 4 if key_warps > 1 else 0
     return AttnPlan(rows, key_warps, rows // 16 * key_warps,
-                    (-(-T // rows), bh), keys, ATTN_RING, smem)
+                    (-(-T // rows), bh), keys, ATTN_RING, max(ring, merge))
 
 
 def wide_smem_floats(D: int) -> int:
@@ -164,16 +185,17 @@ def wide_smem_floats(D: int) -> int:
     return WIDE_KEYS * (D | 1) + 2 * WIDE_ROWS * D + WIDE_ROWS * WIDE_KEYS
 
 
-def kernel_plan(D: int, key_warps: int) -> Tuple[int, int, int]:
+def kernel_plan(D: int, key_warps: int,
+                elem_bytes: int = 4) -> Tuple[int, int, int]:
     """(keys a tile, stages, shared-memory bytes) of the built kernel at
-    head width ``D`` and ``key_warps``: the launcher's own numbers, which
-    ``attention_plan`` mirrors.  Builds the kernel; raises for a width it
-    does not take."""
+    head width ``D``, ``key_warps`` and operands of ``elem_bytes``: the
+    launcher's own numbers, which ``attention_plan`` mirrors.  Builds the
+    kernel; raises for a width it does not take."""
     fn = cuda_build.load("self_attention").self_attention_plan
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
     fn.restype = ctypes.c_int
     out = [ctypes.c_int() for _ in range(3)]
-    if not fn(D, key_warps, *map(ctypes.byref, out)):
+    if not fn(D, key_warps, elem_bytes, *map(ctypes.byref, out)):
         raise ValueError(f"fused_self_attention takes 1 <= D <= "
                          f"{MAX_HEAD_DIM} (key_warps 1 past "
                          f"{MAX_MMA_HEAD_DIM}), got {D}")
@@ -213,10 +235,24 @@ def _fn(name: str, struct):
     return fn
 
 
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def operand_dtype(*tensors: Tensor) -> torch.dtype:
+    """The one dtype of a call's operands: float32 or bfloat16 (raises on
+    any other, or on a mix)."""
+    dt = tensors[0].dtype
+    if dt not in DTYPES or any(t.dtype != dt for t in tensors):
+        raise ValueError("the attention kernels take float32 or bfloat16 "
+                         "operands, all of one dtype; got "
+                         f"{[t.dtype for t in tensors]}")
+    return dt
+
+
 def _check(t: Tensor, shape, name: str, device) -> Tensor:
-    if t.dtype != torch.float32 or t.device != device:
-        raise ValueError(f"{name}: expected a float32 tensor on {device}, got "
-                         f"{t.dtype} on {t.device}")
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got one on "
+                         f"{t.device}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
@@ -262,6 +298,7 @@ def fused_self_attention(q: Tensor, k: Tensor, v: Tensor,
                          causal: bool = False) -> Tensor:
     """softmax(q k^T / sqrt(D)) v over (B, H, T, D).  CPU tensors take the
     plain version; CUDA tensors launch the kernel (or raise)."""
+    operand_dtype(q, k, v)
     if not q.is_cuda:
         return fused_self_attention_reference(q, k, v, causal)
     return prepare_attention(q, k, v, causal)()
@@ -276,6 +313,7 @@ def prepare_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
     if q.dim() != 4:
         raise ValueError(f"q: expected (B, H, T, D), got {tuple(q.shape)}")
     B, H, T, D = q.shape
+    bf16 = operand_dtype(q, k, v) == torch.bfloat16
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check(t, (B, H, T, D), name, q.device)
     reason = attention_unsupported_reason(B, H, T, D)
@@ -287,17 +325,18 @@ def prepare_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
         raise ValueError("the wide kernel (D > "
                          f"{MAX_MMA_HEAD_DIM}) has no profile counters")
     out = torch.empty_like(q)
-    plan = attention_plan(B, H, T, D, causal)
+    plan = attention_plan(B, H, T, D, causal, q.element_size())
     cycles = (torch.zeros(len(ATTN_STAGES), dtype=torch.int64,
                           device=q.device) if profile else None)
     args = _AttnArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(),
                      cycles.data_ptr() if profile else None, B * H, T, D,
                      int(causal), 1.0 / math.sqrt(D), plan.rows,
-                     plan.key_warps)
+                     plan.key_warps, int(bf16))
     return cuda_build.KernelLaunch(
         _fn("self_attention", _AttnArgs), args, (q, k, v, out, cycles), out,
-        q.device, fused_self_attention, stage_cycles=cycles)
+        q.device, fused_self_attention, stage_cycles=cycles,
+        counter="launches_bf16" if bf16 else "launches")
 
 
 def incremental_attention_step(q_t: Tensor, key_cache: Tensor,
@@ -305,6 +344,7 @@ def incremental_attention_step(q_t: Tensor, key_cache: Tensor,
     """(B, H, D) query against (B, H, S, D) caches at positions <= ``t`` (a
     Python int) -> (B, H, D).  CPU tensors take the plain version; CUDA
     tensors launch the kernel (or raise)."""
+    operand_dtype(q_t, key_cache, value_cache)
     if not q_t.is_cuda:
         return incremental_attention_step_reference(q_t, key_cache,
                                                     value_cache, t)
@@ -334,6 +374,7 @@ def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
         raise ValueError(f"key_cache: expected (B, H, S, D), got "
                          f"{tuple(key_cache.shape)}")
     B, H, S, D = key_cache.shape
+    bf16 = operand_dtype(q_t, key_cache, value_cache) == torch.bfloat16
     _check(q_t, (B, H, D), "q_t", q_t.device)
     _check(key_cache, (B, H, S, D), "key_cache", q_t.device)
     _check(value_cache, (B, H, S, D), "value_cache", q_t.device)
@@ -350,12 +391,14 @@ def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
                      value_cache.data_ptr(), out.data_ptr(),
                      part.data_ptr() if floats else None,
                      tickets.data_ptr(), B * H, S, D, t, STEP_CHUNK,
-                     1.0 / math.sqrt(D), int(passes))
+                     1.0 / math.sqrt(D), int(passes), int(bf16))
     return cuda_build.KernelLaunch(
         _fn("incremental_attention", _StepArgs), args,
         (q_t, key_cache, value_cache, out, part, tickets), out, q_t.device,
-        incremental_attention_step)
+        incremental_attention_step,
+        counter="launches_bf16" if bf16 else "launches")
 
 
-fused_self_attention.launches = 0
+fused_self_attention.launches = fused_self_attention.launches_bf16 = 0
 incremental_attention_step.launches = 0
+incremental_attention_step.launches_bf16 = 0

@@ -20,6 +20,10 @@ transposed (``utils/convert.py``), ``bias`` (4u,); a GRU cell's ``gates``
 and ``candidate`` are linear layers whose weights are the JAX
 ``gates/kernel`` (in + u, 2u) and ``candidate/kernel`` (in + u, u)
 transposed.
+
+Model-wide bf16 (``ops/compute_dtype.py``): a cell casts [x, h] and its
+float32 weights to its ``dtype``, and its carries start (and stay) in that
+dtype, as the JAX package's cells.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from .compute_dtype import Linear, cast, sigmoid, weak
 
 Carry = Tuple[torch.Tensor, torch.Tensor]
 
@@ -38,14 +44,19 @@ def lstm_update(gates: torch.Tensor, c_prev: torch.Tensor,
     """Zoneout LSTM update from gate pre-activations (i, g, f, o) ->
     (c, h); ``forget_bias`` is added to f (0 where it is already folded)."""
     i, g, f, o = gates.chunk(4, dim=-1)
-    c = (c_prev * torch.sigmoid(f + forget_bias)
-         + torch.sigmoid(i) * torch.tanh(g))
-    h = torch.tanh(c) * torch.sigmoid(o)
+    c = c_prev * sigmoid(f + forget_bias) + sigmoid(i) * torch.tanh(g)
+    h = torch.tanh(c) * sigmoid(o)
     if zoneout_cell:
-        c = (1.0 - zoneout_cell) * c + zoneout_cell * c_prev
+        c = _mix(c, c_prev, zoneout_cell)
     if zoneout_output:
-        h = (1.0 - zoneout_output) * h + zoneout_output * h_prev
+        h = _mix(h, h_prev, zoneout_output)
     return c, h
+
+
+def _mix(new: torch.Tensor, prev: torch.Tensor, z: float) -> torch.Tensor:
+    """The inference zoneout (1 - z) new + z prev, both factors rounded to
+    the carry's dtype first, as the JAX package's weak scalars are."""
+    return weak(1.0 - z, new.dtype) * new + weak(z, new.dtype) * prev
 
 
 def _zoneout(prev: torch.Tensor, new: torch.Tensor, factor: float,
@@ -66,6 +77,8 @@ def fold_forget_bias(b: torch.Tensor) -> torch.Tensor:
 
 
 class ZoneoutLSTMCell(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, input_size: int, num_units: int,
                  zoneout_factor_cell: float = 0.0,
                  zoneout_factor_output: float = 0.0):
@@ -80,7 +93,9 @@ class ZoneoutLSTMCell(nn.Module):
     def forward(self, carry: Carry, x: torch.Tensor, training: bool = False,
                 generator: Optional[torch.Generator] = None):
         c_prev, h_prev = carry
-        gates = torch.cat([x, h_prev], dim=-1) @ self.weight.t() + self.bias
+        dt = self.dtype
+        gates = (torch.cat([x, h_prev], dim=-1).to(dt)
+                 @ cast(self, self.weight, dt).t() + cast(self, self.bias, dt))
         if not training:
             new_c, new_h = lstm_update(gates, c_prev, h_prev,
                                        self.zoneout_factor_cell,
@@ -94,30 +109,34 @@ class ZoneoutLSTMCell(nn.Module):
         return (new_c, new_h), new_h
 
     def initial_state(self, batch: int, device=None) -> Carry:
-        z = torch.zeros(batch, self.num_units, device=device)
+        z = torch.zeros(batch, self.num_units, dtype=self.dtype,
+                        device=device)
         return z, z
 
 
 class GRUCell(nn.Module):
+    dtype = torch.float32
+
     def __init__(self, input_size: int, num_units: int):
         super().__init__()
         self.num_units = num_units
-        self.gates = nn.Linear(input_size + num_units, 2 * num_units)
-        self.candidate = nn.Linear(input_size + num_units, num_units)
+        self.gates = Linear(input_size + num_units, 2 * num_units)
+        self.candidate = Linear(input_size + num_units, num_units)
 
     def forward(self, h_prev: torch.Tensor, x: torch.Tensor,
                 training: bool = False,
                 generator: Optional[torch.Generator] = None):
         """One step -> (h, h); ``training`` and ``generator`` are unused
         (the cell has no dropout or zoneout)."""
-        r, u = torch.sigmoid(self.gates(torch.cat([x, h_prev], -1))).chunk(
+        r, u = sigmoid(self.gates(torch.cat([x, h_prev], -1))).chunk(
             2, dim=-1)
         cand = torch.tanh(self.candidate(torch.cat([x, r * h_prev], -1)))
         h = u * h_prev + (1.0 - u) * cand
         return h, h
 
     def initial_state(self, batch: int, device=None) -> torch.Tensor:
-        return torch.zeros(batch, self.num_units, device=device)
+        return torch.zeros(batch, self.num_units, dtype=self.dtype,
+                           device=device)
 
 
 def _hold(valid: torch.Tensor, new, prev):

@@ -26,7 +26,13 @@ rounding boundary rounds one ulp (2^-8 relative) apart now and then, and
 the recurrence carries it on, so: the decode within 5e-3 over its first 10
 steps and 5e-2 over all 30, finite, and the same code argmax at >= 90 % of
 the frames; the training forward within 1e-2 and each gradient within
-1e-2 of its largest magnitude.
+1e-2 of its largest magnitude.  The bf16 instances of the Pallas-mode
+attention kernels (model-wide bf16) against their plain versions (f32 math
+on the same bf16 inputs, rounded once): within 1e-2 of the output's
+largest magnitude (one bf16 ulp is 2^-8 relative; the f32 sums' order can
+move a value across a rounding boundary), at the tensor-core and wide
+widths, the 16-byte and element-by-element tile copies, the chunk edges;
+and a bf16 model in the Pallas mode launching only the bf16 instances.
 """
 
 import os
@@ -1268,3 +1274,83 @@ def test_spectrogram_dft_matches_plain(device, n_fft):
     for g, r in zip(got, S.spectrograms_plain(y, plan)):
         mag_err, db_err = _db_errors(g, r)
         assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+
+def _close_bf16(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * scale
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("B,H,T,D,causal", [
+    (1, 2, 64, 16, False), (2, 2, 37, 16, True), (32, 2, 256, 128, True),
+    (3, 2, 130, 64, False), (2, 1, 45, 30, True), (1, 2, 33, 5, False),
+    (2, 2, 70, 256, True), (1, 2, 40, 1024, False)])
+def test_fused_self_attention_bf16_instance_matches_plain(device, B, H, T, D,
+                                                          causal):
+    """The tensor-core kernel (16-byte copies at D % 8 == 0, else element
+    by element; 4 warps on the keys at B = 1) and the wide one."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    q, k, v = (_normal(device, B, H, T, D, seed=s).bfloat16()
+               for s in range(3))
+    before = (pa.fused_self_attention.launches,
+              pa.fused_self_attention.launches_bf16)
+    got = pa.fused_self_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert (pa.fused_self_attention.launches,
+            pa.fused_self_attention.launches_bf16) == (before[0],
+                                                       before[1] + 1)
+    _close_bf16(got, pa.fused_self_attention_reference(q, k, v, causal))
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("B,H,S,D", [(1, 2, 450, 128), (32, 2, 250, 128),
+                                     (2, 2, 24, 6), (1, 2, 3000, 512)])
+def test_incremental_step_bf16_instance_matches_plain(device, B, H, S, D):
+    """Vector loads of four bf16 (D % 4 == 0), scalar ones, the wide
+    kernel; t at both ends of the cache and at a chunk edge."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    kc, vc = (_normal(device, B, H, S, D, seed=s).bfloat16() for s in (1, 2))
+    for t in (0, min(pa.STEP_CHUNK, S - 1), S - 1):
+        q = _normal(device, B, H, D, seed=3 + t).bfloat16()
+        before = pa.incremental_attention_step.launches
+        got = pa.incremental_attention_step(q, kc, vc, t)
+        torch.cuda.synchronize()
+        assert pa.incremental_attention_step.launches == before
+        _close_bf16(got, pa.incremental_attention_step_reference(q, kc, vc,
+                                                                 t))
+
+
+@pytest.mark.parametrize("D,key_warps", [(16, 4), (64, 1), (128, 1),
+                                         (128, 4)])
+def test_attention_plan_matches_the_bf16_kernel(device, D, key_warps):
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    plan = pa.attention_plan(1 if key_warps == 4 else 32, 2, 64, D, False, 2)
+    assert plan.key_warps == key_warps
+    assert pa.kernel_plan(D, key_warps, 2) == (plan.keys, plan.stages,
+                                               plan.smem_bytes)
+
+
+@torch.no_grad()
+def test_bf16_model_serves_on_the_bf16_instances(device):
+    """``compute_dtype=bfloat16`` in the Pallas mode: one bf16
+    full-sequence launch a hop and one bf16 step launch a decode step, no
+    float32 launch, bf16 outputs that are finite."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    model = _model(device, compute_dtype="bfloat16",
+                   use_pallas_attention=True)
+    pa.fused_self_attention.launches = 0
+    pa.fused_self_attention.launches_bf16 = 0
+    pa.incremental_attention_step.launches = 0
+    pa.incremental_attention_step.launches_bf16 = 0
+    out = model(Batch(source=_source(12, 12, device),
+                      source_length=torch.tensor([12], device=device)))
+    torch.cuda.synchronize()
+    assert out.outputs.dtype == torch.bfloat16
+    assert bool(out.outputs.float().isfinite().all())
+    assert pa.fused_self_attention.launches == 0
+    assert pa.incremental_attention_step.launches == 0
+    assert pa.fused_self_attention.launches_bf16 == 1
+    assert pa.incremental_attention_step.launches_bf16 == TINY["max_iters"]

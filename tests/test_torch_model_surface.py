@@ -24,7 +24,9 @@ port equals the JAX package's INFERENCE; one generator seed gives one
 output and two seeds differ; the fused gate logs its reason.  The JAX
 package's own ``make_predict_step`` fails with that hparam (no dropout
 key): a reference fault the port does not copy.  ``compute_dtype``:
-``bfloat16`` is refused, ``float16`` builds and runs f32 as there.
+``bfloat16`` builds and runs in bf16 on float32 parameters (its parity:
+tests/test_torch_compute_dtype.py), ``float16`` builds and runs f32 as
+there.
 """
 
 import functools
@@ -462,9 +464,12 @@ def test_jax_make_predict_step_fails_with_inference_dropout():
 
 
 def test_compute_dtype_refuses_bfloat16_only():
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        tacotron_model_factory(tiny_hp(compute_dtype="bfloat16"))
-    model = tacotron_model_factory(tiny_hp(compute_dtype="float16"))
-    out = convert.init_parameters(model, 0).eval()(to_port(np_batch(
-        model.hp)))
-    assert out.outputs.dtype == torch.float32
+    """Nothing is refused any more: ``bfloat16`` computes in bf16 from
+    float32 parameters; any other string, ``float16`` too, runs f32."""
+    for name, dtype in (("bfloat16", torch.bfloat16),
+                        ("float16", torch.float32)):
+        model = tacotron_model_factory(tiny_hp(compute_dtype=name))
+        out = convert.init_parameters(model, 0).eval()(to_port(np_batch(
+            model.hp)))
+        assert out.outputs.dtype == dtype
+        assert {p.dtype for p in model.parameters()} == {torch.float32}

@@ -17,6 +17,13 @@
   the warps that split the keys and the grid at the serving, batched-
   encoder, training and long causal shapes, and shared memory that does
   not grow with T and lets two blocks share an SM at D = 128.
+* bf16 operands (the model-wide bf16's hops): both plain versions, given
+  bf16 inputs, within one bf16 ulp of the JAX kernels in interpret mode
+  (both sum in float32 and round once; the sums' order may move a value
+  across a rounding boundary), causal and not, at a wide head and with a
+  cache at t < S - 1; ``MultiHeadAttention(use_pallas=True)`` in bf16
+  (its bf16 KV cache) against the JAX module in bf16; any other dtype, or
+  a mix, raises on the CPU as on the card.
 """
 
 import jax
@@ -240,3 +247,93 @@ def test_hop_refuses_a_differentiated_pallas_call():
     with torch.no_grad():
         out, align = tm(x, x, x, training=True)
     assert out.shape == (1, 5, 8) and not align.any()
+
+
+def _bf16_ulps(got, ref) -> float:
+    """The largest difference in units of the last place of bf16 at each
+    reference element's magnitude (2^-7 of its binade)."""
+    got = got.float().numpy()
+    ref = np.asarray(jnp.asarray(ref).astype(jnp.float32))
+    binade = np.exp2(np.floor(np.log2(np.maximum(np.abs(ref), 2.0 ** -100))))
+    return float((np.abs(got - ref) / (binade * 2.0 ** -7)).max())
+
+
+def _bf16(seed, *shape):
+    x = randn(seed, *shape)
+    return jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).bfloat16()
+
+
+@pytest.mark.parametrize("B,H,T,D,causal", [
+    (1, 2, 20, 16, True), (2, 2, 37, 16, False), (1, 2, 24, 160, True)],
+    ids=["causal", "full", "wide_causal"])
+def test_plain_fused_self_attention_bf16_matches_jax_kernel(B, H, T, D,
+                                                           causal):
+    (jq, q), (jk, k), (jv, v) = (_bf16(s, B, H, T, D) for s in (0, 1, 2))
+    ref = jpa.fused_self_attention(jq, jk, jv, causal=causal,
+                                   interpret=True)
+    launches = (pa.fused_self_attention.launches,
+                pa.fused_self_attention.launches_bf16)
+    got = pa.fused_self_attention(q, k, v, causal=causal)
+    assert (pa.fused_self_attention.launches,
+            pa.fused_self_attention.launches_bf16) == launches  # CPU: plain
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert _bf16_ulps(got, ref) <= 1.0
+
+
+@pytest.mark.parametrize("S,D,t", [(24, 16, 0), (24, 16, 5), (24, 16, 17),
+                                   (12, 300, 7)],
+                         ids=["t0", "t5", "t17", "wide_t7"])
+def test_plain_incremental_step_bf16_matches_jax_kernel(S, D, t):
+    B, H = 2, 2
+    (jk, kc), (jv, vc), (jq, q) = (_bf16(s, *shape) for s, shape in (
+        (3, (B, H, S, D)), (4, (B, H, S, D)), (5 + t, (B, H, D))))
+    ref = jpa.incremental_attention_step(jq, jk, jv, jnp.asarray(t),
+                                         interpret=True)
+    got = pa.incremental_attention_step(q, kc, vc, t)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    assert _bf16_ulps(got, ref) <= 1.0
+
+
+def test_attention_kernels_take_float32_or_bfloat16_only():
+    q = torch.zeros(1, 2, 4, 8)
+    for bad in ((q.half(),) * 3, (q, q.bfloat16(), q)):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            pa.fused_self_attention(*bad)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        pa.incremental_attention_step(q[:, :, 0].bfloat16(), q, q, 0)
+
+
+def test_mha_pallas_mode_bf16_matches_jax():
+    """The hop in the model-wide bf16: projections in bf16, the kernels'
+    plain versions on bf16 q, k, v, a bf16 KV cache; the full causal call
+    and three cache steps within one bf16 ulp of the JAX module's
+    (``dtype=bfloat16``, its kernels in interpret mode); zero alignments in
+    bf16."""
+    from self_attention_tacotron_torch.ops.compute_dtype import \
+        set_compute_dtype
+    D, H, S = 16, 2, 5
+    xs = randn(8, 2, S, D)
+    mod = jattn.MultiHeadAttention(D, H, use_subsequent_mask=True,
+                                   use_pallas=True, dtype=jnp.bfloat16)
+    v = mod.init(jax.random.PRNGKey(5), xs, xs, xs)
+    tm = set_compute_dtype(load(tattn.MultiHeadAttention(
+        D, H, use_subsequent_mask=True, use_pallas=True), v), torch.bfloat16)
+    jout, jal = mod.apply(v, xs, xs, xs)
+    with torch.no_grad():
+        tout, tal = tm(*(torch.from_numpy(xs),) * 3)
+    assert tout.dtype == tal.dtype == torch.bfloat16
+    assert _bf16_ulps(tout, jout) <= 1.0 and not tal.any()
+    jcache = mod.apply(v, 2, S, method=mod.init_cache)
+    tcache = tm.init_cache(2, S)
+    assert tcache.key.dtype == torch.bfloat16
+    assert jcache.key.dtype == jnp.bfloat16
+    with torch.no_grad():
+        for t in range(3):
+            jo, jcache, jrow = mod.apply(v, xs[:, t], t, jcache,
+                                         method=mod.step)
+            to, tcache, trow = tm.step(torch.from_numpy(xs[:, t]), t, tcache)
+            assert to.dtype == trow.dtype == torch.bfloat16
+            assert _bf16_ulps(to, jo) <= 1.0 and not trow.any()
+            np.testing.assert_array_equal(
+                tcache.value.float().numpy(),
+                np.asarray(jcache.value.astype(jnp.float32)))

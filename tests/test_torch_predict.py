@@ -155,13 +155,11 @@ def test_records_read_back_by_the_jax_reader(tmp_path):
 
 
 def test_model_rejects_kinds_not_ported():
-    """What the port refuses: ``compute_dtype=bfloat16`` (model-wide bf16,
-    the next slice).  The MGC/LF0 kind, inference dropout, accent types and
-    the transition agent, refused before they were ported, build and
-    serve."""
+    """The port refuses no kind the JAX package builds: the MGC/LF0 kind,
+    inference dropout, accent types, the transition agent and model-wide
+    bf16 (``compute_dtype=bfloat16``), each refused before it was ported,
+    build and serve."""
     import pytest
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        tacotron_model_factory(tiny_codes_hp(compute_dtype="bfloat16"))
     batch = Batch(source=torch.randint(1, 30, (1, 7)),
                   source_length=torch.tensor([7]),
                   accent_type=torch.full((1, 7), 0x3100 + 3))
@@ -174,11 +172,14 @@ def test_model_rejects_kinds_not_ported():
                     encoder_prenet_out_units_if_accent=(8, 6),
                     accent_type_prenet_out_units=(4, 2),
                     accent_type_embedding_dim=4),
-               dict(compute_dtype="float16")):
+               dict(compute_dtype="float16"),
+               dict(compute_dtype="bfloat16")):
         model = convert.init_parameters(
             tacotron_model_factory(tiny_codes_hp(**kw)), 0).eval()
         out = model(batch)
         assert torch.isfinite(out.outputs).all()
+        assert out.outputs.dtype == (torch.bfloat16 if kw.get(
+            "compute_dtype") == "bfloat16" else torch.float32)
     # accent types need an accent-type encoder, as the JAX encoders' calls
     # do
     with pytest.raises(ValueError):
