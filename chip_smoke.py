@@ -247,6 +247,16 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    256 D = 128 causal and not, the serving cache S = 450, the wide
    kernels at D = 256 and S = 3000 D = 512).  The kernels line gains ``fused_self_attention_bf16`` and
    ``incremental_attention_step_bf16``.
+28. targetless (predict-time) serving (``targetless_serving``): a
+   3-utterance codes corpus read by ``Dataset(sources, None, hp,
+   batch_size=1)`` through ``prefetch`` (each utterance a batch of its
+   own, no target fields), each batch served by ``make_predict_step``
+   through #1 and #2 (one launch each an utterance, counters zeroed just
+   before the reading), held against the targeted ``Dataset``'s batches
+   of the same utterances (the same source pads; every step) and against
+   the plain path with the fused flags off (the decoded steps): equal stop
+   steps and code argmax, outputs and alignments within 1e-5; the phase's
+   time on its own line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero before it; so does a machine without CUDA, or a directory that
@@ -398,15 +408,20 @@ def phase_encode(model, device, phase: int = 3):
     worst = 0.0
     for L in (T_IN, 50):
         params, x, kw = encoder_case(model, L, T_IN, device)
-        got = fe.fused_encode(params, x, L, **kw)
+        got = [t.clone() for t in fe.fused_encode(params, x, L, **kw)]
+        # the same inputs again: the first projection's atomics add its
+        # chunks' partial sums in the order the blocks arrive
+        again = fe.fused_encode(params, x, L, **kw)
         ref = fe.fused_encode_reference(params, x, L, **kw)
         if device.type == "cuda":
             torch.cuda.synchronize()
         errs = [(_max_err(g, r), _rel_err(g, r)) for g, r in zip(got, ref)]
+        repeat = [_max_err(g, a) for g, a in zip(got, again)]
         zero_tail = bool((got[0][0, L:] == 0).all())
         log(f"phase {phase} fused_encode T={T_IN} L={L}: lstm_out abs "
             f"{errs[0][0]:.3e} rel {errs[0][1]:.3e}; sa_out abs "
-            f"{errs[1][0]:.3e} rel {errs[1][1]:.3e}; zero past L: {zero_tail}")
+            f"{errs[1][0]:.3e} rel {errs[1][1]:.3e}; zero past L: {zero_tail}"
+            f"; call to call lstm_out {repeat[0]:.3e} sa_out {repeat[1]:.3e}")
         if max(e[0] for e in errs) > TOL_ENCODE or not zero_tail:
             raise AssertionError(f"fused_encode disagrees (tol {TOL_ENCODE})")
         worst = max(worst, *(e[0] for e in errs))
@@ -4866,6 +4881,109 @@ def phase_model_bf16(device, card: str, tmp: str, rows):
     return new_rows, launches
 
 
+TOL_TARGETLESS = 1e-5     # the served batches against both references
+
+
+def _serve_batches(model, batches, device):
+    """``make_predict_step`` over one-utterance batches as they come;
+    returns ({key: output}, the batches)."""
+    from self_attention_tacotron_torch.data.dataset import to_model_batch
+    from self_attention_tacotron_torch.parallel import make_predict_step
+    step = make_predict_step(model.hp)
+    served, seen = {}, []
+    for nb in batches:
+        seen.append(nb)
+        (served[nb.meta[0].key],) = step(model, to_model_batch(nb).to(device))
+    return served, seen
+
+
+def _targetless_errors(got, ref, hp, whole: bool):
+    """{what: largest abs error} of one served utterance against a
+    reference; ``whole`` compares every step, else the decoded ones (past
+    its stop the early-exit loop leaves zeros, the plain loop its own)."""
+    s = int(ref.lengths[0])
+    if int(got.lengths[0]) != s:
+        raise AssertionError(f"the stop steps differ: {int(got.lengths[0])} "
+                             f"against {s}")
+    f = got.outputs.shape[1] if whole else s * hp.outputs_per_step
+    n = got.alignments[0].shape[-1] if whole else s
+    agree = bool((got.outputs[:, :f].argmax(-1)
+                  == ref.outputs[:, :f].argmax(-1)).all())
+    if not agree:
+        raise AssertionError("the code argmax differs")
+    return {"outputs": _max_err(got.outputs[:, :f], ref.outputs[:, :f]),
+            "alignments": max(_max_err(a[..., :n], b[..., :n]) for a, b in
+                              zip(got.alignments, ref.alignments))}
+
+
+def phase_targetless_serving(model, device, card: str, tmp: str, rows):
+    """Phase 28: targetless (predict-time) batches of the codes recipe
+    served on the card: ``Dataset(sources, None, hp, batch_size=1)``
+    through ``prefetch``, each batch through ``make_predict_step`` (one #1
+    and one #2 launch), held against the targeted ``Dataset``'s batches of
+    the same utterances (the same source pads), against the plain path
+    with the fused flags off, and against the same batches served again
+    (#1 and #2 on the same inputs, call to call).  Returns (rows, launch
+    counts)."""
+    from self_attention_tacotron_torch.data.dataset import (
+        Dataset, find_dataset_files)
+    from self_attention_tacotron_torch.ops import fused_decode as fd
+    from self_attention_tacotron_torch.ops import fused_encoder as fe
+    t0 = time.perf_counter()
+    hp = model.hp
+    data = os.path.join(tmp, "targetless_data")
+    os.makedirs(data)
+    keys = write_corpus(hp, data)
+    src, tgt = (find_dataset_files(data, keys, ext) for ext in
+                (hp.source_file_extension, hp.target_file_extension))
+    fe.fused_encode.launches = 0
+    fd.fused_decode.launches = 0
+    served, batches = _serve_batches(model, Dataset(
+        src, None, hp, batch_size=1, shuffle=False).prefetch(), device)
+    counts = {"fused_encode": fe.fused_encode.launches,
+              "fused_decode": fd.fused_decode.launches}
+    serve_s = time.perf_counter() - t0
+    if (len(batches) != len(keys)
+            or any(nb.target is not None or nb.done is not None
+                   or len(nb.meta) != 1 for nb in batches)):
+        raise AssertionError("the targetless Dataset's batches are not one "
+                             "targetless utterance each")
+    targeted = list(Dataset(src, tgt, hp, batch_size=1, shuffle=False))
+    pads = {nb.meta[0].key: nb.source for nb in targeted}
+    if any(not (pads[nb.meta[0].key] == nb.source).all() for nb in batches):
+        raise AssertionError("the targeted batches' sources differ")
+    plain = make_model(_hp_with(RECIPE, PLAIN), device)
+    plain.load_state_dict(model.state_dict())
+    refs = {"targeted": _serve_batches(model, targeted, device)[0],
+            "plain path": _serve_batches(plain, batches, device)[0],
+            "run to run": _serve_batches(model, batches, device)[0]}
+    errs = {}
+    for name, ref in refs.items():
+        found = [_targetless_errors(served[k], ref[k], hp,
+                                    whole=name != "plain path")
+                 for k in keys]
+        errs[name] = {w: max(f[w] for f in found) for w in found[0]}
+    log(f"phase 28 targetless serving: {len(batches)} targetless batches "
+        f"(source pads {[nb.source.shape[1] for nb in batches]}) through "
+        f"prefetch and make_predict_step on {device.type} in {serve_s:.2f} "
+        f"s; stop steps {[int(served[k].lengths[0]) for k in keys]}; "
+        f"launch counts {counts}; max abs err against the targeted batches "
+        f"{errs['targeted']}, against the plain path {errs['plain path']}, "
+        f"run to run {errs['run to run']} (tol {TOL_TARGETLESS}; card "
+        f"{card})")
+    if max(e for d in errs.values() for e in d.values()) > TOL_TARGETLESS:
+        raise AssertionError("targetless serving disagrees with a reference")
+    if device.type == "cuda" and counts != {"fused_encode": len(keys),
+                                            "fused_decode": len(keys)}:
+        raise AssertionError(f"targetless serving launched {counts}")
+    new_rows = []
+    for name in ("fused_encode", "fused_decode"):
+        new_rows += _reused_rows(rows, name, "serving", "targetless_serving",
+                                 counts[name])
+    log(f"phase 28 targetless serving took {time.perf_counter() - t0:.1f} s")
+    return new_rows, {"targetless_serving": counts}
+
+
 def phase_barriers(card: str):
     """Phase 2: the cost of one grid-wide barrier at one block per SM,
     cooperative groups' (the fused encoder's) beside the hand-written ones
@@ -5005,8 +5123,12 @@ def main() -> int:
             launches.update(surface_launches)
             bf16_rows, bf16_launches = phase_model_bf16(device, card, tmp,
                                                         rows)
-        rows += bf16_rows
-        launches.update(bf16_launches)
+            rows += bf16_rows
+            launches.update(bf16_launches)
+            targetless_rows, targetless_launches = phase_targetless_serving(
+                model, device, card, tmp, rows)
+        rows += targetless_rows
+        launches.update(targetless_launches)
         log("launch counts of each main path: " + "; ".join(
             f"{path} {counts}" for path, counts in launches.items()))
         print(json.dumps({"kernels": rows}), flush=True)

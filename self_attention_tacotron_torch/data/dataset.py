@@ -42,8 +42,13 @@ the same shapes: ``fixed_target_pad`` / ``fixed_source_pad`` pad every
 batch to one shape (utterances that do not fit are skipped with a
 warning), or the shared bucket schedule (``bucket_schedule_seed``,
 ``bucket_weights``, ``bucket_buffer_cap``) draws each batch's bucket from a
-seed common to the ranks and fills it from the rank's own shard.  The
-targetless (predict-time) iteration is not ported.
+seed common to the ranks and fills it from the rank's own shard.
+
+Without target files (``Dataset(source_files, None, hp)``, predict time)
+every utterance is a batch of its own, whatever ``batch_size`` is, its
+source padded to ``fixed_source_pad`` or to the bucketing's source width;
+its target fields are ``None`` and its ``target_length`` 0.  The bucket
+schedule skips such utterances.
 """
 
 from __future__ import annotations
@@ -147,7 +152,7 @@ def load_utterance(source_file: str, target_file: Optional[str],
         target2 = lf0_classes(tgt.lf0, hp)
         target_length = tgt.target_length * hp.outputs_per_step
     elif target_file is not None:
-        raise ValueError(f"unknown target kind {target_kind!r}")
+        raise ValueError(target_kind)
     accent = None
     if hp.use_accent_type:
         accent = np.full(len(padded), hp.accent_type_unknown, np.int64)
@@ -217,14 +222,16 @@ def load_key_list(path: str) -> List[str]:
 # ------------------------------------------------------------------ training
 
 class NumpyBatch(NamedTuple):
+    """A padded batch; without targets ``target``, ``target2``, ``done``
+    and the masks are ``None`` and ``target_length`` is zeros."""
     meta: List[UtteranceMeta]
     source: np.ndarray            # (B, T_in) int64
     source_length: np.ndarray     # (B,) int32
-    target: np.ndarray            # (B, T, C) float32
+    target: Optional[np.ndarray]  # (B, T, C) float32
     target_length: np.ndarray     # (B,) int32
-    done: np.ndarray              # (B, T // r) float32
-    spec_loss_mask: np.ndarray    # (B, T)
-    binary_loss_mask: np.ndarray  # (B, T // r)
+    done: Optional[np.ndarray]              # (B, T // r) float32
+    spec_loss_mask: Optional[np.ndarray]    # (B, T)
+    binary_loss_mask: Optional[np.ndarray]  # (B, T // r)
     speaker_id: np.ndarray        # (B,) int32
     accent_type: Optional[np.ndarray] = None  # (B, T_in) int64
     target2: Optional[np.ndarray] = None      # (B, T, num_lf0s) float32
@@ -260,35 +267,39 @@ def pad_batch(utts: Sequence[Utterance], hp: HParams,
     ``accent_type_unknown``, codes and mgc frames 0.0 or mel frames
     ``silence_mel_level_db``, lf0 classes 0.0, done 1 and loss masks 0
     past each length; done is [0, ..., 0, 1] and the masks are 1 within
-    it."""
+    it.  Utterances without a target leave the target fields ``None``."""
     B, r = len(utts), hp.outputs_per_step
     src_len = max(u.source_length for u in utts)
     source = np.zeros((B, max(source_pad or src_len, src_len)), np.int64)
     accent = (np.full(source.shape, hp.accent_type_unknown, np.int64)
               if hp.use_accent_type else None)
-    tgt_len = max(u.target_length for u in utts)
-    tgt_pad = _round_up(max(target_pad or tgt_len, tgt_len), r)
-    fill = hp.silence_mel_level_db if target_kind == "mel" else 0.0
-    target = np.full((B, tgt_pad, utts[0].target.shape[1]), fill,
-                     np.float32)
-    target2 = (np.zeros((B, tgt_pad, utts[0].target2.shape[1]), np.float32)
-               if utts[0].target2 is not None else None)
-    done = np.ones((B, tgt_pad // r), np.float32)
-    spec_mask = np.zeros((B, tgt_pad), np.float32)
-    binary_mask = np.zeros((B, tgt_pad // r), np.float32)
     for i, u in enumerate(utts):
         source[i, :u.source_length] = u.source[:u.source_length]
         if accent is not None and u.accent_type is not None:
             accent[i, :u.source_length] = u.accent_type[:u.source_length]
-        L = u.target_length
-        s = L // r
-        target[i, :L] = u.target[:L]
-        if target2 is not None:
-            target2[i, :L] = u.target2[:L]
-        done[i, :s] = 0.0
-        done[i, s - 1] = 1.0
-        spec_mask[i, :L] = 1.0
-        binary_mask[i, :s] = 1.0
+    target = target2 = done = spec_mask = binary_mask = None
+    if utts[0].target is not None:
+        tgt_len = max(u.target_length for u in utts)
+        tgt_pad = _round_up(max(target_pad or tgt_len, tgt_len), r)
+        fill = hp.silence_mel_level_db if target_kind == "mel" else 0.0
+        target = np.full((B, tgt_pad, utts[0].target.shape[1]), fill,
+                         np.float32)
+        target2 = (np.zeros((B, tgt_pad, utts[0].target2.shape[1]),
+                            np.float32)
+                   if utts[0].target2 is not None else None)
+        done = np.ones((B, tgt_pad // r), np.float32)
+        spec_mask = np.zeros((B, tgt_pad), np.float32)
+        binary_mask = np.zeros((B, tgt_pad // r), np.float32)
+        for i, u in enumerate(utts):
+            L = u.target_length
+            s = L // r
+            target[i, :L] = u.target[:L]
+            if target2 is not None:
+                target2[i, :L] = u.target2[:L]
+            done[i, :s] = 0.0
+            done[i, s - 1] = 1.0
+            spec_mask[i, :L] = 1.0
+            binary_mask[i, :s] = 1.0
     return NumpyBatch(
         meta=[u.meta for u in utts], source=source,
         source_length=np.asarray([u.source_length for u in utts], np.int32),
@@ -309,10 +320,11 @@ class Dataset:
     ``interleave_cycle_length_*`` hparams) threads read ahead in order;
     ``fixed_target_pad`` / ``fixed_source_pad`` fix every batch's shape;
     ``bucket_schedule_seed`` turns on the shared bucket schedule
-    (``_iter_scheduled``)."""
+    (``_iter_scheduled``).  ``target_files=None`` serves predict time:
+    each utterance is a batch of its own, without targets."""
 
     def __init__(self, source_files: Sequence[str],
-                 target_files: Sequence[str], hp: HParams,
+                 target_files: Optional[Sequence[str]], hp: HParams,
                  batch_size: Optional[int] = None, shuffle: bool = True,
                  repeat: bool = False, seed: int = 0,
                  drop_remainder: bool = False, target_kind: str = "codes",
@@ -322,8 +334,9 @@ class Dataset:
                  bucket_schedule_seed: Optional[int] = None,
                  bucket_weights: Optional[Sequence[float]] = None,
                  bucket_buffer_cap: int = 4096):
-        assert len(source_files) == len(target_files)
-        self.pairs = list(zip(source_files, target_files))
+        assert target_files is None or len(source_files) == len(target_files)
+        self.pairs = list(zip(source_files,
+                              target_files or [None] * len(source_files)))
         self.hp = hp
         self.batch_size = batch_size or hp.batch_size
         self.shuffle, self.repeat = shuffle, repeat
@@ -428,7 +441,7 @@ class Dataset:
                 u = next(stream, None)
                 if u is None:
                     return      # a finite stream ran out
-                if not self._fits_fixed_pads(u):
+                if u.target is None or not self._fits_fixed_pads(u):
                     continue
                 buckets.setdefault(bk.bucket_id(u.target_length),
                                    []).append(u)
@@ -454,6 +467,12 @@ class Dataset:
         buckets: dict = {}
         for u in self._utterances():
             if not self._fits_fixed_pads(u):
+                continue
+            if u.target is None:
+                yield pad_batch([u], self.hp, source_pad=(
+                    self.fixed_source_pad
+                    or self.bucketing.source_pad_length(u.source_length)),
+                    target_kind=self.target_kind)
                 continue
             bid = self.bucketing.bucket_id(u.target_length)
             buckets.setdefault(bid, []).append(u)
@@ -568,9 +587,8 @@ def dataset_factory(source_files, target_files, hp: HParams,
                     **kwargs) -> Dataset:
     """The JAX package's name-keyed dispatch: ``target_kind`` (a keyword,
     or derived from ``hp.dataset``) selects codes, mel or mgclf0 targets;
-    the other keywords go to ``Dataset``."""
+    the other keywords go to ``Dataset``.  As there, another kind raises
+    ``ValueError`` when the first target is read."""
     kind = kwargs.pop("target_kind", None) or target_kind_of(hp)
-    if kind not in ("codes", "mel", "mgclf0"):
-        raise ValueError(f"unknown target kind {kind!r}")
     return Dataset(source_files, target_files, hp, target_kind=kind,
                    **kwargs)

@@ -269,5 +269,4 @@ def attention_mechanism_factory(options: AttentionOptions, memory_dim: int,
     if options.attention in ("teacher_forcing_forward",
                              "teacher_forcing_additive"):
         return TeacherForcingAttention()
-    raise NotImplementedError(
-        f"attention mechanism {options.attention!r} is not ported yet")
+    raise ValueError(f"Unknown attention mechanism: {options.attention}")

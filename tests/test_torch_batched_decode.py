@@ -18,6 +18,7 @@ the plain path with its reason logged, and the largest batch at the
 recipes' widths.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import logging
 import os

@@ -24,6 +24,9 @@ and ``decoder_fused_train_dtype = bfloat16`` (dropout off, zoneout by
 expectation: the JAX kernels' in-kernel masks need a TPU).
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +35,8 @@ import torch
 
 from self_attention_tacotron_tpu.ops import fused_decode as jfd
 from self_attention_tacotron_torch.ops import fused_decode as fd
+
+from test_torch_compute_dtype import no_excess
 
 # the port's share of the bf16 effect it may miss (relative L2 norms)
 RATIO = 0.1
@@ -102,12 +107,13 @@ def jax_decode(case, dtype):
         keys=(jnp.asarray(keys[0]), jnp.asarray(keys[1] + fold)),
         values=tuple(map(jnp.asarray, values)),
         masks=tuple(map(jnp.asarray, masks)))
-    out, stop, aligns = jfd.fused_decode(
+    out, stop, aligns = no_excess(lambda jp, memory, spk: jfd.fused_decode(
         jp, memory, num_steps=STEPS, num_mels=MELS, outputs_per_step=R,
         num_heads=2, zoneout_cell=0.1, zoneout_output=0.1,
         dec_zoneout_cell=0.1, dec_zoneout_output=0.1, compute_dtype=dtype,
-        interpret=True, speaker_row=jnp.asarray(spk), src_kinds=KINDS,
-        cumulative=(False, True), loc_kernel=K_LOC)
+        interpret=True, speaker_row=spk, src_kinds=KINDS,
+        cumulative=(False, True), loc_kernel=K_LOC), jp, memory,
+        jnp.asarray(spk))
     return np.asarray(out), np.asarray(stop), [np.asarray(a) for a in aligns]
 
 
@@ -216,10 +222,10 @@ def jax_train(case, dtype):
             _map(jnp.asarray, values),
             None if spk_row is None else jnp.asarray(spk_row),
             _map(jnp.asarray, loc_ws))
-    y = run(*args)
-    c = jnp.asarray(_weights(y))
-    grads = jax.grad(lambda *a: jnp.sum(run(*a) * c),
-                     argnums=(0, 1, 2, 3, 4))(*args)
+    c = jnp.asarray(_weights(jax.eval_shape(run, *args)))
+    y, grads = no_excess(lambda *a: (run(*a), jax.grad(
+        lambda *b: jnp.sum(run(*b) * c), argnums=(0, 1, 2, 3, 4))(*a)),
+        *args)
     return np.asarray(y), [np.asarray(g) for g in
                            jax.tree_util.tree_leaves(grads)]
 
@@ -268,7 +274,7 @@ from self_attention_tacotron_torch.models import (  # noqa: E402
     Batch, compute_loss, tacotron_model_factory)
 from self_attention_tacotron_torch.utils import convert  # noqa: E402
 from test_tacotron_model import make_batch  # noqa: E402
-from test_torch_ops import np_tree, tiny_codes_hp  # noqa: E402
+from test_torch_ops import jit_init, np_tree, tiny_codes_hp  # noqa: E402
 from test_torch_train_step import port_batch, train_hp  # noqa: E402
 
 
@@ -278,15 +284,27 @@ def _infer_hp(dtype):
                          decoder_fused_dtype=dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_variables(train: bool):
+    """The JAX model's variables, drawn once for both storage dtypes (the
+    dtype adds no variable and changes none)."""
+    hp = train_hp(decoder_fused_train=True) if train else _infer_hp(
+        "float32")
+    batch = (make_batch(hp, B=2, T_in=7, T_out=6) if train
+             else make_batch(hp, B=1))
+    return np_tree(jit_init(jax_factory(hp), {"params": jax.random.PRNGKey(0)},
+                            batch, mode=DecoderMode.VALIDATION,
+                            teacher_forcing=True))
+
+
 def _jax_model_inference(B, dtype):
     hp = _infer_hp(dtype)
     model = jax_factory(hp)
-    v = np_tree(model.init({"params": jax.random.PRNGKey(0)},
-                           make_batch(hp, B=1), DecoderMode.VALIDATION,
-                           True))
+    v = _jax_variables(False)
     jb = make_batch(hp, B=B, T_in=7, seed=1)._replace(target=None,
                                                       done=None)
-    out = model.apply(v, jb, DecoderMode.INFERENCE)
+    out = no_excess(lambda v, jb: model.apply(v, jb, DecoderMode.INFERENCE),
+                    v, jb)
     return v, jb, jax.tree_util.tree_map(np.asarray, out)
 
 
@@ -319,8 +337,7 @@ def _jax_model_train(dtype):
                   decoder_fused_train_dtype=dtype)
     batch = make_batch(hp, B=2, T_in=7, T_out=6)
     model = jax_factory(hp)
-    v = np_tree(model.init({"params": jax.random.PRNGKey(0)}, batch,
-                           DecoderMode.VALIDATION, True))
+    v = _jax_variables(True)
 
     def loss(params):
         out, _ = model.apply({"params": params,
@@ -331,7 +348,8 @@ def _jax_model_train(dtype):
                              mutable=["batch_stats"])
         return jax_loss(hp, out, batch, params)["loss"], out
 
-    (l, out), g = jax.value_and_grad(loss, has_aux=True)(v["params"])
+    (l, out), g = no_excess(jax.value_and_grad(loss, has_aux=True),
+                            v["params"])
     return v, batch, float(l), np.asarray(out.outputs), np_tree(g)
 
 

@@ -45,6 +45,7 @@ off, zoneout off in TRAIN and by expectation elsewhere.
   ``.mfbsp`` files.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import os
 
@@ -95,6 +96,15 @@ KINDS = {
                    decoder="DualSourceMgcLf0TransformerDecoder", num_mgcs=6,
                    num_lf0s=9),
 }
+
+
+
+def no_excess(fn, *args):
+    """``fn(*args)`` as one XLA program, in place of a compile for each of
+    its operations, with XLA's excess precision off: it then rounds where
+    the op-by-op run does."""
+    return jax.jit(fn).lower(*args).compile(compiler_options=NO_EXCESS)(
+        *args)
 
 
 def f32(x) -> np.ndarray:
@@ -244,8 +254,7 @@ def jax_reference(kind: str):
         return (model.apply(v, b._replace(done=None), DecoderMode.INFERENCE),
                 model.apply(v, b, DecoderMode.VALIDATION, True), out,
                 jax_loss(hp, out, b, v["params"])["loss"])
-    compiled = jax.jit(run).lower(v, jb).compile(compiler_options=NO_EXCESS)
-    return v, jb, compiled(v, jb)
+    return v, jb, no_excess(run, v, jb)
 
 
 def _fields(out):
@@ -331,8 +340,7 @@ def test_fused_boundaries_bf16_match_jax(caplog):
     def run(v, b):
         return (model.apply(v, b._replace(done=None),
                             DecoderMode.INFERENCE), loss(v["params"]))
-    inf, (l_ref, train) = jax.jit(run).lower(v, jb).compile(
-        compiler_options=NO_EXCESS)(v, jb)
+    inf, (l_ref, train) = no_excess(run, v, jb)
     port = port_model(hp, v).eval()
     batch = to_port(jb)
     with caplog.at_level("WARNING"), torch.no_grad():

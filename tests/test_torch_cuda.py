@@ -35,6 +35,7 @@ widths, the 16-byte and element-by-element tile copies, the chunk edges;
 and a bf16 model in the Pallas mode launching only the bf16 instances.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import os
 
 import numpy as np

@@ -28,6 +28,7 @@
   are refused, each with its reason.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import json
 import os
@@ -45,7 +46,7 @@ from self_attention_tacotron_torch.parallel.train_step import learning_rate
 from self_attention_tacotron_torch.utils import convert
 
 from test_tacotron_model import make_batch
-from test_torch_ops import np_tree
+from test_torch_ops import jit_create_state, np_tree
 from test_torch_train_step import (_adam_step_bound, _flat, port_batch,
                                    train_hp, write_codes_corpus)
 
@@ -120,8 +121,6 @@ def test_two_rank_step_matches_jax_mesh_step():
     from self_attention_tacotron_tpu.parallel.mesh import (
         replicated_sharding, shard_batch)
     from self_attention_tacotron_tpu.parallel.train_step import \
-        create_train_state as jax_create
-    from self_attention_tacotron_tpu.parallel.train_step import \
         make_train_step as jax_make
     from self_attention_tacotron_tpu.models import Batch as JBatch
     hp, batch, ranks, single = _steps()["visible"]
@@ -131,7 +130,9 @@ def test_two_rank_step_matches_jax_mesh_step():
     jb = JBatch(**{k: (None if v is None else jax.numpy.asarray(v.numpy()))
                    for k, v in batch._asdict().items()})
     model = jax_factory(hp)
-    jstate = jax_create(model, hp, jb, jax.random.PRNGKey(0))
+    # jitted (one compile, not one an operation); only the optimizer
+    # state is kept
+    jstate = jit_create_state(model, hp, jb, jax.random.PRNGKey(0))
     jstate = jstate._replace(params=init["params"],
                              batch_stats=init["batch_stats"])
     mesh = Mesh(np.asarray(jax.devices()[:2]), ("data",))

@@ -18,6 +18,7 @@ Outputs, stop logits, alignments, predicted samples and lengths are
 compared with tolerance 2e-4, as tests/test_fused_decode.py does.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 
 import jax
@@ -32,7 +33,7 @@ from self_attention_tacotron_torch.models import Batch, tacotron_model_factory
 from self_attention_tacotron_torch.utils import convert
 
 from test_tacotron_model import make_batch
-from test_torch_ops import np_tree, tiny_codes_hp
+from test_torch_ops import jit_init, np_tree, tiny_codes_hp
 
 TOL = 2e-4
 STOP_BIAS = 5.0
@@ -42,8 +43,9 @@ STOP_BIAS = 5.0
 def _jax_variables():
     hp = tiny_codes_hp()
     model = jax_factory(hp)
-    v = model.init({"params": jax.random.PRNGKey(0)}, make_batch(hp, B=1),
-                   DecoderMode.VALIDATION, True)
+    v = jit_init(model, {"params": jax.random.PRNGKey(0)},
+                 make_batch(hp, B=1), mode=DecoderMode.VALIDATION,
+                 teacher_forcing=True)
     return np_tree(v)
 
 

@@ -9,6 +9,9 @@ Pallas kernel in interpret mode.  Tolerance 2e-4, as
 tests/test_fused_encoder.py uses.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -20,7 +23,7 @@ from self_attention_tacotron_torch.models.encoders import \
     SelfAttentionCBHGEncoder
 from self_attention_tacotron_torch.ops import fused_encoder as fe
 
-from test_torch_ops import load, random_batch_stats, randn
+from test_torch_ops import jit_init, load, random_batch_stats, randn
 
 TOL = 2e-4
 CFG = dict(cbhg_out_units=16, conv_channels=8, max_filter_width=4,
@@ -31,11 +34,14 @@ CFG = dict(cbhg_out_units=16, conv_channels=8, max_filter_width=4,
            zoneout_factor_output=0.1)
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_encoder(T=13, E=12, seed=0, **kw):
+    """(config, variables, input) of a JAX encoder, drawn once a module
+    for each set of arguments."""
     cfg = dict(CFG, **kw)
     enc = JaxEncoder(drop_rate=0.5, **cfg)
     x = randn(seed, 1, T, E)
-    v = enc.init({"params": jax.random.PRNGKey(seed)}, x,
+    v = jit_init(enc, {"params": jax.random.PRNGKey(seed)}, x,
                  np.full((1,), T, np.int32), is_training=True)
     return cfg, random_batch_stats(v, seed + 1), x
 
@@ -58,6 +64,13 @@ def _run_jax(cfg, v, x, L, fused=False):
     return np.asarray(lstm_out), np.asarray(sa)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_out(L):
+    """The default JAX encoder's outputs at length ``L``, once a module
+    for the module path and the fused reference both."""
+    return _run_jax(*_jax_encoder(), L)
+
+
 def _close(got, ref, tol=TOL):
     for g, r, name in zip(got, ref, ("lstm_out", "sa_out")):
         np.testing.assert_allclose(g, r, rtol=tol, atol=tol, err_msg=name)
@@ -68,7 +81,7 @@ def _close(got, ref, tol=TOL):
 def test_encoder_matches_jax_xla(fused, L):
     cfg, v, x = _jax_encoder()
     got = _run_port(_port(cfg, v, x, fused), x, L)
-    _close(got, _run_jax(cfg, v, x, L))
+    _close(got, _jax_out(L))
     assert np.all(got[0][:, L:] == 0)
 
 

@@ -22,6 +22,7 @@ CPU against the JAX package.
   and names, the Chrome trace and its log line.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import importlib.util
 import io
@@ -40,8 +41,6 @@ from self_attention_tacotron_tpu.cli.predict import \
     make_alignment_replay as jax_replay
 from self_attention_tacotron_tpu.models import \
     tacotron_model_factory as jax_factory
-from self_attention_tacotron_tpu.parallel import \
-    create_train_state as jax_create_state
 from self_attention_tacotron_tpu.utils import metrics as jax_metrics
 from self_attention_tacotron_torch.cli import debug_tfrecord, postprocess
 from self_attention_tacotron_torch.cli.predict import make_alignment_replay
@@ -52,7 +51,7 @@ from self_attention_tacotron_torch.parallel import (create_train_state,
 from self_attention_tacotron_torch.utils import convert, metrics
 
 from test_tacotron_model import make_batch
-from test_torch_ops import ROOT, np_tree, tiny_codes_hp
+from test_torch_ops import ROOT, jit_create_state, np_tree, tiny_codes_hp
 from test_torch_train_step import port_batch, write_codes_corpus
 
 TOL = 1e-5
@@ -111,11 +110,13 @@ def _replay_hp(**kw):
 
 @functools.lru_cache(maxsize=None)
 def _jax_state():
-    """One JAX state for every case: the serving flags change no weight."""
+    """One JAX state for every case: the serving flags change no weight.
+    Jitted (one compile, not one an operation of the init's forward): the
+    eager state, bit for bit."""
     hp = _replay_hp()
     full = make_batch(hp, B=1, T_in=7, T_out=6)
-    return jax_create_state(jax_factory(hp), hp, full,
-                            jax.random.PRNGKey(0)), full
+    model = jax_factory(hp)
+    return jit_create_state(model, hp, full, jax.random.PRNGKey(0)), full
 
 
 @pytest.mark.parametrize("kw", [

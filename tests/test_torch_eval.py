@@ -18,6 +18,7 @@
   writes ``eval/`` metrics.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import json
 import os

@@ -20,6 +20,7 @@ on CPU.
   utterance's bucket-padded batch.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import os
 

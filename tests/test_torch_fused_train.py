@@ -19,6 +19,7 @@ VJP that the two training kernels are held against on the card.  Here:
 * the configuration gate's reasons, each logged once.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import logging
 
 import jax
@@ -82,14 +83,6 @@ def _kw(kinds, cum, K, zone, deterministic=True, drop=0.0):
                 cumulative=cum, loc_kernel=K)
 
 
-def _jax_scan(params, keys, values, masks, teacher, spk, loc_ws, kw):
-    jp = jft.FusedTrainParams(*_map(jnp.asarray, tuple(params)))
-    return jft.fused_teacher_scan(
-        jp, keys, values, masks, jnp.asarray(teacher), jnp.int32(0),
-        speaker_row=spk, loc_ws=loc_ws, save_align=True, interpret=True,
-        **kw)
-
-
 def _weights(y):
     n = int(np.prod(y.shape))
     return np.cos(np.arange(n).reshape(y.shape) * 0.1).astype(np.float32)
@@ -101,21 +94,24 @@ def test_plain_forward_and_backward_match_jax(case):
     params, keys, values, masks, teacher, spk_row, loc_ws = make_case(
         kinds, cum, K, spk)
     kw = _kw(kinds, cum, K, zone)
-    y_ref, al_ref = _jax_scan(params, keys, values, masks, teacher, spk_row,
-                              loc_ws, kw)
-    c = _weights(y_ref)
 
-    def loss(p, k, v, s, lw):
-        y, _ = jft.fused_teacher_scan(
+    def scan(p, k, v, s, lw):
+        return jft.fused_teacher_scan(
             jft.FusedTrainParams(*p), k, v, masks, jnp.asarray(teacher),
             jnp.int32(0), speaker_row=s, loc_ws=lw, save_align=True,
             interpret=True, **kw)
-        return jnp.sum(y * c)
     jargs = (_map(jnp.asarray, tuple(params)), _map(jnp.asarray, keys),
              _map(jnp.asarray, values),
              None if spk_row is None else jnp.asarray(spk_row),
              _map(jnp.asarray, loc_ws))
-    g_ref = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*jargs)
+    c = _weights(jax.eval_shape(scan, *jargs)[0])
+
+    def reference(*a):
+        """y, the alignments and the gradients of sum(y * c): one XLA
+        program, in place of a compile for each operation."""
+        return (*scan(*a), jax.grad(lambda *b: jnp.sum(scan(*b)[0] * c),
+                                    argnums=(0, 1, 2, 3, 4))(*a))
+    y_ref, al_ref, g_ref = jax.jit(reference)(*jargs)
 
     t = lambda x: None if x is None else torch.from_numpy(x)  # noqa: E731
     tp = ft.FusedTrainParams(*_map(t, tuple(params)))

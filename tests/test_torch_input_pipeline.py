@@ -11,24 +11,49 @@
   bucket schedule with weights, and the schedule's starvation error.
 * ``prefetch()`` against plain iteration, and an error raised through it.
 * ``shard_files`` against the JAX package's.
+* Targetless (predict-time) batches, ``Dataset(source_files, None, ...)``:
+  the port's against the JAX package's, compared exactly, in plain
+  iteration, at batch sizes 1 and 2 (one utterance a batch either way),
+  with a fixed source pad, the worker window, accent types, a corpus
+  that mixes targeted and targetless utterances, and through
+  ``prefetch``; the bucket schedule skips targetless utterances in both.
+  The first batch through both predict steps, weights carried by
+  ``utils/convert``: the JAX package's plain (scan) path against the
+  port's fused path, which runs kernels #1 and #2's plain versions on the
+  CPU (outputs within 2e-4, alignments within 1e-5).  The forced-alignment
+  mode fails on a targetless batch in both.
+* An unknown target kind: ``dataset_factory`` takes it, and reading a
+  target raises ``ValueError`` naming it, in both.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import itertools
 import os
 
+import jax
 import numpy as np
 import pytest
 
 from self_attention_tacotron_tpu.data import dataset as jds
 from self_attention_tacotron_tpu.data import records as JR
+from self_attention_tacotron_tpu.models import \
+    tacotron_model_factory as jax_factory
+from self_attention_tacotron_tpu.parallel import \
+    make_predict_step as jax_make_predict_step
 from self_attention_tacotron_tpu.parallel import multihost as jmh
+from self_attention_tacotron_tpu.parallel.train_step import \
+    TrainState as JaxTrainState
 from self_attention_tacotron_torch.data import dataset as tds
 from self_attention_tacotron_torch.data import native_reader
 from self_attention_tacotron_torch.data import records as TR
 from self_attention_tacotron_torch.data import tfrecord as T
+from self_attention_tacotron_torch.models import tacotron_model_factory
+from self_attention_tacotron_torch.parallel import make_predict_step
 from self_attention_tacotron_torch.parallel import multihost as tmh
+from self_attention_tacotron_torch.utils import convert
 
 from test_tacotron_model import tiny_hp
+from test_torch_ops import tiny_codes_hp
 
 FIELDS = ("source", "source_length", "target", "target_length", "done",
           "spec_loss_mask", "binary_loss_mask", "speaker_id")
@@ -206,3 +231,144 @@ def test_shard_files_matches_jax():
     assert tmh.local_batch_size(32, 2) == 16
     with pytest.raises(ValueError, match="32 must divide evenly over 3"):
         tmh.local_batch_size(32, 3)
+
+
+# ------------------------------------------------ targetless (predict time)
+
+TOL_OUTPUTS, TOL_ALIGNMENTS = 2e-4, 1e-5     # test_torch_model_surface's
+SOURCE_FIELDS = ("source", "source_length", "target_length", "speaker_id",
+                 "accent_type")
+TARGET_FIELDS = ("target", "target2", "done", "spec_loss_mask",
+                 "binary_loss_mask")
+
+
+@pytest.fixture(scope="module")
+def targetless(tmp_path_factory):
+    """The codes recipe's mechanisms at tiny widths (the predict steps run
+    on it) over a corpus of 8 utterances of 3-11 phones."""
+    hp = tiny_codes_hp(approx_min_target_length=4, batch_bucket_width=4,
+                       batch_num_buckets=4, max_iters=16, batch_size=2)
+    root = str(tmp_path_factory.mktemp("targetless"))
+    keys = write_corpus(hp, root, n=8, seed=4)
+    files = [tds.find_dataset_files(root, keys, ext) for ext in
+             (hp.source_file_extension, hp.target_file_extension)]
+    return hp, files
+
+
+def _same_targetless(port_batches, jax_batches):
+    """Exactly the same batches; where the JAX batch has no target, the
+    port's has none either."""
+    assert len(port_batches) == len(jax_batches)
+    for p, j in zip(port_batches, jax_batches):
+        assert [m.key for m in p.meta] == [m.key for m in j.meta]
+        for f in SOURCE_FIELDS + TARGET_FIELDS:
+            a, b = getattr(p, f), getattr(j, f)
+            if b is None:
+                assert a is None, f
+                continue
+            assert a.shape == b.shape and a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+TARGETLESS = {
+    "plain": dict(),
+    "batch_size_1": dict(batch_size=1),
+    "batch_size_2": dict(batch_size=2, num_workers=1),
+    "fixed_source_pad": dict(fixed_source_pad=8, num_workers=2),
+    "window": dict(num_workers=3, shuffle=True, seed=5),
+    "accent_type": dict(use_accent_type=True),
+    "mixed": dict(mixed=True),
+    "prefetch": dict(prefetch=True, num_workers=2),
+}
+
+
+@pytest.mark.parametrize("mode", list(TARGETLESS))
+def test_targetless_dataset_matches_jax(targetless, mode):
+    hp, (src, tgt) = targetless
+    kw = dict(dict(shuffle=False), **TARGETLESS[mode])
+    if kw.pop("use_accent_type", False):
+        hp = hp.replace(use_accent_type=True)
+    targets = ([t if i % 2 else None for i, t in enumerate(tgt)]
+               if kw.pop("mixed", False) else None)
+    prefetch = kw.pop("prefetch", False)
+    port = tds.dataset_factory(src, targets, hp, **kw)
+    ref = list(jds.dataset_factory(src, targets, hp, **kw))
+    got = list(port.prefetch(buffer_size=2) if prefetch else port)
+    _same_targetless(got, ref)
+    alone = [b for b in got if b.target is None]
+    assert len(alone) == (4 if targets else len(got))
+    for b in alone:              # each a batch of its own, its source
+        assert b.source.shape[0] == 1     # pad rounded up
+        assert b.source.shape[1] == kw.get("fixed_source_pad", 32)
+        assert not b.target_length.any()
+    if "fixed_source_pad" in kw:
+        assert 0 < len(got) < len(src)    # longer sources are skipped
+    if hp.use_accent_type:
+        assert (got[0].accent_type == hp.accent_type_unknown).all()
+
+
+def test_bucket_schedule_skips_targetless_utterances(targetless):
+    hp, (src, tgt) = targetless
+    kw = dict(shuffle=False, bucket_schedule_seed=3, num_workers=2,
+              fixed_source_pad=32)
+    for ds in (tds.dataset_factory, jds.dataset_factory):
+        assert list(ds(src, None, hp, **kw)) == []
+    mixed = [t if i % 2 else None for i, t in enumerate(tgt)]
+    kw.update(repeat=True, batch_size=1)
+    got = list(itertools.islice(tds.dataset_factory(src, mixed, hp, **kw),
+                                6))
+    _same(got, list(itertools.islice(jds.dataset_factory(src, mixed, hp,
+                                                         **kw), 6)))
+    assert len(got) == 6 and all(b.target is not None for b in got)
+    assert {m.key for b in got for m in b.meta} <= {
+        os.path.basename(s).split(".")[0] for s in src[1::2]}
+
+
+def test_targetless_batch_serves_as_jax_does(targetless):
+    """The first targetless batch through both predict steps."""
+    hp, (src, _) = targetless
+    port_hp = hp.replace(decoder_fused_inference=True,
+                         encoder_fused_inference=True)
+    jax_hp = hp.replace(decoder_fused_inference=False,
+                        encoder_fused_inference=False)
+    model = convert.init_parameters(tacotron_model_factory(port_hp),
+                                    seed=1).eval()
+    v = convert.to_flax(model.state_dict(), model)
+    state = JaxTrainState(step=0, params=v["params"],
+                          batch_stats=v["batch_stats"], constants={},
+                          opt_state=None)
+    nb = next(iter(tds.Dataset(src, None, hp, shuffle=False)))
+    jnb = next(iter(jds.Dataset(src, None, hp, shuffle=False)))
+    batch = tds.to_model_batch(nb)
+    assert batch.target is None and batch.done is None
+    padded, added = tds.pad_model_batch_rows(batch, 2)   # None stays None
+    assert added == 1 and padded.source.shape[0] == 2
+    assert padded.target is None and padded.spec_loss_mask is None
+    (got,) = make_predict_step(port_hp)(model, batch)
+    ref = jax.tree_util.tree_map(np.asarray, jax_make_predict_step(
+        jax_factory(jax_hp), jax_hp)(state, jds.to_model_batch(jnb)))
+    np.testing.assert_allclose(got.outputs.numpy(), ref.outputs, rtol=0,
+                               atol=TOL_OUTPUTS)
+    for g, r in zip(got.alignments, ref.alignments):
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=TOL_ALIGNMENTS)
+    np.testing.assert_array_equal(got.lengths.numpy(), ref.lengths)
+    # the forced-alignment mode decodes the target's steps again: without
+    # a target the port refuses the batch, the JAX package's VALIDATION
+    # pass fails reading the target's shape
+    forced = hp.replace(use_forced_alignment_mode=True)
+    with pytest.raises(ValueError, match="needs its target"):
+        make_predict_step(forced)(model, batch)
+    with pytest.raises(AttributeError, match="shape"):
+        jax_make_predict_step(jax_factory(forced.replace(
+            decoder_fused_inference=False, encoder_fused_inference=False)),
+            forced)(state, jds.to_model_batch(jnb))
+
+
+def test_unknown_target_kind_raises_as_jax_does(targetless):
+    hp, (src, tgt) = targetless
+    for ds in (tds.dataset_factory, jds.dataset_factory):
+        assert len(list(ds(src[:2], None, hp, target_kind="wav"))) == 2
+        with pytest.raises(ValueError, match="^wav$"):
+            list(ds(src[:2], tgt[:2], hp, target_kind="wav",
+                    num_workers=1))

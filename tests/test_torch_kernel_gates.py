@@ -29,6 +29,7 @@ wrapper raises for on the card.  Here:
   encoder raises before any launch.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import logging
 
 import numpy as np

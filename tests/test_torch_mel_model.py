@@ -29,6 +29,7 @@ carried across by ``utils/convert.py``.  Compared, float32 on CPU:
   equals the record's mel and the model's postnet output, not its raw one.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import json
 import os

@@ -17,6 +17,7 @@ evaluation artifacts.
   evaluation: its ``mgc_lf0`` metrics and its prediction record.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import json
 import os

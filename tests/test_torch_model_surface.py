@@ -29,6 +29,7 @@ tests/test_torch_compute_dtype.py), ``float16`` builds and runs f32 as
 there.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import logging
 
@@ -55,7 +56,7 @@ from self_attention_tacotron_torch.models import postnet as tpost
 from self_attention_tacotron_torch.utils import convert
 
 from test_tacotron_model import tiny_hp
-from test_torch_ops import close, load, random_batch_stats, randn
+from test_torch_ops import close, jit_init, load, random_batch_stats, randn
 
 TOL_OUT = 2e-4
 TOL_ALIGN = 1e-5
@@ -154,8 +155,8 @@ def test_encoders_match_jax(name):
     xs, acc = randn(4, 2, 7, 8), randn(5, 2, 7, 4)
     lengths = np.array([7, 5], np.int32)
     args = (xs, acc) if with_accent else (xs,)
-    v = random_batch_stats(jm.init(jax.random.PRNGKey(0), *args, lengths),
-                           6)
+    v = random_batch_stats(jit_init(jm, jax.random.PRNGKey(0), *args,
+                                    lengths), 6)
     ref = jm.apply(v, *args, lengths)
     tm = load(tm, v)
     with torch.no_grad():
@@ -175,7 +176,8 @@ def test_postnet_cbhg_matches_jax():
                            max_filter_width=3, projection1_out_channels=8,
                            projection2_out_channels=6, num_highway=2)
     xs, lengths = randn(7, 2, 9, 6), np.array([9, 4], np.int32)
-    v = random_batch_stats(jm.init(jax.random.PRNGKey(1), xs, lengths), 8)
+    v = random_batch_stats(jit_init(jm, jax.random.PRNGKey(1), xs, lengths),
+                           8)
     tm = load(tpost.PostNetCBHG(6, 11, 12, 4, 3, 8, 6, 2), v)
     assert {k.split(".")[0] for k in tm.state_dict()} == {
         "cbhg", "linear_projection"}
@@ -231,8 +233,9 @@ def jax_reference(hp):
     """(variables, batch, (INFERENCE, VALIDATION free, VALIDATION teacher),
     (TRAIN loss, outputs, outputs2, gradients))."""
     model, jb = jax_factory(hp), np_batch(hp)
-    v = random_batch_stats(model.init({"params": jax.random.PRNGKey(0)},
-                                      jb, DecoderMode.VALIDATION, True), 3)
+    v = random_batch_stats(jit_init(model, {"params": jax.random.PRNGKey(0)},
+                                    jb, mode=DecoderMode.VALIDATION,
+                                    teacher_forcing=True), 3)
     rngs = {"dropout": jax.random.PRNGKey(1),
             "zoneout": jax.random.PRNGKey(2)}
 
@@ -395,8 +398,9 @@ def _dropout_case():
                         decoder_early_stop=True))
     model = jax_factory(hp)
     jb = np_batch(hp)
-    v = random_batch_stats(model.init({"params": jax.random.PRNGKey(0)},
-                                      jb, DecoderMode.VALIDATION, True), 3)
+    v = random_batch_stats(jit_init(model, {"params": jax.random.PRNGKey(0)},
+                                    jb, mode=DecoderMode.VALIDATION,
+                                    teacher_forcing=True), 3)
     ref = jax.tree_util.tree_map(np.asarray, jax.jit(
         lambda v, b: model.apply(v, b, DecoderMode.INFERENCE,
                                  rngs={"dropout": jax.random.PRNGKey(5)}))(

@@ -6,6 +6,7 @@ inputs (tolerance 1e-5, float32).  Also: the weight bridge round trip and
 the import guard (the port never imports JAX or the JAX package).
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import os
 import subprocess
 import sys
@@ -20,6 +21,8 @@ from self_attention_tacotron_tpu.models import attention as jmech
 from self_attention_tacotron_tpu.ops import attention_core as jattn
 from self_attention_tacotron_tpu.ops import conv as jconv
 from self_attention_tacotron_tpu.ops import rnn as jrnn
+from self_attention_tacotron_tpu.parallel.train_step import \
+    create_train_state as jax_create_state
 from self_attention_tacotron_torch.models import attention as tmech
 from self_attention_tacotron_torch.ops import attention_core as tattn
 from self_attention_tacotron_torch.ops import conv as tconv
@@ -48,6 +51,24 @@ def close(a, b, tol=TOL):
 def randn(seed, *shape):
     return np.random.default_rng(seed).standard_normal(shape).astype(
         np.float32)
+
+
+def jit_init(module, rngs, *args, **kwargs):
+    """``module.init(rngs, *args, **kwargs)`` as one jitted program, the
+    arrays of ``args`` traced and ``kwargs`` static.  Flax's init runs the
+    module's forward pass, and eagerly each of its operations compiles on
+    its own: one compile of the whole costs less.  The variables are the
+    eager init's, bit for bit (the initialisers' draws do not depend on the
+    forward)."""
+    return jax.jit(lambda r, *a: module.init(r, *a, **kwargs))(rngs, *args)
+
+
+def jit_create_state(model, hp, batch, key):
+    """The JAX package's ``create_train_state(model, hp, batch, key)``
+    as one jitted program, as ``jit_init`` is: the eager state, bit for
+    bit."""
+    return jax.jit(lambda b, k: jax_create_state(model, hp, b, k))(
+        batch, key)
 
 
 def random_batch_stats(variables, seed):

@@ -26,6 +26,7 @@
   a mix, raises on the CPU as on the card.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

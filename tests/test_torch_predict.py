@@ -4,9 +4,12 @@
 corpus written with the port's own record writer, from a seeded
 checkpoint, with ``--device cpu`` (the fused-kernel wrappers take their
 plain versions for CPU tensors).  The copied config, TFRecord codec and
-record schemas agree with the JAX package's.
+record schemas agree with the JAX package's.  A name the JAX factories do
+not know (model, encoder, decoder, attention mechanism) raises the JAX
+package's ``ValueError`` with its message.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import logging
 import os
 
@@ -196,3 +199,37 @@ def test_model_rejects_kinds_not_ported():
     assert hasattr(agent.decoder.attention_mechanism_0,
                    "transition_factor_projection")
     assert torch.get_default_dtype() == torch.float32
+
+
+@pytest.mark.parametrize("name", ["tacotron_model", "encoder", "decoder",
+                                  "attention"])
+def test_unknown_names_raise_the_jax_error(name):
+    """The port raises where it builds the model, the JAX package where it
+    first sets the model up (the attention mechanism: its factory): the
+    same ``ValueError``, the same message."""
+    import jax
+    from self_attention_tacotron_tpu.models import DecoderMode
+    from self_attention_tacotron_tpu.models import \
+        tacotron_model_factory as jax_factory
+    from self_attention_tacotron_tpu.models.attention import \
+        AttentionOptions as JaxOptions
+    from self_attention_tacotron_tpu.models.attention import \
+        attention_mechanism_factory as jax_mechanism
+    from self_attention_tacotron_torch.models.attention import (
+        AttentionOptions, attention_mechanism_factory)
+    from test_tacotron_model import make_batch
+    hp = tiny_codes_hp(**{name: "Bogus"})
+    with pytest.raises(ValueError) as port:
+        tacotron_model_factory(hp)
+    with pytest.raises(ValueError) as ref:
+        if name == "attention":      # the model's init would run the encoder
+            jax_mechanism(JaxOptions("Bogus", 4))
+        else:
+            jax_factory(hp).init(jax.random.PRNGKey(0), make_batch(hp),
+                                 DecoderMode.INFERENCE)
+    assert str(port.value) == str(ref.value)
+    assert str(port.value).startswith("Unknown ")
+    if name == "attention":
+        with pytest.raises(ValueError) as direct:
+            attention_mechanism_factory(AttentionOptions("Bogus", 4), 8, 8)
+        assert str(direct.value) == "Unknown attention mechanism: Bogus"

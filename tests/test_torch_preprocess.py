@@ -18,6 +18,7 @@ beside the JAX package's mains (numpy path; for LJSpeech also its
   worker process (no pool forks a CUDA context).
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import json
 import os
 

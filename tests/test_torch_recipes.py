@@ -21,6 +21,7 @@ tests/test_torch_mel_model.py), alignments within 1e-5, the loss within
 1e-5 relative.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import glob
 import os

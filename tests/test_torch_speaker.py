@@ -29,6 +29,7 @@ source lengths and speakers, the JAX parameters carried across by
   against the JAX package's on the same files.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import os
 

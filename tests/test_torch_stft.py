@@ -32,6 +32,7 @@ the floor by 20 dB (``TOL_DB``).  Against the float64 numpy path the JAX
 package's own checks are 0.1 dB (mel) and 0.15 dB (linear).
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import json
 
 import jax.numpy as jnp

@@ -17,6 +17,7 @@
   even K pads 1 left, 2 right), their adjoint identity included.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@
   ``cli.predict`` from the checkpoint it wrote.
 """
 
+import test_torch_threads  # noqa: F401  (bounds torch's threads)
 import functools
 import os
 
@@ -33,7 +34,7 @@ from self_attention_tacotron_torch.models import (Batch, compute_loss,
 from self_attention_tacotron_torch.utils import convert
 
 from test_tacotron_model import make_batch, tiny_hp
-from test_torch_ops import np_tree
+from test_torch_ops import jit_create_state, jit_init, np_tree
 
 DET = dict(encoder_prenet_drop_rate=0.0, decoder_prenet_drop_rate=0.0,
            self_attention_drop_rate=0.0, decoder_self_attention_drop_rate=0.0,
@@ -59,8 +60,8 @@ def _jax_case():
     hp = train_hp()
     batch = make_batch(hp, B=2, T_in=7, T_out=6)
     model = jax_factory(hp)
-    v = model.init({"params": jax.random.PRNGKey(0)}, batch,
-                   DecoderMode.VALIDATION, True)
+    v = jit_init(model, {"params": jax.random.PRNGKey(0)}, batch,
+                 mode=DecoderMode.VALIDATION, teacher_forcing=True)
     v = np_tree(v)
     # non-trivial running statistics, so that the update is visible
     rng = np.random.default_rng(3)
@@ -147,15 +148,14 @@ def test_three_step_trajectory_matches_jax_make_train_step():
     steps can move a parameter (sum of lr_t times ``_adam_step_bound``) of
     their initial values; every other leaf is compared elementwise."""
     from self_attention_tacotron_tpu.parallel.train_step import \
-        create_train_state as jax_create
-    from self_attention_tacotron_tpu.parallel.train_step import \
         make_train_step as jax_make
     from self_attention_tacotron_torch.parallel import (create_train_state,
                                                         make_train_step)
     hp = train_hp(initial_learning_rate=8.0)
     batches = [make_batch(hp, B=2, T_in=7, T_out=6, seed=s) for s in range(3)]
     model = jax_factory(hp)
-    jstate = jax_create(model, hp, batches[0], jax.random.PRNGKey(0))
+    # jitted (one compile, not one an operation): the eager state
+    jstate = jit_create_state(model, hp, batches[0], jax.random.PRNGKey(0))
     init = np_tree({"params": jstate.params,
                     "batch_stats": jstate.batch_stats})
     port = tacotron_model_factory(hp)
