@@ -167,9 +167,11 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    kernel) and 257 (both wide kernels), the full sequence and 64 cache
    steps; ``MelExtractor`` at n_fft 2048 (the FFT) and 1998 (the direct
    DFT), against the plain version evaluated in float64: each against its
-   plain path; then the streamed encoder, both
-   wide kernels and the DFT timed beside their plain versions, bounds and
-   library calls;
+   plain path; then the streamed encoder (bounds at T = 533, 534 and 600),
+   both wide kernels and the DFT timed beside their plain versions, bounds
+   and library calls, and the full sequence's wide kernel also at B = 8, T
+   = 256, D = 256 against its plain version (1e-5), with the split of one
+   profiled launch of each wide shape (bounds at the 3xTF32 rate);
 24. the entry points (``entry_points``): four encoders past #1's earlier
    limits (path ``widened_encoder_*``: widths of 130, the 4-byte copies;
    129 and 256 LSTM units, the 16-block cluster; 5 prenet layers, 9
@@ -245,8 +247,9 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    the bf16 counter by one) and timed beside SDPA in bf16 and its bound
    (products at the bf16 tensor cores' peak; the serving hop, B = 32 T =
    256 D = 128 causal and not, the serving cache S = 450, the wide
-   kernels at D = 256 and S = 3000 D = 512).  The kernels line gains ``fused_self_attention_bf16`` and
-   ``incremental_attention_step_bf16``.
+   kernels at D = 256 and S = 3000 D = 512), each full-sequence shape
+   with the split of one profiled launch.  The kernels line gains
+   ``fused_self_attention_bf16`` and ``incremental_attention_step_bf16``.
 28. targetless (predict-time) serving (``targetless_serving``): a
    3-utterance codes corpus read by ``Dataset(sources, None, hp,
    batch_size=1)`` through ``prefetch`` (each utterance a batch of its
@@ -1473,7 +1476,7 @@ def attention_split(pa, q, k, v, causal, ms: float) -> str:
     cycles = launch.stage_cycles.cpu().tolist()
     total = max(sum(cycles), 1)
     B, H, T, D = q.shape
-    plan = pa.attention_plan(B, H, T, D, causal)
+    plan = pa.attention_plan(B, H, T, D, causal, q.element_size())
     return (f"plan: {plan.rows}-row blocks of {plan.warps} warps, grid "
             f"{plan.grid}, {plan.keys}-key "
             f"tiles x {plan.stages} stages, {plan.smem_bytes} B shared; "
@@ -2942,6 +2945,7 @@ TOL_FORCED_MEL = TOL_MEL_DECODE
 # n_fft (num_freq 1025: the FFT, 1000: the direct DFT)
 EDGE_LENGTHS = (533, 534, 600)
 EDGE_HEAD_DIMS = (128, 129, 257)
+WIDE_TIMED = (8, 256, 256)   # (B, T, D) of the wide kernel timed alone
 EDGE_NUM_FREQS = (1025, 1000)
 
 
@@ -3388,9 +3392,14 @@ def phase_edges(model, device, card: str):
                                                            **kw), reps=1)
     enc_bound = encode_bound(params, x, kw)
     enc_bound_ms = _bound_ms(enc_bound, PEAK_3XTF32_FLOP_PER_S)
+    edge_bounds = {t: _bound_ms(encode_bound(*encoder_case(model, t, t,
+                                                           device)),
+                                PEAK_3XTF32_FLOP_PER_S)
+                   for t in EDGE_LENGTHS}
     log("phase 23 fused_encode at T = " + ", ".join(
-        f"{t}: {ms:.4f} ms" for t, ms in enc_ms.items()) + f"; plain at T = "
-        f"{T} {enc_plain:.4f} ms; bound {enc_bound_ms:.4f} ms "
+        f"{t}: {ms:.4f} ms (bound {edge_bounds[t]:.4f} ms)"
+        for t, ms in enc_ms.items()) + f"; plain at T = "
+        f"{T} {enc_plain:.4f} ms; bound at T = {T} {enc_bound_ms:.4f} ms "
         f"({enc_bound[0]} bytes, {enc_bound[1]} FLOPs); card {card}")
     rows = _kernel_rows("fused_encode", "fused_encoder",
                         "fused_encoder.py:94", launches,
@@ -3414,14 +3423,37 @@ def phase_edges(model, device, card: str):
     stp_bound = step_bound(1, t, Ds)
     log(f"phase 23 wide kernels: fused_self_attention B=1 H={ATTN_HEADS} "
         f"T={T_IN} D={Dw} causal {att[0]:.5f} ms (plain {att[1]:.5f}, SDPA "
-        f"{att[2]:.5f}, bound {_bound_ms(att_bound):.6f}); "
-        f"incremental_attention_step S={SERVE_S} D={Ds} t={t} "
+        f"{att[2]:.5f}, bound "
+        f"{_bound_ms(att_bound, PEAK_3XTF32_FLOP_PER_S):.6f} at the 3xTF32 "
+        f"rate); incremental_attention_step S={SERVE_S} D={Ds} t={t} "
         f"{stp[0]:.5f} ms (plain {stp[1]:.5f}, SDPA {stp[2]:.5f}, bound "
         f"{_bound_ms(stp_bound):.6f}); card {card}")
+    log(f"phase 23 fused_self_attention B=1 D={Dw} causal "
+        + attention_split(pa, q, k, v, True, att[0]) + f"; card {card}")
+    # the wide kernel at the training-like shape where it lost to SDPA
+    Bw, Tw, Dw2 = WIDE_TIMED
+    qw, kw_, vw = _attention_inputs(device, Bw, Tw, Dw2)
+    err = _max_err(pa.fused_self_attention(qw, kw_, vw),
+                   pa.fused_self_attention_reference(qw, kw_, vw))
+    wide = [_device_ms(fn, reps=20) for fn in (
+        lambda: pa.fused_self_attention(qw, kw_, vw),
+        lambda: pa.fused_self_attention_reference(qw, kw_, vw),
+        lambda: F.scaled_dot_product_attention(qw, kw_, vw))]
+    wide_bound = attention_bound(Bw, Tw, Dw2, False)
+    log(f"phase 23 fused_self_attention B={Bw} H={ATTN_HEADS} T={Tw} "
+        f"D={Dw2}: max abs err {err:.3e} against the plain version; kernel "
+        f"{wide[0]:.5f} ms, plain {wide[1]:.5f} ms, SDPA {wide[2]:.5f} ms; "
+        f"bound {_bound_ms(wide_bound, PEAK_3XTF32_FLOP_PER_S):.6f} ms "
+        f"({wide_bound[0]} bytes, {wide_bound[1]} FLOPs at the 3xTF32 rate)"
+        f"; " + attention_split(pa, qw, kw_, vw, False, wide[0])
+        + f"; card {card}")
+    if err > TOL_ATTENTION:
+        raise AssertionError(f"the wide kernel at B = {Bw}, T = {Tw}, D = "
+                             f"{Dw2} disagrees (tol {TOL_ATTENTION})")
     rows += _kernel_rows("fused_self_attention", "self_attention",
                          "pallas_attention.py:39", launches,
                          errs["fused_self_attention"], *att[:2], att_bound,
-                         att[2])
+                         att[2], peak_flops=PEAK_3XTF32_FLOP_PER_S)
     rows += _kernel_rows("incremental_attention_step",
                          "incremental_attention", "pallas_attention.py:109",
                          launches, errs["incremental_attention_step"],
@@ -4623,6 +4655,7 @@ def _bf16_attention_kernels(device, card):
     bound; the bf16 counter moves by one a kernel call, the float32 one
     not at all.  Returns {name: (err, ms, plain_ms, bound, library_ms)} at
     the serving shape (the first of each name)."""
+    import torch
     from self_attention_tacotron_torch.ops import pallas_attention as pa
     out = {}
     for name, B, T, D, causal in BF16_ATTENTION_SHAPES:
@@ -4649,6 +4682,11 @@ def _bf16_attention_kernels(device, card):
         # _device_ms calls once to warm up, then 5 runs of reps
         times = [counted(lambda: _device_ms(kernel, reps=20), 101),
                  _device_ms(plain, reps=20), _device_ms(sdpa, reps=20)]
+        split = ""
+        if causal is not None:   # the full sequence: its profiled split
+            q, k, v = (x.to(torch.bfloat16)
+                       for x in _attention_inputs(device, B, T, D))
+            split = "; " + attention_split(pa, q, k, v, causal, times[0])
         log(f"phase 27 {name} bf16 B={B} H={ATTN_HEADS} "
             f"{'T' if causal is not None else 'S'}={T} D={D}"
             f"{'' if causal is None else f' causal={causal}'}: error "
@@ -4657,7 +4695,7 @@ def _bf16_attention_kernels(device, card):
             f"{times[1]:.5f} ms, SDPA bf16 {times[2]:.5f} ms; bound "
             f"{_bound_ms(bound, PEAK_BF16_FLOP_PER_S):.6f} ms ({bound[0]} "
             f"bytes, {bound[1]} FLOPs at {PEAK_BF16_FLOP_PER_S / 1e12:g} "
-            f"TFLOP/s); card {card}")
+            f"TFLOP/s){split}; card {card}")
         if err > TOL_BF16_ATTENTION:
             raise AssertionError(f"the bf16 {name} disagrees (tol "
                                  f"{TOL_BF16_ATTENTION})")

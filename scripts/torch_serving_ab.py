@@ -7,8 +7,8 @@ against earlier versions of themselves, in one process on one card.
     git archive <commit> self_attention_tacotron_torch | tar -x -C build/ab/<name>
     python3 scripts/torch_serving_ab.py [--variant NAME=build/ab/NAME ...]
                                         [--cases encode,step,serve,attention,
-                                         wide,whole-serve,whole-mel,
-                                         whole-pallas,whole-train]
+                                         wide,bf16,sass,whole-serve,
+                                         whole-mel,whole-pallas,whole-train]
                                         [--reps 5]
 
 Each ``--variant`` directory holds a copy of the port's package from
@@ -42,11 +42,29 @@ first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
   3xTF32 rate; for a variant that profiles its launch
   (``prepare_attention(profile=True)``), the split of its longest block
   into loads, scores, softmax and values.
+  Each variant's output is also held against the working tree's kernel
+  output bit for bit (max abs difference 0.0: the same kernel).
 * ``wide``: the branches past the kernels' earlier plans: #5's wide
   kernel (B = 1, T = 64, D = 129, causal; B = 8, T = 256, D = 256), #6's
   (S = 450, D = 257; S = 3000, D = 512) and #1's streamed hop (T = 600 at
   the codes widths): errors and times as ``attention`` and ``encode``
-  (SDPA beside #5 and #6), in turns.
+  (SDPA beside #5 and #6), in turns; the split of one profiled launch of
+  #5 for a variant whose wide kernel profiles.
+* ``bf16``: #5's bf16 instances at ``chip_smoke.py`` phase 27's shapes
+  (the serving hop, B = 32, T = 256, D = 128 causal and not, the wide B =
+  1, T = 450, D = 256, causal): each variant's error against the working
+  tree's plain version over its largest magnitude, its time and one
+  scaled_dot_product_attention call in bf16, in turns, beside the bound
+  at the bf16 rate, and the split of one profiled launch.
+* ``sass``: #5's float32 narrow kernel, instance by instance (every
+  width, ``key_warps`` and profiling flag): each variant's SASS
+  (``cuobjdump -sass`` of its built ``self_attention``) against the
+  working tree's, line by line with addresses, registers and constants as
+  they are; only the names are made comparable (the anonymous namespace's
+  tag dropped, and an element-type argument ``f`` of an older template
+  with one).  Prints each instance's instruction count and how many lines
+  differ (0: the same machine code), then each differing pair of lines
+  and the instances it is in.
 * ``serve``: the codes model's call per utterance on the host clock (what
   ``cli.predict.main_code`` prints as its wall), three synthetic sources of
   40-64 phones, fused paths (#1, #2) and the Pallas attention mode (#5,
@@ -69,6 +87,7 @@ first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
 import argparse
 import importlib
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -87,6 +106,8 @@ ATTENTION_SHAPES = [(1, 64, 16, False), (32, 256, 128, False),
 STEP_SHAPES = [(B, S, t) for B in (1, 32) for S in (250, 450)
                for t in sorted({0, 63, 249, S - 1})]
 WIDE_SHAPES = [(1, 64, 129, True), (8, 256, 256, False)]
+BF16_SHAPES = [(1, 64, 16, False), (32, 256, 128, False),
+               (32, 256, 128, True), (1, 450, 256, True)]
 WIDE_STEPS = [(450, 257), (3000, 512)]
 WIDE_ENCODE_T = 600
 
@@ -229,11 +250,13 @@ def attention_case(variants, device, reps: int) -> None:
         q, k, v = cs._attention_inputs(device, B, T, D)
         ref = tree.fused_self_attention_reference(q, k, v, causal)
         fns = {}
+        mine = tree.fused_self_attention(q, k, v, causal)
         for name, pkg in variants.items():
             _, pa = _modules(pkg)
             got = pa.fused_self_attention(q, k, v, causal)
             torch.cuda.synchronize()
-            print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}",
+            print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}; "
+                  f"against the tree's kernel {cs._max_err(got, mine):.3e}",
                   flush=True)
             fns[name] = (lambda pa=pa: pa.fused_self_attention(q, k, v,
                                                                causal))
@@ -263,16 +286,18 @@ def wide_case(variants, device, reps: int) -> None:
     import chip_smoke as cs
     from self_attention_tacotron_torch.ops import fused_encoder as tree_fe
     from self_attention_tacotron_torch.ops import pallas_attention as tree
-    cases = []
+    cases, splits = [], []
     for B, T, D, causal in WIDE_SHAPES:
         q, k, v = cs._attention_inputs(device, B, T, D)
+        tag = f"wide attention B={B} T={T} D={D} causal={causal}"
         cases.append((
-            f"wide attention B={B} T={T} D={D} causal={causal}",
+            tag,
             lambda pa, q=q, k=k, v=v, c=causal:
                 pa.fused_self_attention(q, k, v, c),
             tree.fused_self_attention_reference(q, k, v, causal),
             lambda q=q, k=k, v=v, c=causal:
                 F.scaled_dot_product_attention(q, k, v, is_causal=c)))
+        splits.append((tag, q, k, v, causal))
     for S, D in WIDE_STEPS:
         q, kc, vc = cs._step_inputs(device, 1, S - 1, S, D)
         cases.append((
@@ -291,8 +316,12 @@ def wide_case(variants, device, reps: int) -> None:
             print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}",
                   flush=True)
             fns[name] = (lambda pa=pa: run(pa))
-        for name, ts in in_turns(fns, reps, cs._device_ms).items():
+        times = in_turns(fns, reps, cs._device_ms)
+        for name, ts in times.items():
             print(f"{tag}: {name} {_runs(ts)}", flush=True)
+        for stag, q, k, v, causal in splits:
+            if stag == tag:
+                attention_splits(variants, stag, q, k, v, causal, times)
     model = cs.make_model(cs.recipe_hparams(), device)
     T = WIDE_ENCODE_T
     params, x, kw = cs.encoder_case(model, T, T, device)
@@ -305,6 +334,108 @@ def wide_case(variants, device, reps: int) -> None:
         print(f"wide encode T={T}: {name} max abs err {err:.3e}", flush=True)
     for name, ts in in_turns(launches, reps, _ms).items():
         print(f"wide encode T={T}: {name} {_runs(ts)}", flush=True)
+
+
+def attention_splits(variants, tag, q, k, v, causal, times) -> None:
+    """The profiled split of #5 for each variant whose kernel at this
+    width and dtype profiles (the wide kernel's from this slice on)."""
+    import chip_smoke as cs
+    for name, pkg in variants.items():
+        _, pa = _modules(pkg)
+        if q.shape[-1] <= pa.MAX_MMA_HEAD_DIM or hasattr(pa, "wide_plan"):
+            print(f"{tag}: {name} " + cs.attention_split(
+                pa, q, k, v, causal, statistics.median(times[name])),
+                flush=True)
+
+
+def bf16_case(variants, device, reps: int) -> None:
+    """#5's bf16 instances against the tree's plain version, in turns with
+    SDPA in bf16."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import pallas_attention as tree
+    for B, T, D, causal in BF16_SHAPES:
+        tag = (f"bf16 attention B={B} H={cs.ATTN_HEADS} T={T} D={D} "
+               f"causal={causal}")
+        q, k, v = (x.bfloat16() for x in cs._attention_inputs(device, B, T,
+                                                              D))
+        ref = tree.fused_self_attention_reference(q, k, v, causal).float()
+        scale = float(ref.abs().max())
+        fns = {}
+        for name, pkg in variants.items():
+            _, pa = _modules(pkg)
+            got = pa.fused_self_attention(q, k, v, causal)
+            torch.cuda.synchronize()
+            err = cs._max_err(got.float(), ref) / scale
+            print(f"{tag}: {name} error {err:.3e} of the plain version's "
+                  "largest magnitude", flush=True)
+            fns[name] = (lambda pa=pa: pa.fused_self_attention(q, k, v,
+                                                               causal))
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal)
+        times = in_turns(fns, reps, cs._device_ms)
+        bound = cs._bound_ms(cs.bf16_attention_bound(B, T, D, causal),
+                             cs.PEAK_BF16_FLOP_PER_S)
+        for name, ts in times.items():
+            print(f"{tag}: {name} {_runs(ts)}; bound {bound:.6f} ms",
+                  flush=True)
+        attention_splits(variants, tag, q, k, v, causal, times)
+
+
+def kernel_sass(library: str) -> dict:
+    """Each kernel function's instructions in a built library, from
+    ``cuobjdump -sass``, keyed by its mangled name without the anonymous
+    namespace's tag."""
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    found, fn = {}, None
+    for line in text.splitlines():
+        head = re.match(r"\s+Function : (\S+)", line)
+        if head:
+            fn = re.sub(r"\d+_GLOBAL__N__\w+?_cu_\w+?(?=\d+self_)", "",
+                        head.group(1))
+            found[fn] = []
+            continue
+        ins = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+        if fn and ins:
+            found[fn].append(re.sub(r"\s+", " ", ins.group(1)))
+    return found
+
+
+def sass_case(variants, builds) -> None:
+    names = {}
+    for name in variants:
+        lib = str(builds[name]._library_path("self_attention"))
+        names[name] = {re.sub(r"self_attention_kernelIf", "self_attention_"
+                              "kernelI", fn): code
+                       for fn, code in kernel_sass(lib).items()
+                       if "self_attention_kernelI" in fn
+                       and "bfloat16" not in fn}
+    tree = names["tree"]
+    print(f"sass tree: {len(tree)} instances of the f32 narrow kernel",
+          flush=True)
+    for name, found in names.items():
+        if name == "tree":
+            continue
+        pairs = {}
+        for fn in sorted(set(tree) | set(found)):
+            a, b = found.get(fn), tree.get(fn)
+            if a is None or b is None:
+                print(f"sass {name}: {fn} only in "
+                      f"{'tree' if a is None else name}", flush=True)
+                continue
+            differ = [(x, y) for x, y in zip(a, b) if x != y]
+            for pair in differ:
+                pairs[pair] = pairs.get(pair, 0) + 1
+            print(f"sass {name}: {fn} {len(a)} instructions, tree {len(b)}; "
+                  f"{len(differ) + abs(len(a) - len(b))} lines differ",
+                  flush=True)
+        for (x, y), n in sorted(pairs.items(), key=lambda p: -p[1]):
+            print(f"sass {name}: in {n} instances '{x}' where the tree has "
+                  f"'{y}'", flush=True)
 
 
 def serve_case(variants, device, reps: int) -> None:
@@ -500,6 +631,10 @@ def main() -> int:
             attention_case(variants, device, args.reps)
         elif case == "wide":
             wide_case(variants, device, args.reps)
+        elif case == "bf16":
+            bf16_case(variants, device, args.reps)
+        elif case == "sass":
+            sass_case(variants, builds)
         else:
             raise ValueError(f"unknown case {case}")
     return 0

@@ -1,8 +1,7 @@
 // Softmax attention of up to NWARPS query rows of one head, on FP32 FMAs,
-// for the shapes the tensor-core paths do not hold on chip: the Pallas
-// mode's full-sequence attention past its widest template (D > 128,
-// csrc/self_attention.cu) and the encoder's hop once the source's K | V | Q
-// rows no longer fit in a block's shared memory (csrc/fused_encoder.cu).
+// for the shape the tensor-core path does not hold on chip: the encoder's
+// hop once the source's K | V | Q rows no longer fit in a block's shared
+// memory (csrc/fused_encoder.cu).
 //
 // Warp w of the block takes query row row0 + w (if w < nrows).  The keys
 // stream through shared memory in tiles of ATT_TK rows, which all the
@@ -23,8 +22,8 @@
 // through the read-only path, whose L1 serves V's rows to every warp.
 // Called by every thread of the block (it has block barriers); ``smem``
 // holds ``attend_rows_floats(D)`` floats.  ``T`` is the operands' element
-// type: float, or __nv_bfloat16 (the Pallas mode's bf16 instance), read
-// into the same float tiles and rounded once on the store.
+// type: float, or __nv_bfloat16, read into the same float tiles and
+// rounded once on the store.
 #pragma once
 
 #include <math.h>

@@ -1,9 +1,12 @@
 // Tensor-core and copy helpers shared by the port's kernels: the 3xTF32
 // split product on mma.sync (f32 accuracy from TF32 tensor cores; the
 // training kernels, fused_train_{fwd,bwd}.cu, and the encoder,
-// fused_encoder.cu), the bf16 product of the training kernels' bf16
-// storage mode, and cp.async copies into shared memory.
+// fused_encoder.cu), the bf16 products of the training kernels' bf16
+// storage mode and of the attention kernels' bf16 instances, ldmatrix
+// fragment loads, and cp.async copies into shared memory.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include <cstdint>
 
@@ -81,6 +84,45 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in the tensor core's f32 accumulator (fragments as mma_bf16's),
+// for sums held to bf16's tolerance (the attention kernels' bf16
+// instances), where the drift mma3 describes (~1e-6) does not count.
+__device__ __forceinline__ void mma_bf16_acc(float (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two bf16 packed as one operand register, lo in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Four 8 x 8 tiles of 16-bit elements from shared memory: lanes 8i ..
+// 8i + 7 give the addresses of tile i's rows (16 bytes each, 16-byte
+// aligned) and r[i] is tile i's fragment: lane l holds row l / 4, elements
+// 2 (l % 4) and 2 (l % 4) + 1 (``_trans``: of the transposed tile, i.e.
+// rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
 }
 
 // 16 bytes from global to shared memory with cp.async (L2 only, no

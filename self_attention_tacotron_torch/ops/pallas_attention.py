@@ -8,10 +8,15 @@ kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
 * ``fused_self_attention`` — softmax(Q K^T / sqrt(D)) V over (B, H, T, D),
   optionally causal; replaces ``_attention_kernel``
   (``csrc/self_attention.cu``: a warp a 16 query rows, blocks of 16-64
-  rows sized to the shape by ``attention_plan``, at small shapes 4 warps
-  that share a block's rows and split its keys, K and V tiles in a ring of
-  cp.async stages, both products on the tensor cores in the 3xTF32 split
-  and the online softmax in registers, D up to 128);
+  rows (128 in bf16) sized to the shape by ``attention_plan``, at small
+  shapes 4 warps that share a block's rows and split its keys, K and V
+  tiles in a ring of cp.async stages, both products on the tensor cores
+  (the 3xTF32 split in f32, one bf16 mma a 16-deep step in bf16) and the
+  online softmax in registers, D up to 128; past that its wide kernel,
+  whose 8 warps split D's columns of 16 or 32 rows and add their partial
+  scores through shared memory, on the same tensor-core products, and
+  which splits each row block's keys over several blocks where the row
+  blocks alone would leave most SMs idle);
 * ``incremental_attention_step`` — one (B, H, D) query against (B, H, S, D)
   key and value caches masked to positions <= t; replaces
   ``_incremental_kernel`` (``csrc/incremental_attention.cu``: the cache up
@@ -21,7 +26,7 @@ kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
 
 ``ops/attention_core.py`` selects them under ``use_pallas`` where no dropout
 is active, as the JAX package does.  Heads wider than the full-sequence
-kernel's tensor-core templates (D > ``MAX_MMA_HEAD_DIM``) take its wide
+kernel's narrow templates (D > ``MAX_MMA_HEAD_DIM``) take its wide
 kernel, and heads wider than the step's registers hold (D > 256) the
 step's wide kernel; ``attention_unsupported_reason`` /
 ``step_unsupported_reason`` name what is left (D > ``MAX_HEAD_DIM`` for
@@ -36,8 +41,9 @@ training).  Each wrapper's ``launches`` counts its kernel launches.
 Both kernels take float32 or bfloat16 operands (every operand of a call in
 one dtype; anything else raises, on the CPU too): bf16 q, k and v (the
 model-wide bf16's hops, ``ops/compute_dtype.py``; its KV cache is bf16)
-launch each kernel's bf16 instance, which reads bf16, computes in f32 and
-writes bf16 once, as the JAX kernels do on bf16 inputs; those launches
+launch each kernel's bf16 instance, which reads bf16, sums in f32 (the
+full sequence's on the bf16 tensor cores, P rounded once to bf16 for P V)
+and writes bf16 once, as the JAX kernels do on bf16 inputs; those launches
 count in ``launches_bf16``, the f32 ones in ``launches``.  The plain
 versions compute in float32 on the upcast inputs and round the result to
 q's dtype.
@@ -54,18 +60,28 @@ import torch
 from . import cuda_build
 
 NEG_INF = -1e9
-MAX_MMA_HEAD_DIM = 128      # fused_self_attention's widest mma template
+MAX_MMA_HEAD_DIM = 128      # fused_self_attention's widest narrow template
 MAX_HEAD_DIM = 1024         # its wide kernel's plan in 227 KB
-WIDE_ROWS, WIDE_KEYS = 8, 32   # the wide kernel: a warp a row, keys a tile
 # fused_self_attention's plan (mirrors csrc/self_attention.cu): query rows
 # a block, from the most to the fewest; blocks that fill an H100's 132 SMs
 # once; the warps that split the keys of a 16-row block that does not; the
 # K / V ring's stages and the floats after each of its rows
 ATTN_ROWS = (64, 32, 16)
 ATTN_FILL_BLOCKS = 132
+# bf16 operands: 8-warp blocks of these rows where they fill half the SMs
+ATTN_BF16_ROWS = 128
 ATTN_KEY_WARPS = 4
 ATTN_RING = 3
 ATTN_ROW_PAD = 4     # floats of padding after a ring row (8 bf16)
+# the wide kernel (D > MAX_MMA_HEAD_DIM): the padded widths, its warps (a
+# 16-row group each and a slice of the columns; 2 groups a block up to
+# WIDE_TWO_GROUPS wide), the key tiles it tries, largest first, within a
+# block's shared memory
+WIDE_WIDTHS = (192, 256, 384, 512, 768, 1024)
+WIDE_WARPS = 8
+WIDE_TWO_GROUPS = 512
+WIDE_KEYS = (32, 16, 8)
+BLOCK_SMEM = 232448     # 227 KB, an H100 block's most
 # what a profiled launch (prepare_attention(profile=True)) splits its SM
 # cycles into
 ATTN_STAGES = ("loads", "scores", "softmax", "values", "start", "end")
@@ -118,7 +134,9 @@ class _AttnArgs(ctypes.Structure):
                 ("cycles", _P), ("bh", ctypes.c_int), ("T", ctypes.c_int),
                 ("D", ctypes.c_int), ("causal", ctypes.c_int),
                 ("scale", ctypes.c_float), ("rows", ctypes.c_int),
-                ("key_warps", ctypes.c_int), ("elem", ctypes.c_int)]
+                ("key_warps", ctypes.c_int), ("elem", ctypes.c_int),
+                ("splits", ctypes.c_int), ("chunk", ctypes.c_int),
+                ("part", _P), ("tickets", _P)]
 
 
 class _StepArgs(ctypes.Structure):
@@ -136,7 +154,9 @@ class AttnPlan(NamedTuple):
     ``key_warps`` warps on each 16 of them (each takes a slice of every key
     tile; ``warps`` in all), ``grid`` = (row blocks, B * H), key tiles of
     ``keys`` keys through a ring of ``stages``, and ``smem_bytes`` of
-    dynamic shared memory a block."""
+    dynamic shared memory a block.  The wide kernel may split each row
+    block's key tiles into ``splits`` blocks of ``chunk`` tiles, whose
+    partial softmax states take ``part_floats`` floats of scratch."""
 
     rows: int
     key_warps: int
@@ -145,6 +165,9 @@ class AttnPlan(NamedTuple):
     keys: int
     stages: int
     smem_bytes: int
+    splits: int = 1
+    chunk: int = 0
+    part_floats: int = 0
 
 
 def attention_plan(B: int, H: int, T: int, D: int, causal: bool,
@@ -152,25 +175,42 @@ def attention_plan(B: int, H: int, T: int, D: int, causal: bool,
     """The kernel's plan at (B, H, T, D): the most rows a block
     (``ATTN_ROWS``, none past T's last 16) whose blocks still fill the card
     once, or else 16 rows on ``ATTN_KEY_WARPS`` warps that split the keys;
+    for bf16 operands ``ATTN_BF16_ROWS`` (8 warps, one block an SM) where
+    those blocks fill at least half the card;
     D padded to 16, 32, 64 or 128; tiles of 64 keys, 32 from 64 wide on
-    (registers), 16 at 128 wide with a warp a row group (faster there).
-    ``causal`` does not change the plan: a causal block stops at its last
-    row's tile in the kernel.  The ring holds operands of ``elem_bytes``
-    (4: float32, 2: bf16) in rows padded by 16 bytes; with 4 key warps
-    the block's merge reuses it and sizes it when it is the larger.  D >
-    ``MAX_MMA_HEAD_DIM`` takes the wide kernel: ``WIDE_ROWS`` rows a
-    block, ``WIDE_KEYS`` keys a tile, one stage, the tile, rows and
-    contexts of ``wide_smem_floats``."""
+    (registers), 16 at 128 wide with a warp a row group (faster there); 64
+    at every width for bf16 operands.  ``causal`` does not change the
+    plan: a causal block stops at its last row's tile in the kernel.  The
+    ring holds operands of ``elem_bytes`` (4: float32, 2: bf16) in rows
+    padded by 16 bytes; with 4 key warps the block's merge reuses it and
+    sizes it when it is the larger.  D > ``MAX_MMA_HEAD_DIM`` takes the
+    wide kernel (``wide_plan``); where its row blocks would leave most SMs
+    idle (fewer than ``ATTN_FILL_BLOCKS`` / 2), each row block's key tiles
+    split into chunks of ``chunk``, one block each, whose partial softmax
+    states (each warp's O fragments and the rows' max and sum, a thread's
+    padded D / 8 or / 16, + 4 floats) the last to finish merges."""
     bh = B * H
     if D > MAX_MMA_HEAD_DIM:
-        return AttnPlan(WIDE_ROWS, 1, WIDE_ROWS, (-(-T // WIDE_ROWS), bh),
-                        WIDE_KEYS, 1, 4 * wide_smem_floats(D))
+        rows, keys, smem = wide_plan(D, elem_bytes)
+        blocks, tiles = -(-T // rows), -(-T // keys)
+        splits = min(tiles, max(1, ATTN_FILL_BLOCKS // (blocks * bh)))
+        chunk = -(-tiles // splits)
+        splits = -(-tiles // chunk)
+        dp = next(w for w in WIDE_WIDTHS if D <= w)
+        part = (bh * blocks * splits * WIDE_WARPS * 32
+                * (dp * rows // 128 // 2 + 4) if splits > 1 else 0)
+        return AttnPlan(rows, 1, WIDE_WARPS, (blocks, bh), keys, ATTN_RING,
+                        smem, splits, chunk, part)
     rows = next((r for r in ATTN_ROWS if r < T + 16
                  and -(-T // r) * bh >= ATTN_FILL_BLOCKS), None)
+    if elem_bytes == 2 and ATTN_BF16_ROWS < T + 16 and \
+            -(-T // ATTN_BF16_ROWS) * bh >= ATTN_FILL_BLOCKS // 2:
+        rows = ATTN_BF16_ROWS
     key_warps = 1 if rows else ATTN_KEY_WARPS
     rows = rows or ATTN_ROWS[-1]
     dp = next(w for w in (16, 32, 64, 128) if D <= w)
-    keys = 16 if (dp, key_warps) == (128, 1) else 32 if dp >= 64 else 64
+    keys = (64 if elem_bytes == 2 else 16 if (dp, key_warps) == (128, 1)
+            else 32 if dp >= 64 else 64)
     ring = ATTN_RING * 2 * keys * (dp + ATTN_ROW_PAD * 4 // elem_bytes) \
         * elem_bytes
     merge = key_warps * (dp // 8 * 4 + 4) * 32 * 4 if key_warps > 1 else 0
@@ -178,11 +218,22 @@ def attention_plan(B: int, H: int, T: int, D: int, causal: bool,
                     (-(-T // rows), bh), keys, ATTN_RING, max(ring, merge))
 
 
-def wide_smem_floats(D: int) -> int:
-    """Shared memory of the wide kernel (``attend_rows_floats`` of
-    csrc/attention_rows.cuh): a key tile at an odd row stride, each warp's
-    query row and context, and each warp's tile of weights."""
-    return WIDE_KEYS * (D | 1) + 2 * WIDE_ROWS * D + WIDE_ROWS * WIDE_KEYS
+def wide_plan(D: int, elem_bytes: int = 4) -> Tuple[int, int, int]:
+    """(rows a block, keys a tile, shared-memory bytes) of the wide kernel
+    at head width D: D padded to the next of ``WIDE_WIDTHS``; two 16-row
+    groups a block up to ``WIDE_TWO_GROUPS`` wide, one past it (each warp
+    holds O's and Q's fragments of D / 32 or D / 64 of the columns); the
+    most keys of ``WIDE_KEYS`` whose ring (``ATTN_RING`` stages of K and V
+    rows padded by 16 bytes) and partial score tiles (a 16 x keys float
+    tile a warp) fit ``BLOCK_SMEM``."""
+    dp = next(w for w in WIDE_WIDTHS if D <= w)
+    rows = 32 if dp <= WIDE_TWO_GROUPS else 16
+
+    def smem(keys):
+        return (ATTN_RING * 2 * keys * (dp + ATTN_ROW_PAD * 4 // elem_bytes)
+                * elem_bytes + WIDE_WARPS * 16 * keys * 4)
+    keys = next(k for k in WIDE_KEYS if smem(k) <= BLOCK_SMEM)
+    return rows, keys, smem(keys)
 
 
 def kernel_plan(D: int, key_warps: int,
@@ -211,17 +262,18 @@ def step_plan(bh: int, t: int, D: int) -> Tuple[int, int]:
     return chunks, (bh * chunks * (D + 2) if chunks > 1 else 0)
 
 
-_tickets: Dict[torch.device, Tensor] = {}
+_tickets: Dict[Tuple[str, torch.device], Tensor] = {}
 
 
-def _ticket_words(device, bh: int) -> Tensor:
-    """The per-(b, h) ticket counters of ``device``: zeroed once, and left
-    at 0 by every launch (its last chunk resets its word), so launches on
-    one stream share them.  Grown (new zeros) for a larger B * H."""
-    words = _tickets.get(device)
-    if words is None or words.numel() < bh:
-        words = torch.zeros(max(bh, 64), dtype=torch.int32, device=device)
-        _tickets[device] = words
+def _ticket_words(device, n: int, kernel: str = "step") -> Tensor:
+    """The ticket counters of ``kernel`` on ``device`` (the step's one a
+    (b, h), the full sequence's one a row block of each (b, h)): zeroed
+    once, and left at 0 by every launch (its last chunk resets its word),
+    so launches on one stream share them.  Grown (new zeros) for more."""
+    words = _tickets.get((kernel, device))
+    if words is None or words.numel() < n:
+        words = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _tickets[(kernel, device)] = words
     return words
 
 
@@ -308,7 +360,8 @@ def prepare_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
                       profile: bool = False) -> cuda_build.KernelLaunch:
     """Check the operands and lay out one launch by ``attention_plan``.
     With ``profile`` the launch adds the SM cycles of the last row block of
-    head 0 (its warp 0) to ``stage_cycles``, one counter per
+    head 0 (its warp 0; in the wide kernel the first row group's warp on
+    the first columns) to ``stage_cycles``, one counter per
     ``ATTN_STAGES``."""
     if q.dim() != 4:
         raise ValueError(f"q: expected (B, H, T, D), got {tuple(q.shape)}")
@@ -321,21 +374,26 @@ def prepare_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
         raise ValueError(f"fused_self_attention takes 1 <= D <= "
                          f"{MAX_HEAD_DIM}, T >= 1 and B * H <= {MAX_GRID_Y}; "
                          f"got {tuple(q.shape)}: {reason}")
-    if profile and D > MAX_MMA_HEAD_DIM:
-        raise ValueError("the wide kernel (D > "
-                         f"{MAX_MMA_HEAD_DIM}) has no profile counters")
     out = torch.empty_like(q)
     plan = attention_plan(B, H, T, D, causal, q.element_size())
     cycles = (torch.zeros(len(ATTN_STAGES), dtype=torch.int64,
                           device=q.device) if profile else None)
+    part = tickets = None
+    if plan.splits > 1:
+        part = torch.empty(plan.part_floats, device=q.device)
+        tickets = _ticket_words(q.device, plan.grid[0] * plan.grid[1],
+                                "self_attention")
     args = _AttnArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(),
                      cycles.data_ptr() if profile else None, B * H, T, D,
                      int(causal), 1.0 / math.sqrt(D), plan.rows,
-                     plan.key_warps, int(bf16))
+                     plan.key_warps, int(bf16), plan.splits, plan.chunk,
+                     part.data_ptr() if part is not None else None,
+                     tickets.data_ptr() if tickets is not None else None)
     return cuda_build.KernelLaunch(
-        _fn("self_attention", _AttnArgs), args, (q, k, v, out, cycles), out,
-        q.device, fused_self_attention, stage_cycles=cycles,
+        _fn("self_attention", _AttnArgs), args,
+        (q, k, v, out, cycles, part, tickets), out, q.device,
+        fused_self_attention, stage_cycles=cycles,
         counter="launches_bf16" if bf16 else "launches")
 
 

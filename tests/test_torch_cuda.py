@@ -30,9 +30,13 @@ the frames; the training forward within 1e-2 and each gradient within
 attention kernels (model-wide bf16) against their plain versions (f32 math
 on the same bf16 inputs, rounded once): within 1e-2 of the output's
 largest magnitude (one bf16 ulp is 2^-8 relative; the f32 sums' order can
-move a value across a rounding boundary), at the tensor-core and wide
-widths, the 16-byte and element-by-element tile copies, the chunk edges;
-and a bf16 model in the Pallas mode launching only the bf16 instances.
+move a value across a rounding boundary, and the full sequence's P V
+takes P rounded to bf16), at the narrow and wide widths (D % 16 != 0
+among them), the 16-byte and element-by-element tile copies, the chunk
+edges; the full-sequence wide kernel in both dtypes at each of its padded
+widths and ragged lengths; the plans of both kernels at both element
+sizes, and one profiled launch of each; and a bf16 model in the Pallas
+mode launching only the bf16 instances.
 """
 
 import test_torch_threads  # noqa: F401  (bounds torch's threads)
@@ -887,12 +891,14 @@ def test_fused_self_attention_kernel_keeps_large_scores(device, causal, B):
     _close(got, ref, tol=1e-5)
 
 
-@pytest.mark.parametrize("D", [1, 16, 24, 64, 100, 128])
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("D", [1, 16, 24, 64, 100, 128,
+                               129, 256, 384, 512, 1000, 1024])   # wide
 @pytest.mark.parametrize("B", [1, 32])     # 4 warps split the keys; 1 warp
-def test_attention_plan_matches_the_kernel(device, D, B):
-    plan = pa.attention_plan(B, 2, 256, D, False)
-    assert pa.kernel_plan(D, plan.key_warps) == (plan.keys, plan.stages,
-                                                 plan.smem_bytes)
+def test_attention_plan_matches_the_kernel(device, D, B, elem_bytes):
+    plan = pa.attention_plan(B, 2, 256, D, False, elem_bytes)
+    assert pa.kernel_plan(D, plan.key_warps, elem_bytes) == (
+        plan.keys, plan.stages, plan.smem_bytes)
 
 
 @torch.no_grad()
@@ -1211,18 +1217,63 @@ def test_pallas_gates_at_the_head_width_edges_on_the_card(device, D):
         pa.fused_self_attention(q, q, q)
 
 
+# the wide kernel's widths (each padded width of its plan, 136 and 1000
+# ragged) and ragged lengths (one row, part of a 32-row block, 3 blocks,
+# 15 blocks and part of a key tile)
+WIDE_CASES = [(D, T, causal) for D in (136, 192, 256, 512, 1000, 1024)
+              for T in (1, 33, 70, 450) for causal in (False, True)]
+
+
 @torch.no_grad()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D,T,causal", [(129, 1, False), (129, 70, True),
                                         (200, 33, False), (1024, 40, True),
-                                        (300, 250, False)])
-def test_wide_self_attention_kernel_matches_plain(device, D, T, causal):
+                                        (300, 250, False), *WIDE_CASES])
+def test_wide_self_attention_kernel_matches_plain(device, D, T, causal,
+                                                  dtype):
+    """B * H = 4; float32 within 1e-5 of the plain version, bf16 within
+    1e-2 of its largest magnitude (``_close_bf16``)."""
     from self_attention_tacotron_torch.ops import pallas_attention as pa
-    q, k, v = (_normal(device, 2, 2, T, D, seed=s) for s in range(3))
-    before = pa.fused_self_attention.launches
+    q, k, v = (_normal(device, 2, 2, T, D, seed=s).to(dtype)
+               for s in range(3))
+    counter = "launches" if dtype == torch.float32 else "launches_bf16"
+    before = getattr(pa.fused_self_attention, counter)
     got = pa.fused_self_attention(q, k, v, causal)
-    assert pa.fused_self_attention.launches == before + 1
-    _close(got, pa.fused_self_attention_reference(q, k, v, causal),
-           tol=1e-5)
+    torch.cuda.synchronize()
+    assert getattr(pa.fused_self_attention, counter) == before + 1
+    ref = pa.fused_self_attention_reference(q, k, v, causal)
+    if dtype == torch.float32:
+        _close(got, ref, tol=1e-5)
+    else:
+        _close_bf16(got, ref)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_split_tickets_reset_between_calls(device, dtype):
+    """Calls whose row blocks split their keys into different numbers of
+    chunks, queued on one stream without a sync: each merge folds only its
+    own chunks, because the last chunk of a row block leaves its ticket at
+    0; and the sums do not depend on which chunk finished last."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    shapes = [(1, 450, 256, True), (2, 70, 129, False), (1, 200, 512, True)]
+    splits = [pa.attention_plan(B, 2, T, D, c, 2 if dtype == torch.bfloat16
+                                else 4).splits for B, T, D, c in shapes]
+    assert min(splits) > 1 and len(set(splits)) == len(splits)
+    ins = [tuple(_normal(device, B, 2, T, D, seed=s).to(dtype)
+                 for s in range(3)) for B, T, D, _ in shapes]
+    outs = [pa.fused_self_attention(*x, c) for x, (*_, c) in zip(ins,
+                                                                 shapes)]
+    again = [pa.fused_self_attention(*x, c) for x, (*_, c) in zip(ins,
+                                                                  shapes)]
+    torch.cuda.synchronize()
+    for x, (*_, c), got, got2 in zip(ins, shapes, outs, again):
+        ref = pa.fused_self_attention_reference(*x, c)
+        if dtype == torch.float32:
+            _close(got, ref, tol=1e-5)
+        else:
+            _close_bf16(got, ref)
+        assert torch.equal(got, got2)
 
 
 @torch.no_grad()
@@ -1288,11 +1339,19 @@ def _close_bf16(got, ref):
 @pytest.mark.parametrize("B,H,T,D,causal", [
     (1, 2, 64, 16, False), (2, 2, 37, 16, True), (32, 2, 256, 128, True),
     (3, 2, 130, 64, False), (2, 1, 45, 30, True), (1, 2, 33, 5, False),
-    (2, 2, 70, 256, True), (1, 2, 40, 1024, False)])
+    (2, 2, 70, 256, True), (1, 2, 40, 1024, False),
+    (32, 2, 256, 128, False),            # the training shape, not causal
+    # D % 16 != 0 at the narrow widths: a 16-deep step half past D
+    (2, 2, 70, 24, True), (2, 2, 33, 8, False), (3, 2, 100, 40, True),
+    (32, 2, 250, 120, False), (1, 2, 450, 100, True),
+    (32, 2, 130, 100, True),    # 128-row blocks, 4-byte copies and stores
+    # the wide kernel: ragged widths and lengths, a block and a half
+    (2, 2, 33, 136, False), (1, 2, 450, 256, True), (2, 2, 70, 512, True),
+    (2, 2, 1, 1000, False)])
 def test_fused_self_attention_bf16_instance_matches_plain(device, B, H, T, D,
                                                           causal):
-    """The tensor-core kernel (16-byte copies at D % 8 == 0, else element
-    by element; 4 warps on the keys at B = 1) and the wide one."""
+    """The narrow kernel (16-byte copies at D % 8 == 0, else element by
+    element; 4 warps on the keys at B = 1) and the wide one."""
     from self_attention_tacotron_torch.ops import pallas_attention as pa
     q, k, v = (_normal(device, B, H, T, D, seed=s).bfloat16()
                for s in range(3))
@@ -1325,13 +1384,37 @@ def test_incremental_step_bf16_instance_matches_plain(device, B, H, S, D):
 
 
 @pytest.mark.parametrize("D,key_warps", [(16, 4), (64, 1), (128, 1),
-                                         (128, 4)])
+                                         (128, 4), (200, 1), (1024, 1)])
 def test_attention_plan_matches_the_bf16_kernel(device, D, key_warps):
     from self_attention_tacotron_torch.ops import pallas_attention as pa
     plan = pa.attention_plan(1 if key_warps == 4 else 32, 2, 64, D, False, 2)
     assert plan.key_warps == key_warps
     assert pa.kernel_plan(D, key_warps, 2) == (plan.keys, plan.stages,
                                                plan.smem_bytes)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("dtype,B,T,D,causal", [
+    (torch.bfloat16, 32, 256, 128, True),    # the narrow bf16 instance
+    (torch.float32, 8, 256, 256, False),     # the wide kernel
+    (torch.bfloat16, 1, 450, 256, True)])
+def test_attention_kernels_profile_their_stages(device, dtype, B, T, D,
+                                                causal):
+    """One profiled launch of each kernel this slice redesigned: every
+    stage of ``ATTN_STAGES`` counted, the output unchanged."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    q, k, v = (_normal(device, B, 2, T, D, seed=s).to(dtype)
+               for s in range(3))
+    launch = pa.prepare_attention(q, k, v, causal, profile=True)
+    got = launch()
+    torch.cuda.synchronize()
+    cycles = launch.stage_cycles.cpu().tolist()
+    assert len(cycles) == len(pa.ATTN_STAGES) and min(cycles) > 0
+    ref = pa.fused_self_attention_reference(q, k, v, causal)
+    if dtype == torch.float32:
+        _close(got, ref, tol=1e-5)
+    else:
+        _close_bf16(got, ref)
 
 
 @torch.no_grad()

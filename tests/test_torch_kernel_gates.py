@@ -23,6 +23,9 @@ wrapper raises for on the card.  Here:
   533 resident, T = 534 streamed, neither refused); head widths 1024
   against 1025 (#5), any for #6; n_fft from 1 to 32768 (#7, the FFT for
   powers of two up to 16384);
+* the wide full-sequence kernel's plan at 129 and 1024 wide, and its
+  split of each row block's keys over several blocks where the row
+  blocks would leave most SMs idle (and its scratch);
 * the callers on CPU: the fused encoder, the Pallas mode and
   ``MelExtractor`` reach the kernels' wrappers, whose plain versions match
   the module path, the einsum path and ``spectrograms_plain``; a refused
@@ -218,12 +221,45 @@ def test_step_reason_edge(D, fits):
 
 @pytest.mark.parametrize("D", [129, 1024])
 def test_wide_attention_plan(D):
-    """Past the tensor-core templates a block holds 8 rows, a key tile, each
-    row and context, within 227 KB."""
+    """Past the narrow templates a block of 8 warps holds two 16-row groups
+    (one past 512 wide), a ring of 3 stages of 32 keys (8 at 1024 wide in
+    float32) and each warp's partial score tile, within 227 KB."""
     plan = pa.attention_plan(2, 3, 70, D, causal=True)
-    assert (plan.rows, plan.key_warps, plan.warps) == (8, 1, 8)
-    assert plan.grid == (9, 6) and (plan.keys, plan.stages) == (32, 1)
-    assert plan.smem_bytes == 4 * (32 * (D | 1) + 16 * D + 256) <= 232448
+    rows, keys, dp = (32, 32, 192) if D == 129 else (16, 8, 1024)
+    assert (plan.rows, plan.key_warps, plan.warps) == (rows, 1, 8)
+    assert plan.grid == (-(-70 // rows), 6)
+    assert (plan.keys, plan.stages) == (keys, 3)
+    assert plan.smem_bytes == (3 * 2 * keys * (dp + 4) * 4
+                               + 8 * 16 * keys * 4) <= 232448
+
+
+@pytest.mark.parametrize("elem_bytes,B,T,D,causal,splits", [
+    (4, 8, 256, 256, False, 1),    # 128 row blocks fill the card: no split
+    (4, 1, 450, 256, True, 4),     # the bf16 row's shape: 30 row blocks
+    (4, 1, 64, 129, True, 2), (4, 2, 70, 1024, True, 5),
+    (4, 2, 1, 300, False, 1),
+    # bf16 tiles hold twice the keys at 512 and 1024 wide, so the splits
+    # follow the element size
+    (2, 1, 450, 256, True, 4), (2, 2, 70, 129, False, 3),
+    (2, 1, 100, 512, True, 4), (4, 1, 100, 512, True, 7),
+    (2, 1, 200, 512, True, 7), (4, 1, 200, 512, True, 7),
+    (2, 2, 40, 1024, False, 3), (4, 2, 40, 1024, False, 5)])
+def test_wide_attention_plan_splits_small_grids(elem_bytes, B, T, D, causal,
+                                                splits):
+    """Where the wide kernel's row blocks leave most SMs idle, each row
+    block's key tiles split into chunks (one block each) whose partial
+    states, a thread's padded D / 8 or / 16, + 4 floats, the last
+    merges."""
+    plan = pa.attention_plan(B, 2, T, D, causal, elem_bytes)
+    tiles = -(-T // plan.keys)
+    blocks = plan.grid[0] * plan.grid[1]
+    assert plan.splits == splits
+    assert plan.splits * plan.chunk >= tiles > (plan.splits - 1) * plan.chunk
+    assert blocks * plan.splits <= max(blocks, pa.ATTN_FILL_BLOCKS)
+    dp = next(w for w in pa.WIDE_WIDTHS if D <= w)
+    per_thread = dp * plan.rows // 128 // 2 + 4
+    assert plan.part_floats == (blocks * splits * 256 * per_thread
+                                if splits > 1 else 0)
 
 
 @pytest.mark.parametrize("D,full_kernel,step_kernel", [

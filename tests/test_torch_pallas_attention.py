@@ -4,8 +4,9 @@
   ``incremental_attention_step`` (what the wrappers run for CPU tensors,
   the functions the CUDA kernels are held to) against the JAX package's
   Pallas kernels in interpret mode, on tests/test_pallas.py's shapes,
-  causal and not, and at t in {0, 5, T - 1}; inputs from numpy seeds,
-  tolerance 1e-5 (float32; both sides sum in another order).
+  causal and not (a head of 160 among them, which the wide kernel
+  takes), and at t in {0, 5, T - 1}; inputs from numpy seeds, tolerance
+  1e-5 (float32; both sides sum in another order).
 * ``MultiHeadAttention(use_pallas=True)`` against the JAX module with
   ``use_pallas=True``: the full-sequence call (causal and not) and three
   KV-cache steps, the zeroed alignments included; with dropout active in
@@ -16,7 +17,10 @@
 * The full-sequence kernel's plan (``attention_plan``): the rows a block,
   the warps that split the keys and the grid at the serving, batched-
   encoder, training and long causal shapes, and shared memory that does
-  not grow with T and lets two blocks share an SM at D = 128.
+  not grow with T and lets two blocks share an SM at D = 128; at both
+  element sizes (bf16's 64-key tiles and 128-row blocks) and for the
+  wide kernel (two 16-row groups a block up to 512 wide, one past it, the
+  largest key tile that fits 227 KB), within the launch bounds.
 * bf16 operands (the model-wide bf16's hops): both plain versions, given
   bf16 inputs, within one bf16 ulp of the JAX kernels in interpret mode
   (both sum in float32 and round once; the sums' order may move a value
@@ -45,7 +49,7 @@ TOL = 1e-5
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("B,H,T,D", [(2, 2, 37, 16), (1, 4, 128, 64),
-                                     (1, 2, 200, 16)])
+                                     (1, 2, 200, 16), (1, 2, 24, 160)])
 def test_plain_fused_self_attention_matches_jax_kernel(causal, B, H, T, D):
     q, k, v = (randn(s, B, H, T, D) for s in (0, 1, 2))
     ref = jpa.fused_self_attention(jnp.asarray(q), jnp.asarray(k),
@@ -76,36 +80,78 @@ def test_step_plan_chunks_the_cache(bh, t, D, chunks):
 SM_SMEM, BLOCK_SMEM, RESERVED = 233472, 232448, 1024
 
 
-@pytest.mark.parametrize("B,H,T,D,causal,rows,key_warps", [
-    (1, 2, 64, 16, False, 16, 4),      # the serving encoder's hop
-    (8, 2, 64, 16, False, 16, 4),      # the batched encoder's hop
-    (32, 2, 256, 128, False, 64, 1),
-    (32, 2, 256, 128, True, 64, 1),
-    (1, 2, 3000, 128, True, 32, 1),    # the SIWIS recipe's longest decode
-    (1, 1, 1, 5, True, 16, 4),
-    (2, 2, 37, 24, False, 16, 4),
-    (66, 2, 16, 16, False, 16, 1),     # 132 one-warp blocks fill the card
-    (64, 4, 500, 64, False, 64, 1)])
-def test_attention_plan_fits_the_shape(B, H, T, D, causal, rows, key_warps):
-    plan = pa.attention_plan(B, H, T, D, causal)
+@pytest.mark.parametrize("B,H,T,D,causal,rows,key_warps,elem_bytes", [
+    (1, 2, 64, 16, False, 16, 4, 4),      # the serving encoder's hop
+    (8, 2, 64, 16, False, 16, 4, 4),      # the batched encoder's hop
+    (32, 2, 256, 128, False, 64, 1, 4),
+    (32, 2, 256, 128, True, 64, 1, 4),
+    (1, 2, 3000, 128, True, 32, 1, 4),    # the SIWIS recipe's longest decode
+    (1, 1, 1, 5, True, 16, 4, 4),
+    (2, 2, 37, 24, False, 16, 4, 4),
+    (66, 2, 16, 16, False, 16, 1, 4),     # 132 one-warp blocks fill the card
+    (64, 4, 500, 64, False, 64, 1, 4),
+    # bf16 operands: the serving hop, the training shape (8-warp blocks),
+    # 4 key warps at 128 wide, a width that is not a multiple of 8
+    (1, 2, 64, 16, False, 16, 4, 2),
+    (32, 2, 256, 128, True, 128, 1, 2),
+    (32, 2, 250, 64, False, 128, 1, 2), (8, 2, 256, 64, False, 16, 1, 2),
+    (1, 2, 450, 128, True, 16, 4, 2),
+    (2, 1, 45, 30, True, 16, 4, 2),
+    # the wide kernel at both element sizes: 2 row groups a block to 512
+    # wide, one past it
+    (1, 2, 64, 129, True, 32, 1, 4), (1, 2, 64, 129, True, 32, 1, 2),
+    (8, 2, 256, 256, False, 32, 1, 4), (1, 2, 450, 256, True, 32, 1, 2),
+    (2, 2, 33, 1024, False, 16, 1, 4), (2, 2, 33, 1024, False, 16, 1, 2)])
+def test_attention_plan_fits_the_shape(B, H, T, D, causal, rows, key_warps,
+                                       elem_bytes):
+    plan = pa.attention_plan(B, H, T, D, causal, elem_bytes)
     blocks = -(-T // rows)
+    wide = D > pa.MAX_MMA_HEAD_DIM
+    warps = pa.WIDE_WARPS if wide else rows // 16 * key_warps
     assert (plan.rows, plan.key_warps, plan.warps, plan.grid) == (
-        rows, key_warps, rows // 16 * key_warps, (blocks, B * H))
-    assert plan.stages >= 2 and plan.keys in (16, 32, 64)
-    assert 32 * plan.warps <= 128     # the kernel's launch bounds
-    # fewer rows only where larger blocks would not fill the card, and
-    # warps that split the keys only where 16-row blocks would not either
-    if rows < pa.ATTN_ROWS[0] and 2 * rows < T + 16:
-        assert -(-T // (2 * rows)) * B * H < pa.ATTN_FILL_BLOCKS
-    assert (key_warps > 1) == (blocks * B * H < pa.ATTN_FILL_BLOCKS)
-    # shared memory: the ring of K and V tiles only, whatever T
-    dp = next(w for w in (16, 32, 64, 128) if D <= w)
-    assert plan.smem_bytes == (plan.stages * 2 * plan.keys
-                               * (dp + pa.ATTN_ROW_PAD) * 4)
+        rows, key_warps, warps, (blocks, B * H))
+    assert plan.stages >= 2 and plan.keys in ((8, 16, 32) if wide
+                                              else (16, 32, 64))
+    # the kernels' launch bounds: 128 threads (two blocks an SM), 256 wide
+    # and in bf16's 128-row blocks
+    assert 32 * plan.warps <= (256 if wide or rows == 128 else 128)
     assert plan.smem_bytes <= BLOCK_SMEM
-    if D > 64:
+    assert plan == pa.attention_plan(B, H, T, D, not causal, elem_bytes)
+    pad = pa.ATTN_ROW_PAD * 4 // elem_bytes
+    ring = lambda dp, keys: plan.stages * 2 * keys * (dp + pad) * elem_bytes
+    if wide:
+        # the ring and each warp's 16 x keys float tile of partial scores;
+        # 2 bf16 steps of 16 keys and 16-deep column slices
+        dp = next(w for w in pa.WIDE_WIDTHS if D <= w)
+        assert plan.smem_bytes == (ring(dp, plan.keys)
+                                   + plan.warps * 16 * plan.keys * 4)
+        assert rows == (32 if dp <= pa.WIDE_TWO_GROUPS else 16)
+        if elem_bytes == 2:
+            assert plan.keys % 16 == 0 and dp * rows // 128 % 16 == 0
+        if plan.keys < 32:     # the next larger tile would not fit
+            assert (ring(dp, 2 * plan.keys)
+                    + plan.warps * 32 * plan.keys * 4) > BLOCK_SMEM
+        return
+    # bf16: 128 rows where those blocks fill half the card; else fewer rows
+    # only where larger blocks would not fill the card, and warps that
+    # split the keys only where 16-row blocks would not either
+    big = elem_bytes == 2 and 128 < T + 16 and \
+        -(-T // 128) * B * H >= pa.ATTN_FILL_BLOCKS // 2
+    assert (rows == 128) == big
+    if not big:
+        if rows < pa.ATTN_ROWS[0] and 2 * rows < T + 16:
+            assert -(-T // (2 * rows)) * B * H < pa.ATTN_FILL_BLOCKS
+        assert (key_warps > 1) == (blocks * B * H < pa.ATTN_FILL_BLOCKS)
+    # shared memory: the ring of K and V tiles (or the 4 key warps' merge,
+    # when larger) only, whatever T; bf16 takes 64-key tiles, 16 per warp
+    # of a 4-warp block
+    dp = next(w for w in (16, 32, 64, 128) if D <= w)
+    merge = key_warps * (dp // 8 * 4 + 4) * 32 * 4 if key_warps > 1 else 0
+    assert plan.smem_bytes == max(ring(dp, plan.keys), merge)
+    if elem_bytes == 2:
+        assert plan.keys == 64
+    if D > 64 and rows < 128:     # two blocks an SM
         assert 2 * (plan.smem_bytes + RESERVED) <= SM_SMEM
-    assert plan == pa.attention_plan(B, H, T, D, not causal)
     if (B, T, D) == (1, 64, 16):   # spread: >= 8 warps on >= 4 SMs
         assert plan.grid[0] * plan.grid[1] >= 4
         assert plan.grid[0] * plan.grid[1] * plan.warps >= 8
