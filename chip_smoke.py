@@ -81,7 +81,7 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    of each frame's peak (the row's ``max_abs_err`` is that dB error); at
    10 s its time from the signal beside the plain version's, ``torch.stft``
    -> abs -> mel -> dB from the signal (the yardstick, never called by the
-   port) and the bound;
+   port) and the bound, with the card's name and power limit;
 14. ``cli.preprocess.main_ljspeech --on-device`` over a synthetic 64-
    utterance LJSpeech-layout corpus (1.5-6 s at 22.05 kHz, texts with
    numbers and abbreviations): one ``spectrogram`` launch an utterance
@@ -169,9 +169,13 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    DFT), against the plain version evaluated in float64: each against its
    plain path; then the streamed encoder (bounds at T = 533, 534 and 600),
    both wide kernels and the DFT timed beside their plain versions, bounds
-   and library calls, and the full sequence's wide kernel also at B = 8, T
-   = 256, D = 256 against its plain version (1e-5), with the split of one
-   profiled launch of each wide shape (bounds at the 3xTF32 rate);
+   and library calls (the DFT and the ``torch.stft`` chain in turns, and
+   the DFT beside its own tensor-core products, 2 F Ns 2K FLOPs over the
+   window's Ns folded taps, at the 3xTF32 rate, and the phases of one
+   profiled launch, ``dft_timeline``), and the full sequence's wide kernel
+   also at B = 8, T = 256, D = 256 against its plain version (1e-5), with
+   the split of one profiled launch of each wide shape (bounds at the
+   3xTF32 rate);
 24. the entry points (``entry_points``): four encoders past #1's earlier
    limits (path ``widened_encoder_*``: widths of 130, the 4-byte copies;
    129 and 256 LSTM units, the 16-block cluster; 5 prenet layers, 9
@@ -247,8 +251,9 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    the bf16 counter by one) and timed beside SDPA in bf16 and its bound
    (products at the bf16 tensor cores' peak; the serving hop, B = 32 T =
    256 D = 128 causal and not, the serving cache S = 450, the wide
-   kernels at D = 256 and S = 3000 D = 512), each full-sequence shape
-   with the split of one profiled launch.  The kernels line gains
+   kernels at D = 256 and S = 3000 D = 512), the serving cache's step
+   also in turns with its f32 twin on the same values, each full-sequence
+   shape with the split of one profiled launch.  The kernels line gains
    ``fused_self_attention_bf16`` and ``incremental_attention_step_bf16``.
 28. targetless (predict-time) serving (``targetless_serving``): a
    3-utterance codes corpus read by ``Dataset(sources, None, hp,
@@ -270,6 +275,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -331,7 +337,15 @@ TOL_BF16_TRAIN = 1e-2
 TOL_BF16_TRAIN_GRAD = 1e-2
 
 
+# the card's name and power limit as nvidia-smi prints them, set by main():
+# every line log() prints with a time in it names them
+CARD = ""
+_A_TIME = re.compile(r"\d (ms|us|µs|s)\b")
+
+
 def log(msg: str) -> None:
+    if CARD and "card" not in msg and _A_TIME.search(msg):
+        msg = f"{msg}; card {CARD}"
     print(msg, flush=True)
 
 
@@ -1445,6 +1459,40 @@ def _device_ms(fn, reps: int = 50) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def in_turns(fns, rounds: int, timer=None):
+    """{name: [times]}: each of ``fns`` timed ``rounds`` times by ``timer``
+    (by default ``_device_ms`` of 20 queued calls), in turns (A B .. B A
+    ...): versions compared in one loop."""
+    timer = timer or (lambda fn: _device_ms(fn, reps=20))
+    order = list(fns)
+    times = {name: [] for name in order}
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            times[name].append(timer(fns[name]))
+    return times
+
+
+def dft_timeline(stamps) -> str:
+    """One profiled launch of #7's direct DFT
+    (``stft.prepare_spectrograms(profile=True)``): each phase's median and
+    largest time over the blocks, the frame tiles' tails and the last
+    block's end after the first block's start, in microseconds."""
+    import numpy as np
+    from self_attention_tacotron_torch.ops import stft
+    raw = stamps.cpu().numpy()
+    last = raw[:, -1] == 1
+    p = raw.astype(np.float64) / 1e3
+    out = []
+    for i, name in enumerate(stft.DFT_PHASES[:-1], start=1):
+        d = p[:, i] - p[:, i - 1]
+        out.append(f"{name} {np.median(d):.2f} / {d.max():.2f}")
+    tail = p[last, -2] - p[last, -3]
+    end = np.where(last, p[:, -2], p[:, -3]).max() - p[:, 0].min()
+    return (f"{len(p)} blocks, median / largest us: " + ", ".join(out)
+            + f", tail {np.median(tail):.2f} / {tail.max():.2f}; the last "
+            f"block ends {end:.2f} us after the first starts")
 
 
 def attention_bound(B, T, D, causal):
@@ -3463,16 +3511,33 @@ def phase_edges(model, device, card: str):
                       hp.frame_length_ms, hp.frame_shift_ms,
                       hp.ref_level_db, device=device)
     ys = ex.signal(y)
-    spec_t = [_time_ms(fn) for fn in (
-        lambda: stft.spectrograms(ys, ex.plan),
-        lambda: stft.spectrograms_plain(ys, ex.plan),
-        lambda: library_spectrograms(ex, ys))]
+    turns = in_turns({
+        "kernel": lambda: stft.spectrograms(ys, ex.plan),
+        "plain": lambda: stft.spectrograms_plain(ys, ex.plan),
+        "library": lambda: library_spectrograms(ex, ys)}, 4)
+    spec_t = [statistics.median(turns[n])
+              for n in ("kernel", "plain", "library")]
     spec_bound = spectrogram_bound(ys.shape[0], ex.plan,
                                    1 + ys.shape[0] // ex.hop_length)
-    log(f"phase 23 spectrogram direct DFT n_fft={ex.n_fft} (10 s): kernel "
+    s_lo, s_hi = stft.folded_taps(ex.n_fft, ex.plan.support)
+    frames = 1 + ys.shape[0] // ex.hop_length
+    products = 2 * frames * (s_hi - s_lo + 1) * 2 * (ex.n_fft // 2 + 1)
+    log(f"phase 23 spectrogram direct DFT n_fft={ex.n_fft} (10 s; medians "
+        f"of {len(turns['kernel'])} rounds in turns): kernel "
         f"{spec_t[0]:.4f} ms, plain {spec_t[1]:.4f} ms, torch.stft chain "
-        f"{spec_t[2]:.4f} ms; bound {_bound_ms(spec_bound):.4f} ms; card "
-        f"{card}")
+        f"{spec_t[2]:.4f} ms (rounds: kernel "
+        f"{' '.join(f'{x:.4f}' for x in turns['kernel'])}, chain "
+        f"{' '.join(f'{x:.4f}' for x in turns['library'])}); bound "
+        f"{_bound_ms(spec_bound):.4f} ms (bytes, "
+        f"the work counted as an FFT's); its own tensor-core products over "
+        f"the window's taps {ex.plan.support} folded to {s_hi - s_lo + 1} "
+        f"{products} FLOPs, "
+        f"{products / PEAK_3XTF32_FLOP_PER_S * 1e3:.4f} ms at the 3xTF32 "
+        f"rate")
+    profiled = stft.prepare_spectrograms(ys, ex.plan, profile=True)
+    profiled()
+    log(f"phase 23 spectrogram direct DFT n_fft={ex.n_fft} (10 s), one "
+        f"profiled launch: {dft_timeline(profiled.stage_cycles)}")
     rows += _kernel_rows("spectrogram", "spectrogram", "stft.py:65",
                          launches, errs["spectrogram"], *spec_t[:2],
                          spec_bound, spec_t[2])
@@ -4699,8 +4764,27 @@ def _bf16_attention_kernels(device, card):
         if err > TOL_BF16_ATTENTION:
             raise AssertionError(f"the bf16 {name} disagrees (tol "
                                  f"{TOL_BF16_ATTENTION})")
+        if causal is None and name not in out and D <= pa.STEP_MAX_D:
+            twin = _step_twin_turns(device, kernel, B, T, D)
+            log(f"phase 27 incremental_attention_step B={B} S={T} t={T - 1} "
+                f"D={D} in turns with its f32 twin on the same values "
+                f"(medians of {len(twin['bf16'])} rounds of 20 queued calls): "
+                f"bf16 {statistics.median(twin['bf16']):.5f} ms, f32 "
+                f"{statistics.median(twin['f32']):.5f} ms")
         out.setdefault(name, (err, times[0], times[1], bound, times[2]))
     return out
+
+
+def _step_twin_turns(device, bf16_call, B, S, D):
+    """{"bf16": [ms], "f32": [ms]}: the bf16 step at t = S - 1 and the f32
+    step on the same values (the bf16 inputs upcast), in turns."""
+    import torch
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    q, kc, vc = (x.to(torch.bfloat16).float()
+                 for x in _step_inputs(device, B, S - 1, S, D))
+    return in_turns({
+        "bf16": bf16_call,
+        "f32": lambda: pa.incremental_attention_step(q, kc, vc, S - 1)}, 4)
 
 
 def _bf16_train(hp, data, tmp, device, card):
@@ -5041,6 +5125,7 @@ def phase_barriers(card: str):
 
 
 def main() -> int:
+    global CARD
     try:
         import torch
     except ImportError as e:
@@ -5069,6 +5154,7 @@ def main() -> int:
         log(f"phase 1 card: {smi[0] if smi else 'nvidia-smi gave nothing'}"
             f"; torch {torch.__version__} CUDA {torch.version.cuda}")
         card = smi[0] if smi else torch.cuda.get_device_name(0)
+        CARD = card
         matmul = torch.backends.cuda.matmul
         log(f"phase 1 precision: matmul.allow_tf32 {matmul.allow_tf32}, "
             f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "

@@ -7,8 +7,9 @@ against earlier versions of themselves, in one process on one card.
     git archive <commit> self_attention_tacotron_torch | tar -x -C build/ab/<name>
     python3 scripts/torch_serving_ab.py [--variant NAME=build/ab/NAME ...]
                                         [--cases encode,step,serve,attention,
-                                         wide,bf16,sass,whole-serve,
-                                         whole-mel,whole-pallas,whole-train]
+                                         wide,bf16,step-bf16,spectrogram,
+                                         sass,whole-serve,whole-mel,
+                                         whole-pallas,whole-train]
                                         [--reps 5]
 
 Each ``--variant`` directory holds a copy of the port's package from
@@ -30,7 +31,8 @@ first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
 * ``step``: #6 at B = 1 and 32, H = 2, D = 128, S = 250 and 450, t in {0,
   63, 249, S - 1}: the error against the plain version and the device time
   of one call in ``chip_smoke.py`` phase 12's queued loop (50 calls behind
-  a sleep kernel, median of 5, per call), in turns; the floor (an empty
+  a sleep kernel, median of 5, per call), ``--reps`` rounds in turns;
+  the floor (an empty
   kernel in the same loop) first; and, for a variant that can cut its
   kernel short (``STEP_PASSES``), the time of each cut.
 * ``attention``: #5 at the serving shape (B = 1, H = 2, T = 64, D = 16)
@@ -56,15 +58,29 @@ first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
   tree's plain version over its largest magnitude, its time and one
   scaled_dot_product_attention call in bf16, in turns, beside the bound
   at the bf16 rate, and the split of one profiled launch.
-* ``sass``: #5's float32 narrow kernel, instance by instance (every
-  width, ``key_warps`` and profiling flag): each variant's SASS
-  (``cuobjdump -sass`` of its built ``self_attention``) against the
-  working tree's, line by line with addresses, registers and constants as
-  they are; only the names are made comparable (the anonymous namespace's
-  tag dropped, and an element-type argument ``f`` of an older template
-  with one).  Prints each instance's instruction count and how many lines
-  differ (0: the same machine code), then each differing pair of lines
-  and the instances it is in.
+* ``step-bf16``: #6's bf16 instances (the serving cache S = 450, t =
+  449, D = 128; S = 3000, t = 2999 at D = 128 and at D = 512, the wide
+  kernel): each variant's error against the working tree's plain version
+  over its largest magnitude, then its time, the working tree's f32 step
+  on the same values (the f32 twin) and one scaled_dot_product_attention
+  call in bf16, in turns in ``step``'s queued loop.
+* ``spectrogram``: #7 from the signal, 10 s: the FFT at LJSpeech's n_fft
+  2048 and VCTK's 4096 and the direct DFT at n_fft 1998 (22,050 Hz, a
+  1102-tap window): each variant's outputs against the working tree's
+  kernel's (max abs difference; 0.0: the same bits) and its errors against
+  the plain version (magnitude over the frame's peak, dB), then its time
+  and the ``torch.stft`` -> abs -> mel -> dB chain's in turns in the same
+  queued loop.
+* ``sass``: #5's and #6's float32 narrow kernels, instance by instance
+  (every width, ``key_warps``, load width and profiling flag): each
+  variant's SASS (``cuobjdump -sass`` of its built ``self_attention`` and
+  ``incremental_attention``) against the working tree's, line by line
+  with addresses, registers and constants as they are; only the names are
+  made comparable (the anonymous namespace's tag dropped, and an
+  element-type argument ``f`` of an older template with one).  Prints
+  each instance's instruction count and how many lines differ (0: the
+  same machine code), then each differing pair of lines and the
+  instances it is in.
 * ``serve``: the codes model's call per utterance on the host clock (what
   ``cli.predict.main_code`` prints as its wall), three synthetic sources of
   40-64 phones, fused paths (#1, #2) and the Pallas attention mode (#5,
@@ -95,7 +111,8 @@ import time
 import types
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("fused_encoder", "incremental_attention", "self_attention")
+KERNELS = ("fused_encoder", "incremental_attention", "self_attention",
+           "spectrogram")
 WHOLE_KERNELS = KERNELS + ("fused_decode", "fused_train_fwd",
                            "fused_train_bwd")
 CODES = os.path.join(ROOT, "examples", "codes", "self-attention-tacotron.json")
@@ -109,6 +126,9 @@ WIDE_SHAPES = [(1, 64, 129, True), (8, 256, 256, False)]
 BF16_SHAPES = [(1, 64, 16, False), (32, 256, 128, False),
                (32, 256, 128, True), (1, 450, 256, True)]
 WIDE_STEPS = [(450, 257), (3000, 512)]
+BF16_STEPS = [(450, 128), (3000, 128), (3000, 512)]   # (S, D), t = S - 1
+SPEC_CASES = [("LJSpeech", 22050, 1025, 50.0), ("VCTK", 48000, 2049, 50.0),
+              ("DFT", 22050, 1000, 50.0)]  # name, sr, num_freq, window ms
 WIDE_ENCODE_T = 600
 
 
@@ -139,16 +159,6 @@ def _ms(launch) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end)
-
-
-def in_turns(fns, reps: int, timer):
-    """{name: [times]}: each of ``fns`` timed ``reps`` times, A B B A ..."""
-    order = list(fns)
-    times = {name: [] for name in order}
-    for rep in range(reps):
-        for name in (order if rep % 2 == 0 else order[::-1]):
-            times[name].append(timer(fns[name]))
-    return times
 
 
 def _runs(ts) -> str:
@@ -191,7 +201,7 @@ def encode_case(variants, device, reps: int) -> None:
                   flush=True)
             launches[name]()
         torch.cuda.synchronize()
-        times = in_turns(launches, reps, _ms)
+        times = cs.in_turns(launches, reps, _ms)
         for name, ts in times.items():
             print(f"encode {width}: {name} fused_encode T={cs.T_IN} "
                   f"{_runs(ts)}", flush=True)
@@ -202,7 +212,7 @@ def encode_case(variants, device, reps: int) -> None:
                   + encode_split(fe, prof, ms), flush=True)
 
 
-def step_case(variants, device) -> None:
+def step_case(variants, device, reps: int) -> None:
     import torch
     import chip_smoke as cs
     from self_attention_tacotron_torch.ops import pallas_attention as tree
@@ -223,7 +233,7 @@ def step_case(variants, device) -> None:
                   f"{cs._max_err(got, ref):.3e}", flush=True)
             fns[name] = (lambda pa=pa: pa.incremental_attention_step(
                 q, kc, vc, t))
-        times = in_turns(fns, 2, cs._device_ms)
+        times = cs.in_turns(fns, reps, cs._device_ms)
         bound = cs._bound_ms(cs.step_bound(B, t))
         for name, ts in times.items():
             _, pa = _modules(variants[name])
@@ -262,7 +272,7 @@ def attention_case(variants, device, reps: int) -> None:
                                                                causal))
         fns["sdpa"] = lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal)
-        times = in_turns(fns, reps, cs._device_ms)
+        times = cs.in_turns(fns, reps, cs._device_ms)
         bound = cs._bound_ms(cs.attention_bound(B, T, D, causal),
                              cs.PEAK_3XTF32_FLOP_PER_S)
         for name, ts in times.items():
@@ -316,7 +326,7 @@ def wide_case(variants, device, reps: int) -> None:
             print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}",
                   flush=True)
             fns[name] = (lambda pa=pa: run(pa))
-        times = in_turns(fns, reps, cs._device_ms)
+        times = cs.in_turns(fns, reps, cs._device_ms)
         for name, ts in times.items():
             print(f"{tag}: {name} {_runs(ts)}", flush=True)
         for stag, q, k, v, causal in splits:
@@ -332,7 +342,7 @@ def wide_case(variants, device, reps: int) -> None:
         launches[name] = fe.prepare_encode(params, x, T, **kw)
         err = max(cs._max_err(g, r) for g, r in zip(launches[name](), ref))
         print(f"wide encode T={T}: {name} max abs err {err:.3e}", flush=True)
-    for name, ts in in_turns(launches, reps, _ms).items():
+    for name, ts in cs.in_turns(launches, reps, _ms).items():
         print(f"wide encode T={T}: {name} {_runs(ts)}", flush=True)
 
 
@@ -374,7 +384,7 @@ def bf16_case(variants, device, reps: int) -> None:
                                                                causal))
         fns["sdpa"] = lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal)
-        times = in_turns(fns, reps, cs._device_ms)
+        times = cs.in_turns(fns, reps, cs._device_ms)
         bound = cs._bound_ms(cs.bf16_attention_bound(B, T, D, causal),
                              cs.PEAK_BF16_FLOP_PER_S)
         for name, ts in times.items():
@@ -395,8 +405,8 @@ def kernel_sass(library: str) -> dict:
     for line in text.splitlines():
         head = re.match(r"\s+Function : (\S+)", line)
         if head:
-            fn = re.sub(r"\d+_GLOBAL__N__\w+?_cu_\w+?(?=\d+self_)", "",
-                        head.group(1))
+            fn = re.sub(r"\d+_GLOBAL__N__\w+?_cu_\w+?"
+                        r"(?=\d+(?:self_|incremental_))", "", head.group(1))
             found[fn] = []
             continue
         ins = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
@@ -405,37 +415,111 @@ def kernel_sass(library: str) -> dict:
     return found
 
 
+SASS_KERNELS = (("self_attention", "self_attention_kernelI"),
+                ("incremental_attention", "incremental_attention_kernelIf"))
+
+
 def sass_case(variants, builds) -> None:
-    names = {}
-    for name in variants:
-        lib = str(builds[name]._library_path("self_attention"))
-        names[name] = {re.sub(r"self_attention_kernelIf", "self_attention_"
-                              "kernelI", fn): code
-                       for fn, code in kernel_sass(lib).items()
-                       if "self_attention_kernelI" in fn
-                       and "bfloat16" not in fn}
-    tree = names["tree"]
-    print(f"sass tree: {len(tree)} instances of the f32 narrow kernel",
-          flush=True)
-    for name, found in names.items():
-        if name == "tree":
-            continue
-        pairs = {}
-        for fn in sorted(set(tree) | set(found)):
-            a, b = found.get(fn), tree.get(fn)
-            if a is None or b is None:
-                print(f"sass {name}: {fn} only in "
-                      f"{'tree' if a is None else name}", flush=True)
+    for library, prefix in SASS_KERNELS:
+        names = {}
+        for name in variants:
+            lib = str(builds[name]._library_path(library))
+            names[name] = {re.sub(r"self_attention_kernelIf",
+                                  "self_attention_kernelI", fn): code
+                           for fn, code in kernel_sass(lib).items()
+                           if prefix in fn and "bfloat16" not in fn}
+        tree = names["tree"]
+        print(f"sass tree: {len(tree)} instances of {library}'s f32 narrow "
+              "kernel", flush=True)
+        for name, found in names.items():
+            if name == "tree":
                 continue
-            differ = [(x, y) for x, y in zip(a, b) if x != y]
-            for pair in differ:
-                pairs[pair] = pairs.get(pair, 0) + 1
-            print(f"sass {name}: {fn} {len(a)} instructions, tree {len(b)}; "
-                  f"{len(differ) + abs(len(a) - len(b))} lines differ",
+            pairs = {}
+            for fn in sorted(set(tree) | set(found)):
+                a, b = found.get(fn), tree.get(fn)
+                if a is None or b is None:
+                    print(f"sass {name}: {fn} only in "
+                          f"{'tree' if a is None else name}", flush=True)
+                    continue
+                differ = [(x, y) for x, y in zip(a, b) if x != y]
+                for pair in differ:
+                    pairs[pair] = pairs.get(pair, 0) + 1
+                print(f"sass {name}: {fn} {len(a)} instructions, tree "
+                      f"{len(b)}; {len(differ) + abs(len(a) - len(b))} lines "
+                      "differ", flush=True)
+            for (x, y), n in sorted(pairs.items(), key=lambda p: -p[1]):
+                print(f"sass {name}: in {n} instances '{x}' where the tree "
+                      f"has '{y}'", flush=True)
+
+
+def step_bf16_case(variants, device, reps: int) -> None:
+    """#6's bf16 instances against the tree's plain version, in turns with
+    the f32 twin and SDPA in bf16."""
+    import torch
+    import torch.nn.functional as F
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import pallas_attention as tree
+    B, H = 1, cs.ATTN_HEADS
+    for S, D in BF16_STEPS:
+        t = S - 1
+        tag = f"bf16 step B={B} H={H} S={S} t={t} D={D}"
+        q, kc, vc = (x.bfloat16() for x in cs._step_inputs(device, B, t, S,
+                                                           D))
+        ref = tree.incremental_attention_step_reference(q, kc, vc, t).float()
+        scale = float(ref.abs().max())
+        fns = {}
+        for name, pkg in variants.items():
+            _, pa = _modules(pkg)
+            got = pa.incremental_attention_step(q, kc, vc, t)
+            torch.cuda.synchronize()
+            print(f"{tag}: {name} error "
+                  f"{cs._max_err(got.float(), ref) / scale:.3e} of the plain "
+                  "version's largest magnitude", flush=True)
+            fns[name] = (lambda pa=pa: pa.incremental_attention_step(
+                q, kc, vc, t))
+        q32, k32, v32 = q.float(), kc.float(), vc.float()
+        fns["f32_twin"] = lambda: tree.incremental_attention_step(
+            q32, k32, v32, t)
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc)
+        times = cs.in_turns(fns, reps, cs._device_ms)
+        bound = cs._bound_ms(cs.bf16_step_bound(B, t, D),
+                             cs.PEAK_BF16_FLOP_PER_S)
+        for name, ts in times.items():
+            print(f"{tag}: {name} {_runs(ts)}; bound {bound:.6f} ms",
                   flush=True)
-        for (x, y), n in sorted(pairs.items(), key=lambda p: -p[1]):
-            print(f"sass {name}: in {n} instances '{x}' where the tree has "
-                  f"'{y}'", flush=True)
+
+
+def spectrogram_case(variants, device, reps: int) -> None:
+    """#7 from the signal: each variant against the tree's kernel and
+    plain version, in turns with the torch.stft chain."""
+    import torch
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import stft as tree
+    for name_, sr, num_freq, win_ms in SPEC_CASES:
+        args = (sr, num_freq, 80, win_ms, 12.5, 20.0)
+        ex = tree.MelExtractor(*args, device=device)
+        y = ex.signal(cs._wave(10 * sr, sr, seed=23))
+        tag = f"spectrogram {name_} n_fft={ex.n_fft} 10 s"
+        ref = tree.spectrograms_plain(y, ex.plan)
+        mine = tree.spectrograms(y, ex.plan)
+        fns = {}
+        for name, pkg in variants.items():
+            st = sub(pkg, "ops.stft")
+            vx = st.MelExtractor(*args, device=device)
+            got = st.spectrograms(y, vx.plan)
+            torch.cuda.synchronize()
+            same = max(cs._max_err(g, m) for g, m in zip(got, mine))
+            errs = [cs.spec_errors(g, r) for g, r in zip(got, ref)]
+            print(f"{tag}: {name} max abs difference from the tree's kernel "
+                  f"{same:.3e}; against the plain version (magnitude / "
+                  f"peak, dB) linear {errs[0]}, mel {errs[1]}", flush=True)
+            fns[name] = (lambda st=st, vx=vx: st.spectrograms(y, vx.plan))
+        fns["torch.stft"] = lambda: cs.library_spectrograms(ex, y)
+        times = cs.in_turns(fns, reps,
+                            lambda fn: cs._device_ms(fn, reps=20))
+        for name, ts in times.items():
+            print(f"{tag}: {name} {_runs(ts)}", flush=True)
 
 
 def serve_case(variants, device, reps: int) -> None:
@@ -472,7 +556,7 @@ def serve_case(variants, device, reps: int) -> None:
 
         for i, b in enumerate(batches):
             steps = {name: call(name, b)[1] for name in variants}  # warm-up
-            times = in_turns({n: n for n in variants}, reps,
+            times = cs.in_turns({n: n for n in variants}, reps,
                              lambda n: call(n, b)[0])
             for name, ts in times.items():
                 print(f"serve {mode} utterance {i} (L={lengths[i]}, "
@@ -503,9 +587,10 @@ def build_model(pkg, recipe: str, hparams: str, device):
 def whole_report(case: str, fns, reps: int, outs) -> None:
     """One warm-up each, ``reps`` calls in turns, then each variant's
     median and range and the largest output difference between them."""
+    import chip_smoke as cs
     for fn in fns.values():
         host_ms(fn)
-    times = in_turns(fns, reps, host_ms)
+    times = cs.in_turns(fns, reps, host_ms)
     names = list(outs)
     diff = max(float((outs[n] - outs[names[0]]).abs().max())
                for n in names[1:]) if len(names) > 1 else 0.0
@@ -624,7 +709,7 @@ def main() -> int:
         elif case == "encode":
             encode_case(variants, device, args.reps)
         elif case == "step":
-            step_case(variants, device)
+            step_case(variants, device, args.reps)
         elif case == "serve":
             serve_case(variants, device, args.reps)
         elif case == "attention":
@@ -633,6 +718,10 @@ def main() -> int:
             wide_case(variants, device, args.reps)
         elif case == "bf16":
             bf16_case(variants, device, args.reps)
+        elif case == "step-bf16":
+            step_bf16_case(variants, device, args.reps)
+        elif case == "spectrogram":
+            spectrogram_case(variants, device, args.reps)
         elif case == "sass":
             sass_case(variants, builds)
         else:

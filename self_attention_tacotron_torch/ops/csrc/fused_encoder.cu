@@ -70,6 +70,7 @@
 #include <cstdint>
 
 #include "attention_rows.cuh"
+#include "cluster.cuh"
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -738,48 +739,9 @@ __global__ void __launch_bounds__(NT, 1) encoder_trunk_kernel(EncArgs a) {
 
 // ----------------------------------------------- the recurrent cluster
 // The recurrence's exchange: h of a step goes to the direction's blocks
-// with st.async, each 4-byte store completing its bytes on the
-// destination's mbarrier of that h buffer; a block waits on its own
-// mbarrier only (on an H100 a cluster barrier a step cost 0.6 us more).
-__device__ __forceinline__ void mbar_init(unsigned long long* bar,
-                                          unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
-                                            unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
-                                          unsigned parity) {
-  unsigned done = 0, spins = 0;
-  while (!done) {
-    asm volatile("{\n .reg .pred p;\n"
-                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 " selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (++spins > (1u << 22)) __trap();   // a lost store fails the launch
-  }
-}
-
-// the address of this block's shared ``p`` in block ``rank`` of the cluster
-__device__ __forceinline__ unsigned cluster_addr(const void* p, int rank) {
-  unsigned a;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
-  return a;
-}
-
-__device__ __forceinline__ void st_async(unsigned dst, unsigned bar,
-                                         float v) {
-  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32"
-               " [%0], %1, [%2];\n"
-               :: "r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
-}
-
+// with st.async onto the destination's mbarrier (cluster.cuh); a block
+// waits on its own mbarrier only (on an H100 a cluster barrier a step
+// cost 0.6 us more).
 template <bool kV4, int DIRB>
 __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
   constexpr int NB = 2 * DIRB;                // the cluster's blocks

@@ -81,11 +81,12 @@ def build_all(names: Sequence[str]) -> Dict[str, str]:
 
 class KernelLaunch:
     """A prepared launch: the C argument struct, the tensors it points to,
-    preallocated outputs and scratch (and, when profiling, the per-stage
-    cycle counts the kernel adds to).  Each call launches the kernel on the
-    current stream, raises on a non-zero cudaError_t, adds one to
-    ``owner.launches`` (or to the ``counter`` it names: a kernel's bf16
-    instance counts in ``launches_bf16``) and returns the outputs."""
+    preallocated outputs and scratch (and, when profiling, what the kernel
+    writes its profile to: per-stage cycle counts, or timer stamps).  Each
+    call launches the kernel on the current stream, raises on a non-zero
+    cudaError_t, adds one to ``owner.launches`` (or to the ``counter`` it
+    names: a kernel's bf16 instance counts in ``launches_bf16``) and
+    returns the outputs."""
 
     def __init__(self, fn, args, keep, outputs, device, owner,
                  stage_cycles=None, counter: str = "launches"):
@@ -104,6 +105,22 @@ class KernelLaunch:
         setattr(self.owner, self.counter,
                 getattr(self.owner, self.counter) + 1)
         return self.outputs
+
+
+_tickets: dict = {}
+
+
+def ticket_words(device, n: int, kernel: str):
+    """The ticket counters of ``kernel`` on ``device`` (int32 words, one a
+    group of blocks that merges in the last block to arrive): zeroed once,
+    and left at 0 by every launch (its last block resets its word), so
+    launches on one stream share them.  Grown (new zeros) for more."""
+    import torch
+    words = _tickets.get((kernel, device))
+    if words is None or words.numel() < n:
+        words = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _tickets[(kernel, device)] = words
+    return words
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -21,8 +21,10 @@ kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
   key and value caches masked to positions <= t; replaces
   ``_incremental_kernel`` (``csrc/incremental_attention.cu``: the cache up
   to t in chunks of 32 positions, one block each, merged by the chunk that
-  finishes last in the same launch; positions > t never read, t a kernel
-  argument).
+  finishes last in the same launch; in bf16 tiles of 64 positions over at
+  most 8 blocks a head in one thread-block cluster, merged in the first
+  block's shared memory (``step_plan_bf16``); positions > t never read, t
+  a kernel argument).
 
 ``ops/attention_core.py`` selects them under ``use_pallas`` where no dropout
 is active, as the JAX package does.  Heads wider than the full-sequence
@@ -53,7 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,6 +89,11 @@ BLOCK_SMEM = 232448     # 227 KB, an H100 block's most
 ATTN_STAGES = ("loads", "scores", "softmax", "values", "start", "end")
 # incremental_attention_step: positions a block (STEP_CHUNK in the kernel)
 STEP_CHUNK = 32
+# its bf16 kernel (D <= STEP_MAX_D): positions a tile, blocks a head at most
+# (one cluster)
+STEP_MAX_D = 256
+STEP_BF16_TILE = 64
+STEP_BF16_CLUSTER = 8
 # what prepare_step(passes=i + 1) keeps of the kernel (the last: all of it)
 STEP_PASSES = ("scores", "softmax", "values", "all")
 
@@ -262,19 +269,17 @@ def step_plan(bh: int, t: int, D: int) -> Tuple[int, int]:
     return chunks, (bh * chunks * (D + 2) if chunks > 1 else 0)
 
 
-_tickets: Dict[Tuple[str, torch.device], Tensor] = {}
-
-
-def _ticket_words(device, n: int, kernel: str = "step") -> Tensor:
-    """The ticket counters of ``kernel`` on ``device`` (the step's one a
-    (b, h), the full sequence's one a row block of each (b, h)): zeroed
-    once, and left at 0 by every launch (its last chunk resets its word),
-    so launches on one stream share them.  Grown (new zeros) for more."""
-    words = _tickets.get((kernel, device))
-    if words is None or words.numel() < n:
-        words = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
-        _tickets[(kernel, device)] = words
-    return words
+def step_plan_bf16(t: int) -> List[List[Tuple[int, int]]]:
+    """The bf16 kernel's plan of one head at position ``t``: for each of
+    its blocks (one cluster of at most ``STEP_BF16_CLUSTER``), the [first,
+    end) positions of the tiles it folds, in order.  The cache up to ``t``
+    in tiles of ``STEP_BF16_TILE``; tile j to block j mod nb, nb = min(8,
+    tiles), so no block is empty; the blocks merge in the first one's
+    shared memory, with no scratch."""
+    tiles = t // STEP_BF16_TILE + 1
+    nb = min(STEP_BF16_CLUSTER, tiles)
+    return [[(j * STEP_BF16_TILE, min((j + 1) * STEP_BF16_TILE, t + 1))
+             for j in range(r, tiles, nb)] for r in range(nb)]
 
 
 def _fn(name: str, struct):
@@ -381,8 +386,8 @@ def prepare_attention(q: Tensor, k: Tensor, v: Tensor, causal: bool = False,
     part = tickets = None
     if plan.splits > 1:
         part = torch.empty(plan.part_floats, device=q.device)
-        tickets = _ticket_words(q.device, plan.grid[0] * plan.grid[1],
-                                "self_attention")
+        tickets = cuda_build.ticket_words(
+            q.device, plan.grid[0] * plan.grid[1], "self_attention")
     args = _AttnArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      out.data_ptr(),
                      cycles.data_ptr() if profile else None, B * H, T, D,
@@ -426,7 +431,8 @@ def launch_floor(device) -> Callable[[], None]:
 def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
                  passes: int = 0) -> cuda_build.KernelLaunch:
     """Check the operands and lay out one step's launch (its scratch from
-    ``step_plan``).  ``passes`` cuts the kernel short for a profile: pass
+    ``step_plan``; the bf16 kernel's plan, ``step_plan_bf16``, needs none).
+    ``passes`` cuts the f32 and wide kernels short for a profile: pass
     i + 1 keeps ``STEP_PASSES[:i + 1]`` (0: all of it)."""
     if key_cache.dim() != 4:
         raise ValueError(f"key_cache: expected (B, H, S, D), got "
@@ -441,14 +447,18 @@ def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
         raise ValueError(f"incremental_attention_step takes D >= 1, 0 <= t "
                          f"< S and B * H <= {MAX_GRID_Y}; got D={D}, t={t}, "
                          f"S={S}, B * H={B * H}")
+    bf16_narrow = bf16 and D <= STEP_MAX_D
+    if bf16_narrow and passes:
+        raise ValueError("the bf16 kernel has no profile cuts (passes)")
     out = torch.empty_like(q_t)
-    _, floats = step_plan(B * H, t, D)
+    chunk, floats = ((STEP_BF16_TILE, 0) if bf16_narrow
+                     else (STEP_CHUNK, step_plan(B * H, t, D)[1]))
     part = torch.empty(floats, device=q_t.device)
-    tickets = _ticket_words(q_t.device, B * H)
+    tickets = cuda_build.ticket_words(q_t.device, B * H, "step")
     args = _StepArgs(q_t.data_ptr(), key_cache.data_ptr(),
                      value_cache.data_ptr(), out.data_ptr(),
                      part.data_ptr() if floats else None,
-                     tickets.data_ptr(), B * H, S, D, t, STEP_CHUNK,
+                     tickets.data_ptr(), B * H, S, D, t, chunk,
                      1.0 / math.sqrt(D), int(passes), int(bf16))
     return cuda_build.KernelLaunch(
         _fn("incremental_attention", _StepArgs), args,

@@ -9,7 +9,9 @@ hand-written CUDA kernel for sm_90a (``csrc/spectrogram.cu``), built by
 ``ops/cuda_build.py`` and called through ``ctypes``: one launch from the
 signal to both outputs, a real FFT in shared memory for each frame (the
 twiddles from ``twiddles``, a float64 table rounded to float32) and the
-mel sums over each filter's band of bins only (``mel_bands``).  Its plain
+mel sums over each filter's band of bins only (``mel_bands``); an n_fft
+that is not a power of two takes its direct DFT, one product on the tensor
+cores over the window's non-zero taps (``SpecPlan.support``).  Its plain
 PyTorch version is the JAX kernel's arithmetic: ``frames_of`` gathers the
 frames and ``spectrograms_reference`` multiplies them with the
 (n_fft, 1 + n_fft // 2) cos and sin matrices (``dft_matrices``); it runs
@@ -36,7 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -162,6 +164,31 @@ class SpecPlan(NamedTuple):
     mel_t: Tensor       # (bins, mels) the dense filterbank (plain version)
     band: Tensor        # (mels, 3) int32, see ``mel_bands``
     band_w: Tensor      # (band weights,)
+    support: Tuple[int, int]   # the window's non-zero taps [first, end)
+
+
+def window_support(window: np.ndarray) -> Tuple[int, int]:
+    """[first, end) of the window's non-zero taps ((0, 0) for none): the
+    direct DFT sums over them only, the others add exact zeros."""
+    nz = np.flatnonzero(window)
+    return (int(nz[0]), int(nz[-1]) + 1) if len(nz) else (0, 0)
+
+
+def folded_taps(n_fft: int, support: Tuple[int, int]) -> Tuple[int, int]:
+    """[s_lo, s_hi] of the direct DFT's folded taps (the kernel's own
+    arithmetic): taps t and n_fft - t share a cos and, with opposite signs,
+    a sin, so the kernel sums u = x[s] + x[n_fft - s] and v = x[s] -
+    x[n_fft - s] over s <= n_fft / 2; tap t <= n_fft / 2 folds to s = t, a
+    later one to n_fft - t, and the range covers every tap of the window's
+    support [t0, t1).  (0, -1) for an empty support."""
+    t0, t1 = support
+    h = n_fft // 2
+    low, high = t0 <= h and t0 < t1, t1 - 1 > h
+    s_hi = max(min(t1 - 1, h) if low else -1,
+               n_fft - max(t0, h + 1) if high else -1)
+    if s_hi < 0:
+        return 0, -1
+    return min(t0 if low else n_fft, n_fft - t1 + 1 if high else n_fft), s_hi
 
 
 def spectrogram_plan(mel_basis: np.ndarray, window: np.ndarray,
@@ -172,7 +199,7 @@ def spectrogram_plan(mel_basis: np.ndarray, window: np.ndarray,
     return SpecPlan(int(window.shape[0]), int(hop_length),
                     t(window.astype(np.float32)),
                     t(twiddles(int(window.shape[0]))), t(mel_basis.T),
-                    t(band), t(band_w))
+                    t(band), t(band_w), window_support(window))
 
 
 class _SpecArgs(ctypes.Structure):
@@ -182,7 +209,9 @@ class _SpecArgs(ctypes.Structure):
                 ("band_w", _P), ("lin", _P), ("mel", _P),
                 ("T", ctypes.c_int), ("F", ctypes.c_int),
                 ("N", ctypes.c_int), ("hop", ctypes.c_int),
-                ("M", ctypes.c_int)]
+                ("M", ctypes.c_int), ("t0", ctypes.c_int),
+                ("t1", ctypes.c_int), ("part", _P), ("tickets", _P),
+                ("nw", ctypes.c_int), ("stamps", _P)]
 
 
 def _launcher():
@@ -209,7 +238,16 @@ def _check(t: Tensor, shape, name: str, device, dtype=torch.float32) -> None:
 
 
 MAX_FFT = 16384   # the FFT: 8 n_fft bytes of shared memory a block
-MAX_DFT = 32768   # the direct DFT: 6 n_fft bytes (frame and magnitudes)
+MAX_DFT = 32768   # the direct DFT's longest n_fft
+# the direct DFT's block: 64 frames x 128 bins (DFT_FT, DFT_BT in the kernel)
+DFT_FRAMES = 64
+DFT_BINS = 128
+# a profiled DFT launch's words a block (DFT_STAMPS in the kernel): the
+# card's global timer (ns) at the block's start and at the end of each
+# phase, then whether it was its frame tile's last block (the tail's)
+DFT_PHASES = ("prologue", "loop", "magnitudes", "mel shares", "ticket",
+              "tail")
+DFT_STAMPS = len(DFT_PHASES) + 2
 
 
 def takes_fft(n_fft: int) -> bool:
@@ -235,8 +273,28 @@ def spectrograms(y: Tensor, plan: SpecPlan) -> tuple:
     to ``MAX_FFT``, else the direct DFT up to ``MAX_DFT``."""
     if not y.is_cuda:
         return spectrograms_plain(y, plan)
+    return prepare_spectrograms(y, plan)()
+
+
+def prepare_spectrograms(y: Tensor, plan: SpecPlan,
+                         profile: bool = False) -> cuda_build.KernelLaunch:
+    """Check the operands (on the card) and lay out one launch of
+    ``spectrograms``.  With ``profile`` (the direct DFT with its twiddle
+    table in shared memory, n_fft up to ~14,000; past that the launch
+    raises), its own instance of the kernel, in which thread 0 of each
+    block writes the card's global timer (ns) at its start and at the
+    end of each of ``DFT_PHASES`` (the tail's 0 but in the frame tile's
+    last block), then 1 in that last block, into ``stage_cycles``: an int64
+    (blocks, ``DFT_STAMPS``) tensor, block ``frame tile * bin tiles + bin
+    tile``."""
     N, M = plan.n_fft, plan.band.shape[0]
     dev = y.device
+    if not y.is_cuda:
+        raise ValueError("prepare_spectrograms: the kernel takes a CUDA "
+                         "signal")
+    if profile and takes_fft(N):
+        raise ValueError(f"spectrograms: n_fft {N} takes the FFT, which "
+                         f"has no profile")
     if y.dim() != 1 or y.shape[0] < 1:
         raise ValueError(f"spectrograms: expected a non-empty (T,) signal, "
                          f"got shape {tuple(y.shape)}")
@@ -252,12 +310,23 @@ def spectrograms(y: Tensor, plan: SpecPlan) -> tuple:
     F = 1 + T // plan.hop_length
     lin = torch.empty(F, K, device=dev)
     mel = torch.empty(F, M, device=dev)
+    part = tickets = stamps = None
+    if not takes_fft(N):   # the direct DFT's mel shares and tickets
+        part = torch.empty(-(-K // DFT_BINS) * F * M, device=dev)
+        tickets = cuda_build.ticket_words(dev, -(-F // DFT_FRAMES),
+                                          "spectrogram")
+    if profile:
+        stamps = torch.zeros(-(-K // DFT_BINS) * -(-F // DFT_FRAMES),
+                             DFT_STAMPS, dtype=torch.int64, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     args = _SpecArgs(y.data_ptr(), plan.window.data_ptr(),
                      plan.twiddles.data_ptr(), plan.band.data_ptr(),
                      plan.band_w.data_ptr(), lin.data_ptr(), mel.data_ptr(),
-                     T, F, N, plan.hop_length, M)
+                     T, F, N, plan.hop_length, M, *plan.support, ptr(part),
+                     ptr(tickets), plan.band_w.numel(), ptr(stamps))
     return cuda_build.KernelLaunch(
-        _launcher(), args, (y, *plan), (lin, mel), dev, spectrograms)()
+        _launcher(), args, (y, *plan, part, tickets), (lin, mel), dev,
+        spectrograms, stage_cycles=stamps)
 
 
 spectrograms.launches = 0

@@ -10,8 +10,11 @@ full-sequence kernel at the edges of its 16-row warp tiles, with 4-byte
 copies, at T = 3000, with |q.k| ~ 1e3, its plan and its profile) and
 the model's serving and VALIDATION decodes in that mode; the spectrogram
 kernel from the signal at F = 1, a prime F, LJSpeech and VCTK widths and
-signals shorter than the reflect pad, and the mel model's decode (one source, no hops, r = 2) through the
-fused decode; the fused decode's speaker row, batched rows (per-row memory
+signals shorter than the reflect pad, its direct DFT on the tensor cores
+(n_fft 2 to 32766, prime, a window narrower than n_fft, both sides of
+where its twiddle table stops fitting in shared memory, the same bits
+from call to call, a profiled launch), and the mel model's decode (one
+source, no hops, r = 2) through the fused decode; the fused decode's speaker row, batched rows (per-row memory
 lengths, sources of different lengths, early stop with rows that fire
 apart) and location-sensitive sources, and its shared-memory plan.  This file imports
 no JAX, so on a machine without it run
@@ -33,8 +36,9 @@ largest magnitude (one bf16 ulp is 2^-8 relative; the f32 sums' order can
 move a value across a rounding boundary, and the full sequence's P V
 takes P rounded to bf16), at the narrow and wide widths (D % 16 != 0
 among them), the 16-byte and element-by-element tile copies, the chunk
-edges; the full-sequence wide kernel in both dtypes at each of its padded
-widths and ragged lengths; the plans of both kernels at both element
+edges, the step's 64-position tiles and its cluster of 8 blocks (the
+same bits from call to call); the full-sequence wide kernel in both
+dtypes at each of its padded widths and ragged lengths; the plans of both kernels at both element
 sizes, and one profiled launch of each; and a bf16 model in the Pallas
 mode launching only the bf16 instances.
 """
@@ -1308,24 +1312,84 @@ def test_mel_extractor_gate_on_the_card(device, num_freq):
         assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
 
 
-@torch.no_grad()
-@pytest.mark.parametrize("n_fft", [2, 30, 1998, 6000])
-def test_spectrogram_dft_matches_plain(device, n_fft):
+def _dft_case(device, n_fft, win, T, mels=8):
     from self_attention_tacotron_torch.ops import stft as S
     from self_attention_tacotron_torch.utils.audio import (hann_window,
                                                            mel_filterbank)
-    mel = mel_filterbank(22050, n_fft, 8)
-    plan = S.spectrogram_plan(mel, hann_window(n_fft, n_fft),
-                              max(1, n_fft // 4), device)
+    plan = S.spectrogram_plan(mel_filterbank(22050, n_fft, mels),
+                              hann_window(win, n_fft), max(1, n_fft // 4),
+                              device)
     y = torch.from_numpy((0.1 * np.random.default_rng(n_fft)
-                          .standard_normal(3 * n_fft + 5))
-                         .astype(np.float32)).to(device)
+                          .standard_normal(T)).astype(np.float32)).to(device)
+    return plan, y
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("n_fft,win,T", [
+    pytest.param(2, 2, 11, id="2"), pytest.param(30, 30, 95, id="30"),
+    pytest.param(1998, 1998, 5999, id="1998"),
+    pytest.param(6000, 6000, 18005, id="6000"),
+    pytest.param(1998, 1102, 22050, id="1998-window1102"),
+    pytest.param(1999, 1999, 6002, id="1999"),
+    pytest.param(32766, 32766, 40000, id="32766"),
+    pytest.param(1998, 1998, 700, id="1998-shorter-than-the-pad"),
+    pytest.param(14000, 14000, 30000, id="14000"),
+    pytest.param(16382, 16382, 30000, id="16382")])
+def test_spectrogram_dft_matches_plain(device, n_fft, win, T):
+    """The direct DFT on the tensor cores: full windows, a window narrower
+    than n_fft (the sum over its 1101 non-zero taps only), a prime n_fft,
+    n_fft 32766 (the twiddle table read through L1), a signal shorter than
+    the reflect pad (999), and both sides of where the table stops fitting
+    in shared memory beside the rest of the block (14000 in it, 16382
+    through L1)."""
+    from self_attention_tacotron_torch.ops import stft as S
+    plan, y = _dft_case(device, n_fft, win, T)
+    assert not S.takes_fft(n_fft)
     before = S.spectrograms.launches
     got = S.spectrograms(y, plan)
     assert S.spectrograms.launches == before + 1
     for g, r in zip(got, S.spectrograms_plain(y, plan)):
         mag_err, db_err = _db_errors(g, r)
         assert mag_err < TOL_MAG and db_err < TOL_DB, (mag_err, db_err)
+
+
+@torch.no_grad()
+def test_spectrogram_dft_profile_stamps_each_phase(device):
+    """A profiled launch (``prepare_spectrograms(profile=True)``) gives the
+    unprofiled launch's bits and, in every block, timer stamps in order;
+    one block of each frame tile (the last to arrive) runs the tail."""
+    from self_attention_tacotron_torch.ops import stft as S
+    plan, y = _dft_case(device, 1998, 1102, 3 * 22050, mels=80)
+    plain = S.spectrograms(y, plan)
+    launch = S.prepare_spectrograms(y, plan, profile=True)
+    got = launch()
+    torch.cuda.synchronize()
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    p = launch.stage_cycles.cpu()
+    F, K = 1 + y.shape[0] // plan.hop_length, 1998 // 2 + 1
+    bin_tiles = -(-K // S.DFT_BINS)
+    assert p.shape == (bin_tiles * -(-F // S.DFT_FRAMES), S.DFT_STAMPS)
+    last = p[:, -1] == 1
+    assert int(last.sum()) == -(-F // S.DFT_FRAMES)
+    assert torch.all(p[:, 1:6] >= p[:, 0:5])
+    assert torch.all(p[last, 6] >= p[last, 5])
+    assert torch.all(p[~last, 6] == 0)
+
+
+@torch.no_grad()
+def test_spectrogram_dft_is_the_same_from_call_to_call(device):
+    """No sum depends on which block ends first (the mel rows add each bin
+    tile's share in tile order): two calls give the same bits, with a
+    call of another length between them on the same tickets."""
+    from self_attention_tacotron_torch.ops import stft as S
+    plan, y = _dft_case(device, 1998, 1102, 10 * 22050, mels=80)
+    first = S.spectrograms(y, plan)
+    S.spectrograms(y[:30000].contiguous(), plan)
+    second = S.spectrograms(y, plan)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 
@@ -1367,13 +1431,17 @@ def test_fused_self_attention_bf16_instance_matches_plain(device, B, H, T, D,
 
 @torch.no_grad()
 @pytest.mark.parametrize("B,H,S,D", [(1, 2, 450, 128), (32, 2, 250, 128),
-                                     (2, 2, 24, 6), (1, 2, 3000, 512)])
+                                     (2, 2, 24, 6), (1, 2, 3000, 512),
+                                     (1, 2, 3000, 128)])
 def test_incremental_step_bf16_instance_matches_plain(device, B, H, S, D):
-    """Vector loads of four bf16 (D % 4 == 0), scalar ones, the wide
-    kernel; t at both ends of the cache and at a chunk edge."""
+    """The bf16 kernel's 16-byte loads of eight bf16 (D % 8 == 0), scalar
+    ones, the wide kernel (D > 256); t at both ends of the cache, at the
+    f32 chunk's edge and at the bf16 tiles' (63, 64) and cluster's (511,
+    512: eight blocks of one tile, then a block folding two)."""
     from self_attention_tacotron_torch.ops import pallas_attention as pa
     kc, vc = (_normal(device, B, H, S, D, seed=s).bfloat16() for s in (1, 2))
-    for t in (0, min(pa.STEP_CHUNK, S - 1), S - 1):
+    for t in sorted({0, min(pa.STEP_CHUNK, S - 1), S - 1}
+                    | {t for t in (63, 64, 511, 512) if t < S}):
         q = _normal(device, B, H, D, seed=3 + t).bfloat16()
         before = pa.incremental_attention_step.launches
         got = pa.incremental_attention_step(q, kc, vc, t)
@@ -1381,6 +1449,32 @@ def test_incremental_step_bf16_instance_matches_plain(device, B, H, S, D):
         assert pa.incremental_attention_step.launches == before
         _close_bf16(got, pa.incremental_attention_step_reference(q, kc, vc,
                                                                  t))
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("D", [128, 256, 120])
+def test_incremental_step_bf16_cluster_is_the_same_from_call_to_call(device,
+                                                                    D):
+    """The bf16 kernel's cluster merge (in rank order in the first block's
+    shared memory) gives the same bits from call to call and matches the
+    plain version, at one tile, eight blocks and eight blocks folding
+    several tiles; a base that is not 16-byte aligned takes the scalar
+    loads."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    B, H, S = 2, 2, 1000
+    flat = _normal(device, 2 * B * H * S * D + 1, seed=4).bfloat16()
+    for kc, vc in ((_normal(device, B, H, S, D, seed=1).bfloat16(),
+                    _normal(device, B, H, S, D, seed=2).bfloat16()),
+                   (flat[1:1 + B * H * S * D].view(B, H, S, D),
+                    flat[1 + B * H * S * D:].view(B, H, S, D))):
+        for t in (40, 449, S - 1):
+            q = _normal(device, B, H, D, seed=3 + t).bfloat16()
+            first = pa.incremental_attention_step(q, kc, vc, t)
+            second = pa.incremental_attention_step(q, kc, vc, t)
+            torch.cuda.synchronize()
+            assert torch.equal(first, second)
+            _close_bf16(first,
+                        pa.incremental_attention_step_reference(q, kc, vc, t))
 
 
 @pytest.mark.parametrize("D,key_warps", [(16, 4), (64, 1), (128, 1),

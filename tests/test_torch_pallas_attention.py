@@ -13,7 +13,13 @@
   training the gate keeps the einsum path, as in the JAX package.
 * The KV-cache step writes its row into the caches in place.
 * The step kernel's plan (``step_plan``): the cache up to t in chunks of
-  ``STEP_CHUNK`` positions, none past t, and the merge scratch.
+  ``STEP_CHUNK`` positions, none past t, and the merge scratch; its bf16
+  kernel's (``step_plan_bf16``): tiles of 64 positions over one cluster of
+  at most 8 blocks a head, every position <= t once, no block empty, from
+  t = 0 to SIWIS's 2999; a float32 mirror of that kernel's order (online
+  over a block's tiles, then the first block's merge in rank order) on
+  bf16 inputs against the plain version within 1e-2 of its largest
+  magnitude.
 * The full-sequence kernel's plan (``attention_plan``): the rows a block,
   the warps that split the keys and the grid at the serving, batched-
   encoder, training and long causal shapes, and shared memory that does
@@ -73,6 +79,66 @@ def test_step_plan_chunks_the_cache(bh, t, D, chunks):
     assert pa.STEP_CHUNK == 32 and got == chunks
     assert (chunks - 1) * pa.STEP_CHUNK <= t < chunks * pa.STEP_CHUNK
     assert floats == (0 if chunks == 1 else bh * chunks * (D + 2))
+
+
+@pytest.mark.parametrize("t", [0, 63, 64, 449, 511, 512, 2999])
+def test_step_plan_bf16_covers_the_cache_in_one_cluster(t):
+    """Every position <= t in exactly one tile of one block, tiles of
+    STEP_BF16_TILE positions starting at multiples of it, no block empty,
+    one cluster of at most STEP_BF16_CLUSTER blocks a head (8 from t = 448
+    on), each block's tiles in increasing order."""
+    plan = pa.step_plan_bf16(t)
+    tiles = t // pa.STEP_BF16_TILE + 1
+    assert pa.STEP_BF16_TILE == 64 and pa.STEP_BF16_CLUSTER == 8
+    assert len(plan) == min(8, tiles) and all(plan)
+    seen = [p for block in plan for lo, hi in block for p in range(lo, hi)]
+    assert sorted(seen) == list(range(t + 1))
+    for block in plan:
+        assert all(lo % 64 == 0 and 0 < hi - lo <= 64 for lo, hi in block)
+        assert [lo for lo, _ in block] == sorted(lo for lo, _ in block)
+
+
+def step_bf16_mirror(q, kc, vc, t):
+    """The bf16 kernel's order in float32 on (B, H, D) / (B, H, S, D) bf16
+    inputs: each block of ``step_plan_bf16`` folds its tiles online (the
+    tile's max and sum into (m, l), its p v rows into o after rescaling),
+    then the first block merges the blocks' (m, l, o) in rank order; the
+    output rounded once to bf16."""
+    q, kc, vc = q.float(), kc.float(), vc.float()
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    states = []
+    for block in pa.step_plan_bf16(t):
+        m = torch.full(q.shape[:2], -float("inf"))
+        l, o = torch.zeros(q.shape[:2]), torch.zeros(q.shape)
+        for lo, hi in block:
+            s = torch.einsum("bhd,bhkd->bhk", q, kc[:, :, lo:hi]) * scale
+            mn = torch.maximum(m, s.amax(-1))
+            keep, p = torch.exp(m - mn), torch.exp(s - mn[..., None])
+            l = l * keep + p.sum(-1)
+            o = o * keep[..., None] + torch.einsum("bhk,bhkd->bhd", p,
+                                                   vc[:, :, lo:hi])
+            m = mn
+        states.append((m, l, o))
+    gm = torch.stack([m for m, _, _ in states]).amax(0)
+    num, den = torch.zeros(q.shape), torch.zeros(q.shape[:2])
+    for m, l, o in states:
+        w = torch.exp(m - gm)
+        den = den + w * l
+        num = num + w[..., None] * o
+    return (num / den[..., None]).bfloat16()
+
+
+@pytest.mark.parametrize("S,t", [(450, 449), (450, 63), (600, 512),
+                                 (3000, 2999)])
+def test_step_bf16_merge_order_matches_plain(S, t):
+    B, H, D = 1, 2, 128
+    _, kc = _bf16(3, B, H, S, D)
+    _, vc = _bf16(4, B, H, S, D)
+    _, q = _bf16(5, B, H, D)
+    got = step_bf16_mirror(q, kc, vc, t)
+    ref = pa.incremental_attention_step_reference(q, kc, vc, t)
+    scale = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * scale
 
 
 # an H100 SM: 228 KB of shared memory, a block at most 227 KB, 1 KB of it

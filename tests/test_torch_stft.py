@@ -11,9 +11,17 @@
   Stockham stages, a last radix-2 stage, the real-input split pass)
   against ``torch.fft.rfft`` at n_fft 128 to 4096, in float64 and in the
   kernel's float32;
+* the direct DFT's arithmetic (an n_fft that is not a power of two): a
+  float32 mirror of the kernel's tensor-core product (the window's
+  non-zero taps only, folded in pairs t, n_fft - t, the twiddle table
+  walked at k t mod N by an add and a compare, the 3xTF32 split with the
+  kernel's add-and-mask rounding, each 8-deep step summed apart) against
+  the float64 DFT at n_fft 30, 1998 (a 1102-tap window), 1999 (prime) and
+  6000;
 * the port's ``MelExtractor`` against JAX ``MelExtractor`` and against the
   port's numpy ``Audio`` path, at num_freq 65, 129 and 513 on a tone and on
-  noise;
+  noise, and at num_freq 300 (n_fft 598, the direct DFT on the card) with
+  a 400-tap window;
 * frame counts F = 1, a prime F and F one above each kernel tile (65 and
   33 frames); a wav shorter than n_fft / 2 + 1 samples (reflected again,
   as numpy and jnp do) and an empty one (ValueError everywhere);
@@ -216,11 +224,106 @@ def test_fft_plan_with_the_twiddle_table_matches_rfft(n_fft):
     assert float(err.max()) < 2e-6
 
 
+def tf32_split(x: np.ndarray) -> tuple:
+    """float32 -> (hi, lo) as mma.cuh's ``tf32_split``: hi = x rounded to
+    TF32 by adding half a TF32 ulp and masking, lo = x - hi rounded the
+    same way."""
+    def rn(v):
+        u = v.astype(np.float32).view(np.uint32).astype(np.uint64)
+        return (((u + 0x1000) & 0xFFFFE000).astype(np.uint32)
+                .view(np.float32))
+    hi = rn(x)
+    return hi, rn(x - hi)
+
+
+def dft_plan_mirror(y: np.ndarray, plan) -> np.ndarray:
+    """The direct DFT kernel's arithmetic in numpy: (F, K) magnitudes from
+    the (T,) float32 signal.  A: the windowed frames (float32, as the
+    kernel's loads form them) folded over the taps that cover the window's
+    non-zero support, u[s] = x[s] + x[N - s] and v[s] = x[s] - x[N - s]
+    (no partner for s = 0 or s = N / 2); B: each bin's cos and sin from
+    the float32 twiddle table at index k s mod N, the index of taps s_lo
+    + r (r < 8) stepped 8 taps at a time by an add and a compare; Re X = u
+    cos, Im X = v (-sin), both split for 3xTF32; each 8-deep step's three
+    products (lo hi, hi lo, hi hi, exact in float64) summed apart, rounded
+    to float32 and added to the float32 sums."""
+    N, hop = plan.n_fft, plan.hop_length
+    s_lo, s_hi = S.folded_taps(N, plan.support)
+    K = N // 2 + 1
+    frames = S.frames_of(torch.from_numpy(y), N, hop, plan.window).numpy()
+    steps = -(-(s_hi - s_lo + 1) // 8)
+    s = s_lo + np.arange(8 * steps)
+    p = N - s
+    inside, pair = s <= s_hi, (s <= s_hi) & (p < N) & (p != s)
+    xs = np.where(inside, frames[:, np.minimum(s, N - 1)], 0).astype(
+        np.float32)
+    xp = np.where(pair, frames[:, np.clip(p, 0, N - 1)], 0).astype(np.float32)
+    u, v = xs + xp, xs - xp
+    tw = plan.twiddles.numpy()
+    k = np.arange(K, dtype=np.int64)
+    idx = (k[None, :] * (s_lo + np.arange(8))[:, None]) % N     # (8, K)
+    inc = 8 * k % N
+    re = np.zeros((frames.shape[0], K), np.float32)
+    im = np.zeros_like(re)
+    for st in range(steps):
+        assert (idx == k[None, :] * s[8 * st:8 * st + 8, None] % N).all()
+        for acc, a, b in ((re, u, tw[idx, 0]), (im, v, tw[idx, 1])):
+            ah, al = (x.astype(np.float64)
+                      for x in tf32_split(a[:, 8 * st:8 * st + 8]))
+            bh, bl = (x.astype(np.float64) for x in tf32_split(b))
+            acc += (al @ bh + ah @ bl + ah @ bh).astype(np.float32)
+        idx = idx + inc[None, :]
+        idx = np.where(idx >= N, idx - N, idx)
+    return np.hypot(re.astype(np.float64), im.astype(np.float64))
+
+
+@pytest.mark.parametrize("n_fft,win", [(30, 30), (1998, 1102), (1999, 1999),
+                                       (6000, 6000)])
+def test_dft_plan_with_the_twiddle_table_matches_float64(n_fft, win):
+    """The kernel's direct DFT on the tensor cores, mirrored in float32,
+    against the float64 DFT of the same float32 frames: within 2e-6 of
+    each frame's peak, ten times inside its tolerance against the plain
+    version (``TOL_MAG``).  The plan's support is the window's non-zero
+    taps (449 .. 1549 for a 1102-tap Hann in 1998, folded to 449 .. 999);
+    the folded range covers a support on either side of n_fft / 2 too."""
+    window = A.hann_window(win, n_fft)
+    plan = S.spectrogram_plan(A.mel_filterbank(22050, n_fft, 8), window,
+                              max(1, n_fft // 4), "cpu")
+    nz = np.flatnonzero(window)
+    assert plan.support == (nz[0], nz[-1] + 1)
+    if (n_fft, win) == (1998, 1102):
+        assert plan.support == (449, 1550)
+        assert S.folded_taps(n_fft, plan.support) == (449, 999)
+    for t0, t1 in ((0, n_fft), (1, n_fft // 2), (n_fft // 2 + 1, n_fft),
+                   (3, 4), (0, 0)):
+        lo, hi = S.folded_taps(n_fft, (t0, t1))
+        folded = {min(t, n_fft - t) if t else 0 for t in range(t0, t1)}
+        assert folded <= set(range(lo, hi + 1))
+        assert not folded or (lo, hi) == (min(folded), max(folded))
+    rng = np.random.default_rng(n_fft)
+    T = 3 * n_fft + 5
+    y = (0.1 * rng.standard_normal(T)
+         + 0.3 * np.sin(0.05 * np.arange(T))).astype(np.float32)
+    got = dft_plan_mirror(y, plan)
+    frames = S.frames_of(torch.from_numpy(y), n_fft, plan.hop_length,
+                         plan.window).double()
+    ref = torch.fft.rfft(frames, dim=1).abs().numpy()
+    peak = ref.max(1, keepdims=True)
+    assert got.shape == ref.shape
+    assert float((np.abs(got - ref) / peak).max()) < 2e-6
+
+
 @pytest.mark.parametrize("kind", ["tone", "noise"])
-@pytest.mark.parametrize("num_freq,sr", [(65, 8000), (129, 8000),
-                                         (513, 16000)])
-def test_mel_extractor_matches_jax_and_numpy(num_freq, sr, kind):
-    hp = _hp(num_freq, sr=sr, num_mels=8 if num_freq < 500 else 80)
+@pytest.mark.parametrize("num_freq,sr,win_ms", [
+    pytest.param(65, 8000, 16.0, id="65-8000"),
+    pytest.param(129, 8000, 16.0, id="129-8000"),
+    pytest.param(513, 16000, 16.0, id="513-16000"),
+    pytest.param(300, 8000, 50.0, id="300-8000-window400")])
+def test_mel_extractor_matches_jax_and_numpy(num_freq, sr, win_ms, kind):
+    """num_freq 300: n_fft 598 is not a power of two (the card's direct
+    DFT), its 400-tap window narrower than n_fft."""
+    hp = _hp(num_freq, sr=sr, num_mels=8 if num_freq < 500 else 80,
+             frame_length_ms=win_ms)
     port, jax_ex = _extractors(hp)
     y = _signal(kind, int(0.3 * sr), sr)
     lin, mel = port.spectrograms(y)
@@ -359,3 +462,38 @@ def test_on_device_with_cuda_and_no_card_raises(tmp_path):
                        str(hp_file), "--on-device", "--device", "cuda",
                        "--target-only"])
     assert not list((tmp_path / "out").glob("*.target.tfrecord"))
+
+
+def test_prepare_spectrograms_takes_only_a_cuda_signal():
+    """The kernel's launch (and its profile) is laid out for a signal on
+    the card only; ``spectrograms`` takes the plain version on the CPU."""
+    plan = S.spectrogram_plan(A.mel_filterbank(22050, 1998, 8),
+                              A.hann_window(1102, 1998), 275, "cpu")
+    y = torch.zeros(3000)
+    with pytest.raises(ValueError, match="CUDA"):
+        S.prepare_spectrograms(y, plan, profile=True)
+    lin, mel = S.spectrograms(y, plan)
+    assert lin.shape == (1 + 3000 // 275, 1000) and mel.shape[1] == 8
+
+
+def test_dft_timeline_reads_a_profiled_launch():
+    """``chip_smoke.dft_timeline`` on the stamps of a profiled launch (ns;
+    ``prepare_spectrograms(profile=True)``'s layout): two frame tiles of
+    two bin tiles, one last block each, whose tail it reads."""
+    import importlib.util
+    import os
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    phases = np.array([0, 2000, 60000, 63000, 66000, 67000], np.int64)
+    stamps = np.zeros((4, S.DFT_STAMPS), np.int64)
+    for b in range(4):
+        stamps[b, :6] = phases + 1000 * b
+    for b in (1, 2):   # each frame tile's last block runs the tail
+        stamps[b, 6], stamps[b, 7] = stamps[b, 5] + 2000, 1
+    text = cs.dft_timeline(torch.from_numpy(stamps))
+    assert text.startswith("4 blocks, median / largest us: prologue "
+                           "2.00 / 2.00, loop 58.00 / 58.00, ")
+    assert "tail 2.00 / 2.00; the last block ends 71.00 us after" in text
