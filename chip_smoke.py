@@ -167,9 +167,14 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    kernel) and 257 (both wide kernels), the full sequence and 64 cache
    steps; ``MelExtractor`` at n_fft 2048 (the FFT) and 1998 (the direct
    DFT), against the plain version evaluated in float64: each against its
-   plain path; then the streamed encoder (bounds at T = 533, 534 and 600),
-   both wide kernels and the DFT timed beside their plain versions, bounds
-   and library calls (the DFT and the ``torch.stft`` chain in turns, and
+   plain path (the step's wide kernel counted apart, ``launches_wide``, row
+   ``incremental_attention_step_wide``); then the streamed encoder (bounds
+   at T = 533, 534 and 600; one profiled launch's split at T = 533, the
+   hop resident, and 534, streamed), both wide kernels and the DFT timed
+   beside their plain versions, bounds and library calls (the step's wide
+   kernel at S = 450, D = 257 in turns with the narrow kernel at D = 256
+   on the same cache, and alone at S = 3000, D = 512 against its plain
+   version, 1e-5; the DFT and the ``torch.stft`` chain in turns, and
    the DFT beside its own tensor-core products, 2 F Ns 2K FLOPs over the
    window's Ns folded taps, at the 3xTF32 rate, and the phases of one
    profiled launch, ``dft_timeline``), and the full sequence's wide kernel
@@ -248,11 +253,12 @@ VQ-code recipe (``examples/codes/self-attention-tacotron.json``; phases
    step, and no float32 instance), its logits against the bf16 einsum
    path's at phase 20's bf16 tolerances; each bf16 instance against its
    plain version (1e-2 of its largest magnitude; each kernel call moves
-   the bf16 counter by one) and timed beside SDPA in bf16 and its bound
-   (products at the bf16 tensor cores' peak; the serving hop, B = 32 T =
-   256 D = 128 causal and not, the serving cache S = 450, the wide
-   kernels at D = 256 and S = 3000 D = 512), the serving cache's step
-   also in turns with its f32 twin on the same values, each full-sequence
+   the bf16 counter by one, the step's wide kernel its ``launches_wide``)
+   and timed beside SDPA in bf16 and its bound (products at the bf16
+   tensor cores' peak; the serving hop, B = 32 T = 256 D = 128 causal and
+   not, the serving cache S = 450, the wide kernels at D = 256 and S =
+   3000 D = 512), the steps at S = 450 and at S = 3000 D = 512 also in
+   turns with their f32 twins on the same values, each full-sequence
    shape with the split of one profiled launch.  The kernels line gains
    ``fused_self_attention_bf16`` and ``incremental_attention_step_bf16``.
 28. targetless (predict-time) serving (``targetless_serving``): a
@@ -1383,8 +1389,9 @@ def _serve(data, ckpt, out, device, hparams, counters, n: int = 3):
     """``main_code`` serves the last ``n`` training utterances under the
     recipe with ``hparams``; each (function, attribute) launch counter of
     ``counters`` is zeroed just before.  Returns (keys, counts by name (an
-    attribute ``launches_bf16`` counts as ``<function>_bf16``), decode
-    steps, ms a call, the gates that refused)."""
+    attribute ``launches_bf16`` counts as ``<function>_bf16``,
+    ``launches_wide`` as ``<function>_wide``), decode steps, ms a call,
+    the gates that refused)."""
     import contextlib
     import io
     import re
@@ -1402,8 +1409,8 @@ def _serve(data, ckpt, out, device, hparams, counters, n: int = 3):
                         "--list-filename", "serve.csv", "--hparam-json-file",
                         RECIPE, "--hparams", hparams, "--device",
                         device.type])
-    counts = {fn.__name__ + ("_bf16" if attr.endswith("bf16") else ""):
-              getattr(fn, attr) for fn, attr in counters}
+    counts = {fn.__name__ + attr[len("launches"):]: getattr(fn, attr)
+              for fn, attr in counters}
     sys.stdout.write(buf.getvalue())
     found = re.findall(r"predicted \S+: (\d+) decode steps, ([0-9.]+) ms",
                        buf.getvalue())
@@ -2993,6 +3000,8 @@ TOL_FORCED_MEL = TOL_MEL_DECODE
 # n_fft (num_freq 1025: the FFT, 1000: the direct DFT)
 EDGE_LENGTHS = (533, 534, 600)
 EDGE_HEAD_DIMS = (128, 129, 257)
+EDGE_PROFILED = (533, 534)   # #1's profiled split: resident, then streamed
+WIDE_STEP_TIMED = (3000, 512)   # (S, D) of the wide step timed alone
 WIDE_TIMED = (8, 256, 256)   # (B, T, D) of the wide kernel timed alone
 EDGE_NUM_FREQS = (1025, 1000)
 
@@ -3351,12 +3360,15 @@ def phase_edges(model, device, card: str):
     from self_attention_tacotron_torch.ops import stft
     from self_attention_tacotron_torch.ops.stft import MelExtractor
     enc = model.encoder
-    counters = {"fused_encode": fe.fused_encode,
-                "fused_self_attention": pa.fused_self_attention,
-                "incremental_attention_step": pa.incremental_attention_step,
-                "spectrogram": stft.spectrograms}   # the rows' names
-    for c in counters.values():
-        c.launches = 0
+    step = pa.incremental_attention_step
+    counters = {"fused_encode": (fe.fused_encode, "launches"),
+                "fused_self_attention": (pa.fused_self_attention,
+                                         "launches"),
+                "incremental_attention_step": (step, "launches"),
+                "incremental_attention_step_wide": (step, "launches_wide"),
+                "spectrogram": (stft.spectrograms, "launches")}  # rows' names
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     errs = {}
     for T in EDGE_LENGTHS:
         x = model.embedding(source_ids(model.hp, T, T, SEED + T, device))
@@ -3384,8 +3396,8 @@ def phase_edges(model, device, card: str):
             device).eval()
         ref.load_state_dict(mha.state_dict())
         x = _normal(device, 1, T_IN, 2 * D, seed=D)
-        before = (pa.fused_self_attention.launches,
-                  pa.incremental_attention_step.launches)
+        before = (pa.fused_self_attention.launches, step.launches,
+                  step.launches_wide)
         err = _max_err(mha(x, x, x)[0], ref(x, x, x)[0])
         cache = mha.init_cache(1, T_IN, device)
         cache_r = ref.init_cache(1, T_IN, device)
@@ -3394,14 +3406,18 @@ def phase_edges(model, device, card: str):
             y_r, cache_r, _ = ref.step(x[:, t], t, cache_r)
             err = max(err, _max_err(y, y_r))
         counts = (pa.fused_self_attention.launches - before[0],
-                  pa.incremental_attention_step.launches - before[1])
-        for name in ("fused_self_attention", "incremental_attention_step"):
+                  step.launches - before[1], step.launches_wide - before[2])
+        wide = D > pa.STEP_MAX_D
+        step_name = ("incremental_attention_step_wide" if wide
+                     else "incremental_attention_step")
+        for name in ("fused_self_attention", step_name):
             errs[name] = max(errs.get(name, 0.0), err)
         log(f"phase 23 Pallas-mode hop D={D} (sa_units {2 * D}, 2 heads), "
             f"T={T_IN}: launches fused_self_attention {counts[0]}, "
-            f"incremental_attention_step {counts[1]}; vs the einsum path max "
-            f"abs err {err:.3e}")
-        if counts != (1, T_IN) or err > TOL_ATTENTION:
+            f"incremental_attention_step {counts[1]} (its wide kernel "
+            f"{counts[2]}); vs the einsum path max abs err {err:.3e}")
+        if (counts != ((1, 0, T_IN) if wide else (1, T_IN, 0))
+                or err > TOL_ATTENTION):
             raise AssertionError(f"the Pallas-mode hop at D = {D}")
     hp = _audio_hparams(MEL_RECIPE)
     y = _wave(10 * hp.sample_rate, hp.sample_rate, seed=23)
@@ -3427,8 +3443,8 @@ def phase_edges(model, device, card: str):
                 f"the spectrogram at n_fft = {n_fft}: launches {launched}, "
                 f"(magnitude / peak, dB) errors {spec} against tolerances "
                 f"{TOL_SPEC_MAG} and {TOL_SPEC_DB}")
-    launches = {"long_and_wide": {name: c.launches
-                                  for name, c in counters.items()}}
+    launches = {"long_and_wide": {name: getattr(fn, attr)
+                                  for name, (fn, attr) in counters.items()}}
 
     # the new branches timed: the streamed hop, both wide kernels, the DFT
     params, x, kw = encoder_case(model, EDGE_LENGTHS[-1], EDGE_LENGTHS[-1],
@@ -3449,6 +3465,15 @@ def phase_edges(model, device, card: str):
         for t, ms in enc_ms.items()) + f"; plain at T = "
         f"{T} {enc_plain:.4f} ms; bound at T = {T} {enc_bound_ms:.4f} ms "
         f"({enc_bound[0]} bytes, {enc_bound[1]} FLOPs); card {card}")
+    for t in EDGE_PROFILED:   # the hop resident, then streamed
+        prof = fe.prepare_encode(*encoder_case(model, t, t, device)[:2], t,
+                                 **kw, profile=True)
+        prof()
+        torch.cuda.synchronize()
+        log(f"phase 23 fused_encode T={t} stages, one profiled launch "
+            f"scaled to {enc_ms[t]:.4f} ms (us): " + fe.format_split(
+                fe.profile_split(prof.stage_cycles.cpu().tolist(),
+                                 enc_ms[t])) + f"; card {card}")
     rows = _kernel_rows("fused_encode", "fused_encoder",
                         "fused_encoder.py:94", launches,
                         errs["fused_encode"], enc_ms[T], enc_plain,
@@ -3462,20 +3487,54 @@ def phase_edges(model, device, card: str):
     att_bound = attention_bound(1, T_IN, Dw, True)
     Ds, t = EDGE_HEAD_DIMS[2], SERVE_S - 1
     qs, kc, vc = _step_inputs(device, 1, t, SERVE_S, Ds)
-    mask = torch.ones(1, 1, 1, SERVE_S, dtype=torch.bool, device=device)
-    stp = [_device_ms(fn) for fn in (
-        lambda: pa.incremental_attention_step(qs, kc, vc, t),
-        lambda: pa.incremental_attention_step_reference(qs, kc, vc, t),
-        lambda: F.scaled_dot_product_attention(qs[:, :, None], kc, vc,
-                                               attn_mask=mask))]
+    # the narrow kernel one column narrower, on the same cache
+    qn, kn, vn = (x[..., :pa.STEP_MAX_D].contiguous() for x in (qs, kc, vc))
+    step_turns = in_turns({
+        "wide": lambda: pa.incremental_attention_step(qs, kc, vc, t),
+        "narrow": lambda: pa.incremental_attention_step(qn, kn, vn, t)}, 4)
+    stp, nar = ([statistics.median(step_turns[name])] + [
+        _device_ms(fn) for fn in (
+            lambda: pa.incremental_attention_step_reference(q_, k_, v_, t),
+            lambda: F.scaled_dot_product_attention(q_[:, :, None], k_, v_))]
+        for name, (q_, k_, v_) in (("wide", (qs, kc, vc)),
+                                   ("narrow", (qn, kn, vn))))
     stp_bound = step_bound(1, t, Ds)
+    nar_bound = step_bound(1, t, pa.STEP_MAX_D)
     log(f"phase 23 wide kernels: fused_self_attention B=1 H={ATTN_HEADS} "
         f"T={T_IN} D={Dw} causal {att[0]:.5f} ms (plain {att[1]:.5f}, SDPA "
         f"{att[2]:.5f}, bound "
         f"{_bound_ms(att_bound, PEAK_3XTF32_FLOP_PER_S):.6f} at the 3xTF32 "
         f"rate); incremental_attention_step S={SERVE_S} D={Ds} t={t} "
         f"{stp[0]:.5f} ms (plain {stp[1]:.5f}, SDPA {stp[2]:.5f}, bound "
-        f"{_bound_ms(stp_bound):.6f}); card {card}")
+        f"{_bound_ms(stp_bound):.6f}), in turns with the narrow kernel at "
+        f"D={pa.STEP_MAX_D} {nar[0]:.5f} ms (medians of "
+        f"{len(step_turns['wide'])} rounds: wide "
+        f"{' '.join(f'{x:.5f}' for x in step_turns['wide'])}, narrow "
+        f"{' '.join(f'{x:.5f}' for x in step_turns['narrow'])}; its plain "
+        f"{nar[1]:.5f}, SDPA {nar[2]:.5f}, bound "
+        f"{_bound_ms(nar_bound):.6f}); card {card}")
+    # the wide kernel at the SIWIS cache length and 512 columns
+    S3, D3 = WIDE_STEP_TIMED
+    q3, k3, v3 = _step_inputs(device, 1, S3 - 1, S3, D3)
+    err3 = _max_err(pa.incremental_attention_step(q3, k3, v3, S3 - 1),
+                    pa.incremental_attention_step_reference(q3, k3, v3,
+                                                            S3 - 1))
+    wide3 = [_device_ms(fn, reps=20) for fn in (
+        lambda: pa.incremental_attention_step(q3, k3, v3, S3 - 1),
+        lambda: pa.incremental_attention_step_reference(q3, k3, v3, S3 - 1),
+        lambda: F.scaled_dot_product_attention(q3[:, :, None], k3, v3))]
+    bound3 = step_bound(1, S3 - 1, D3)
+    log(f"phase 23 incremental_attention_step B=1 H={ATTN_HEADS} S={S3} "
+        f"t={S3 - 1} D={D3} (the wide kernel, plan "
+        f"{tuple(pa.step_plan_wide(ATTN_HEADS, S3 - 1, D3))}): max abs err "
+        f"{err3:.3e} against the plain version; kernel {wide3[0]:.5f} ms, "
+        f"plain {wide3[1]:.5f} ms, SDPA {wide3[2]:.5f} ms; bound "
+        f"{_bound_ms(bound3):.6f} ms ({bound3[0]} bytes); card {card}")
+    if err3 > TOL_ATTENTION or max(errs["incremental_attention_step_wide"],
+                                   errs["incremental_attention_step"]) \
+            > TOL_ATTENTION:
+        raise AssertionError(f"the wide step at S = {S3}, D = {D3} "
+                             f"disagrees (tol {TOL_ATTENTION})")
     log(f"phase 23 fused_self_attention B=1 D={Dw} causal "
         + attention_split(pa, q, k, v, True, att[0]) + f"; card {card}")
     # the wide kernel at the training-like shape where it lost to SDPA
@@ -3505,6 +3564,10 @@ def phase_edges(model, device, card: str):
     rows += _kernel_rows("incremental_attention_step",
                          "incremental_attention", "pallas_attention.py:109",
                          launches, errs["incremental_attention_step"],
+                         *nar[:2], nar_bound, nar[2])
+    rows += _kernel_rows("incremental_attention_step_wide",
+                         "incremental_attention", "pallas_attention.py:109",
+                         launches, errs["incremental_attention_step_wide"],
                          *stp[:2], stp_bound, stp[2])
     num_freq = EDGE_NUM_FREQS[1]
     ex = MelExtractor(hp.sample_rate, num_freq, hp.num_mels,
@@ -4717,9 +4780,10 @@ def _bf16_attention_case(device, name, B, T, D, causal):
 def _bf16_attention_kernels(device, card):
     """(d): each bf16 instance against its plain version and timed beside
     SDPA in bf16 (the library call, never called by the port) and its
-    bound; the bf16 counter moves by one a kernel call, the float32 one
-    not at all.  Returns {name: (err, ms, plain_ms, bound, library_ms)} at
-    the serving shape (the first of each name)."""
+    bound; the bf16 counter (the step's wide kernel: ``launches_wide``)
+    moves by one a kernel call, the float32 one not at all.  Returns
+    {name: (err, ms, plain_ms, bound, library_ms)} at the serving shape
+    (the first of each name)."""
     import torch
     from self_attention_tacotron_torch.ops import pallas_attention as pa
     out = {}
@@ -4727,16 +4791,22 @@ def _bf16_attention_kernels(device, card):
         kernel, plain, sdpa, bound = _bf16_attention_case(
             device, name, B, T, D, causal)
         fn = getattr(pa, name)
+        # the step's wide kernel counts in launches_wide in either dtype
+        wide = causal is None and D > pa.STEP_MAX_D
+
+        def state():
+            return (fn.launches, fn.launches_bf16,
+                    getattr(fn, "launches_wide", 0))
 
         def counted(call, calls):
-            before = (fn.launches, fn.launches_bf16)
+            before = state()
             result = call()
-            if (fn.launches, fn.launches_bf16) != (before[0],
-                                                    before[1] + calls):
+            want = (before[0], before[1] + (0 if wide else calls),
+                    before[2] + (calls if wide else 0))
+            if state() != want:
                 raise AssertionError(
                     f"{name} at B={B} T={T} D={D}: {calls} calls moved the "
-                    f"counters from {before} to "
-                    f"{(fn.launches, fn.launches_bf16)}")
+                    f"counters from {before} to {state()}")
             return result
         got, ref = counted(kernel, 1), plain()
         if got.dtype != ref.dtype:
@@ -4764,7 +4834,7 @@ def _bf16_attention_kernels(device, card):
         if err > TOL_BF16_ATTENTION:
             raise AssertionError(f"the bf16 {name} disagrees (tol "
                                  f"{TOL_BF16_ATTENTION})")
-        if causal is None and name not in out and D <= pa.STEP_MAX_D:
+        if causal is None and (name not in out or wide):
             twin = _step_twin_turns(device, kernel, B, T, D)
             log(f"phase 27 incremental_attention_step B={B} S={T} t={T - 1} "
                 f"D={D} in turns with its f32 twin on the same values "

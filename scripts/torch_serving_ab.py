@@ -7,9 +7,9 @@ against earlier versions of themselves, in one process on one card.
     git archive <commit> self_attention_tacotron_torch | tar -x -C build/ab/<name>
     python3 scripts/torch_serving_ab.py [--variant NAME=build/ab/NAME ...]
                                         [--cases encode,step,serve,attention,
-                                         wide,bf16,step-bf16,spectrogram,
-                                         sass,whole-serve,whole-mel,
-                                         whole-pallas,whole-train]
+                                         wide,wide-plan,bf16,step-bf16,
+                                         spectrogram,sass,whole-serve,
+                                         whole-mel,whole-pallas,whole-train]
                                         [--reps 5]
 
 Each ``--variant`` directory holds a copy of the port's package from
@@ -22,10 +22,14 @@ first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
 (registers, stack frame, spills). Random weights from seed 0
 (``chip_smoke.py``'s models).
 
-* ``encode``: #1 at the codes recipe's widths and at the VCTK recipe's (T =
-  L = 64): each variant's max abs error against the working tree's plain
-  version, its time (CUDA events around one launch, median of ``--reps``
-  after a warm-up, the variants in turns A B B A ...) and its per-stage
+* ``encode``: #1 at the codes recipe's widths, at the VCTK recipe's and at
+  ``chip_smoke.py``'s four widened encoders (widths of 130, 129 and 256
+  LSTM units, more layers) (T = L = 64): each variant's max abs error
+  against the working tree's plain
+  version, its time (``step``'s queued loop of 20 calls; median and
+  quartiles of ``--reps``, the variants in turns A B B A ...), each variant's
+  time over the tree's round by round (median and quartiles of the
+  ratios), and its per-stage
   split of one profiled launch in microseconds (load, product and barrier
   wait where the variant splits its stages, else the stages' shares).
 * ``step``: #6 at B = 1 and 32, H = 2, D = 128, S = 250 and 450, t in {0,
@@ -46,12 +50,20 @@ first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
   into loads, scores, softmax and values.
   Each variant's output is also held against the working tree's kernel
   output bit for bit (max abs difference 0.0: the same kernel).
-* ``wide``: the branches past the kernels' earlier plans: #5's wide
-  kernel (B = 1, T = 64, D = 129, causal; B = 8, T = 256, D = 256), #6's
-  (S = 450, D = 257; S = 3000, D = 512) and #1's streamed hop (T = 600 at
-  the codes widths): errors and times as ``attention`` and ``encode``
-  (SDPA beside #5 and #6), in turns; the split of one profiled launch of
-  #5 for a variant whose wide kernel profiles.
+* ``wide``: the modes past the kernels' earlier plans: #5's wide kernel
+  (B = 1, T = 64, D = 129, causal; B = 8, T = 256, D = 256), #6's (f32 S
+  = 450, D = 257, the tree's narrow kernel at D = 256 in the same loop;
+  f32 and bf16 S = 3000, D = 512, the tree's f32 wide kernel on the same
+  values in the bf16 loop) and #1 at the codes widths at T =
+  533 (the hop resident), 534 and 600 (streamed): errors (and whether two
+  calls give the same bits) and times as ``attention`` and ``encode``
+  (SDPA beside #5 and #6, each step's byte bound), in turns; the split of
+  one profiled launch of #1 at T = 533 and 534, and of #5 for a variant
+  whose wide kernel profiles.
+* ``wide-plan``: the working tree's wide step kernel alone at the same
+  three shapes under other plans (``STEP_WIDE_FILL`` 64 to 132), in
+  turns, and each cut of it (``STEP_PASSES``): what chose the shipped
+  plan.
 * ``bf16``: #5's bf16 instances at ``chip_smoke.py`` phase 27's shapes
   (the serving hop, B = 32, T = 256, D = 128 causal and not, the wide B =
   1, T = 450, D = 256, causal): each variant's error against the working
@@ -71,8 +83,10 @@ first, then what ``nvcc -Xptxas -v`` says of each variant's two kernels
   the plain version (magnitude over the frame's peak, dB), then its time
   and the ``torch.stft`` -> abs -> mel -> dB chain's in turns in the same
   queued loop.
-* ``sass``: #5's and #6's float32 narrow kernels, instance by instance
-  (every width, ``key_warps``, load width and profiling flag): each
+* ``sass``: #5's and #6's float32 narrow kernels and #1's trunk and
+  recurrent kernel with the hop resident, instance by instance (every
+  width, ``key_warps``, load width, profiling flag, copy width and
+  cluster size): each
   variant's SASS (``cuobjdump -sass`` of its built ``self_attention`` and
   ``incremental_attention``) against the working tree's, line by line
   with addresses, registers and constants as they are; only the names are
@@ -125,11 +139,12 @@ STEP_SHAPES = [(B, S, t) for B in (1, 32) for S in (250, 450)
 WIDE_SHAPES = [(1, 64, 129, True), (8, 256, 256, False)]
 BF16_SHAPES = [(1, 64, 16, False), (32, 256, 128, False),
                (32, 256, 128, True), (1, 450, 256, True)]
-WIDE_STEPS = [(450, 257), (3000, 512)]
+WIDE_STEPS = [(450, 257, "f32"), (3000, 512, "f32"), (3000, 512, "bf16")]
 BF16_STEPS = [(450, 128), (3000, 128), (3000, 512)]   # (S, D), t = S - 1
 SPEC_CASES = [("LJSpeech", 22050, 1025, 50.0), ("VCTK", 48000, 2049, 50.0),
               ("DFT", 22050, 1000, 50.0)]  # name, sr, num_freq, window ms
-WIDE_ENCODE_T = 600
+WIDE_ENCODE_T = (533, 534, 600)
+WIDE_PROFILE_T = (533, 534)
 
 
 def load_variant(name: str, path: str):
@@ -150,20 +165,25 @@ def _modules(pkg):
     return sub(pkg, "ops.fused_encoder"), sub(pkg, "ops.pallas_attention")
 
 
-def _ms(launch) -> float:
-    import torch
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    launch()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
 def _runs(ts) -> str:
+    q1, _, q3 = statistics.quantiles(ts, n=4) if len(ts) > 1 else ts * 3
     return (f"{statistics.median(ts):.5f} ms (runs {min(ts):.5f}-"
-            f"{max(ts):.5f})")
+            f"{max(ts):.5f}, quartiles {q1:.5f}-{q3:.5f})")
+
+
+def _paired(times) -> str:
+    """Each variant's time over the working tree's in the same round (the
+    rounds are in turns): the median ratio and its quartiles."""
+    out = []
+    for name, ts in times.items():
+        if name == "tree":
+            continue
+        ratios = [a / b for a, b in zip(ts, times["tree"])]
+        q1, med, q3 = (statistics.quantiles(ratios, n=4)
+                       if len(ratios) > 1 else ratios * 3)
+        out.append(f"{name}/tree median {med:.4f} (quartiles {q1:.4f}-"
+                   f"{q3:.4f}, {len(ratios)} rounds)")
+    return "; ".join(out)
 
 
 def encode_split(fe, launch, ms: float) -> str:
@@ -186,7 +206,9 @@ def encode_case(variants, device, reps: int) -> None:
     import chip_smoke as cs
     from self_attention_tacotron_torch.ops import fused_encoder as tree
     for width, hp in (("codes", cs.recipe_hparams()),
-                      ("vctk", cs._hp_with(cs.VCTK_SA_RECIPE))):
+                      ("vctk", cs._hp_with(cs.VCTK_SA_RECIPE)),
+                      *((path, cs._hp_with(cs.RECIPE, extra))
+                        for path, extra in cs.WIDE_ENCODERS)):
         model = cs.make_model(hp, device)
         params, x, kw = cs.encoder_case(model, cs.T_IN, cs.T_IN, device)
         ref = tree.fused_encode_reference(params, x, cs.T_IN, **kw)
@@ -201,7 +223,9 @@ def encode_case(variants, device, reps: int) -> None:
                   flush=True)
             launches[name]()
         torch.cuda.synchronize()
-        times = cs.in_turns(launches, reps, _ms)
+        times = cs.in_turns(launches, reps)
+        if len(times) > 1:
+            print(f"encode {width}: {_paired(times)}", flush=True)
         for name, ts in times.items():
             print(f"encode {width}: {name} fused_encode T={cs.T_IN} "
                   f"{_runs(ts)}", flush=True)
@@ -287,10 +311,15 @@ def attention_case(variants, device, reps: int) -> None:
 
 
 def wide_case(variants, device, reps: int) -> None:
-    """The branches past the earlier plans: #5's wide kernel (D = 129 and
-    256), #6's (D = 257) and #1's streamed hop (T = 600 at the codes
-    widths): each variant's error against the working tree's plain
-    version and its time, in turns (#5 and #6 beside SDPA)."""
+    """The modes past the kernels' earlier plans: #5's wide kernel (D = 129
+    and 256), #6's (f32 S = 450, D = 257 with the tree's narrow kernel at
+    D = 256 on the same cache length in the loop; f32 and bf16 S = 3000,
+    D = 512, the tree's f32 wide kernel in the bf16 loop) and #1 at the
+    codes widths at T = 533 (the hop resident), 534 and 600 (streamed):
+    each variant's error against the working tree's plain version (bf16:
+    over its largest magnitude) and its time, in turns (#5 and #6 beside
+    SDPA), with each step's bound; the profiled split of #1 at T = 533 and
+    534 and of #5 for a variant whose wide kernel profiles."""
     import torch
     import torch.nn.functional as F
     import chip_smoke as cs
@@ -305,45 +334,115 @@ def wide_case(variants, device, reps: int) -> None:
             lambda pa, q=q, k=k, v=v, c=causal:
                 pa.fused_self_attention(q, k, v, c),
             tree.fused_self_attention_reference(q, k, v, causal),
-            lambda q=q, k=k, v=v, c=causal:
-                F.scaled_dot_product_attention(q, k, v, is_causal=c)))
+            {"sdpa": lambda q=q, k=k, v=v, c=causal:
+                F.scaled_dot_product_attention(q, k, v, is_causal=c)}, ""))
         splits.append((tag, q, k, v, causal))
-    for S, D in WIDE_STEPS:
-        q, kc, vc = cs._step_inputs(device, 1, S - 1, S, D)
+    for S, D, dtype in WIDE_STEPS:
+        t = S - 1
+        q, kc, vc = cs._step_inputs(device, 1, t, S, D)
+        if dtype == "bf16":
+            q, kc, vc = q.bfloat16(), kc.bfloat16(), vc.bfloat16()
+        beside = {"sdpa": lambda q=q, kc=kc, vc=vc:
+                  F.scaled_dot_product_attention(q[:, :, None], kc, vc)}
+        if dtype == "bf16":   # the f32 wide kernel on the same values
+            q32, k32, v32 = q.float(), kc.float(), vc.float()
+            beside["f32_wide"] = (lambda q=q32, kc=k32, vc=v32, t=t:
+                                  tree.incremental_attention_step(q, kc, vc,
+                                                                  t))
+        elif D == 257:        # the narrow kernel one column narrower
+            qn, kn, vn = (x[..., :256].contiguous() for x in (q, kc, vc))
+            beside["narrow_D256"] = (lambda q=qn, kc=kn, vc=vn, t=t:
+                                     tree.incremental_attention_step(
+                                         q, kc, vc, t))
+        bound = (cs.bf16_step_bound(1, t, D) if dtype == "bf16"
+                 else cs.step_bound(1, t, D))
         cases.append((
-            f"wide step S={S} D={D} t={S - 1}",
-            lambda pa, q=q, kc=kc, vc=vc, t=S - 1:
+            f"wide step {dtype} S={S} D={D} t={t}",
+            lambda pa, q=q, kc=kc, vc=vc, t=t:
                 pa.incremental_attention_step(q, kc, vc, t),
-            tree.incremental_attention_step_reference(q, kc, vc, S - 1),
-            lambda q=q, kc=kc, vc=vc: F.scaled_dot_product_attention(
-                q[:, :, None], kc, vc)))
-    for tag, run, ref, sdpa in cases:
-        fns = {"sdpa": sdpa}
+            tree.incremental_attention_step_reference(q, kc, vc, t),
+            beside, f"; bound {cs._bound_ms(bound):.6f} ms (bytes)"))
+    for tag, run, ref, beside, note in cases:
+        fns = dict(beside)
+        scale = float(ref.float().abs().max()) if ref.dtype != \
+            torch.float32 else 1.0
         for name, pkg in variants.items():
             _, pa = _modules(pkg)
             got = run(pa)
+            again = run(pa)
             torch.cuda.synchronize()
-            print(f"{tag}: {name} max abs err {cs._max_err(got, ref):.3e}",
-                  flush=True)
+            err = cs._max_err(got.float(), ref.float()) / scale
+            print(f"{tag}: {name} max abs err {err:.3e}"
+                  + (" of the largest magnitude" if scale != 1.0 else "")
+                  + f"; the same bits from call to call "
+                  f"{bool(torch.equal(got, again))}", flush=True)
             fns[name] = (lambda pa=pa: run(pa))
         times = cs.in_turns(fns, reps, cs._device_ms)
         for name, ts in times.items():
-            print(f"{tag}: {name} {_runs(ts)}", flush=True)
+            print(f"{tag}: {name} {_runs(ts)}{note}", flush=True)
         for stag, q, k, v, causal in splits:
             if stag == tag:
                 attention_splits(variants, stag, q, k, v, causal, times)
     model = cs.make_model(cs.recipe_hparams(), device)
-    T = WIDE_ENCODE_T
-    params, x, kw = cs.encoder_case(model, T, T, device)
-    ref = tree_fe.fused_encode_reference(params, x, T, **kw)
-    launches = {}
-    for name, pkg in variants.items():
-        fe, _ = _modules(pkg)
-        launches[name] = fe.prepare_encode(params, x, T, **kw)
-        err = max(cs._max_err(g, r) for g, r in zip(launches[name](), ref))
-        print(f"wide encode T={T}: {name} max abs err {err:.3e}", flush=True)
-    for name, ts in cs.in_turns(launches, reps, _ms).items():
-        print(f"wide encode T={T}: {name} {_runs(ts)}", flush=True)
+    for T in WIDE_ENCODE_T:
+        params, x, kw = cs.encoder_case(model, T, T, device)
+        ref = tree_fe.fused_encode_reference(params, x, T, **kw)
+        launches = {}
+        for name, pkg in variants.items():
+            fe, _ = _modules(pkg)
+            launches[name] = fe.prepare_encode(params, x, T, **kw)
+            err = max(cs._max_err(g, r)
+                      for g, r in zip(launches[name](), ref))
+            hop = "streamed" if tree_fe.hop_streams(T, 128, 32) else \
+                "resident"
+            print(f"wide encode T={T}: {name} max abs err {err:.3e}; hop "
+                  f"{hop}", flush=True)
+        times = cs.in_turns(launches, reps)
+        if len(times) > 1:
+            print(f"wide encode T={T}: {_paired(times)}", flush=True)
+        for name, ts in times.items():
+            print(f"wide encode T={T}: {name} {_runs(ts)}", flush=True)
+            if T in WIDE_PROFILE_T:
+                fe, _ = _modules(variants[name])
+                prof = fe.prepare_encode(params, x, T, **kw, profile=True)
+                print(f"wide encode T={T}: {name} stages (us): "
+                      + encode_split(fe, prof, statistics.median(ts)),
+                      flush=True)
+
+
+WIDE_PLAN_FILLS = (64, 80, 96, 112, 132)
+
+
+def wide_plan_case(device, reps: int) -> None:
+    """The working tree's wide step kernel (#6, D > 256) under other plans
+    at ``WIDE_STEPS``: each ``STEP_WIDE_FILL`` of ``WIDE_PLAN_FILLS``, in
+    turns, and each cut of the kernel (``STEP_PASSES``) under the shipped
+    plan."""
+    import chip_smoke as cs
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    shipped = pa.STEP_WIDE_FILL
+    for S, D, dtype in WIDE_STEPS:
+        t = S - 1
+        q, kc, vc = cs._step_inputs(device, 1, t, S, D)
+        if dtype == "bf16":
+            q, kc, vc = q.bfloat16(), kc.bfloat16(), vc.bfloat16()
+        tag = f"wide plan {dtype} S={S} D={D} t={t}"
+        fns, layouts = {}, {}
+        for fill in WIDE_PLAN_FILLS:
+            pa.STEP_WIDE_FILL = fill
+            fns[fill] = pa.prepare_step(q, kc, vc, t)
+            layouts[fill] = tuple(pa.step_plan_wide(
+                q.shape[0] * q.shape[1], t, D))
+        pa.STEP_WIDE_FILL = shipped
+        times = cs.in_turns(fns, reps, cs._device_ms)
+        for fill, ts in times.items():
+            print(f"{tag}: fill {fill} plan {layouts[fill]} {_runs(ts)}",
+                  flush=True)
+        cuts = [cs._device_ms(pa.prepare_step(q, kc, vc, t, passes=i + 1))
+                for i in range(len(pa.STEP_PASSES) - 1)]
+        print(f"{tag}: fill {shipped} cut short: " + ", ".join(
+            f"{c} {ms:.5f}" for c, ms in zip(pa.STEP_PASSES, cuts))
+            + " ms", flush=True)
 
 
 def attention_splits(variants, tag, q, k, v, causal, times) -> None:
@@ -409,14 +508,20 @@ def kernel_sass(library: str) -> dict:
                         r"(?=\d+(?:self_|incremental_))", "", head.group(1))
             found[fn] = []
             continue
-        ins = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+        ins = re.search(r"/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
         if fn and ins:
             found[fn].append(re.sub(r"\s+", " ", ins.group(1)))
     return found
 
 
 SASS_KERNELS = (("self_attention", "self_attention_kernelI"),
-                ("incremental_attention", "incremental_attention_kernelIf"))
+                ("incremental_attention", "incremental_attention_kernelIf"),
+                ("fused_encoder", "encoder_"))
+# #1's recurrent kernel with the hop resident: the working tree's instance
+# kStream = false under the name of an older one without that parameter;
+# its streamed instances (kStream = true) are left out
+RESIDENT_RNN = re.compile(r"(Li\d+E)Lb0E(Ev7EncArgs)")
+STREAMED_RNN = re.compile(r"Li\d+ELb1EEv7EncArgs")
 
 
 def sass_case(variants, builds) -> None:
@@ -424,13 +529,14 @@ def sass_case(variants, builds) -> None:
         names = {}
         for name in variants:
             lib = str(builds[name]._library_path(library))
-            names[name] = {re.sub(r"self_attention_kernelIf",
-                                  "self_attention_kernelI", fn): code
-                           for fn, code in kernel_sass(lib).items()
-                           if prefix in fn and "bfloat16" not in fn}
+            names[name] = {RESIDENT_RNN.sub(r"\1\2", re.sub(
+                r"self_attention_kernelIf", "self_attention_kernelI", fn)):
+                code for fn, code in kernel_sass(lib).items()
+                if prefix in fn and "bfloat16" not in fn
+                and not STREAMED_RNN.search(fn)}
         tree = names["tree"]
-        print(f"sass tree: {len(tree)} instances of {library}'s f32 narrow "
-              "kernel", flush=True)
+        print(f"sass tree: {len(tree)} instances of {library}'s f32 kernels "
+              "held to an earlier design", flush=True)
         for name, found in names.items():
             if name == "tree":
                 continue
@@ -716,6 +822,8 @@ def main() -> int:
             attention_case(variants, device, args.reps)
         elif case == "wide":
             wide_case(variants, device, args.reps)
+        elif case == "wide-plan":
+            wide_plan_case(device, args.reps)
         elif case == "bf16":
             bf16_case(variants, device, args.reps)
         elif case == "step-bf16":

@@ -49,10 +49,11 @@
 //    blocks; its 64 x 64 attention (0.1 MFLOP) stays on FP32 FMAs, one
 //    warp a (head, query row), from K | V | Q rows in shared memory.  A
 //    source whose rows do not fit there (T > 533 at the recipes' widths,
-//    ``hop_streams``) streams them instead: a block takes a head's 8 query
-//    rows at a time and the keys pass through shared memory in tiles with
-//    an online softmax (attend_rows, csrc/attention_rows.cuh), so the
-//    kernel takes any source length.
+//    ``hop_streams``) streams them instead: a block takes a head's 64
+//    query rows at a time and folds every 64-key tile online in registers,
+//    both products on mma.sync in the 3xTF32 split, the rows staged by
+//    cp.async in a ring of HOP_STAGES = 4 buffers (stream_hop,
+//    csrc/attention_rows.cuh), so the kernel takes any source length.
 //
 // Any configuration the JAX kernel takes (its only bound is VMEM):
 // * widths that are not multiples of 4 (or operands not 16-byte aligned)
@@ -244,8 +245,8 @@ __host__ __device__ inline int trunk_smem_floats(const EncArgs& a) {
 // The hop's attention holds the source's K | V | Q rows and each warp's
 // scores in shared memory while they fit beside the rest of the recurrent
 // block's plan in the 227 KB a block may opt in to (T <= 533 at the
-// recipes' widths); past that it streams them (attend_rows), whose tile
-// does not grow with T.
+// recipes' widths); past that it streams them (stream_hop), whose buffers
+// grow with neither T nor the head width.
 constexpr int SMEM_OPT_IN = 232448;
 __host__ __device__ inline int hop_resident_floats(const EncArgs& a) {
   return a.T * (round8(3 * a.SA) + 4) + NWARPS * a.T;
@@ -260,8 +261,7 @@ __host__ __device__ inline int rnn_smem_floats(const EncArgs& a) {
   int f = rnn_floats(a.H);
   f = imax(f, dense_floats(2 * a.H));
   f = imax(f, dense_floats(a.SA));
-  f = imax(f, hop_streams(a) ? attend_rows_floats(a.SA / a.n_heads)
-                             : hop_resident_floats(a));
+  f = imax(f, hop_streams(a) ? hop_stream_floats() : hop_resident_floats(a));
   return f + RED_FLOATS;
 }
 
@@ -741,8 +741,11 @@ __global__ void __launch_bounds__(NT, 1) encoder_trunk_kernel(EncArgs a) {
 // The recurrence's exchange: h of a step goes to the direction's blocks
 // with st.async onto the destination's mbarrier (cluster.cuh); a block
 // waits on its own mbarrier only (on an H100 a cluster barrier a step
-// cost 0.6 us more).
-template <bool kV4, int DIRB>
+// cost 0.6 us more).  kStream: the hop streamed (``hop_streams``), an
+// instance of its own, so that the resident instance's code (and its
+// LSTM loop's registers) is the one it had before the streamed hop was
+// redesigned.
+template <bool kV4, int DIRB, bool kStream>
 __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
   constexpr int NB = 2 * DIRB;                // the cluster's blocks
   constexpr int MH = DIRB * UNITS_A_BLOCK;    // the units it holds
@@ -911,17 +914,10 @@ __global__ void __launch_bounds__(NT, 1) encoder_rnn_kernel(EncArgs a) {
                      clk);
     cluster.sync();
     clk.part(P_WAIT);
-    if (hop_streams(a)) {
-      // a long source: a block takes (head, 8 query rows) items, its warps
-      // a row each, the keys streamed through shared memory
-      const int groups = cdiv(T, NWARPS);
-      for (int n = rank; n < a.n_heads * groups; n += NB) {
-        const int hh = n / groups, row0 = (n % groups) * NWARPS;
-        attend_rows<true>(kvq + 2 * SA + hh * hd, 3 * SA, kvq + hh * hd,
-                          3 * SA, kvq + SA + hh * hd, 3 * SA, ctx + hh * hd,
-                          SA, row0, imin(NWARPS, T - row0), T, hd, scale,
-                          false, smem);
-      }
+    if constexpr (kStream) {
+      // a long source: items of 64 query rows of a head, the keys streamed
+      // through shared memory in a ring of tiles (attention_rows.cuh)
+      stream_hop<kV4>(kvq, ctx, T, SA, a.n_heads, smem, rank, NB);
     } else {
       // kvq into shared memory at once, then one warp per (head, query row):
       // scores, softmax, context with lanes over the head's columns
@@ -994,7 +990,8 @@ extern "C" long long fused_encoder_smem_bytes(const EncArgs* a, int which) {
 template <bool kV4, int DIRB>
 static cudaError_t launch_instance(EncArgs& a, cudaStream_t st) {
   auto trunk = encoder_trunk_kernel<kV4>;
-  auto rnn = encoder_rnn_kernel<kV4, DIRB>;
+  auto rnn = hop_streams(a) ? encoder_rnn_kernel<kV4, DIRB, true>
+                            : encoder_rnn_kernel<kV4, DIRB, false>;
   const size_t smem_t = 4 * (size_t)trunk_smem_floats(a);
   const size_t smem_r = 4 * (size_t)rnn_smem_floats(a);
   cudaError_t e = cudaFuncSetAttribute(

@@ -32,13 +32,15 @@
 // output: one launch a step.
 // D % 4 != 0 or a base that is not 16-byte aligned takes the same kernel
 // with scalar loads (one column a lane).  D > 256, past what the rows in
-// registers hold, takes ``incremental_attention_wide_kernel``: the same
-// chunks, tickets and merge, with the columns looped instead (a warp's
-// rows' scores over strided columns, then a thread a column for p v and
-// the merge), so no width limit and no shared memory that grows with D.
-// bf16 operands (``elem`` = 1: the model-wide bf16's query and bf16 KV
-// cache) run ``incremental_attention_bf16_kernel`` up to D = 256 and the
-// wide kernel past it (the element type a template parameter).  The bf16
+// registers hold, takes ``incremental_attention_wide_kernel`` (described
+// above it): 16-position tiles folded online a warp at a time, the
+// columns in slabs of 512, 16-byte loads of K and V issued together and a
+// tile ahead, the blocks merged by tickets; any width, and no shared
+// memory that grows with D (bound: the bytes again; at S = 3000, D = 512
+// the 24.6 MB of K and V, 7.3 us).  bf16 operands (``elem`` = 1: the model-wide bf16's
+// query and bf16 KV cache) run ``incremental_attention_bf16_kernel`` up
+// to D = 256 and the wide kernel past it (the element type a template
+// parameter, 8 bf16 a 16-byte load).  The bf16
 // kernel's rows are half as wide, so it takes tiles of 64 positions, a
 // half-warp a row with one 16-byte load of 8 bf16 a lane (D % 8 == 0 and
 // 16-byte aligned bases; else one element a lane), and puts a head's
@@ -73,6 +75,7 @@ struct StepArgs {   // mirrored by _StepArgs in ops/pallas_attention.py
   float scale;      // 1 / sqrt(D)
   int passes;       // profile: 1 scores, 2 + softmax, 3 + p v, 0 all
   int elem;         // 0: float32 operands, 1: bfloat16
+  int blocks;       // the wide kernel: blocks a (head, slab)
 };
 
 namespace {
@@ -258,91 +261,6 @@ __global__ void __launch_bounds__(NT) incremental_attention_kernel(StepArgs a) {
   if (d < D) wstore(go + (size_t)bh * D + d, num / den);
 }
 
-// D > MAX_D: the chunk's scores by warps over its rows (lanes over the
-// columns), its p in shared memory, then thread d of the block sums p v
-// over the chunk's rows for columns d, d + NT, ... (coalesced rows); a
-// single chunk writes the output, else the partials and the ticket as
-// above, and the last chunk merges the chunks' (m, l) and rows column by
-// column straight from the scratch.
-template <class TE>
-__global__ void __launch_bounds__(NT)
-incremental_attention_wide_kernel(StepArgs a) {
-  __shared__ float sc[STEP_CHUNK];
-  __shared__ int last;
-  const int D = a.D, bh = blockIdx.y, c = blockIdx.x;
-  const int p0 = c * STEP_CHUNK;
-  const int n = min(STEP_CHUNK, a.t + 1 - p0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t cache = (size_t)bh * a.S * D;
-  const TE* q = static_cast<const TE*>(a.q) + (size_t)bh * D;
-  TE* go = static_cast<TE*>(a.o);
-  for (int i = 0; i < ROWS; ++i) {
-    const int r = warp + NWARPS * i;
-    float dot = 0.f;
-    if (r < n) {
-      const TE* krow = static_cast<const TE*>(a.k) + cache +
-                       (size_t)(p0 + r) * D;
-      for (int col = lane; col < D; col += 32)
-        dot = fmaf(wload(__ldg(q + col)), wload(__ldg(krow + col)), dot);
-    }
-    dot = warp_sum(dot);
-    if (lane == 0 && r < n) sc[r] = dot * a.scale;
-  }
-  __syncthreads();
-  if (a.passes == 1) return;
-  float m = -INFINITY;
-  for (int r = 0; r < n; ++r) m = fmaxf(m, sc[r]);
-  __syncthreads();   // every thread has read the scores
-  if (threadIdx.x < n) sc[threadIdx.x] = expf(sc[threadIdx.x] - m);
-  __syncthreads();
-  float l = 0.f;
-  for (int r = 0; r < n; ++r) l += sc[r];
-  if (a.passes == 2) return;
-  const int chunks = gridDim.x;
-  float* mine = a.part + ((size_t)bh * chunks + c) * (D + 2);
-  const TE* vbase = static_cast<const TE*>(a.v) + cache + (size_t)p0 * D;
-  for (int d = threadIdx.x; d < D; d += NT) {
-    float od = 0.f;
-    for (int r = 0; r < n; ++r)
-      od = fmaf(sc[r], wload(__ldg(vbase + (size_t)r * D + d)), od);
-    if (a.passes == 3) continue;
-    if (chunks == 1) wstore(go + (size_t)bh * D + d, od / l);
-    else mine[2 + d] = od;
-  }
-  if (a.passes == 3 || chunks == 1) return;
-  if (threadIdx.x == 0) {
-    mine[0] = m;
-    mine[1] = l;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned v;
-    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
-                 : "=r"(v) : "l"(a.tickets + bh) : "memory");
-    last = v == (unsigned)(chunks - 1);
-    if (last) a.tickets[bh] = 0u;
-  }
-  __syncthreads();
-  if (!last) return;
-  const float* parts = a.part + (size_t)bh * chunks * (D + 2);
-  float gm = -INFINITY;
-  for (int i = 0; i < chunks; ++i)
-    gm = fmaxf(gm, __ldcg(parts + (size_t)i * (D + 2)));
-  float den = 0.f;
-  for (int i = 0; i < chunks; ++i) {
-    const float* pi = parts + (size_t)i * (D + 2);
-    den = fmaf(expf(__ldcg(pi) - gm), __ldcg(pi + 1), den);
-  }
-  for (int d = threadIdx.x; d < D; d += NT) {
-    float num = 0.f;
-    for (int i = 0; i < chunks; ++i) {
-      const float* pi = parts + (size_t)i * (D + 2);
-      num = fmaf(expf(__ldcg(pi) - gm), __ldcg(pi + 2 + d), num);
-    }
-    wstore(go + (size_t)bh * D + d, num / den);
-  }
-}
-
 // bf16, D <= MAX_D: VEC bf16 a load (8: one 16-byte vector, 1: scalar),
 // CPL loads a lane and row; a half-warp a row (lane hl = lane % 16 of half
 // lane / 16), load j of lane hl at column (16 j + hl) VEC.  Row 16 i + 2
@@ -518,6 +436,308 @@ incremental_attention_bf16_kernel(StepArgs a) {
   if (d < D) out[d] = __float2bfloat16_rn(num / den);
 }
 
+// D > MAX_D (f32 and bf16): the cache up to t in tiles of WIDE_TILE = 16
+// positions, tile j to block j mod nb of the head (nb = ``blocks``), and
+// the columns in slabs of WIDE_SLAB = 512 (one slab up to D = 512, each
+// slab a block column of the grid: a block's scores still sum over every
+// slab of K, its values and context are its own slab's).  Each warp takes
+// two rows of a tile and folds them online into its own (m, l, o) in
+// registers, lanes over the slab's columns (VEC elements a load, CPL loads
+// a lane and row: 16-byte loads of 4 f32 or 8 bf16 where D and the bases
+// allow, else one element); K and V of a tile are loaded together, and the
+// next tile's loads are issued before the current one is used (q sits in
+// shared memory, so no register holds it).  No barrier until the block's 8
+// warps merge in shared memory (in warp order).  Where a (head, slab) has
+// more than one block, each block's (m, l, o[slab]) goes to the scratch,
+// takes a ticket, and the last to arrive brings every block's (m, l) into
+// shared memory while its loads of its columns of the partials fly,
+// computes each partial's weight e^(m_i - m) once (a thread each) and
+// folds them in block order, so two calls give the same bits.
+// ``step_plan_wide`` in ops/pallas_attention.py gives the blocks.  S =
+// 450, D = 257: 7.2 us, against 15.1 for the kernel this replaced, which
+// took a 32-position chunk a block, one row's scores after another and V
+// after them, and merged from L2 column by column; S = 3000, D = 512: 13.7
+// us against 44.2 (H100 80GB HBM3 at 700.00 W, scripts/torch_serving_ab.py
+// --cases wide).  Clusters of 8 merged first in their first block's shared
+// memory (st.async, as the bf16 narrow kernel's) took 9.4 and 13.8 us in
+// f32 and 11.6 against 12.0 in bf16 at S = 3000: too little to keep a
+// second merge for.
+constexpr int WIDE_ROWS = 2;                    // rows a warp a tile
+constexpr int WIDE_TILE = NWARPS * WIDE_ROWS;   // positions a tile
+constexpr int WIDE_SLAB = 512;                  // columns a block's slab
+constexpr int WIDE_LD = WIDE_SLAB + 2;          // a partial: m, l, o[slab]
+constexpr int WIDE_PER = WIDE_SLAB / NT;        // merge columns a thread
+constexpr int WIDE_MERGE = 32;    // partials whose columns a thread loads
+                                  // at a time in the last block's merge
+// shared memory: the warps' context rows (q's slab before them)
+constexpr int WIDE_POOL = NWARPS * WIDE_SLAB;
+
+template <class TE, int VEC>
+struct Raw;
+
+template <>
+struct Raw<float, 4> {
+  using T = float4;
+  __device__ static T load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static void widen(const T& x, float (&f)[4]) {
+    f[0] = x.x, f[1] = x.y, f[2] = x.z, f[3] = x.w;
+  }
+};
+
+template <>
+struct Raw<float, 1> {
+  using T = float;
+  __device__ static T load(const float* p) { return __ldg(p); }
+  __device__ static void widen(const T& x, float (&f)[1]) { f[0] = x; }
+};
+
+template <int VEC>
+struct Raw<__nv_bfloat16, VEC> : Bf16Raw<VEC> {};
+
+template <class TE, int VEC, int CPL>
+__global__ void __launch_bounds__(NT, 1)
+incremental_attention_wide_kernel(StepArgs a) {
+  using R = Raw<TE, VEC>;
+  using RT = typename R::T;
+  __shared__ __align__(16) float pool[WIDE_POOL];
+  __shared__ float wm[NWARPS], wl[NWARPS];
+  __shared__ int last;
+  const int D = a.D, bh = blockIdx.y, nb = a.blocks;
+  const int slab = blockIdx.x / nb, b = blockIdx.x % nb;
+  const int slabs = (D + WIDE_SLAB - 1) / WIDE_SLAB;
+  const int c0 = slab * WIDE_SLAB, width = min(WIDE_SLAB, D - c0);
+  const int tiles = a.t / WIDE_TILE + 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t cache = (size_t)bh * a.S * D;
+  const TE* gq = static_cast<const TE*>(a.q) + (size_t)bh * D;
+  const TE* gk = static_cast<const TE*>(a.k) + cache;
+  const TE* gv = static_cast<const TE*>(a.v) + cache;
+  float* sq = pool;                    // q's score slab, zero past D
+  // K of score slab ks (and V of this block's slab with ks == 0) of the
+  // warp's rows of tile j, zero past t and D
+  auto load_tile = [&](int j, int ks, RT (&kr)[WIDE_ROWS][CPL],
+                       RT (&vr)[WIDE_ROWS][CPL]) {
+#pragma unroll
+    for (int i = 0; i < WIDE_ROWS; ++i) {
+      const int p = j * WIDE_TILE + warp + NWARPS * i;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int col = (32 * c + lane) * VEC;
+        kr[i][c] = RT{};
+        if (p <= a.t && ks * WIDE_SLAB + col < D)
+          kr[i][c] = R::load(gk + (size_t)p * D + ks * WIDE_SLAB + col);
+        if (ks == 0) {
+          vr[i][c] = RT{};
+          if (p <= a.t && col < width && a.passes != 1)
+            vr[i][c] = R::load(gv + (size_t)p * D + c0 + col);
+        }
+      }
+    }
+  };
+  auto stage_q = [&](int ks) {
+    __syncthreads();   // the last slab's readers are done
+    for (int e = threadIdx.x; e < WIDE_SLAB; e += NT) {
+      const int col = ks * WIDE_SLAB + e;
+      sq[e] = col < D ? wload(__ldg(gq + col)) : 0.f;
+    }
+    __syncthreads();
+  };
+  RT kr[WIDE_ROWS][CPL], vr[WIDE_ROWS][CPL];
+  load_tile(b, 0, kr, vr);
+  stage_q(0);   // its loads behind the first tile's
+  float o[CPL][VEC];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) o[c][e] = 0.f;
+  constexpr float FLOOR = -3.0e38f;   // finite: an empty warp weighs 0
+  float m = FLOOR, l = 0.f;
+  for (int tile = b; tile < tiles; tile += nb) {
+    RT kn[WIDE_ROWS][CPL], vn[WIDE_ROWS][CPL];
+    if (tile + nb < tiles) load_tile(tile + nb, 0, kn, vn);   // in flight
+    float dot[WIDE_ROWS];
+#pragma unroll
+    for (int i = 0; i < WIDE_ROWS; ++i) dot[i] = 0.f;
+    for (int ks = 0; ks < slabs; ++ks) {
+      if (ks > 0) {   // D > WIDE_SLAB: the next slab of K and of q
+        load_tile(tile, ks, kr, vr);
+        stage_q(ks);
+      }
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        float qf[VEC];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) qf[e] = sq[(32 * c + lane) * VEC + e];
+#pragma unroll
+        for (int i = 0; i < WIDE_ROWS; ++i) {
+          float kf[VEC];
+          R::widen(kr[i][c], kf);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) dot[i] = fmaf(qf[e], kf[e], dot[i]);
+        }
+      }
+    }
+    if (slabs > 1) stage_q(0);
+    float s[WIDE_ROWS], mt = FLOOR;
+#pragma unroll
+    for (int i = 0; i < WIDE_ROWS; ++i) {
+      s[i] = tile * WIDE_TILE + warp + NWARPS * i <= a.t
+                 ? warp_sum(dot[i]) * a.scale
+                 : -INFINITY;
+      mt = fmaxf(mt, s[i]);
+    }
+    if (a.passes != 1) {
+      // the tile's rows folded into this warp's (m, l, o)
+      const float mn = fmaxf(m, mt), keep = expf(m - mn);
+      float pr[WIDE_ROWS];
+      l *= keep;
+#pragma unroll
+      for (int i = 0; i < WIDE_ROWS; ++i) {
+        pr[i] = expf(s[i] - mn);
+        l += pr[i];
+      }
+      m = mn;
+      if (a.passes != 2)
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[c][e] *= keep;
+#pragma unroll
+          for (int i = 0; i < WIDE_ROWS; ++i) {
+            float vf[VEC];
+            R::widen(vr[i][c], vf);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              o[c][e] = fmaf(pr[i], vf[e], o[c][e]);
+          }
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < WIDE_ROWS; ++i)
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        kr[i][c] = kn[i][c];
+        vr[i][c] = vn[i][c];
+      }
+  }
+  if (a.passes) return;
+
+  // the block's 8 warps merged in warp order: (gm, den, num[k]) for
+  // columns c = threadIdx.x + NT k of the slab
+  __syncthreads();   // q's slab is read; its floats hold the warps' rows
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int col = (32 * c + lane) * VEC;
+    if (col < width)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        pool[warp * WIDE_SLAB + col + e] = o[c][e];
+  }
+  if (lane == 0) {
+    wm[warp] = m;
+    wl[warp] = l;
+  }
+  __syncthreads();
+  float gm = FLOOR, den = 0.f, num[WIDE_PER];
+  for (int w = 0; w < NWARPS; ++w) gm = fmaxf(gm, wm[w]);
+#pragma unroll
+  for (int k = 0; k < WIDE_PER; ++k) num[k] = 0.f;
+  for (int w = 0; w < NWARPS; ++w) {
+    const float wt = expf(wm[w] - gm);
+    den = fmaf(wt, wl[w], den);
+#pragma unroll
+    for (int k = 0; k < WIDE_PER; ++k) {
+      const int c = threadIdx.x + NT * k;
+      if (c < width) num[k] = fmaf(wt, pool[w * WIDE_SLAB + c], num[k]);
+    }
+  }
+  TE* out = static_cast<TE*>(a.o) + (size_t)bh * D + c0;
+  if (nb == 1) {
+#pragma unroll
+    for (int k = 0; k < WIDE_PER; ++k) {
+      const int c = threadIdx.x + NT * k;
+      if (c < width) wstore(out + c, num[k] / den);
+    }
+    return;
+  }
+  // the partials of this (head, slab): rows of m, l, o[width]
+  const int rl = width + 2;
+  const size_t hs = (size_t)bh * slabs + slab;
+  float* parts = a.part + hs * nb * WIDE_LD;
+  float* mine = parts + (size_t)b * rl;
+  if (threadIdx.x == 0) {
+    mine[0] = gm;
+    mine[1] = den;
+  }
+#pragma unroll
+  for (int k = 0; k < WIDE_PER; ++k) {
+    const int c = threadIdx.x + NT * k;
+    if (c < width) mine[2 + c] = num[k];
+  }
+  // the ticket, as the narrow kernel's: the last of the nb partials merges
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned v;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+                 : "=r"(v) : "l"(a.tickets + hs) : "memory");
+    last = v == (unsigned)(nb - 1);
+    if (last) a.tickets[hs] = 0u;
+  }
+  __syncthreads();
+  if (!last) return;
+  // thread i < nb brings partial i's (m, l) into shared memory while every
+  // thread's loads of its columns of the first WIDE_MERGE partials fly;
+  // each partial's weight e^(m_i - m) is computed once (by thread i), and
+  // the columns are summed over the partials in order
+  float* pw = pool;        // nb weights
+  float* pl = pool + NT;   // nb sums
+  float ov[WIDE_MERGE][WIDE_PER];
+  auto load_o = [&](int i0) {
+#pragma unroll
+    for (int i = 0; i < WIDE_MERGE; ++i)
+#pragma unroll
+      for (int k = 0; k < WIDE_PER; ++k) {
+        const int c = threadIdx.x + NT * k;
+        ov[i][k] = i0 + i < nb && c < width
+                       ? __ldcg(parts + (size_t)(i0 + i) * rl + 2 + c)
+                       : 0.f;
+      }
+  };
+  load_o(0);
+  float mi = FLOOR;
+  if (threadIdx.x < nb) {
+    mi = __ldcg(parts + (size_t)threadIdx.x * rl);
+    pl[threadIdx.x] = __ldcg(parts + (size_t)threadIdx.x * rl + 1);
+    pw[threadIdx.x] = mi;
+  }
+  __syncthreads();
+  gm = FLOOR;
+  for (int i = 0; i < nb; ++i) gm = fmaxf(gm, pw[i]);
+  __syncthreads();   // every thread has the max
+  if (threadIdx.x < nb) pw[threadIdx.x] = expf(mi - gm);
+  __syncthreads();
+  den = 0.f;
+  for (int i = 0; i < nb; ++i) den = fmaf(pw[i], pl[i], den);
+#pragma unroll
+  for (int k = 0; k < WIDE_PER; ++k) num[k] = 0.f;
+  for (int i0 = 0; i0 < nb; i0 += WIDE_MERGE) {
+    if (i0 > 0) load_o(i0);
+#pragma unroll
+    for (int i = 0; i < WIDE_MERGE; ++i)
+      if (i0 + i < nb)
+#pragma unroll
+        for (int k = 0; k < WIDE_PER; ++k)
+          num[k] = fmaf(pw[i0 + i], ov[i][k], num[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < WIDE_PER; ++k) {
+    const int c = threadIdx.x + NT * k;
+    if (c < width) wstore(out + c, num[k] / den);
+  }
+}
+
 __global__ void empty_kernel() {}
 
 template <int VEC, int CPL>
@@ -562,6 +782,35 @@ cudaError_t launch_bf16_narrow(const StepArgs& a, cudaStream_t s) {
   return launch_bf16<1, MAX_D / 16>(a, nb, s);
 }
 
+template <class TE, int VEC, int CPL>
+cudaError_t launch_wide_instance(const StepArgs& a, cudaStream_t s) {
+  const dim3 grid(a.blocks * ((a.D + WIDE_SLAB - 1) / WIDE_SLAB), a.bh);
+  incremental_attention_wide_kernel<TE, VEC, CPL><<<grid, NT, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// the wide kernel's plan (``step_plan_wide`` in ops/pallas_attention.py):
+// ``blocks`` a (head, slab), at most its tiles
+cudaError_t launch_wide(const StepArgs& a, cudaStream_t s) {
+  const int tiles = a.t / WIDE_TILE + 1;
+  if (a.blocks < 1 || a.blocks > tiles || a.blocks > NT ||
+      (a.blocks > 1 && (a.part == nullptr || a.tickets == nullptr)))
+    return cudaErrorInvalidValue;
+  // one element a lane where D or a base rules out 16-byte loads: 9 loads
+  // a lane and row cover D <= 288 (the edge a 257-wide head sits at), 16
+  // a slab
+  const uintptr_t bases = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v;
+  const bool vec = bases % 16 == 0 && a.D % (a.elem ? 8 : 4) == 0;
+  const bool narrow = a.D <= 9 * 32;
+  if (a.elem)
+    return vec ? launch_wide_instance<__nv_bfloat16, 8, 2>(a, s)
+           : narrow ? launch_wide_instance<__nv_bfloat16, 1, 9>(a, s)
+                    : launch_wide_instance<__nv_bfloat16, 1, 16>(a, s);
+  return vec ? launch_wide_instance<float, 4, 4>(a, s)
+         : narrow ? launch_wide_instance<float, 1, 9>(a, s)
+                  : launch_wide_instance<float, 1, 16>(a, s);
+}
+
 }  // namespace
 
 extern "C" int incremental_attention_empty_launch(void* stream) {
@@ -573,23 +822,16 @@ extern "C" int incremental_attention_launch(const StepArgs* args,
                                             void* stream) {
   const StepArgs a = *args;
   const bool bf16_narrow = a.elem == 1 && a.D <= MAX_D;
+  const int chunk = a.D > MAX_D ? WIDE_TILE
+                                : bf16_narrow ? BF_TILE : STEP_CHUNK;
   if (a.bh < 1 || a.bh > 65535 || a.D < 1 || a.t < 0 || a.t >= a.S ||
-      a.chunk != (bf16_narrow ? BF_TILE : STEP_CHUNK) ||
-      (a.elem != 0 && a.elem != 1))
+      a.chunk != chunk || (a.elem != 0 && a.elem != 1))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (bf16_narrow) return (int)launch_bf16_narrow(a, s);
+  if (a.D > MAX_D) return (int)launch_wide(a, s);
   const int chunks = (a.t + STEP_CHUNK) / STEP_CHUNK;
   if (chunks > 1 && (a.part == nullptr || a.tickets == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (a.D > MAX_D) {
-    if (a.elem)
-      incremental_attention_wide_kernel<__nv_bfloat16>
-          <<<dim3(chunks, a.bh), NT, 0, s>>>(a);
-    else
-      incremental_attention_wide_kernel<float>
-          <<<dim3(chunks, a.bh), NT, 0, s>>>(a);
-    return (int)cudaGetLastError();
-  }
   return (int)launch_f32(a, chunks, s);
 }

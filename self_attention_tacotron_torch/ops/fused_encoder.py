@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -53,6 +53,12 @@ RED_FLOATS, RNN_GX_STEPS, NWARPS = 512, 32, 8
 UNITS_A_BLOCK = 32   # the recurrent cluster: 32 units a block,
 MAX_HALF = 256       # 4 blocks a direction up to 128 units, 8 up to 256
 SMEM_LIMIT = 232448  # bytes a block may opt in to on the H100 (227 KB)
+# the streamed hop (csrc/attention_rows.cuh): query rows an item (four
+# 16-row tiles), keys a tile (two halves, each folded by its own warps),
+# columns a chunk of a score's sum and a pass of the context, buffers in
+# its ring, floats of a lane's state that the second key half hands the
+# first
+HOP_ROWS, HOP_KEYS, HOP_COLS, HOP_STAGES, HOP_STATE = 64, 64, 16, 4, 12
 
 
 Tensor = torch.Tensor
@@ -195,8 +201,8 @@ def smem_bytes(T: int, E_in: int, prenet: Tuple[int, ...], K: int, C: int,
     steps of the gates' input halves and two mbarriers (its recurrent
     weights stay in registers), or its hop's items, or its hop's K | V | Q
     rows and scores while they fit in ``SMEM_LIMIT`` beside the rest, else
-    (``hop_streams``) the streamed hop's key tile, query rows, contexts
-    and weights (``attend_rows_floats``)."""
+    (``hop_streams``) the streamed hop's ring of 4 buffers of query, key
+    and value rows and its fragment swap (``hop_stream_floats``)."""
     f, E = _dense(E_in), E_in
     for n in prenet:
         f, E = max(f, _dense(E)), n
@@ -209,7 +215,7 @@ def smem_bytes(T: int, E_in: int, prenet: Tuple[int, ...], K: int, C: int,
             _dense(P2), _dense(W))
     r = max(_rnn_floats(H), _dense(2 * H), _dense(SA))
     if hop_streams(T, H, SA):
-        r = max(r, attend_rows_floats(SA // heads))
+        r = max(r, hop_stream_floats())
     else:
         r = max(r, _hop_resident(T, SA))
     return 4 * (f + RED_FLOATS), 4 * (r + RED_FLOATS)
@@ -242,11 +248,29 @@ def hop_streams(T: int, H: int, SA: int) -> bool:
     return 4 * (r + RED_FLOATS) > SMEM_LIMIT
 
 
-def attend_rows_floats(D: int) -> int:
-    """The streamed hop's shared memory at head width D (mirrors
-    csrc/attention_rows.cuh): a tile of 32 keys at an odd row stride, each
-    warp's query row and context, each warp's tile of weights."""
-    return 32 * (D | 1) + 2 * NWARPS * D + NWARPS * 32
+def hop_stream_floats() -> int:
+    """The streamed hop's shared memory (mirrors ``hop_stream_floats`` in
+    csrc/attention_rows.cuh): a ring of ``HOP_STAGES`` buffers, each an
+    item's ``HOP_ROWS`` query rows and a tile's ``HOP_KEYS`` K and V rows,
+    ``HOP_COLS`` columns of each at a stride of ``HOP_COLS + 4``, and the
+    second key half's lanes' states; it grows with neither T nor the head
+    width."""
+    return (HOP_STAGES * (HOP_ROWS + 2 * HOP_KEYS) * (HOP_COLS + 4)
+            + 4 * 32 * HOP_STATE)
+
+
+def hop_stream_items(T: int, heads: int, blocks: int,
+                     rows: int = HOP_ROWS) -> List[List[Tuple[int, int,
+                                                                int]]]:
+    """The streamed hop's items on each of the recurrent cluster's
+    ``blocks`` (``stream_hop`` in csrc/attention_rows.cuh): (head, first
+    query row, rows), ``rows`` query rows of one head an item, item n of
+    the heads x ceil(T / rows) on block n % blocks, in order."""
+    groups = -(-T // rows)
+    return [[(n // groups, (n % groups) * rows,
+              min(rows, T - (n % groups) * rows))
+             for n in range(b, heads * groups, blocks)]
+            for b in range(blocks)]
 
 
 class EncoderWidths(NamedTuple):

@@ -23,8 +23,10 @@ kernels for sm_90a, built by ``ops/cuda_build.py`` and called through
   to t in chunks of 32 positions, one block each, merged by the chunk that
   finishes last in the same launch; in bf16 tiles of 64 positions over at
   most 8 blocks a head in one thread-block cluster, merged in the first
-  block's shared memory (``step_plan_bf16``); positions > t never read, t
-  a kernel argument).
+  block's shared memory (``step_plan_bf16``); past 256 wide, in either
+  dtype, tiles of 16 positions folded a warp at a time over the blocks of
+  ``step_plan_wide``, merged by tickets; positions > t never read, t a
+  kernel argument).
 
 ``ops/attention_core.py`` selects them under ``use_pallas`` where no dropout
 is active, as the JAX package does.  Heads wider than the full-sequence
@@ -38,7 +40,8 @@ the full sequence, B * H past a grid).  Each has a plain PyTorch version
 launches the kernel or raises, on a type, shape, layout or width the
 kernel does not take and on an input that needs a gradient (neither
 kernel has a backward; with the recipe's attention dropout neither runs in
-training).  Each wrapper's ``launches`` counts its kernel launches.
+training).  Each wrapper's ``launches`` counts its kernel launches (the
+step's wide kernel, D > 256, in ``launches_wide``).
 
 Both kernels take float32 or bfloat16 operands (every operand of a call in
 one dtype; anything else raises, on the CPU too): bf16 q, k and v (the
@@ -94,6 +97,14 @@ STEP_CHUNK = 32
 STEP_MAX_D = 256
 STEP_BF16_TILE = 64
 STEP_BF16_CLUSTER = 8
+# its wide kernel (D > STEP_MAX_D): positions a tile (8 warps x 2 rows),
+# columns a slab (a block column of the grid), blocks of all heads and
+# slabs at most (one an SM, on 96 of an H100's 132; chosen by timing 64 to
+# 132 blocks at S = 3000, D = 512: ``scripts/torch_serving_ab.py --cases
+# wide-plan``)
+STEP_WIDE_TILE = 16
+STEP_WIDE_SLAB = 512
+STEP_WIDE_FILL = 96
 # what prepare_step(passes=i + 1) keeps of the kernel (the last: all of it)
 STEP_PASSES = ("scores", "softmax", "values", "all")
 
@@ -153,7 +164,8 @@ class _StepArgs(ctypes.Structure):
                 ("tickets", _P), ("bh", ctypes.c_int), ("S", ctypes.c_int),
                 ("D", ctypes.c_int), ("t", ctypes.c_int),
                 ("chunk", ctypes.c_int), ("scale", ctypes.c_float),
-                ("passes", ctypes.c_int), ("elem", ctypes.c_int)]
+                ("passes", ctypes.c_int), ("elem", ctypes.c_int),
+                ("blocks", ctypes.c_int)]
 
 
 class AttnPlan(NamedTuple):
@@ -267,6 +279,44 @@ def step_plan(bh: int, t: int, D: int) -> Tuple[int, int]:
     context row (D + 2 floats) for the last one to merge."""
     chunks = t // STEP_CHUNK + 1
     return chunks, (bh * chunks * (D + 2) if chunks > 1 else 0)
+
+
+class WidePlan(NamedTuple):
+    """One launch of the step's wide kernel: ``blocks`` of each (head,
+    slab), tile j of a head to block j mod blocks; with more than one,
+    each block leaves its partial to the scratch (``part_floats`` floats,
+    0 for one block) and the last to take a ticket (one of ``tickets``
+    words) merges them."""
+
+    blocks: int
+    slabs: int
+    part_floats: int
+    tickets: int
+
+
+def step_plan_wide(bh: int, t: int, D: int) -> WidePlan:
+    """The wide kernel's plan at position ``t`` (mirrors its launcher's
+    checks in csrc/incremental_attention.cu): D in slabs of
+    ``STEP_WIDE_SLAB`` columns; the cache up to t in tiles of
+    ``STEP_WIDE_TILE``, over as many blocks a (head, slab) as fill
+    ``STEP_WIDE_FILL`` with all heads and slabs, never more than the tiles
+    (no block is empty)."""
+    tiles = t // STEP_WIDE_TILE + 1
+    slabs = -(-D // STEP_WIDE_SLAB)
+    blocks = min(tiles, max(1, STEP_WIDE_FILL // (bh * slabs)))
+    return WidePlan(blocks, slabs,
+                    bh * slabs * blocks * (STEP_WIDE_SLAB + 2)
+                    if blocks > 1 else 0, bh * slabs)
+
+
+def step_plan_wide_tiles(plan: WidePlan, t: int) -> List[List[Tuple[int,
+                                                                    int]]]:
+    """The [first, end) positions of the tiles each block of a (head,
+    slab) folds under ``plan``, in order."""
+    tiles = t // STEP_WIDE_TILE + 1
+    return [[(j * STEP_WIDE_TILE, min((j + 1) * STEP_WIDE_TILE, t + 1))
+             for j in range(b, tiles, plan.blocks)]
+            for b in range(plan.blocks)]
 
 
 def step_plan_bf16(t: int) -> List[List[Tuple[int, int]]]:
@@ -431,9 +481,9 @@ def launch_floor(device) -> Callable[[], None]:
 def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
                  passes: int = 0) -> cuda_build.KernelLaunch:
     """Check the operands and lay out one step's launch (its scratch from
-    ``step_plan``; the bf16 kernel's plan, ``step_plan_bf16``, needs none).
-    ``passes`` cuts the f32 and wide kernels short for a profile: pass
-    i + 1 keeps ``STEP_PASSES[:i + 1]`` (0: all of it)."""
+    ``step_plan``, or from ``step_plan_wide`` past ``STEP_MAX_D``; the bf16
+    kernel's plan, ``step_plan_bf16``, needs none).  ``passes`` cuts the f32 and wide kernels short for a
+    profile: pass i + 1 keeps ``STEP_PASSES[:i + 1]`` (0: all of it)."""
     if key_cache.dim() != 4:
         raise ValueError(f"key_cache: expected (B, H, S, D), got "
                          f"{tuple(key_cache.shape)}")
@@ -447,26 +497,37 @@ def prepare_step(q_t: Tensor, key_cache: Tensor, value_cache: Tensor, t: int,
         raise ValueError(f"incremental_attention_step takes D >= 1, 0 <= t "
                          f"< S and B * H <= {MAX_GRID_Y}; got D={D}, t={t}, "
                          f"S={S}, B * H={B * H}")
-    bf16_narrow = bf16 and D <= STEP_MAX_D
+    wide = D > STEP_MAX_D
+    bf16_narrow = bf16 and not wide
     if bf16_narrow and passes:
         raise ValueError("the bf16 kernel has no profile cuts (passes)")
     out = torch.empty_like(q_t)
-    chunk, floats = ((STEP_BF16_TILE, 0) if bf16_narrow
-                     else (STEP_CHUNK, step_plan(B * H, t, D)[1]))
+    blocks = 0
+    words = B * H
+    if wide:
+        plan = step_plan_wide(B * H, t, D)
+        chunk, floats, words = STEP_WIDE_TILE, plan.part_floats, plan.tickets
+        blocks = plan.blocks
+    elif bf16_narrow:
+        chunk, floats = STEP_BF16_TILE, 0
+    else:
+        chunk, floats = STEP_CHUNK, step_plan(B * H, t, D)[1]
     part = torch.empty(floats, device=q_t.device)
-    tickets = cuda_build.ticket_words(q_t.device, B * H, "step")
+    tickets = cuda_build.ticket_words(q_t.device, words, "step")
     args = _StepArgs(q_t.data_ptr(), key_cache.data_ptr(),
                      value_cache.data_ptr(), out.data_ptr(),
                      part.data_ptr() if floats else None,
                      tickets.data_ptr(), B * H, S, D, t, chunk,
-                     1.0 / math.sqrt(D), int(passes), int(bf16))
+                     1.0 / math.sqrt(D), int(passes), int(bf16), blocks)
     return cuda_build.KernelLaunch(
         _fn("incremental_attention", _StepArgs), args,
         (q_t, key_cache, value_cache, out, part, tickets), out, q_t.device,
         incremental_attention_step,
-        counter="launches_bf16" if bf16 else "launches")
+        counter="launches_wide" if wide else
+        "launches_bf16" if bf16 else "launches")
 
 
 fused_self_attention.launches = fused_self_attention.launches_bf16 = 0
 incremental_attention_step.launches = 0
 incremental_attention_step.launches_bf16 = 0
+incremental_attention_step.launches_wide = 0

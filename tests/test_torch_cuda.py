@@ -7,9 +7,13 @@ layers, r = 2, additive-only sources, cumulative location weights, early
 stop; the Pallas-mode attention kernels at small and recipe shapes (head
 widths 4 to 128, T not a multiple of 64, t at both ends of the cache; the
 full-sequence kernel at the edges of its 16-row warp tiles, with 4-byte
-copies, at T = 3000, with |q.k| ~ 1e3, its plan and its profile) and
-the model's serving and VALIDATION decodes in that mode; the spectrogram
-kernel from the signal at F = 1, a prime F, LJSpeech and VCTK widths and
+copies, at T = 3000, with |q.k| ~ 1e3, its plan and its profile; the
+step's wide kernel past D = 256 in both dtypes, the same bits from call
+to call) and the model's serving and VALIDATION
+decodes in that mode; the encoder with its hop streamed (T past its
+resident plan, at the recipe's and the widened encoders' widths, 1e-5);
+the spectrogram kernel from the signal at F = 1, a prime F, LJSpeech and
+VCTK widths and
 signals shorter than the reflect pad, its direct DFT on the tensor cores
 (n_fft 2 to 32766, prime, a window narrower than n_fft, both sides of
 where its twiddle table stops fitting in shared memory, the same bits
@@ -120,31 +124,6 @@ RECIPE_ENC = dict(embedding_dim=256, encoder_prenet_out_units=(256, 128),
                   self_attention_out_units=32)
 
 
-@pytest.mark.parametrize("kw,T,L", [
-    ({}, 32, 32),
-    ({}, 32, 13),
-    ({"max_filter_width": 5, "cbhg_out_units": 24,
-      "self_attention_num_hop": 2}, 40, 29),
-    ({}, 32, 1),
-    (RECIPE_ENC, 64, 1),
-    (RECIPE_ENC, 64, 64),
-    (RECIPE_ENC, 64, 50),
-    (RECIPE_ENC, 70, 33),
-    (RECIPE_ENC, 100, 77),     # two 64-row tiles
-])
-@torch.no_grad()
-def test_fused_encode_kernel_matches_plain(device, kw, T, L):
-    params, x, kwargs = _enc_case(_model(device, **kw), T, L, device)
-    before = fe.fused_encode.launches
-    got = fe.fused_encode(params, x, L, **kwargs)
-    ref = fe.fused_encode_reference(params, x, L, **kwargs)
-    torch.cuda.synchronize()
-    assert fe.fused_encode.launches == before + 1
-    for g, r in zip(got, ref):
-        _close(g, r)
-    assert bool((got[0][0, L:] == 0).all())
-
-
 # configurations the encoder kernel takes since it was widened: widths that
 # are not multiples of 4 (the 4-byte copies), an odd LSTM half, 129 and 256
 # units a direction (the 16-block cluster), more prenet, highway and hop
@@ -162,10 +141,49 @@ WIDE_ENC = {
 }
 
 
+@pytest.mark.parametrize("kw,T,L", [
+    ({}, 32, 32),
+    ({}, 32, 13),
+    ({"max_filter_width": 5, "cbhg_out_units": 24,
+      "self_attention_num_hop": 2}, 40, 29),
+    ({}, 32, 1),
+    (RECIPE_ENC, 64, 1),
+    (RECIPE_ENC, 64, 64),
+    (RECIPE_ENC, 64, 50),
+    (RECIPE_ENC, 70, 33),
+    (RECIPE_ENC, 100, 77),     # two 64-row tiles
+    # the hop streamed (``hop_streams``): the recipe past T = 533, a long
+    # source, and widths that stream from T = 1310 (odd, the 4-byte
+    # copies, a 5-wide head, two hops) and 1601 (the 16-block cluster;
+    # five hops)
+    (RECIPE_ENC, 534, 534),
+    (RECIPE_ENC, 600, 600),
+    (RECIPE_ENC, 600, 541),
+    (RECIPE_ENC, 2049, 2049),
+    (WIDE_ENC["odd_widths"], 1400, 1333),
+    (dict(WIDE_ENC["odd_widths"], self_attention_num_hop=2), 1310, 1310),
+    (WIDE_ENC["H129"], 1700, 1700),
+    (WIDE_ENC["layers"], 1650, 1601),
+])
+@torch.no_grad()
+def test_fused_encode_kernel_matches_plain(device, kw, T, L):
+    params, x, kwargs = _enc_case(_model(device, **kw), T, L, device)
+    before = fe.fused_encode.launches
+    got = fe.fused_encode(params, x, L, **kwargs)
+    ref = fe.fused_encode_reference(params, x, L, **kwargs)
+    torch.cuda.synchronize()
+    assert fe.fused_encode.launches == before + 1
+    streams = fe.hop_streams(T, kwargs["half"], kwargs["sa_units"])
+    for g, r in zip(got, ref):   # the streamed hop: chip_smoke's TOL_ENCODE
+        _close(g, r, tol=1e-5 if streams else TOL)
+    assert bool((got[0][0, L:] == 0).all())
+
+
 @pytest.mark.parametrize("kw,T", [({}, 32), (RECIPE_ENC, 64),
                                   ({"max_filter_width": 5,
                                     "cbhg_out_units": 24}, 40),
                                   (RECIPE_ENC, 600),
+                                  (RECIPE_ENC, 2000),
                                   (WIDE_ENC["odd_widths"], 40),
                                   (WIDE_ENC["H129"], 40),
                                   (WIDE_ENC["layers"], 40)])
@@ -1207,6 +1225,7 @@ def test_pallas_gates_at_the_head_width_edges_on_the_card(device, D):
     x = _normal(device, 1, 40, 2 * D, seed=D)
     pa.fused_self_attention.launches = 0
     pa.incremental_attention_step.launches = 0
+    pa.incremental_attention_step.launches_wide = 0
     _close(mha(x, x, x)[0], ref(x, x, x)[0], tol=1e-5)
     cache, cache_r = mha.init_cache(1, 40, device), ref.init_cache(1, 40,
                                                                   device)
@@ -1215,7 +1234,9 @@ def test_pallas_gates_at_the_head_width_edges_on_the_card(device, D):
         y_r, cache_r, _ = ref.step(x[:, t], t, cache_r)
         _close(y, y_r, tol=1e-5)
     assert pa.fused_self_attention.launches == 1
-    assert pa.incremental_attention_step.launches == 40
+    wide = D > pa.STEP_MAX_D    # the wide kernel counts apart
+    assert pa.incremental_attention_step.launches == (0 if wide else 40)
+    assert pa.incremental_attention_step.launches_wide == (40 if wide else 0)
     q = _normal(device, 1, 2, 8, pa.MAX_HEAD_DIM + 1)
     with pytest.raises(ValueError, match="head width"):
         pa.fused_self_attention(q, q, q)
@@ -1280,18 +1301,68 @@ def test_wide_split_tickets_reset_between_calls(device, dtype):
         assert torch.equal(got, got2)
 
 
+# the wide step kernel: t at its 16-position tiles' edges and where its
+# blocks fold more than one tile, a slab of 512 and several, ragged widths
+# (the scalar loads, 9 a lane up to D = 288, 16 past it), the SIWIS cache
+# at D = 512
+WIDE_STEP_CASES = [(257, 40, 0), (257, 40, 15), (257, 40, 16), (257, 40, 39),
+                   (287, 100, 99), (289, 100, 99), (300, 450, 449),
+                   (512, 3000, 2999), (512, 3000, 1000), (1000, 300, 250),
+                   (2050, 70, 65), (1030, 600, 599)]
+
+
 @torch.no_grad()
-@pytest.mark.parametrize("D,S,t", [(257, 40, 0), (257, 40, 39),
-                                   (1000, 300, 250), (2050, 70, 65)])
-def test_wide_step_kernel_matches_plain(device, D, S, t):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,S,t", WIDE_STEP_CASES)
+def test_wide_step_kernel_matches_plain(device, D, S, t, dtype):
+    """The wide kernel (D > 256), f32 within 1e-5 of the plain version,
+    bf16 within 1e-2 of its largest magnitude; its launches count in
+    ``launches_wide`` only."""
     from self_attention_tacotron_torch.ops import pallas_attention as pa
-    q = _normal(device, 2, 2, D, seed=0)
-    kc, vc = (_normal(device, 2, 2, S, D, seed=s) for s in (1, 2))
-    before = pa.incremental_attention_step.launches
-    got = pa.incremental_attention_step(q, kc, vc, t)
-    assert pa.incremental_attention_step.launches == before + 1
-    _close(got, pa.incremental_attention_step_reference(q, kc, vc, t),
-           tol=1e-5)
+    q = _normal(device, 2, 2, D, seed=t).to(dtype)
+    kc, vc = (_normal(device, 2, 2, S, D, seed=s).to(dtype) for s in (1, 2))
+    fn = pa.incremental_attention_step
+    before = (fn.launches, fn.launches_bf16, fn.launches_wide)
+    got = pa.prepare_step(q, kc, vc, t)()
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16, fn.launches_wide) == (
+        before[0], before[1], before[2] + 1)
+    ref = pa.incremental_attention_step_reference(q, kc, vc, t)
+    if dtype == torch.float32:
+        _close(got, ref, tol=1e-5)
+    else:
+        _close_bf16(got, ref)
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_step_is_the_same_from_call_to_call(device, dtype):
+    """Wide-kernel calls of different plans queued on one stream without a
+    sync, twice: the merge folds only its own partials (the last to take
+    a ticket leaves its word at 0) in a fixed order, so the second round
+    gives the first one's bits; a base that is not 16-byte aligned takes
+    the scalar loads."""
+    from self_attention_tacotron_torch.ops import pallas_attention as pa
+    B, H, S, D = 1, 2, 3000, 512
+    kc, vc = (_normal(device, B, H, S, D, seed=s).to(dtype) for s in (1, 2))
+    flat = _normal(device, 2 * B * H * S * D + 1, seed=4).to(dtype)
+    ko = flat[1:1 + B * H * S * D].view(B, H, S, D)
+    vo = flat[1 + B * H * S * D:].view(B, H, S, D)
+    assert ko.data_ptr() % 16 and ko.is_contiguous()
+    cases = [(kc, vc, t) for t in (S - 1, 40, 449, 0, 16 * 120 + 5)]
+    cases.append((ko, vo, S - 1))
+    qs = [_normal(device, B, H, D, seed=10 + i).to(dtype)
+          for i in range(len(cases))]
+    rounds = [[pa.prepare_step(q, k, v, t)()
+               for q, (k, v, t) in zip(qs, cases)] for _ in range(2)]
+    torch.cuda.synchronize()
+    for q, (k, v, t), first, second in zip(qs, cases, *rounds):
+        assert torch.equal(first, second)
+        ref = pa.incremental_attention_step_reference(q, k, v, t)
+        if dtype == torch.float32:
+            _close(first, ref, tol=1e-5)
+        else:
+            _close_bf16(first, ref)
 
 
 @torch.no_grad()

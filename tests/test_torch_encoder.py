@@ -151,3 +151,120 @@ def test_profile_split_scales_to_the_measured_time():
     assert all(len(p) == len(fe.ENC_PARTS) for p in split.values())
     assert abs(sum(sum(p) for p in split.values()) - 250.0) < 1e-9
     assert fe.format_split(split).startswith("prenet ")
+
+
+def tf32_split(x):
+    """x ~= hi + lo, each rounded to TF32 (11 significant bits, nearest)
+    by the integer add and mask of ``tf32_rn`` (csrc/mma.cuh)."""
+    def rn(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rn(x)
+    return hi, rn(x - hi)
+
+
+def mma3(a, b):
+    """(m, k) @ (k, n) in 8-deep steps of the 3xTF32 split (``mma3``): each
+    step's three products (small ones first) from zero, added in float32
+    to the running sum."""
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], 8):
+        ah, al = tf32_split(a[:, k0:k0 + 8])
+        bh, bl = tf32_split(b[k0:k0 + 8])
+        acc = acc + ((al @ bh + ah @ bl) + ah @ bh)
+    return acc
+
+
+def stream_hop_mirror(kvq, SA, heads, blocks=8, rows=fe.HOP_ROWS,
+                      keys=fe.HOP_KEYS, cols=fe.HOP_COLS):
+    """The streamed hop's order of sums (``stream_hop`` in
+    csrc/attention_rows.cuh) in float32 on (T, 3 SA) K | V | Q rows: each
+    block's items of ``rows`` query rows (``fe.hop_stream_items``), the
+    context a pass of ``cols`` columns at a time; in a pass each key
+    tile's two halves folded online apart (their own row max, sum and
+    context), the scores summed over the head's columns chunk by chunk
+    and both products in the 3xTF32 split 8 deep at a time; at the pass's
+    end the second half merged into the first and the row is o / l."""
+    T, hd = kvq.shape[0], SA // heads
+    scale = torch.rsqrt(torch.tensor(float(hd)))
+    P, tiles, half = -(-hd // cols), -(-T // keys), keys // 2
+    pad = torch.zeros(tiles * keys + rows, 3 * SA + P * cols)
+    pad[:T, :3 * SA] = kvq
+    ctx = torch.zeros(T, SA)
+    floor = torch.tensor(-3.0e38)
+    for items in fe.hop_stream_items(T, heads, blocks, rows):
+        for hh, row0, n in items:
+            q = torch.zeros(rows, P * cols)   # zero past the head
+            q[:, :hd] = pad[row0:row0 + rows, 2 * SA + hh * hd:][:, :hd]
+            for c in range(P):
+                m = torch.full((2, rows), -3.0e38)
+                l, o = torch.zeros(2, rows), torch.zeros(2, rows, cols)
+                for tile in range(tiles):
+                    for h in range(2):
+                        k0 = tile * keys + h * half
+                        k = torch.zeros(half, P * cols)
+                        k[:, :hd] = pad[k0:k0 + half, hh * hd:][:, :hd]
+                        sc = torch.zeros(rows, half)
+                        for e in range(0, P * cols, cols):   # chunks
+                            sc = sc + mma3(q[:, e:e + cols],
+                                           k[:, e:e + cols].t())
+                        pos = k0 + torch.arange(half)
+                        sc = torch.where(pos[None] < T, sc * scale,
+                                         torch.tensor(-float("inf")))
+                        mn = torch.maximum(m[h], torch.maximum(
+                            sc.amax(-1), floor))
+                        keep = torch.exp(m[h] - mn)
+                        p = torch.exp(sc - mn[:, None])
+                        v = pad[k0:k0 + half, SA + hh * hd + c * cols:]
+                        l[h] = l[h] * keep + p.sum(-1)
+                        o[h] = o[h] * keep[:, None] + mma3(p, v[:, :cols])
+                        m[h] = mn
+                mm = torch.maximum(m[0], m[1])
+                a, b = torch.exp(m[0] - mm), torch.exp(m[1] - mm)
+                out = (a[:, None] * o[0] + b[:, None] * o[1]) / (
+                    a * l[0] + b * l[1])[:, None]
+                w = min(cols, hd - c * cols)
+                ctx[row0:row0 + n, hh * hd + c * cols:][:, :w] = out[:n, :w]
+    return ctx
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_hop(T, SA, heads):
+    """The JAX encoder kernel's hop attention (``_kernel``'s per-head
+    softmax over all rows, with its ``_mm``), jitted once a shape."""
+    import jax.numpy as jnp
+    from self_attention_tacotron_tpu.ops import fused_encoder as jfe
+    hd = SA // heads
+
+    def hop(kvq):
+        ctxs = []
+        for hh in range(heads):
+            k = kvq[:, hh * hd:(hh + 1) * hd]
+            v = kvq[:, SA + hh * hd:SA + (hh + 1) * hd]
+            q = kvq[:, 2 * SA + hh * hd:2 * SA + (hh + 1) * hd]
+            s = jax.lax.dot_general(
+                q, k, dimension_numbers=(((1,), (1,)), ((), ())),
+                preferred_element_type=jnp.float32) * (1.0 / hd ** 0.5)
+            ex = jnp.exp(s - jnp.max(s, axis=1, keepdims=True))
+            ctxs.append(jfe._mm(ex / jnp.sum(ex, axis=1, keepdims=True), v))
+        return jnp.concatenate(ctxs, axis=1)
+    return jax.jit(hop)
+
+
+@pytest.mark.parametrize("T", [70, 200])
+@pytest.mark.parametrize("hd", [16, 17, 32])
+def test_streamed_hop_order_matches_jax_hop(hd, T):
+    """The streamed hop's order of sums, with its tiles scaled down
+    (16-row items over 8 blocks, 16-key tiles, 8-column chunks) so that
+    the mirror streams several items, tiles, chunks and passes, within
+    1e-5 of the JAX kernel's hop; at the kernel's own sizes too."""
+    heads = 2
+    SA = heads * hd
+    kvq = randn(hd + T, T, 3 * SA) * 2.0
+    ref = np.asarray(_jax_hop(T, SA, heads)(kvq))
+    small = stream_hop_mirror(torch.from_numpy(kvq), SA, heads, rows=16,
+                              keys=16, cols=8)
+    np.testing.assert_allclose(small.numpy(), ref, rtol=1e-5, atol=1e-5)
+    if hd == 17:
+        full = stream_hop_mirror(torch.from_numpy(kvq), SA, heads)
+        np.testing.assert_allclose(full.numpy(), ref, rtol=1e-5, atol=1e-5)

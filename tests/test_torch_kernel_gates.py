@@ -93,6 +93,47 @@ def test_encoder_plan_edge_at_the_recipe_widths(T, fits):
     assert (rnn == resident) == (T > 64 and fits)
 
 
+# the encoder widths the streamed hop is checked at: the recipes', 129 and
+# 256 LSTM units a direction (the 16-block cluster) and widths that are
+# not multiples of 4 with a 5-wide head (tests/test_torch_cuda.py WIDE_ENC)
+STREAM_WIDTHS = {
+    "recipe": {},
+    "H129": dict(H=129),
+    "H256": dict(H=256),
+    "odd_widths": dict(E_in=18, prenet=(22, 10), K=4, C=6, P1=7, P2=10, W=8,
+                       H=8, SA=10),
+}
+
+
+@pytest.mark.parametrize("name", list(STREAM_WIDTHS))
+def test_streamed_hop_plan(name):
+    """Past the resident plan the recurrent block's shared memory is the
+    same at every T (the streamed hop's buffers, ``hop_stream_floats``,
+    grow with neither T nor the head width) and fits 227 KB; the hop's
+    items cover every (head, query row) once over the cluster's blocks."""
+    w = widths_of()._replace(**STREAM_WIDTHS[name])
+    plans = set()
+    for T in (534, 600, 2000, 10000):
+        if not fe.hop_streams(T, w.H, w.SA):
+            assert name == "odd_widths" and T < 2000   # 44 floats a row
+            continue
+        assert fe.unsupported_reason(w, T) is None
+        trunk, rnn = fe.smem_bytes(T, w.E_in, w.prenet, w.K, w.C, w.P1,
+                                   w.P2, w.W, w.H, w.SA, w.heads)
+        assert 4 * (fe.hop_stream_floats() + fe.RED_FLOATS) <= rnn
+        assert max(trunk, rnn) <= fe.SMEM_LIMIT
+        plans.add(rnn)
+        blocks = 2 * fe.dir_blocks(w.H)
+        items = fe.hop_stream_items(T, w.heads, blocks)
+        assert len(items) == blocks and all(items)
+        seen = sorted((h, r) for block in items for h, r0, n in block
+                      for r in range(r0, r0 + n))
+        assert seen == [(h, r) for h in range(w.heads) for r in range(T)]
+        assert all(0 < n <= fe.HOP_ROWS for b in items for _, _, n in b)
+    assert len(plans) == 1
+    assert fe.hop_stream_floats() == 16896
+
+
 @pytest.mark.parametrize("kw", [
     dict(prenet=(256, 128, 128, 128)),
     dict(prenet=(256, 128, 128, 128, 128)),

@@ -141,6 +141,107 @@ def test_step_bf16_merge_order_matches_plain(S, t):
     assert float((got.float() - ref.float()).abs().max()) <= 1e-2 * scale
 
 
+@pytest.mark.parametrize("bh", [2, 64])
+@pytest.mark.parametrize("D", [257, 512, 2050])
+@pytest.mark.parametrize("t", [0, 31, 32, 63, 64, 449, 2999])
+def test_step_plan_wide_covers_the_cache(t, D, bh):
+    """The wide kernel's plan (B * H = 2, the serving heads, and 64, where
+    the heads alone fill the card): every position <= t in exactly one
+    tile of one block of each (head, slab), tiles of STEP_WIDE_TILE
+    positions in increasing order, no block empty, and a scratch row (max,
+    sum, a slab of context) for each block when there is more than one."""
+    plan = pa.step_plan_wide(bh, t, D)
+    tiles = pa.step_plan_wide_tiles(plan, t)
+    assert pa.STEP_WIDE_TILE == 16 and pa.STEP_WIDE_SLAB == 512
+    assert plan.slabs == -(-D // 512) and plan.tickets == bh * plan.slabs
+    assert len(tiles) == plan.blocks and all(tiles)
+    assert plan.blocks * bh * plan.slabs <= max(pa.STEP_WIDE_FILL,
+                                                bh * plan.slabs)
+    seen = [p for block in tiles for lo, hi in block for p in range(lo, hi)]
+    assert sorted(seen) == list(range(t + 1))
+    for block in tiles:
+        assert all(lo % 16 == 0 and 0 < hi - lo <= 16 for lo, hi in block)
+        assert [lo for lo, _ in block] == sorted(lo for lo, _ in block)
+    assert plan.part_floats == (0 if plan.blocks == 1 else
+                                bh * plan.slabs * plan.blocks * (512 + 2))
+
+
+def _fold(states):
+    """(m, l, o) states merged in order, max-shifted."""
+    gm = torch.stack([m for m, _, _ in states]).amax(0)
+    den, num = torch.zeros_like(gm), torch.zeros_like(states[0][2])
+    for m, l, o in states:
+        w = torch.exp(m - gm)
+        den = den + w * l
+        num = num + w[..., None] * o
+    return gm, den, num
+
+
+def step_wide_mirror(q, kc, vc, t):
+    """The wide kernel's order of sums in float32 on (B, H, D) / (B, H, S,
+    D) inputs (the bf16 ones upcast): for each (head, slab) of
+    ``step_plan_wide``, each block's warps fold their two rows of each of
+    the block's tiles online (warp w rows w and w + 8), the scores summed
+    over every slab; the block merges its warps in order, and the last
+    block the blocks' partials in order; the output rounded once to q's
+    dtype."""
+    dt = q.dtype
+    q, kc, vc = q.float(), kc.float(), vc.float()
+    B, H, D = q.shape
+    plan = pa.step_plan_wide(B * H, t, D)
+    tiles = pa.step_plan_wide_tiles(plan, t)
+    scale = 1.0 / np.sqrt(D)
+    out = torch.zeros(B, H, D)
+    floor = torch.full((B, H), -3.0e38)
+    for sl in range(plan.slabs):
+        cols = slice(sl * 512, min(D, (sl + 1) * 512))
+        blocks = []
+        for block in tiles:
+            warps = []
+            for w in range(8):
+                m, l = floor.clone(), torch.zeros(B, H)
+                o = torch.zeros(B, H, cols.stop - cols.start)
+                for lo, hi in block:
+                    rows = [p for p in (lo + w, lo + w + 8) if p < hi]
+                    if not rows:
+                        continue
+                    s = torch.einsum("bhd,bhkd->bhk", q, kc[:, :, rows])
+                    s = s * scale
+                    mn = torch.maximum(m, torch.maximum(s.amax(-1), floor))
+                    keep, p = torch.exp(m - mn), torch.exp(s - mn[..., None])
+                    l = l * keep + p.sum(-1)
+                    o = o * keep[..., None] + torch.einsum(
+                        "bhk,bhkd->bhd", p, vc[:, :, rows, cols])
+                    m = mn
+                warps.append((m, l, o))
+            blocks.append(_fold(warps))
+        _, den, num = _fold(blocks)
+        out[..., cols] = num / den[..., None]
+    return out.to(dt)
+
+
+@pytest.mark.parametrize("B,H", [(1, 2), (2, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,D,t", [(450, 257, 449), (600, 300, 311),
+                                   (3000, 512, 2999), (70, 1030, 65)])
+def test_step_wide_merge_order_matches_plain(S, D, t, dtype, B, H):
+    """The wide kernel's order (``step_wide_mirror``) against the plain
+    version, at the serving heads and at B * H = 6 (fewer blocks a head):
+    float32 within 1e-5, bf16 inputs within 1e-2 of the largest
+    magnitude."""
+    kc, vc = (torch.from_numpy(randn(s, B, H, S, D)).to(dtype)
+              for s in (3, 4))
+    q = torch.from_numpy(randn(5, B, H, D)).to(dtype)
+    got = step_wide_mirror(q, kc, vc, t)
+    ref = pa.incremental_attention_step_reference(q, kc, vc, t)
+    assert got.dtype == ref.dtype == dtype
+    err = float((got.float() - ref.float()).abs().max())
+    if dtype == torch.float32:
+        assert err <= TOL
+    else:
+        assert err <= 1e-2 * float(ref.float().abs().max())
+
+
 # an H100 SM: 228 KB of shared memory, a block at most 227 KB, 1 KB of it
 # reserved a block
 SM_SMEM, BLOCK_SMEM, RESERVED = 233472, 232448, 1024
