@@ -1,0 +1,6 @@
+"""Kernel #2 (``fused_decode``): its count's least time at the peaks over
+the device time of its kernels, in %."""
+
+
+def read(run):
+    return run.roofline_pct("fused_decode")
